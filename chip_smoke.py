@@ -1,0 +1,516 @@
+#!/usr/bin/env python3
+"""Drive the port's main path once on an NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # needs one CUDA device
+
+Phases (each prints a line; any failure exits non-zero):
+  1. device: torch's device name and count, nvidia-smi's name and power limit;
+  2. build: compiles the CUDA kernels (qwen3tts_tpu_torch/csrc) with nvcc;
+  3. kernels: each kernel against its plain PyTorch version on the card, on
+     the same inputs, at the main path's full 0.6B widths, with the stated
+     tolerance, and both timed with CUDA events after a warm-up;
+  4. serve: one Qwen3TTS(quant="int8", device="cuda") with synthetic
+     weights answers three requests (greedy 64 tokens; sampled 256; sampled
+     1500, whose KV capacity exceeds 1024 rows); each must succeed with
+     finite audio of n_frames * 1920 samples, and every kernel's launch
+     counter must move during the run.
+  5. profile: the sampled 256-token request again, under torch.profiler
+     with device activity only; prints the device's busy time (the union of
+     its kernel and copy intervals) and its idle share of the request.
+The line before the last is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+
+The phases are plain functions of (config, device) so the CPU tests can run
+them at a tiny configuration, where each kernel wrapper runs its plain
+version; main() itself refuses to run without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+KERNELS = {
+    # name: (wrapper module, wrapper name, source, replaced TPU kernel)
+    "fused_talker_step": (
+        "qwen3tts_tpu_torch.ops.fused_talker_step", "fused_talker_step",
+        "qwen3tts_tpu_torch/csrc/talker_step.cu",
+        "qwen3tts_tpu/ops/pallas_talker_step.py:387"),
+    "fused_predict_codes": (
+        "qwen3tts_tpu_torch.ops.fused_code_predictor", "fused_predict_codes",
+        "qwen3tts_tpu_torch/csrc/code_predictor.cu",
+        "qwen3tts_tpu/ops/pallas_code_predictor.py:260"),
+    "fused_res_block": (
+        "qwen3tts_tpu_torch.ops.fused_vocoder", "fused_res_block",
+        "qwen3tts_tpu_torch/csrc/res_block.cu",
+        "qwen3tts_tpu/ops/pallas_vocoder.py:162"),
+    "sample_rows": (
+        "qwen3tts_tpu_torch.ops.sampling", "sample_rows",
+        "qwen3tts_tpu_torch/csrc/sampler.cu",
+        "qwen3tts_tpu/ops/kernel_prng.py:91"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def wrapper(name):
+    import importlib
+
+    mod, fn, _, _ = KERNELS[name]
+    return getattr(importlib.import_module(mod), fn)
+
+
+def reset_counts():
+    for name in KERNELS:
+        wrapper(name).launches = 0
+
+
+def read_counts():
+    return {name: wrapper(name).launches for name in KERNELS}
+
+
+def timed(fn, device, iters=5):
+    """Mean milliseconds per call after one warm-up: CUDA events on a card,
+    the host clock on the CPU (CPU times are never reported as device
+    times)."""
+    import torch
+
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def make_pipeline(cfg, device, seed=0):
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, quant="int8"))
+    tts = Qwen3TTS(cfg, device=device)
+    if not tts.load_models(None, synthetic=True, seed=seed):
+        raise SmokeFailure(tts.error_msg)
+    return tts
+
+
+def check_sampler(tts, report, iters):
+    """K4 on [1, 3072] (cb0: suppression + penalty) and [1, 2048] rows.
+    Tolerance: tokens equal. Both versions see the same float32 logits; the
+    temperature scale and the top-k counts are exact, so only the top-p
+    mass sums differ in order, and the gate demands equal tokens anyway."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.sampling import sample_rows, sample_rows_plain
+
+    dev = tts.device
+    g = torch.Generator(device="cpu").manual_seed(11)
+    worst = 0
+    for V, supp in ((tts.config.talker.codec_vocab_size, True),
+                    (tts.config.code_predictor.vocab_size, False)):
+        logits = (torch.randn((1, V), generator=g) * 3).to(dev)
+        seen = (torch.rand((V,), generator=g) < 0.05).to(dev) if supp else None
+        kw = dict(suppress_start=V - 1024 if supp else None,
+                  eos_id=tts.config.talker.codec_eos_id if supp else -1,
+                  seen=seen, repetition_penalty=1.05)
+        for temp, top_k, top_p in ((0.0, 50, 1.0), (0.9, 50, 1.0), (0.9, 50, 0.9)):
+            greedy, use_top_p = temp <= 0, top_p < 1.0
+            for seed in range(8):
+                seeds = torch.tensor([seed * 7919 - 3], dtype=torch.int32, device=dev)
+                a = sample_rows(logits, seeds, 0, temperature=temp, top_p=top_p,
+                                top_k=top_k, greedy=greedy, use_top_p=use_top_p, **kw)
+                b = sample_rows_plain(logits, seeds, 0, temperature=temp, top_p=top_p,
+                                      top_k=top_k, greedy=greedy, use_top_p=use_top_p, **kw)
+                worst = max(worst, int((a.long().cpu() != b.cpu()).sum()))
+    if worst:
+        raise SmokeFailure(f"sample_rows: {worst} token(s) differ from the plain version")
+    V = tts.config.talker.codec_vocab_size
+    logits = torch.randn((1, V), device=dev)
+    seeds = torch.tensor([5], dtype=torch.int32, device=dev)
+    kw = dict(temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False,
+              suppress_start=V - 1024, eos_id=2150)
+    report["sample_rows"] = dict(
+        max_abs_err=float(worst),   # tokens that differ (0 when the gate passed)
+        ms=timed(lambda: sample_rows(logits, seeds, 0, **kw), dev, iters),
+        plain_ms=timed(lambda: sample_rows_plain(logits, seeds, 0, **kw), dev, iters),
+        tolerance="tokens equal over 48 draws")
+    print(f"kernel sample_rows: tokens equal; {report['sample_rows']['ms']:.4f} ms "
+          f"(plain {report['sample_rows']['plain_ms']:.4f} ms)")
+
+
+def _truncated(tts, n_layers):
+    """The talker's first n_layers layers at full width (same kernels)."""
+    from qwen3tts_tpu_torch.models.transformer_core import BlockParams
+    from qwen3tts_tpu_torch.ops.quant import QuantLinear
+
+    def cut(w):
+        return QuantLinear(w.q[:n_layers], w.scale[:n_layers]) if isinstance(
+            w, QuantLinear) else w[:n_layers]
+
+    blocks = BlockParams(*[cut(w) for w in tts.talker_params.blocks])
+    return blocks, dataclasses.replace(tts.config.talker, n_layers=n_layers)
+
+
+def _cos(a, b):
+    import torch
+
+    return float(torch.nn.functional.cosine_similarity(a.float().reshape(1, -1),
+                                                       b.float().reshape(1, -1))[0])
+
+
+def check_talker_step(tts, report, iters):
+    """K1 against the plain version on clones of the same cache, at each KV
+    capacity and n_past, from identical inputs (one step: teacher-forced,
+    never chained). n_past 4000 at C=4352 reaches the rows a default request
+    (max_audio_tokens=4096) attends over: a softmax row longer than the
+    1024 threads of its block, and p.V partials merged over 60+ chunks.
+
+    Two gates. (1) The first 2 layers at full width, greedy and sampled:
+    hidden and logits within 1e-3 abs, the written K/V row within 0.05 (a
+    bf16 ulp at |x| < 8 is at most 0.03), cb0 equal. (2) All layers: cosine
+    of hidden and of logits >= 0.99, greedy cb0 equal unless the plain
+    logits' top-2 gap is below twice the logits error. Why not an absolute
+    bound for (2): the two versions sum in different orders, a last-bit
+    difference flips a bf16 rounding of q or p or an int8 activation
+    rounding, and 28 layers of random synthetic weights amplify that
+    chaotically (a 1-ulp rsqrt difference alone grew to 0.17 in the
+    hidden). The report's max_abs_err is the worst of both gates."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (
+        fused_talker_step, fused_talker_step_plain)
+
+    tp, dev = tts.talker_params, tts.device
+    tcfg = tts.config.talker
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = (torch.randn((tcfg.hidden_size,), generator=g)).to(device=dev, dtype=tts.dtype)
+    Vc = tcfg.codec_vocab_size
+    seen = torch.zeros((Vc,), dtype=torch.int8, device=dev)
+    seen[:64] = 1
+    base = dict(output_norm=tp.output_norm, codec_head=tp.codec_head, seen=seen, seed=17,
+                top_k=50, repetition_penalty=1.05, suppress_start=Vc - 1024, eos_id=2150)
+    greedy = dict(base, temperature=0.0, greedy=True, use_top_p=False)
+    sampled = dict(base, temperature=0.9, greedy=False, use_top_p=False)
+    short_blocks, short_cfg = _truncated(tts, min(2, tcfg.n_layers))
+    errs_short, errs_full, cos_full = [], [], []
+    for C, positions in ((512, (10, 300)), (4352, (10, 300, 4000))):
+        kv0 = (torch.randn((tcfg.n_layers, 2, tcfg.n_kv_heads, C, tcfg.head_dim),
+                           generator=g) * 0.5).to(device=dev, dtype=tts.dtype)
+        for n_past in positions:
+            for kw in (greedy, sampled):
+                kva = kv0[:short_cfg.n_layers].clone()
+                kvb = kva.clone()
+                a = fused_talker_step(short_blocks, short_cfg, x, n_past, kva, **kw)
+                b = fused_talker_step_plain(short_blocks, short_cfg, x, n_past, kvb, **kw)
+                eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
+                ekv = _max_err(kva[:, :, :, n_past], kvb[:, :, :, n_past])
+                ca, cb = int(a.cb0.reshape(-1)[0]), int(b.cb0.reshape(-1)[0])
+                print(f"kernel fused_talker_step 2 layers C={C} n_past={n_past} "
+                      f"greedy={kw['greedy']}: hidden err {eh:.3e}, logits err {el:.3e}, "
+                      f"kv row err {ekv:.3e}, cb0 {ca} vs {cb}")
+                if not (eh <= 1e-3 and el <= 1e-3 and ekv <= 0.05 and ca == cb):
+                    raise SmokeFailure(f"fused_talker_step (2 layers) disagrees at C={C}, "
+                                       f"n_past={n_past}")
+                errs_short.append(max(eh, el))
+            kva, kvb = kv0.clone(), kv0.clone()
+            a = fused_talker_step(tp.blocks, tcfg, x, n_past, kva, **greedy)
+            b = fused_talker_step_plain(tp.blocks, tcfg, x, n_past, kvb, **greedy)
+            eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
+            ch, cl = _cos(a.hidden, b.hidden), _cos(a.logits, b.logits)
+            top2 = torch.topk(b.logits.float(), 2).values
+            ca, cb = int(a.cb0.reshape(-1)[0]), int(b.cb0.reshape(-1)[0])
+            cb0_ok = ca == cb or float(top2[0] - top2[1]) < 2 * el
+            print(f"kernel fused_talker_step {tcfg.n_layers} layers C={C} n_past={n_past}: "
+                  f"hidden cos {ch:.6f} (err {eh:.3e}), logits cos {cl:.6f} (err {el:.3e}), "
+                  f"cb0 {ca} vs {cb}")
+            if not (ch >= 0.99 and cl >= 0.99 and cb0_ok):
+                raise SmokeFailure(f"fused_talker_step disagrees at C={C}, n_past={n_past}")
+            errs_full.append(max(eh, el))
+            cos_full.append(min(ch, cl))
+    n_past = 300
+    kv = kv0.clone()
+    report["fused_talker_step"] = dict(
+        max_abs_err=max(errs_short + errs_full),
+        max_abs_err_2_layers=max(errs_short),
+        max_abs_err_all_layers=max(errs_full),
+        min_cos_all_layers=min(cos_full),
+        ms=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, kv, **greedy), dev,
+                 iters),
+        plain_ms=timed(lambda: fused_talker_step_plain(tp.blocks, tcfg, x, n_past, kv,
+                                                       **greedy), dev, iters),
+        ms_n_past_4000=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, 4000, kv, **greedy),
+                             dev, iters),
+        shape=f"C={C} n_past={n_past}",
+        tolerance="2 layers: 1e-3 abs, cb0 equal; all layers: cosine 0.99")
+
+
+def check_code_predictor(tts, report, iters):
+    """K2 at full width, greedy and sampled (temperature 0.9, top-k 50, one
+    seed). Tolerance: the 15 codes equal, and rest_sum within 1e-3 of the
+    plain version's (a sum of 15 bf16 rows in float32)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import (
+        fused_predict_codes, fused_predict_codes_plain)
+
+    cp, ccfg, dev = tts.cp_params, tts.config.code_predictor, tts.device
+    g = torch.Generator(device="cpu").manual_seed(7)
+    th = torch.randn((ccfg.hidden_size,), generator=g).to(device=dev, dtype=tts.dtype)
+    cb0 = tts.talker_params.codec_embd[123]
+    err = 0.0
+    for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
+               dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
+        ca, sa = fused_predict_codes(cp, ccfg, th, cb0, 991, **kw)
+        cb, sb = fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw)
+        same = bool((ca.long().cpu() == cb.cpu()).all())
+        e = _max_err(sa, sb)
+        print(f"kernel fused_predict_codes greedy={kw['greedy']}: codes "
+              f"{'equal' if same else 'DIFFER'} {ca.tolist()} vs {cb.tolist()}; "
+              f"rest_sum err {e:.3e}")
+        if not (same and e <= 1e-3):
+            raise SmokeFailure("fused_predict_codes disagrees with its plain version")
+        err = max(err, e)
+    report["fused_predict_codes"] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: fused_predict_codes(cp, ccfg, th, cb0, 991, **kw), dev, iters),
+        plain_ms=timed(lambda: fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw),
+                       dev, iters),
+        tolerance="codes equal; rest_sum 1e-3 abs")
+
+
+def check_res_block(tts, report, iters):
+    """K3 at each decoder block's (C, T, d) for a clip of 64 frames,
+    on the synthetic res-block weights and unit-normal inputs. Tolerance:
+    max abs error <= 1e-4 * (1 + max |plain|): both run float32 FMAs (TF32
+    off) and differ only in summation order."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_vocoder import fused_res_block, res_block_plain
+
+    vcfg, dev = tts.config.vocoder, tts.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cpu").manual_seed(9)
+    frames = 64
+    T = frames * 2 ** vcfg.n_convnext
+    worst, times = 0.0, []
+    for blk, rate in zip(tts.vocoder_params.dec_blocks, vcfg.upsample_rates):
+        T *= rate
+        C = blk.convt_w.shape[-1]
+        x = torch.randn((T, C), generator=g).to(dev)
+        res = blk.res
+        for i, d in enumerate(vcfg.res_dilations):
+            args = (x, res.conv1_w[i], res.conv1_b[i], res.act1_alpha[i], res.act1_beta[i],
+                    res.conv2_w[i], res.conv2_b[i], res.act2_alpha[i], res.act2_beta[i])
+            a = fused_res_block(*args, dilation=d)
+            b = res_block_plain(*args, dilation=d)
+            e = _max_err(a, b)
+            bound = 1e-4 * (1.0 + float(b.abs().max()))
+            print(f"kernel fused_res_block C={C} T={T} d={d}: err {e:.3e} (bound {bound:.3e})")
+            if not e <= bound:
+                raise SmokeFailure(f"fused_res_block disagrees at C={C}, T={T}, d={d}")
+            worst = max(worst, e)
+            times.append((timed(lambda: fused_res_block(*args, dilation=d), dev, iters),
+                          timed(lambda: res_block_plain(*args, dilation=d), dev, iters)))
+    # a ragged T (not a multiple of the 64-row tile) at the narrowest width,
+    # as a request of an odd frame count gives: correctness only, not timed
+    res = tts.vocoder_params.dec_blocks[-1].res
+    x = torch.randn((64 * 47 + 37, res.conv1_w.shape[-1]), generator=g).to(dev)
+    args = (x, res.conv1_w[2], res.conv1_b[2], res.act1_alpha[2], res.act1_beta[2],
+            res.conv2_w[2], res.conv2_b[2], res.act2_alpha[2], res.act2_beta[2])
+    b = res_block_plain(*args, dilation=9)
+    e = _max_err(fused_res_block(*args, dilation=9), b)
+    print(f"kernel fused_res_block ragged T={x.shape[0]} C={x.shape[1]} d=9: err {e:.3e}")
+    if not e <= 1e-4 * (1.0 + float(b.abs().max())):
+        raise SmokeFailure("fused_res_block disagrees on a ragged T")
+    worst = max(worst, e)
+    report["fused_res_block"] = dict(
+        max_abs_err=worst, ms=sum(t[0] for t in times), plain_ms=sum(t[1] for t in times),
+        shape=f"all 12 res blocks of a {frames}-frame clip (times summed)",
+        tolerance="1e-4 * (1 + max|plain|) abs")
+
+
+def serve(tts, requests):
+    """Run the requests through synthesize; check each result. Returns
+    per-request stats (with the launches each request made) and the launch
+    counts of the whole run. Only kernel launches count: on CPU tensors the
+    plain versions run and the counters stay at 0."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    spf = tts.config.vocoder.samples_per_frame
+    stats = []
+    reset_counts()
+    for text, kw in requests:
+        before = read_counts()
+        r = tts.synthesize(text, SamplingConfig(**kw))
+        moved = {k: v - before[k] for k, v in read_counts().items()}
+        ok = (r.success and r.n_frames > 0 and len(r.audio) == r.n_frames * spf
+              and bool(np.isfinite(r.audio).all()))
+        gen_ms = r.timings.t_generate_ms
+        st = dict(request=kw, n_frames=r.n_frames, frames_per_s=r.n_frames / gen_ms * 1e3
+                  if gen_ms else 0.0, ms_per_frame=gen_ms / max(r.n_frames, 1),
+                  vocoder_ms=r.timings.t_decode_ms, total_ms=r.timings.t_total_ms,
+                  launches=moved, ok=ok)
+        print(f"request {kw}: success={r.success} frames={r.n_frames} "
+              f"audio={len(r.audio)} finite={bool(np.isfinite(r.audio).all())} "
+              f"{st['frames_per_s']:.2f} frames/s {st['ms_per_frame']:.3f} ms/frame "
+              f"vocoder {st['vocoder_ms']:.1f} ms launches {moved}")
+        if not ok:
+            raise SmokeFailure(f"request {kw} failed: {r.error_msg or 'checks'}")
+        codes = r.codes
+        if not ((codes[:, 0] < 2048).all() and (codes[:, 1:] < 2048).all()
+                and (codes >= 0).all()):
+            raise SmokeFailure(f"request {kw}: codes out of range")
+        stats.append(st)
+    return stats, read_counts()
+
+
+# Sampled requests on random synthetic weights may draw EOS at any frame (on
+# the H100, seed 2 drew it at frame 0 for the second text); these seeds were
+# checked there to give frames.
+MAIN_REQUESTS = [
+    ("Hello from the port.", dict(max_audio_tokens=64, temperature=0.0, seed=1)),
+    ("The quick brown fox jumps over the lazy dog.", dict(max_audio_tokens=256, seed=3)),
+    ("A longer request, long enough for a cache of more than a thousand rows.",
+     dict(max_audio_tokens=1500, seed=4)),
+]
+
+
+def profile_request(tts, text, kw):
+    """One request under torch.profiler, recording device activity only.
+    The device was busy for the union of the kernel, copy and memset
+    intervals in the trace; the wall is the host clock around the request
+    (synthesize synchronizes before it returns). Returns (result, wall ms,
+    busy ms)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = tts.synthesize(text, SamplingConfig(**kw))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return r, wall_ms, device_busy_ms(events)
+
+
+def device_busy_ms(events):
+    """Milliseconds covered by the union of the device intervals (kernels,
+    copies, memsets) among chrome-trace events (microsecond ts and dur)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
+
+
+def nvidia_smi_line():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise SmokeFailure(f"nvidia-smi failed: {e}") from e
+    if out.returncode != 0 or not out.stdout.strip():
+        raise SmokeFailure(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        from qwen3tts_tpu_torch import PipelineConfig, _kernels
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 2
+    try:
+        dev = torch.device("cuda", 0)
+        kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+        smi = nvidia_smi_line()
+        print(f"device: {kind} x{count}")
+        print(smi)
+
+        t0 = time.perf_counter()
+        _kernels.build()
+        _kernels.load_library()
+        print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_kernels.build_seconds:.1f} s)")
+
+        tts = make_pipeline(PipelineConfig(), dev)
+        report = {}
+        check_sampler(tts, report, iters=20)
+        check_talker_step(tts, report, iters=5)
+        check_code_predictor(tts, report, iters=3)
+        check_res_block(tts, report, iters=3)
+        torch.cuda.synchronize(dev)
+        for name, r in report.items():
+            print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+                  f"[{smi}]")
+
+        stats, counts = serve(tts, MAIN_REQUESTS)
+        for st in stats:
+            idle = [k for k, v in st["launches"].items() if v <= 0]
+            if idle:
+                raise SmokeFailure(f"request {st['request']}: kernels not launched: {idle}")
+        for st in stats:
+            print("serve " + json.dumps(dict(st, card=smi)))
+        text, kw = MAIN_REQUESTS[1]
+        r, wall_ms, busy_ms = profile_request(tts, text, kw)
+        if not r.success:
+            raise SmokeFailure(f"profiled request failed: {r.error_msg}")
+        print("profile " + json.dumps(dict(
+            request=kw, n_frames=r.n_frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
+            device_idle_share=1.0 - busy_ms / wall_ms,
+            frames_per_s=r.n_frames / r.timings.t_generate_ms * 1e3,
+            vocoder_ms=r.timings.t_decode_ms, card=smi)))
+    except Exception as e:  # noqa: BLE001 - the smoke reports any failure as exit 1
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    kernels = []
+    for name, (_, _, src, replaces) in KERNELS.items():
+        r = report[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=counts[name], **r))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library lands in ``_build/`` beside this file (listed in
+``.gitignore``) under a name that hashes the sources, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Nothing is built when this
+module is imported: the CPU tests import every module and have no ``nvcc``.
+
+Every C entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns the ``cudaError_t`` of its last launch
+(``cudaGetLastError``); ``check`` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# name -> argtypes of every C entry point (restype is int: a cudaError_t)
+SIGNATURES = {
+    "qtts_sample_rows": [
+        P, I, I, P, I, F, F, I, I, I, I, I, P, F, P, P],
+    "qtts_talker_ws_bytes": [I, I, I, I, I, I, I],
+    "qtts_talker_step": [
+        P, I, P, P,                      # x_in, n_past, cos, sin
+        P, P, P, P,                      # attn/q/k/ffn norms (f32)
+        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
+        P, P, P,                         # output_norm, codec_head, kv
+        I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
+        P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
+                                         # use_top_p suppress eos seed
+        P, P, P, P, P],                  # hidden, logits, tok, ws, stream
+    "qtts_cp_ws_bytes": [I, I, I, I, I, I, I],
+    "qtts_code_predictor": [
+        P, P, P,                         # xinit, cos, sin
+        P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)
+        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
+        P, P,                            # heads, embds
+        I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
+        F, F, I, I, I, I,                # temp top_p top_k greedy use_top_p seed
+        P, P, P, P, P],                  # codes, rest_sum, kv, ws, stream
+    "qtts_res_block": [
+        P, P, P, P, P, P, P, P, P,       # x, w1, b1, a1, be1, w2, b2, a2, be2
+        P, P, P, I, I, I, P],            # s1, s2, out, T, C, dilation, stream
+}
+
+_LIB = None
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> str:
+    """Compile csrc/*.cu into _build/libqtts_<hash>.so (if not there yet);
+    return its path."""
+    global build_seconds
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"libqtts_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ([_nvcc()] + ARCH_FLAGS
+           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-o", tmp]
+           + sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_size_t if name.endswith("_bytes") else ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(*tensors) -> None:
+    """Raise unless every tensor lies on a CUDA device (the kernels take
+    nothing else; CPU tensors go to the plain versions before this)."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel needs CUDA tensors, got {t.device}")

@@ -1,0 +1,185 @@
+"""Qwen3TTS pipeline of the port (counterpart of ``qwen3tts_tpu/pipeline.py``,
+single-stream synthesis only).
+
+``Qwen3TTS(config, device=...)`` holds the weights on one device:
+bf16 talker and code-predictor weights and KV cache with int8 projection
+blocks (``RuntimeConfig(quant="int8")``), and a float32 vocoder.
+``load_models(None, synthetic=True, seed=...)`` draws deterministic
+synthetic weights at the configured widths (no checkpoint ships with the
+repository; the checkpoint loaders are not ported yet). ``synthesize``
+runs host BPE, the prefill, the frame loop (kernels K1, K2, K4) and the
+vocoder (kernel K3). On ``device="cuda"`` every kernel launches on the card
+or raises; there is no CPU fallback.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from qwen3tts_tpu.config import PipelineConfig, SamplingConfig
+from qwen3tts_tpu.text.bpe import TextTokenizer, synthetic_tokenizer
+
+from .models import code_predictor as cp_model
+from .models import talker as talker_model
+from .models import vocoder as vocoder_model
+from .models.transformer_core import float32_norms
+from .ops.quant import quantize_block_params
+from .runtime import decode_loop
+from .runtime.buckets import pick_bucket
+from .runtime.timing import StageTimings, now_ms, rss_bytes
+
+
+@dataclasses.dataclass
+class TTSResult:
+    audio: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.float32))
+    sample_rate: int = 24000
+    codes: Optional[np.ndarray] = None
+    # per-frame output-normed talker hidden states [n_frames, H]
+    hidden_states: Optional[np.ndarray] = None
+    n_frames: int = 0
+    success: bool = False
+    error_msg: str = ""
+    timings: StageTimings = dataclasses.field(default_factory=StageTimings)
+
+    @property
+    def audio_seconds(self) -> float:
+        return len(self.audio) / self.sample_rate if self.sample_rate else 0.0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Qwen3TTS:
+    """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
+
+    def __init__(self, config: Optional[PipelineConfig] = None, device="cpu"):
+        self.config = config or PipelineConfig()
+        self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if self.config.runtime.dtype == "bfloat16" else torch.float32
+        self.tokenizer: Optional[TextTokenizer] = None
+        self.talker_params = None
+        self.cp_params = None
+        self.vocoder_params = None
+        self._loaded = False
+        self.error_msg = ""
+
+    def load_models(self, model_dir: Optional[str] = None, *, synthetic: bool = False,
+                    seed: int = 0) -> bool:
+        """Deterministic synthetic weights (model_dir None or synthetic=True)
+        drawn from torch Generators on the device, seeded by `seed`.
+        Checkpoint directories are not supported yet: returns False with
+        error_msg set."""
+        if model_dir is not None and not synthetic:
+            self.error_msg = "Failed to load models: checkpoint loading is not ported yet"
+            return False
+        if self.config.runtime.quant != "int8":
+            self.error_msg = (f"Failed to load models: quant tier "
+                              f"{self.config.runtime.quant!r} is not ported (int8 only)")
+            return False
+        cfg = self.config
+        gens = []
+        for k in range(3):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed * 3 + k)
+            gens.append(g)
+        with torch.no_grad():
+            tp = talker_model.init_talker_params(gens[0], cfg.talker, self.dtype, self.device)
+            cp = cp_model.init_code_predictor_params(
+                gens[1], cfg.code_predictor, self.dtype, self.device)
+            vp = vocoder_model.init_vocoder_params(gens[2], cfg.vocoder, self.device)
+            self.set_params(tp._replace(blocks=quantize_block_params(tp.blocks)),
+                            cp._replace(blocks=quantize_block_params(cp.blocks)), vp)
+        return True
+
+    def set_params(self, talker_params, cp_params, vocoder_params) -> None:
+        """Install already-quantized talker/code-predictor params and vocoder
+        params (e.g. from ``io.from_jax``) and the synthetic tokenizer. The
+        norm weights are kept in float32, as the kernels read them, so no
+        frame converts them again."""
+        self.talker_params = talker_params._replace(
+            blocks=float32_norms(talker_params.blocks),
+            output_norm=talker_params.output_norm.float())
+        self.cp_params = cp_params._replace(
+            blocks=float32_norms(cp_params.blocks), output_norm=cp_params.output_norm.float())
+        self.vocoder_params = vocoder_params
+        self.tokenizer = synthetic_tokenizer(self.config.talker.text_vocab_size)
+        self._loaded = True
+
+    def _fit_tokens(self, tokens):
+        """Pad token ids into a prefill bucket (truncating, with the template
+        suffix kept, past the largest), as the JAX pipeline does."""
+        rt = self.config.runtime
+        max_b = max(rt.prefill_buckets)
+        if len(tokens) > max_b:
+            tokens = list(tokens[: max_b - 5]) + list(tokens[-5:])
+        Tb = pick_bucket(len(tokens), rt.prefill_buckets)
+        padded = np.zeros((Tb,), np.int64)
+        padded[: len(tokens)] = tokens
+        return padded, len(tokens)
+
+    def synthesize(self, text: str, params: SamplingConfig = SamplingConfig()) -> TTSResult:
+        """Basic synthesis with the default voice (zero speaker embedding)."""
+        result = TTSResult()
+        result.timings.mem_rss_start = rss_bytes()
+        t_total0 = now_ms()
+        if not self._loaded:
+            result.error_msg = "Models not loaded"
+            return result
+        rt = self.config.runtime
+        tcfg = self.config.talker
+
+        t0 = now_ms()
+        tokens = self.tokenizer.encode_for_tts(text)
+        result.timings.t_tokenize_ms = now_ms() - t0
+        if len(tokens) < 9:
+            result.error_msg = "Text produced no tokens"
+            return result
+
+        t0 = now_ms()
+        padded, n_tok = self._fit_tokens(tokens)
+        max_frames = pick_bucket(params.max_audio_tokens, rt.frame_buckets)
+        kv_capacity = -(-(10 + max_frames + rt.kv_margin) // 256) * 256
+        gen = torch.Generator()
+        gen.manual_seed(params.seed)
+        gen_out = decode_loop.generate_from_tokens(
+            self.talker_params, self.cp_params, torch.from_numpy(padded), n_tok,
+            torch.zeros((tcfg.hidden_size,), dtype=torch.float32, device=self.device),
+            params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
+            max_frames=min(max_frames, params.max_audio_tokens), kv_capacity=kv_capacity,
+            temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
+            repetition_penalty=params.repetition_penalty,
+            nothink=params.language_id < 0)
+        n_frames = gen_out.n_frames
+        result.codes = gen_out.codes.cpu().numpy().astype(np.int32)
+        result.hidden_states = gen_out.hidden.float().cpu().numpy()
+        result.timings.t_generate_ms = now_ms() - t0
+        result.n_frames = n_frames
+        if n_frames == 0:
+            result.error_msg = "No speech codes generated"
+            return result
+
+        t0 = now_ms()
+        result.audio = self.decode_codes(result.codes)
+        result.timings.t_decode_ms = now_ms() - t0
+        result.sample_rate = self.config.vocoder.sample_rate
+        result.success = True
+        result.timings.t_total_ms = now_ms() - t_total0
+        result.timings.mem_rss_peak = rss_bytes()
+        return result
+
+    def decode_codes(self, codes: np.ndarray) -> np.ndarray:
+        """codes [n_frames, 16] -> float32 waveform [n_frames * 1920]. The
+        stack is causal, so the JAX pipeline's right-padding to a vocoder
+        bucket (a compile-cache device) changes no valid sample and is not
+        copied."""
+        c = torch.as_tensor(np.asarray(codes), dtype=torch.int64, device=self.device)
+        audio = vocoder_model.vocoder_decode(self.vocoder_params, self.config.vocoder, c,
+                                             c.shape[0])
+        _sync(self.device)
+        return audio.cpu().numpy()

@@ -1,0 +1,154 @@
+"""Package hygiene of the port: no jax import, no fallback from a CUDA request
+to a plain version, and chip_smoke.py's phases at the tiny configuration."""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import chip_smoke
+from qwen3tts_tpu.config import tiny_pipeline_config
+from qwen3tts_tpu_torch import _kernels
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "qwen3tts_tpu_torch", "qwen3tts_tpu_torch.pipeline", "qwen3tts_tpu_torch._kernels",
+    "qwen3tts_tpu_torch.io.from_jax", "qwen3tts_tpu_torch.runtime.decode_loop",
+    "qwen3tts_tpu_torch.runtime.timing", "qwen3tts_tpu_torch.models.vocoder",
+    "qwen3tts_tpu_torch.ops.fused_talker_step", "qwen3tts_tpu_torch.ops.fused_code_predictor",
+    "qwen3tts_tpu_torch.ops.fused_vocoder", "qwen3tts_tpu_torch.ops.sampling",
+]
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "import qwen3tts_tpu_torch as q; q.Qwen3TTS\n"
+            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_names_no_jax_package_module():
+    """chip_smoke.py imports the port only: no import statement and no
+    module string it loads names jax or a module of qwen3tts_tpu."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    names += [mod for mod, _, _, _ in chip_smoke.KERNELS.values()]
+    assert names and all(m.split(".")[0] not in ("jax", "qwen3tts_tpu") for m in names), names
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    def absent():
+        raise RuntimeError("kernel library absent")
+
+    monkeypatch.setattr(_kernels, "load_library", absent)
+
+
+def _tiny_pipeline():
+    return chip_smoke.make_pipeline(tiny_pipeline_config(), torch.device("cpu"))
+
+
+def _meta(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.to("meta")
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_meta(t) for t in tree))
+    return tree
+
+
+@pytest.mark.parametrize("kernel", sorted(chip_smoke.KERNELS))
+def test_device_request_raises_without_the_library(no_library, kernel):
+    """A tensor that is not on the CPU goes to the kernel: with the library
+    absent the wrapper raises instead of running its plain version (meta
+    tensors stand in for CUDA ones on a machine without a card)."""
+    tts = _tiny_pipeline()
+    tcfg, ccfg = tts.config.talker, tts.config.code_predictor
+    tp, cp = _meta(tts.talker_params), _meta(tts.cp_params)
+    fn = chip_smoke.wrapper(kernel)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="absent"):
+        if kernel == "fused_talker_step":
+            kv = torch.zeros((tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
+                             device=meta)
+            fn(tp.blocks, tcfg, torch.zeros(tcfg.hidden_size, device=meta), 3, kv,
+               output_norm=tp.output_norm, codec_head=tp.codec_head)
+        elif kernel == "fused_predict_codes":
+            h = torch.zeros(ccfg.hidden_size, device=meta)
+            fn(cp, ccfg, h, h, 0, temperature=0.0, top_k=50, greedy=True)
+        elif kernel == "fused_res_block":
+            C = 8
+            w1, w2, v = (torch.zeros((7, C, C), device=meta),
+                         torch.zeros((1, C, C), device=meta), torch.zeros(C, device=meta))
+            fn(torch.zeros((64, C), device=meta), w1, v, v, v, w2, v, v, v, dilation=3)
+        else:
+            fn(torch.zeros((1, 3072), device=meta), torch.zeros(1, dtype=torch.int32,
+                                                                device=meta), 0,
+               temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False)
+    assert fn.launches == 0
+
+
+def test_cuda_pipeline_has_no_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the path without one")
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    cfg = tiny_pipeline_config()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, quant="int8"))
+    with pytest.raises(RuntimeError):
+        Qwen3TTS(cfg, device="cuda").load_models(None, synthetic=True)
+
+
+def test_chip_smoke_phases_at_tiny_config():
+    """Every phase of chip_smoke.py at the tiny configuration on the CPU,
+    where each wrapper runs its plain version (so launch counts stay 0)."""
+    tts = _tiny_pipeline()
+    report = {}
+    chip_smoke.check_sampler(tts, report, iters=1)
+    chip_smoke.check_talker_step(tts, report, iters=1)
+    chip_smoke.check_code_predictor(tts, report, iters=1)
+    chip_smoke.check_res_block(tts, report, iters=1)
+    assert set(report) == set(chip_smoke.KERNELS)
+    stats, counts = chip_smoke.serve(
+        tts, [("Hello.", dict(max_audio_tokens=4, temperature=0.0, seed=1)),
+              ("Hi there.", dict(max_audio_tokens=4, seed=3))])
+    assert all(s["ok"] for s in stats)
+    assert counts == {name: 0 for name in chip_smoke.KERNELS}
+
+
+def test_chip_smoke_main_needs_a_gpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert chip_smoke.main() != 0
+    assert capsys.readouterr().out == ""
+
+
+def test_device_busy_is_the_union_of_device_intervals():
+    """Overlapping and nested device intervals count once; host events and
+    events without a duration do not count."""
+    ev = [dict(cat="kernel", ts=0, dur=1000), dict(cat="kernel", ts=500, dur=1000),
+          dict(cat="gpu_memcpy", ts=600, dur=100), dict(cat="gpu_memset", ts=3000, dur=500),
+          dict(cat="cpu_op", ts=1500, dur=1000), dict(cat="kernel", ts=4000)]
+    assert chip_smoke.device_busy_ms(ev) == pytest.approx(2.0)
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
