@@ -7,16 +7,21 @@ Phases (each prints a line; any failure exits non-zero):
   1. device: torch's device name and count, nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels (qwen3tts_tpu_torch/csrc) with nvcc;
   3. kernels: each kernel against its plain PyTorch version on the card, on
-     the same inputs, at the main path's full 0.6B widths, with the stated
-     tolerance, and both timed with CUDA events after a warm-up;
+     the same inputs, at the main paths' full 0.6B widths, with the stated
+     tolerance, and both timed with CUDA events after a warm-up; beside
+     each time, the least time the card could take for the same work;
   4. serve: one Qwen3TTS(quant="int8", device="cuda") with synthetic
-     weights answers three requests (greedy 64 tokens; sampled 256; sampled
-     1500, whose KV capacity exceeds 1024 rows); each must succeed with
-     finite audio of n_frames * 1920 samples, and every kernel's launch
-     counter must move during the run.
-  5. profile: the sampled 256-token request again, under torch.profiler
-     with device activity only; prints the device's busy time (the union of
-     its kernel and copy intervals) and its idle share of the request.
+     weights answers three single-stream requests (greedy 64 tokens;
+     sampled 256; sampled 1500, whose KV capacity exceeds 1024 rows), each
+     of which must succeed with finite audio of n_frames * 1920 samples and
+     move the launch counters of K1-K4; then two synthesize_batch calls
+     (16 texts greedy, 64 texts sampled), whose lanes must have finite audio
+     and codes in range, which must emit at least 8 frames per lane in all
+     and move the counters of K5, K6, K3 and K4;
+  5. profile: the sampled 256-token request and the 16-lane batch again,
+     under torch.profiler with device activity only; prints the device's
+     busy time (the union of its kernel and copy intervals), its idle
+     share, and the kernels with the most device time in each.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -30,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,7 +58,24 @@ KERNELS = {
         "qwen3tts_tpu_torch.ops.sampling", "sample_rows",
         "qwen3tts_tpu_torch/csrc/sampler.cu",
         "qwen3tts_tpu/ops/kernel_prng.py:91"),
+    "fused_talker_step_batched": (
+        "qwen3tts_tpu_torch.ops.fused_talker_step", "fused_talker_step_batched",
+        "qwen3tts_tpu_torch/csrc/talker_step_batched.cu",
+        "qwen3tts_tpu/ops/pallas_talker_step.py:1604"),
+    "fused_predict_codes_batched": (
+        "qwen3tts_tpu_torch.ops.fused_code_predictor_batched", "fused_predict_codes_batched",
+        "qwen3tts_tpu_torch/csrc/code_predictor_batched.cu",
+        "qwen3tts_tpu/ops/pallas_code_predictor_batched.py:235"),
 }
+# the kernels each main path must launch
+SINGLE_PATH = ("fused_talker_step", "fused_predict_codes", "fused_res_block", "sample_rows")
+BATCH_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched", "fused_res_block",
+              "sample_rows")
+
+# NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
+# second by operand type (float32 on the CUDA cores, no TF32)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 class SmokeFailure(RuntimeError):
@@ -101,6 +124,59 @@ def _max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves `nbytes` (each input read once, each output written once)
+    and does ops[type] operations: the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _stack(blocks):
+    """(bytes, int8 weight count) of a decoder stack as the kernels read it:
+    int8 projections, float32 scales and norms."""
+    ts = [blocks.attn_norm, blocks.q_norm, blocks.k_norm, blocks.ffn_norm]
+    n8 = 0
+    for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
+        ts += [w.q, w.scale]
+        n8 += w.q.numel()
+    return _nbytes(*ts), n8
+
+
+def talker_step_bound(tp, tcfg, B, n_past):
+    """One talker step for B lanes at n_past: the stack, output norm and
+    codec head once; each lane's KV rows 0..n_past (bf16) and its input,
+    outputs and seen-set. Operations: the int8 products, the bf16 head, the
+    float32 attention (q.k and p.v)."""
+    H, Vc, L = tcfg.hidden_size, tcfg.codec_vocab_size, tcfg.n_layers
+    sb, n8 = _stack(tp.blocks)
+    kv_row = L * 2 * tcfg.n_kv_heads * tcfg.head_dim * 2
+    nbytes = (sb + _nbytes(tp.output_norm, tp.codec_head)
+              + B * ((n_past + 1) * kv_row + H * 2 + H * 4 + Vc * 4 + Vc + 8))
+    attn = 4 * L * tcfg.n_heads * (n_past + 1) * tcfg.head_dim
+    return bound(nbytes, {"int8": 2 * B * n8, "bf16": 2 * B * H * Vc, "f32": B * attn})
+
+
+def code_predictor_bound(cp, ccfg, B):
+    """One frame-set of the code predictor for B lanes: the stack and the 15
+    heads once; each lane's inputs, 15 embedding rows and outputs.
+    Operations: 16 passes of int8 products, 15 bf16 heads, the float32
+    attention over positions 0..p."""
+    H, V, S, L = ccfg.hidden_size, ccfg.vocab_size, ccfg.n_steps, ccfg.n_layers
+    sb, n8 = _stack(cp.blocks)
+    nbytes = sb + _nbytes(cp.output_norm, cp.heads) + B * (2 * H * 2 + S * H * 2 + S * 4
+                                                           + H * 4 + 4)
+    attn = sum(4 * L * ccfg.n_heads * (p + 1) * ccfg.head_dim for p in range(S + 1))
+    return bound(nbytes, {"int8": 2 * (S + 1) * B * n8, "bf16": 2 * S * B * H * V,
+                          "f32": B * attn})
+
+
 def make_pipeline(cfg, device, seed=0):
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 
@@ -146,10 +222,16 @@ def check_sampler(tts, report, iters):
     seeds = torch.tensor([5], dtype=torch.int32, device=dev)
     kw = dict(temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False,
               suppress_start=V - 1024, eos_id=2150)
+    # one row: the logits in, the seed, the token out; about 50 float32
+    # operations per logit (the 30-step top-k bisection, the hash and the
+    # two logs of the Gumbel noise, the argmax)
+    bound_ms, bound_by = bound(V * 4 + 8, {"f32": 50 * V})
     report["sample_rows"] = dict(
         max_abs_err=float(worst),   # tokens that differ (0 when the gate passed)
         ms=timed(lambda: sample_rows(logits, seeds, 0, **kw), dev, iters),
         plain_ms=timed(lambda: sample_rows_plain(logits, seeds, 0, **kw), dev, iters),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=f"one [1, {V}] row, top-k 50",
         tolerance="tokens equal over 48 draws")
     print(f"kernel sample_rows: tokens equal; {report['sample_rows']['ms']:.4f} ms "
           f"(plain {report['sample_rows']['plain_ms']:.4f} ms)")
@@ -168,11 +250,11 @@ def _truncated(tts, n_layers):
     return blocks, dataclasses.replace(tts.config.talker, n_layers=n_layers)
 
 
-def _cos(a, b):
+def _lane_cos(a, b):
+    """Cosine similarity of each row of a and b."""
     import torch
 
-    return float(torch.nn.functional.cosine_similarity(a.float().reshape(1, -1),
-                                                       b.float().reshape(1, -1))[0])
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
 
 
 def check_talker_step(tts, report, iters):
@@ -187,11 +269,13 @@ def check_talker_step(tts, report, iters):
     bf16 ulp at |x| < 8 is at most 0.03), cb0 equal. (2) All layers: cosine
     of hidden and of logits >= 0.99, greedy cb0 equal unless the plain
     logits' top-2 gap is below twice the logits error. Why not an absolute
-    bound for (2): the two versions sum in different orders, a last-bit
-    difference flips a bf16 rounding of q or p or an int8 activation
-    rounding, and 28 layers of random synthetic weights amplify that
-    chaotically (a 1-ulp rsqrt difference alone grew to 0.17 in the
-    hidden). The report's max_abs_err is the worst of both gates."""
+    bound for (2): a last-bit difference that flips a bf16 rounding of q or
+    p or an int8 activation rounding grows chaotically through 28 layers of
+    random synthetic weights (a 1-ulp rsqrt difference alone grew to 0.17
+    in the hidden). The float64 sums of layer.cuh and the plain version
+    leave only the head's logits to differ in their last bits, so (2) holds
+    with room to spare. The report's max_abs_err is the worst of both
+    gates."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_talker_step import (
@@ -233,7 +317,8 @@ def check_talker_step(tts, report, iters):
             a = fused_talker_step(tp.blocks, tcfg, x, n_past, kva, **greedy)
             b = fused_talker_step_plain(tp.blocks, tcfg, x, n_past, kvb, **greedy)
             eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
-            ch, cl = _cos(a.hidden, b.hidden), _cos(a.logits, b.logits)
+            ch = float(_lane_cos(a.hidden[None], b.hidden[None]))
+            cl = float(_lane_cos(a.logits[None], b.logits[None]))
             top2 = torch.topk(b.logits.float(), 2).values
             ca, cb = int(a.cb0.reshape(-1)[0]), int(b.cb0.reshape(-1)[0])
             cb0_ok = ca == cb or float(top2[0] - top2[1]) < 2 * el
@@ -246,7 +331,9 @@ def check_talker_step(tts, report, iters):
             cos_full.append(min(ch, cl))
     n_past = 300
     kv = kv0.clone()
+    bound_ms, bound_by = talker_step_bound(tp, tcfg, 1, n_past)
     report["fused_talker_step"] = dict(
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         max_abs_err=max(errs_short + errs_full),
         max_abs_err_2_layers=max(errs_short),
         max_abs_err_all_layers=max(errs_full),
@@ -287,12 +374,171 @@ def check_code_predictor(tts, report, iters):
         if not (same and e <= 1e-3):
             raise SmokeFailure("fused_predict_codes disagrees with its plain version")
         err = max(err, e)
+    bound_ms, bound_by = code_predictor_bound(cp, ccfg, 1)
     report["fused_predict_codes"] = dict(
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape="one frame",
         max_abs_err=err,
         ms=timed(lambda: fused_predict_codes(cp, ccfg, th, cb0, 991, **kw), dev, iters),
         plain_ms=timed(lambda: fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw),
                        dev, iters),
         tolerance="codes equal; rest_sum 1e-3 abs")
+
+
+def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
+                                                          (64, 512, (10, 300)),
+                                                          (16, 4352, (4000,)),
+                                                          (5, 512, (10,)),
+                                                          (24, 512, (10,)),
+                                                          (128, 512, (10,)))):
+    """K5 against the plain version per lane, on clones of the same batched
+    cache, for each (B, C, n_past) of `shapes`, teacher-forced single steps
+    with 64 distinct lane seeds. The gates are K1's, lane by lane: (1) the
+    first 2 layers at full width, greedy and sampled: hidden and logits
+    within 1e-3, the written K/V rows within 0.05, every lane's cb0 equal;
+    (2) all layers, greedy: each lane's hidden and logits cosine >= 0.99 and
+    its cb0 equal unless the plain logits' top-2 gap is below twice that
+    lane's logits error (check_talker_step says why). The lane counts 5, 16,
+    24, 64 and 128 reach every lanes-per-thread instantiation of the batched
+    GEMMs (layer.cuh, by_lanes). Timed at each shape's last n_past."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (
+        fused_talker_step_batched, fused_talker_step_batched_plain)
+
+    tp, dev = tts.talker_params, tts.device
+    tcfg = tts.config.talker
+    L, Hkv, D, Vc = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim, tcfg.codec_vocab_size
+    g = torch.Generator(device=dev).manual_seed(15)
+    short_blocks, short_cfg = _truncated(tts, min(2, L))
+    Ls = short_cfg.n_layers
+    errs_short, errs_full, cos_full, times = [], [], [], {}
+    for i, (B, C, positions) in enumerate(shapes):
+        x = torch.randn((B, tcfg.hidden_size), generator=g, device=dev).to(tts.dtype)
+        seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
+        seen[:, :64] = 1
+        seeds = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 1000
+        base = dict(output_norm=tp.output_norm, codec_head=tp.codec_head, seen=seen,
+                    seeds=seeds, top_k=50, repetition_penalty=1.05,
+                    suppress_start=Vc - 1024, eos_id=tcfg.codec_eos_id)
+        greedy = dict(base, temperature=0.0, greedy=True, use_top_p=False)
+        sampled = dict(base, temperature=0.9, greedy=False, use_top_p=False)
+        kv0 = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype) * 0.5
+        for n_past in positions:
+            for kw in (greedy, sampled):
+                kva = kv0[:, :Ls].clone(memory_format=torch.contiguous_format)
+                kvb = kva.clone()
+                a = fused_talker_step_batched(short_blocks, short_cfg, x, n_past, kva, **kw)
+                b = fused_talker_step_batched_plain(short_blocks, short_cfg, x, n_past, kvb,
+                                                    **kw)
+                eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
+                ekv = _max_err(kva[..., n_past, :], kvb[..., n_past, :])
+                same = int((a.cb0.long() == b.cb0.long()).sum())
+                print(f"kernel fused_talker_step_batched 2 layers B={B} C={C} "
+                      f"n_past={n_past} greedy={kw['greedy']}: hidden err {eh:.3e}, "
+                      f"logits err {el:.3e}, kv row err {ekv:.3e}, cb0 equal {same}/{B}")
+                if not (eh <= 1e-3 and el <= 1e-3 and ekv <= 0.05 and same == B):
+                    raise SmokeFailure(f"fused_talker_step_batched (2 layers) disagrees at "
+                                       f"B={B}, C={C}, n_past={n_past}")
+                errs_short.append(max(eh, el))
+            del kva, kvb
+            kva = kv0.clone()
+            # the largest cache is not cloned twice: the plain version writes
+            # its rows into kv0 itself
+            kvb = kv0 if C * B > 64 * 512 else kv0.clone()
+            a = fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kva, **greedy)
+            b = fused_talker_step_batched_plain(tp.blocks, tcfg, x, n_past, kvb, **greedy)
+            ch, cl = _lane_cos(a.hidden, b.hidden), _lane_cos(a.logits, b.logits)
+            el = (a.logits.float() - b.logits.float()).abs().amax(dim=-1)
+            top2 = torch.topk(b.logits.float(), 2, dim=-1).values
+            cb0_ok = (a.cb0.long() == b.cb0.long()) | (top2[:, 0] - top2[:, 1] < 2 * el)
+            eh = _max_err(a.hidden, b.hidden)
+            print(f"kernel fused_talker_step_batched {L} layers B={B} C={C} n_past={n_past}: "
+                  f"min lane cos hidden {float(ch.min()):.6f} logits {float(cl.min()):.6f} "
+                  f"(err {eh:.3e}, {float(el.max()):.3e}); cb0 equal "
+                  f"{int((a.cb0 == b.cb0).sum())}/{B}, gate {int(cb0_ok.sum())}/{B}")
+            if not (bool((ch >= 0.99).all()) and bool((cl >= 0.99).all())
+                    and bool(cb0_ok.all())):
+                raise SmokeFailure(f"fused_talker_step_batched disagrees at B={B}, C={C}, "
+                                   f"n_past={n_past}")
+            errs_full.append(max(eh, float(el.max())))
+            cos_full.append(min(float(ch.min()), float(cl.min())))
+        n_t = positions[-1]
+        times[(B, C, n_t)] = timed(
+            lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, kva, **greedy), dev,
+            iters)
+        if i == 1:
+            plain_ms = timed(lambda: fused_talker_step_batched_plain(
+                tp.blocks, tcfg, x, n_t, kvb, **greedy), dev, iters)
+        del kva, kvb, kv0
+    B, C, n_past = shapes[1][0], shapes[1][1], shapes[1][2][-1]
+    bound_ms, bound_by = talker_step_bound(tp, tcfg, B, n_past)
+    report["fused_talker_step_batched"] = dict(
+        max_abs_err=max(errs_short + errs_full),
+        max_abs_err_2_layers=max(errs_short),
+        max_abs_err_all_layers=max(errs_full),
+        min_lane_cos_all_layers=min(cos_full),
+        ms=times[(B, C, n_past)], plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=f"B={B} C={C} n_past={n_past}",
+        times={f"B={b} C={c} n_past={n}": dict(ms=t, bound_ms=talker_step_bound(tp, tcfg, b, n)[0])
+               for (b, c, n), t in times.items()},
+        tolerance="per lane: 2 layers 1e-3 abs, cb0 equal; all layers cosine 0.99")
+
+
+def check_code_predictor_batched(tts, report, iters, B=64):
+    """K6 at full width for B lanes with B distinct seeds, greedy and
+    sampled (temperature 0.9, top-k 50). Gate: every lane's 15 codes equal
+    the plain version's, rest_sum within 1e-3. Reported, not gated: how
+    many lanes equal K2 run single-stream with the lane's seed (K6 keeps its
+    K/V rows in bf16 as the Pallas kernel does, K2 in float32)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import fused_predict_codes
+    from qwen3tts_tpu_torch.ops.fused_code_predictor_batched import (
+        fused_predict_codes_batched, fused_predict_codes_batched_plain)
+
+    cp, ccfg, dev = tts.cp_params, tts.config.code_predictor, tts.device
+    g = torch.Generator(device="cpu").manual_seed(17)
+    th = torch.randn((B, ccfg.hidden_size), generator=g).to(device=dev, dtype=tts.dtype)
+    cb0 = tts.talker_params.codec_embd[torch.arange(B, device=dev) * 29 + 5]
+    seeds = torch.arange(B, dtype=torch.int32, device=dev) * 104729 - 3000
+    err = 0.0
+    for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
+               dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
+        ca, sa = fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw)
+        cb, sb = fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds, **kw)
+        lanes_equal = int((ca.long() == cb.long()).all(dim=1).sum())
+        single = sum(int(bool((fused_predict_codes(cp, ccfg, th[b], cb0[b], int(seeds[b]),
+                                                   **kw)[0] == ca[b]).all())) for b in range(B))
+        e = _max_err(sa, sb)
+        print(f"kernel fused_predict_codes_batched B={B} greedy={kw['greedy']}: codes equal "
+              f"in {lanes_equal}/{B} lanes; rest_sum err {e:.3e}; lanes equal to K2 "
+              f"single-stream {single}/{B} (information)")
+        if not (lanes_equal == B and e <= 1e-3):
+            raise SmokeFailure("fused_predict_codes_batched disagrees with its plain version")
+        err = max(err, e)
+        # fewer lanes reach the other lanes-per-thread instantiations of the
+        # batched GEMMs; lanes are independent, so the plain lanes still hold
+        for n in (n for n in (5, 20) if n < B):
+            cn, sn = fused_predict_codes_batched(cp, ccfg, th[:n], cb0[:n], seeds[:n], **kw)
+            en = _max_err(sn, sb[:n])
+            print(f"kernel fused_predict_codes_batched B={n} greedy={kw['greedy']}: codes "
+                  f"equal {bool((cn.long() == cb[:n].long()).all())}; rest_sum err {en:.3e}")
+            if not (bool((cn.long() == cb[:n].long()).all()) and en <= 1e-3):
+                raise SmokeFailure(f"fused_predict_codes_batched disagrees at B={n}")
+            err = max(err, en)
+    bound_ms, bound_by = code_predictor_bound(cp, ccfg, B)
+    report["fused_predict_codes_batched"] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw), dev,
+                 iters),
+        plain_ms=timed(lambda: fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds,
+                                                                 **kw), dev, iters),
+        ms_b16=timed(lambda: fused_predict_codes_batched(cp, ccfg, th[:16], cb0[:16],
+                                                         seeds[:16], **kw), dev, iters),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        bound_ms_b16=code_predictor_bound(cp, ccfg, 16)[0],
+        shape=f"B={B}, one frame-set", tolerance="codes equal per lane; rest_sum 1e-3 abs")
 
 
 def check_res_block(tts, report, iters):
@@ -310,7 +556,7 @@ def check_res_block(tts, report, iters):
     g = torch.Generator(device="cpu").manual_seed(9)
     frames = 64
     T = frames * 2 ** vcfg.n_convnext
-    worst, times = 0.0, []
+    worst, times, nbytes, flops = 0.0, [], 0, 0
     for blk, rate in zip(tts.vocoder_params.dec_blocks, vcfg.upsample_rates):
         T *= rate
         C = blk.convt_w.shape[-1]
@@ -322,11 +568,15 @@ def check_res_block(tts, report, iters):
             a = fused_res_block(*args, dilation=d)
             b = res_block_plain(*args, dilation=d)
             e = _max_err(a, b)
-            bound = 1e-4 * (1.0 + float(b.abs().max()))
-            print(f"kernel fused_res_block C={C} T={T} d={d}: err {e:.3e} (bound {bound:.3e})")
-            if not e <= bound:
+            tol = 1e-4 * (1.0 + float(b.abs().max()))
+            print(f"kernel fused_res_block C={C} T={T} d={d}: err {e:.3e} (tolerance {tol:.3e})")
+            if not e <= tol:
                 raise SmokeFailure(f"fused_res_block disagrees at C={C}, T={T}, d={d}")
             worst = max(worst, e)
+            # a dilated 7-tap conv and a 1x1 conv: 16 C^2 T float32 operations;
+            # x in, y out, the weights once
+            flops += 16 * C * C * T
+            nbytes += 2 * T * C * 4 + _nbytes(*args[1:])
             times.append((timed(lambda: fused_res_block(*args, dilation=d), dev, iters),
                           timed(lambda: res_block_plain(*args, dilation=d), dev, iters)))
     # a ragged T (not a multiple of the 64-row tile) at the narrowest width,
@@ -341,8 +591,10 @@ def check_res_block(tts, report, iters):
     if not e <= 1e-4 * (1.0 + float(b.abs().max())):
         raise SmokeFailure("fused_res_block disagrees on a ragged T")
     worst = max(worst, e)
+    bound_ms, bound_by = bound(nbytes, {"f32": flops})
     report["fused_res_block"] = dict(
         max_abs_err=worst, ms=sum(t[0] for t in times), plain_ms=sum(t[1] for t in times),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=f"all 12 res blocks of a {frames}-frame clip (times summed)",
         tolerance="1e-4 * (1 + max|plain|) abs")
 
@@ -395,12 +647,73 @@ MAIN_REQUESTS = [
 ]
 
 
+def batch_texts(n):
+    """n distinct request texts of a few lengths."""
+    subjects = ("The quick brown fox", "A batch of requests", "Every lane",
+                "This sentence, somewhat longer than the others, still")
+    return [f"{subjects[i % len(subjects)]} number {i} jumps over the lazy dog."
+            for i in range(n)]
+
+
+# (number of texts, sampling) of the batched main path
+BATCH_REQUESTS = [
+    (16, dict(max_audio_tokens=128, temperature=0.0, seed=1)),
+    (64, dict(max_audio_tokens=256, seed=3)),
+]
+
+
+def serve_batches(tts, batches, min_frames_per_lane=8):
+    """Run each batch through synthesize_batch and check it: every lane that
+    emitted frames has finite audio of n_frames * 1920 samples and codes in
+    range, and the batch emitted at least min_frames_per_lane frames per
+    lane in all (random
+    synthetic weights may draw EOS early in some lanes; lanes that stopped at
+    frame 0 are counted). Returns per-batch stats and the launch counts of
+    the whole run, counted from 0."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    spf = tts.config.vocoder.samples_per_frame
+    V = tts.config.code_predictor.vocab_size
+    stats = []
+    reset_counts()
+    for n, kw in batches:
+        before = read_counts()
+        rs = tts.synthesize_batch(batch_texts(n), SamplingConfig(**kw))
+        moved = {k: v - before[k] for k, v in read_counts().items()}
+        frames = sum(r.n_frames for r in rs)
+        for i, r in enumerate(rs):
+            if r.n_frames == 0:
+                continue
+            ok = (r.success and len(r.audio) == r.n_frames * spf
+                  and bool(np.isfinite(r.audio).all()) and (r.codes >= 0).all()
+                  and (r.codes[:, 0] < 2048).all() and (r.codes[:, 1:] < V).all())
+            if not ok:
+                raise SmokeFailure(f"batch {n} {kw}: lane {i} failed ({r.error_msg or 'checks'})")
+        gen_ms = rs[0].timings.t_generate_ms * n     # results carry the batch wall / B
+        st = dict(request=kw, lanes=n, frames=frames,
+                  lanes_stopped_at_frame_0=sum(r.n_frames == 0 for r in rs),
+                  frames_per_s=frames / gen_ms * 1e3 if gen_ms else 0.0, generate_ms=gen_ms,
+                  vocoder_ms=rs[0].timings.t_decode_ms * n, total_ms=rs[0].timings.t_total_ms,
+                  launches=moved)
+        print(f"batch {n} lanes {kw}: frames={frames} "
+              f"stopped at frame 0: {st['lanes_stopped_at_frame_0']} "
+              f"{st['frames_per_s']:.2f} frames/s (generate {gen_ms:.1f} ms, vocoder "
+              f"{st['vocoder_ms']:.1f} ms) launches {moved}")
+        if frames < min_frames_per_lane * n:
+            raise SmokeFailure(f"batch {n} {kw}: {frames} frames < {min_frames_per_lane * n}")
+        stats.append(st)
+    return stats, read_counts()
+
+
 def profile_request(tts, text, kw):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
     intervals in the trace; the wall is the host clock around the request
-    (synthesize synchronizes before it returns). Returns (result, wall ms,
-    busy ms)."""
+    (synthesize and synthesize_batch synchronize before they return). A
+    list of texts runs as one synthesize_batch call. Returns (results, wall
+    ms, busy ms, the device activities with the most time)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -409,27 +722,50 @@ def profile_request(tts, text, kw):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r = tts.synthesize(text, SamplingConfig(**kw))
+        if isinstance(text, list):
+            r = tts.synthesize_batch(text, SamplingConfig(**kw))
+        else:
+            r = [tts.synthesize(text, SamplingConfig(**kw))]
         wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return r, wall_ms, device_busy_ms(events)
+    return r, wall_ms, device_busy_ms(events), device_top(events)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def device_busy_ms(events):
     """Milliseconds covered by the union of the device intervals (kernels,
     copies, memsets) among chrome-trace events (microsecond ts and dur)."""
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+                   if e.get("cat") in DEVICE_CATS and "dur" in e)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy_us += b - max(a, end)
             end = b
     return busy_us / 1e3
+
+
+def device_top(events, n=8):
+    """The n device activities with the most time in the trace: [name, ms,
+    launches]; a kernel's name is cut to its bare function name (no return
+    type, namespace, template or argument list)."""
+    total = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATS and "dur" in e:
+            name = e.get("name", "?")
+            if e["cat"] == "kernel":
+                name = name.replace("(anonymous namespace)::", "")
+                name = re.split(r"[(<]", name)[0].strip().split(" ")[-1].split("::")[-1]
+            ms, k = total.get(name, (0.0, 0))
+            total[name] = (ms + e["dur"] / 1e3, k + 1)
+    top = sorted(total.items(), key=lambda kv: -kv[1][0])[:n]
+    return [[name, ms, k] for name, (ms, k) in top]
 
 
 def nvidia_smi_line():
@@ -472,28 +808,46 @@ def main():
         check_sampler(tts, report, iters=20)
         check_talker_step(tts, report, iters=5)
         check_code_predictor(tts, report, iters=3)
+        check_talker_step_batched(tts, report, iters=3)
+        check_code_predictor_batched(tts, report, iters=3)
         check_res_block(tts, report, iters=3)
         torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
         for name, r in report.items():
-            print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-                  f"[{smi}]")
+            print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
 
-        stats, counts = serve(tts, MAIN_REQUESTS)
+        # each main path with the counts set to 0 just before it and read
+        # just after
+        stats, single_counts = serve(tts, MAIN_REQUESTS)
         for st in stats:
-            idle = [k for k, v in st["launches"].items() if v <= 0]
+            idle = [k for k in SINGLE_PATH if st["launches"][k] <= 0]
             if idle:
                 raise SmokeFailure(f"request {st['request']}: kernels not launched: {idle}")
         for st in stats:
             print("serve " + json.dumps(dict(st, card=smi)))
-        text, kw = MAIN_REQUESTS[1]
-        r, wall_ms, busy_ms = profile_request(tts, text, kw)
-        if not r.success:
-            raise SmokeFailure(f"profiled request failed: {r.error_msg}")
-        print("profile " + json.dumps(dict(
-            request=kw, n_frames=r.n_frames, wall_ms=wall_ms, device_busy_ms=busy_ms,
-            device_idle_share=1.0 - busy_ms / wall_ms,
-            frames_per_s=r.n_frames / r.timings.t_generate_ms * 1e3,
-            vocoder_ms=r.timings.t_decode_ms, card=smi)))
+        bstats, batch_counts = serve_batches(tts, BATCH_REQUESTS)
+        for st in bstats:
+            idle = [k for k in BATCH_PATH if st["launches"][k] <= 0]
+            if idle:
+                raise SmokeFailure(f"batch {st['lanes']}: kernels not launched: {idle}")
+            print("serve_batch " + json.dumps(dict(st, card=smi)))
+        counts = {k: single_counts[k] + batch_counts[k] for k in KERNELS}
+
+        for what, (text, kw) in (("request", MAIN_REQUESTS[1]),
+                                 ("batch", (batch_texts(BATCH_REQUESTS[0][0]),
+                                            BATCH_REQUESTS[0][1]))):
+            rs, wall_ms, busy_ms, top = profile_request(tts, text, kw)
+            if not any(r.success for r in rs):
+                raise SmokeFailure(f"profiled {what} failed: {rs[0].error_msg}")
+            frames = sum(r.n_frames for r in rs)
+            gen_ms = rs[0].timings.t_generate_ms * len(rs)
+            print("profile " + json.dumps(dict(
+                what=what, lanes=len(rs), request=kw, n_frames=frames, wall_ms=wall_ms,
+                device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / wall_ms,
+                frames_per_s=frames / gen_ms * 1e3,
+                vocoder_ms=rs[0].timings.t_decode_ms * len(rs), top_device_ms=top,
+                card=smi)))
     except Exception as e:  # noqa: BLE001 - the smoke reports any failure as exit 1
         import traceback
 

@@ -1,18 +1,20 @@
 """qwen3tts_tpu_torch — the PyTorch/CUDA port of qwen3tts_tpu for NVIDIA Hopper.
 
-The JAX package beside it is the reference. This package runs the single-stream
-int8 synthesis path (``Qwen3TTS.synthesize``) with hand-written CUDA kernels
-for the four pieces the JAX package wrote in Pallas: the fused talker step,
-the fused code predictor, the counter-hash sampler and the vocoder res-block.
-On CPU tensors every kernel wrapper runs its plain PyTorch version instead.
+The JAX package beside it is the reference. This package runs single-stream
+synthesis (``Qwen3TTS.synthesize``) and batched serving
+(``Qwen3TTS.synthesize_batch``) with int8 weights, through hand-written CUDA
+kernels for the pieces the JAX package wrote in Pallas: the fused talker step
+(single-stream and batched), the fused code predictor (single-stream and
+batched), the counter-hash sampler and the vocoder res-block. On CPU tensors
+every kernel wrapper runs its plain PyTorch version instead.
 
-It imports torch and never jax; the JAX-free host modules of the old package
-(``config``, ``text.bpe``, ``audio.wav``) are shared.
+It imports torch and never jax, and nothing of the JAX package: the host
+modules it needs (``config``, ``text.bpe``) are its own copies.
 """
 
 __version__ = "0.1.0"
 
-from qwen3tts_tpu.config import (  # noqa: F401
+from .config import (  # noqa: F401
     CodePredictorConfig,
     PipelineConfig,
     RuntimeConfig,

@@ -43,7 +43,26 @@ SIGNATURES = {
         P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
                                          # use_top_p suppress eos seed
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
+    "qtts_talker_batched_ws_bytes": [I, I, I, I, I, I, I, I],
+    "qtts_talker_step_batched": [
+        P, I, I, P, P,                   # x_in, B, n_past, cos, sin
+        P, P, P, P,                      # attn/q/k/ffn norms (f32)
+        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
+        P, P, P,                         # output_norm, codec_head, kv
+        I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
+        P, P, F, F, F, I, I, I, I, I,    # seen seeds temp top_p pen top_k
+                                         # greedy use_top_p suppress eos
+        P, P, P, P, P],                  # hidden, logits, tok, ws, stream
     "qtts_cp_ws_bytes": [I, I, I, I, I, I, I],
+    "qtts_cp_batched_ws_bytes": [I, I, I, I, I, I, I, I],
+    "qtts_code_predictor_batched": [
+        P, I, P, P,                      # xinit, B, cos, sin
+        P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)
+        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
+        P, P,                            # heads, embds
+        I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
+        F, F, I, I, I, P,                # temp top_p top_k greedy use_top_p seeds
+        P, P, P, P, P],                  # codes, rest_sum, kv, ws, stream
     "qtts_code_predictor": [
         P, P, P,                         # xinit, cos, sin
         P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)
@@ -75,7 +94,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into _build/libqtts_<hash>.so (if not there yet);
-    return its path."""
+    return its path. Each source is compiled by its own nvcc process, all
+    started together, and the objects are then linked into the library."""
     global build_seconds
     h = hashlib.sha256()
     for src in _sources():
@@ -85,17 +105,32 @@ def build() -> str:
     out = os.path.join(BUILD_DIR, f"libqtts_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + ARCH_FLAGS
-           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-o", tmp]
-           + sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
+    obj_dir = f"{tmp}.obj"
+    os.makedirs(obj_dir, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        cmd = ([nvcc] + ARCH_FLAGS
+               + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", "-o", obj, src])
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for obj, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) on {os.path.basename(obj)}:\n{err}")
+    if not errors:
+        link = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
+                              + [obj for obj, _ in procs], capture_output=True, text=True)
+        if link.returncode != 0:
+            errors.append(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    shutil.rmtree(obj_dir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,62 @@
+// K6: the 15 residual codes of one frame for each of B lanes — the code
+// predictor's autoregressive inner loop for a batch in one C call
+// (code_predictor.cuh).
+//
+// Replaces qwen3tts_tpu/ops/pallas_code_predictor_batched.py:235
+// fused_predict_codes_batched (w8a8 mode). Lane b equals K2 run with seed
+// seeds[b]: the per-lane activation scales, the exact int32 dots and the
+// counter-hash noise (a function of seed, step and vocab slot only) make the
+// lanes independent. As in the Pallas kernel, the KV scratch is stored in
+// the embedding dtype (bf16 here, float32 in K2) and neither q nor the
+// probabilities are rounded, so on bf16 weights a lane can differ from K2 in
+// the last bits of its attention.
+//
+// What bounds it on the H100: bytes. Per frame-set the 5 int8 layers (78.6
+// MB at 0.6B widths) and the 15 bf16 heads (62.9 MB) are the card's bound
+// (~0.04 ms at 3.35 TB/s); at B = 64 the int8 products are 2 x 64 x 16
+// passes x 78.6 M = 0.16 T operations, ~0.08 ms at the int8 peak. The TPU
+// kernel keeps the block stack in VMEM for all 16 passes; an H100 cannot
+// (227 KB shared per SM, 50 MB L2), so each pass streams the stack once for
+// all B lanes (the gemm_w8a8 tiles of layer.cuh: a weight byte is read once
+// per pass, not once per lane), 16 x 78.6 MB = 1.26 GB per frame-set, a
+// floor of ~0.4 ms. The TPU kernel's one-hot matmul embedding gather and
+// its lane-major KV scratch [L, Hkv, CTX, B, D] are TPU tiling artifacts:
+// here a block per lane fetches its embedding row, and the scratch is
+// lane-major over heads, [2, L, B, Hkv, 16, D].
+//
+// Cap: B <= 64 per call, the Pallas kernel's VMEM lane budget; the decode
+// loop runs larger batches in groups of 64.
+#include "code_predictor.cuh"
+
+extern "C" size_t qtts_cp_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
+                                           int CTX, int V) {
+  const Dims d{H, Hq, Hkv, D, F, 0.f};
+  return carve_work(nullptr, nullptr, d, B, CTX, V);
+}
+
+extern "C" int qtts_code_predictor_batched(
+    const void* xinit, int B, const void* cos_tab, const void* sin_tab,
+    const void* attn_n, const void* q_n, const void* k_n, const void* ffn_n,
+    const void* out_norm,
+    const void* wqkv_q, const void* wqkv_s, const void* wo_q, const void* wo_s,
+    const void* wgu_q, const void* wgu_s, const void* wd_q, const void* wd_s,
+    const void* heads, const void* embds,
+    int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
+    float temp, float top_p, int top_k, int greedy, int use_top_p, const void* seeds,
+    void* codes_out, void* rest_sum, void* kv, void* ws, void* stream) {
+  const Dims d{H, Hq, Hkv, D, F, eps};
+  if (int bad = check_dims(d, V, B)) return bad;
+  if (S + 1 > CTX || B > 64) return (int)cudaErrorInvalidValue;
+  Work w;
+  carve_work(&w, (char*)ws, d, B, CTX, V);
+  const StackWeights sw{(const int8_t*)wqkv_q, (const int8_t*)wo_q, (const int8_t*)wgu_q,
+                        (const int8_t*)wd_q,   (const float*)wqkv_s, (const float*)wo_s,
+                        (const float*)wgu_s,   (const float*)wd_s,   (const float*)attn_n,
+                        (const float*)q_n,     (const float*)k_n,    (const float*)ffn_n};
+  predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
+                (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
+                (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, 0,
+                (const int*)seeds, (int*)codes_out, (float*)rest_sum, (__nv_bfloat16*)kv, w,
+                (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}

@@ -15,13 +15,13 @@ constexpr float kNegInf = -1e30f;
 
 struct MaxOp { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
 struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
-struct SumOp { __device__ float operator()(float a, float b) const { return a + b; } };
+struct SumOp { template <typename T> __device__ T operator()(T a, T b) const { return a + b; } };
 
 // Reduce v over the whole block; every thread gets the result. blockDim.x
-// must be a multiple of 32. `sh` is shared scratch of at least 32 floats;
+// must be a multiple of 32. `sh` is shared scratch of at least 32 values;
 // the leading __syncthreads protects it from the previous call's readers.
-template <typename Op>
-__device__ float block_reduce(float v, float* sh, Op op, float init) {
+template <typename T, typename Op>
+__device__ T block_reduce(T v, T* sh, Op op, T init) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
   __syncthreads();
@@ -34,6 +34,7 @@ __device__ float block_reduce(float v, float* sh, Op op, float init) {
 }
 
 __device__ float block_sum(float v, float* sh) { return block_reduce(v, sh, SumOp(), 0.f); }
+__device__ double block_sum(double v, double* sh) { return block_reduce(v, sh, SumOp(), 0.0); }
 __device__ float block_max(float v, float* sh) { return block_reduce(v, sh, MaxOp(), -3.4e38f); }
 __device__ float block_min(float v, float* sh) { return block_reduce(v, sh, MinOp(), 3.4e38f); }
 

@@ -1,28 +1,56 @@
-// One Qwen3 decoder layer for a single token, w8a8, as a handful of kernels:
-// the building blocks of K1 (talker_step.cu) and K2 (code_predictor.cu).
+// One Qwen3 decoder layer for one token in each of B lanes, w8a8, as a
+// handful of kernels: the building blocks of K1 (talker_step.cu) and K2
+// (code_predictor.cu), which run one lane, and of K5
+// (talker_step_batched.cu) and K6 (code_predictor_batched.cu), which run B.
 //
 //   resid_rms_quant  x += previous projection; h = RMSNorm(x); int8(h)
-//   gemv_w8a8        acc[n] += sum_k xq[k] * W[k, n]          (int32, split-K)
+//   project          acc[b, n] += sum_k xq[b, k] * W[k, n]     (int32, split-K)
 //   qkv_post         q/k RMSNorm + NEOX RoPE; K/V row written into the cache
-//   attn_scores      s[h, t] = q_h . k_t * D^-0.5  for t < n_valid
-//   attn_softmax     p = softmax(s) rounded to the KV dtype
+//   attn_scores      s[b, h, t] = q_bh . k_bt * D^-0.5  for t < n_valid
+//   attn_softmax     p = softmax(s) (optionally rounded to the KV dtype)
 //   attn_pv          per-chunk partial sums of p @ V
 //   merge_quant      sum of the chunk partials; int8(o)
-//   gemv_w8a8        o_proj
+//   project          o_proj
 //   resid_rms_quant  x += o_proj; h = RMSNorm(x); int8(h)
-//   gemv_w8a8        gate/up
+//   project          gate/up
 //   swiglu_quant     a = silu(gate) * up; int8(a)
-//   gemv_w8a8        down (added to x by the next layer's first kernel)
+//   project          down (added to x by the next layer's first kernel)
+//
+// Lanes. Every per-token kernel takes its lane from the grid (blockIdx.x
+// for the row kernels, y or z for the others) and finds lane b's vectors at
+// b times their length; one lane is the grid of one. `project` is a GEMV
+// for one lane (gemv_w8a8) and, for B lanes, a tiled GEMM (gemm_w8a8) that
+// stages each [128 x 128] int8 weight tile in shared memory once and
+// multiplies it against all B lanes' activation rows with __dp4a: every
+// weight byte leaves device memory once per call, whatever B is. That is
+// the point of the batched Pallas kernels (pallas_talker_step.py:1463 and
+// pallas_code_predictor_batched.py:69, M = B MXU dots).
 //
 // Numerics follow the Pallas kernels' w8a8 mode
 // (qwen3tts_tpu/ops/pallas_talker_step.py:71 _make_mm_values): activations
-// are quantized per token with s = max(amax, 1e-8) * (1/127) and
+// are quantized per token (per lane) with s = max(amax, 1e-8) * (1/127) and
 // round-half-even (rintf), the dots accumulate in int32 — exact and
-// independent of order, so the split-K atomics change nothing — and the
-// result is acc * (s * w_scale) in float32. Attention casts q and the softmax
-// probabilities to the KV dtype, as the Pallas kernel does (:338, :349), and
-// reads only positions below n_valid: no masked position is ever multiplied
-// by cache memory, stale or not.
+// independent of order, so the split-K atomics and the GEMV/GEMM choice
+// change nothing — and the result is acc * (s * w_scale) in float32.
+// Attention optionally casts q and the softmax probabilities to the KV dtype
+// (round_q, round_p: the single-stream talker kernel casts both, :338 and
+// :349; the batched one casts q only, :1529; the code predictors neither),
+// and reads only positions below n_valid: no masked position is ever
+// multiplied by cache memory, stale or not. The softmax is dense: one pass
+// for the row maximum, one for the sum, then p = e / sum; the batched
+// Pallas kernel's online softmax computes the same function in another
+// summation order.
+//
+// Every float sum whose result feeds an int8 rounding — the RMSNorm
+// variances, q.k, the softmax sum, p @ V — runs in float64 and is rounded to
+// float32 once, and exp (softmax, SiLU) is evaluated in float64 and
+// rounded. Products of float32 operands are exact in float64, so these
+// results do not depend on summation order, and the plain versions, which
+// do the same in PyTorch, get the same float32 bits. Without this, a last
+// bit of difference now and then flips an activation's int8 rounding (at
+// B = 64 already within two layers), and the layers amplify the flip.
+// For the same reason no product is fused into an add (__fmul_rn,
+// __fadd_rn) where the plain version rounds it first.
 #pragma once
 
 #include "common.cuh"
@@ -30,10 +58,16 @@
 
 namespace {
 
-constexpr int kRowThreads = 1024;   // one block handles one token's vector
+constexpr int kRowThreads = 1024;   // one block handles one lane's vector
 constexpr int kAttnChunk = 64;      // positions per attention block
 constexpr int kMaxGroup = 8;        // query heads per KV head
 constexpr int kSplitTarget = 264;   // ~2 blocks per SM of an H100
+constexpr int kMaxLanes = 128;      // lanes of one batched call
+constexpr int kGemmTN = 128;        // output columns per GEMM block
+constexpr int kGemmTK = 128;        // int8 weight rows per shared tile
+constexpr int kGemmTKf = 32;        // bf16 weight rows per shared tile
+constexpr int kGemmThreads = 256;   // 32 column groups x 8 lane groups
+constexpr int kHeadSplits = 8;      // K splits of the batched head GEMM
 
 __device__ void quantize_buf(const float* buf, int n, float amax_local, int8_t* xq,
                              float* s_out, float* red) {
@@ -44,28 +78,34 @@ __device__ void quantize_buf(const float* buf, int n, float amax_local, int8_t* 
   if (threadIdx.x == 0) s_out[0] = s;
 }
 
-// x += acc * (s_in * ws_in) when acc is given; h = x * rsqrt(mean(x^2)+eps)
-// * norm. Then h is quantized into (xq, s_out), or, when h_out is given,
-// written there in float32. zero[0:zero_n) is cleared for the next GEMV.
+// Lane blockIdx.x: x += acc * (s_in * ws_in) when acc is given;
+// h = x * rsqrt(mean(x^2)+eps) * norm. Then h is quantized into (xq, s_out),
+// or, when h_out is given, written there in float32. zero[0:zero_n) of the
+// lane is cleared for the next projection.
 __global__ void resid_rms_quant_kernel(float* __restrict__ x, const int* __restrict__ acc,
                                        const float* __restrict__ s_in,
                                        const float* __restrict__ ws_in,
                                        const float* __restrict__ norm, int H, float eps,
-                                       int8_t* __restrict__ xq, float* __restrict__ s_out,
-                                       float* __restrict__ h_out, int* __restrict__ zero,
-                                       int zero_n) {
+                                       int8_t* __restrict__ xq, int ldq,
+                                       float* __restrict__ s_out, float* __restrict__ h_out,
+                                       int* __restrict__ zero, int zero_n) {
   extern __shared__ float buf[];
   __shared__ float red[32];
-  const float sa = acc != nullptr ? s_in[0] : 0.f;
-  float ss = 0.f;
+  __shared__ double redd[32];
+  const int b = blockIdx.x;
+  x += (size_t)b * H;
+  if (acc != nullptr) acc += (size_t)b * H;
+  if (h_out != nullptr) h_out += (size_t)b * H;
+  const float sa = acc != nullptr ? s_in[b] : 0.f;
+  double ss = 0.0;
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     float v = x[i];
-    if (acc != nullptr) v = v + (float)acc[i] * (sa * ws_in[i]);
+    if (acc != nullptr) v = __fadd_rn(v, __fmul_rn((float)acc[i], sa * ws_in[i]));
     x[i] = v;
     buf[i] = v;
-    ss += v * v;
+    ss += (double)v * v;
   }
-  const float var = block_sum(ss, red) / (float)H;
+  const float var = (float)(block_sum(ss, redd) / H);
   const float rs = 1.0f / sqrtf(var + eps);
   float am = 0.f;
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
@@ -74,14 +114,14 @@ __global__ void resid_rms_quant_kernel(float* __restrict__ x, const int* __restr
     am = fmaxf(am, fabsf(h));
     if (h_out != nullptr) h_out[i] = h;
   }
-  if (h_out == nullptr) quantize_buf(buf, H, am, xq, s_out, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[i] = 0;
+  if (h_out == nullptr) quantize_buf(buf, H, am, xq + (size_t)b * ldq, s_out + b, red);
+  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
 }
 
-// acc[n] += sum_{k in this block's K range} xq[k] * W[k, n], W int8 [K, N]
-// row-major. Block (32, 8): x walks 4-column groups (one 4-byte load per
-// thread per row, a warp reads 128 contiguous bytes), y walks rows; grid.y
-// splits K so that the narrow projections still fill the card.
+// One lane: acc[n] += sum_{k in this block's K range} xq[k] * W[k, n], W
+// int8 [K, N] row-major. Block (32, 8): x walks 4-column groups (one 4-byte
+// load per thread per row, a warp reads 128 contiguous bytes), y walks rows;
+// grid.y splits K so that the narrow projections still fill the card.
 __global__ void gemv_w8a8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ W,
                                  int K, int N, int kchunk, int* __restrict__ acc) {
   __shared__ int part[8][32][4];
@@ -111,8 +151,78 @@ __global__ void gemv_w8a8_kernel(const int8_t* __restrict__ xq, const int8_t* __
   }
 }
 
-// float32 x (rounded to bf16) @ W bf16 [K, N]: per-split partial sums into
-// partial[split, N] (summed in a fixed order by the consumer).
+// B lanes: acc[b, n] += sum_{k in this block's tiles} xq[b, k] * W[k, n].
+// Block = one 128-column strip x a run of 128-row K tiles. Per tile, the
+// int8 weights are staged in shared memory with four consecutive k packed
+// in one 32-bit word (a 4x4 byte transpose per thread), the lanes'
+// activation rows likewise, and each thread accumulates 4 columns x BPT
+// lanes (lanes ty, ty+8, ...) with __dp4a. Each weight byte is read from
+// device memory by exactly one block. K and N are multiples of 4.
+template <int BPT>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_w8a8_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* __restrict__ W,
+                 int K, int N, int tiles_per_split, int* __restrict__ acc) {
+  __shared__ __align__(16) int ws[kGemmTK / 4][kGemmTN];
+  __shared__ int xs[kMaxLanes][kGemmTK / 4];
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int n = blockIdx.x * kGemmTN + 4 * tx;
+  const int n_tiles = (K + kGemmTK - 1) / kGemmTK;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  int a[BPT][4];
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kGemmTK;
+    __syncthreads();  // the previous tile's readers are done
+    for (int r = ty; r < kGemmTK / 4; r += 8) {
+      const int k = k0 + 4 * r;
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = (k + i < K && n < N)
+                   ? *reinterpret_cast<const uint32_t*>(W + (size_t)(k + i) * N + n)
+                   : 0u;
+      // column j of the 4x4 byte block: (w0.bj, w1.bj, w2.bj, w3.bj)
+      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
+      *reinterpret_cast<int4*>(&ws[r][4 * tx]) =
+          make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
+                    (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
+    }
+    for (int i = tid; i < B * (kGemmTK / 4); i += kGemmThreads) {
+      const int b = i / (kGemmTK / 4), kw = i % (kGemmTK / 4), k = k0 + 4 * kw;
+      xs[b][kw] = k < K ? *reinterpret_cast<const int*>(xq + (size_t)b * ldq + k) : 0;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kw = 0; kw < kGemmTK / 4; ++kw) {
+      const int4 wv = *reinterpret_cast<const int4*>(&ws[kw][4 * tx]);
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        const int xv = xs[ty + 8 * i][kw];  // rows >= B hold stale data, never written out
+        a[i][0] = __dp4a(xv, wv.x, a[i][0]);
+        a[i][1] = __dp4a(xv, wv.y, a[i][1]);
+        a[i][2] = __dp4a(xv, wv.z, a[i][2]);
+        a[i][3] = __dp4a(xv, wv.w, a[i][3]);
+      }
+    }
+  }
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) {
+    const int b = ty + 8 * i;
+    if (b >= B) break;
+    int* out = acc + (size_t)b * N + n;
+    atomicAdd(out + 0, a[i][0]);
+    atomicAdd(out + 1, a[i][1]);
+    atomicAdd(out + 2, a[i][2]);
+    atomicAdd(out + 3, a[i][3]);
+  }
+}
+
+// One lane: float32 x (rounded to bf16) @ W bf16 [K, N]: per-split partial
+// sums into partial[split, N] (summed in a fixed order by the consumer).
 __global__ void gemv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ W,
                                  int K, int N, int kchunk, float* __restrict__ partial) {
   __shared__ float part[8][32][4];
@@ -144,161 +254,251 @@ __global__ void gemv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat1
   }
 }
 
-// One block per head of the fused QKV output (block = D threads): dequant,
-// q/k RMSNorm + NEOX RoPE; q to q_out (float32), k and v rows written into
-// the cache at the rows kdst/vdst point to (head h at h * head_stride).
+// B lanes: x [B, K] float32 (rounded to bf16) @ W bf16 [K, N]: partial
+// sums of this block's K tiles into partial[split, b, N]. The same tiling as
+// gemm_w8a8 with 32-row float tiles: each weight element is read from device
+// memory by exactly one block.
+template <int BPT>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __restrict__ W,
+                 int K, int N, int tiles_per_split, float* __restrict__ partial) {
+  __shared__ __align__(16) float ws[kGemmTKf][kGemmTN];
+  __shared__ float xs[kMaxLanes][kGemmTKf];
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const int n = blockIdx.x * kGemmTN + 4 * tx;
+  const int n_tiles = (K + kGemmTKf - 1) / kGemmTKf;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  float a[BPT][4];
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kGemmTKf;
+    __syncthreads();
+    for (int r = ty; r < kGemmTKf; r += 8) {
+      const int k = k0 + r;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < K && n < N) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(W + (size_t)k * N + n);
+        const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+        const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+        f = make_float4(__low2float(w01), __high2float(w01), __low2float(w23),
+                        __high2float(w23));
+      }
+      *reinterpret_cast<float4*>(&ws[r][4 * tx]) = f;
+    }
+    for (int i = tid; i < B * kGemmTKf; i += kGemmThreads) {
+      const int b = i / kGemmTKf, kk = i % kGemmTKf, k = k0 + kk;
+      xs[b][kk] = k < K ? bf16_round(x[(size_t)b * K + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kGemmTKf; ++kk) {
+      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        const float xv = xs[ty + 8 * i][kk];
+        a[i][0] += xv * wv.x;
+        a[i][1] += xv * wv.y;
+        a[i][2] += xv * wv.z;
+        a[i][3] += xv * wv.w;
+      }
+    }
+  }
+  if (n >= N) return;
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) {
+    const int b = ty + 8 * i;
+    if (b >= B) break;
+    *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * B + b) * N + n) =
+        make_float4(a[i][0], a[i][1], a[i][2], a[i][3]);
+  }
+}
+
+// One block per (head of the fused QKV output, lane) (block = D threads):
+// dequant, q/k RMSNorm + NEOX RoPE; q to q_out (float32), k and v rows
+// written into the cache at the rows kdst/vdst point to (head h at
+// h * head_stride, lane b at b * lane_stride).
 template <typename T>
 __global__ void qkv_post_kernel(const int* __restrict__ acc, const float* __restrict__ s_in,
                                 const float* __restrict__ ws, const float* __restrict__ qn,
                                 const float* __restrict__ kn, const float* __restrict__ cosv,
                                 const float* __restrict__ sinv, int Hq, int Hkv, int D,
                                 float eps, float* __restrict__ q_out, T* __restrict__ kdst,
-                                T* __restrict__ vdst, long head_stride) {
+                                T* __restrict__ vdst, long head_stride, long lane_stride) {
   __shared__ float v[1024];
-  __shared__ float red[32];
-  const int h = blockIdx.x, d = threadIdx.x, i = h * D + d;
-  const float y = (float)acc[i] * (s_in[0] * ws[i]);
+  __shared__ double redd[32];
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, i = h * D + d;
+  const float y = (float)acc[(size_t)b * (Hq + 2 * Hkv) * D + i] * (s_in[b] * ws[i]);
+  kdst += (size_t)b * lane_stride;
+  vdst += (size_t)b * lane_stride;
   if (h >= Hq + Hkv) {
     vdst[(long)(h - Hq - Hkv) * head_stride + d] = from_f<T>(y);
     return;
   }
-  const float var = block_sum(y * y, red) / (float)D;
+  const float var = (float)(block_sum((double)y * y, redd) / D);
   const float* w = h < Hq ? qn : kn;
   v[d] = y * (1.0f / sqrtf(var + eps)) * w[d];
   __syncthreads();
   const int half = D / 2, j = d % half;
   const float x1 = v[j], x2 = v[j + half];
-  const float o = d < half ? x1 * cosv[j] - x2 * sinv[j] : x1 * sinv[j] + x2 * cosv[j];
-  if (h < Hq) q_out[i] = o;
+  // each product rounded before the sum, as the plain version computes it
+  const float o = d < half ? __fsub_rn(__fmul_rn(x1, cosv[j]), __fmul_rn(x2, sinv[j]))
+                           : __fadd_rn(__fmul_rn(x1, sinv[j]), __fmul_rn(x2, cosv[j]));
+  if (h < Hq) q_out[(size_t)b * Hq * D + i] = o;
   else kdst[(long)(h - Hq) * head_stride + d] = from_f<T>(o);
 }
 
-// scores[hq, t] = (q_hq rounded to T) . K[h, t] * scale, t in this chunk.
-// grid (Hkv, chunks); each warp takes one position at a time.
+// scores[b, hq, t] = q_bhq . K[b, h, t] * scale, t in this chunk; q is
+// rounded to T first when round_q. grid (Hkv, chunks, B); each warp takes
+// one position at a time.
 template <typename T>
 __global__ void attn_scores_kernel(const float* __restrict__ q, const T* __restrict__ K,
-                                   long head_stride, int n_valid, int G, int D, float scale,
-                                   float* __restrict__ scores, int ld) {
+                                   long head_stride, long lane_stride, int n_valid, int G,
+                                   int D, float scale, int round_q, float* __restrict__ scores,
+                                   int ld) {
   extern __shared__ float qs[];
-  const int h = blockIdx.x;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    qs[i] = to_f<T>(from_f<T>(q[(size_t)h * G * D + i]));
+  const int h = blockIdx.x, b = blockIdx.z, Hq = gridDim.x * G;
+  q += (size_t)b * Hq * D;
+  K += (size_t)b * lane_stride;
+  scores += (size_t)b * Hq * ld;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const float v = q[(size_t)h * G * D + i];
+    qs[i] = round_q ? to_f<T>(from_f<T>(v)) : v;
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int t0 = blockIdx.y * kAttnChunk, t1 = min(n_valid, t0 + kAttnChunk);
   for (int t = t0 + wid; t < t1; t += nw) {
     const T* krow = K + (long)h * head_stride + (size_t)t * D;
-    float a[kMaxGroup];
-    for (int g = 0; g < G; ++g) a[g] = 0.f;
+    double a[kMaxGroup];
+    for (int g = 0; g < G; ++g) a[g] = 0.0;
     for (int d = lane; d < D; d += 32) {
-      const float kv = to_f<T>(krow[d]);
+      const double kv = to_f<T>(krow[d]);
       for (int g = 0; g < G; ++g) a[g] += qs[g * D + d] * kv;
     }
     for (int g = 0; g < G; ++g) {
-      float s = a[g];
+      double s = a[g];
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) scores[(size_t)(h * G + g) * ld + t] = s * scale;
+      if (lane == 0) scores[(size_t)(h * G + g) * ld + t] = (float)s * scale;
     }
   }
 }
 
-// p = softmax(scores[hq, 0:n_valid]) in float32, then rounded to T.
+// p = softmax(scores[b, hq, 0:n_valid]): e = exp(s - max) and its sum in
+// float64, p = e / sum rounded to float32, and further to T when round_p.
+// grid (Hq, B).
 template <typename T>
-__global__ void attn_softmax_kernel(float* __restrict__ scores, int ld, int n_valid) {
+__global__ void attn_softmax_kernel(float* __restrict__ scores, int ld, int n_valid,
+                                    int round_p) {
   __shared__ float red[32];
-  float* s = scores + (size_t)blockIdx.x * ld;
+  __shared__ double redd[32];
+  float* s = scores + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ld;
   float m = -3.4e38f;
   for (int t = threadIdx.x; t < n_valid; t += blockDim.x) m = fmaxf(m, s[t]);
   m = block_max(m, red);
-  float sum = 0.f;
+  double sum = 0.0;
+  for (int t = threadIdx.x; t < n_valid; t += blockDim.x) sum += exp((double)(s[t] - m));
+  sum = block_sum(sum, redd);
   for (int t = threadIdx.x; t < n_valid; t += blockDim.x) {
-    const float e = expf(s[t] - m);
-    s[t] = e;
-    sum += e;
+    const float p = (float)(exp((double)(s[t] - m)) / sum);
+    s[t] = round_p ? to_f<T>(from_f<T>(p)) : p;
   }
-  sum = block_sum(sum, red);
-  for (int t = threadIdx.x; t < n_valid; t += blockDim.x) s[t] = to_f<T>(from_f<T>(s[t] / sum));
 }
 
-// partial[chunk, hq, d] = sum_{t in chunk, t < n_valid} p[hq, t] * V[h, t, d].
-// grid (Hkv, chunks), block G * D threads.
+// partial[b, chunk, hq, d] = sum_{t in chunk, t < n_valid} p[b, hq, t] *
+// V[b, h, t, d] in float64; lane b's partials start at b * chunk_cap * Hq *
+// D. grid (Hkv, chunks, B), block G * D threads.
 template <typename T>
 __global__ void attn_pv_kernel(const float* __restrict__ p, int ld, const T* __restrict__ V,
-                               long head_stride, int n_valid, int G, int D, int Hq,
-                               float* __restrict__ partial) {
-  const int h = blockIdx.x, g = threadIdx.x / D, d = threadIdx.x % D;
+                               long head_stride, long lane_stride, int n_valid, int G, int D,
+                               int Hq, int chunk_cap, double* __restrict__ partial) {
+  const int h = blockIdx.x, b = blockIdx.z, g = threadIdx.x / D, d = threadIdx.x % D;
   const int hq = h * G + g;
   const int t0 = blockIdx.y * kAttnChunk, t1 = min(n_valid, t0 + kAttnChunk);
-  const float* pr = p + (size_t)hq * ld;
-  const T* vb = V + (long)h * head_stride + d;
-  float o = 0.f;
-  for (int t = t0; t < t1; ++t) o += pr[t] * to_f<T>(vb[(size_t)t * D]);
-  partial[(size_t)blockIdx.y * Hq * D + (size_t)hq * D + d] = o;
+  const float* pr = p + ((size_t)b * Hq + hq) * ld;
+  const T* vb = V + (size_t)b * lane_stride + (long)h * head_stride + d;
+  double o = 0.0;
+  for (int t = t0; t < t1; ++t) o += (double)pr[t] * to_f<T>(vb[(size_t)t * D]);
+  partial[((size_t)b * chunk_cap + blockIdx.y) * Hq * D + (size_t)hq * D + d] = o;
 }
 
-// o = sum over chunks of the partials (fixed order); int8(o).
-__global__ void merge_quant_kernel(const float* __restrict__ partial, int chunks, int n,
-                                   int8_t* __restrict__ xq, float* __restrict__ s_out,
-                                   int* __restrict__ zero, int zero_n) {
+// Lane blockIdx.x: o = sum over chunks of the float64 partials, rounded to
+// float32; int8(o).
+__global__ void merge_quant_kernel(const double* __restrict__ partial, int chunks,
+                                   int chunk_cap, int n, int8_t* __restrict__ xq, int ldq,
+                                   float* __restrict__ s_out, int* __restrict__ zero,
+                                   int zero_n) {
   extern __shared__ float buf[];
   __shared__ float red[32];
+  const int b = blockIdx.x;
+  partial += (size_t)b * chunk_cap * n;
   float am = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float o = 0.f;
-    for (int c = 0; c < chunks; ++c) o += partial[(size_t)c * n + i];
+    double acc = 0.0;
+    for (int c = 0; c < chunks; ++c) acc += partial[(size_t)c * n + i];
+    const float o = (float)acc;
     buf[i] = o;
     am = fmaxf(am, fabsf(o));
   }
-  quantize_buf(buf, n, am, xq, s_out, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[i] = 0;
+  quantize_buf(buf, n, am, xq + (size_t)b * ldq, s_out + b, red);
+  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
 }
 
-// a = silu(gate) * up from the gate/up accumulator [2F]; int8(a).
+// Lane blockIdx.x: a = silu(gate) * up from the gate/up accumulator [2F];
+// int8(a).
 __global__ void swiglu_quant_kernel(const int* __restrict__ acc, const float* __restrict__ s_in,
                                     const float* __restrict__ ws, int F,
-                                    int8_t* __restrict__ xq, float* __restrict__ s_out,
+                                    int8_t* __restrict__ xq, int ldq, float* __restrict__ s_out,
                                     int* __restrict__ zero, int zero_n) {
   extern __shared__ float buf[];
   __shared__ float red[32];
-  const float sa = s_in[0];
+  const int b = blockIdx.x;
+  acc += (size_t)b * 2 * F;
+  const float sa = s_in[b];
   float am = 0.f;
   for (int i = threadIdx.x; i < F; i += blockDim.x) {
     float g = (float)acc[i] * (sa * ws[i]);
     const float u = (float)acc[F + i] * (sa * ws[F + i]);
-    g = g / (1.0f + expf(-g));
+    g = g / (1.0f + (float)exp(-(double)g));
     const float a = g * u;
     buf[i] = a;
     am = fmaxf(am, fabsf(a));
   }
-  quantize_buf(buf, F, am, xq, s_out, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[i] = 0;
+  quantize_buf(buf, F, am, xq + (size_t)b * ldq, s_out + b, red);
+  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
 }
 
-// logits = sum of the head GEMV's split partials (fixed order); optionally
-// written to logits_out; optionally sampled (sampler.cuh) into tok_out[idx].
+// Lane blockIdx.x of B: logits = sum of the head projection's split
+// partials partial[split, b, V] (fixed order); optionally written to
+// logits_out[b]; optionally sampled (sampler.cuh) into
+// tok_out[b * tok_ld + tok_idx] with seeds[b] (or `seed` when seeds is
+// null) and the lane's row of `seen` [B, V].
 __global__ void head_sample_kernel(const float* __restrict__ partial, int splits, int V,
                                    float* __restrict__ logits_out, int* __restrict__ tok_out,
-                                   int tok_idx, int suppress_start, int eos_id,
+                                   int tok_ld, int tok_idx, int suppress_start, int eos_id,
                                    const int8_t* __restrict__ seen, float penalty, float temp,
                                    float top_p, int top_k, int greedy, int use_top_p,
-                                   int seed, int step) {
+                                   int seed, const int* __restrict__ seeds, int step) {
   extern __shared__ float smem[];
   __shared__ float red[32];
   __shared__ int redi[32];
+  const int b = blockIdx.x, B = gridDim.x;
   float* l = smem;
   float* p = smem + V;
   for (int i = threadIdx.x; i < V; i += blockDim.x) {
     float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += partial[(size_t)s * V + i];
+    for (int s = 0; s < splits; ++s) v += partial[((size_t)s * B + b) * V + i];
     l[i] = v;
-    if (logits_out != nullptr) logits_out[i] = v;
+    if (logits_out != nullptr) logits_out[(size_t)b * V + i] = v;
   }
   __syncthreads();
   if (tok_out == nullptr) return;
-  const int tok = suppress_penalize_sample(l, p, V, suppress_start, eos_id, seen, penalty,
-                                           temp, top_p, top_k, greedy != 0,
-                                           use_top_p != 0, seed, step, red, redi);
-  if (threadIdx.x == 0) tok_out[tok_idx] = tok;
+  const int tok = suppress_penalize_sample(
+      l, p, V, suppress_start, eos_id, seen != nullptr ? seen + (size_t)b * V : nullptr,
+      penalty, temp, top_p, top_k, greedy != 0, use_top_p != 0,
+      seeds != nullptr ? seeds[b] : seed, step, red, redi);
+  if (threadIdx.x == 0) tok_out[(size_t)b * tok_ld + tok_idx] = tok;
 }
 
 // ---------------------------------------------------------------------------
@@ -310,44 +510,51 @@ struct Dims {
   float eps;
 };
 
-// Device scratch of one decoder stack, carved from one workspace buffer.
+// Device scratch of one decoder stack for B lanes, carved from one
+// workspace buffer; lane b's row of each [B, n] buffer starts at b * n.
 struct Work {
-  float* x;        // [H] residual carry
-  int8_t* xq;      // [max(H, Hq*D, F)] quantized activation
-  float* s;        // [4] activation scales: qkv, o, gate/up, down
-  int* acc_qkv;    // [(Hq+2Hkv)*D]
-  int* acc_o;      // [H]
-  int* acc_gu;     // [2F]
-  int* acc_d;      // [H]
-  float* q;        // [Hq*D]
-  float* scores;   // [Hq, C]
-  float* partial;  // [ceil(C/kAttnChunk), Hq*D]
-  float* hnorm;    // [H] output-normed hidden
-  float* head;     // [kSplitTarget, Vh] head GEMV partials
+  int B;           // lanes
+  int ldq;         // row stride of xq
+  int chunk_cap;   // attention chunks of a full cache: ceil(C / kAttnChunk)
+  float* x;        // [B, H] residual carry
+  int8_t* xq;      // [B, ldq] quantized activation
+  float* s;        // [4, B] activation scales: qkv, o, gate/up, down
+  int* acc_qkv;    // [B, (Hq+2Hkv)*D]
+  int* acc_o;      // [B, H]
+  int* acc_gu;     // [B, 2F]
+  int* acc_d;      // [B, H]
+  float* q;        // [B, Hq*D]
+  float* scores;   // [B, Hq, C]
+  double* partial; // [B, chunk_cap, Hq*D] attention partials
+  float* hnorm;    // [B, H] output-normed hidden
+  float* head;     // [splits, B, Vh] head projection partials
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
 
 // Carve `w` out of base (or only count the bytes when base is null).
-inline size_t carve_work(Work* w, char* base, const Dims& d, int C, int Vh) {
+inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int Vh) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
-  const int chunks = (C + kAttnChunk - 1) / kAttnChunk;
+  const int head_splits = B == 1 ? kSplitTarget : kHeadSplits;
   size_t off = 0;
   auto take = [&](size_t bytes) { char* p = base ? base + off : nullptr; off += align256(bytes); return p; };
   Work t;
-  t.x = (float*)take(sizeof(float) * d.H);
-  t.xq = (int8_t*)take(xqn);
-  t.s = (float*)take(sizeof(float) * 4);
-  t.acc_qkv = (int*)take(sizeof(int) * qkv);
-  t.acc_o = (int*)take(sizeof(int) * d.H);
-  t.acc_gu = (int*)take(sizeof(int) * 2 * d.F);
-  t.acc_d = (int*)take(sizeof(int) * d.H);
-  t.q = (float*)take(sizeof(float) * hd);
-  t.scores = (float*)take(sizeof(float) * (size_t)d.Hq * C);
-  t.partial = (float*)take(sizeof(float) * (size_t)chunks * hd);
-  t.hnorm = (float*)take(sizeof(float) * d.H);
-  t.head = (float*)take(sizeof(float) * (size_t)kSplitTarget * Vh);
+  t.B = B;
+  t.ldq = (xqn + 3) & ~3;
+  t.chunk_cap = (C + kAttnChunk - 1) / kAttnChunk;
+  t.x = (float*)take(sizeof(float) * B * d.H);
+  t.xq = (int8_t*)take((size_t)B * t.ldq);
+  t.s = (float*)take(sizeof(float) * 4 * B);
+  t.acc_qkv = (int*)take(sizeof(int) * B * qkv);
+  t.acc_o = (int*)take(sizeof(int) * B * d.H);
+  t.acc_gu = (int*)take(sizeof(int) * B * 2 * d.F);
+  t.acc_d = (int*)take(sizeof(int) * B * d.H);
+  t.q = (float*)take(sizeof(float) * B * hd);
+  t.scores = (float*)take(sizeof(float) * B * (size_t)d.Hq * C);
+  t.partial = (double*)take(sizeof(double) * B * (size_t)t.chunk_cap * hd);
+  t.hnorm = (float*)take(sizeof(float) * B * d.H);
+  t.head = (float*)take(sizeof(float) * (size_t)head_splits * B * Vh);
   if (w) *w = t;
   return off;
 }
@@ -359,23 +566,82 @@ inline int split_for(int K, int gx, int* kchunk) {
   return (K + *kchunk - 1) / *kchunk;
 }
 
-inline void gemv_w8a8(const int8_t* xq, const int8_t* W, int K, int N, int* acc,
-                      cudaStream_t st) {
-  const int gx = (N / 4 + 31) / 32;
-  int kchunk;
-  const int ks = split_for(K, gx, &kchunk);
-  gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(xq, W, K, N, kchunk, acc);
+// Split n_tiles K tiles over at most max_splits blocks per column strip;
+// returns the number of splits, and the tiles of each in *per.
+inline int tile_split(int n_tiles, int max_splits, int* per) {
+  const int ks = max_splits < n_tiles ? (max_splits > 0 ? max_splits : 1) : n_tiles;
+  *per = (n_tiles + ks - 1) / ks;
+  return (n_tiles + *per - 1) / *per;
 }
 
-// Returns the number of K splits written into `partial`.
-inline int gemv_bf16(const float* x, const __nv_bfloat16* W, int K, int N, float* partial,
-                     cudaStream_t st) {
-  const int gx = (N / 4 + 31) / 32;
-  int kchunk;
-  const int ks = split_for(K, gx, &kchunk);
-  gemv_bf16_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(x, W, K, N, kchunk, partial);
+template <template <int> class Launch, typename... Args>
+inline void by_lanes(int B, Args... args) {
+  if (B <= 8) Launch<1>::go(args...);
+  else if (B <= 16) Launch<2>::go(args...);
+  else if (B <= 32) Launch<4>::go(args...);
+  else if (B <= 64) Launch<8>::go(args...);
+  else Launch<16>::go(args...);
+}
+
+template <int BPT>
+struct GemmW8A8 {
+  static void go(dim3 grid, cudaStream_t st, const int8_t* xq, int ldq, int B, const int8_t* W,
+                 int K, int N, int per, int* acc) {
+    gemm_w8a8_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(xq, ldq, B, W, K, N, per, acc);
+  }
+};
+
+template <int BPT>
+struct GemmBF16 {
+  static void go(dim3 grid, cudaStream_t st, const float* x, int B, const __nv_bfloat16* W,
+                 int K, int N, int per, float* partial) {
+    gemm_bf16_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, B, W, K, N, per, partial);
+  }
+};
+
+// acc[b, :] += xq[b, :] @ W for the w.B lanes (acc was zeroed by the
+// kernel before).
+inline void project(const Work& w, const int8_t* W, int K, int N, int* acc, cudaStream_t st) {
+  if (w.B == 1) {
+    const int gx = (N / 4 + 31) / 32;
+    int kchunk;
+    const int ks = split_for(K, gx, &kchunk);
+    gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(w.xq, W, K, N, kchunk, acc);
+    return;
+  }
+  const int gx = (N + kGemmTN - 1) / kGemmTN;
+  int per;
+  const int ks = tile_split((K + kGemmTK - 1) / kGemmTK, (kSplitTarget + gx - 1) / gx, &per);
+  by_lanes<GemmW8A8>(w.B, dim3(gx, ks), st, (const int8_t*)w.xq, w.ldq, w.B, W, K, N, per,
+                     acc);
+}
+
+// The w.B lanes' x [B, K] float32 @ W bf16 [K, N] into split partials
+// w.head [splits, B, N]; returns the number of splits.
+inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, int K, int N,
+                        cudaStream_t st) {
+  if (w.B == 1) {
+    const int gx = (N / 4 + 31) / 32;
+    int kchunk;
+    const int ks = split_for(K, gx, &kchunk);
+    gemv_bf16_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(x, W, K, N, kchunk, w.head);
+    return ks;
+  }
+  const int gx = (N + kGemmTN - 1) / kGemmTN;
+  int per;
+  int max_splits = (kSplitTarget + gx - 1) / gx;
+  if (max_splits > kHeadSplits) max_splits = kHeadSplits;
+  const int ks = tile_split((K + kGemmTKf - 1) / kGemmTKf, max_splits, &per);
+  by_lanes<GemmBF16>(w.B, dim3(gx, ks), st, x, w.B, W, K, N, per, w.head);
   return ks;
 }
+
+// The raw weight pointers of one stacked decoder (leading axis L).
+struct StackWeights {
+  const int8_t *wqkv, *wo, *wgu, *wd;
+  const float *sqkv, *so, *sgu, *sd;
+  const float *attn_n, *q_n, *k_n, *ffn_n;
+};
 
 // One layer's weights and cache view.
 template <typename T>
@@ -383,61 +649,92 @@ struct LayerView {
   const int8_t *wqkv, *wo, *wgu, *wd;
   const float *sqkv, *so, *sgu, *sd;
   const float *attn_n, *q_n, *k_n, *ffn_n;
-  T* K;  // head 0, row 0 of this layer's keys; head h at K + h * head_stride
-  T* V;
+  T* K;  // lane 0, head 0, row 0 of this layer's keys; head h at + h * head_stride
+  T* V;  // lane b at + b * lane_stride
   long head_stride;
+  long lane_stride;
 };
 
-// Launch one layer for the token at position `pos` (its K/V row is written
-// at `pos`, attention covers rows [0, pos]). `prev_sd` is the previous
-// layer's down-projection scale row, or null for the first layer (then x
-// already holds the layer input).
+template <typename T>
+LayerView<T> layer_view(const StackWeights& s, const Dims& d, int l, T* K, T* V,
+                        long head_stride, long lane_stride) {
+  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
+  LayerView<T> lv;
+  lv.wqkv = s.wqkv + (size_t)l * d.H * qkv;
+  lv.wo = s.wo + (size_t)l * hd * d.H;
+  lv.wgu = s.wgu + (size_t)l * d.H * 2 * d.F;
+  lv.wd = s.wd + (size_t)l * d.F * d.H;
+  lv.sqkv = s.sqkv + (size_t)l * qkv;
+  lv.so = s.so + (size_t)l * d.H;
+  lv.sgu = s.sgu + (size_t)l * 2 * d.F;
+  lv.sd = s.sd + (size_t)l * d.H;
+  lv.attn_n = s.attn_n + (size_t)l * d.H;
+  lv.q_n = s.q_n + (size_t)l * d.D;
+  lv.k_n = s.k_n + (size_t)l * d.D;
+  lv.ffn_n = s.ffn_n + (size_t)l * d.H;
+  lv.K = K;
+  lv.V = V;
+  lv.head_stride = head_stride;
+  lv.lane_stride = lane_stride;
+  return lv;
+}
+
+// Launch one layer for the w.B lanes' tokens at position `pos` (their K/V
+// rows are written at `pos`, attention covers rows [0, pos]). `prev_sd` is
+// the previous layer's down-projection scale row, or null for the first
+// layer (then x already holds the layer input). round_q / round_p: see the
+// header.
 template <typename T>
 void run_layer(const Dims& d, const LayerView<T>& lv, const float* prev_sd, const Work& w,
-               const float* cosv, const float* sinv, int pos, int C, cudaStream_t st) {
-  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, G = d.Hq / d.Hkv;
+               const float* cosv, const float* sinv, int pos, int C, int round_q,
+               int round_p, cudaStream_t st) {
+  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, G = d.Hq / d.Hkv, B = w.B;
   const int n_valid = pos + 1, chunks = (n_valid + kAttnChunk - 1) / kAttnChunk;
   const size_t row_smem = sizeof(float) * (size_t)(d.H > d.F ? (d.H > hd ? d.H : hd)
                                                             : (d.F > hd ? d.F : hd));
-  resid_rms_quant_kernel<<<1, kRowThreads, row_smem, st>>>(
-      w.x, prev_sd ? w.acc_d : nullptr, w.s + 3, prev_sd, lv.attn_n, d.H, d.eps, w.xq,
-      w.s + 0, nullptr, w.acc_qkv, qkv);
-  gemv_w8a8(w.xq, lv.wqkv, d.H, qkv, w.acc_qkv, st);
-  qkv_post_kernel<T><<<d.Hq + 2 * d.Hkv, d.D, 0, st>>>(
-      w.acc_qkv, w.s + 0, lv.sqkv, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
-      lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride);
-  attn_scores_kernel<T><<<dim3(d.Hkv, chunks), 256, sizeof(float) * G * d.D, st>>>(
-      w.q, lv.K, lv.head_stride, n_valid, G, d.D, 1.0f / sqrtf((float)d.D), w.scores, C);
-  attn_softmax_kernel<T><<<d.Hq, kRowThreads, 0, st>>>(w.scores, C, n_valid);
-  attn_pv_kernel<T><<<dim3(d.Hkv, chunks), G * d.D, 0, st>>>(
-      w.scores, C, lv.V, lv.head_stride, n_valid, G, d.D, d.Hq, w.partial);
-  merge_quant_kernel<<<1, kRowThreads, row_smem, st>>>(w.partial, chunks, hd, w.xq, w.s + 1,
-                                                       w.acc_o, d.H);
-  gemv_w8a8(w.xq, lv.wo, hd, d.H, w.acc_o, st);
-  resid_rms_quant_kernel<<<1, kRowThreads, row_smem, st>>>(
-      w.x, w.acc_o, w.s + 1, lv.so, lv.ffn_n, d.H, d.eps, w.xq, w.s + 2, nullptr, w.acc_gu,
-      2 * d.F);
-  gemv_w8a8(w.xq, lv.wgu, d.H, 2 * d.F, w.acc_gu, st);
-  swiglu_quant_kernel<<<1, kRowThreads, row_smem, st>>>(w.acc_gu, w.s + 2, lv.sgu, d.F, w.xq,
-                                                        w.s + 3, w.acc_d, d.H);
-  gemv_w8a8(w.xq, lv.wd, d.F, d.H, w.acc_d, st);
+  resid_rms_quant_kernel<<<B, kRowThreads, row_smem, st>>>(
+      w.x, prev_sd ? w.acc_d : nullptr, w.s + 3 * B, prev_sd, lv.attn_n, d.H, d.eps, w.xq,
+      w.ldq, w.s + 0 * B, nullptr, w.acc_qkv, qkv);
+  project(w, lv.wqkv, d.H, qkv, w.acc_qkv, st);
+  qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
+      w.acc_qkv, w.s + 0 * B, lv.sqkv, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps,
+      w.q, lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
+  attn_scores_kernel<T><<<dim3(d.Hkv, chunks, B), 256, sizeof(float) * G * d.D, st>>>(
+      w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D, 1.0f / sqrtf((float)d.D),
+      round_q, w.scores, C);
+  attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid, round_p);
+  attn_pv_kernel<T><<<dim3(d.Hkv, chunks, B), G * d.D, 0, st>>>(
+      w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
+      w.partial);
+  merge_quant_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunks, w.chunk_cap, hd,
+                                                       w.xq, w.ldq, w.s + 1 * B, w.acc_o, d.H);
+  project(w, lv.wo, hd, d.H, w.acc_o, st);
+  resid_rms_quant_kernel<<<B, kRowThreads, row_smem, st>>>(
+      w.x, w.acc_o, w.s + 1 * B, lv.so, lv.ffn_n, d.H, d.eps, w.xq, w.ldq, w.s + 2 * B,
+      nullptr, w.acc_gu, 2 * d.F);
+  project(w, lv.wgu, d.H, 2 * d.F, w.acc_gu, st);
+  swiglu_quant_kernel<<<B, kRowThreads, row_smem, st>>>(w.acc_gu, w.s + 2 * B, lv.sgu, d.F,
+                                                        w.xq, w.ldq, w.s + 3 * B, w.acc_d, d.H);
+  project(w, lv.wd, d.F, d.H, w.acc_d, st);
 }
 
-// After the last layer: x += down projection; hnorm = RMSNorm(x) * out_norm.
+// After the last layer: x += down projection; hnorm = RMSNorm(x) * out_norm
+// for each of the w.B lanes.
 inline void final_norm(const Dims& d, const float* last_sd, const float* out_norm,
                        const Work& w, float* hnorm, cudaStream_t st) {
-  resid_rms_quant_kernel<<<1, kRowThreads, sizeof(float) * d.H, st>>>(
-      w.x, w.acc_d, w.s + 3, last_sd, out_norm, d.H, d.eps, nullptr, nullptr, hnorm,
+  resid_rms_quant_kernel<<<w.B, kRowThreads, sizeof(float) * d.H, st>>>(
+      w.x, w.acc_d, w.s + 3 * w.B, last_sd, out_norm, d.H, d.eps, nullptr, 0, nullptr, hnorm,
       nullptr, 0);
 }
 
 // Check the shapes the kernels assume; returns a cudaError_t-like code
 // (cudaErrorInvalidValue) when they do not hold.
-inline int check_dims(const Dims& d, int N_head) {
+inline int check_dims(const Dims& d, int N_head, int B) {
   const int G = d.Hq / d.Hkv;
   if (d.D % 32 != 0 || d.D > 1024 || d.Hq % d.Hkv != 0 || G > kMaxGroup || G * d.D > 1024)
     return (int)cudaErrorInvalidValue;
   if (d.H % 4 != 0 || d.F % 4 != 0 || N_head % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;
   return 0;
 }
 

@@ -10,7 +10,9 @@ Pass 0 runs the talker hidden through the layers (conditioning only). Pass
 p = 1..15 feeds the cb0 embedding (p = 1) or embds[p-2][code_{p-2}], then
 samples code p-1 from heads[p-1] at sampler step p with the frame's seed.
 Returns (codes [15], rest_sum [H] f32) with rest_sum = sum_s
-embds[s][code_s] summed in order of s.
+embds[s][code_s] summed in order of s. ``predict_codes_plain`` is the plain
+version of this kernel and of its batched counterpart K6
+(``fused_code_predictor_batched.py``).
 """
 
 from __future__ import annotations
@@ -28,48 +30,87 @@ def _rope_tables(cfg, device):
 
 
 def _xinit(cp_params, talker_hidden, cb0_embd):
+    """[2, ..., H] float32: the talker hidden and the cb0 embedding, both
+    rounded to the embedding dtype."""
     dt = cp_params.embds.dtype
     return torch.stack([talker_hidden.to(dt), cb0_embd.to(dt)]).float()
 
 
-def fused_predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
-                              temperature, top_k, top_p=1.0, greedy=False,
-                              use_top_p=True):
-    """Plain PyTorch version of K2."""
+def predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seeds, *, kv_dtype,
+                        temperature, top_k, top_p=1.0, greedy=False, use_top_p=True):
+    """Plain PyTorch version of K2 and K6 for B lanes: talker_hidden and
+    cb0_embd [B, H], seeds int [B]. K/V rows are stored rounded to kv_dtype
+    (float32 in K2, the embedding dtype in K6); attention rounds neither q
+    nor p. Returns (codes [B, 15] int64, rest_sum [B, H] f32)."""
     L, S, V, eps = cfg.n_layers, cfg.n_steps, cfg.vocab_size, cfg.rms_norm_eps
     dev = cp_params.embds.device
+    B = talker_hidden.shape[0]
     cos_t, sin_t = _rope_tables(cfg, dev)
     sample = make_sampler(top_k, V, greedy=greedy, use_top_p=use_top_p)
-    kc = [[] for _ in range(L)]      # float32 K/V rows of positions 0..p, per layer
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev).reshape(B, 1)
+    kc = [[] for _ in range(L)]      # K/V rows [B, Hkv, D] of positions 0..p, per layer
     vc = [[] for _ in range(L)]
 
     def layer_pass(x, p):
         for l in range(L):
             def attend(q, k, v, l=l):
-                kc[l].append(k)
-                vc[l].append(v)
-                return gqa_attention(q, torch.stack(kc[l], dim=1),
-                                     torch.stack(vc[l], dim=1), torch.float32)
+                kc[l].append(k.to(kv_dtype).float())
+                vc[l].append(v.to(kv_dtype).float())
+                return gqa_attention(q, torch.stack(kc[l], dim=2), torch.stack(vc[l], dim=2),
+                                     torch.float32)
 
             x = w8a8_layer(cp_params.blocks, cfg, l, x, cos_t[p], sin_t[p], attend)
         return x
 
     xinit = _xinit(cp_params, talker_hidden, cb0_embd)
-    layer_pass(xinit[0:1], 0)
-    rest_sum = torch.zeros((1, cfg.hidden_size), dtype=torch.float32, device=dev)
+    layer_pass(xinit[0], 0)
+    rest_sum = torch.zeros((B, cfg.hidden_size), dtype=torch.float32, device=dev)
     codes = []
     for p in range(1, S + 1):
         if p == 1:
-            emb = xinit[1:2]
+            emb = xinit[1]
         else:
-            emb = cp_params.embds[p - 2, codes[-1]].float()[None]
+            emb = cp_params.embds[p - 2, codes[-1]].float()
             rest_sum = rest_sum + emb
         x = layer_pass(emb, p)
         h = _rms(x, cp_params.output_norm, eps).to(cp_params.heads.dtype).float()
         logits = torch.matmul(h, cp_params.heads[p - 1].float())
-        codes.append(int(sample(logits, temperature, top_p, int(seed), p)[0]))
-    rest_sum = rest_sum + cp_params.embds[S - 1, codes[-1]].float()[None]
-    return torch.tensor(codes, dtype=torch.int64, device=dev), rest_sum[0]
+        codes.append(sample(logits, temperature, top_p, seeds, p))
+    rest_sum = rest_sum + cp_params.embds[S - 1, codes[-1]].float()
+    return torch.stack(codes, dim=1), rest_sum
+
+
+def fused_predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
+                              temperature, top_k, top_p=1.0, greedy=False,
+                              use_top_p=True):
+    """Plain PyTorch version of K2 (one lane, float32 KV)."""
+    codes, rest_sum = predict_codes_plain(
+        cp_params, cfg, talker_hidden[None], cb0_embd[None], [int(seed)],
+        kv_dtype=torch.float32, temperature=temperature, top_k=top_k, top_p=top_p,
+        greedy=greedy, use_top_p=use_top_p)
+    return codes[0], rest_sum[0]
+
+
+def cuda_operands(cp_params, cfg):
+    """The operands both CUDA code predictors (K2, K6) take after the
+    activations: (tensors, dims) with tensors = [cos, sin, five norms (f32),
+    the four projections' int8 q and f32 scales, heads, embds], contiguous,
+    and dims = (L, H, Hq, Hkv, D, F, V, CTX, S, eps)."""
+    blocks = cp_params.blocks
+    _kernels.require_cuda(cp_params.embds, cp_params.heads, blocks.wqkv.q)
+    if cp_params.embds.dtype != torch.bfloat16 or cp_params.heads.dtype != torch.bfloat16:
+        raise NotImplementedError("the CUDA code predictor takes bf16 heads and embeddings")
+    f32 = lambda t: t.float().contiguous()   # noqa: E731
+    tensors = list(_rope_tables(cfg, cp_params.embds.device))
+    tensors += [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm),
+                f32(blocks.ffn_norm), f32(cp_params.output_norm)]
+    for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
+        tensors += [w.q.contiguous(), f32(w.scale)]
+    tensors += [cp_params.heads.contiguous(), cp_params.embds.contiguous()]
+    dims = (cfg.n_layers, cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.intermediate_size, cfg.vocab_size, cfg.max_ctx, cfg.n_steps,
+            float(cfg.rms_norm_eps))
+    return tensors, dims
 
 
 def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
@@ -88,34 +129,18 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
             temperature=temperature, top_k=top_k, top_p=top_p, greedy=greedy,
             use_top_p=use_top_p)
     lib = _kernels.load_library()
-    blocks = cp_params.blocks
-    _kernels.require_cuda(cp_params.embds, cp_params.heads, talker_hidden,
-                          cb0_embd, blocks.wqkv.q)
-    if cp_params.embds.dtype != torch.bfloat16 or cp_params.heads.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA code predictor takes bf16 heads and embeddings")
-    H, L = cfg.hidden_size, cfg.n_layers
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    F, V, CTX, S = cfg.intermediate_size, cfg.vocab_size, cfg.max_ctx, cfg.n_steps
+    _kernels.require_cuda(talker_hidden, cb0_embd)
+    tensors, dims = cuda_operands(cp_params, cfg)
+    L, H, Hq, Hkv, D, F, V, CTX, S, _ = dims
     dev = cp_params.embds.device
-    cos_t, sin_t = _rope_tables(cfg, dev)
-    f32 = lambda t: t.float().contiguous()   # noqa: E731
     xinit = _xinit(cp_params, talker_hidden, cb0_embd).contiguous()
-    norms = [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm),
-             f32(blocks.ffn_norm), f32(cp_params.output_norm)]
-    wts = []
-    for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
-        wts += [w.q.contiguous(), f32(w.scale)]
-    heads, embds = cp_params.heads.contiguous(), cp_params.embds.contiguous()
     codes = torch.empty((S,), dtype=torch.int32, device=dev)
     rest_sum = torch.zeros((H,), dtype=torch.float32, device=dev)
     kv = torch.empty((2, L, Hkv, CTX, D), dtype=torch.float32, device=dev)
     ws = torch.empty(lib.qtts_cp_ws_bytes(H, Hq, Hkv, D, F, CTX, V),
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_code_predictor(
-        xinit.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-        *[t.data_ptr() for t in norms], *[t.data_ptr() for t in wts],
-        heads.data_ptr(), embds.data_ptr(),
-        L, H, Hq, Hkv, D, F, V, CTX, S, float(cfg.rms_norm_eps),
+        xinit.data_ptr(), *[t.data_ptr() for t in tensors], *dims,
         float(temperature), float(top_p), int(top_k), int(greedy),
         int(use_top_p), int(seed), codes.data_ptr(), rest_sum.data_ptr(),
         kv.data_ptr(), ws.data_ptr(), _kernels.stream_ptr(dev))

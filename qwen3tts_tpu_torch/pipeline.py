@@ -1,15 +1,18 @@
-"""Qwen3TTS pipeline of the port (counterpart of ``qwen3tts_tpu/pipeline.py``,
-single-stream synthesis only).
+"""Qwen3TTS pipeline of the port (counterpart of ``qwen3tts_tpu/pipeline.py``:
+single-stream synthesis and batched serving).
 
-``Qwen3TTS(config, device=...)`` holds the weights on one device:
+``Qwen3TTS(config, device="cuda")`` holds the weights on one device:
 bf16 talker and code-predictor weights and KV cache with int8 projection
 blocks (``RuntimeConfig(quant="int8")``), and a float32 vocoder.
 ``load_models(None, synthetic=True, seed=...)`` draws deterministic
 synthetic weights at the configured widths (no checkpoint ships with the
 repository; the checkpoint loaders are not ported yet). ``synthesize``
 runs host BPE, the prefill, the frame loop (kernels K1, K2, K4) and the
-vocoder (kernel K3). On ``device="cuda"`` every kernel launches on the card
-or raises; there is no CPU fallback.
+vocoder (kernel K3); ``synthesize_batch`` runs B requests in lockstep
+through the batched frame loop (kernels K5, K6, K4), then vocodes each
+lane (K3). On a CUDA device every kernel launches on the card or raises;
+there is no CPU fallback. The CPU runs only when asked for
+(``device="cpu"``), through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -20,9 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from qwen3tts_tpu.config import PipelineConfig, SamplingConfig
-from qwen3tts_tpu.text.bpe import TextTokenizer, synthetic_tokenizer
-
+from .config import PipelineConfig, SamplingConfig
 from .models import code_predictor as cp_model
 from .models import talker as talker_model
 from .models import vocoder as vocoder_model
@@ -31,6 +32,11 @@ from .ops.quant import quantize_block_params
 from .runtime import decode_loop
 from .runtime.buckets import pick_bucket
 from .runtime.timing import StageTimings, now_ms, rss_bytes
+from .text.bpe import TextTokenizer, synthetic_tokenizer
+
+# lanes of one batched frame loop (the batched talker kernel's cap); larger
+# batches run in groups of this many, one after another
+MAX_BATCH_LANES = 128
 
 
 @dataclasses.dataclass
@@ -58,7 +64,7 @@ def _sync(device: torch.device) -> None:
 class Qwen3TTS:
     """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
 
-    def __init__(self, config: Optional[PipelineConfig] = None, device="cpu"):
+    def __init__(self, config: Optional[PipelineConfig] = None, device="cuda"):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if self.config.runtime.dtype == "bfloat16" else torch.float32
@@ -123,6 +129,15 @@ class Qwen3TTS:
         padded[: len(tokens)] = tokens
         return padded, len(tokens)
 
+    def _frame_budget(self, params: SamplingConfig):
+        """(frames the loop may run, KV capacity): the capacity is sized by
+        the frame bucket as the JAX pipeline sizes it; the loop stops at
+        max_audio_tokens instead of running the bucket out."""
+        rt = self.config.runtime
+        bucket = pick_bucket(params.max_audio_tokens, rt.frame_buckets)
+        kv_capacity = -(-(10 + bucket + rt.kv_margin) // 256) * 256
+        return min(bucket, params.max_audio_tokens), kv_capacity
+
     def synthesize(self, text: str, params: SamplingConfig = SamplingConfig()) -> TTSResult:
         """Basic synthesis with the default voice (zero speaker embedding)."""
         result = TTSResult()
@@ -143,15 +158,14 @@ class Qwen3TTS:
 
         t0 = now_ms()
         padded, n_tok = self._fit_tokens(tokens)
-        max_frames = pick_bucket(params.max_audio_tokens, rt.frame_buckets)
-        kv_capacity = -(-(10 + max_frames + rt.kv_margin) // 256) * 256
+        max_frames, kv_capacity = self._frame_budget(params)
         gen = torch.Generator()
         gen.manual_seed(params.seed)
         gen_out = decode_loop.generate_from_tokens(
             self.talker_params, self.cp_params, torch.from_numpy(padded), n_tok,
             torch.zeros((tcfg.hidden_size,), dtype=torch.float32, device=self.device),
             params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
-            max_frames=min(max_frames, params.max_audio_tokens), kv_capacity=kv_capacity,
+            max_frames=max_frames, kv_capacity=kv_capacity,
             temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
             repetition_penalty=params.repetition_penalty,
             nothink=params.language_id < 0)
@@ -183,3 +197,70 @@ class Qwen3TTS:
                                              c.shape[0])
         _sync(self.device)
         return audio.cpu().numpy()
+
+    def synthesize_batch(self, texts, params: SamplingConfig = SamplingConfig(),
+                         speakers=None):
+        """Batched synthesis: the requests run one lockstep frame loop
+        (``decode_loop.generate_from_tokens_batched``, kernels K5 and K6), in
+        groups of MAX_BATCH_LANES one after another; then each lane is
+        vocoded on exactly its frames. Returns a list of TTSResult.
+
+        Timing attribution, as in the JAX pipeline: t_generate_ms and
+        t_decode_ms on each result are the batch's stage walls divided by
+        B; t_total_ms is the whole-batch wall. Lane b of a group samples with
+        its own seed drawn from params.seed (decode_loop), so lanes are
+        independent and the grouping changes no lane's output."""
+        tcfg = self.config.talker
+        B = len(texts)
+        results = [TTSResult() for _ in texts]
+        if not self._loaded:
+            for r in results:
+                r.error_msg = "Models not loaded"
+            return results
+        if speakers is None:
+            speakers = np.zeros((B, tcfg.hidden_size), np.float32)
+        t_total0 = now_ms()
+        token_lists = [self.tokenizer.encode_for_tts(t) for t in texts]
+        fitted = [self._fit_tokens(ids) for ids in token_lists]
+        Tb = max(p.shape[0] for p, _ in fitted)
+        tokens = np.zeros((B, Tb), np.int64)
+        for i, (p_i, _) in enumerate(fitted):
+            tokens[i, : p_i.shape[0]] = p_i
+        n_tok = [n for _, n in fitted]
+        max_frames, kv_capacity = self._frame_budget(params)
+        spk = torch.as_tensor(np.asarray(speakers), dtype=torch.float32, device=self.device)
+
+        t0 = now_ms()
+        codes, n_frames = [], []
+        gen = torch.Generator()
+        gen.manual_seed(params.seed)
+        for o in range(0, B, MAX_BATCH_LANES):
+            out = decode_loop.generate_from_tokens_batched(
+                self.talker_params, self.cp_params,
+                torch.from_numpy(tokens[o:o + MAX_BATCH_LANES]),
+                n_tok[o:o + MAX_BATCH_LANES], spk[o:o + MAX_BATCH_LANES],
+                [params.language_id] * len(texts[o:o + MAX_BATCH_LANES]), gen,
+                talker_cfg=tcfg, cp_cfg=self.config.code_predictor, max_frames=max_frames,
+                kv_capacity=kv_capacity, temperature=params.temperature, top_k=params.top_k,
+                top_p=params.top_p, repetition_penalty=params.repetition_penalty,
+                nothink=params.language_id < 0)
+            codes += list(out.codes.numpy().astype(np.int32))
+            n_frames += out.n_frames
+        t_gen = now_ms() - t0
+
+        t0 = now_ms()
+        audio = [self.decode_codes(c[:n]) if n else None for c, n in zip(codes, n_frames)]
+        t_dec = now_ms() - t0
+        for r, c, n, a in zip(results, codes, n_frames, audio):
+            r.codes = c[:n]
+            r.n_frames = n
+            r.timings.t_generate_ms = t_gen / max(B, 1)
+            r.timings.t_decode_ms = t_dec / max(B, 1)
+            r.timings.t_total_ms = now_ms() - t_total0
+            if n == 0:
+                r.error_msg = "No speech codes generated"
+                continue
+            r.audio = a
+            r.sample_rate = self.config.vocoder.sample_rate
+            r.success = True
+        return results

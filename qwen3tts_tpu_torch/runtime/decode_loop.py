@@ -1,6 +1,7 @@
-"""The single-stream frame loop (counterpart of ``generate_from_tokens`` and
+"""The frame loops: single-stream (counterpart of ``generate_from_tokens`` and
 ``_make_body`` in ``qwen3tts_tpu/runtime/decode_loop.py``, fused-kernel
-path).
+path) and batched (``generate_from_tokens_batched``, counterpart of
+``_generate_batched_fused`` there).
 
 Prefill, then per frame:
   1. cb0 is the token the previous talker step's kernel epilogue sampled
@@ -17,6 +18,10 @@ one key, the port draws them from a torch.Generator seeded by the request
 seed (one for frame 0's cb0, then two per frame: code predictor, next cb0).
 Greedy output therefore matches JAX exactly; sampled output matches only at
 kernel level, given the same seeds.
+
+The batched loop runs B lanes in lockstep through K6 and K5 (one shared
+n_past: every lane's prefill window has the same length); see
+``generate_from_tokens_batched``.
 """
 
 from __future__ import annotations
@@ -27,15 +32,25 @@ import torch
 
 from ..models import talker as talker_model
 from ..ops.fused_code_predictor import fused_predict_codes
-from ..ops.fused_talker_step import fused_talker_step
+from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
+from ..ops.fused_talker_step import fused_talker_step, fused_talker_step_batched
 from ..ops.kernel_prng import sampling_flags
 from ..ops.sampling import sample_rows
+
+
+# lanes of one K6 call; larger batches run it in groups of this many
+CP_KERNEL_MAX_LANES = 64
 
 
 class GenerateResult(NamedTuple):
     codes: torch.Tensor     # [n_frames, 16] int64
     n_frames: int
     hidden: torch.Tensor    # [n_frames, H] output-normed talker hidden (param dtype)
+
+
+class BatchedGenerateResult(NamedTuple):
+    codes: torch.Tensor     # [B, max_frames, 16] int64; lane b's first n_frames[b] rows
+    n_frames: list          # [B] frames each lane emitted
 
 
 def draw_seeds(gen: torch.Generator, n: int) -> list:
@@ -109,3 +124,109 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
         return GenerateResult(torch.zeros((0, tcfg.n_codebooks), dtype=torch.int64), 0,
                               torch.zeros((0, H), dtype=dtype))
     return GenerateResult(torch.stack(codes), len(codes), torch.stack(hidden_out))
+
+
+def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd,
+                                 language_ids, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                                 max_frames: int, kv_capacity: int, temperature: float,
+                                 top_k: int, top_p: float = 1.0,
+                                 repetition_penalty: float = 1.05, nothink: bool = False,
+                                 budgets=None) -> BatchedGenerateResult:
+    """Prefill + the frame loop for B requests in lockstep (counterpart of
+    ``_generate_batched_fused``, fused kernels, int8).
+
+    tokens [B, Tb] padded ids with n_tokens[b] real ones (one shared Tb, so
+    every lane's prefill window has the same length and the lanes share
+    n_past); speaker_embd [B, H]; language_ids [B]; budgets, when given,
+    caps lane b at budgets[b] frames. Per lane: build_prefill and the dense
+    prefill into its slice kv[b]; frame 0's cb0 from K4 on the [B, Vc]
+    prefill logits. Then per frame-set: K6 (in groups of
+    CP_KERNEL_MAX_LANES lanes) predicts codes 1..15 and rest_sum; the codes
+    are written for emitting lanes only and their seen-sets updated;
+    step_embd = codec_embd[cb0] + rest_sum + trailing[min(frame, Trb-1)];
+    K5 steps every lane and samples its next cb0. EOS is latched per lane;
+    finished lanes keep stepping with their emissions masked. The loop ends
+    when every lane is done or after max_frames, with one host sync per
+    frame-set.
+
+    Seeds: B lane seeds are drawn from `gen`; lane b then draws from its own
+    generator, seeded with its lane seed, exactly as generate_from_tokens
+    draws from `gen`. So lane b reproduces generate_from_tokens run with a
+    generator seeded with lane b's seed (the port's analog of
+    jax.random.split(key, B)).
+    """
+    tcfg, ccfg = talker_cfg, cp_cfg
+    dev = talker_params.codec_embd.device
+    dtype = talker_params.codec_embd.dtype
+    B = int(tokens.shape[0])
+    Vc = tcfg.codec_vocab_size
+    suppress_start = Vc - tcfg.n_suppressed_tail
+    eos = tcfg.codec_eos_id
+    greedy, use_top_p = sampling_flags(temperature, top_p)
+    samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
+                use_top_p=use_top_p)
+    # lane b's draws: 1 for frame 0's cb0, then (code predictor, next cb0)
+    # per frame, as generate_from_tokens draws them
+    lane_seeds = []
+    for s in draw_seeds(gen, B):
+        g = torch.Generator()
+        g.manual_seed(s)
+        lane_seeds.append(draw_seeds(g, 1 + 2 * max_frames))
+    seeds = torch.tensor(lane_seeds, dtype=torch.int32).to(dev)      # [B, 1 + 2F]
+    lanes = torch.arange(B, device=dev)
+
+    with torch.no_grad():
+        prefills = [talker_model.build_prefill(
+            talker_params, tcfg, torch.as_tensor(tokens[b]), int(n_tokens[b]),
+            speaker_embd[b], int(language_ids[b]), nothink=nothink) for b in range(B)]
+        P = prefills[0].prefill_embd.shape[0]
+        trailing = torch.stack([p.trailing for p in prefills])       # [B, Trb, H]
+        Trb = trailing.shape[1]
+        if P + max_frames > kv_capacity:
+            raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
+        kv = torch.zeros((B, tcfg.n_layers, 2, tcfg.n_kv_heads, kv_capacity, tcfg.head_dim),
+                         dtype=dtype, device=dev)
+        outs = [talker_model.talker_prefill(talker_params, tcfg, p.prefill_embd, kv[b])
+                for b, p in enumerate(prefills)]
+        last_hidden = torch.stack([h for h, _ in outs])
+        cb0_next = sample_rows(torch.stack([lg for _, lg in outs]).float(), seeds[:, 0], 0,
+                               suppress_start=suppress_start, eos_id=eos, **samp)
+        seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        frame = torch.zeros((B,), dtype=torch.int64, device=dev)
+        cap = (torch.full((B,), max_frames, dtype=torch.int64) if budgets is None
+               else torch.as_tensor(budgets, dtype=torch.int64)).to(dev)
+        codes = torch.zeros((B, max_frames, tcfg.n_codebooks), dtype=torch.int64, device=dev)
+        n_past = P
+        for it in range(max_frames):
+            cb0 = cb0_next.to(torch.int64)
+            done = done | (cb0 == eos)
+            emit = ~done
+            if not bool(emit.any()):
+                break
+            cb0_embd = talker_params.codec_embd[cb0]                    # [B, H]
+            rest, rest_sum = [], []
+            for o in range(0, B, CP_KERNEL_MAX_LANES):
+                r, rs = fused_predict_codes_batched(
+                    cp_params, ccfg, last_hidden[o:o + CP_KERNEL_MAX_LANES],
+                    cb0_embd[o:o + CP_KERNEL_MAX_LANES],
+                    seeds[o:o + CP_KERNEL_MAX_LANES, 1 + 2 * it], **samp)
+                rest.append(r.to(torch.int64))
+                rest_sum.append(rs)
+            frame_codes = torch.cat([cb0[:, None], torch.cat(rest)], dim=1)
+            codes[:, it] = torch.where(emit[:, None], frame_codes, codes[:, it])
+            seen[lanes, cb0] |= emit.to(torch.int8)
+            trailing_row = trailing[lanes, torch.clamp(frame, max=Trb - 1)]
+            step_embd = (cb0_embd.float() + torch.cat(rest_sum)
+                         + trailing_row.float()).to(dtype)
+            out = fused_talker_step_batched(
+                talker_params.blocks, tcfg, step_embd, n_past, kv,
+                output_norm=talker_params.output_norm, codec_head=talker_params.codec_head,
+                seen=seen, seeds=seeds[:, 2 + 2 * it], repetition_penalty=repetition_penalty,
+                suppress_start=suppress_start, eos_id=eos, **samp)
+            last_hidden = out.hidden.to(dtype)
+            cb0_next = out.cb0
+            frame = frame + emit.to(torch.int64)
+            done = done | (frame >= cap)
+            n_past += 1
+    return BatchedGenerateResult(codes.cpu(), frame.cpu().tolist())

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
-from qwen3tts_tpu.config import PipelineConfig
+from qwen3tts_tpu_torch.config import PipelineConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -24,7 +24,8 @@ def tts():
 
 
 @pytest.mark.parametrize("check", ["check_sampler", "check_talker_step",
-                                   "check_code_predictor", "check_res_block"])
+                                   "check_code_predictor", "check_talker_step_batched",
+                                   "check_code_predictor_batched", "check_res_block"])
 def test_kernel_matches_plain_on_card(tts, check):
     report = {}
     getattr(chip_smoke, check)(tts, report, iters=1)

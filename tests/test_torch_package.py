@@ -1,5 +1,7 @@
-"""Package hygiene of the port: no jax import, no fallback from a CUDA request
-to a plain version, and chip_smoke.py's phases at the tiny configuration."""
+"""Package hygiene of the port: no import of jax or of the JAX package, its
+own config copy in step with the JAX package's, no fallback from a CUDA
+request to a plain version, and chip_smoke.py's phases at the tiny
+configuration."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 import chip_smoke
+import qwen3tts_tpu.config as jconfig
+import qwen3tts_tpu_torch.config as pconfig
 from qwen3tts_tpu.config import tiny_pipeline_config
 from qwen3tts_tpu_torch import _kernels
 
@@ -25,6 +29,8 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.runtime.timing", "qwen3tts_tpu_torch.models.vocoder",
     "qwen3tts_tpu_torch.ops.fused_talker_step", "qwen3tts_tpu_torch.ops.fused_code_predictor",
     "qwen3tts_tpu_torch.ops.fused_vocoder", "qwen3tts_tpu_torch.ops.sampling",
+    "qwen3tts_tpu_torch.ops.fused_code_predictor_batched", "qwen3tts_tpu_torch.config",
+    "qwen3tts_tpu_torch.text.bpe",
 ]
 
 
@@ -32,10 +38,59 @@ def test_port_never_imports_jax():
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "import qwen3tts_tpu_torch as q; q.Qwen3TTS\n"
-            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n")
+            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+            "assert 'qwen3tts_tpu' not in sys.modules\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    """An AST walk over every .py file of the port: no import names jax or a
+    module of qwen3tts_tpu (relative imports stay inside the port)."""
+    bad = []
+    root = os.path.join(REPO, "qwen3tts_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read())
+            names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                     for a in n.names]
+            names += [n.module for n in ast.walk(tree)
+                      if isinstance(n, ast.ImportFrom) and n.level == 0]
+            bad += [(os.path.relpath(path, REPO), m) for m in names
+                    if m.split(".")[0] in ("jax", "jaxlib", "qwen3tts_tpu")]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("which", ["defaults", "tiny"])
+def test_config_copy_matches_the_jax_package(which):
+    """The port's config dataclasses equal the JAX package's field for
+    field, for the defaults and for tiny_pipeline_config()."""
+    def get(mod):
+        return mod.PipelineConfig() if which == "defaults" else mod.tiny_pipeline_config()
+
+    j, p = get(jconfig), get(pconfig)
+    for name in ("talker", "code_predictor", "vocoder", "speaker_encoder", "runtime"):
+        jf = [f.name for f in dataclasses.fields(getattr(j, name))]
+        pf = [f.name for f in dataclasses.fields(getattr(p, name))]
+        assert jf == pf, name
+    assert dataclasses.asdict(j) == dataclasses.asdict(p)
+    assert dataclasses.asdict(jconfig.SamplingConfig()) == dataclasses.asdict(
+        pconfig.SamplingConfig())
+    assert j.talker.n_suppressed_tail == p.talker.n_suppressed_tail
+    assert (j.code_predictor.n_steps, j.code_predictor.max_ctx) == (
+        p.code_predictor.n_steps, p.code_predictor.max_ctx)
+    assert j.vocoder.samples_per_frame == p.vocoder.samples_per_frame
+
+
+def test_pipeline_defaults_to_the_card():
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    assert Qwen3TTS(pconfig.tiny_pipeline_config()).device.type == "cuda"
 
 
 def test_chip_smoke_names_no_jax_package_module():
@@ -88,6 +143,14 @@ def test_device_request_raises_without_the_library(no_library, kernel):
         elif kernel == "fused_predict_codes":
             h = torch.zeros(ccfg.hidden_size, device=meta)
             fn(cp, ccfg, h, h, 0, temperature=0.0, top_k=50, greedy=True)
+        elif kernel == "fused_talker_step_batched":
+            kv = torch.zeros((2, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
+                             device=meta)
+            fn(tp.blocks, tcfg, torch.zeros((2, tcfg.hidden_size), device=meta), 3, kv,
+               output_norm=tp.output_norm, codec_head=tp.codec_head)
+        elif kernel == "fused_predict_codes_batched":
+            h = torch.zeros((2, ccfg.hidden_size), device=meta)
+            fn(cp, ccfg, h, h, [0, 1], temperature=0.0, top_k=50, greedy=True)
         elif kernel == "fused_res_block":
             C = 8
             w1, w2, v = (torch.zeros((7, C, C), device=meta),
@@ -119,12 +182,22 @@ def test_chip_smoke_phases_at_tiny_config():
     chip_smoke.check_sampler(tts, report, iters=1)
     chip_smoke.check_talker_step(tts, report, iters=1)
     chip_smoke.check_code_predictor(tts, report, iters=1)
+    chip_smoke.check_talker_step_batched(
+        tts, report, iters=1, shapes=((2, 32, (3,)), (3, 32, (5, 20)), (2, 64, (40,))))
+    chip_smoke.check_code_predictor_batched(tts, report, iters=1, B=6)
     chip_smoke.check_res_block(tts, report, iters=1)
     assert set(report) == set(chip_smoke.KERNELS)
+    keys = {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err"}
+    assert all(keys <= set(r) and r["bound_ms"] > 0 for r in report.values())
     stats, counts = chip_smoke.serve(
         tts, [("Hello.", dict(max_audio_tokens=4, temperature=0.0, seed=1)),
               ("Hi there.", dict(max_audio_tokens=4, seed=3))])
     assert all(s["ok"] for s in stats)
+    assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    bstats, counts = chip_smoke.serve_batches(
+        tts, [(3, dict(max_audio_tokens=4, temperature=0.0, seed=1)),
+              (2, dict(max_audio_tokens=4, seed=3))], min_frames_per_lane=1)
+    assert [s["lanes"] for s in bstats] == [3, 2] and all(s["frames"] > 0 for s in bstats)
     assert counts == {name: 0 for name in chip_smoke.KERNELS}
 
 
@@ -142,6 +215,60 @@ def test_device_busy_is_the_union_of_device_intervals():
           dict(cat="gpu_memcpy", ts=600, dur=100), dict(cat="gpu_memset", ts=3000, dur=500),
           dict(cat="cpu_op", ts=1500, dur=1000), dict(cat="kernel", ts=4000)]
     assert chip_smoke.device_busy_ms(ev) == pytest.approx(2.0)
+
+
+def test_device_top_sums_time_per_kernel_name():
+    """Device time and launches summed per kernel (its bare function name),
+    largest first; host events do not count."""
+    ev = [dict(cat="kernel", name="void (anonymous namespace)::gemm_w8a8_kernel<8>(int)",
+               ts=0, dur=3000),
+          dict(cat="kernel", name="void (anonymous namespace)::gemm_w8a8_kernel<16>(int)",
+               ts=5000, dur=1000),
+          dict(cat="gpu_memcpy", name="Memcpy DtoD (Device -> Device)", ts=7000, dur=500),
+          dict(cat="cpu_op", name="aten::mm", ts=0, dur=9000),
+          dict(cat="kernel", name="void at::native::add<float>(float)", ts=8000, dur=2000)]
+    assert chip_smoke.device_top(ev) == [["gemm_w8a8_kernel", 4.0, 2], ["add", 2.0, 1],
+                                         ["Memcpy DtoD (Device -> Device)", 0.5, 1]]
+    assert len(chip_smoke.device_top(ev, n=1)) == 1
+
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if any(a.endswith("bad.cu") for a in args):
+    sys.exit("bad.cu: error")
+with open(out, "w") as f:
+    f.write(" ".join(args))
+"""
+
+
+@pytest.mark.parametrize("sources", [("a.cu", "b.cu"), ("a.cu", "bad.cu")])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, sources):
+    """One compile per source (-c into its own object), then one link of
+    all objects into the library; a failing source raises with its name and
+    leaves no library and no objects behind."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    csrc, build_dir = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    for s in sources + ("common.cuh",):
+        (csrc / s).write_text(f"// {s}\n")
+    monkeypatch.setattr(_kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(build_dir))
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    if "bad.cu" in sources:
+        with pytest.raises(RuntimeError, match="bad.cu"):
+            _kernels.build()
+        assert os.listdir(build_dir) == []
+        return
+    lib = _kernels.build()
+    assert os.listdir(build_dir) == [os.path.basename(lib)]
+    link = open(lib).read().split()
+    assert "-shared" in link and [os.path.basename(a) for a in link if a.endswith(".o")] == [
+        "a.cu.o", "b.cu.o"]
+    assert _kernels.build() == lib   # unchanged sources: built once
 
 
 def test_chip_smoke_alone_fails(tmp_path):
