@@ -10,18 +10,30 @@ Phases (each prints a line; any failure exits non-zero):
      the same inputs, at the main paths' full 0.6B widths, with the stated
      tolerance, and both timed with CUDA events after a warm-up; beside
      each time, the least time the card could take for the same work;
-  4. serve: one Qwen3TTS(quant="int8", device="cuda") with synthetic
-     weights answers three single-stream requests (greedy 64 tokens;
-     sampled 256; sampled 1500, whose KV capacity exceeds 1024 rows), each
-     of which must succeed with finite audio of n_frames * 1920 samples and
-     move the launch counters of K1-K4; then two synthesize_batch calls
-     (16 texts greedy, 64 texts sampled), whose lanes must have finite audio
-     and codes in range, which must emit at least 8 frames per lane in all
-     and move the counters of K5, K6, K3 and K4;
-  5. profile: the sampled 256-token request and the 16-lane batch again,
-     under torch.profiler with device activity only; prints the device's
-     busy time (the union of its kernel and copy intervals), its idle
-     share, and the kernels with the most device time in each.
+  4. serve, each path with the launch counts set to 0 just before it and
+     read just after: one Qwen3TTS(quant="int8", device="cuda") with
+     synthetic weights answers three single-stream requests (greedy 64
+     tokens; sampled 256; sampled 1500, whose KV capacity exceeds 1024
+     rows), each of which must succeed with finite audio of n_frames * 1920
+     samples and launch K1, K2, K3 and the W8A16 GEMM (the prefill's
+     projections); then two synthesize_batch calls (16 texts greedy, 64
+     texts sampled), whose lanes must have finite audio and codes in range,
+     which must emit at least 8 frames per lane in all and launch K5, K6, K3
+     and the GEMM; then the unfused path on the same weights,
+     Qwen3TTS(..., fused_talker=False, fused_cp=False): a greedy 64-token
+     request (C = 256: the GEMM, attention in PyTorch), a sampled request of
+     max_audio_tokens=600 (C = 1280: the GEMM and the decode-attention
+     kernel) and a 16-lane greedy batch of 600, which must launch the GEMM
+     and K3 (the C = 1280 ones also decode attention) and none of K1, K2,
+     K5, K6. K4's standalone entry (sample_rows) has no caller on a serve
+     path: frame 0's codebook-0 token is drawn by the PyTorch sampler with
+     the JAX package's exact top-k, and K4's device code runs inside K1, K2,
+     K5 and K6; the kernel phase still holds it against its plain version;
+  5. profile: the sampled 256-token request, the 16-lane batch and the
+     unfused 600-token request again, under torch.profiler with device
+     activity only; prints the device's busy time (the union of its kernel
+     and copy intervals), its idle share, and the kernels with the most
+     device time in each.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -34,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
 import re
 import subprocess
 import sys
@@ -66,11 +77,26 @@ KERNELS = {
         "qwen3tts_tpu_torch.ops.fused_code_predictor_batched", "fused_predict_codes_batched",
         "qwen3tts_tpu_torch/csrc/code_predictor_batched.cu",
         "qwen3tts_tpu/ops/pallas_code_predictor_batched.py:235"),
+    "decode_attention": (
+        "qwen3tts_tpu_torch.ops.decode_attention", "decode_attention_kernel",
+        "qwen3tts_tpu_torch/csrc/decode_attention.cu",
+        "qwen3tts_tpu/ops/pallas_attention.py:83"),
+    "int8_matmul": (
+        "qwen3tts_tpu_torch.ops.int8_matmul", "int8_matmul",
+        "qwen3tts_tpu_torch/csrc/int8_matmul.cu",
+        "qwen3tts_tpu/ops/pallas_int8_matmul.py:47"),
 }
-# the kernels each main path must launch
-SINGLE_PATH = ("fused_talker_step", "fused_predict_codes", "fused_res_block", "sample_rows")
+# TPU kernels a kernel replaces besides the one KERNELS names
+ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201"}
+# the kernels each main path must launch (K4's standalone entry is on none:
+# see the module docstring); the unfused path launches decode attention
+# only at KV capacities of 1024 rows and more
+SINGLE_PATH = ("fused_talker_step", "fused_predict_codes", "fused_res_block", "int8_matmul")
 BATCH_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched", "fused_res_block",
-              "sample_rows")
+              "int8_matmul")
+UNFUSED_PATH = ("int8_matmul", "fused_res_block")
+FUSED_ONLY = ("fused_talker_step", "fused_predict_codes", "fused_talker_step_batched",
+              "fused_predict_codes_batched")
 
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
 # second by operand type (float32 on the CUDA cores, no TF32)
@@ -541,6 +567,175 @@ def check_code_predictor_batched(tts, report, iters, B=64):
         shape=f"B={B}, one frame-set", tolerance="codes equal per lane; rest_sum 1e-3 abs")
 
 
+def _bf16_ulp(a):
+    """The bf16 spacing at each |a| (8 significant bits)."""
+    import torch
+
+    a = a.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _layer_cycle(fn, n):
+    """A call of fn(i) for i = 0..n-1: one timed unit that walks n layers'
+    operands, so that, as on the main path, each call finds its operands
+    in device memory and not in the 50 MB L2."""
+    def run():
+        for i in range(n):
+            fn(i)
+
+    return run
+
+
+def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
+    """The W8A16 GEMM at the four projection shapes (K, N) of the talker's
+    blocks, for each M of `rows` (1: an unfused single-stream step; 10: the
+    prefill; up to 128: the batched unfused step's lanes) with bf16 x, plus
+    float32 x and M = 2 * 128 (the batched code predictor's prefill) at one
+    shape. Tolerance: each element within one bf16 ulp (float32 x: 1e-5
+    relative) of the plain version, plus 1e-5 of the largest |plain| for
+    outputs near 0, where the two float32 summation orders' rounding is the
+    larger term. Timed per call cycling over the 28 layers' weights (cold in
+    L2, as on the main path): ms from CUDA events around the run (the
+    host's launch gaps included), device_ms the kernels' own time under the
+    profiler; library_ms is torch._weight_int8pack_mm where
+    this PyTorch has it for CUDA (the port never calls it)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks, dev = tts.talker_params.blocks, tts.device
+    L = tts.config.talker.n_layers
+    g = torch.Generator(device="cpu").manual_seed(19)
+    names = ("wqkv", "wo", "w_gateup", "w_down")
+    worst, times = 0.0, {}
+
+    def gate(a, b, rel):
+        tol = (1e-5 * b.float().abs() if rel else _bf16_ulp(b)) + 1e-5 * float(b.abs().max())
+        return float(((a.float() - b.float()).abs() - tol).max()) <= 0
+
+    cases = [(name, M, tts.dtype) for name in names for M in rows]
+    cases += [("wqkv", rows[-1], torch.float32), ("w_down", 2 * rows[-1], tts.dtype)]
+    for name, M, dt in cases:
+        w = getattr(blocks, name)
+        K, N = w.q.shape[1:]
+        x = torch.randn((M, K), generator=g).to(device=dev, dtype=dt)
+        a = int8_matmul(x, w.q[0], w.scale[0])
+        b = int8_matmul_plain(x, w.q[0], w.scale[0])
+        e = _max_err(a, b)
+        ok = gate(a, b, rel=dt == torch.float32)
+        print(f"kernel int8_matmul {name} M={M} K={K} N={N} x {str(dt)[6:]}: err {e:.3e} "
+              f"({'within' if ok else 'OUTSIDE'} tolerance)")
+        if not ok:
+            raise SmokeFailure(f"int8_matmul disagrees at {name}, M={M}, {dt}")
+        worst = max(worst, e)
+        if (name, M) == ("wqkv", 1):
+            headline_x = x
+        if dt == tts.dtype and M in rows:
+            run = _layer_cycle(lambda l: int8_matmul(x, w.q[l], w.scale[l]), L)
+            nbytes = K * N + M * K * 2 + N * 4 + M * N * 2
+            times[f"{name} M={M} K={K} N={N}"] = dict(
+                ms=timed(run, dev, iters) / L,
+                device_ms=device_ms_per_call(run, L, ("int8_mm_",), dev),
+                bound_ms=bound(nbytes, {"bf16": 2 * M * K * N})[0])
+    # the headline: one projection of an unfused single-stream step
+    w, x = blocks.wqkv, headline_x
+    K, N = w.q.shape[1:]
+    head = times[f"wqkv M=1 K={K} N={N}"]
+    library_ms = None
+    if hasattr(torch, "_weight_int8pack_mm"):
+        wt = [(w.q[l].t().contiguous(), w.scale[l].reshape(-1).to(tts.dtype)) for l in range(L)]
+        try:
+            torch._weight_int8pack_mm(x, *wt[0])
+            library_ms = timed(_layer_cycle(lambda l: torch._weight_int8pack_mm(x, *wt[l]), L),
+                               dev, iters) / L
+        except (RuntimeError, NotImplementedError) as err:
+            print(f"library _weight_int8pack_mm not available here: {str(err)[:120]}")
+    bound_ms, bound_by = bound(K * N + K * 2 + N * 4 + N * 2, {"bf16": 2 * K * N})
+    report["int8_matmul"] = dict(
+        max_abs_err=worst, ms=head["ms"], device_ms=head["device_ms"],
+        plain_ms=timed(_layer_cycle(lambda l: int8_matmul_plain(x, w.q[l], w.scale[l]), L), dev,
+                       iters) / L,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        shape=f"wqkv M=1 K={K} N={N} (one unfused step's QKV), per call over {L} layers",
+        times=times, tolerance="one bf16 ulp (float32 x: 1e-5 rel) + 1e-5 * max|plain| abs")
+
+
+def check_decode_attention(tts, report, iters, L=None,
+                           shapes=((1, 1280, (1, 300, 1000)), (16, 1280, (1, 300, 1000)),
+                                   (1, 4352, (1, 300, 1000, 4000)),
+                                   (16, 4352, (1, 300, 1000, 4000)))):
+    """The decode-attention kernel against its plain version at the talker's
+    heads and head_dim on a random bf16 cache of L layers (default: all),
+    for each (B, C, n_valid) of `shapes`, at the last layer. Tolerance: each
+    element within one bf16 ulp of the plain version, plus 1e-6 for outputs
+    near 0 (both sum in float32, in other orders). Timed per call cycling
+    over the layers, as the unfused step calls it (ms and device_ms as in
+    check_int8_matmul). library_ms is
+    torch.nn.functional.scaled_dot_product_attention on the same valid
+    prefix (the port never calls it)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.decode_attention import (decode_attention_kernel,
+                                                          decode_attention_kernel_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg, dev = tts.config.talker, tts.device
+    L = L or tcfg.n_layers
+    Hq, Hkv, D = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(23)
+    worst, times = 0.0, {}
+    for B, C, n_valids in shapes:
+        kv = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype)
+        q = torch.randn((B, Hq, D), generator=g, device=dev).to(tts.dtype)
+        for n in n_valids:
+            a = decode_attention_kernel(q, kv, L - 1, n)
+            b = decode_attention_kernel_plain(q, kv, L - 1, n)
+            e = _max_err(a, b)
+            ok = bool(((a.float() - b.float()).abs() <= _bf16_ulp(b) + 1e-6).all())
+            print(f"kernel decode_attention B={B} C={C} n_valid={n}: err {e:.3e} "
+                  f"({'within' if ok else 'OUTSIDE'} one bf16 ulp)")
+            if not ok:
+                raise SmokeFailure(f"decode_attention disagrees at B={B}, C={C}, n_valid={n}")
+            worst = max(worst, e)
+            run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
+            times[f"B={B} C={C} n_valid={n}"] = dict(
+                ms=timed(run, dev, iters) / L,
+                device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
+                bound_ms=attention_bound(B, Hq, Hkv, D, n)[0])
+        del kv
+    B, C, n = 1, 1280, 300
+    kv = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype)
+    q = torch.randn((B, Hq, D), generator=g, device=dev).to(tts.dtype)
+    bound_ms, bound_by = attention_bound(B, Hq, Hkv, D, n)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q.reshape(B, Hq, 1, D)
+    try:
+        sdpa(q4, kv[:, 0, 0, :, :n], kv[:, 0, 1, :, :n], enable_gqa=True)
+        library = lambda l: sdpa(q4, kv[:, l, 0, :, :n], kv[:, l, 1, :, :n],  # noqa: E731
+                                 enable_gqa=True)
+    except TypeError:   # a PyTorch without enable_gqa: the heads expanded beforehand
+        kx = [kv[:, l, :, :, :n].repeat_interleave(Hq // Hkv, dim=2) for l in range(L)]
+        library = lambda l: sdpa(q4, kx[l][:, 0], kx[l][:, 1])  # noqa: E731
+    run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
+    report["decode_attention"] = dict(
+        max_abs_err=worst, ms=timed(run, dev, iters) / L,
+        device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
+        plain_ms=timed(_layer_cycle(lambda l: decode_attention_kernel_plain(q, kv, l, n), L),
+                       dev, iters) / L,
+        library_ms=timed(_layer_cycle(library, L), dev, iters) / L,
+        bound_ms=bound_ms, bound_by=bound_by, times=times,
+        shape=f"B={B} C={C} n_valid={n} (the unfused 600-token request), per layer",
+        tolerance="one bf16 ulp + 1e-6 abs")
+
+
+def attention_bound(B, Hq, Hkv, D, n):
+    """One layer's decode attention: each lane's n K and V rows (bf16), its
+    query and output; 4 float32 operations per query head, row and column
+    (q.k and p.V)."""
+    return bound(B * (2 * n * Hkv * D * 2 + 2 * Hq * D * 2), {"f32": 4 * B * Hq * n * D})
+
+
 def check_res_block(tts, report, iters):
     """K3 at each decoder block's (C, T, d) for a clip of 64 frames,
     on the synthetic res-block weights and unit-normal inputs. Tolerance:
@@ -636,9 +831,8 @@ def serve(tts, requests):
     return stats, read_counts()
 
 
-# Sampled requests on random synthetic weights may draw EOS at any frame (on
-# the H100, seed 2 drew it at frame 0 for the second text); these seeds were
-# checked there to give frames.
+# Sampled requests on random synthetic weights may draw EOS at any frame;
+# these seeds were checked on the H100 to give frames.
 MAIN_REQUESTS = [
     ("Hello from the port.", dict(max_audio_tokens=64, temperature=0.0, seed=1)),
     ("The quick brown fox jumps over the lazy dog.", dict(max_audio_tokens=256, seed=3)),
@@ -660,6 +854,47 @@ BATCH_REQUESTS = [
     (16, dict(max_audio_tokens=128, temperature=0.0, seed=1)),
     (64, dict(max_audio_tokens=256, seed=3)),
 ]
+
+# the unfused path on the same weights: single-stream requests (C = 256 and
+# C = 1280), then a batch (C = 1280)
+UNFUSED_REQUESTS = [
+    ("Hello from the port.", dict(max_audio_tokens=64, temperature=0.0, seed=1)),
+    ("An unfused request, long enough for a cache of more than a thousand rows.",
+     dict(max_audio_tokens=600, seed=5)),
+]
+UNFUSED_BATCHES = [(16, dict(max_audio_tokens=600, temperature=0.0, seed=1))]
+
+
+def unfused_pipeline(tts):
+    """A Qwen3TTS on tts's weights with both fused kernels off."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    u = Qwen3TTS(tts.config, device=tts.device, fused_talker=False, fused_cp=False)
+    u.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params)
+    return u
+
+
+def unfused_path(tts, kw):
+    """The kernels a request of sampling kw must launch on the unfused path:
+    the GEMM and K3, and decode attention when its KV capacity takes the
+    kernel."""
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.ops.attention import use_decode_kernel
+
+    tcfg = tts.config.talker
+    C = tts._frame_budget(SamplingConfig(**kw))[1]
+    attn = use_decode_kernel(C, tcfg.head_dim, tcfg.n_heads, tcfg.n_kv_heads)
+    return UNFUSED_PATH + (("decode_attention",) if attn else ())
+
+
+def check_launches(what, launches, path, forbidden=()):
+    """Raise unless every kernel of `path` was launched and none of
+    `forbidden` was."""
+    idle = [k for k in path if launches[k] <= 0]
+    wrong = [k for k in forbidden if launches[k] > 0]
+    if idle or wrong:
+        raise SmokeFailure(f"{what}: kernels not launched: {idle}; launched but off the "
+                           f"path: {wrong}")
 
 
 def serve_batches(tts, batches, min_frames_per_lane=8):
@@ -714,8 +949,6 @@ def profile_request(tts, text, kw):
     (synthesize and synthesize_batch synchronize before they return). A
     list of texts runs as one synthesize_batch call. Returns (results, wall
     ms, busy ms, the device activities with the most time)."""
-    import tempfile
-
     from torch.profiler import ProfilerActivity, profile
 
     from qwen3tts_tpu_torch import SamplingConfig
@@ -727,12 +960,27 @@ def profile_request(tts, text, kw):
         else:
             r = [tts.synthesize(text, SamplingConfig(**kw))]
         wall_ms = (time.perf_counter() - t0) * 1e3
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    events = device_events(prof)
     return r, wall_ms, device_busy_ms(events), device_top(events)
+
+
+def device_events(prof):
+    """The device activities of a finished profile as chrome-trace events
+    (cat, name, ts and dur in microseconds), read from the profiler's event
+    list (an unfused request launches millions of kernels, too many to write
+    out as a JSON trace and read back): every event on the CUDA device, a
+    copy or memset by its name, a kernel otherwise."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        cat = ("gpu_memcpy" if name.startswith("Memcpy") else
+               "gpu_memset" if name.startswith("Memset") else "kernel")
+        out.append(dict(cat=cat, name=name, ts=e.start_ns() / 1e3, dur=e.duration_ns() / 1e3))
+    return out
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -751,6 +999,37 @@ def device_busy_ms(events):
     return busy_us / 1e3
 
 
+def kernel_name(name):
+    """A kernel's bare function name: no return type, namespace, template or
+    argument list."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.split(r"[(<]", name)[0].strip().split(" ")[-1].split("::")[-1]
+
+
+def device_ms_per_call(fn, calls, prefixes, device):
+    """Device time per call of the kernels whose bare names start with one of
+    `prefixes`, over one run of fn (`calls` calls) under torch.profiler:
+    the kernels' own time, without the host's launch gaps that CUDA events
+    around a run of calls include. None off the card, and None when two
+    traces in a row caught none of the kernels (nothing was measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(device)
+        durs = [e["dur"] for e in device_events(prof)
+                if e["cat"] == "kernel" and kernel_name(e["name"]).startswith(prefixes)]
+        if durs:
+            return sum(durs) / 1e3 / calls
+    return None
+
+
 def device_top(events, n=8):
     """The n device activities with the most time in the trace: [name, ms,
     launches]; a kernel's name is cut to its bare function name (no return
@@ -760,8 +1039,7 @@ def device_top(events, n=8):
         if e.get("cat") in DEVICE_CATS and "dur" in e:
             name = e.get("name", "?")
             if e["cat"] == "kernel":
-                name = name.replace("(anonymous namespace)::", "")
-                name = re.split(r"[(<]", name)[0].strip().split(" ")[-1].split("::")[-1]
+                name = kernel_name(name)
             ms, k = total.get(name, (0.0, 0))
             total[name] = (ms + e["dur"] / 1e3, k + 1)
     top = sorted(total.items(), key=lambda kv: -kv[1][0])[:n]
@@ -811,6 +1089,8 @@ def main():
         check_talker_step_batched(tts, report, iters=3)
         check_code_predictor_batched(tts, report, iters=3)
         check_res_block(tts, report, iters=3)
+        check_int8_matmul(tts, report, iters=5)
+        check_decode_attention(tts, report, iters=5)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         for name, r in report.items():
@@ -821,25 +1101,35 @@ def main():
         # just after
         stats, single_counts = serve(tts, MAIN_REQUESTS)
         for st in stats:
-            idle = [k for k in SINGLE_PATH if st["launches"][k] <= 0]
-            if idle:
-                raise SmokeFailure(f"request {st['request']}: kernels not launched: {idle}")
-        for st in stats:
+            check_launches(f"request {st['request']}", st["launches"], SINGLE_PATH)
             print("serve " + json.dumps(dict(st, card=smi)))
         bstats, batch_counts = serve_batches(tts, BATCH_REQUESTS)
         for st in bstats:
-            idle = [k for k in BATCH_PATH if st["launches"][k] <= 0]
-            if idle:
-                raise SmokeFailure(f"batch {st['lanes']}: kernels not launched: {idle}")
+            check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH)
             print("serve_batch " + json.dumps(dict(st, card=smi)))
-        counts = {k: single_counts[k] + batch_counts[k] for k in KERNELS}
+        tts_u = unfused_pipeline(tts)
+        ustats, unfused_counts = serve(tts_u, UNFUSED_REQUESTS)
+        for st in ustats:
+            check_launches(f"unfused request {st['request']}", st["launches"],
+                           unfused_path(tts, st["request"]), FUSED_ONLY)
+            print("serve_unfused " + json.dumps(dict(st, card=smi)))
+        ubstats, unfused_batch_counts = serve_batches(tts_u, UNFUSED_BATCHES)
+        for st in ubstats:
+            check_launches(f"unfused batch {st['lanes']}", st["launches"],
+                           unfused_path(tts, st["request"]), FUSED_ONLY)
+            print("serve_unfused_batch " + json.dumps(dict(st, card=smi)))
+        counts = {k: single_counts[k] + batch_counts[k] + unfused_counts[k]
+                  + unfused_batch_counts[k] for k in KERNELS}
 
-        for what, (text, kw) in (("request", MAIN_REQUESTS[1]),
-                                 ("batch", (batch_texts(BATCH_REQUESTS[0][0]),
-                                            BATCH_REQUESTS[0][1]))):
-            rs, wall_ms, busy_ms, top = profile_request(tts, text, kw)
+        for what, pipe, (text, kw) in (
+                ("request", tts, MAIN_REQUESTS[1]),
+                ("batch", tts, (batch_texts(BATCH_REQUESTS[0][0]), BATCH_REQUESTS[0][1])),
+                ("unfused request", tts_u, UNFUSED_REQUESTS[1])):
+            rs, wall_ms, busy_ms, top = profile_request(pipe, text, kw)
             if not any(r.success for r in rs):
                 raise SmokeFailure(f"profiled {what} failed: {rs[0].error_msg}")
+            if not busy_ms > 0:
+                raise SmokeFailure(f"the profile of the {what} holds no device activity")
             frames = sum(r.n_frames for r in rs)
             gen_ms = rs[0].timings.t_generate_ms * len(rs)
             print("profile " + json.dumps(dict(
@@ -858,7 +1148,8 @@ def main():
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():
         r = report[name]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+        also = {"also_replaces": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces, **also,
                             launches=counts[name], **r))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

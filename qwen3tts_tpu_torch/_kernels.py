@@ -27,7 +27,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # name -> argtypes of every C entry point (restype is int: a cudaError_t)
 SIGNATURES = {
@@ -74,6 +74,15 @@ SIGNATURES = {
     "qtts_res_block": [
         P, P, P, P, P, P, P, P, P,       # x, w1, b1, a1, be1, w2, b2, a2, be2
         P, P, P, I, I, I, P],            # s1, s2, out, T, C, dilation, stream
+    "qtts_int8_matmul_ws_bytes": [I, I, I],                 # M K N
+    "qtts_int8_matmul": [
+        P, P, P, P, P,                   # x, q, scale, y, ws
+        I, I, I, I, P],                  # M K N x_bf16, stream
+    "qtts_decode_attention_ws_bytes": [I, I, I, I, I],      # B Hq Hkv D n_valid
+    "qtts_decode_attention": [
+        P, P, LL,                        # q, kv (the layer's K, lane 0), lane stride
+        I, I, I, I, I, I, F,             # B Hq Hkv C D n_valid scale
+        P, P, P],                        # out, ws, stream
 }
 
 _LIB = None

@@ -1,5 +1,6 @@
 // K4's standalone entry: sample one token per row of a [R, V] float32 logits
-// matrix (the decode loop's frame-0 cb0 from the prefill logits). See
+// matrix with the sampler the fused kernels run in their epilogues (no serve
+// path calls this entry; frame 0 is drawn by the PyTorch sample_token). See
 // sampler.cuh for the semantics and the design.
 #include "sampler.cuh"
 

@@ -1,10 +1,11 @@
 """The code predictor: the 5-layer transformer that emits codebooks 1..15 of
 each frame (counterpart of ``qwen3tts_tpu/models/code_predictor.py``).
 
-Its per-frame loop runs in the fused kernel K2
+The fused path runs its per-frame loop in kernel K2
 (``ops/fused_code_predictor.py``): a pass over the talker hidden, then one
 pass per code with the per-step embedding tables ``embds[s]`` and LM heads
-``heads[s]``.
+``heads[s]``. The unfused path runs ``predict_codes`` here: a 2-token
+prefill and 14 single-token steps of ``transformer_core.forward_step``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ from typing import NamedTuple
 
 import torch
 
-from .transformer_core import BlockParams, init_block_params, normal_init
+from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops.norms import rms_norm
+from ..ops.sampling import sample_token
+from .transformer_core import (BlockParams, forward_prefill, forward_step, init_block_params,
+                               normal_init)
 
 
 class CodePredictorParams(NamedTuple):
@@ -34,3 +39,43 @@ def init_code_predictor_params(gen: torch.Generator, cfg, dtype=torch.bfloat16,
         embds=w((S, V, H), H),
         heads=w((S, H, V), H),
     )
+
+
+def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
+                  cb0_embd: torch.Tensor, seeds, *, temperature: float, top_k: int,
+                  top_p: float = 1.0, greedy=None, use_top_p=None) -> torch.Tensor:
+    """The 15 residual codes of one frame, unfused (counterpart of
+    ``predict_codes``, ``qwen3tts_tpu/models/code_predictor.py:68-108``).
+
+    talker_hidden (output-normed) and cb0_embd are [H] with one int seed, or
+    [B, H] lanes with seeds [B]. A 2-token prefill at positions 0, 1 gives
+    code 0 from heads[0]; step s = 1..14 feeds embds[s-1][code s-1] at
+    position s+1 and takes code s from heads[s]. The cache holds max_ctx = 16
+    rows, so attention takes the XLA semantics (ops/attention.py). Code s is
+    drawn by sample_token with the counter-hash Gumbel noise of (seed, s).
+    Returns int64 [15] (or [B, 15])."""
+    if greedy is None or use_top_p is None:
+        greedy, use_top_p = sampling_flags(temperature, top_p)
+    lanes = talker_hidden.dim() == 2
+    th = talker_hidden if lanes else talker_hidden[None]
+    ce = cb0_embd if lanes else cb0_embd[None]
+    B, dt, dev = th.shape[0], params.embds.dtype, params.embds.device
+    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev).reshape(B, 1)
+    kv = torch.zeros((B, cfg.n_layers, 2, cfg.n_kv_heads, cfg.max_ctx, cfg.head_dim),
+                     dtype=dt, device=dev)
+
+    def sample(hidden, s):
+        h = rms_norm(hidden, params.output_norm, cfg.rms_norm_eps)
+        logits = torch.matmul(h.float(), params.heads[s].float()).to(h.dtype).float()
+        noise = None if greedy else gumbel_noise(seeds, s, tuple(logits.shape), dev)
+        return sample_token(logits, noise, temperature=temperature, top_k=top_k, top_p=top_p,
+                            greedy=greedy, use_top_p=use_top_p)
+
+    x = torch.stack([th, ce], dim=1).to(dt)                       # [B, 2, H]
+    hidden = forward_prefill(params.blocks, cfg, x, torch.arange(2, device=dev), kv, 0)
+    codes = [sample(hidden[:, -1], 0)]
+    for s in range(1, cfg.n_steps):
+        emb = params.embds[s - 1, codes[-1]]
+        codes.append(sample(forward_step(params.blocks, cfg, emb, s + 1, kv), s))
+    out = torch.stack(codes, dim=1)
+    return out if lanes else out[0]

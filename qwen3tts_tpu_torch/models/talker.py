@@ -19,7 +19,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.norms import rms_norm
-from .transformer_core import BlockParams, forward_prefill, init_block_params, normal_init
+from .transformer_core import (BlockParams, forward_prefill, forward_step, init_block_params,
+                               normal_init)
 
 
 class TalkerParams(NamedTuple):
@@ -122,6 +123,21 @@ def talker_prefill(params: TalkerParams, cfg, prefill_embd: torch.Tensor, kv: to
     P = prefill_embd.shape[0]
     positions = torch.arange(P, device=prefill_embd.device)
     hidden = forward_prefill(params.blocks, cfg, prefill_embd, positions, kv, 0)
-    normed = rms_norm(hidden[-1], params.output_norm, cfg.rms_norm_eps)
+    return _head(params, cfg, hidden[-1])
+
+
+def _head(params: TalkerParams, cfg, hidden):
+    """(output-normed hidden, float32 logits): the codec head as a plain
+    matmul in the hidden's dtype, as XLA leaves it."""
+    normed = rms_norm(hidden, params.output_norm, cfg.rms_norm_eps)
     logits = torch.matmul(normed.float(), params.codec_head.float()).to(normed.dtype).float()
     return normed, logits
+
+
+def talker_step(params: TalkerParams, cfg, step_embd: torch.Tensor, n_past: int,
+                kv: torch.Tensor):
+    """One unfused talker frame step (counterpart of ``talker_step``,
+    ``qwen3tts_tpu/models/talker.py:207-214``) on step_embd [H] with kv
+    [L, 2, Hkv, C, D], or on B lanes [B, H] with kv [B, L, 2, Hkv, C, D];
+    K/V written in place at n_past. Returns (normed hidden, logits f32)."""
+    return _head(params, cfg, forward_step(params.blocks, cfg, step_embd, n_past, kv))

@@ -5,9 +5,11 @@ One block = RMSNorm -> GQA attention with per-head q/k RMSNorm and NEOX RoPE
 -> residual -> RMSNorm -> SwiGLU MLP -> residual. Linear weights are stored
 [in, out]; q/k/v and gate/up are fused along the output axis; the KV cache is
 head-major [L, 2, Hkv, C, D] — the JAX layouts, so tests compare like with
-like. The single-token decode step runs in the fused kernels
-(``ops/fused_talker_step.py``, ``ops/fused_code_predictor.py``);
-``forward_step`` here is the plain dense step the tests hold them against.
+like. The fused path runs the single-token decode step in the fused kernels
+(``ops/fused_talker_step.py``, ``ops/fused_code_predictor.py``); the
+unfused path runs ``forward_step`` here, whose projections go to the W8A16
+kernel and whose attention at large capacities goes to the decode-attention
+kernel. Tests also hold the fused kernels against ``forward_step``.
 """
 
 from __future__ import annotations
@@ -17,11 +19,11 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.attention import attend as attend_xla
+from ..ops.attention import decode_attention_auto
 from ..ops.norms import rms_norm
 from ..ops.quant import QuantLinear, matmul
 from ..ops.rope import apply_rope, rope_for_positions
-
-NEG_INF = -1e30
 
 
 class BlockParams(NamedTuple):
@@ -80,55 +82,45 @@ def _layer_weights(blocks: BlockParams, l: int):
             pick(blocks.w_down))
 
 
-def _attend(q, k, v, mask):
-    """q [T, Hq, D]; k, v [S, Hkv, D]; mask [T, S] bool. Scores and softmax
-    in float32, probabilities cast to v's dtype. Returns [T, Hq, D]."""
-    T, Hq, D = q.shape
-    Hkv = k.shape[1]
-    G = Hq // Hkv
-    qg = q.float().reshape(T, Hkv, G, D).permute(1, 2, 0, 3)        # [Hkv, G, T, D]
-    kk = k.float().permute(1, 2, 0)                                 # [Hkv, D, S]
-    s = torch.matmul(qg, kk[:, None]) * (1.0 / D ** 0.5)            # [Hkv, G, T, S]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1).to(v.dtype).float()
-    o = torch.matmul(p, v.float().permute(1, 0, 2)[:, None])        # [Hkv, G, T, D]
-    return o.permute(2, 0, 1, 3).reshape(T, Hq, D).to(v.dtype)
-
-
 def _layer(blocks, cfg, l, x, cos, sin, attend):
+    """One block on x [..., T, H]; the projections run as [rows, H] products
+    (``quant.matmul`` flattens the leading dimensions into M); attend(q, k,
+    v) stores K/V and returns the attention output [..., T, Hq, D]."""
     Hq, Hkv, D, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.rms_norm_eps
-    T = x.shape[0]
+    lead = x.shape[:-1]
     wqkv, wo, wgu, wd = _layer_weights(blocks, l)
     h = rms_norm(x, blocks.attn_norm[l], eps)
     qkv = matmul(h, wqkv)
-    q = rms_norm(qkv[:, :Hq * D].reshape(T, Hq, D), blocks.q_norm[l], eps)
-    k = rms_norm(qkv[:, Hq * D:(Hq + Hkv) * D].reshape(T, Hkv, D), blocks.k_norm[l], eps)
-    v = qkv[:, (Hq + Hkv) * D:].reshape(T, Hkv, D)
+    q = rms_norm(qkv[..., :Hq * D].reshape(*lead, Hq, D), blocks.q_norm[l], eps)
+    k = rms_norm(qkv[..., Hq * D:(Hq + Hkv) * D].reshape(*lead, Hkv, D), blocks.k_norm[l], eps)
+    v = qkv[..., (Hq + Hkv) * D:].reshape(*lead, Hkv, D)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attend(q, k, v)
-    x = x + matmul(o.reshape(T, Hq * D), wo)
+    x = x + matmul(o.reshape(*lead, Hq * D), wo)
     h = rms_norm(x, blocks.ffn_norm[l], eps)
     gu = matmul(h, wgu)
     F = gu.shape[-1] // 2
-    gate = torch.nn.functional.silu(gu[:, :F].float()).to(h.dtype)
-    return x + matmul(gate * gu[:, F:], wd)
+    gate = torch.nn.functional.silu(gu[..., :F].float()).to(h.dtype)
+    return x + matmul(gate * gu[..., F:], wd)
 
 
 def forward_prefill(blocks: BlockParams, cfg, x: torch.Tensor, positions: torch.Tensor,
                     kv: torch.Tensor, n_past: int = 0) -> torch.Tensor:
-    """Run the stack over a dense prefill window x [P, H], writing K/V into
-    kv (in place) at [n_past, n_past+P). Causal attention over the window
-    itself (prefill starts from an empty cache). Returns hidden [P, H]."""
-    P = x.shape[0]
+    """Run the stack over a dense prefill window x [P, H] (or B lanes' windows
+    [B, P, H] with kv [B, L, 2, Hkv, C, D]), writing K/V into kv (in place)
+    at [n_past, n_past+P). Causal attention over the window itself (prefill
+    starts from an empty cache). Returns hidden of x's shape."""
+    P = x.shape[-2]
+    kvl = kv if x.dim() == 3 else kv[None]
     cos, sin = rope_for_positions(positions, cfg.head_dim, cfg.rope_theta)
     idx = torch.arange(P, device=x.device)
     mask = idx[None, :] <= idx[:, None]
     for l in range(cfg.n_layers):
         def attend(q, k, v, l=l):
-            kv[l, 0, :, n_past:n_past + P] = k.transpose(0, 1).to(kv.dtype)
-            kv[l, 1, :, n_past:n_past + P] = v.transpose(0, 1).to(kv.dtype)
-            return _attend(q, k, v, mask)
+            kvl[:, l, 0, :, n_past:n_past + P] = k.transpose(-3, -2).to(kv.dtype)
+            kvl[:, l, 1, :, n_past:n_past + P] = v.transpose(-3, -2).to(kv.dtype)
+            return attend_xla(q, k, v, mask)
 
         x = _layer(blocks, cfg, l, x, cos, sin, attend)
     return x
@@ -136,20 +128,25 @@ def forward_prefill(blocks: BlockParams, cfg, x: torch.Tensor, positions: torch.
 
 def forward_step(blocks: BlockParams, cfg, x: torch.Tensor, n_past: int,
                  kv: torch.Tensor) -> torch.Tensor:
-    """Single-token decode step on x [H]: K/V written into kv (in place) at
-    n_past, attention over cache[0:n_past+1] in the cache dtype. Returns the
-    pre-output-norm hidden [H]."""
+    """Single-token decode step (counterpart of ``forward_step`` in
+    ``qwen3tts_tpu/models/transformer_core.py:182-255``) on x [H] with kv
+    [L, 2, Hkv, C, D], or on B lanes x [B, H] with kv [B, L, 2, Hkv, C, D]
+    (the lanes are the M = B rows of each projection). K/V are written into
+    kv (in place) at n_past; attention over cache[0:n_past+1] goes through
+    ``ops/attention.decode_attention_auto`` (the decode-attention kernel at
+    capacities of 1024 rows and more, the XLA semantics below); the
+    projections through ``quant.matmul``. Returns the pre-output-norm hidden
+    of x's shape."""
     n = int(n_past)
     pos = torch.tensor([n], device=x.device)
     cos, sin = rope_for_positions(pos, cfg.head_dim, cfg.rope_theta)
-    mask = torch.ones((1, n + 1), dtype=torch.bool, device=x.device)
-    h = x[None]
+    kvl = kv if x.dim() == 2 else kv[None]
+    h = x.reshape(-1, x.shape[-1])
     for l in range(cfg.n_layers):
         def attend(q, k, v, l=l):
-            kv[l, 0, :, n] = k[0].to(kv.dtype)
-            kv[l, 1, :, n] = v[0].to(kv.dtype)
-            return _attend(q, kv[l, 0, :, :n + 1].transpose(0, 1),
-                           kv[l, 1, :, :n + 1].transpose(0, 1), mask)
+            kvl[:, l, 0, :, n] = k.to(kv.dtype)
+            kvl[:, l, 1, :, n] = v.to(kv.dtype)
+            return decode_attention_auto(q, kvl, l, n + 1)
 
         h = _layer(blocks, cfg, l, h, cos, sin, attend)
-    return h[0]
+    return h.reshape(x.shape)

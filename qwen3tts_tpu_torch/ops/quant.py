@@ -2,9 +2,10 @@
 
 Counterpart of the int8 part of ``qwen3tts_tpu/ops/quant.py`` and
 ``ops/quantized_matmul.py``. Weights keep the JAX layout ``[..., K, N]``
-(input rows, output columns) and scales are ``[..., 1, N]``. The decode hot
-path reads these leaves inside the fused kernels; the prefill multiplies by
-dequantized weights, as the JAX package leaves its prefill matmuls to XLA.
+(input rows, output columns) and scales are ``[..., 1, N]``. The fused
+decode kernels read these leaves themselves; every other 2-D int8 product
+(the prefill, the unfused decode step) goes through ``matmul`` to the W8A16
+kernel ``ops/int8_matmul.py``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .int8_matmul import int8_matmul
 
 
 class QuantLinear(NamedTuple):
@@ -45,8 +48,14 @@ def quantize_block_params(blocks):
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for a plain or int8 weight, accumulated in float32 and cast back
-    to x.dtype (the JAX package's ``preferred_element_type=f32`` dot)."""
+    to x.dtype (the JAX package's ``preferred_element_type=f32`` dot,
+    ``ops/quantized_matmul.py:68-83``). A 2-D int8 product goes to
+    ``int8_matmul``: its kernel for CUDA tensors, its plain version for CPU
+    tensors. x's leading dimensions are flattened into the product's rows;
+    an int8 weight must be 2-D."""
     if isinstance(w, QuantLinear):
-        y = torch.matmul(x.float(), w.q.to(x.dtype).float())
-        return (y * w.scale.float()).to(x.dtype)
+        if w.q.dim() != 2:
+            raise ValueError(f"quant.matmul takes a 2-D int8 weight, got {tuple(w.q.shape)}")
+        y = int8_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     return torch.matmul(x.float(), w.float()).to(x.dtype)

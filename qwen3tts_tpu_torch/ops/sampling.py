@@ -1,11 +1,18 @@
-"""Token sampling: suppression, repetition penalty, and kernel K4.
+"""Token sampling: suppression, repetition penalty, the XLA sampler
+``sample_token``, and kernel K4.
 
 Counterpart of ``qwen3tts_tpu/ops/sampling.py`` (``apply_suppression``,
-``apply_repetition_penalty``) plus ``sample_rows``, the standalone entry of
-the CUDA sampler (``csrc/sampler.cu``). The fused talker and code-predictor
-kernels call the same ``__device__`` sampler in their epilogues; the decode
-loop calls ``sample_rows`` once per request, for frame 0's codebook-0 token
-from the prefill logits.
+``apply_repetition_penalty``, ``apply_top_k``, ``apply_top_p``,
+``sample_token``) plus ``sample_rows``, the standalone entry of the CUDA
+sampler (``csrc/sampler.cu``). ``sample_token`` is plain PyTorch, as the
+JAX package's is plain XLA: the decode loops sample frame 0's codebook-0
+token with it (as ``_init_cb0`` does in the JAX package), and the unfused
+path every codebook-0 token and every code of the code predictor. Its top-k
+is exact (the k-th largest value, ties kept). The fused talker and
+code-predictor kernels call the ``__device__`` sampler of K4 in their
+epilogues, whose top-k is a 30-step bisection as in the JAX kernels;
+``sample_rows`` is that sampler's standalone entry, which no serve path
+calls.
 
 Kernel K4 replaces the counter-hash sampler that the Pallas kernels run in
 their bodies (``qwen3tts_tpu/ops/kernel_prng.py:78 gumbel_noise`` and
@@ -20,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .kernel_prng import NEG_INF, make_sampler
+from .kernel_prng import NEG_INF, make_sampler, sampling_flags
 
 
 def apply_suppression(logits: torch.Tensor, suppress_start: int,
@@ -38,6 +45,57 @@ def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
     pen = torch.tensor(penalty, dtype=torch.float32, device=logits.device)
     penalized = torch.where(logits > 0.0, logits / pen, logits * pen)
     return torch.where(seen, penalized, logits)
+
+
+def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep the logits at or above the k-th largest of their row (ties kept);
+    mask the rest. top_k <= 0 or >= vocab keeps everything."""
+    if top_k <= 0 or top_k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+    return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+
+
+_TOPP_BSEARCH_ITERS = 30
+
+
+def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering: keep the ids whose probability is at least tau, the
+    largest threshold whose kept mass reaches top_p (found by a 30-step
+    bisection; the crossing token and its ties are kept). top_p >= 1 keeps
+    everything."""
+    if top_p >= 1.0:
+        return logits
+    probs = torch.softmax(logits.float(), dim=-1)
+    lo = torch.zeros_like(probs[..., :1])
+    hi = torch.amax(probs, dim=-1, keepdim=True)
+    for _ in range(_TOPP_BSEARCH_ITERS):
+        mid = 0.5 * (lo + hi)
+        mass = torch.sum(torch.where(probs >= mid, probs, torch.zeros_like(probs)), dim=-1,
+                         keepdim=True)
+        take = mass >= top_p
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    return torch.where(probs >= lo, logits, torch.full_like(logits, NEG_INF))
+
+
+def sample_token(logits: torch.Tensor, noise, *, temperature: float, top_k: int,
+                 top_p: float = 1.0, greedy=None, use_top_p=None) -> torch.Tensor:
+    """One token id per row of logits [..., V]: the first-max argmax when
+    greedy; else logits / max(temperature, 1e-6), the exact top-k, top-p
+    when use_top_p, then argmax(logits + noise). With Gumbel(0, 1) noise of
+    the logits' shape that last step is ``jax.random.categorical``; the
+    noise comes from the caller (None when greedy). Returns int64 [...]."""
+    if greedy is None or use_top_p is None:
+        greedy, use_top_p = sampling_flags(temperature, top_p)
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    # a true division by a tensor on the logits' device (torch turns a
+    # division by a host scalar into a product with its reciprocal on CUDA)
+    t = torch.tensor(max(float(temperature), 1e-6), dtype=torch.float32, device=logits.device)
+    scaled = apply_top_k(logits.float() / t, top_k)
+    if use_top_p:
+        scaled = apply_top_p(scaled, top_p)
+    return torch.argmax(scaled + noise, dim=-1)
 
 
 def sample_rows_plain(logits, seeds, step, *, temperature, top_p, top_k,

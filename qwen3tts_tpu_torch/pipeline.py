@@ -7,12 +7,26 @@ blocks (``RuntimeConfig(quant="int8")``), and a float32 vocoder.
 ``load_models(None, synthetic=True, seed=...)`` draws deterministic
 synthetic weights at the configured widths (no checkpoint ships with the
 repository; the checkpoint loaders are not ported yet). ``synthesize``
-runs host BPE, the prefill, the frame loop (kernels K1, K2, K4) and the
-vocoder (kernel K3); ``synthesize_batch`` runs B requests in lockstep
-through the batched frame loop (kernels K5, K6, K4), then vocodes each
-lane (K3). On a CUDA device every kernel launches on the card or raises;
-there is no CPU fallback. The CPU runs only when asked for
-(``device="cpu"``), through the kernels' plain versions.
+runs host BPE, the prefill, the frame loop and the vocoder (kernel K3);
+``synthesize_batch`` runs B requests in lockstep through the batched frame
+loop, then vocodes each lane (K3). The prefill's int8 projections run in
+the W8A16 kernel (``ops/int8_matmul.py``).
+
+``Qwen3TTS(config, device, fused_talker=True, fused_cp=True)`` picks the
+decode step, for both loops (the JAX package's ``QWEN3TTS_FUSED_TALKER``
+and ``QWEN3TTS_FUSED_CP`` gates, as arguments):
+  - fused_talker=True: the talker step is kernel K1 (single stream) or K5
+    (batched), which also samples the next codebook-0 token;
+  - fused_talker=False: ``talker.talker_step``, whose projections are
+    W8A16 kernel launches and whose attention, at KV capacities of 1024
+    rows and more, is the decode-attention kernel
+    (``ops/decode_attention.py``); cb0 is sampled in PyTorch;
+  - fused_cp=True: the code predictor is kernel K2 (single) or K6 (batched);
+  - fused_cp=False: ``code_predictor.predict_codes``, W8A16 kernel
+    launches and PyTorch attention and sampling.
+On a CUDA device every kernel launches on the card or raises; there is no
+CPU fallback. The CPU runs only when asked for (``device="cpu"``), through
+the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -64,9 +78,11 @@ def _sync(device: torch.device) -> None:
 class Qwen3TTS:
     """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
 
-    def __init__(self, config: Optional[PipelineConfig] = None, device="cuda"):
+    def __init__(self, config: Optional[PipelineConfig] = None, device="cuda", *,
+                 fused_talker: bool = True, fused_cp: bool = True):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
+        self.fused = dict(fused_talker=bool(fused_talker), fused_cp=bool(fused_cp))
         self.dtype = torch.bfloat16 if self.config.runtime.dtype == "bfloat16" else torch.float32
         self.tokenizer: Optional[TextTokenizer] = None
         self.talker_params = None
@@ -168,7 +184,7 @@ class Qwen3TTS:
             max_frames=max_frames, kv_capacity=kv_capacity,
             temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
             repetition_penalty=params.repetition_penalty,
-            nothink=params.language_id < 0)
+            nothink=params.language_id < 0, **self.fused)
         n_frames = gen_out.n_frames
         result.codes = gen_out.codes.cpu().numpy().astype(np.int32)
         result.hidden_states = gen_out.hidden.float().cpu().numpy()
@@ -201,7 +217,8 @@ class Qwen3TTS:
     def synthesize_batch(self, texts, params: SamplingConfig = SamplingConfig(),
                          speakers=None):
         """Batched synthesis: the requests run one lockstep frame loop
-        (``decode_loop.generate_from_tokens_batched``, kernels K5 and K6), in
+        (``decode_loop.generate_from_tokens_batched``: kernels K5 and K6, or
+        the unfused step with the lanes as the rows of each product), in
         groups of MAX_BATCH_LANES one after another; then each lane is
         vocoded on exactly its frames. Returns a list of TTSResult.
 
@@ -243,7 +260,7 @@ class Qwen3TTS:
                 talker_cfg=tcfg, cp_cfg=self.config.code_predictor, max_frames=max_frames,
                 kv_capacity=kv_capacity, temperature=params.temperature, top_k=params.top_k,
                 top_p=params.top_p, repetition_penalty=params.repetition_penalty,
-                nothink=params.language_id < 0)
+                nothink=params.language_id < 0, **self.fused)
             codes += list(out.codes.numpy().astype(np.int32))
             n_frames += out.n_frames
         t_gen = now_ms() - t0

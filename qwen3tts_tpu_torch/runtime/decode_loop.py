@@ -1,27 +1,33 @@
 """The frame loops: single-stream (counterpart of ``generate_from_tokens`` and
-``_make_body`` in ``qwen3tts_tpu/runtime/decode_loop.py``, fused-kernel
-path) and batched (``generate_from_tokens_batched``, counterpart of
-``_generate_batched_fused`` there).
+``_make_body`` in ``qwen3tts_tpu/runtime/decode_loop.py``) and batched
+(``generate_from_tokens_batched``, counterpart of ``_generate_batched_fused``
+there, and of its vmapped unfused loop).
 
-Prefill, then per frame:
-  1. cb0 is the token the previous talker step's kernel epilogue sampled
-     (frame 0: K4 ``sample_rows`` on the prefill logits, suppressed);
-     stop on EOS;
-  2. K2 predicts codes 1..15 and rest_sum = sum_s embds[s][code_s];
+Prefill, then frame 0's codebook-0 token from the suppressed prefill logits
+with ``sample_token`` (exact top-k; the JAX package's ``_init_cb0``), then
+per frame:
+  1. cb0 is the token sampled at the end of the previous frame (frame 0:
+     from the prefill logits); stop on EOS;
+  2. codes 1..15 and rest_sum = sum_s embds[s][code_s]: kernel K2 (fused_cp)
+     or ``code_predictor.predict_codes`` and ``_rest_embd_sum`` (unfused);
   3. step_embd = codec_embd[cb0] + rest_sum + trailing[min(frame, Trb-1)];
-  4. K1 runs the talker step and samples the next frame's cb0 against the
-     seen-set that includes this frame's cb0.
+  4. the talker step and the next frame's cb0, sampled against the seen-set
+     that includes this frame's cb0: kernel K1 with its sampling epilogue
+     (fused_talker), or ``talker.talker_step`` and suppression, repetition
+     penalty and ``sample_token`` on its logits (unfused).
+``fused_talker`` and ``fused_cp`` take the JAX package's names as booleans;
+they replace its ``QWEN3TTS_FUSED_*`` gates. All four combinations run.
 
 The loop is a Python loop; the EOS check reads cb0 back, one host sync per
 frame. Seeds: where JAX derives the kernels' int32 seeds with threefry from
 one key, the port draws them from a torch.Generator seeded by the request
 seed (one for frame 0's cb0, then two per frame: code predictor, next cb0).
-Greedy output therefore matches JAX exactly; sampled output matches only at
-kernel level, given the same seeds.
+``sample_token`` takes the counter-hash Gumbel noise of (seed, step) for
+its rows. Greedy output therefore matches JAX exactly; sampled output
+matches only in distribution (and at kernel level, given the same seeds).
 
-The batched loop runs B lanes in lockstep through K6 and K5 (one shared
-n_past: every lane's prefill window has the same length); see
-``generate_from_tokens_batched``.
+The batched loop runs B lanes in lockstep (one shared n_past: every lane's
+prefill window has the same length); see ``generate_from_tokens_batched``.
 """
 
 from __future__ import annotations
@@ -30,12 +36,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..models import code_predictor as cp_model
 from ..models import talker as talker_model
 from ..ops.fused_code_predictor import fused_predict_codes
 from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
 from ..ops.fused_talker_step import fused_talker_step, fused_talker_step_batched
-from ..ops.kernel_prng import sampling_flags
-from ..ops.sampling import sample_rows
+from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
 
 
 # lanes of one K6 call; larger batches run it in groups of this many
@@ -59,15 +66,43 @@ def draw_seeds(gen: torch.Generator, n: int) -> list:
                          dtype=torch.int64).tolist()
 
 
+def sample_cb0(logits, seeds, *, suppress_start: int, eos_id: int, temperature: float,
+               top_k: int, top_p: float, greedy: bool, use_top_p: bool, seen=None,
+               repetition_penalty: float = 1.0):
+    """Codebook-0 tokens from talker logits [R, Vc] as the JAX package's
+    XLA path draws them (``decode_loop.py:318-325``): suppression of
+    [suppress_start, Vc) except eos_id, the repetition penalty over seen
+    [R, Vc] when given (frame 0 has none: its seen-set is empty), then
+    ``sample_token`` with row r's counter-hash noise of (seeds[r], 0).
+    Returns int64 [R]."""
+    l = apply_suppression(logits.float(), suppress_start, eos_id)
+    if seen is not None:
+        l = apply_repetition_penalty(l, seen.bool(), repetition_penalty)
+    noise = None if greedy else gumbel_noise(
+        torch.as_tensor(seeds, dtype=torch.int64, device=l.device).reshape(-1, 1), 0,
+        tuple(l.shape), l.device)
+    return sample_token(l, noise, temperature=temperature, top_k=top_k, top_p=top_p,
+                        greedy=greedy, use_top_p=use_top_p)
+
+
+def _rest_embd_sum(cp_params, rest):
+    """sum_s embds[s][rest_s] in float32 over the 15 codes of rest [15] (or
+    [B, 15]): the code predictor's part of the next talker step's input
+    (counterpart of ``_rest_embd_sum``, ``decode_loop.py:191-200``)."""
+    idx = torch.arange(rest.shape[-1], device=rest.device)
+    return cp_params.embds[idx, rest].float().sum(dim=-2)
+
+
 def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          speaker_embd, language_id: int, gen: torch.Generator, *,
                          talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
-                         repetition_penalty: float = 1.05,
-                         nothink: bool = False) -> GenerateResult:
+                         repetition_penalty: float = 1.05, nothink: bool = False,
+                         fused_talker: bool = True, fused_cp: bool = True) -> GenerateResult:
     """Prefill + the frame loop for one request; see the module docstring.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
-    frames into a KV cache of kv_capacity rows."""
+    frames into a KV cache of kv_capacity rows. fused_talker / fused_cp pick
+    kernels K1 / K2 or the unfused talker step / code predictor."""
     tcfg, ccfg = talker_cfg, cp_cfg
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
@@ -76,6 +111,7 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
     greedy, use_top_p = sampling_flags(temperature, top_p)
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
+    cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=tcfg.codec_eos_id)
 
     with torch.no_grad():
         prefill = talker_model.build_prefill(
@@ -89,10 +125,7 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
         last_hidden, logits = talker_model.talker_prefill(
             talker_params, tcfg, prefill.prefill_embd, kv)
 
-        (seed0,) = draw_seeds(gen, 1)
-        cb0_next = sample_rows(
-            logits[None].float(), torch.tensor([seed0], dtype=torch.int32, device=dev), 0,
-            suppress_start=suppress_start, eos_id=tcfg.codec_eos_id, **samp)
+        cb0_next = sample_cb0(logits[None], draw_seeds(gen, 1), **cb0_kw)
         # int8, the dtype the talker kernel reads: no per-frame conversion
         seen = torch.zeros((Vc,), dtype=torch.int8, device=dev)
         codes, hidden_out = [], []
@@ -103,21 +136,30 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                 break
             seed_cp, seed_cb0 = draw_seeds(gen, 2)
             cb0_embd = talker_params.codec_embd[cb0[0]]
-            rest, rest_sum = fused_predict_codes(
-                cp_params, ccfg, last_hidden.to(dtype), cb0_embd, seed_cp, **samp)
+            if fused_cp:
+                rest, rest_sum = fused_predict_codes(
+                    cp_params, ccfg, last_hidden.to(dtype), cb0_embd, seed_cp, **samp)
+            else:
+                rest = cp_model.predict_codes(cp_params, ccfg, last_hidden.to(dtype), cb0_embd,
+                                              seed_cp, **samp)
+                rest_sum = _rest_embd_sum(cp_params, rest)
             codes.append(torch.cat([cb0, rest.to(torch.int64)]))
             hidden_out.append(last_hidden.to(dtype))
             seen[cb0] = 1
             trailing_row = prefill.trailing[min(frame, Trb - 1)]
             step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
-            out = fused_talker_step(
-                talker_params.blocks, tcfg, step_embd, n_past, kv,
-                output_norm=talker_params.output_norm,
-                codec_head=talker_params.codec_head, seen=seen, seed=seed_cb0,
-                repetition_penalty=repetition_penalty, suppress_start=suppress_start,
-                eos_id=tcfg.codec_eos_id, **samp)
-            last_hidden = out.hidden.to(dtype)
-            cb0_next = out.cb0
+            if fused_talker:
+                out = fused_talker_step(
+                    talker_params.blocks, tcfg, step_embd, n_past, kv,
+                    output_norm=talker_params.output_norm,
+                    codec_head=talker_params.codec_head, seen=seen, seed=seed_cb0,
+                    repetition_penalty=repetition_penalty, **cb0_kw)
+                last_hidden, cb0_next = out.hidden.to(dtype), out.cb0
+            else:
+                last_hidden, logits = talker_model.talker_step(
+                    talker_params, tcfg, step_embd, n_past, kv)
+                cb0_next = sample_cb0(logits[None], [seed_cb0], seen=seen[None],
+                                      repetition_penalty=repetition_penalty, **cb0_kw)
             n_past += 1
     H = tcfg.hidden_size
     if not codes:
@@ -131,20 +173,24 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                  max_frames: int, kv_capacity: int, temperature: float,
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
-                                 budgets=None) -> BatchedGenerateResult:
+                                 budgets=None, fused_talker: bool = True,
+                                 fused_cp: bool = True) -> BatchedGenerateResult:
     """Prefill + the frame loop for B requests in lockstep (counterpart of
-    ``_generate_batched_fused``, fused kernels, int8).
+    ``_generate_batched_fused``, fused kernels, int8; with both flags off,
+    of the vmapped unfused loop, ``decode_loop.py:651-667``).
 
     tokens [B, Tb] padded ids with n_tokens[b] real ones (one shared Tb, so
     every lane's prefill window has the same length and the lanes share
     n_past); speaker_embd [B, H]; language_ids [B]; budgets, when given,
     caps lane b at budgets[b] frames. Per lane: build_prefill and the dense
-    prefill into its slice kv[b]; frame 0's cb0 from K4 on the [B, Vc]
-    prefill logits. Then per frame-set: K6 (in groups of
-    CP_KERNEL_MAX_LANES lanes) predicts codes 1..15 and rest_sum; the codes
-    are written for emitting lanes only and their seen-sets updated;
-    step_embd = codec_embd[cb0] + rest_sum + trailing[min(frame, Trb-1)];
-    K5 steps every lane and samples its next cb0. EOS is latched per lane;
+    prefill into its slice kv[b]; frame 0's cb0 from ``sample_cb0`` on the
+    [B, Vc] prefill logits. Then per frame-set: K6 (in groups of
+    CP_KERNEL_MAX_LANES lanes), or ``predict_codes`` on all B lanes as M = B
+    rows, predicts codes 1..15 and rest_sum; the codes are written for
+    emitting lanes only and their seen-sets updated; step_embd =
+    codec_embd[cb0] + rest_sum + trailing[min(frame, Trb-1)]; K5, or
+    ``talker_step`` on B lanes and ``sample_cb0``, steps every lane and
+    samples its next cb0. EOS is latched per lane;
     finished lanes keep stepping with their emissions masked. The loop ends
     when every lane is done or after max_frames, with one host sync per
     frame-set.
@@ -165,6 +211,7 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     greedy, use_top_p = sampling_flags(temperature, top_p)
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
+    cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos)
     # lane b's draws: 1 for frame 0's cb0, then (code predictor, next cb0)
     # per frame, as generate_from_tokens draws them
     lane_seeds = []
@@ -189,8 +236,7 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
         outs = [talker_model.talker_prefill(talker_params, tcfg, p.prefill_embd, kv[b])
                 for b, p in enumerate(prefills)]
         last_hidden = torch.stack([h for h, _ in outs])
-        cb0_next = sample_rows(torch.stack([lg for _, lg in outs]).float(), seeds[:, 0], 0,
-                               suppress_start=suppress_start, eos_id=eos, **samp)
+        cb0_next = sample_cb0(torch.stack([lg for _, lg in outs]), seeds[:, 0], **cb0_kw)
         seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         frame = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -205,27 +251,37 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
             if not bool(emit.any()):
                 break
             cb0_embd = talker_params.codec_embd[cb0]                    # [B, H]
-            rest, rest_sum = [], []
-            for o in range(0, B, CP_KERNEL_MAX_LANES):
-                r, rs = fused_predict_codes_batched(
-                    cp_params, ccfg, last_hidden[o:o + CP_KERNEL_MAX_LANES],
-                    cb0_embd[o:o + CP_KERNEL_MAX_LANES],
-                    seeds[o:o + CP_KERNEL_MAX_LANES, 1 + 2 * it], **samp)
-                rest.append(r.to(torch.int64))
-                rest_sum.append(rs)
-            frame_codes = torch.cat([cb0[:, None], torch.cat(rest)], dim=1)
+            if fused_cp:
+                rest, rest_sum = [], []
+                for o in range(0, B, CP_KERNEL_MAX_LANES):
+                    r, rs = fused_predict_codes_batched(
+                        cp_params, ccfg, last_hidden[o:o + CP_KERNEL_MAX_LANES],
+                        cb0_embd[o:o + CP_KERNEL_MAX_LANES],
+                        seeds[o:o + CP_KERNEL_MAX_LANES, 1 + 2 * it], **samp)
+                    rest.append(r.to(torch.int64))
+                    rest_sum.append(rs)
+                rest, rest_sum = torch.cat(rest), torch.cat(rest_sum)
+            else:
+                rest = cp_model.predict_codes(cp_params, ccfg, last_hidden, cb0_embd,
+                                              seeds[:, 1 + 2 * it], **samp)
+                rest_sum = _rest_embd_sum(cp_params, rest)
+            frame_codes = torch.cat([cb0[:, None], rest], dim=1)
             codes[:, it] = torch.where(emit[:, None], frame_codes, codes[:, it])
             seen[lanes, cb0] |= emit.to(torch.int8)
             trailing_row = trailing[lanes, torch.clamp(frame, max=Trb - 1)]
-            step_embd = (cb0_embd.float() + torch.cat(rest_sum)
-                         + trailing_row.float()).to(dtype)
-            out = fused_talker_step_batched(
-                talker_params.blocks, tcfg, step_embd, n_past, kv,
-                output_norm=talker_params.output_norm, codec_head=talker_params.codec_head,
-                seen=seen, seeds=seeds[:, 2 + 2 * it], repetition_penalty=repetition_penalty,
-                suppress_start=suppress_start, eos_id=eos, **samp)
-            last_hidden = out.hidden.to(dtype)
-            cb0_next = out.cb0
+            step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
+            if fused_talker:
+                out = fused_talker_step_batched(
+                    talker_params.blocks, tcfg, step_embd, n_past, kv,
+                    output_norm=talker_params.output_norm,
+                    codec_head=talker_params.codec_head, seen=seen, seeds=seeds[:, 2 + 2 * it],
+                    repetition_penalty=repetition_penalty, **cb0_kw)
+                last_hidden, cb0_next = out.hidden.to(dtype), out.cb0
+            else:
+                last_hidden, logits = talker_model.talker_step(
+                    talker_params, tcfg, step_embd, n_past, kv)
+                cb0_next = sample_cb0(logits, seeds[:, 2 + 2 * it], seen=seen,
+                                      repetition_penalty=repetition_penalty, **cb0_kw)
             frame = frame + emit.to(torch.int64)
             done = done | (frame >= cap)
             n_past += 1

@@ -30,7 +30,9 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.ops.fused_talker_step", "qwen3tts_tpu_torch.ops.fused_code_predictor",
     "qwen3tts_tpu_torch.ops.fused_vocoder", "qwen3tts_tpu_torch.ops.sampling",
     "qwen3tts_tpu_torch.ops.fused_code_predictor_batched", "qwen3tts_tpu_torch.config",
-    "qwen3tts_tpu_torch.text.bpe",
+    "qwen3tts_tpu_torch.text.bpe", "qwen3tts_tpu_torch.ops.int8_matmul",
+    "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
+    "qwen3tts_tpu_torch.models.code_predictor",
 ]
 
 
@@ -151,6 +153,13 @@ def test_device_request_raises_without_the_library(no_library, kernel):
         elif kernel == "fused_predict_codes_batched":
             h = torch.zeros((2, ccfg.hidden_size), device=meta)
             fn(cp, ccfg, h, h, [0, 1], temperature=0.0, top_k=50, greedy=True)
+        elif kernel == "int8_matmul":
+            fn(torch.zeros((2, 128), device=meta), torch.zeros((128, 64), dtype=torch.int8,
+                                                             device=meta),
+               torch.zeros((1, 64), device=meta))
+        elif kernel == "decode_attention":
+            kv = torch.zeros((tcfg.n_layers, 2, tcfg.n_kv_heads, 1024, 128), device=meta)
+            fn(torch.zeros((tcfg.n_heads, 128), device=meta), kv, 0, 5)
         elif kernel == "fused_res_block":
             C = 8
             w1, w2, v = (torch.zeros((7, C, C), device=meta),
@@ -186,6 +195,9 @@ def test_chip_smoke_phases_at_tiny_config():
         tts, report, iters=1, shapes=((2, 32, (3,)), (3, 32, (5, 20)), (2, 64, (40,))))
     chip_smoke.check_code_predictor_batched(tts, report, iters=1, B=6)
     chip_smoke.check_res_block(tts, report, iters=1)
+    chip_smoke.check_int8_matmul(tts, report, iters=1, rows=(1, 3))
+    chip_smoke.check_decode_attention(tts, report, iters=1, L=2,
+                                      shapes=((1, 32, (1, 20)), (2, 64, (40,))))
     assert set(report) == set(chip_smoke.KERNELS)
     keys = {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err"}
     assert all(keys <= set(r) and r["bound_ms"] > 0 for r in report.values())
@@ -199,6 +211,36 @@ def test_chip_smoke_phases_at_tiny_config():
               (2, dict(max_audio_tokens=4, seed=3))], min_frames_per_lane=1)
     assert [s["lanes"] for s in bstats] == [3, 2] and all(s["frames"] > 0 for s in bstats)
     assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    unfused = chip_smoke.unfused_pipeline(tts)
+    assert unfused.fused == dict(fused_talker=False, fused_cp=False)
+    stats, counts = chip_smoke.serve(
+        unfused, [("Hello.", dict(max_audio_tokens=4, temperature=0.0, seed=1))])
+    assert all(s["ok"] for s in stats)
+    assert counts == {name: 0 for name in chip_smoke.KERNELS}
+
+
+def test_unfused_path_needs_decode_attention_from_1024_rows():
+    """The kernels the smoke demands of an unfused request: the GEMM and K3,
+    and decode attention where the request's KV capacity takes the kernel
+    (at the full widths: 600 tokens give C = 1280, 64 give C = 256)."""
+    from qwen3tts_tpu_torch.config import PipelineConfig
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    tts = Qwen3TTS(PipelineConfig(), device="cpu")    # no weights needed
+    assert chip_smoke.unfused_path(tts, dict(max_audio_tokens=64)) == chip_smoke.UNFUSED_PATH
+    assert chip_smoke.unfused_path(tts, dict(max_audio_tokens=600)) == (
+        chip_smoke.UNFUSED_PATH + ("decode_attention",))
+
+
+def test_check_launches_demands_the_path_and_forbids_the_rest():
+    launches = {name: 0 for name in chip_smoke.KERNELS}
+    launches.update(int8_matmul=3, fused_res_block=1)
+    chip_smoke.check_launches("x", launches, chip_smoke.UNFUSED_PATH, chip_smoke.FUSED_ONLY)
+    with pytest.raises(chip_smoke.SmokeFailure, match="decode_attention"):
+        chip_smoke.check_launches("x", launches, ("decode_attention",))
+    launches["fused_talker_step"] = 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="fused_talker_step"):
+        chip_smoke.check_launches("x", launches, chip_smoke.UNFUSED_PATH, chip_smoke.FUSED_ONLY)
 
 
 def test_chip_smoke_main_needs_a_gpu(capsys):
@@ -215,6 +257,17 @@ def test_device_busy_is_the_union_of_device_intervals():
           dict(cat="gpu_memcpy", ts=600, dur=100), dict(cat="gpu_memset", ts=3000, dur=500),
           dict(cat="cpu_op", ts=1500, dur=1000), dict(cat="kernel", ts=4000)]
     assert chip_smoke.device_busy_ms(ev) == pytest.approx(2.0)
+
+
+def test_device_events_of_a_host_only_profile_are_empty():
+    """device_events reads the profiler's event list and keeps only events
+    on a CUDA device; a profile of CPU work alone has none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8).sum()
+    assert chip_smoke.device_events(prof) == []
+    assert chip_smoke.device_ms_per_call(lambda: None, 1, ("x",), torch.device("cpu")) is None
 
 
 def test_device_top_sums_time_per_kernel_name():
