@@ -9,7 +9,13 @@ Phases (each prints a line; any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card, on
      the same inputs, at the main paths' full 0.6B widths, with the stated
      tolerance, and both timed with CUDA events after a warm-up; beside
-     each time, the least time the card could take for the same work;
+     each time, the least time the card could take for the same work. K1
+     and K5 run in every weight mode, each on its tier's weights: w8a8
+     (int8), bf16 (the default tier), the q4 tier's mixed tuple and w4bf16
+     (q4pure); the new modes must agree with their plain versions to 0.0 in
+     the hidden state and the K/V rows over 2 layers. Then the 4-bit GEMV
+     probe (int8 and packed-nibble weights, exact) beside K1's projection
+     kernels at the probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -23,17 +29,25 @@ Phases (each prints a line; any failure exits non-zero):
      Qwen3TTS(..., fused_talker=False, fused_cp=False): a greedy 64-token
      request (C = 256: the GEMM, attention in PyTorch), a sampled request of
      max_audio_tokens=600 (C = 1280: the GEMM and the decode-attention
-     kernel) and a 16-lane greedy batch of 600, which must launch the GEMM
-     and K3 (the C = 1280 ones also decode attention) and none of K1, K2,
-     K5, K6. K4's standalone entry (sample_rows) has no caller on a serve
-     path: frame 0's codebook-0 token is drawn by the PyTorch sampler with
-     the JAX package's exact top-k, and K4's device code runs inside K1, K2,
-     K5 and K6; the kernel phase still holds it against its plain version;
-  5. profile: the sampled 256-token request, the 16-lane batch and the
-     unfused 600-token request again, under torch.profiler with device
-     activity only; prints the device's busy time (the union of its kernel
-     and copy intervals), its idle share, and the kernels with the most
-     device time in each.
+     kernel) and a 16-lane greedy batch of 520 (C = 1280), which must launch
+     the GEMM and K3 (the C = 1280 ones also decode attention) and none of
+     K1, K2, K5, K6. Then the other weight tiers (TIER_SERVE), each on its own
+     Qwen3TTS with the default flags: the bf16 tier is Qwen3TTS() itself
+     (two requests and a 16-lane batch through K1/K5 in bf16 mode, K3, and
+     no K2, K6 or GEMM: its code predictor is the eager predict_codes), q4
+     (a request and a 16-lane batch: K1/K5 mixed, K2/K6, K3, the GEMM) and
+     q4pure (a request and a 16-lane batch: K1/K5 w4bf16, K2/K6, K3, no
+     GEMM), then one unfused q4 request. No path may launch K1/K5 in another tier's mode. K4's
+     standalone entry (sample_rows) has no caller on a serve path: frame 0's
+     codebook-0 token is drawn by the PyTorch sampler with the JAX
+     package's exact top-k, and K4's device code runs inside K1, K2, K5 and
+     K6; the kernel phase still holds it against its plain version; the
+     probe is off every path;
+  5. profile: the sampled 256-token request, the 16-lane batch, the
+     unfused 64-token request and the bf16 tier's sampled request again,
+     under torch.profiler with device activity only; prints the device's
+     busy time (the union of its kernel and copy intervals), its idle
+     share, and the kernels with the most device time in each.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -52,7 +66,9 @@ import sys
 import time
 
 KERNELS = {
-    # name: (wrapper module, wrapper name, source, replaced TPU kernel)
+    # name: (wrapper module, wrapper name, source, replaced TPU kernel); a
+    # name "wrapper[mode]" is that wrapper's launches in one weight mode
+    # (ops/fused_talker_step.mode_label), the bare K1/K5 names their w8a8 mode
     "fused_talker_step": (
         "qwen3tts_tpu_torch.ops.fused_talker_step", "fused_talker_step",
         "qwen3tts_tpu_torch/csrc/talker_step.cu",
@@ -85,9 +101,21 @@ KERNELS = {
         "qwen3tts_tpu_torch.ops.int8_matmul", "int8_matmul",
         "qwen3tts_tpu_torch/csrc/int8_matmul.cu",
         "qwen3tts_tpu/ops/pallas_int8_matmul.py:47"),
+    "w4_gemv_probe": (
+        "qwen3tts_tpu_torch.ops.w4_gemv_probe", "w4_gemv_probe",
+        "qwen3tts_tpu_torch/csrc/w4_gemv_probe.cu",
+        "tools/exp_w4_gemv.py:87"),
 }
+# the non-w8a8 weight modes of K1 and K5, one entry each; the tier that
+# serves each mode (RuntimeConfig.quant)
+MODE_TIERS = {"bf16": None, "mixed": "q4", "w4bf16": "q4pure"}
+for _mode in MODE_TIERS:
+    for _k in ("fused_talker_step", "fused_talker_step_batched"):
+        KERNELS[f"{_k}[{_mode}]"] = KERNELS[_k]
 # TPU kernels a kernel replaces besides the one KERNELS names
 ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201"}
+ALSO_REPLACES.update({name: "qwen3tts_tpu/ops/pallas_talker_step.py:980" for name in KERNELS
+                      if name.partition("[")[0] == "fused_talker_step"})
 # the kernels each main path must launch (K4's standalone entry is on none:
 # see the module docstring); the unfused path launches decode attention
 # only at KV capacities of 1024 rows and more
@@ -96,7 +124,9 @@ BATCH_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched", "fused
               "int8_matmul")
 UNFUSED_PATH = ("int8_matmul", "fused_res_block")
 FUSED_ONLY = ("fused_talker_step", "fused_predict_codes", "fused_talker_step_batched",
-              "fused_predict_codes_batched")
+              "fused_predict_codes_batched") + tuple(
+                  f"{k}[{m}]" for m in MODE_TIERS
+                  for k in ("fused_talker_step", "fused_talker_step_batched"))
 
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
 # second by operand type (float32 on the CUDA cores, no TF32)
@@ -115,13 +145,30 @@ def wrapper(name):
     return getattr(importlib.import_module(mod), fn)
 
 
+def kernel_mode(name):
+    """The weight mode a KERNELS name counts (K1 and K5: "w8a8" for the bare
+    name), or None for a kernel without modes."""
+    if not hasattr(wrapper(name), "mode_launches"):
+        return None
+    return name.partition("[")[2].rstrip("]") or "w8a8"
+
+
 def reset_counts():
     for name in KERNELS:
-        wrapper(name).launches = 0
+        fn = wrapper(name)
+        fn.launches = 0
+        if hasattr(fn, "mode_launches"):
+            fn.mode_launches.clear()
 
 
 def read_counts():
-    return {name: wrapper(name).launches for name in KERNELS}
+    """Launches per KERNELS name: a wrapper's count, or, for K1 and K5, its
+    count in the name's weight mode."""
+    out = {}
+    for name in KERNELS:
+        fn, mode = wrapper(name), kernel_mode(name)
+        out[name] = fn.launches if mode is None else fn.mode_launches.get(mode, 0)
+    return out
 
 
 def timed(fn, device, iters=5):
@@ -165,28 +212,39 @@ def _nbytes(*tensors):
 
 
 def _stack(blocks):
-    """(bytes, int8 weight count) of a decoder stack as the kernels read it:
-    int8 projections, float32 scales and norms."""
+    """(bytes, weight counts by operand type) of a decoder stack as the
+    kernels read it: the norms (float32) and each projection's leaves (int8
+    q and float32 scales; u4 packed q, float32 scales and offsets; or plain
+    bf16). An int8 weight is an int8 product; a u4 or bf16 weight a bf16
+    one (the Pallas kernels' dots in those modes)."""
     ts = [blocks.attn_norm, blocks.q_norm, blocks.k_norm, blocks.ffn_norm]
-    n8 = 0
+    counts = {"int8": 0, "bf16": 0}
     for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
-        ts += [w.q, w.scale]
-        n8 += w.q.numel()
-    return _nbytes(*ts), n8
+        if hasattr(w, "zero"):        # QuantLinear4: K/2 packed rows
+            ts += list(w)
+            counts["bf16"] += 2 * w.q.numel()
+        elif hasattr(w, "q"):
+            ts += list(w)
+            counts["int8"] += w.q.numel()
+        else:
+            ts.append(w)
+            counts["bf16"] += w.numel()
+    return _nbytes(*ts), counts
 
 
 def talker_step_bound(tp, tcfg, B, n_past):
     """One talker step for B lanes at n_past: the stack, output norm and
     codec head once; each lane's KV rows 0..n_past (bf16) and its input,
-    outputs and seen-set. Operations: the int8 products, the bf16 head, the
-    float32 attention (q.k and p.v)."""
+    outputs and seen-set. Operations: the projections' products by type,
+    the bf16 head, the float32 attention (q.k and p.v)."""
     H, Vc, L = tcfg.hidden_size, tcfg.codec_vocab_size, tcfg.n_layers
-    sb, n8 = _stack(tp.blocks)
+    sb, n = _stack(tp.blocks)
     kv_row = L * 2 * tcfg.n_kv_heads * tcfg.head_dim * 2
     nbytes = (sb + _nbytes(tp.output_norm, tp.codec_head)
               + B * ((n_past + 1) * kv_row + H * 2 + H * 4 + Vc * 4 + Vc + 8))
     attn = 4 * L * tcfg.n_heads * (n_past + 1) * tcfg.head_dim
-    return bound(nbytes, {"int8": 2 * B * n8, "bf16": 2 * B * H * Vc, "f32": B * attn})
+    return bound(nbytes, {"int8": 2 * B * n["int8"], "bf16": 2 * B * (n["bf16"] + H * Vc),
+                          "f32": B * attn})
 
 
 def code_predictor_bound(cp, ccfg, B):
@@ -195,7 +253,8 @@ def code_predictor_bound(cp, ccfg, B):
     Operations: 16 passes of int8 products, 15 bf16 heads, the float32
     attention over positions 0..p."""
     H, V, S, L = ccfg.hidden_size, ccfg.vocab_size, ccfg.n_steps, ccfg.n_layers
-    sb, n8 = _stack(cp.blocks)
+    sb, n = _stack(cp.blocks)
+    n8 = n["int8"]
     nbytes = sb + _nbytes(cp.output_norm, cp.heads) + B * (2 * H * 2 + S * H * 2 + S * 4
                                                            + H * 4 + 4)
     attn = sum(4 * L * ccfg.n_heads * (p + 1) * ccfg.head_dim for p in range(S + 1))
@@ -203,10 +262,11 @@ def code_predictor_bound(cp, ccfg, B):
                           "f32": B * attn})
 
 
-def make_pipeline(cfg, device, seed=0):
+def make_pipeline(cfg, device, seed=0, quant="int8"):
+    """A Qwen3TTS in weight tier `quant` on synthetic weights from `seed`."""
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 
-    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, quant="int8"))
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, quant=quant))
     tts = Qwen3TTS(cfg, device=device)
     if not tts.load_models(None, synthetic=True, seed=seed):
         raise SmokeFailure(tts.error_msg)
@@ -266,11 +326,9 @@ def check_sampler(tts, report, iters):
 def _truncated(tts, n_layers):
     """The talker's first n_layers layers at full width (same kernels)."""
     from qwen3tts_tpu_torch.models.transformer_core import BlockParams
-    from qwen3tts_tpu_torch.ops.quant import QuantLinear
 
     def cut(w):
-        return QuantLinear(w.q[:n_layers], w.scale[:n_layers]) if isinstance(
-            w, QuantLinear) else w[:n_layers]
+        return type(w)(*(t[:n_layers] for t in w)) if hasattr(w, "_fields") else w[:n_layers]
 
     blocks = BlockParams(*[cut(w) for w in tts.talker_params.blocks])
     return blocks, dataclasses.replace(tts.config.talker, n_layers=n_layers)
@@ -283,25 +341,43 @@ def _lane_cos(a, b):
     return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
 
 
-def check_talker_step(tts, report, iters):
+# the kernels of layer.cuh that K1 and K5 launch (their device time is the
+# sum of these, one stream, in order)
+TALKER_KERNEL_PREFIXES = ("resid_rms_kernel", "gemv_", "gemm_", "qkv_post_kernel",
+                          "attn_", "merge_kernel", "swiglu_kernel", "head_sample_kernel")
+
+
+def _gates(exact):
+    """(hidden, kv row) bounds of the 2-layer gate: 0.0 in the float modes
+    (exact: every sum that feeds a rounding is exact to float32 in both
+    versions), else PR 1's 1e-3 and 0.05 (a bf16 ulp at |x| < 8 is at most
+    0.03)."""
+    return (0.0, 0.0) if exact else (1e-3, 0.05)
+
+
+def check_talker_step(tts, report, iters, key="fused_talker_step",
+                      positions=((512, (10, 300)), (4352, (10, 300, 4000))), exact=False):
     """K1 against the plain version on clones of the same cache, at each KV
     capacity and n_past, from identical inputs (one step: teacher-forced,
-    never chained). n_past 4000 at C=4352 reaches the rows a default request
+    never chained), in the weight mode of tts's tier; reported under `key`.
+    n_past 4000 at C=4352 reaches the rows a default request
     (max_audio_tokens=4096) attends over: a softmax row longer than the
     1024 threads of its block, and p.V partials merged over 60+ chunks.
 
     Two gates. (1) The first 2 layers at full width, greedy and sampled:
-    hidden and logits within 1e-3 abs, the written K/V row within 0.05 (a
-    bf16 ulp at |x| < 8 is at most 0.03), cb0 equal. (2) All layers: cosine
-    of hidden and of logits >= 0.99, greedy cb0 equal unless the plain
-    logits' top-2 gap is below twice the logits error. Why not an absolute
-    bound for (2): a last-bit difference that flips a bf16 rounding of q or
-    p or an int8 activation rounding grows chaotically through 28 layers of
-    random synthetic weights (a 1-ulp rsqrt difference alone grew to 0.17
-    in the hidden). The float64 sums of layer.cuh and the plain version
-    leave only the head's logits to differ in their last bits, so (2) holds
-    with room to spare. The report's max_abs_err is the worst of both
-    gates."""
+    hidden within 1e-3 abs (exact: 0.0), the written K/V row within 0.05
+    (exact: 0.0), logits within 1e-3 (the head sums in float32 in two
+    orders), cb0 equal. (2) All layers: cosine of hidden and of logits >=
+    0.99, greedy cb0 equal unless the plain logits' top-2 gap is below twice
+    the logits error. Why not an absolute bound for (2): a last-bit
+    difference that flips a bf16 rounding of q or p or an activation
+    rounding grows chaotically through 28 layers of random synthetic
+    weights (a 1-ulp rsqrt difference alone grew to 0.17 in the hidden). The
+    float64 sums of layer.cuh and the plain version leave only the head's
+    logits to differ in their last bits, so (2) holds with room to spare.
+    The report's max_abs_err is the worst of both gates; ms is CUDA events
+    around a run of calls, device_ms the kernels' own time under the
+    profiler."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_talker_step import (
@@ -319,11 +395,12 @@ def check_talker_step(tts, report, iters):
     greedy = dict(base, temperature=0.0, greedy=True, use_top_p=False)
     sampled = dict(base, temperature=0.9, greedy=False, use_top_p=False)
     short_blocks, short_cfg = _truncated(tts, min(2, tcfg.n_layers))
+    tol_h, tol_kv = _gates(exact)
     errs_short, errs_full, cos_full = [], [], []
-    for C, positions in ((512, (10, 300)), (4352, (10, 300, 4000))):
+    for C, n_pasts in positions:
         kv0 = (torch.randn((tcfg.n_layers, 2, tcfg.n_kv_heads, C, tcfg.head_dim),
                            generator=g) * 0.5).to(device=dev, dtype=tts.dtype)
-        for n_past in positions:
+        for n_past in n_pasts:
             for kw in (greedy, sampled):
                 kva = kv0[:short_cfg.n_layers].clone()
                 kvb = kva.clone()
@@ -332,12 +409,11 @@ def check_talker_step(tts, report, iters):
                 eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
                 ekv = _max_err(kva[:, :, :, n_past], kvb[:, :, :, n_past])
                 ca, cb = int(a.cb0.reshape(-1)[0]), int(b.cb0.reshape(-1)[0])
-                print(f"kernel fused_talker_step 2 layers C={C} n_past={n_past} "
+                print(f"kernel {key} 2 layers C={C} n_past={n_past} "
                       f"greedy={kw['greedy']}: hidden err {eh:.3e}, logits err {el:.3e}, "
                       f"kv row err {ekv:.3e}, cb0 {ca} vs {cb}")
-                if not (eh <= 1e-3 and el <= 1e-3 and ekv <= 0.05 and ca == cb):
-                    raise SmokeFailure(f"fused_talker_step (2 layers) disagrees at C={C}, "
-                                       f"n_past={n_past}")
+                if not (eh <= tol_h and el <= 1e-3 and ekv <= tol_kv and ca == cb):
+                    raise SmokeFailure(f"{key} (2 layers) disagrees at C={C}, n_past={n_past}")
                 errs_short.append(max(eh, el))
             kva, kvb = kv0.clone(), kv0.clone()
             a = fused_talker_step(tp.blocks, tcfg, x, n_past, kva, **greedy)
@@ -348,30 +424,35 @@ def check_talker_step(tts, report, iters):
             top2 = torch.topk(b.logits.float(), 2).values
             ca, cb = int(a.cb0.reshape(-1)[0]), int(b.cb0.reshape(-1)[0])
             cb0_ok = ca == cb or float(top2[0] - top2[1]) < 2 * el
-            print(f"kernel fused_talker_step {tcfg.n_layers} layers C={C} n_past={n_past}: "
+            print(f"kernel {key} {tcfg.n_layers} layers C={C} n_past={n_past}: "
                   f"hidden cos {ch:.6f} (err {eh:.3e}), logits cos {cl:.6f} (err {el:.3e}), "
                   f"cb0 {ca} vs {cb}")
             if not (ch >= 0.99 and cl >= 0.99 and cb0_ok):
-                raise SmokeFailure(f"fused_talker_step disagrees at C={C}, n_past={n_past}")
+                raise SmokeFailure(f"{key} disagrees at C={C}, n_past={n_past}")
             errs_full.append(max(eh, el))
             cos_full.append(min(ch, cl))
     n_past = 300
     kv = kv0.clone()
     bound_ms, bound_by = talker_step_bound(tp, tcfg, 1, n_past)
-    report["fused_talker_step"] = dict(
+    run = lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, kv, **greedy)  # noqa: E731
+    report[key] = dict(
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         max_abs_err=max(errs_short + errs_full),
         max_abs_err_2_layers=max(errs_short),
         max_abs_err_all_layers=max(errs_full),
         min_cos_all_layers=min(cos_full),
-        ms=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, kv, **greedy), dev,
-                 iters),
+        ms=timed(run, dev, iters),
+        device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES, dev),
         plain_ms=timed(lambda: fused_talker_step_plain(tp.blocks, tcfg, x, n_past, kv,
                                                        **greedy), dev, iters),
-        ms_n_past_4000=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, 4000, kv, **greedy),
-                             dev, iters),
         shape=f"C={C} n_past={n_past}",
-        tolerance="2 layers: 1e-3 abs, cb0 equal; all layers: cosine 0.99")
+        tolerance=(f"2 layers: hidden {tol_h} abs, kv row {tol_kv}, logits 1e-3, cb0 equal; "
+                   f"all layers: cosine 0.99"))
+    if C > 4000:   # the rows a default request (max_audio_tokens=4096) attends over
+        report[key].update(
+            ms_n_past_4000=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, 4000, kv,
+                                                           **greedy), dev, iters),
+            bound_ms_n_past_4000=talker_step_bound(tp, tcfg, 1, 4000)[0])
 
 
 def check_code_predictor(tts, report, iters):
@@ -415,12 +496,15 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
                                                           (16, 4352, (4000,)),
                                                           (5, 512, (10,)),
                                                           (24, 512, (10,)),
-                                                          (128, 512, (10,)))):
+                                                          (128, 512, (10,))),
+                              key="fused_talker_step_batched", exact=False):
     """K5 against the plain version per lane, on clones of the same batched
     cache, for each (B, C, n_past) of `shapes`, teacher-forced single steps
-    with 64 distinct lane seeds. The gates are K1's, lane by lane: (1) the
-    first 2 layers at full width, greedy and sampled: hidden and logits
-    within 1e-3, the written K/V rows within 0.05, every lane's cb0 equal;
+    with 64 distinct lane seeds, in the weight mode of tts's tier; reported
+    under `key` (shapes[1] is the headline). The gates are K1's, lane by
+    lane: (1) the first 2 layers at full width, greedy and sampled: hidden
+    within 1e-3 (exact: 0.0) and logits within 1e-3, the written K/V rows
+    within 0.05 (exact: 0.0), every lane's cb0 equal;
     (2) all layers, greedy: each lane's hidden and logits cosine >= 0.99 and
     its cb0 equal unless the plain logits' top-2 gap is below twice that
     lane's logits error (check_talker_step says why). The lane counts 5, 16,
@@ -437,6 +521,7 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
     g = torch.Generator(device=dev).manual_seed(15)
     short_blocks, short_cfg = _truncated(tts, min(2, L))
     Ls = short_cfg.n_layers
+    tol_h, tol_kv = _gates(exact)
     errs_short, errs_full, cos_full, times = [], [], [], {}
     for i, (B, C, positions) in enumerate(shapes):
         x = torch.randn((B, tcfg.hidden_size), generator=g, device=dev).to(tts.dtype)
@@ -459,11 +544,11 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
                 eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
                 ekv = _max_err(kva[..., n_past, :], kvb[..., n_past, :])
                 same = int((a.cb0.long() == b.cb0.long()).sum())
-                print(f"kernel fused_talker_step_batched 2 layers B={B} C={C} "
+                print(f"kernel {key} 2 layers B={B} C={C} "
                       f"n_past={n_past} greedy={kw['greedy']}: hidden err {eh:.3e}, "
                       f"logits err {el:.3e}, kv row err {ekv:.3e}, cb0 equal {same}/{B}")
-                if not (eh <= 1e-3 and el <= 1e-3 and ekv <= 0.05 and same == B):
-                    raise SmokeFailure(f"fused_talker_step_batched (2 layers) disagrees at "
+                if not (eh <= tol_h and el <= 1e-3 and ekv <= tol_kv and same == B):
+                    raise SmokeFailure(f"{key} (2 layers) disagrees at "
                                        f"B={B}, C={C}, n_past={n_past}")
                 errs_short.append(max(eh, el))
             del kva, kvb
@@ -478,37 +563,40 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
             top2 = torch.topk(b.logits.float(), 2, dim=-1).values
             cb0_ok = (a.cb0.long() == b.cb0.long()) | (top2[:, 0] - top2[:, 1] < 2 * el)
             eh = _max_err(a.hidden, b.hidden)
-            print(f"kernel fused_talker_step_batched {L} layers B={B} C={C} n_past={n_past}: "
+            print(f"kernel {key} {L} layers B={B} C={C} n_past={n_past}: "
                   f"min lane cos hidden {float(ch.min()):.6f} logits {float(cl.min()):.6f} "
                   f"(err {eh:.3e}, {float(el.max()):.3e}); cb0 equal "
                   f"{int((a.cb0 == b.cb0).sum())}/{B}, gate {int(cb0_ok.sum())}/{B}")
             if not (bool((ch >= 0.99).all()) and bool((cl >= 0.99).all())
                     and bool(cb0_ok.all())):
-                raise SmokeFailure(f"fused_talker_step_batched disagrees at B={B}, C={C}, "
-                                   f"n_past={n_past}")
+                raise SmokeFailure(f"{key} disagrees at B={B}, C={C}, n_past={n_past}")
             errs_full.append(max(eh, float(el.max())))
             cos_full.append(min(float(ch.min()), float(cl.min())))
         n_t = positions[-1]
-        times[(B, C, n_t)] = timed(
-            lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, kva, **greedy), dev,
-            iters)
+        run = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, kva,  # noqa: E731
+                                                **greedy)
+        times[(B, C, n_t)] = dict(ms=timed(run, dev, iters),
+                                  device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES,
+                                                               dev),
+                                  bound_ms=talker_step_bound(tp, tcfg, B, n_t)[0])
         if i == 1:
             plain_ms = timed(lambda: fused_talker_step_batched_plain(
                 tp.blocks, tcfg, x, n_t, kvb, **greedy), dev, iters)
         del kva, kvb, kv0
     B, C, n_past = shapes[1][0], shapes[1][1], shapes[1][2][-1]
     bound_ms, bound_by = talker_step_bound(tp, tcfg, B, n_past)
-    report["fused_talker_step_batched"] = dict(
+    head = times[(B, C, n_past)]
+    report[key] = dict(
         max_abs_err=max(errs_short + errs_full),
         max_abs_err_2_layers=max(errs_short),
         max_abs_err_all_layers=max(errs_full),
         min_lane_cos_all_layers=min(cos_full),
-        ms=times[(B, C, n_past)], plain_ms=plain_ms,
+        ms=head["ms"], device_ms=head["device_ms"], plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=f"B={B} C={C} n_past={n_past}",
-        times={f"B={b} C={c} n_past={n}": dict(ms=t, bound_ms=talker_step_bound(tp, tcfg, b, n)[0])
-               for (b, c, n), t in times.items()},
-        tolerance="per lane: 2 layers 1e-3 abs, cb0 equal; all layers cosine 0.99")
+        times={f"B={b} C={c} n_past={n}": t for (b, c, n), t in times.items()},
+        tolerance=(f"per lane: 2 layers hidden {tol_h} abs, kv rows {tol_kv}, logits 1e-3, "
+                   f"cb0 equal; all layers cosine 0.99"))
 
 
 def check_code_predictor_batched(tts, report, iters, B=64):
@@ -729,6 +817,80 @@ def check_decode_attention(tts, report, iters, L=None,
         tolerance="one bf16 ulp + 1e-6 abs")
 
 
+def check_w4_gemv_probe(report, device, iters, shape=None):
+    """The probe of tools/exp_w4_gemv.py on the card: x [1, K] int8 against
+    L layers of int8 [K, N] weights (values in [-8, 8)) and of the same
+    values packed two per byte, each against its plain version EXACTLY (an
+    int32 sum), timed with CUDA events (ms) and the profiler (device_ms),
+    with the rate its weight bytes imply. Beside it, K1's own projection
+    kernels at the same shape (ops/w4_gemv_probe.project_layers: one GEMV
+    per layer, as run_layer launches it) in w8a8, bf16 and w4bf16 on
+    synthetic weights: does 4-bit halve the weight time on this card, or do
+    the unpacking and the scales eat the saving?"""
+    import torch
+
+    from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
+    from qwen3tts_tpu_torch.ops.quant import quantize_per_channel, quantize_w4
+
+    L, K, N = shape or (probe.L, probe.K, probe.N)
+    g = torch.Generator(device="cpu").manual_seed(29)
+    x = torch.randint(-127, 128, (1, K), generator=g, dtype=torch.int8).to(device)
+    wv = torch.randint(-8, 8, (L, K, N), generator=g, dtype=torch.int8).to(device)
+    variants = {"int8": (wv, False), "packed": (probe.pack_nibbles(wv), True)}
+    times = {}
+    for name, (w, packed) in variants.items():
+        a = probe.w4_gemv_probe(x, w, packed)
+        b = probe.w4_gemv_probe_plain(x, w, packed)
+        err = int((a.long() - b.long()).abs().max())
+        print(f"kernel w4_gemv_probe {name} L={L} K={K} N={N}: "
+              f"{'exact' if err == 0 else f'DIFFERS by {err}'}")
+        if err:
+            raise SmokeFailure(f"w4_gemv_probe {name} differs from its plain version")
+        nbytes = _nbytes(w, x) + N * 4
+        run = lambda w=w, packed=packed: probe.w4_gemv_probe(x, w, packed)  # noqa: E731
+        ms = timed(run, device, iters)
+        dms = device_ms_per_call(run, 1, ("probe_gemv_kernel",), device, expect=1)
+        times[name] = dict(
+            ms=ms, device_ms=dms, weight_bytes=_nbytes(w),
+            gb_per_s=_nbytes(w) / ((dms or ms) * 1e-3) / 1e9,
+            plain_ms=timed(lambda w=w, packed=packed: probe.w4_gemv_probe_plain(x, w, packed),
+                           device, iters),
+            bound_ms=bound(nbytes, {"int8": 2 * L * K * N})[0])
+    # K1's projection kernels at the probe's shape (a harness of the card
+    # only: there is no plain version to run on the CPU)
+    k1 = {}
+    if device.type == "cuda":
+        wf = torch.randn((L, K, N), generator=g).div_(K ** 0.5).to(device)
+        xf = torch.randn((1, K), generator=g).to(device)
+        k1 = {"w8a8": (quantize_per_channel(wf), x), "bf16": (wf.to(torch.bfloat16), xf),
+              "w4bf16": (quantize_w4(wf), xf)}
+        del wf
+    k1_times = {}
+    for mode, (w, xin) in k1.items():
+        ws = probe.project_layers(xin, w, mode)
+        run = lambda w=w, xin=xin, mode=mode, ws=ws: probe.project_layers(  # noqa: E731
+            xin, w, mode, ws)
+        wb = _nbytes(*(w if hasattr(w, "_fields") else (w,)))
+        ms = timed(run, device, iters)
+        dms = device_ms_per_call(run, 1, ("gemv_",), device, expect=L)
+        k1_times[mode] = dict(ms=ms, device_ms=dms, weight_bytes=wb,
+                              gb_per_s=wb / ((dms or ms) * 1e-3) / 1e9,
+                              bound_ms=bound(wb, {})[0])
+        print(f"time K1 projection {mode} L={L} K={K} N={N}: {ms:.4f} ms "
+              f"(device {dms}) for {wb / 1e6:.1f} MB")
+    head = times["packed"]
+    bound_ms, bound_by = bound(_nbytes(variants["packed"][0], x) + N * 4,
+                               {"int8": 2 * L * K * N})
+    report["w4_gemv_probe"] = dict(
+        max_abs_err=0.0, ms=head["ms"], device_ms=head["device_ms"],
+        plain_ms=head["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=f"packed, L={L} K={K} N={N}", times=times, k1_projection_times=k1_times,
+        tolerance="exact (int32)")
+    for name, t in times.items():
+        print(f"time w4_gemv_probe {name}: {t['ms']:.4f} ms (device {t['device_ms']}), "
+              f"{t['gb_per_s']:.1f} GB/s of weights")
+
+
 def attention_bound(B, Hq, Hkv, D, n):
     """One layer's decode attention: each lane's n K and V rows (bf16), its
     query and output; 4 float32 operations per query head, row and column
@@ -862,7 +1024,77 @@ UNFUSED_REQUESTS = [
     ("An unfused request, long enough for a cache of more than a thousand rows.",
      dict(max_audio_tokens=600, seed=5)),
 ]
-UNFUSED_BATCHES = [(16, dict(max_audio_tokens=600, temperature=0.0, seed=1))]
+# 520 frames: the fewest that keep C = 1280 (frame bucket 1024), so the
+# decode-attention kernel runs while the whole smoke stays under 900 s
+UNFUSED_BATCHES = [(16, dict(max_audio_tokens=520, temperature=0.0, seed=1))]
+
+
+# The weight tiers beside int8, each on its own Qwen3TTS with the default
+# flags ("auto": K1/K5 in every tier, K2/K6 on int8 code-predictor blocks);
+# the bf16 tier is Qwen3TTS() on the default PipelineConfig(). Per tier:
+# its single-stream requests and batches, the kernels each must launch,
+# and the kernels none may launch (besides every other mode of K1/K5). Its
+# weights are the int8 pipeline's synthetic draw (seed 0) in another tier.
+TIER_SERVE = {
+    None: dict(
+        mode="bf16",
+        requests=[("Hello from the default tier.",
+                   dict(max_audio_tokens=64, temperature=0.0, seed=1)),
+                  ("The quick brown fox jumps over the lazy dog.",
+                   dict(max_audio_tokens=128, seed=3))],
+        batches=[(16, dict(max_audio_tokens=64, temperature=0.0, seed=1))],
+        single=("fused_talker_step[bf16]", "fused_res_block"),
+        batch=("fused_talker_step_batched[bf16]", "fused_res_block"),
+        forbidden=("fused_predict_codes", "fused_predict_codes_batched", "int8_matmul")),
+    "q4": dict(
+        mode="mixed",
+        requests=[("The quick brown fox jumps over the lazy dog.",
+                   dict(max_audio_tokens=256, seed=3))],
+        batches=[(16, dict(max_audio_tokens=128, temperature=0.0, seed=1))],
+        single=("fused_talker_step[mixed]", "fused_predict_codes", "fused_res_block",
+                "int8_matmul"),
+        batch=("fused_talker_step_batched[mixed]", "fused_predict_codes_batched",
+               "fused_res_block", "int8_matmul"),
+        forbidden=()),
+    "q4pure": dict(
+        mode="w4bf16",
+        requests=[("The quick brown fox jumps over the lazy dog.",
+                   dict(max_audio_tokens=256, seed=3))],
+        batches=[(16, dict(max_audio_tokens=64, temperature=0.0, seed=1))],
+        single=("fused_talker_step[w4bf16]", "fused_predict_codes", "fused_res_block"),
+        batch=("fused_talker_step_batched[w4bf16]", "fused_predict_codes_batched",
+               "fused_res_block"),
+        # every talker projection is u4 and K2 runs the code predictor: no
+        # int8 product is left for the W8A16 GEMM
+        forbidden=("int8_matmul",)),
+}
+# the unfused path on the q4 tier's weights: the grouped QuantLinear4
+# product of the FFN (PyTorch) and the GEMM of the attention projections
+UNFUSED_Q4_REQUESTS = [("An unfused request on the q4 tier.",
+                        dict(max_audio_tokens=32, temperature=0.0, seed=1))]
+# K5's shapes in the non-w8a8 modes (B, C, n_past): shapes[1] is the
+# headline; B = 5, 16, 24, 64 and 128 reach every by_lanes instantiation
+MODE_BATCH_SHAPES = ((16, 512, (10, 300)), (64, 512, (10, 300)), (5, 512, (10,)),
+                     (24, 512, (10,)), (128, 512, (10,)))
+
+
+def tier_forbidden(spec):
+    """The kernels a tier's serve path must not launch: its own forbidden
+    list and every K1/K5 entry of another weight mode (w8a8 included)."""
+    other = tuple(name for name in KERNELS
+                  if kernel_mode(name) not in (None, spec["mode"]))
+    return tuple(spec["forbidden"]) + other
+
+
+def default_pipeline(seed=0):
+    """Qwen3TTS() as a user makes it with no arguments (the default config,
+    the bf16 tier, on the card), with synthetic weights."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    tts = Qwen3TTS()
+    if not tts.load_models(None, synthetic=True, seed=seed):
+        raise SmokeFailure(tts.error_msg)
+    return tts
 
 
 def unfused_pipeline(tts):
@@ -1006,12 +1238,15 @@ def kernel_name(name):
     return re.split(r"[(<]", name)[0].strip().split(" ")[-1].split("::")[-1]
 
 
-def device_ms_per_call(fn, calls, prefixes, device):
+def device_ms_per_call(fn, calls, prefixes, device, expect=None, tries=3):
     """Device time per call of the kernels whose bare names start with one of
     `prefixes`, over one run of fn (`calls` calls) under torch.profiler:
     the kernels' own time, without the host's launch gaps that CUDA events
-    around a run of calls include. None off the card, and None when two
-    traces in a row caught none of the kernels (nothing was measured)."""
+    around a run of calls include. `expect`, where given, is the number of
+    such kernels one run of fn launches: the profiler can drop the events of
+    a short run, so a trace that caught another number is not used. None
+    off the card, and None when `tries` traces in a row caught none (or not
+    the expected number) of the kernels: nothing was measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1019,13 +1254,13 @@ def device_ms_per_call(fn, calls, prefixes, device):
         return None
     fn()
     torch.cuda.synchronize(device)
-    for _ in range(2):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize(device)
         durs = [e["dur"] for e in device_events(prof)
                 if e["cat"] == "kernel" and kernel_name(e["name"]).startswith(prefixes)]
-        if durs:
+        if durs and (expect is None or len(durs) == expect):
             return sum(durs) / 1e3 / calls
     return None
 
@@ -1082,6 +1317,8 @@ def main():
         print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_kernels.build_seconds:.1f} s)")
 
         tts = make_pipeline(PipelineConfig(), dev)
+        tiers = {None: default_pipeline()}
+        tiers.update({q: make_pipeline(PipelineConfig(), dev, quant=q) for q in ("q4", "q4pure")})
         report = {}
         check_sampler(tts, report, iters=20)
         check_talker_step(tts, report, iters=5)
@@ -1091,21 +1328,31 @@ def main():
         check_res_block(tts, report, iters=3)
         check_int8_matmul(tts, report, iters=5)
         check_decode_attention(tts, report, iters=5)
+        for q, spec in TIER_SERVE.items():
+            mode = spec["mode"]
+            check_talker_step(tiers[q], report, iters=5, key=f"fused_talker_step[{mode}]",
+                              positions=((512, (10, 300)), (4352, (300, 4000))), exact=True)
+            check_talker_step_batched(tiers[q], report, iters=3, shapes=MODE_BATCH_SHAPES,
+                                      key=f"fused_talker_step_batched[{mode}]", exact=True)
+        check_w4_gemv_probe(report, dev, iters=10)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         for name, r in report.items():
-            print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+            print(f"time {name}: kernel {r['ms']:.4f} ms (device {r.get('device_ms')}), "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) [{smi}]")
 
         # each main path with the counts set to 0 just before it and read
         # just after
+        int8_forbidden = tier_forbidden(dict(mode="w8a8", forbidden=()))
         stats, single_counts = serve(tts, MAIN_REQUESTS)
         for st in stats:
-            check_launches(f"request {st['request']}", st["launches"], SINGLE_PATH)
+            check_launches(f"request {st['request']}", st["launches"], SINGLE_PATH,
+                           int8_forbidden)
             print("serve " + json.dumps(dict(st, card=smi)))
         bstats, batch_counts = serve_batches(tts, BATCH_REQUESTS)
         for st in bstats:
-            check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH)
+            check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH, int8_forbidden)
             print("serve_batch " + json.dumps(dict(st, card=smi)))
         tts_u = unfused_pipeline(tts)
         ustats, unfused_counts = serve(tts_u, UNFUSED_REQUESTS)
@@ -1118,13 +1365,36 @@ def main():
             check_launches(f"unfused batch {st['lanes']}", st["launches"],
                            unfused_path(tts, st["request"]), FUSED_ONLY)
             print("serve_unfused_batch " + json.dumps(dict(st, card=smi)))
-        counts = {k: single_counts[k] + batch_counts[k] + unfused_counts[k]
-                  + unfused_batch_counts[k] for k in KERNELS}
+        runs = [single_counts, batch_counts, unfused_counts, unfused_batch_counts]
+        for q, spec in TIER_SERVE.items():
+            label = spec["mode"]
+            forbidden = tier_forbidden(spec)
+            stats, c = serve(tiers[q], spec["requests"])
+            runs.append(c)
+            for st in stats:
+                check_launches(f"{label} request {st['request']}", st["launches"],
+                               spec["single"], forbidden)
+                print("serve_tier " + json.dumps(dict(st, tier=q, card=smi)))
+            stats, c = serve_batches(tiers[q], spec["batches"])
+            runs.append(c)
+            for st in stats:
+                check_launches(f"{label} batch {st['lanes']}", st["launches"], spec["batch"],
+                               forbidden)
+                print("serve_tier_batch " + json.dumps(dict(st, tier=q, card=smi)))
+        tq_u = unfused_pipeline(tiers["q4"])
+        stats, c = serve(tq_u, UNFUSED_Q4_REQUESTS)
+        runs.append(c)
+        for st in stats:
+            check_launches(f"unfused q4 request {st['request']}", st["launches"],
+                           unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
+            print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
+        counts = {k: sum(r[k] for r in runs) for k in KERNELS}
 
         for what, pipe, (text, kw) in (
                 ("request", tts, MAIN_REQUESTS[1]),
                 ("batch", tts, (batch_texts(BATCH_REQUESTS[0][0]), BATCH_REQUESTS[0][1])),
-                ("unfused request", tts_u, UNFUSED_REQUESTS[1])):
+                ("unfused request", tts_u, UNFUSED_REQUESTS[0]),
+                ("bf16 request", tiers[None], TIER_SERVE[None]["requests"][1])):
             rs, wall_ms, busy_ms, top = profile_request(pipe, text, kw)
             if not any(r.success for r in rs):
                 raise SmokeFailure(f"profiled {what} failed: {rs[0].error_msg}")

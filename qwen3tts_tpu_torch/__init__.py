@@ -2,11 +2,13 @@
 
 The JAX package beside it is the reference. This package runs single-stream
 synthesis (``Qwen3TTS.synthesize``) and batched serving
-(``Qwen3TTS.synthesize_batch``) with int8 weights, through hand-written CUDA
-kernels for the pieces the JAX package wrote in Pallas: the fused talker step
-(single-stream and batched), the fused code predictor (single-stream and
-batched), the counter-hash sampler and the vocoder res-block. On CPU tensors
-every kernel wrapper runs its plain PyTorch version instead.
+(``Qwen3TTS.synthesize_batch``) in the JAX package's weight tiers (bf16, the
+default; int8; q4; q4pure), through hand-written CUDA kernels for the pieces
+the JAX package wrote in Pallas: the fused talker step (single-stream and
+batched, in every weight mode), the fused code predictor (single-stream and
+batched), the counter-hash sampler, the vocoder res-block, and the unfused
+path's decode attention and W8A16 GEMM. On CPU tensors every kernel wrapper
+runs its plain PyTorch version instead.
 
 It imports torch and never jax, and nothing of the JAX package: the host
 modules it needs (``config``, ``text.bpe``) are its own copies.

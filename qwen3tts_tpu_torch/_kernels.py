@@ -33,26 +33,33 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "qtts_sample_rows": [
         P, I, I, P, I, F, F, I, I, I, I, I, P, F, P, P],
-    "qtts_talker_ws_bytes": [I, I, I, I, I, I, I],
+    "qtts_talker_ws_bytes": [I, I, I, I, I, I, I, I],       # H Hq Hkv D F C Vc modes
     "qtts_talker_step": [
         P, I, P, P,                      # x_in, n_past, cos, sin
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
-        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
-        P, P, P,                         # output_norm, codec_head, kv
+        P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
+        P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
+        P, P, I, P,                      # output_norm, codec_head, modes, kv
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
                                          # use_top_p suppress eos seed
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
-    "qtts_talker_batched_ws_bytes": [I, I, I, I, I, I, I, I],
+    "qtts_talker_batched_ws_bytes": [I, I, I, I, I, I, I, I, I],   # B, then as above
     "qtts_talker_step_batched": [
         P, I, I, P, P,                   # x_in, B, n_past, cos, sin
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
-        P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
-        P, P, P,                         # output_norm, codec_head, kv
+        P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
+        P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
+        P, P, I, P,                      # output_norm, codec_head, modes, kv
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, P, F, F, F, I, I, I, I, I,    # seen seeds temp top_p pen top_k
                                          # greedy use_top_p suppress eos
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
+    "qtts_project_ws_bytes": [I, I, I, I],                  # mode B K N
+    "qtts_project_layers": [
+        I, P, P, P, P, I,                # mode, x, w, scale, zero, G
+        I, I, I, I, P, P],               # L B K N, ws, stream
+    "qtts_w4_gemv_probe": [P, P, I, I, I, I, P, P],        # x w packed L K N out stream
     "qtts_cp_ws_bytes": [I, I, I, I, I, I, I],
     "qtts_cp_batched_ws_bytes": [I, I, I, I, I, I, I, I],
     "qtts_code_predictor_batched": [

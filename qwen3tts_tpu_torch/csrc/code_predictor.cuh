@@ -61,14 +61,15 @@ void predict_codes(const Dims& d, const StackWeights& sw, int L, int V, int CTX,
       cp_embed_kernel<<<B, kRowThreads, 0, st>>>(embds, V, H, codes, S, p - 2, p - 2, w.x,
                                                  rest_sum);
     }
+    ProjOut last{};
     for (int l = 0; l < L; ++l) {
       const auto lv = layer_view(sw, d, l, kc + l * layer_kv, vc + l * layer_kv, head_stride,
                                  lane_stride);
-      run_layer(d, lv, l > 0 ? sw.sd + (size_t)(l - 1) * H : nullptr, w,
-                cos_tab + (size_t)p * half, sin_tab + (size_t)p * half, p, CTX, 0, 0, st);
+      last = run_layer(d, lv, last, w, cos_tab + (size_t)p * half, sin_tab + (size_t)p * half,
+                       p, CTX, 0, 0, st);
     }
     if (p == 0) continue;
-    final_norm(d, sw.sd + (size_t)(L - 1) * H, out_norm, w, w.hnorm, st);
+    final_norm(d, last, out_norm, w, w.hnorm, st);
     const int splits = project_bf16(w, w.hnorm, heads + (size_t)(p - 1) * H * V, H, V, st);
     head_sample_kernel<<<B, kRowThreads, smem, st>>>(
         w.head, splits, V, nullptr, codes, S, p - 1, V, -1, nullptr, 1.0f, temp, top_p, top_k,

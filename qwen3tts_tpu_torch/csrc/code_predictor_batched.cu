@@ -49,10 +49,8 @@ extern "C" int qtts_code_predictor_batched(
   if (S + 1 > CTX || B > 64) return (int)cudaErrorInvalidValue;
   Work w;
   carve_work(&w, (char*)ws, d, B, CTX, V);
-  const StackWeights sw{(const int8_t*)wqkv_q, (const int8_t*)wo_q, (const int8_t*)wgu_q,
-                        (const int8_t*)wd_q,   (const float*)wqkv_s, (const float*)wo_s,
-                        (const float*)wgu_s,   (const float*)wd_s,   (const float*)attn_n,
-                        (const float*)q_n,     (const float*)k_n,    (const float*)ffn_n};
+  const StackWeights sw = w8a8_stack(wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s,
+                                     attn_n, q_n, k_n, ffn_n);
   predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
                 (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
                 (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, 0,

@@ -1,37 +1,52 @@
-// One Qwen3 decoder layer for one token in each of B lanes, w8a8, as a
-// handful of kernels: the building blocks of K1 (talker_step.cu) and K2
+// One Qwen3 decoder layer for one token in each of B lanes, as a handful of
+// kernels: the building blocks of K1 (talker_step.cu) and K2
 // (code_predictor.cu), which run one lane, and of K5
 // (talker_step_batched.cu) and K6 (code_predictor_batched.cu), which run B.
 //
-//   resid_rms_quant  x += previous projection; h = RMSNorm(x); int8(h)
-//   project          acc[b, n] += sum_k xq[b, k] * W[k, n]     (int32, split-K)
+//   resid_rms        x += previous projection; h = RMSNorm(x); emit(h)
+//   project          y[b, :] = x[b, :] @ W     (in the projection's mode)
 //   qkv_post         q/k RMSNorm + NEOX RoPE; K/V row written into the cache
 //   attn_scores      s[b, h, t] = q_bh . k_bt * D^-0.5  for t < n_valid
 //   attn_softmax     p = softmax(s) (optionally rounded to the KV dtype)
 //   attn_pv          per-chunk partial sums of p @ V
-//   merge_quant      sum of the chunk partials; int8(o)
+//   merge            sum of the chunk partials; emit(o)
 //   project          o_proj
-//   resid_rms_quant  x += o_proj; h = RMSNorm(x); int8(h)
+//   resid_rms        x += o_proj; h = RMSNorm(x); emit(h)
 //   project          gate/up
-//   swiglu_quant     a = silu(gate) * up; int8(a)
+//   swiglu           a = silu(gate) * up; emit(a)
 //   project          down (added to x by the next layer's first kernel)
+//
+// Weight modes. Each projection has its own (the Pallas kernels' per-weight
+// modes, qwen3tts_tpu/ops/pallas_talker_step.py:71 _make_mm_values and :153
+// _weight_mode; K2 and K6 run w8a8 only):
+//   w8a8    int8 W [K, N] and scales [N]. emit() quantizes the activation
+//           per token (s = max(amax, 1e-8) * (1/127), round half to even),
+//           the dot accumulates in int32 (exact and independent of order, so
+//           the split-K atomics and the GEMV/GEMM choice change nothing),
+//           and the consumer reads acc * (s * w_scale) in float32;
+//   bf16    bf16 W [K, N]. emit() writes the float32 activation, which the
+//           projection rounds to bf16;
+//   w4bf16  split-half nibbles [K/2, N] (byte i: row i low, row i + K/2
+//           high) with float32 scale and zero [G, N] per group of gs = K/G
+//           logical rows. Per half, w = q * s - z (product rounded first)
+//           rounded to bf16, dotted with the bf16 activation.
+// A bf16 x bf16 product is exact in float32 and float64, so the float modes
+// sum their products in float64 into per-split partials [halves, splits,
+// B, N] (no float atomics), and the consumer adds the splits in order and
+// rounds once to float32 per half; the w4bf16 halves are then added in
+// float32, as the Pallas kernel adds its two float32 dots. The plain
+// versions compute the same float64 dots, so both get the same bits.
 //
 // Lanes. Every per-token kernel takes its lane from the grid (blockIdx.x
 // for the row kernels, y or z for the others) and finds lane b's vectors at
 // b times their length; one lane is the grid of one. `project` is a GEMV
-// for one lane (gemv_w8a8) and, for B lanes, a tiled GEMM (gemm_w8a8) that
-// stages each [128 x 128] int8 weight tile in shared memory once and
-// multiplies it against all B lanes' activation rows with __dp4a: every
-// weight byte leaves device memory once per call, whatever B is. That is
-// the point of the batched Pallas kernels (pallas_talker_step.py:1463 and
-// pallas_code_predictor_batched.py:69, M = B MXU dots).
+// for one lane and, for B lanes, a tiled GEMM that stages each weight tile
+// in shared memory once and multiplies it against all B lanes' activation
+// rows: every weight byte leaves device memory once per call, whatever B
+// is. That is the point of the batched Pallas kernels
+// (pallas_talker_step.py:1463 and pallas_code_predictor_batched.py:69, M = B
+// MXU dots).
 //
-// Numerics follow the Pallas kernels' w8a8 mode
-// (qwen3tts_tpu/ops/pallas_talker_step.py:71 _make_mm_values): activations
-// are quantized per token (per lane) with s = max(amax, 1e-8) * (1/127) and
-// round-half-even (rintf), the dots accumulate in int32 — exact and
-// independent of order, so the split-K atomics and the GEMV/GEMM choice
-// change nothing — and the result is acc * (s * w_scale) in float32.
 // Attention optionally casts q and the softmax probabilities to the KV dtype
 // (round_q, round_p: the single-stream talker kernel casts both, :338 and
 // :349; the batched one casts q only, :1529; the code predictors neither),
@@ -41,16 +56,17 @@
 // Pallas kernel's online softmax computes the same function in another
 // summation order.
 //
-// Every float sum whose result feeds an int8 rounding — the RMSNorm
-// variances, q.k, the softmax sum, p @ V — runs in float64 and is rounded to
-// float32 once, and exp (softmax, SiLU) is evaluated in float64 and
-// rounded. Products of float32 operands are exact in float64, so these
-// results do not depend on summation order, and the plain versions, which
-// do the same in PyTorch, get the same float32 bits. Without this, a last
-// bit of difference now and then flips an activation's int8 rounding (at
-// B = 64 already within two layers), and the layers amplify the flip.
-// For the same reason no product is fused into an add (__fmul_rn,
-// __fadd_rn) where the plain version rounds it first.
+// Every float sum whose result feeds a rounding — the projections of the
+// float modes, the RMSNorm variances, q.k, the softmax sum, p @ V — runs in
+// float64 and is rounded to float32 once, and exp (softmax, SiLU) is
+// evaluated in float64 and rounded. Products of float32 operands are exact
+// in float64, so these results do not depend on summation order, and the
+// plain versions, which do the same in PyTorch, get the same float32 bits.
+// Without this, a last bit of difference now and then flips an activation's
+// int8 or bf16 rounding (at B = 64 already within two layers), and the
+// layers amplify the flip. For the same reason no product is fused into an
+// add (__fmul_rn, __fadd_rn, __fsub_rn) where the plain version rounds it
+// first.
 #pragma once
 
 #include "common.cuh"
@@ -66,8 +82,58 @@ constexpr int kMaxLanes = 128;      // lanes of one batched call
 constexpr int kGemmTN = 128;        // output columns per GEMM block
 constexpr int kGemmTK = 128;        // int8 weight rows per shared tile
 constexpr int kGemmTKf = 32;        // bf16 weight rows per shared tile
+constexpr int kGemm4TN = 64;        // output columns per u4 GEMM block
+constexpr int kGemm4TK = 16;        // packed u4 rows per shared tile (32 logical)
 constexpr int kGemmThreads = 256;   // 32 column groups x 8 lane groups
 constexpr int kHeadSplits = 8;      // K splits of the batched head GEMM
+
+enum WeightMode { kW8A8 = 0, kBF16 = 1, kW4BF16 = 2 };
+
+// One projection's weights (a whole stack, or one layer of it).
+struct Proj {
+  int mode;
+  const void* w;    // int8 [K, N] | bf16 [K, N] | packed u4 int8 [K/2, N]
+  const float* s;   // w8a8: scales [N]; w4bf16: group scales [G, N]
+  const float* z;   // w4bf16: group offsets [G, N]
+  int G;            // w4bf16: groups
+};
+
+// Where a projection's result lies and how its consumer reads it.
+struct ProjOut {
+  const int* acc;       // w8a8: int32 [B, N]
+  const float* s_act;   // w8a8: activation scales [B]
+  const float* ws;      // w8a8: weight scales [N]
+  const double* part;   // bf16 / w4bf16: partials [halves, splits, B, N]
+  int splits, halves, B, N;
+};
+
+// What a row kernel hands the next projection.
+struct Emit {
+  int8_t* xq;     // w8a8: int8 rows [B, ldq] and their scales s_out [B]
+  float* s_out;
+  float* xf;      // bf16 / w4bf16: float32 rows [B, ldq] (rounded by the projection)
+  int ldq;
+  int* zero;      // w8a8: the projection's int32 accumulator [B, zero_n], cleared
+  int zero_n;
+};
+
+// Element n of lane b of a projection's result (float32).
+__device__ __forceinline__ float proj_value(const ProjOut& p, int b, int n) {
+  if (p.acc != nullptr)
+    return __fmul_rn((float)p.acc[(size_t)b * p.N + n], __fmul_rn(p.s_act[b], p.ws[n]));
+  float y = 0.f;
+  for (int h = 0; h < p.halves; ++h) {
+    double s = 0.0;
+    for (int sp = 0; sp < p.splits; ++sp)
+      s += p.part[(((size_t)h * p.splits + sp) * p.B + b) * p.N + n];
+    y = h == 0 ? (float)s : __fadd_rn(y, (float)s);
+  }
+  return y;
+}
+
+__device__ __forceinline__ bool proj_present(const ProjOut& p) {
+  return p.acc != nullptr || p.part != nullptr;
+}
 
 __device__ void quantize_buf(const float* buf, int n, float amax_local, int8_t* xq,
                              float* s_out, float* red) {
@@ -78,29 +144,36 @@ __device__ void quantize_buf(const float* buf, int n, float amax_local, int8_t* 
   if (threadIdx.x == 0) s_out[0] = s;
 }
 
-// Lane blockIdx.x: x += acc * (s_in * ws_in) when acc is given;
-// h = x * rsqrt(mean(x^2)+eps) * norm. Then h is quantized into (xq, s_out),
-// or, when h_out is given, written there in float32. zero[0:zero_n) of the
-// lane is cleared for the next projection.
-__global__ void resid_rms_quant_kernel(float* __restrict__ x, const int* __restrict__ acc,
-                                       const float* __restrict__ s_in,
-                                       const float* __restrict__ ws_in,
-                                       const float* __restrict__ norm, int H, float eps,
-                                       int8_t* __restrict__ xq, int ldq,
-                                       float* __restrict__ s_out, float* __restrict__ h_out,
-                                       int* __restrict__ zero, int zero_n) {
+// Lane b's row buf[0:n) (shared, written by this thread at i = tid + k *
+// blockDim) to the next projection, in its mode.
+__device__ void emit_row(const float* buf, int n, float amax_local, const Emit& e, int b,
+                         float* red) {
+  if (e.xf != nullptr) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) e.xf[(size_t)b * e.ldq + i] = buf[i];
+  } else {
+    quantize_buf(buf, n, amax_local, e.xq + (size_t)b * e.ldq, e.s_out + b, red);
+  }
+  if (e.zero != nullptr)
+    for (int i = threadIdx.x; i < e.zero_n; i += blockDim.x) e.zero[(size_t)b * e.zero_n + i] = 0;
+}
+
+// Lane blockIdx.x: x += the previous projection (when present); h =
+// x * rsqrt(mean(x^2)+eps) * norm. Then h goes to the next projection
+// (emit), or, when h_out is given, is written there in float32.
+__global__ void resid_rms_kernel(float* __restrict__ x, ProjOut in,
+                                 const float* __restrict__ norm, int H, float eps, Emit e,
+                                 float* __restrict__ h_out) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   __shared__ double redd[32];
   const int b = blockIdx.x;
+  const bool add = proj_present(in);
   x += (size_t)b * H;
-  if (acc != nullptr) acc += (size_t)b * H;
   if (h_out != nullptr) h_out += (size_t)b * H;
-  const float sa = acc != nullptr ? s_in[b] : 0.f;
   double ss = 0.0;
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
     float v = x[i];
-    if (acc != nullptr) v = __fadd_rn(v, __fmul_rn((float)acc[i], sa * ws_in[i]));
+    if (add) v = __fadd_rn(v, proj_value(in, b, i));
     x[i] = v;
     buf[i] = v;
     ss += (double)v * v;
@@ -114,9 +187,10 @@ __global__ void resid_rms_quant_kernel(float* __restrict__ x, const int* __restr
     am = fmaxf(am, fabsf(h));
     if (h_out != nullptr) h_out[i] = h;
   }
-  if (h_out == nullptr) quantize_buf(buf, H, am, xq + (size_t)b * ldq, s_out + b, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
+  if (h_out == nullptr) emit_row(buf, H, am, e, b, red);
 }
+
+// --- w8a8 ------------------------------------------------------------------
 
 // One lane: acc[n] += sum_{k in this block's K range} xq[k] * W[k, n], W
 // int8 [K, N] row-major. Block (32, 8): x walks 4-column groups (one 4-byte
@@ -221,47 +295,52 @@ gemm_w8a8_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* __
   }
 }
 
+// --- bf16 ------------------------------------------------------------------
+
 // One lane: float32 x (rounded to bf16) @ W bf16 [K, N]: per-split partial
-// sums into partial[split, N] (summed in a fixed order by the consumer).
+// sums into partial[split, N], accumulated in Acc (float for the codec head,
+// whose consumer sums the splits in float32; double for a bf16 projection).
+template <typename Acc>
 __global__ void gemv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ W,
-                                 int K, int N, int kchunk, float* __restrict__ partial) {
-  __shared__ float part[8][32][4];
+                                 int K, int N, int kchunk, Acc* __restrict__ partial) {
+  __shared__ Acc part[8][32][4];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int n0 = (blockIdx.x * 32 + tx) * 4;
   const int kb = blockIdx.y * kchunk, ke = min(K, kb + kchunk);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  Acc a0 = 0, a1 = 0, a2 = 0, a3 = 0;
   if (n0 < N) {
 #pragma unroll 4
     for (int k = kb + ty; k < ke; k += 8) {
-      const float xv = bf16_round(x[k]);
+      const Acc xv = bf16_round(x[k]);
       const uint2 raw = *reinterpret_cast<const uint2*>(W + (size_t)k * N + n0);
       const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
       const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-      a0 += xv * __low2float(w01);
-      a1 += xv * __high2float(w01);
-      a2 += xv * __low2float(w23);
-      a3 += xv * __high2float(w23);
+      a0 += xv * (Acc)__low2float(w01);
+      a1 += xv * (Acc)__high2float(w01);
+      a2 += xv * (Acc)__low2float(w23);
+      a3 += xv * (Acc)__high2float(w23);
     }
   }
   part[ty][tx][0] = a0; part[ty][tx][1] = a1; part[ty][tx][2] = a2; part[ty][tx][3] = a3;
   __syncthreads();
   if (ty == 0 && n0 < N) {
     for (int j = 0; j < 4; ++j) {
-      float s = 0.f;
+      Acc s = 0;
       for (int y = 0; y < 8; ++y) s += part[y][tx][j];
       partial[(size_t)blockIdx.y * N + n0 + j] = s;
     }
   }
 }
 
-// B lanes: x [B, K] float32 (rounded to bf16) @ W bf16 [K, N]: partial
-// sums of this block's K tiles into partial[split, b, N]. The same tiling as
-// gemm_w8a8 with 32-row float tiles: each weight element is read from device
-// memory by exactly one block.
-template <int BPT>
+// B lanes: x [B, ldx] float32 (rounded to bf16) @ W bf16 [K, N]: partial
+// sums of this block's K tiles into partial[split, b, N], accumulated in Acc.
+// The tiling of gemm_w8a8 with 32-row float tiles: each weight element is
+// read from device memory by exactly one block.
+template <typename Acc, int BPT>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __restrict__ W,
-                 int K, int N, int tiles_per_split, float* __restrict__ partial) {
+gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
+                 const __nv_bfloat16* __restrict__ W, int K, int N, int tiles_per_split,
+                 Acc* __restrict__ partial) {
   __shared__ __align__(16) float ws[kGemmTKf][kGemmTN];
   __shared__ float xs[kMaxLanes][kGemmTKf];
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -269,9 +348,9 @@ gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __rest
   const int n_tiles = (K + kGemmTKf - 1) / kGemmTKf;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  float a[BPT][4];
+  Acc a[BPT][4];
 #pragma unroll
-  for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
+  for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0;
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kGemmTKf;
     __syncthreads();
@@ -289,7 +368,7 @@ gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __rest
     }
     for (int i = tid; i < B * kGemmTKf; i += kGemmThreads) {
       const int b = i / kGemmTKf, kk = i % kGemmTKf, k = k0 + kk;
-      xs[b][kk] = k < K ? bf16_round(x[(size_t)b * K + k]) : 0.f;
+      xs[b][kk] = k < K ? bf16_round(x[(size_t)b * ldx + k]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -297,11 +376,11 @@ gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __rest
       const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
 #pragma unroll
       for (int i = 0; i < BPT; ++i) {
-        const float xv = xs[ty + 8 * i][kk];
-        a[i][0] += xv * wv.x;
-        a[i][1] += xv * wv.y;
-        a[i][2] += xv * wv.z;
-        a[i][3] += xv * wv.w;
+        const Acc xv = xs[ty + 8 * i][kk];
+        a[i][0] += xv * (Acc)wv.x;
+        a[i][1] += xv * (Acc)wv.y;
+        a[i][2] += xv * (Acc)wv.z;
+        a[i][3] += xv * (Acc)wv.w;
       }
     }
   }
@@ -310,18 +389,173 @@ gemm_bf16_kernel(const float* __restrict__ x, int B, const __nv_bfloat16* __rest
   for (int i = 0; i < BPT; ++i) {
     const int b = ty + 8 * i;
     if (b >= B) break;
-    *reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * B + b) * N + n) =
-        make_float4(a[i][0], a[i][1], a[i][2], a[i][3]);
+    Acc* out = partial + ((size_t)blockIdx.y * B + b) * N + n;
+    out[0] = a[i][0];
+    out[1] = a[i][1];
+    out[2] = a[i][2];
+    out[3] = a[i][3];
   }
 }
 
+// --- w4bf16 ----------------------------------------------------------------
+
+// One u4 weight: (q * s - z) in float32 with the product rounded first (no
+// FMA), rounded to bf16, widened to double.
+__device__ __forceinline__ double dequant4(uint32_t q, float s, float z) {
+  return (double)bf16_round(__fsub_rn(__fmul_rn((float)q, s), z));
+}
+
+// One lane: x float32 [2 * Kh] (rounded to bf16) @ a u4 weight Q [Kh, N]
+// (split-half nibbles) with scale S and zero Z [G, N], gs logical rows per
+// group. Per-split float64 partials of the low half (rows [0, Kh)) into
+// partial[0, split, N] and of the high half into partial[1, split, N].
+// Block (32, 8) as gemv_w8a8: x walks 4-column groups, y packed rows; the
+// group's scales are reloaded when a thread's row crosses into another group.
+__global__ void gemv_w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ Q,
+                               const float* __restrict__ S, const float* __restrict__ Z,
+                               int Kh, int N, int gs, int G, int kchunk,
+                               double* __restrict__ partial) {
+  __shared__ double part[2][8][32][4];
+  const int tx = threadIdx.x, ty = threadIdx.y, Gh = G / 2;
+  const int n0 = (blockIdx.x * 32 + tx) * 4;
+  const int kb = blockIdx.y * kchunk, ke = min(Kh, kb + kchunk);
+  double lo[4] = {0.0, 0.0, 0.0, 0.0}, hi[4] = {0.0, 0.0, 0.0, 0.0};
+  if (n0 < N) {
+    int gcur = -1;
+    float4 sl, zl, sh, zh;
+    for (int i = kb + ty; i < ke; i += 8) {
+      const int g = i / gs;
+      if (g != gcur) {
+        gcur = g;
+        sl = *reinterpret_cast<const float4*>(S + (size_t)g * N + n0);
+        zl = *reinterpret_cast<const float4*>(Z + (size_t)g * N + n0);
+        sh = *reinterpret_cast<const float4*>(S + (size_t)(Gh + g) * N + n0);
+        zh = *reinterpret_cast<const float4*>(Z + (size_t)(Gh + g) * N + n0);
+      }
+      const double xl = bf16_round(x[i]), xh = bf16_round(x[Kh + i]);
+      const uint32_t q = *reinterpret_cast<const uint32_t*>(Q + (size_t)i * N + n0);
+      lo[0] += xl * dequant4(q & 15u, sl.x, zl.x);
+      lo[1] += xl * dequant4((q >> 8) & 15u, sl.y, zl.y);
+      lo[2] += xl * dequant4((q >> 16) & 15u, sl.z, zl.z);
+      lo[3] += xl * dequant4((q >> 24) & 15u, sl.w, zl.w);
+      hi[0] += xh * dequant4((q >> 4) & 15u, sh.x, zh.x);
+      hi[1] += xh * dequant4((q >> 12) & 15u, sh.y, zh.y);
+      hi[2] += xh * dequant4((q >> 20) & 15u, sh.z, zh.z);
+      hi[3] += xh * dequant4((q >> 28) & 15u, sh.w, zh.w);
+    }
+  }
+  for (int j = 0; j < 4; ++j) {
+    part[0][ty][tx][j] = lo[j];
+    part[1][ty][tx][j] = hi[j];
+  }
+  __syncthreads();
+  if (ty < 2 && n0 < N) {   // warp 0 writes the low half, warp 1 the high
+    for (int j = 0; j < 4; ++j) {
+      double s = 0.0;
+      for (int y = 0; y < 8; ++y) s += part[ty][y][tx][j];
+      partial[((size_t)ty * gridDim.y + blockIdx.y) * N + n0 + j] = s;
+    }
+  }
+}
+
+// B lanes: x [B, ldx] float32 (rounded to bf16) @ a u4 weight, as
+// gemv_w4_kernel. Block = one 64-column strip x a run of 16-packed-row
+// tiles. Per tile, each thread loads one 4-byte word of packed weights,
+// dequantizes both nibbles of its 4 columns with their groups' scales
+// (a tile may cross a group boundary: the group is taken per row) and
+// stages the two bf16-rounded halves in shared memory as float32; the
+// lanes' activation rows of both halves likewise. Each thread accumulates
+// 2 columns x BPT lanes x 2 halves in float64. Each packed byte is read
+// from device memory by exactly one block, so a call reads the weights
+// once, whatever B is.
+template <int BPT>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_w4_kernel(const float* __restrict__ x, int ldx, int B, const int8_t* __restrict__ Q,
+               const float* __restrict__ S, const float* __restrict__ Z, int Kh, int N,
+               int gs, int G, int tiles_per_split, double* __restrict__ partial) {
+  static_assert(kGemm4TK * kGemm4TN / 4 == kGemmThreads, "one packed word per thread");
+  __shared__ __align__(16) float wl[kGemm4TK][kGemm4TN];
+  __shared__ __align__(16) float wh[kGemm4TK][kGemm4TN];
+  __shared__ float xl[kMaxLanes][kGemm4TK];
+  __shared__ float xh[kMaxLanes][kGemm4TK];
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5, Gh = G / 2;
+  const int n = blockIdx.x * kGemm4TN + 2 * tx;
+  const int lr = tid / (kGemm4TN / 4), lc = 4 * (tid % (kGemm4TN / 4));   // load slot
+  const int ln = blockIdx.x * kGemm4TN + lc;
+  const int n_tiles = (Kh + kGemm4TK - 1) / kGemm4TK;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  double al[BPT][2], ah[BPT][2];
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) al[i][0] = al[i][1] = ah[i][0] = ah[i][1] = 0.0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kGemm4TK;
+    __syncthreads();
+    {
+      float4 fl = make_float4(0.f, 0.f, 0.f, 0.f), fh = fl;
+      const int i = k0 + lr;
+      if (i < Kh && ln < N) {
+        const int g = i / gs;
+        const uint32_t q = *reinterpret_cast<const uint32_t*>(Q + (size_t)i * N + ln);
+        const float4 sl = *reinterpret_cast<const float4*>(S + (size_t)g * N + ln);
+        const float4 zl = *reinterpret_cast<const float4*>(Z + (size_t)g * N + ln);
+        const float4 sh = *reinterpret_cast<const float4*>(S + (size_t)(Gh + g) * N + ln);
+        const float4 zh = *reinterpret_cast<const float4*>(Z + (size_t)(Gh + g) * N + ln);
+        fl = make_float4((float)dequant4(q & 15u, sl.x, zl.x),
+                         (float)dequant4((q >> 8) & 15u, sl.y, zl.y),
+                         (float)dequant4((q >> 16) & 15u, sl.z, zl.z),
+                         (float)dequant4((q >> 24) & 15u, sl.w, zl.w));
+        fh = make_float4((float)dequant4((q >> 4) & 15u, sh.x, zh.x),
+                         (float)dequant4((q >> 12) & 15u, sh.y, zh.y),
+                         (float)dequant4((q >> 20) & 15u, sh.z, zh.z),
+                         (float)dequant4((q >> 28) & 15u, sh.w, zh.w));
+      }
+      *reinterpret_cast<float4*>(&wl[lr][lc]) = fl;
+      *reinterpret_cast<float4*>(&wh[lr][lc]) = fh;
+    }
+    for (int j = tid; j < B * kGemm4TK; j += kGemmThreads) {
+      const int b = j / kGemm4TK, kk = j % kGemm4TK, i = k0 + kk;
+      const float* xb = x + (size_t)b * ldx;
+      xl[b][kk] = i < Kh ? bf16_round(xb[i]) : 0.f;
+      xh[b][kk] = i < Kh ? bf16_round(xb[Kh + i]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kGemm4TK; ++kk) {
+      const float2 vl = *reinterpret_cast<const float2*>(&wl[kk][2 * tx]);
+      const float2 vh = *reinterpret_cast<const float2*>(&wh[kk][2 * tx]);
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) {
+        const double a = xl[ty + 8 * i][kk], c = xh[ty + 8 * i][kk];
+        al[i][0] += a * (double)vl.x;
+        al[i][1] += a * (double)vl.y;
+        ah[i][0] += c * (double)vh.x;
+        ah[i][1] += c * (double)vh.y;
+      }
+    }
+  }
+  if (n >= N) return;
+  const size_t half = (size_t)gridDim.y * B * N;
+#pragma unroll
+  for (int i = 0; i < BPT; ++i) {
+    const int b = ty + 8 * i;
+    if (b >= B) break;
+    double* out = partial + ((size_t)blockIdx.y * B + b) * N + n;
+    out[0] = al[i][0];
+    out[1] = al[i][1];
+    out[half] = ah[i][0];
+    out[half + 1] = ah[i][1];
+  }
+}
+
+// --- attention and the other row kernels -----------------------------------
+
 // One block per (head of the fused QKV output, lane) (block = D threads):
-// dequant, q/k RMSNorm + NEOX RoPE; q to q_out (float32), k and v rows
-// written into the cache at the rows kdst/vdst point to (head h at
-// h * head_stride, lane b at b * lane_stride).
+// q/k RMSNorm + NEOX RoPE of the QKV projection's result; q to q_out
+// (float32), k and v rows written into the cache at the rows kdst/vdst
+// point to (head h at h * head_stride, lane b at b * lane_stride).
 template <typename T>
-__global__ void qkv_post_kernel(const int* __restrict__ acc, const float* __restrict__ s_in,
-                                const float* __restrict__ ws, const float* __restrict__ qn,
+__global__ void qkv_post_kernel(ProjOut in, const float* __restrict__ qn,
                                 const float* __restrict__ kn, const float* __restrict__ cosv,
                                 const float* __restrict__ sinv, int Hq, int Hkv, int D,
                                 float eps, float* __restrict__ q_out, T* __restrict__ kdst,
@@ -329,7 +563,7 @@ __global__ void qkv_post_kernel(const int* __restrict__ acc, const float* __rest
   __shared__ float v[1024];
   __shared__ double redd[32];
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, i = h * D + d;
-  const float y = (float)acc[(size_t)b * (Hq + 2 * Hkv) * D + i] * (s_in[b] * ws[i]);
+  const float y = proj_value(in, b, i);
   kdst += (size_t)b * lane_stride;
   vdst += (size_t)b * lane_stride;
   if (h >= Hq + Hkv) {
@@ -424,11 +658,9 @@ __global__ void attn_pv_kernel(const float* __restrict__ p, int ld, const T* __r
 }
 
 // Lane blockIdx.x: o = sum over chunks of the float64 partials, rounded to
-// float32; int8(o).
-__global__ void merge_quant_kernel(const double* __restrict__ partial, int chunks,
-                                   int chunk_cap, int n, int8_t* __restrict__ xq, int ldq,
-                                   float* __restrict__ s_out, int* __restrict__ zero,
-                                   int zero_n) {
+// float32; emit(o) to o_proj.
+__global__ void merge_kernel(const double* __restrict__ partial, int chunks, int chunk_cap,
+                             int n, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   const int b = blockIdx.x;
@@ -441,32 +673,25 @@ __global__ void merge_quant_kernel(const double* __restrict__ partial, int chunk
     buf[i] = o;
     am = fmaxf(am, fabsf(o));
   }
-  quantize_buf(buf, n, am, xq + (size_t)b * ldq, s_out + b, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
+  emit_row(buf, n, am, e, b, red);
 }
 
-// Lane blockIdx.x: a = silu(gate) * up from the gate/up accumulator [2F];
-// int8(a).
-__global__ void swiglu_quant_kernel(const int* __restrict__ acc, const float* __restrict__ s_in,
-                                    const float* __restrict__ ws, int F,
-                                    int8_t* __restrict__ xq, int ldq, float* __restrict__ s_out,
-                                    int* __restrict__ zero, int zero_n) {
+// Lane blockIdx.x: a = silu(gate) * up from the gate/up projection [2F];
+// emit(a) to the down projection.
+__global__ void swiglu_kernel(ProjOut in, int F, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   const int b = blockIdx.x;
-  acc += (size_t)b * 2 * F;
-  const float sa = s_in[b];
   float am = 0.f;
   for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    float g = (float)acc[i] * (sa * ws[i]);
-    const float u = (float)acc[F + i] * (sa * ws[F + i]);
+    float g = proj_value(in, b, i);
+    const float u = proj_value(in, b, F + i);
     g = g / (1.0f + (float)exp(-(double)g));
     const float a = g * u;
     buf[i] = a;
     am = fmaxf(am, fabsf(a));
   }
-  quantize_buf(buf, F, am, xq + (size_t)b * ldq, s_out + b, red);
-  for (int i = threadIdx.x; i < zero_n; i += blockDim.x) zero[(size_t)b * zero_n + i] = 0;
+  emit_row(buf, F, am, e, b, red);
 }
 
 // Lane blockIdx.x of B: logits = sum of the head projection's split
@@ -514,15 +739,17 @@ struct Dims {
 // workspace buffer; lane b's row of each [B, n] buffer starts at b * n.
 struct Work {
   int B;           // lanes
-  int ldq;         // row stride of xq
+  int ldq;         // row stride of xq and xf
   int chunk_cap;   // attention chunks of a full cache: ceil(C / kAttnChunk)
   float* x;        // [B, H] residual carry
-  int8_t* xq;      // [B, ldq] quantized activation
+  int8_t* xq;      // [B, ldq] quantized activation (w8a8 projections)
+  float* xf;       // [B, ldq] float32 activation (bf16 / w4bf16 projections)
   float* s;        // [4, B] activation scales: qkv, o, gate/up, down
   int* acc_qkv;    // [B, (Hq+2Hkv)*D]
   int* acc_o;      // [B, H]
   int* acc_gu;     // [B, 2F]
   int* acc_d;      // [B, H]
+  double* part;    // float-mode projection partials [halves, splits, B, N]
   float* q;        // [B, Hq*D]
   float* scores;   // [B, Hq, C]
   double* partial; // [B, chunk_cap, Hq*D] attention partials
@@ -531,33 +758,6 @@ struct Work {
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
-
-// Carve `w` out of base (or only count the bytes when base is null).
-inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int Vh) {
-  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
-  const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
-  const int head_splits = B == 1 ? kSplitTarget : kHeadSplits;
-  size_t off = 0;
-  auto take = [&](size_t bytes) { char* p = base ? base + off : nullptr; off += align256(bytes); return p; };
-  Work t;
-  t.B = B;
-  t.ldq = (xqn + 3) & ~3;
-  t.chunk_cap = (C + kAttnChunk - 1) / kAttnChunk;
-  t.x = (float*)take(sizeof(float) * B * d.H);
-  t.xq = (int8_t*)take((size_t)B * t.ldq);
-  t.s = (float*)take(sizeof(float) * 4 * B);
-  t.acc_qkv = (int*)take(sizeof(int) * B * qkv);
-  t.acc_o = (int*)take(sizeof(int) * B * d.H);
-  t.acc_gu = (int*)take(sizeof(int) * B * 2 * d.F);
-  t.acc_d = (int*)take(sizeof(int) * B * d.H);
-  t.q = (float*)take(sizeof(float) * B * hd);
-  t.scores = (float*)take(sizeof(float) * B * (size_t)d.Hq * C);
-  t.partial = (double*)take(sizeof(double) * B * (size_t)t.chunk_cap * hd);
-  t.hnorm = (float*)take(sizeof(float) * B * d.H);
-  t.head = (float*)take(sizeof(float) * (size_t)head_splits * B * Vh);
-  if (w) *w = t;
-  return off;
-}
 
 inline int split_for(int K, int gx, int* kchunk) {
   int ks = (kSplitTarget + gx - 1) / gx;
@@ -572,6 +772,70 @@ inline int tile_split(int n_tiles, int max_splits, int* per) {
   const int ks = max_splits < n_tiles ? (max_splits > 0 ? max_splits : 1) : n_tiles;
   *per = (n_tiles + ks - 1) / ks;
   return (n_tiles + *per - 1) / *per;
+}
+
+// The grid of a float-mode projection x [B, K] @ W [K, N]: column blocks
+// gx, K splits ks, and per split the rows (GEMV, B = 1) or tiles (GEMM).
+struct FSplit {
+  int gx, ks, chunk;
+};
+
+inline FSplit float_split(int B, int mode, int K, int N) {
+  FSplit f;
+  const bool w4 = mode == kW4BF16;
+  const int rows = w4 ? K / 2 : K;
+  if (B == 1) {
+    f.gx = (N / 4 + 31) / 32;
+    f.ks = split_for(rows, f.gx, &f.chunk);
+    return f;
+  }
+  const int tn = w4 ? kGemm4TN : kGemmTN, tk = w4 ? kGemm4TK : kGemmTKf;
+  f.gx = (N + tn - 1) / tn;
+  f.ks = tile_split((rows + tk - 1) / tk, (kSplitTarget + f.gx - 1) / f.gx, &f.chunk);
+  return f;
+}
+
+inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
+
+// Carve `w` out of base (or only count the bytes when base is null). modes
+// packs the four projections' WeightMode, 2 bits each, wqkv first (0: all
+// w8a8, as K2 and K6 run).
+inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int Vh,
+                         int modes = 0) {
+  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
+  const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
+  const int head_splits = B == 1 ? kSplitTarget : kHeadSplits;
+  const int shapes[4][2] = {{d.H, qkv}, {hd, d.H}, {d.H, 2 * d.F}, {d.F, d.H}};
+  size_t part_n = 0;
+  for (int j = 0; j < 4; ++j) {
+    const int m = proj_mode(modes, j);
+    if (m == kW8A8) continue;
+    const FSplit f = float_split(B, m, shapes[j][0], shapes[j][1]);
+    const size_t n = (size_t)(m == kW4BF16 ? 2 : 1) * f.ks * B * shapes[j][1];
+    if (n > part_n) part_n = n;
+  }
+  size_t off = 0;
+  auto take = [&](size_t bytes) { char* p = base ? base + off : nullptr; off += align256(bytes); return p; };
+  Work t;
+  t.B = B;
+  t.ldq = (xqn + 3) & ~3;
+  t.chunk_cap = (C + kAttnChunk - 1) / kAttnChunk;
+  t.x = (float*)take(sizeof(float) * B * d.H);
+  t.xq = (int8_t*)take((size_t)B * t.ldq);
+  t.xf = modes != 0 ? (float*)take(sizeof(float) * B * t.ldq) : nullptr;
+  t.s = (float*)take(sizeof(float) * 4 * B);
+  t.acc_qkv = (int*)take(sizeof(int) * B * qkv);
+  t.acc_o = (int*)take(sizeof(int) * B * d.H);
+  t.acc_gu = (int*)take(sizeof(int) * B * 2 * d.F);
+  t.acc_d = (int*)take(sizeof(int) * B * d.H);
+  t.part = part_n ? (double*)take(sizeof(double) * part_n) : nullptr;
+  t.q = (float*)take(sizeof(float) * B * hd);
+  t.scores = (float*)take(sizeof(float) * B * (size_t)d.Hq * C);
+  t.partial = (double*)take(sizeof(double) * B * (size_t)t.chunk_cap * hd);
+  t.hnorm = (float*)take(sizeof(float) * B * d.H);
+  t.head = (float*)take(sizeof(float) * (size_t)head_splits * B * Vh);
+  if (w) *w = t;
+  return off;
 }
 
 template <template <int> class Launch, typename... Args>
@@ -592,39 +856,95 @@ struct GemmW8A8 {
 };
 
 template <int BPT>
-struct GemmBF16 {
+struct GemmHead {
   static void go(dim3 grid, cudaStream_t st, const float* x, int B, const __nv_bfloat16* W,
                  int K, int N, int per, float* partial) {
-    gemm_bf16_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, B, W, K, N, per, partial);
+    gemm_bf16_kernel<float, BPT><<<grid, kGemmThreads, 0, st>>>(x, K, B, W, K, N, per, partial);
   }
 };
 
-// acc[b, :] += xq[b, :] @ W for the w.B lanes (acc was zeroed by the
-// kernel before).
-inline void project(const Work& w, const int8_t* W, int K, int N, int* acc, cudaStream_t st) {
-  if (w.B == 1) {
-    const int gx = (N / 4 + 31) / 32;
-    int kchunk;
-    const int ks = split_for(K, gx, &kchunk);
-    gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(w.xq, W, K, N, kchunk, acc);
-    return;
+template <int BPT>
+struct GemmBF16 {
+  static void go(dim3 grid, cudaStream_t st, const float* x, int ldx, int B,
+                 const __nv_bfloat16* W, int K, int N, int per, double* partial) {
+    gemm_bf16_kernel<double, BPT><<<grid, kGemmThreads, 0, st>>>(x, ldx, B, W, K, N, per,
+                                                                 partial);
   }
-  const int gx = (N + kGemmTN - 1) / kGemmTN;
-  int per;
-  const int ks = tile_split((K + kGemmTK - 1) / kGemmTK, (kSplitTarget + gx - 1) / gx, &per);
-  by_lanes<GemmW8A8>(w.B, dim3(gx, ks), st, (const int8_t*)w.xq, w.ldq, w.B, W, K, N, per,
-                     acc);
+};
+
+template <int BPT>
+struct GemmW4 {
+  static void go(dim3 grid, cudaStream_t st, const float* x, int ldx, int B, const int8_t* Q,
+                 const float* S, const float* Z, int Kh, int N, int gs, int G, int per,
+                 double* partial) {
+    gemm_w4_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, ldx, B, Q, S, Z, Kh, N, gs, G, per,
+                                                       partial);
+  }
+};
+
+// y[b, :] = x[b, :] @ W for the w.B lanes, in p's mode: w8a8 reads w.xq and
+// adds into acc (cleared by the kernel before) with activation scales
+// s_act; the float modes read w.xf and write split partials into w.part.
+// Returns how the consumer reads y.
+inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
+                       const float* s_act, cudaStream_t st) {
+  ProjOut o{};
+  o.B = w.B;
+  o.N = N;
+  if (p.mode == kW8A8) {
+    const int8_t* W = (const int8_t*)p.w;
+    if (w.B == 1) {
+      const int gx = (N / 4 + 31) / 32;
+      int kchunk;
+      const int ks = split_for(K, gx, &kchunk);
+      gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(w.xq, W, K, N, kchunk, acc);
+    } else {
+      const int gx = (N + kGemmTN - 1) / kGemmTN;
+      int per;
+      const int ks = tile_split((K + kGemmTK - 1) / kGemmTK, (kSplitTarget + gx - 1) / gx, &per);
+      by_lanes<GemmW8A8>(w.B, dim3(gx, ks), st, (const int8_t*)w.xq, w.ldq, w.B, W, K, N, per,
+                         acc);
+    }
+    o.acc = acc;
+    o.s_act = s_act;
+    o.ws = p.s;
+    return o;
+  }
+  const FSplit f = float_split(w.B, p.mode, K, N);
+  o.part = w.part;
+  o.splits = f.ks;
+  o.halves = p.mode == kW4BF16 ? 2 : 1;
+  const dim3 grid(f.gx, f.ks);
+  if (p.mode == kBF16) {
+    const __nv_bfloat16* W = (const __nv_bfloat16*)p.w;
+    if (w.B == 1)
+      gemv_bf16_kernel<double><<<grid, dim3(32, 8), 0, st>>>(w.xf, W, K, N, f.chunk, w.part);
+    else
+      by_lanes<GemmBF16>(w.B, grid, st, (const float*)w.xf, w.ldq, w.B, W, K, N, f.chunk,
+                         w.part);
+  } else {
+    const int8_t* Q = (const int8_t*)p.w;
+    const int gs = K / p.G;
+    if (w.B == 1)
+      gemv_w4_kernel<<<grid, dim3(32, 8), 0, st>>>(w.xf, Q, p.s, p.z, K / 2, N, gs, p.G,
+                                                   f.chunk, w.part);
+    else
+      by_lanes<GemmW4>(w.B, grid, st, (const float*)w.xf, w.ldq, w.B, Q, p.s, p.z, K / 2, N,
+                       gs, p.G, f.chunk, w.part);
+  }
+  return o;
 }
 
-// The w.B lanes' x [B, K] float32 @ W bf16 [K, N] into split partials
-// w.head [splits, B, N]; returns the number of splits.
+// The w.B lanes' x [B, K] float32 @ W bf16 [K, N] (the codec head or the
+// code predictor's LM head) into float32 split partials w.head [splits, B,
+// N]; returns the number of splits.
 inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, int K, int N,
                         cudaStream_t st) {
   if (w.B == 1) {
     const int gx = (N / 4 + 31) / 32;
     int kchunk;
     const int ks = split_for(K, gx, &kchunk);
-    gemv_bf16_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(x, W, K, N, kchunk, w.head);
+    gemv_bf16_kernel<float><<<dim3(gx, ks), dim3(32, 8), 0, st>>>(x, W, K, N, kchunk, w.head);
     return ks;
   }
   const int gx = (N + kGemmTN - 1) / kGemmTN;
@@ -632,22 +952,51 @@ inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, i
   int max_splits = (kSplitTarget + gx - 1) / gx;
   if (max_splits > kHeadSplits) max_splits = kHeadSplits;
   const int ks = tile_split((K + kGemmTKf - 1) / kGemmTKf, max_splits, &per);
-  by_lanes<GemmBF16>(w.B, dim3(gx, ks), st, x, w.B, W, K, N, per, w.head);
+  by_lanes<GemmHead>(w.B, dim3(gx, ks), st, x, w.B, W, K, N, per, w.head);
   return ks;
 }
 
-// The raw weight pointers of one stacked decoder (leading axis L).
+// The four projections and norms of one stacked decoder (leading axis L).
 struct StackWeights {
-  const int8_t *wqkv, *wo, *wgu, *wd;
-  const float *sqkv, *so, *sgu, *sd;
+  Proj qkv, o, gu, d;
   const float *attn_n, *q_n, *k_n, *ffn_n;
 };
+
+inline Proj w8a8_proj(const void* q, const void* s) {
+  return Proj{kW8A8, q, (const float*)s, nullptr, 0};
+}
+
+// The int8 stack of K2 and K6.
+inline StackWeights w8a8_stack(const void* wqkv_q, const void* wqkv_s, const void* wo_q,
+                               const void* wo_s, const void* wgu_q, const void* wgu_s,
+                               const void* wd_q, const void* wd_s, const void* attn_n,
+                               const void* q_n, const void* k_n, const void* ffn_n) {
+  return StackWeights{w8a8_proj(wqkv_q, wqkv_s), w8a8_proj(wo_q, wo_s),
+                      w8a8_proj(wgu_q, wgu_s),   w8a8_proj(wd_q, wd_s),
+                      (const float*)attn_n,      (const float*)q_n,
+                      (const float*)k_n,         (const float*)ffn_n};
+}
+
+// Layer l of a stacked [L, K, N] projection.
+inline Proj layer_proj(const Proj& p, int l, int K, int N) {
+  Proj o = p;
+  if (p.mode == kW8A8) {
+    o.w = (const int8_t*)p.w + (size_t)l * K * N;
+    o.s = p.s + (size_t)l * N;
+  } else if (p.mode == kBF16) {
+    o.w = (const __nv_bfloat16*)p.w + (size_t)l * K * N;
+  } else {
+    o.w = (const int8_t*)p.w + (size_t)l * (K / 2) * N;
+    o.s = p.s + (size_t)l * p.G * N;
+    o.z = p.z + (size_t)l * p.G * N;
+  }
+  return o;
+}
 
 // One layer's weights and cache view.
 template <typename T>
 struct LayerView {
-  const int8_t *wqkv, *wo, *wgu, *wd;
-  const float *sqkv, *so, *sgu, *sd;
+  Proj qkv, o, gu, d;
   const float *attn_n, *q_n, *k_n, *ffn_n;
   T* K;  // lane 0, head 0, row 0 of this layer's keys; head h at + h * head_stride
   T* V;  // lane b at + b * lane_stride
@@ -660,14 +1009,10 @@ LayerView<T> layer_view(const StackWeights& s, const Dims& d, int l, T* K, T* V,
                         long head_stride, long lane_stride) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   LayerView<T> lv;
-  lv.wqkv = s.wqkv + (size_t)l * d.H * qkv;
-  lv.wo = s.wo + (size_t)l * hd * d.H;
-  lv.wgu = s.wgu + (size_t)l * d.H * 2 * d.F;
-  lv.wd = s.wd + (size_t)l * d.F * d.H;
-  lv.sqkv = s.sqkv + (size_t)l * qkv;
-  lv.so = s.so + (size_t)l * d.H;
-  lv.sgu = s.sgu + (size_t)l * 2 * d.F;
-  lv.sd = s.sd + (size_t)l * d.H;
+  lv.qkv = layer_proj(s.qkv, l, d.H, qkv);
+  lv.o = layer_proj(s.o, l, hd, d.H);
+  lv.gu = layer_proj(s.gu, l, d.H, 2 * d.F);
+  lv.d = layer_proj(s.d, l, d.F, d.H);
   lv.attn_n = s.attn_n + (size_t)l * d.H;
   lv.q_n = s.q_n + (size_t)l * d.D;
   lv.k_n = s.k_n + (size_t)l * d.D;
@@ -679,26 +1024,41 @@ LayerView<T> layer_view(const StackWeights& s, const Dims& d, int l, T* K, T* V,
   return lv;
 }
 
+// How a row kernel hands its row to projection p (index j: its activation
+// scale slot; acc/n: its int32 accumulator, cleared for w8a8).
+inline Emit emit_for(const Work& w, const Proj& p, int j, int* acc, int n) {
+  Emit e{};
+  e.ldq = w.ldq;
+  if (p.mode == kW8A8) {
+    e.xq = w.xq;
+    e.s_out = w.s + j * w.B;
+    e.zero = acc;
+    e.zero_n = n;
+  } else {
+    e.xf = w.xf;
+  }
+  return e;
+}
+
 // Launch one layer for the w.B lanes' tokens at position `pos` (their K/V
-// rows are written at `pos`, attention covers rows [0, pos]). `prev_sd` is
-// the previous layer's down-projection scale row, or null for the first
-// layer (then x already holds the layer input). round_q / round_p: see the
-// header.
+// rows are written at `pos`, attention covers rows [0, pos]). `prev` is the
+// previous layer's down projection (empty for the first layer: x already
+// holds the layer input). Returns this layer's down projection. round_q /
+// round_p: see the header.
 template <typename T>
-void run_layer(const Dims& d, const LayerView<T>& lv, const float* prev_sd, const Work& w,
-               const float* cosv, const float* sinv, int pos, int C, int round_q,
-               int round_p, cudaStream_t st) {
+ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
+                  const float* cosv, const float* sinv, int pos, int C, int round_q,
+                  int round_p, cudaStream_t st) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, G = d.Hq / d.Hkv, B = w.B;
   const int n_valid = pos + 1, chunks = (n_valid + kAttnChunk - 1) / kAttnChunk;
   const size_t row_smem = sizeof(float) * (size_t)(d.H > d.F ? (d.H > hd ? d.H : hd)
                                                             : (d.F > hd ? d.F : hd));
-  resid_rms_quant_kernel<<<B, kRowThreads, row_smem, st>>>(
-      w.x, prev_sd ? w.acc_d : nullptr, w.s + 3 * B, prev_sd, lv.attn_n, d.H, d.eps, w.xq,
-      w.ldq, w.s + 0 * B, nullptr, w.acc_qkv, qkv);
-  project(w, lv.wqkv, d.H, qkv, w.acc_qkv, st);
+  resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
+      w.x, prev, lv.attn_n, d.H, d.eps, emit_for(w, lv.qkv, 0, w.acc_qkv, qkv), nullptr);
+  const ProjOut oq = project(w, lv.qkv, d.H, qkv, w.acc_qkv, w.s + 0 * B, st);
   qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
-      w.acc_qkv, w.s + 0 * B, lv.sqkv, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps,
-      w.q, lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
+      oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
+      lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
   attn_scores_kernel<T><<<dim3(d.Hkv, chunks, B), 256, sizeof(float) * G * d.D, st>>>(
       w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D, 1.0f / sqrtf((float)d.D),
       round_q, w.scores, C);
@@ -706,25 +1066,22 @@ void run_layer(const Dims& d, const LayerView<T>& lv, const float* prev_sd, cons
   attn_pv_kernel<T><<<dim3(d.Hkv, chunks, B), G * d.D, 0, st>>>(
       w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
       w.partial);
-  merge_quant_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunks, w.chunk_cap, hd,
-                                                       w.xq, w.ldq, w.s + 1 * B, w.acc_o, d.H);
-  project(w, lv.wo, hd, d.H, w.acc_o, st);
-  resid_rms_quant_kernel<<<B, kRowThreads, row_smem, st>>>(
-      w.x, w.acc_o, w.s + 1 * B, lv.so, lv.ffn_n, d.H, d.eps, w.xq, w.ldq, w.s + 2 * B,
-      nullptr, w.acc_gu, 2 * d.F);
-  project(w, lv.wgu, d.H, 2 * d.F, w.acc_gu, st);
-  swiglu_quant_kernel<<<B, kRowThreads, row_smem, st>>>(w.acc_gu, w.s + 2 * B, lv.sgu, d.F,
-                                                        w.xq, w.ldq, w.s + 3 * B, w.acc_d, d.H);
-  project(w, lv.wd, d.F, d.H, w.acc_d, st);
+  merge_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunks, w.chunk_cap, hd,
+                                                 emit_for(w, lv.o, 1, w.acc_o, d.H));
+  const ProjOut oo = project(w, lv.o, hd, d.H, w.acc_o, w.s + 1 * B, st);
+  resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
+      w.x, oo, lv.ffn_n, d.H, d.eps, emit_for(w, lv.gu, 2, w.acc_gu, 2 * d.F), nullptr);
+  const ProjOut og = project(w, lv.gu, d.H, 2 * d.F, w.acc_gu, w.s + 2 * B, st);
+  swiglu_kernel<<<B, kRowThreads, row_smem, st>>>(og, d.F, emit_for(w, lv.d, 3, w.acc_d, d.H));
+  return project(w, lv.d, d.F, d.H, w.acc_d, w.s + 3 * B, st);
 }
 
-// After the last layer: x += down projection; hnorm = RMSNorm(x) * out_norm
-// for each of the w.B lanes.
-inline void final_norm(const Dims& d, const float* last_sd, const float* out_norm,
+// After the last layer: x += its down projection `last`; hnorm =
+// RMSNorm(x) * out_norm for each of the w.B lanes.
+inline void final_norm(const Dims& d, const ProjOut& last, const float* out_norm,
                        const Work& w, float* hnorm, cudaStream_t st) {
-  resid_rms_quant_kernel<<<w.B, kRowThreads, sizeof(float) * d.H, st>>>(
-      w.x, w.acc_d, w.s + 3 * w.B, last_sd, out_norm, d.H, d.eps, nullptr, 0, nullptr, hnorm,
-      nullptr, 0);
+  resid_rms_kernel<<<w.B, kRowThreads, sizeof(float) * d.H, st>>>(
+      w.x, last, out_norm, d.H, d.eps, Emit{}, hnorm);
 }
 
 // Check the shapes the kernels assume; returns a cudaError_t-like code
@@ -735,6 +1092,20 @@ inline int check_dims(const Dims& d, int N_head, int B) {
     return (int)cudaErrorInvalidValue;
   if (d.H % 4 != 0 || d.F % 4 != 0 || N_head % 4 != 0) return (int)cudaErrorInvalidValue;
   if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// Check the u4 projections' groups: G even, and gs = K / G logical rows
+// dividing each half of K.
+inline int check_groups(const StackWeights& s, const Dims& d) {
+  const Proj* ps[4] = {&s.qkv, &s.o, &s.gu, &s.d};
+  const int ks[4] = {d.H, d.Hq * d.D, d.H, d.F};
+  for (int j = 0; j < 4; ++j) {
+    if (ps[j]->mode != kW4BF16) continue;
+    const int G = ps[j]->G, K = ks[j];
+    if (G < 2 || G % 2 != 0 || K % G != 0 || (K / 2) % (K / G) != 0)
+      return (int)cudaErrorInvalidValue;
+  }
   return 0;
 }
 

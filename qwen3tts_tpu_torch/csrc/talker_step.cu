@@ -2,62 +2,72 @@
 // and the sampling of the next frame's codebook-0 token.
 //
 // Replaces qwen3tts_tpu/ops/pallas_talker_step.py:387 fused_talker_step and
-// :980 fused_talker_step_hbm (w8a8 mode). On the TPU the two differ only in
-// where the KV cache lives (VMEM blocks vs HBM slabs); here the cache always
-// lives in device memory, so one kernel serves every capacity.
+// :980 fused_talker_step_hbm in their weight modes (w8a8, bf16, w4bf16, and
+// the per-projection tuple of the q4 tier; layer.cuh). On the TPU the two
+// differ only in where the KV cache lives (VMEM blocks vs HBM slabs); here
+// the cache always lives in device memory, so one kernel serves every
+// capacity. Their int8-KV operand is not ported yet.
 //
 // What bounds it on the H100: bytes. At 0.6B widths one frame reads the
-// int8 projections of 28 layers (28 x 15.7 MB = 440 MB), the bf16 codec head
-// (6.3 MB) and the valid KV prefix: 28 layers x 2 (K, V) x 8 heads x 128 x
-// 2 bytes = 114,688 bytes per cached row, 115 MB at n = 1000. At 3.35 TB/s
-// the weights and head alone take ~0.13 ms, and 1000 rows another ~0.03 ms;
-// everything else is small. The design streams each weight once with
-// coalesced 4-byte loads spread over all SMs (split-K GEMVs whose int32
-// atomics are exact, so the split changes no bit), keeps the single-token
-// activations in one block each, and reads only the valid KV rows. It
-// launches ~13 kernels per layer from one C call (no host round trip inside
-// a frame); launch latency, not bandwidth, is what this first version pays
-// for — a persistent kernel or a CUDA graph is later work.
+// projections of 28 layers — 440 MB in int8, 881 MB in bf16, 375 MB in the
+// q4 tier and 330 MB in q4pure (u4 nibbles plus 8 bytes of float32 scale
+// and offset per 32 rows and column) — the bf16 codec head (6.3 MB) and the
+// valid KV prefix: 28 layers x 2 (K, V) x 8 heads x 128 x 2 bytes = 114,688
+// bytes per cached row, 115 MB at n = 1000. At 3.35 TB/s the int8 weights
+// and head alone take ~0.13 ms; everything else is small. The design
+// streams each weight once with coalesced loads spread over all SMs
+// (split-K GEMVs: int32 atomics in w8a8, exact in any order; float64
+// per-split partials merged in split order in the float modes), keeps the
+// single-token activations in one block each, and reads only the valid KV
+// rows. It launches ~13 kernels per layer from one C call (no host round
+// trip inside a frame); launch latency, not bandwidth, is what this first
+// version pays for — a persistent kernel or a CUDA graph is later work.
 //
 // The KV cache is updated in place: the new K/V row is written at n_past
 // (the Pallas kernel aliases its KV operand to its output instead).
 #include "layer.cuh"
 
-extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int C, int Vc) {
+extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int C, int Vc,
+                                       int modes) {
   const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, 1, C, Vc);
+  return carve_work(nullptr, nullptr, d, 1, C, Vc, modes);
 }
 
 extern "C" int qtts_talker_step(
     const void* x_in, int n_past, const void* cosv, const void* sinv,
     const void* attn_n, const void* q_n, const void* k_n, const void* ffn_n,
-    const void* wqkv_q, const void* wqkv_s, const void* wo_q, const void* wo_s,
-    const void* wgu_q, const void* wgu_s, const void* wd_q, const void* wd_s,
-    const void* out_norm, const void* codec_head, void* kv,
+    const void* w0, const void* s0, const void* z0, int G0,
+    const void* w1, const void* s1, const void* z1, int G1,
+    const void* w2, const void* s2, const void* z2, int G2,
+    const void* w3, const void* s3, const void* z3, int G3,
+    const void* out_norm, const void* codec_head, int modes, void* kv,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, float temp, float top_p, float penalty, int top_k, int greedy,
     int use_top_p, int suppress_start, int eos_id, int seed,
     void* hidden_out, void* logits_out, void* tok_out, void* ws, void* stream) {
   const Dims d{H, Hq, Hkv, D, F, eps};
+  const StackWeights sw{
+      Proj{proj_mode(modes, 0), w0, (const float*)s0, (const float*)z0, G0},
+      Proj{proj_mode(modes, 1), w1, (const float*)s1, (const float*)z1, G1},
+      Proj{proj_mode(modes, 2), w2, (const float*)s2, (const float*)z2, G2},
+      Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
+      (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, 1)) return bad;
+  if (int bad = check_groups(sw, d)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
-  carve_work(&w, (char*)ws, d, 1, C, Vc);
-  const StackWeights sw{(const int8_t*)wqkv_q, (const int8_t*)wo_q, (const int8_t*)wgu_q,
-                        (const int8_t*)wd_q,   (const float*)wqkv_s, (const float*)wo_s,
-                        (const float*)wgu_s,   (const float*)wd_s,   (const float*)attn_n,
-                        (const float*)q_n,     (const float*)k_n,    (const float*)ffn_n};
+  carve_work(&w, (char*)ws, d, 1, C, Vc, modes);
   const long head_stride = (long)C * D;
   __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * H, cudaMemcpyDeviceToDevice, st);
+  ProjOut last{};
   for (int l = 0; l < L; ++l) {
     const auto lv = layer_view(sw, d, l, kvb + (size_t)(2 * l) * Hkv * head_stride,
                                kvb + (size_t)(2 * l + 1) * Hkv * head_stride, head_stride, 0L);
-    run_layer(d, lv, l > 0 ? sw.sd + (size_t)(l - 1) * H : nullptr, w, (const float*)cosv,
-              (const float*)sinv, n_past, C, 1, 1, st);
+    last = run_layer(d, lv, last, w, (const float*)cosv, (const float*)sinv, n_past, C, 1,
+                     1, st);
   }
-  final_norm(d, sw.sd + (size_t)(L - 1) * H, (const float*)out_norm, w, (float*)hidden_out,
-             st);
+  final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,
                                   (const __nv_bfloat16*)codec_head, H, Vc, st);
   const size_t smem = 2 * (size_t)Vc * sizeof(float);
@@ -66,5 +76,35 @@ extern "C" int qtts_talker_step(
   head_sample_kernel<<<1, kRowThreads, smem, st>>>(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, seed, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// A timing harness for K1's projection kernels alone: for each of L layers
+// of one stacked [L, K, N] projection in `mode` (WeightMode; w, s, z, G as
+// in qtts_talker_step), y = x @ W_l for B lanes, as run_layer launches it.
+// x is int8 [B, K] (w8a8) or float32 [B, K]; the results land in the
+// workspace and are overwritten layer by layer (w8a8 accumulates into
+// int32 without clearing: only the time is read). Off every serving path:
+// chip_smoke.py times it beside the w4 GEMV probe (w4_gemv_probe.cu).
+extern "C" size_t qtts_project_ws_bytes(int mode, int B, int K, int N) {
+  const FSplit f = float_split(B, mode, K, N);
+  return mode == kW8A8 ? sizeof(int) * (size_t)B * N
+                       : sizeof(double) * (mode == kW4BF16 ? 2 : 1) * (size_t)f.ks * B * N;
+}
+
+extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const void* s,
+                                   const void* z, int G, int L, int B, int K, int N, void* ws,
+                                   void* stream) {
+  if (B < 1 || B > kMaxLanes || K % 4 != 0 || N % 4 != 0 || (mode == kW4BF16 && G < 2))
+    return (int)cudaErrorInvalidValue;
+  Work wk{};
+  wk.B = B;
+  wk.ldq = K;
+  wk.xq = (int8_t*)x;
+  wk.xf = (float*)x;
+  wk.part = (double*)ws;
+  const Proj p{mode, w, (const float*)s, (const float*)z, G};
+  for (int l = 0; l < L; ++l)
+    project(wk, layer_proj(p, l, K, N), K, N, (int*)ws, nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

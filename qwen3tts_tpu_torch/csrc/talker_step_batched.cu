@@ -3,28 +3,34 @@
 // token — in one C call.
 //
 // Replaces qwen3tts_tpu/ops/pallas_talker_step.py:1604
-// fused_talker_step_batched (kernel _make_kernel_batched :1402), w8a8 mode,
-// batch-major cache [B, L, 2, Hkv, C, D] bf16. The `start` operand and the
-// per-lane sampling parameters (continuous serving only) and the int8-KV
-// operand are not ported yet.
+// fused_talker_step_batched (kernel _make_kernel_batched :1402) in its
+// weight modes (w8a8, bf16, w4bf16 and the q4 tier's per-projection tuple;
+// layer.cuh), batch-major cache [B, L, 2, Hkv, C, D] bf16. The `start`
+// operand and the per-lane sampling parameters (continuous serving only)
+// and the int8-KV operand are not ported yet.
 //
-// What bounds it on the H100: bytes. A frame-set reads the 28 layers' int8
-// projections (440 MB at 0.6B widths) and the bf16 codec head (6.3 MB) once
-// for all lanes, and each lane's valid KV prefix: 114,688 bytes per cached
-// row and lane (28 layers x 2 x 8 heads x 128 x 2 bytes), 0.55 GB at B = 16
-// and n_past = 300. The int8 products are 2 x B x 440 M operations (56 G at
+// What bounds it on the H100: bytes. A frame-set reads the 28 layers'
+// projections (440 MB in int8, 881 MB in bf16, 375 MB in q4, 330 MB in
+// q4pure at 0.6B widths) and the bf16 codec head (6.3 MB) once for all
+// lanes, and each lane's valid KV prefix: 114,688 bytes per cached row and
+// lane (28 layers x 2 x 8 heads x 128 x 2 bytes), 0.55 GB at B = 16 and
+// n_past = 300. The int8 products are 2 x B x 440 M operations (56 G at
 // B = 64, 0.03 ms at the int8 peak), far below the 0.13 ms that the
 // weights take at 3.35 TB/s. The TPU kernel's point is that the weights are
 // read once per frame-set, not once per lane (M = B MXU dots, :1463); here
-// each projection is one gemm_w8a8 (layer.cuh) that stages a 128 x 128
-// int8 tile in shared memory once and multiplies it against all B lanes'
-// activation rows with __dp4a, so every weight byte leaves device memory
-// once, whatever B is. The head is gemm_bf16, tiled the same way. The
-// per-lane steps (norms, quantization, RoPE, attention, sampling) run one
-// block per lane or per (head, lane). This first version pays for launch
-// latency (~13 kernels per layer, as in K1) and, at long prefixes, for its
-// three-pass attention (one warp per cached row, float64 sums), which reads
-// the KV rows well below the memory rate; PERF.md has the measured times.
+// each projection is one tiled GEMM (layer.cuh: gemm_w8a8 with __dp4a,
+// gemm_bf16 and gemm_w4 with float64 sums on the CUDA cores) that stages a
+// weight tile in shared memory once and multiplies it against all B lanes'
+// activation rows, so every weight byte leaves device memory once, whatever
+// B is. The float64 sums of the float modes are this first design's cost at
+// large B: 2 x B operations per weight (56 G at B = 64 in q4pure) on the
+// CUDA cores, where float64 runs at half the float32 rate; tensor cores
+// come later. The per-lane steps
+// (norms, quantization, RoPE, attention, sampling) run one block per lane or
+// per (head, lane). This first version pays for launch latency (~13
+// kernels per layer, as in K1) and, at long prefixes, for its three-pass
+// attention (one warp per cached row, float64 sums), which reads the KV rows
+// well below the memory rate; PERF.md has the measured times.
 //
 // Numerics follow the batched Pallas kernel, not K1: q is rounded to the KV
 // dtype (:1529), the probabilities stay float32 (:1535-1543). The current
@@ -36,43 +42,48 @@
 #include "layer.cuh"
 
 extern "C" size_t qtts_talker_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
-                                               int C, int Vc) {
+                                               int C, int Vc, int modes) {
   const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, B, C, Vc);
+  return carve_work(nullptr, nullptr, d, B, C, Vc, modes);
 }
 
 extern "C" int qtts_talker_step_batched(
     const void* x_in, int B, int n_past, const void* cosv, const void* sinv,
     const void* attn_n, const void* q_n, const void* k_n, const void* ffn_n,
-    const void* wqkv_q, const void* wqkv_s, const void* wo_q, const void* wo_s,
-    const void* wgu_q, const void* wgu_s, const void* wd_q, const void* wd_s,
-    const void* out_norm, const void* codec_head, void* kv,
+    const void* w0, const void* s0, const void* z0, int G0,
+    const void* w1, const void* s1, const void* z1, int G1,
+    const void* w2, const void* s2, const void* z2, int G2,
+    const void* w3, const void* s3, const void* z3, int G3,
+    const void* out_norm, const void* codec_head, int modes, void* kv,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, const void* seeds, float temp, float top_p, float penalty, int top_k,
     int greedy, int use_top_p, int suppress_start, int eos_id,
     void* hidden_out, void* logits_out, void* tok_out, void* ws, void* stream) {
   const Dims d{H, Hq, Hkv, D, F, eps};
+  const StackWeights sw{
+      Proj{proj_mode(modes, 0), w0, (const float*)s0, (const float*)z0, G0},
+      Proj{proj_mode(modes, 1), w1, (const float*)s1, (const float*)z1, G1},
+      Proj{proj_mode(modes, 2), w2, (const float*)s2, (const float*)z2, G2},
+      Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
+      (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, B)) return bad;
+  if (int bad = check_groups(sw, d)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
-  carve_work(&w, (char*)ws, d, B, C, Vc);
-  const StackWeights sw{(const int8_t*)wqkv_q, (const int8_t*)wo_q, (const int8_t*)wgu_q,
-                        (const int8_t*)wd_q,   (const float*)wqkv_s, (const float*)wo_s,
-                        (const float*)wgu_s,   (const float*)wd_s,   (const float*)attn_n,
-                        (const float*)q_n,     (const float*)k_n,    (const float*)ffn_n};
+  carve_work(&w, (char*)ws, d, B, C, Vc, modes);
   const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
   const long lane_stride = (long)L * 2 * layer_stride;
   __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, st);
+  ProjOut last{};
   for (int l = 0; l < L; ++l) {
     const auto lv = layer_view(sw, d, l, kvb + (size_t)(2 * l) * layer_stride,
                                kvb + (size_t)(2 * l + 1) * layer_stride, head_stride,
                                lane_stride);
-    run_layer(d, lv, l > 0 ? sw.sd + (size_t)(l - 1) * H : nullptr, w, (const float*)cosv,
-              (const float*)sinv, n_past, C, 1, 0, st);
+    last = run_layer(d, lv, last, w, (const float*)cosv, (const float*)sinv, n_past, C, 1,
+                     0, st);
   }
-  final_norm(d, sw.sd + (size_t)(L - 1) * H, (const float*)out_norm, w, (float*)hidden_out,
-             st);
+  final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,
                                   (const __nv_bfloat16*)codec_head, H, Vc, st);
   const size_t smem = 2 * (size_t)Vc * sizeof(float);

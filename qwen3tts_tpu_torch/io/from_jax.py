@@ -4,10 +4,12 @@ Input: the JAX package's ``TalkerParams``, ``CodePredictorParams`` or
 ``VocoderParams`` with numpy leaves — the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side, so this
 module never imports jax. The NamedTuples are read by field name and rebuilt
-as the port's NamedTuples of the same names; quantized leaves carry ``q``
-and ``scale`` across unchanged (nothing is re-quantized). numpy arrays of
-``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, cross as a
-uint16 view reinterpreted as ``torch.bfloat16``.
+as the port's NamedTuples of the same names; quantized leaves (int8
+``QuantLinear``, u4 ``QuantLinear4``) carry ``q``, ``scale`` and ``zero``
+across unchanged (nothing is re-quantized), and plain bf16 ``[L, K, N]``
+leaves cross as they are. numpy arrays of ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses, cross as a uint16 view reinterpreted as
+``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from ..ops import quant
 _PORT_TYPES = {
     cls.__name__: cls for cls in (
         talker.TalkerParams, code_predictor.CodePredictorParams,
-        transformer_core.BlockParams, quant.QuantLinear, vocoder.VocoderParams,
+        transformer_core.BlockParams, quant.QuantLinear, quant.QuantLinear4,
+        vocoder.VocoderParams,
         vocoder.PreTfmBlockParams, vocoder.ConvNeXtParams, vocoder.ResBlockParams,
         vocoder.DecoderBlockParams)
 }

@@ -7,9 +7,11 @@ One block = RMSNorm -> GQA attention with per-head q/k RMSNorm and NEOX RoPE
 head-major [L, 2, Hkv, C, D] — the JAX layouts, so tests compare like with
 like. The fused path runs the single-token decode step in the fused kernels
 (``ops/fused_talker_step.py``, ``ops/fused_code_predictor.py``); the
-unfused path runs ``forward_step`` here, whose projections go to the W8A16
-kernel and whose attention at large capacities goes to the decode-attention
-kernel. Tests also hold the fused kernels against ``forward_step``.
+unfused path runs ``forward_step`` here, whose projections go through
+``quant.matmul`` (the W8A16 kernel for int8 weights, the grouped u4 product
+or torch.matmul for the others) and whose attention at large capacities
+goes to the decode-attention kernel. Tests also hold the fused kernels
+against ``forward_step``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from ..ops.attention import attend as attend_xla
 from ..ops.attention import decode_attention_auto
 from ..ops.norms import rms_norm
-from ..ops.quant import QuantLinear, matmul
+from ..ops.quant import QuantLinear, QuantLinear4, matmul
 from ..ops.rope import apply_rope, rope_for_positions
 
 
@@ -30,7 +32,7 @@ class BlockParams(NamedTuple):
     """Stacked decoder-block parameters; every leaf has leading axis L."""
 
     attn_norm: torch.Tensor   # [L, H]
-    wqkv: object              # [L, H, (Hq + 2*Hkv) * D] (tensor or QuantLinear)
+    wqkv: object              # [L, H, (Hq + 2*Hkv) * D]: tensor, QuantLinear(4)
     wo: object                # [L, Hq*D, H]
     q_norm: torch.Tensor      # [L, D]
     k_norm: torch.Tensor      # [L, D]
@@ -76,7 +78,9 @@ def init_block_params(gen, cfg, hidden: int, ffn: int, dtype, device) -> BlockPa
 
 def _layer_weights(blocks: BlockParams, l: int):
     def pick(w):
-        return QuantLinear(w.q[l], w.scale[l]) if isinstance(w, QuantLinear) else w[l]
+        if isinstance(w, (QuantLinear, QuantLinear4)):
+            return type(w)(*(t[l] for t in w))
+        return w[l]
 
     return (pick(blocks.wqkv), pick(blocks.wo), pick(blocks.w_gateup),
             pick(blocks.w_down))

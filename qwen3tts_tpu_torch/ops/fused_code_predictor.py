@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .fused_talker_step import _rms, check_w8a8_blocks, gqa_attention, rope_table, w8a8_layer
+from .fused_talker_step import _rms, check_w8a8_blocks, gqa_attention, layer_plain, rope_table
 from .kernel_prng import make_sampler
 
 
@@ -59,7 +59,7 @@ def predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seeds, *, kv_dt
                 return gqa_attention(q, torch.stack(kc[l], dim=2), torch.stack(vc[l], dim=2),
                                      torch.float32)
 
-            x = w8a8_layer(cp_params.blocks, cfg, l, x, cos_t[p], sin_t[p], attend)
+            x = layer_plain(cp_params.blocks, cfg, l, x, cos_t[p], sin_t[p], attend)
         return x
 
     xinit = _xinit(cp_params, talker_hidden, cb0_embd)

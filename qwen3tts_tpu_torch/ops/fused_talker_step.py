@@ -4,24 +4,41 @@ for B lockstep lanes (K5).
 
 Counterpart of ``qwen3tts_tpu/ops/pallas_talker_step.py``. K1 replaces the
 Pallas kernels ``fused_talker_step`` (:387) and ``fused_talker_step_hbm``
-(:980) in their w8a8 mode. On the TPU the two differ in where the KV cache
-lives; on the H100 it always lives in device memory, so one kernel
+(:980) in their weight modes. On the TPU the two differ in where the KV
+cache lives; on the H100 it always lives in device memory, so one kernel
 (``csrc/talker_step.cu``) serves every capacity. K5 replaces
-``fused_talker_step_batched`` (:1604) in its batch-major w8a8 form
+``fused_talker_step_batched`` (:1604) in its batch-major form
 (``csrc/talker_step_batched.cu``). The sources say what bounds them (the
-bytes of 28 layers of int8 weights per frame, read once for all lanes in
-K5) and what this first design does about it.
+bytes of 28 layers of weights per frame, read once for all lanes in K5) and
+what this first design does about it. The int8-KV operand, K5's ``start``
+operand and its per-lane sampling parameters are not ported yet.
+
+The weight mode is set per projection from the leaf type (``weight_mode``,
+the counterpart of ``_weight_mode``, :153): an int8 ``QuantLinear`` runs in
+"w8a8", a u4 ``QuantLinear4`` in "w4bf16", a plain ``[L, K, N]`` tensor in
+"bf16"; the q4 tier's blocks give the tuple ("w8a8", "w8a8", "w4bf16",
+"w4bf16") in (wqkv, wo, w_gateup, w_down) order. Per mode (``_make_mm_values``,
+:71-127):
+  - w8a8: the activation is quantized per token (s = max(amax, 1e-8) /
+    127, round half to even), the integer dot accumulates in int32 (exact
+    and independent of order) and is scaled by act_scale * w_scale;
+  - bf16: the activation is rounded to the weight's dtype and dotted with
+    the weights, accumulating in float32;
+  - w4bf16: per half of K, the weight is dequantized (q * s - z with its
+    group's scale and offset, the product rounded first) and rounded to
+    bf16, dotted with the bf16 activation; the two halves' float32 sums
+    are added.
+The float sums that feed a rounding run in float64 here and in the kernels
+(layer.cuh), so both get the same bits; a product of two bf16 values is
+exact, so the float64 dot rounded once to float32 does not depend on the
+summation order.
 
 Per layer: RMSNorm -> fused QKV -> q/k RMSNorm -> NEOX RoPE -> K/V row write
 at n_past -> GQA attention over [0, n_past] (float32 probabilities; q cast
 to the KV dtype, and in K1 the probabilities too) -> o_proj -> RMSNorm ->
-SwiGLU -> residual. The w8a8 matmuls quantize the activation per token,
-accumulate in int32 (exact and independent of order) and scale by
-act_scale * w_scale. The float sums that feed an int8 rounding run in
-float64 here and in the kernels (layer.cuh), so both get the same bits.
-Then the output RMSNorm, the codec head, and, when ``seen`` is given, the
-cb0 epilogue: suppress [suppress_start, V) except eos_id, repetition
-penalty over ``seen``, and the counter-hash sampler.
+SwiGLU -> residual. Then the output RMSNorm, the codec head, and, when
+``seen`` is given, the cb0 epilogue: suppress [suppress_start, V) except
+eos_id, repetition penalty over ``seen``, and the counter-hash sampler.
 
 The KV cache is updated IN PLACE: the new K/V row is written into ``kv`` at
 ``n_past`` (JAX aliases the kernel's KV operand to its output instead).
@@ -35,7 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _kernels
-from .quant import QuantLinear
+from .quant import QuantLinear, QuantLinear4, group_rows, unpack4
 from .rope import rope_angles
 from .sampling import sample_rows_plain
 
@@ -85,11 +102,69 @@ def gqa_attention(q, K, V, p_dtype):
     return torch.matmul(p.double(), V.double()).float().reshape(*lead, -1)
 
 
-def w8a8_layer(blocks, cfg, l, x, cos, sin, attend):
+def mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] f32 rounded to w's dtype @ w [K, N]: the dot in float64,
+    rounded to float32 once (a product of two bf16 values is exact)."""
+    return torch.matmul(x.to(w.dtype).double(), w.double()).float()
+
+
+def mm_w4bf16(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+              zero: torch.Tensor) -> torch.Tensor:
+    """x [..., K] f32 @ a u4 weight (q [K/2, N] split-half nibbles, scale
+    and zero [G, N]): per half of K, w = q * s - z in float32 (the product
+    rounded first), rounded to bf16, dotted with x rounded to bf16 in
+    float64 and rounded to float32; then low half + high half in float32."""
+    Kh = q.shape[-2]
+    Gh = scale.shape[-2] // 2
+    xb = x.to(torch.bfloat16).double()
+
+    def half(xh, qh, sh, zh):
+        w = qh.float() * group_rows(sh.float(), Kh) - group_rows(zh.float(), Kh)
+        return torch.matmul(xh, w.to(torch.bfloat16).double()).float()
+
+    lo, hi = unpack4(q)
+    return (half(xb[..., :Kh], lo, scale[:Gh], zero[:Gh])
+            + half(xb[..., Kh:], hi, scale[Gh:], zero[Gh:]))
+
+
+MODE_CODES = {"w8a8": 0, "bf16": 1, "w4bf16": 2}   # csrc/layer.cuh WeightMode
+
+
+def _leaf_mode(w) -> str:
+    if isinstance(w, QuantLinear4):
+        return "w4bf16"
+    return "w8a8" if isinstance(w, QuantLinear) else "bf16"
+
+
+def weight_mode(blocks):
+    """The kernels' weight mode from the leaf types (``_weight_mode``,
+    pallas_talker_step.py:153): one string when the four projections share
+    it, else the 4-tuple in (wqkv, wo, w_gateup, w_down) order."""
+    ms = tuple(_leaf_mode(w) for w in (blocks.wqkv, blocks.wo, blocks.w_gateup,
+                                        blocks.w_down))
+    return ms[0] if len(set(ms)) == 1 else ms
+
+
+def mode_label(mode) -> str:
+    """A mode's name in launch counts and reports: the string, or "mixed"
+    for a per-projection tuple (the q4 tier)."""
+    return mode if isinstance(mode, str) else "mixed"
+
+
+def project_plain(x: torch.Tensor, w, l: int) -> torch.Tensor:
+    """x [M, K] float32 @ layer l of the stacked projection w, in w's mode."""
+    if isinstance(w, QuantLinear4):
+        return mm_w4bf16(x, w.q[l], w.scale[l], w.zero[l])
+    if isinstance(w, QuantLinear):
+        return mm_w8a8(x, w.q[l], w.scale[l])
+    return mm_bf16(x, w[l])
+
+
+def layer_plain(blocks, cfg, l, x, cos, sin, attend):
     """One decoder layer of the plain K1/K2/K5/K6 on the tokens x [M, H]
-    float32 (one per lane) with w8a8 projections. attend(q [M, Hq, D],
-    k [M, Hkv, D], v [M, Hkv, D]) stores K/V and returns the attention
-    output [M, Hq*D]."""
+    float32 (one per lane), each projection in its own mode
+    (``project_plain``). attend(q [M, Hq, D], k [M, Hkv, D], v [M, Hkv, D])
+    stores K/V and returns the attention output [M, Hq*D]."""
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     F, eps, half = cfg.intermediate_size, cfg.rms_norm_eps, cfg.head_dim // 2
 
@@ -98,15 +173,15 @@ def w8a8_layer(blocks, cfg, l, x, cos, sin, attend):
         return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1)
 
     h = _rms(x, blocks.attn_norm[l], eps)
-    heads = mm_w8a8(h, blocks.wqkv.q[l], blocks.wqkv.scale[l]).reshape(-1, Hq + 2 * Hkv, D)
+    heads = project_plain(h, blocks.wqkv, l).reshape(-1, Hq + 2 * Hkv, D)
     q = rope(_rms(heads[:, :Hq], blocks.q_norm[l], eps))
     k = rope(_rms(heads[:, Hq:Hq + Hkv], blocks.k_norm[l], eps))
-    x = x + mm_w8a8(attend(q, k, heads[:, Hq + Hkv:]), blocks.wo.q[l], blocks.wo.scale[l])
+    x = x + project_plain(attend(q, k, heads[:, Hq + Hkv:]), blocks.wo, l)
     h = _rms(x, blocks.ffn_norm[l], eps)
-    gu = mm_w8a8(h, blocks.w_gateup.q[l], blocks.w_gateup.scale[l])
+    gu = project_plain(h, blocks.w_gateup, l)
     gate = gu[:, :F]
     gate = gate / (1.0 + torch.exp(-gate.double()).float())   # exp rounded once
-    return x + mm_w8a8(gate * gu[:, F:], blocks.w_down.q[l], blocks.w_down.scale[l])
+    return x + project_plain(gate * gu[:, F:], blocks.w_down, l)
 
 
 def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_norm,
@@ -129,7 +204,7 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
             return gqa_attention(q.to(kv.dtype).float(), kv[:, l, 0, :, :n + 1].float(),
                                  kv[:, l, 1, :, :n + 1].float(), p_dtype)
 
-        x = w8a8_layer(blocks, cfg, l, x, cos, sin, attend)
+        x = layer_plain(blocks, cfg, l, x, cos, sin, attend)
     normed = _rms(x, output_norm, cfg.rms_norm_eps)
     logits = torch.matmul(normed.to(codec_head.dtype).float(), codec_head.float())
     cb0 = None
@@ -168,30 +243,65 @@ def _rope_row(pos: int, cfg, device, capacity: int):
 
 
 def check_w8a8_blocks(blocks):
-    """The fused kernels are ported in their w8a8 mode only: other weight
-    tiers (q4, q4pure, bf16) raise."""
+    """The code-predictor kernels (K2, K6) take int8 blocks only, as the
+    Pallas code predictor does (it reads ``blocks.wqkv.q``,
+    pallas_code_predictor.py:361): other tiers raise, naming the mode."""
     for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
         if not isinstance(w, QuantLinear):
-            raise NotImplementedError("the fused kernels take int8 QuantLinear blocks "
-                                      "(w8a8); other modes are not ported")
+            tier = "bf16 (quant=None)" if _leaf_mode(w) == "bf16" else "u4"
+            raise ValueError(f"the fused code predictor takes int8 QuantLinear blocks; "
+                             f"these are {tier}: pass fused_cp=False or 'auto'")
 
 
 def _cuda_operands(blocks, cfg, kv, kv_shape, output_norm, codec_head):
-    """Checks shared by K1 and K5, then the operands between (cos, sin) and
-    the KV cache in their C signatures: the four norms (f32), the four
-    projections' int8 q and f32 scales, the output norm (f32) and the codec
-    head, contiguous."""
+    """Checks shared by K1 and K5, then (mode code, operands) for their C
+    signatures: the packed per-projection mode codes (2 bits each, wqkv
+    first) and, between (cos, sin) and the KV cache, the four norms (f32),
+    for each projection (weights, scale or None, zero or None, G), the
+    output norm (f32) and the codec head, contiguous. A "bf16" projection
+    must hold bf16 weights on the card (its plain version follows
+    ``x.astype(wq.dtype)``, so float32 weights run on the CPU only)."""
     if kv.dtype != torch.bfloat16 or codec_head.dtype != torch.bfloat16:
         raise NotImplementedError("the CUDA talker step takes a bf16 KV cache and codec head")
     if not kv.is_contiguous() or tuple(kv.shape) != tuple(kv_shape):
         raise ValueError(f"kv must be a contiguous {tuple(kv_shape)} cache, "
                          f"got {tuple(kv.shape)}")
     f32 = lambda t: t.float().contiguous()   # noqa: E731
-    tensors = [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm),
-               f32(blocks.ffn_norm)]
-    for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
-        tensors += [w.q.contiguous(), f32(w.scale)]
-    return tensors + [f32(output_norm), codec_head.contiguous()]
+    ops = [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm), f32(blocks.ffn_norm)]
+    modes = 0
+    for j, w in enumerate((blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down)):
+        mode = _leaf_mode(w)
+        modes |= MODE_CODES[mode] << (2 * j)
+        if mode == "w8a8":
+            ops += [w.q.contiguous(), f32(w.scale), None, 0]
+        elif mode == "w4bf16":
+            G, Kh = w.scale.shape[-2], w.q.shape[-2]
+            if G % 2 or Kh % (G // 2):
+                raise ValueError(f"u4 weight with {G} groups over {2 * Kh} rows: the groups "
+                                 f"must split each half of K evenly")
+            ops += [w.q.contiguous(), f32(w.scale), f32(w.zero), G]
+        else:
+            if w.dtype != torch.bfloat16:
+                raise NotImplementedError(f"the CUDA talker step's bf16 mode takes bf16 "
+                                          f"weights, got {w.dtype}")
+            ops += [w.contiguous(), None, None, 0]
+    ops += [f32(output_norm), codec_head.contiguous()]
+    _kernels.require_cuda(*[o for o in ops if isinstance(o, torch.Tensor)])
+    return modes, ops
+
+
+def _ptrs(ops):
+    """C arguments of _cuda_operands' list: tensors as device pointers,
+    None as a null pointer, ints as they are."""
+    return [o.data_ptr() if isinstance(o, torch.Tensor) else o for o in ops]
+
+
+def _count(fn, blocks):
+    """One launch of fn's kernel in the blocks' mode: the wrapper's total
+    and its per-mode count (``mode_launches``, keyed by ``mode_label``)."""
+    fn.launches += 1
+    label = mode_label(weight_mode(blocks))
+    fn.mode_launches[label] = fn.mode_launches.get(label, 0) + 1
 
 
 def _dims(cfg, C, Vc):
@@ -206,18 +316,19 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
                       use_top_p=True) -> StepOut:
     """One talker decode step (see the module docstring).
 
-    blocks: BlockParams with QuantLinear projections ([L, K, N] int8, scale
-    [L, 1, N]); step_embd [H]; n_past: int; kv [L, 2, Hkv, C, D], written in
-    place at n_past; codec_head [H, Vc]. When ``seen`` ([Vc] bool or int8)
-    is given, the result's cb0 is next frame's codebook-0 token sampled with
-    ``seed``. Norm weights and scales already in float32 and ``seen`` in
-    int8 (as the pipeline and the decode loop keep them) are passed to the
-    kernel without a copy.
+    blocks: BlockParams whose projections are QuantLinear ([L, K, N] int8,
+    scale [L, 1, N]), QuantLinear4 ([L, K/2, N] packed, scale and zero [L,
+    G, N]) or plain [L, K, N] tensors, in any mix (``weight_mode``);
+    step_embd [H]; n_past: int; kv [L, 2, Hkv, C, D], written in place at
+    n_past; codec_head [H, Vc]. When ``seen`` ([Vc] bool or int8) is given,
+    the result's cb0 is next frame's codebook-0 token sampled with ``seed``.
+    Norm weights and scales already in float32 and ``seen`` in int8 (as the
+    pipeline and the decode loop keep them) are passed to the kernel without
+    a copy.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    KV cache and codec head) or raise; there is no fallback.
+    KV cache, codec head and plain weights) or raise; there is no fallback.
     """
-    check_w8a8_blocks(blocks)
     if kv.device.type == "cpu":
         return fused_talker_step_plain(
             blocks, cfg, step_embd, n_past, kv, output_norm=output_norm,
@@ -227,10 +338,10 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
             suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
             use_top_p=use_top_p)
     lib = _kernels.load_library()
-    _kernels.require_cuda(kv, step_embd, codec_head, blocks.wqkv.q)
+    _kernels.require_cuda(kv, step_embd, codec_head, blocks.attn_norm)
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     C, Vc = kv.shape[3], codec_head.shape[-1]
-    tensors = _cuda_operands(blocks, cfg, kv, (L, 2, Hkv, C, D), output_norm, codec_head)
+    modes, ops = _cuda_operands(blocks, cfg, kv, (L, 2, Hkv, C, D), output_norm, codec_head)
     n = int(n_past)
     if not 0 <= n < C:
         raise ValueError(f"n_past {n} outside the cache capacity {C}")
@@ -242,9 +353,9 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
     tok = torch.empty((1,), dtype=torch.int32, device=dev) if seen is not None else None
     seen8 = seen.to(torch.int8).contiguous() if seen is not None else None
     ws = torch.empty(lib.qtts_talker_ws_bytes(H, cfg.n_heads, Hkv, D, cfg.intermediate_size,
-                                              C, Vc), dtype=torch.uint8, device=dev)
+                                              C, Vc, modes), dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step(
-        x.data_ptr(), n, cos.data_ptr(), sin.data_ptr(), *[t.data_ptr() for t in tensors],
+        x.data_ptr(), n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
         kv.data_ptr(), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(), float(temperature),
         float(top_p), float(repetition_penalty), int(top_k), int(greedy),
@@ -253,11 +364,12 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
         None if tok is None else tok.data_ptr(), ws.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step")
-    fused_talker_step.launches += 1
+    _count(fused_talker_step, blocks)
     return StepOut(hidden, logits, tok)
 
 
 fused_talker_step.launches = 0
+fused_talker_step.mode_launches = {}
 
 
 def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv,
@@ -273,7 +385,8 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
                               suppress_start=None, eos_id=-1, greedy=False,
                               use_top_p=True) -> StepOut:
     """One talker decode step for B lockstep lanes (kernel K5; counterpart
-    of the Pallas ``fused_talker_step_batched``, batch-major, w8a8).
+    of the Pallas ``fused_talker_step_batched``, batch-major, in the blocks'
+    weight mode as in ``fused_talker_step``).
 
     step_embd [B, H]; n_past: int, shared by the lanes; kv [B, L, 2, Hkv, C,
     D], each lane's row written in place at n_past. Returns StepOut with
@@ -284,9 +397,8 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     kernel does. B <= 128.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    KV cache and codec head) or raise; there is no fallback.
+    KV cache, codec head and plain weights) or raise; there is no fallback.
     """
-    check_w8a8_blocks(blocks)
     B = step_embd.shape[0]
     if not 1 <= B <= MAX_LANES:
         raise ValueError(f"fused_talker_step_batched takes 1..{MAX_LANES} lanes, got {B}")
@@ -300,10 +412,11 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
             suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
             use_top_p=use_top_p)
     lib = _kernels.load_library()
-    _kernels.require_cuda(kv, step_embd, codec_head, blocks.wqkv.q)
+    _kernels.require_cuda(kv, step_embd, codec_head, blocks.attn_norm)
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     C, Vc = kv.shape[4], codec_head.shape[-1]
-    tensors = _cuda_operands(blocks, cfg, kv, (B, L, 2, Hkv, C, D), output_norm, codec_head)
+    modes, ops = _cuda_operands(blocks, cfg, kv, (B, L, 2, Hkv, C, D), output_norm,
+                                codec_head)
     n = int(n_past)
     if not 0 <= n < C:
         raise ValueError(f"n_past {n} outside the cache capacity {C}")
@@ -320,10 +433,10 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         if tuple(seen8.shape) != (B, Vc) or tuple(seeds32.shape) != (B,):
             raise ValueError("seen must be [B, Vc] and seeds [B]")
     ws = torch.empty(lib.qtts_talker_batched_ws_bytes(B, H, cfg.n_heads, Hkv, D,
-                                                      cfg.intermediate_size, C, Vc),
+                                                      cfg.intermediate_size, C, Vc, modes),
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step_batched(
-        x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *[t.data_ptr() for t in tensors],
+        x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
         kv.data_ptr(), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(),
         None if seeds32 is None else seeds32.data_ptr(), float(temperature), float(top_p),
@@ -332,8 +445,9 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         hidden.data_ptr(), logits.data_ptr(), None if tok is None else tok.data_ptr(),
         ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step_batched")
-    fused_talker_step_batched.launches += 1
+    _count(fused_talker_step_batched, blocks)
     return StepOut(hidden, logits, tok)
 
 
 fused_talker_step_batched.launches = 0
+fused_talker_step_batched.mode_launches = {}

@@ -1,29 +1,46 @@
 """Qwen3TTS pipeline of the port (counterpart of ``qwen3tts_tpu/pipeline.py``:
 single-stream synthesis and batched serving).
 
-``Qwen3TTS(config, device="cuda")`` holds the weights on one device:
-bf16 talker and code-predictor weights and KV cache with int8 projection
-blocks (``RuntimeConfig(quant="int8")``), and a float32 vocoder.
+``Qwen3TTS(config, device="cuda")`` holds the weights on one device: bf16
+talker and code-predictor weights and KV cache, and a float32 vocoder. The
+weight tier is ``RuntimeConfig.quant``, resolved as the JAX package
+resolves it (``qwen3tts_tpu/pipeline.py:385-396``):
+  - None (the default ``PipelineConfig()``): plain bf16 projection blocks
+    in the talker and the code predictor;
+  - "int8": int8 ``QuantLinear`` blocks in both;
+  - "q4": the talker's attention projections int8 and its FFN affine u4
+    (``QuantLinear4``), the code predictor int8;
+  - "q4pure": every talker projection u4, the code predictor int8.
+The KV cache is stored at the compute dtype: ``RuntimeConfig.kv_quant``
+"auto" and "none" resolve to that, as the JAX package's
+``resolve_kv_quant`` does without its environment override; the int8 KV
+tier ("int8") is not ported yet and is refused.
 ``load_models(None, synthetic=True, seed=...)`` draws deterministic
 synthetic weights at the configured widths (no checkpoint ships with the
 repository; the checkpoint loaders are not ported yet). ``synthesize``
 runs host BPE, the prefill, the frame loop and the vocoder (kernel K3);
 ``synthesize_batch`` runs B requests in lockstep through the batched frame
 loop, then vocodes each lane (K3). The prefill's int8 projections run in
-the W8A16 kernel (``ops/int8_matmul.py``).
+the W8A16 kernel (``ops/int8_matmul.py``), its u4 ones in the grouped
+product of ``ops/quant.py`` and its bf16 ones in ``torch.matmul``.
 
-``Qwen3TTS(config, device, fused_talker=True, fused_cp=True)`` picks the
-decode step, for both loops (the JAX package's ``QWEN3TTS_FUSED_TALKER``
-and ``QWEN3TTS_FUSED_CP`` gates, as arguments):
-  - fused_talker=True: the talker step is kernel K1 (single stream) or K5
-    (batched), which also samples the next codebook-0 token;
-  - fused_talker=False: ``talker.talker_step``, whose projections are
-    W8A16 kernel launches and whose attention, at KV capacities of 1024
-    rows and more, is the decode-attention kernel
-    (``ops/decode_attention.py``); cb0 is sampled in PyTorch;
-  - fused_cp=True: the code predictor is kernel K2 (single) or K6 (batched);
-  - fused_cp=False: ``code_predictor.predict_codes``, W8A16 kernel
-    launches and PyTorch attention and sampling.
+``Qwen3TTS(config, device, fused_talker="auto", fused_cp="auto")`` picks
+the decode step, for both loops (the JAX package's ``QWEN3TTS_FUSED_TALKER``
+and ``QWEN3TTS_FUSED_CP`` gates, as arguments; "auto" is resolved per call
+in ``runtime/decode_loop.py``):
+  - fused_talker=True (auto: every tier): the talker step is kernel K1
+    (single stream) or K5 (batched), in the blocks' weight modes, which
+    also samples the next codebook-0 token;
+  - fused_talker=False: ``talker.talker_step``, whose projections go
+    through ``quant.matmul`` (int8: W8A16 kernel launches) and whose
+    attention, at KV capacities of 1024 rows and more, is the
+    decode-attention kernel (``ops/decode_attention.py``); cb0 is sampled
+    in PyTorch;
+  - fused_cp=True (auto: int8 code-predictor blocks, so every quantized
+    tier): the code predictor is kernel K2 (single) or K6 (batched); True
+    on the bf16 tier's blocks raises ValueError;
+  - fused_cp=False (auto in the bf16 tier): ``code_predictor.predict_codes``,
+    ``quant.matmul`` projections and PyTorch attention and sampling.
 On a CUDA device every kernel launches on the card or raises; there is no
 CPU fallback. The CPU runs only when asked for (``device="cpu"``), through
 the kernels' plain versions.
@@ -42,7 +59,7 @@ from .models import code_predictor as cp_model
 from .models import talker as talker_model
 from .models import vocoder as vocoder_model
 from .models.transformer_core import float32_norms
-from .ops.quant import quantize_block_params
+from .ops.quant import quantize_block_params, quantize_talker_blocks
 from .runtime import decode_loop
 from .runtime.buckets import pick_bucket
 from .runtime.timing import StageTimings, now_ms, rss_bytes
@@ -51,6 +68,18 @@ from .text.bpe import TextTokenizer, synthetic_tokenizer
 # lanes of one batched frame loop (the batched talker kernel's cap); larger
 # batches run in groups of this many, one after another
 MAX_BATCH_LANES = 128
+
+# the weight tiers RuntimeConfig.quant may name (None: plain bf16 blocks)
+WEIGHT_TIERS = (None, "int8", "q4", "q4pure")
+
+
+def resolve_kv_quant(rt) -> str:
+    """RuntimeConfig.kv_quant as the cache this port stores: "auto" and
+    "none" give "none" (the cache at the compute dtype), as the JAX
+    package's ``resolve_kv_quant`` (``pipeline.py:178-217``) does without
+    its environment override; "int8" is returned as it is (not ported)."""
+    mode = getattr(rt, "kv_quant", "auto")
+    return "none" if mode == "auto" else mode
 
 
 @dataclasses.dataclass
@@ -79,10 +108,10 @@ class Qwen3TTS:
     """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
 
     def __init__(self, config: Optional[PipelineConfig] = None, device="cuda", *,
-                 fused_talker: bool = True, fused_cp: bool = True):
+                 fused_talker="auto", fused_cp="auto"):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
-        self.fused = dict(fused_talker=bool(fused_talker), fused_cp=bool(fused_cp))
+        self.fused = dict(fused_talker=fused_talker, fused_cp=fused_cp)
         self.dtype = torch.bfloat16 if self.config.runtime.dtype == "bfloat16" else torch.float32
         self.tokenizer: Optional[TextTokenizer] = None
         self.talker_params = None
@@ -94,15 +123,24 @@ class Qwen3TTS:
     def load_models(self, model_dir: Optional[str] = None, *, synthetic: bool = False,
                     seed: int = 0) -> bool:
         """Deterministic synthetic weights (model_dir None or synthetic=True)
-        drawn from torch Generators on the device, seeded by `seed`.
-        Checkpoint directories are not supported yet: returns False with
-        error_msg set."""
+        drawn from torch Generators on the device, seeded by `seed`, then
+        quantized to the weight tier (module docstring). Checkpoint
+        directories, unknown weight tiers and the int8 KV tier are not
+        supported: returns False with error_msg set."""
+        rt = self.config.runtime
         if model_dir is not None and not synthetic:
             self.error_msg = "Failed to load models: checkpoint loading is not ported yet"
             return False
-        if self.config.runtime.quant != "int8":
-            self.error_msg = (f"Failed to load models: quant tier "
-                              f"{self.config.runtime.quant!r} is not ported (int8 only)")
+        if rt.quant not in WEIGHT_TIERS:
+            self.error_msg = (f"Failed to load models: quant tier {rt.quant!r} is not one of "
+                              f"{WEIGHT_TIERS}")
+            return False
+        kv_quant = resolve_kv_quant(rt)
+        if kv_quant != "none":
+            self.error_msg = (f"Failed to load models: kv_quant={kv_quant!r}: the int8 KV "
+                              f"tier is not ported (the cache is stored at the compute dtype)"
+                              if kv_quant == "int8" else
+                              f"Failed to load models: unknown kv_quant {kv_quant!r}")
             return False
         cfg = self.config
         gens = []
@@ -115,13 +153,16 @@ class Qwen3TTS:
             cp = cp_model.init_code_predictor_params(
                 gens[1], cfg.code_predictor, self.dtype, self.device)
             vp = vocoder_model.init_vocoder_params(gens[2], cfg.vocoder, self.device)
-            self.set_params(tp._replace(blocks=quantize_block_params(tp.blocks)),
-                            cp._replace(blocks=quantize_block_params(cp.blocks)), vp)
+            if rt.quant is not None:
+                tp = tp._replace(blocks=quantize_talker_blocks(tp.blocks, rt.quant))
+                cp = cp._replace(blocks=quantize_block_params(cp.blocks))
+            self.set_params(tp, cp, vp)
         return True
 
     def set_params(self, talker_params, cp_params, vocoder_params) -> None:
-        """Install already-quantized talker/code-predictor params and vocoder
-        params (e.g. from ``io.from_jax``) and the synthetic tokenizer. The
+        """Install talker/code-predictor params already in their weight tier
+        and vocoder params (e.g. from ``io.from_jax``) and the synthetic
+        tokenizer. The
         norm weights are kept in float32, as the kernels read them, so no
         frame converts them again."""
         self.talker_params = talker_params._replace(

@@ -15,8 +15,16 @@ per frame:
      that includes this frame's cb0: kernel K1 with its sampling epilogue
      (fused_talker), or ``talker.talker_step`` and suppression, repetition
      penalty and ``sample_token`` on its logits (unfused).
-``fused_talker`` and ``fused_cp`` take the JAX package's names as booleans;
-they replace its ``QWEN3TTS_FUSED_*`` gates. All four combinations run.
+``fused_talker`` and ``fused_cp`` take the JAX package's names; they
+replace its ``QWEN3TTS_FUSED_*`` gates. Each is True, False or "auto" (the
+default), resolved once per call as the JAX package's
+``_resolve_fused_talker`` and ``_resolve_fused_cp`` resolve it
+(``decode_loop.py:85-129``) without their TPU and sharding gates: the talker
+kernel in every weight tier (int8, q4, q4pure and bf16: the kernels take
+each tier's weight modes), the code-predictor kernel when its blocks are
+int8 (every quantized tier; the bf16 tier runs ``predict_codes``). An
+explicit fused_cp=True on bf16 code-predictor blocks raises ValueError. All
+four combinations of the booleans run in every tier.
 
 The loop is a Python loop; the EOS check reads cb0 back, one host sync per
 frame. Seeds: where JAX derives the kernels' int32 seeds with threefry from
@@ -40,8 +48,10 @@ from ..models import code_predictor as cp_model
 from ..models import talker as talker_model
 from ..ops.fused_code_predictor import fused_predict_codes
 from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
-from ..ops.fused_talker_step import fused_talker_step, fused_talker_step_batched
+from ..ops.fused_talker_step import (check_w8a8_blocks, fused_talker_step,
+                                     fused_talker_step_batched)
 from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops.quant import QuantLinear
 from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
 
 
@@ -58,6 +68,23 @@ class GenerateResult(NamedTuple):
 class BatchedGenerateResult(NamedTuple):
     codes: torch.Tensor     # [B, max_frames, 16] int64; lane b's first n_frames[b] rows
     n_frames: list          # [B] frames each lane emitted
+
+
+def resolve_fused_talker(fused_talker) -> bool:
+    """True, False or "auto": auto takes the talker kernel (K1 / K5) in
+    every weight tier, as ``_resolve_fused_talker`` does on a TPU."""
+    return True if fused_talker == "auto" else bool(fused_talker)
+
+
+def resolve_fused_cp(fused_cp, cp_params) -> bool:
+    """True, False or "auto": auto takes the code-predictor kernel (K2 / K6)
+    only for int8 blocks, as ``_resolve_fused_cp`` does on a TPU; True on
+    other blocks raises ValueError naming their tier."""
+    if fused_cp == "auto":
+        return isinstance(cp_params.blocks.wqkv, QuantLinear)
+    if fused_cp:
+        check_w8a8_blocks(cp_params.blocks)
+    return bool(fused_cp)
 
 
 def draw_seeds(gen: torch.Generator, n: int) -> list:
@@ -98,12 +125,14 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
                          repetition_penalty: float = 1.05, nothink: bool = False,
-                         fused_talker: bool = True, fused_cp: bool = True) -> GenerateResult:
+                         fused_talker="auto", fused_cp="auto") -> GenerateResult:
     """Prefill + the frame loop for one request; see the module docstring.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
     frames into a KV cache of kv_capacity rows. fused_talker / fused_cp pick
     kernels K1 / K2 or the unfused talker step / code predictor."""
     tcfg, ccfg = talker_cfg, cp_cfg
+    fused_talker = resolve_fused_talker(fused_talker)
+    fused_cp = resolve_fused_cp(fused_cp, cp_params)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     Vc = tcfg.codec_vocab_size
@@ -173,11 +202,11 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                  max_frames: int, kv_capacity: int, temperature: float,
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
-                                 budgets=None, fused_talker: bool = True,
-                                 fused_cp: bool = True) -> BatchedGenerateResult:
+                                 budgets=None, fused_talker="auto",
+                                 fused_cp="auto") -> BatchedGenerateResult:
     """Prefill + the frame loop for B requests in lockstep (counterpart of
-    ``_generate_batched_fused``, fused kernels, int8; with both flags off,
-    of the vmapped unfused loop, ``decode_loop.py:651-667``).
+    ``_generate_batched_fused``, fused kernels, every weight tier; with both
+    flags off, of the vmapped unfused loop, ``decode_loop.py:651-667``).
 
     tokens [B, Tb] padded ids with n_tokens[b] real ones (one shared Tb, so
     every lane's prefill window has the same length and the lanes share
@@ -202,6 +231,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     jax.random.split(key, B)).
     """
     tcfg, ccfg = talker_cfg, cp_cfg
+    fused_talker = resolve_fused_talker(fused_talker)
+    fused_cp = resolve_fused_cp(fused_cp, cp_params)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     B = int(tokens.shape[0])

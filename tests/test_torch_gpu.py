@@ -32,3 +32,28 @@ def test_kernel_matches_plain_on_card(tts, check):
     getattr(chip_smoke, check)(tts, report, iters=1)
     torch.cuda.synchronize()
     assert report
+
+
+@pytest.mark.parametrize("quant", [None, "q4", "q4pure"], ids=["bf16", "q4", "q4pure"])
+def test_talker_modes_match_plain_on_card(quant):
+    """K1 and K5 in the tier's weight mode against their plain versions (the
+    exact 2-layer gates of chip_smoke.py), on the tier's synthetic weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
+    tier = chip_smoke.make_pipeline(PipelineConfig(), torch.device("cuda", 0), quant=quant)
+    mode, report = chip_smoke.TIER_SERVE[quant]["mode"], {}
+    chip_smoke.check_talker_step(tier, report, iters=1, key=f"fused_talker_step[{mode}]",
+                                 positions=((512, (10, 300)),), exact=True)
+    chip_smoke.check_talker_step_batched(tier, report, iters=1,
+                                         shapes=((5, 512, (10,)), (16, 512, (300,))),
+                                         key=f"fused_talker_step_batched[{mode}]", exact=True)
+    torch.cuda.synchronize()
+    assert len(report) == 2
+
+
+def test_w4_gemv_probe_exact_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
+    report = {}
+    chip_smoke.check_w4_gemv_probe(report, torch.device("cuda", 0), iters=1)
+    assert report["w4_gemv_probe"]["max_abs_err"] == 0.0

@@ -32,7 +32,8 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.ops.fused_code_predictor_batched", "qwen3tts_tpu_torch.config",
     "qwen3tts_tpu_torch.text.bpe", "qwen3tts_tpu_torch.ops.int8_matmul",
     "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
-    "qwen3tts_tpu_torch.models.code_predictor",
+    "qwen3tts_tpu_torch.models.code_predictor", "qwen3tts_tpu_torch.ops.quant",
+    "qwen3tts_tpu_torch.ops.w4_gemv_probe",
 ]
 
 
@@ -95,6 +96,74 @@ def test_pipeline_defaults_to_the_card():
     assert Qwen3TTS(pconfig.tiny_pipeline_config()).device.type == "cuda"
 
 
+@pytest.mark.parametrize("kv_quant", ["int8", "none", "auto"])
+def test_kv_quant_is_read_and_the_int8_tier_refused(kv_quant):
+    """RuntimeConfig.kv_quant is no longer ignored: "int8" (not ported) is
+    refused with a message where it once ran a bf16 cache without a word;
+    "auto" and "none" resolve to "none" and load."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS, resolve_kv_quant
+
+    cfg = tiny_pipeline_config()
+    rt = dataclasses.replace(cfg.runtime, quant="int8", kv_quant=kv_quant)
+    tts = Qwen3TTS(dataclasses.replace(cfg, runtime=rt), device="cpu")
+    loaded = tts.load_models(None, synthetic=True)
+    if kv_quant == "int8":
+        assert not loaded and "int8 KV" in tts.error_msg and "not ported" in tts.error_msg
+    else:
+        assert loaded, tts.error_msg
+        assert resolve_kv_quant(rt) == "none"
+
+
+def test_unknown_weight_tier_is_refused():
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    cfg = tiny_pipeline_config()
+    tts = Qwen3TTS(dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                                         quant="fp8")),
+                   device="cpu")
+    assert not tts.load_models(None, synthetic=True)
+    assert "fp8" in tts.error_msg
+
+
+def test_default_tier_loads_and_serves_on_the_cpu():
+    """The default PipelineConfig()'s runtime (quant=None, the bf16 tier;
+    kv_quant="auto") at the tiny widths: Qwen3TTS loads synthetic weights
+    with plain projection blocks and serves one request and a batch. (The
+    full widths run on the card: chip_smoke.default_pipeline.)"""
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    default = pconfig.PipelineConfig().runtime
+    assert (default.quant, default.kv_quant) == (None, "auto")
+    cfg = tiny_pipeline_config()
+    rt = dataclasses.replace(cfg.runtime, quant=default.quant, kv_quant=default.kv_quant)
+    tts = Qwen3TTS(dataclasses.replace(cfg, runtime=rt), device="cpu")
+    assert tts.load_models(None, synthetic=True), tts.error_msg
+    assert all(isinstance(w, torch.Tensor) for w in (
+        tts.talker_params.blocks.wqkv, tts.cp_params.blocks.w_down))
+    r = tts.synthesize("Hello.", SamplingConfig(max_audio_tokens=4, seed=2))
+    assert r.success and len(r.audio) == r.n_frames * 1920
+    rs = tts.synthesize_batch(["Hello.", "Two."], SamplingConfig(max_audio_tokens=3))
+    assert all(x.success for x in rs)
+
+
+def test_tier_paths_forbid_every_other_talker_mode():
+    """Each tier's serve path demands its own K1/K5 mode and forbids the
+    others' (w8a8 included), so no tier runs on another's kernel mode."""
+    for q, spec in chip_smoke.TIER_SERVE.items():
+        forbidden = chip_smoke.tier_forbidden(spec)
+        assert f"fused_talker_step[{spec['mode']}]" in spec["single"]
+        assert "fused_talker_step" in forbidden and not set(spec["single"]) & set(forbidden)
+        assert chip_smoke.MODE_TIERS[spec["mode"]] == q
+    launches = {name: 0 for name in chip_smoke.KERNELS}
+    launches.update({"fused_talker_step[bf16]": 2, "fused_res_block": 1})
+    spec = chip_smoke.TIER_SERVE[None]
+    chip_smoke.check_launches("x", launches, spec["single"], chip_smoke.tier_forbidden(spec))
+    launches["fused_talker_step"] = 1
+    with pytest.raises(chip_smoke.SmokeFailure, match="fused_talker_step"):
+        chip_smoke.check_launches("x", launches, spec["single"], chip_smoke.tier_forbidden(spec))
+
+
 def test_chip_smoke_names_no_jax_package_module():
     """chip_smoke.py imports the port only: no import statement and no
     module string it loads names jax or a module of qwen3tts_tpu."""
@@ -103,6 +172,7 @@ def test_chip_smoke_names_no_jax_package_module():
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     names += [mod for mod, _, _, _ in chip_smoke.KERNELS.values()]
+    assert "qwen3tts_tpu_torch.ops.w4_gemv_probe" in names
     assert names and all(m.split(".")[0] not in ("jax", "qwen3tts_tpu") for m in names), names
 
 
@@ -114,8 +184,8 @@ def no_library(monkeypatch):
     monkeypatch.setattr(_kernels, "load_library", absent)
 
 
-def _tiny_pipeline():
-    return chip_smoke.make_pipeline(tiny_pipeline_config(), torch.device("cpu"))
+def _tiny_pipeline(quant="int8"):
+    return chip_smoke.make_pipeline(tiny_pipeline_config(), torch.device("cpu"), quant=quant)
 
 
 def _meta(tree):
@@ -131,13 +201,15 @@ def test_device_request_raises_without_the_library(no_library, kernel):
     """A tensor that is not on the CPU goes to the kernel: with the library
     absent the wrapper raises instead of running its plain version (meta
     tensors stand in for CUDA ones on a machine without a card)."""
-    tts = _tiny_pipeline()
+    mode = chip_smoke.kernel_mode(kernel)
+    tts = _tiny_pipeline(chip_smoke.MODE_TIERS.get(mode, "int8"))
     tcfg, ccfg = tts.config.talker, tts.config.code_predictor
     tp, cp = _meta(tts.talker_params), _meta(tts.cp_params)
     fn = chip_smoke.wrapper(kernel)
     meta = torch.device("meta")
+    base = kernel.partition("[")[0]
     with pytest.raises(RuntimeError, match="absent"):
-        if kernel == "fused_talker_step":
+        if base == "fused_talker_step":
             kv = torch.zeros((tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
                              device=meta)
             fn(tp.blocks, tcfg, torch.zeros(tcfg.hidden_size, device=meta), 3, kv,
@@ -145,7 +217,7 @@ def test_device_request_raises_without_the_library(no_library, kernel):
         elif kernel == "fused_predict_codes":
             h = torch.zeros(ccfg.hidden_size, device=meta)
             fn(cp, ccfg, h, h, 0, temperature=0.0, top_k=50, greedy=True)
-        elif kernel == "fused_talker_step_batched":
+        elif base == "fused_talker_step_batched":
             kv = torch.zeros((2, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
                              device=meta)
             fn(tp.blocks, tcfg, torch.zeros((2, tcfg.hidden_size), device=meta), 3, kv,
@@ -160,6 +232,9 @@ def test_device_request_raises_without_the_library(no_library, kernel):
         elif kernel == "decode_attention":
             kv = torch.zeros((tcfg.n_layers, 2, tcfg.n_kv_heads, 1024, 128), device=meta)
             fn(torch.zeros((tcfg.n_heads, 128), device=meta), kv, 0, 5)
+        elif kernel == "w4_gemv_probe":
+            fn(torch.zeros((1, 16), dtype=torch.int8, device=meta),
+               torch.zeros((2, 8, 4), dtype=torch.int8, device=meta), True)
         elif kernel == "fused_res_block":
             C = 8
             w1, w2, v = (torch.zeros((7, C, C), device=meta),
@@ -169,7 +244,7 @@ def test_device_request_raises_without_the_library(no_library, kernel):
             fn(torch.zeros((1, 3072), device=meta), torch.zeros(1, dtype=torch.int32,
                                                                 device=meta), 0,
                temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False)
-    assert fn.launches == 0
+    assert fn.launches == 0 and chip_smoke.read_counts()[kernel] == 0
 
 
 def test_cuda_pipeline_has_no_cpu_fallback():
@@ -198,6 +273,15 @@ def test_chip_smoke_phases_at_tiny_config():
     chip_smoke.check_int8_matmul(tts, report, iters=1, rows=(1, 3))
     chip_smoke.check_decode_attention(tts, report, iters=1, L=2,
                                       shapes=((1, 32, (1, 20)), (2, 64, (40,))))
+    tiers = {q: _tiny_pipeline(q) for q in chip_smoke.TIER_SERVE}
+    for q, spec in chip_smoke.TIER_SERVE.items():
+        chip_smoke.check_talker_step(tiers[q], report, iters=1,
+                                     key=f"fused_talker_step[{spec['mode']}]",
+                                     positions=((32, (3, 20)), (4352, (300, 4000))), exact=True)
+        chip_smoke.check_talker_step_batched(
+            tiers[q], report, iters=1, shapes=((2, 32, (3,)), (3, 32, (5, 20))),
+            key=f"fused_talker_step_batched[{spec['mode']}]", exact=True)
+    chip_smoke.check_w4_gemv_probe(report, torch.device("cpu"), iters=1, shape=(2, 16, 8))
     assert set(report) == set(chip_smoke.KERNELS)
     keys = {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err"}
     assert all(keys <= set(r) and r["bound_ms"] > 0 for r in report.values())
@@ -217,6 +301,20 @@ def test_chip_smoke_phases_at_tiny_config():
         unfused, [("Hello.", dict(max_audio_tokens=4, temperature=0.0, seed=1))])
     assert all(s["ok"] for s in stats)
     assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    for q, spec in chip_smoke.TIER_SERVE.items():
+        small = dict(max_audio_tokens=4)
+        stats, counts = chip_smoke.serve(tiers[q], [(t, dict(kw, **small))
+                                                    for t, kw in spec["requests"]])
+        assert all(s["ok"] for s in stats)
+        bstats, _ = chip_smoke.serve_batches(
+            tiers[q], [(3, dict(kw, **small)) for _, kw in spec["batches"]],
+            min_frames_per_lane=1)
+        assert len(bstats) == len(spec["batches"])
+        assert counts == {name: 0 for name in chip_smoke.KERNELS}
+    stats, _ = chip_smoke.serve(chip_smoke.unfused_pipeline(tiers["q4"]),
+                                [(t, dict(kw, max_audio_tokens=4))
+                                 for t, kw in chip_smoke.UNFUSED_Q4_REQUESTS])
+    assert all(s["ok"] for s in stats)
 
 
 def test_unfused_path_needs_decode_attention_from_1024_rows():
