@@ -13,9 +13,13 @@ Phases (each prints a line; any failure exits non-zero):
      and K5 run in every weight mode, each on its tier's weights: w8a8
      (int8), bf16 (the default tier), the q4 tier's mixed tuple and w4bf16
      (q4pure); the new modes must agree with their plain versions to 0.0 in
-     the hidden state and the K/V rows over 2 layers. Then the 4-bit GEMV
-     probe (int8 and packed-nibble weights, exact) beside K1's projection
-     kernels at the probe's shape;
+     the hidden state and the K/V rows over 2 layers. K5 also with the
+     operands of continuous serving (B = 64, C = 1024, n_past = 600: per-lane
+     starts over [0, n_past], one lane at n_past, and per-lane sampling
+     parameters; 0.0 over 2 layers, cb0 equal in every lane; timed beside K5
+     without start) and K6 with per-lane temperature and top-p (codes
+     equal). Then the 4-bit GEMV probe (int8 and packed-nibble weights,
+     exact) beside K1's projection kernels at the probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -27,24 +31,36 @@ Phases (each prints a line; any failure exits non-zero):
      which must emit at least 8 frames per lane in all and launch K5, K6, K3
      and the GEMM; then the unfused path on the same weights,
      Qwen3TTS(..., fused_talker=False, fused_cp=False): a greedy 64-token
-     request (C = 256: the GEMM, attention in PyTorch), a sampled request of
-     max_audio_tokens=600 (C = 1280: the GEMM and the decode-attention
-     kernel) and a 16-lane greedy batch of 520 (C = 1280), which must launch
-     the GEMM and K3 (the C = 1280 ones also decode attention) and none of
-     K1, K2, K5, K6. Then the other weight tiers (TIER_SERVE), each on its own
+     request (C = 256: the GEMM, attention in PyTorch), then, with
+     RuntimeConfig.kv_margin = 1000, a sampled request of
+     max_audio_tokens=200 and a 16-lane greedy batch of 128 (both at C =
+     1280: the GEMM and the decode-attention kernel), which must launch the
+     GEMM and K3 (the C = 1280 ones also decode attention) and none of K1,
+     K2, K5, K6. Then the other weight tiers (TIER_SERVE), each on its own
      Qwen3TTS with the default flags: the bf16 tier is Qwen3TTS() itself
      (two requests and a 16-lane batch through K1/K5 in bf16 mode, K3, and
      no K2, K6 or GEMM: its code predictor is the eager predict_codes), q4
      (a request and a 16-lane batch: K1/K5 mixed, K2/K6, K3, the GEMM) and
      q4pure (a request and a 16-lane batch: K1/K5 w4bf16, K2/K6, K3, no
-     GEMM), then one unfused q4 request. No path may launch K1/K5 in another tier's mode. K4's
+     GEMM), then one unfused q4 request. Then continuous serving
+     (serve_queues, `serve_queue` lines): the JAX bench's mix (48 requests,
+     16 lanes, every request at exactly its budget), synthesize_queue on 128
+     sampled texts on 64 lanes beside synthesize_batch in two groups of 64,
+     a tight greedy queue (16 lanes, C = 384: a compaction, a session reset,
+     host mirrors equal to the state, the first fill equal to
+     synthesize_batch), the bf16 tier's queue and an unfused queue at C =
+     1280; the fused int8 queues must launch K5 with `start`, K6 with
+     per-lane sampling and the GEMM and no K1 or K2, the bf16 one K5 with
+     `start` in bf16 mode and no K6 or GEMM, the unfused one the GEMM and no
+     decode-attention kernel. No path may launch K1/K5 in another tier's mode. K4's
      standalone entry (sample_rows) has no caller on a serve path: frame 0's
      codebook-0 token is drawn by the PyTorch sampler with the JAX
      package's exact top-k, and K4's device code runs inside K1, K2, K5 and
      K6; the kernel phase still holds it against its plain version; the
      probe is off every path;
   5. profile: the sampled 256-token request, the 16-lane batch, the
-     unfused 64-token request and the bf16 tier's sampled request again,
+     unfused 64-token request, the bf16 tier's sampled request and the
+     128-text sampled queue again,
      under torch.profiler with device activity only; prints the device's
      busy time (the union of its kernel and copy intervals), its idle
      share, and the kernels with the most device time in each.
@@ -112,6 +128,13 @@ MODE_TIERS = {"bf16": None, "mixed": "q4", "w4bf16": "q4pure"}
 for _mode in MODE_TIERS:
     for _k in ("fused_talker_step", "fused_talker_step_batched"):
         KERNELS[f"{_k}[{_mode}]"] = KERNELS[_k]
+# the operands only continuous serving passes (runtime/continuous.py), one
+# entry each: K5's launches with `start` (and per-lane sampling), K6's with
+# per-lane temperature and top-p (the wrappers' operand_launches)
+OPERAND_ENTRIES = {"fused_talker_step_batched[start]": "start",
+                   "fused_predict_codes_batched[per_lane]": "per_lane"}
+for _name in OPERAND_ENTRIES:
+    KERNELS[_name] = KERNELS[_name.partition("[")[0]]
 # TPU kernels a kernel replaces besides the one KERNELS names
 ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201"}
 ALSO_REPLACES.update({name: "qwen3tts_tpu/ops/pallas_talker_step.py:980" for name in KERNELS
@@ -124,9 +147,15 @@ BATCH_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched", "fused
               "int8_matmul")
 UNFUSED_PATH = ("int8_matmul", "fused_res_block")
 FUSED_ONLY = ("fused_talker_step", "fused_predict_codes", "fused_talker_step_batched",
-              "fused_predict_codes_batched") + tuple(
+              "fused_predict_codes_batched") + tuple(OPERAND_ENTRIES) + tuple(
                   f"{k}[{m}]" for m in MODE_TIERS
                   for k in ("fused_talker_step", "fused_talker_step_batched"))
+# the continuous scheduler on int8 weights, fused: K5 with `start`, K6 with
+# per-lane sampling, the GEMM (the refills' prefill windows); never K1 or K2
+QUEUE_PATH = ("fused_talker_step_batched", "fused_talker_step_batched[start]",
+              "fused_predict_codes_batched", "fused_predict_codes_batched[per_lane]",
+              "int8_matmul")
+QUEUE_FORBIDDEN = ("fused_talker_step", "fused_predict_codes")
 
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
 # second by operand type (float32 on the CUDA cores, no TF32)
@@ -147,8 +176,8 @@ def wrapper(name):
 
 def kernel_mode(name):
     """The weight mode a KERNELS name counts (K1 and K5: "w8a8" for the bare
-    name), or None for a kernel without modes."""
-    if not hasattr(wrapper(name), "mode_launches"):
+    name), or None for a kernel without modes and for an operand entry."""
+    if name in OPERAND_ENTRIES or not hasattr(wrapper(name), "mode_launches"):
         return None
     return name.partition("[")[2].rstrip("]") or "w8a8"
 
@@ -157,17 +186,22 @@ def reset_counts():
     for name in KERNELS:
         fn = wrapper(name)
         fn.launches = 0
-        if hasattr(fn, "mode_launches"):
-            fn.mode_launches.clear()
+        for counts in ("mode_launches", "operand_launches"):
+            if hasattr(fn, counts):
+                getattr(fn, counts).clear()
 
 
 def read_counts():
-    """Launches per KERNELS name: a wrapper's count, or, for K1 and K5, its
-    count in the name's weight mode."""
+    """Launches per KERNELS name: a wrapper's count; for K1 and K5, its
+    count in the name's weight mode; for an operand entry, the wrapper's
+    launches with that operand."""
     out = {}
     for name in KERNELS:
         fn, mode = wrapper(name), kernel_mode(name)
-        out[name] = fn.launches if mode is None else fn.mode_launches.get(mode, 0)
+        if name in OPERAND_ENTRIES:
+            out[name] = fn.operand_launches.get(OPERAND_ENTRIES[name], 0)
+        else:
+            out[name] = fn.launches if mode is None else fn.mode_launches.get(mode, 0)
     return out
 
 
@@ -232,19 +266,23 @@ def _stack(blocks):
     return _nbytes(*ts), counts
 
 
-def talker_step_bound(tp, tcfg, B, n_past):
+def talker_step_bound(tp, tcfg, B, n_past, rows=None):
     """One talker step for B lanes at n_past: the stack, output norm and
-    codec head once; each lane's KV rows 0..n_past (bf16) and its input,
-    outputs and seen-set. Operations: the projections' products by type,
-    the bf16 head, the float32 attention (q.k and p.v)."""
+    codec head once; each lane's KV rows 0..n_past (bf16), or rows[b] of
+    them (the rows [start_b, n_past] a lane attends with K5's start
+    operand), and its input, outputs, seen-set and seed (with per-lane
+    sampling parameters, 12 bytes more). Operations: the projections'
+    products by type, the bf16 head, the float32 attention (q.k and p.v)
+    over the rows read."""
     H, Vc, L = tcfg.hidden_size, tcfg.codec_vocab_size, tcfg.n_layers
     sb, n = _stack(tp.blocks)
     kv_row = L * 2 * tcfg.n_kv_heads * tcfg.head_dim * 2
-    nbytes = (sb + _nbytes(tp.output_norm, tp.codec_head)
-              + B * ((n_past + 1) * kv_row + H * 2 + H * 4 + Vc * 4 + Vc + 8))
-    attn = 4 * L * tcfg.n_heads * (n_past + 1) * tcfg.head_dim
+    lane = H * 2 + H * 4 + Vc * 4 + Vc + 8 + (0 if rows is None else 12)
+    n_rows = B * (n_past + 1) if rows is None else int(sum(rows))
+    nbytes = sb + _nbytes(tp.output_norm, tp.codec_head) + n_rows * kv_row + B * lane
+    attn = 4 * L * tcfg.n_heads * n_rows * tcfg.head_dim
     return bound(nbytes, {"int8": 2 * B * n["int8"], "bf16": 2 * B * (n["bf16"] + H * Vc),
-                          "f32": B * attn})
+                          "f32": attn})
 
 
 def code_predictor_bound(cp, ccfg, B):
@@ -655,6 +693,165 @@ def check_code_predictor_batched(tts, report, iters, B=64):
         shape=f"B={B}, one frame-set", tolerance="codes equal per lane; rest_sum 1e-3 abs")
 
 
+def lane_sampling(B, device):
+    """Per-lane temperature, top-p and repetition penalty that differ lane
+    by lane, as continuous serving's requests bring them: temperature in
+    [0.6, 1.4), top-p in [0.8, 1.0], penalty in [1.0, 1.3]."""
+    import torch
+
+    lanes = torch.arange(B, device=device, dtype=torch.float32)
+    return dict(temperature=0.6 + 0.8 * lanes / B, top_p=0.8 + 0.05 * (lanes % 5),
+                repetition_penalty=1.0 + 0.05 * (lanes % 7))
+
+
+def check_talker_step_start(tts, report, iters, B=64, C=1024, n_past=600, lows=(0, 200)):
+    """K5 with the operands of continuous serving against its plain version
+    on clones of one cache, per-lane sampling parameters (``lane_sampling``)
+    and two layouts of the per-lane starts: spread over [low, n_past] for
+    each low in ``lows``, the last lane at n_past (a done lane: only its own
+    row), with start_min = low. low = 0 is the first fill; low = 200 is a
+    splice's, where the kernel's grid begins at chunk 200 // 64 = 3 and the
+    lane at 200 starts mid-chunk (the plain version raises if a start lies
+    below start_min). The gates of check_talker_step_batched in the exact
+    form, for each layout: (1) the first 2 layers, greedy and sampled (top-p
+    on): hidden and the written K/V rows 0.0, logits 1e-3, cb0 equal in
+    every lane; (2) all layers, greedy: each lane's cosine >= 0.99 and its
+    cb0 equal unless the plain logits' top-2 gap is below twice its logits
+    error. Each layout timed; the first also beside K5 without ``start``
+    (every lane over rows [0, n_past]) at the same shape. The bound counts
+    the weights once and each lane's rows [start_b, n_past]."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (
+        fused_talker_step_batched, fused_talker_step_batched_plain)
+
+    key = "fused_talker_step_batched[start]"
+    tp, dev = tts.talker_params, tts.device
+    tcfg = tts.config.talker
+    L, Hkv, D, Vc = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim, tcfg.codec_vocab_size
+    g = torch.Generator(device=dev).manual_seed(31)
+    short_blocks, short_cfg = _truncated(tts, min(2, L))
+    x = torch.randn((B, tcfg.hidden_size), generator=g, device=dev).to(tts.dtype)
+    seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
+    seen[:, :64] = 1
+    seeds = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 1000
+    kv0 = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype) * 0.5
+    r = {}
+    for low in lows:
+        start = (low + torch.arange(B, device=dev) * (n_past - low) // max(B - 1, 1)
+                 ).to(torch.int32)
+        base = dict(output_norm=tp.output_norm, codec_head=tp.codec_head, seen=seen,
+                    seeds=seeds, top_k=50, suppress_start=Vc - 1024, eos_id=tcfg.codec_eos_id,
+                    start=start, start_min=low, **lane_sampling(B, dev))
+        greedy = dict(base, greedy=True, use_top_p=False)
+        sampled = dict(base, greedy=False, use_top_p=True)
+        where = f"B={B} C={C} n_past={n_past} starts {low}..{n_past} start_min={low}"
+        errs_short = []
+        for kw in (greedy, sampled):
+            kva = kv0[:, :short_cfg.n_layers].clone(memory_format=torch.contiguous_format)
+            kvb = kva.clone()
+            a = fused_talker_step_batched(short_blocks, short_cfg, x, n_past, kva, **kw)
+            b = fused_talker_step_batched_plain(short_blocks, short_cfg, x, n_past, kvb, **kw)
+            eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
+            ekv = _max_err(kva[..., n_past, :], kvb[..., n_past, :])
+            same = int((a.cb0.long() == b.cb0.long()).sum())
+            print(f"kernel {key} 2 layers {where} greedy={kw['greedy']}: hidden err "
+                  f"{eh:.3e}, logits err {el:.3e}, kv row err {ekv:.3e}, cb0 equal {same}/{B}")
+            if not (eh == 0.0 and el <= 1e-3 and ekv == 0.0 and same == B):
+                raise SmokeFailure(f"{key} (2 layers, start_min {low}) disagrees with its "
+                                   f"plain version")
+            errs_short.append(max(eh, el))
+        del kva, kvb
+        kva = kv0.clone()
+        a = fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kva, **greedy)
+        b = fused_talker_step_batched_plain(tp.blocks, tcfg, x, n_past, kv0, **greedy)
+        ch, cl = _lane_cos(a.hidden, b.hidden), _lane_cos(a.logits, b.logits)
+        el = (a.logits.float() - b.logits.float()).abs().amax(dim=-1)
+        top2 = torch.topk(b.logits.float(), 2, dim=-1).values
+        cb0_ok = (a.cb0.long() == b.cb0.long()) | (top2[:, 0] - top2[:, 1] < 2 * el)
+        eh = _max_err(a.hidden, b.hidden)
+        print(f"kernel {key} {L} layers {where}: min lane cos hidden {float(ch.min()):.6f} "
+              f"logits {float(cl.min()):.6f} (err {eh:.3e}, {float(el.max()):.3e}); cb0 "
+              f"equal {int((a.cb0 == b.cb0).sum())}/{B}, gate {int(cb0_ok.sum())}/{B}")
+        if not (bool((ch >= 0.99).all()) and bool((cl >= 0.99).all()) and bool(cb0_ok.all())):
+            raise SmokeFailure(f"{key} (start_min {low}) disagrees with its plain version at "
+                               f"full depth")
+        run = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kva,  # noqa: E731
+                                                **greedy)
+        rows = (n_past + 1 - start.clamp(max=n_past)).tolist()
+        bound_ms, bound_by = talker_step_bound(tp, tcfg, B, n_past, rows=rows)
+        sfx = "" if low == lows[0] else f"_start_min_{low}"
+        r.update({
+            f"max_abs_err_2_layers{sfx}": max(errs_short),
+            f"min_lane_cos_all_layers{sfx}": float(min(ch.min(), cl.min())),
+            f"max_abs_err{sfx}": max(errs_short + [eh, float(el.max())]),
+            f"ms{sfx}": timed(run, dev, iters),
+            f"device_ms{sfx}": device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES, dev),
+            f"bound_ms{sfx}": bound_ms, f"rows_attended{sfx}": int(sum(rows))})
+        if not sfx:
+            no_start = {k: v for k, v in greedy.items() if k not in ("start", "start_min")}
+            run_all = lambda: fused_talker_step_batched(  # noqa: E731
+                tp.blocks, tcfg, x, n_past, kva, **no_start)
+            r.update(bound_by=bound_by, ms_without_start=timed(run_all, dev, iters),
+                     device_ms_without_start=device_ms_per_call(run_all, 1,
+                                                                TALKER_KERNEL_PREFIXES, dev),
+                     bound_ms_without_start=talker_step_bound(tp, tcfg, B, n_past)[0],
+                     plain_ms=timed(lambda: fused_talker_step_batched_plain(
+                         tp.blocks, tcfg, x, n_past, kv0, **greedy), dev, iters))
+        del kva
+    r["max_abs_err"] = max(v for k, v in r.items() if k.startswith("max_abs_err"))
+    report[key] = dict(
+        r, library_ms=None,
+        shape=(f"B={B} C={C} n_past={n_past}, per-lane sampling; starts spread over "
+               f"[low, n_past] with start_min = low, low in {list(lows)} (the unsuffixed "
+               f"numbers at low = {lows[0]})"),
+        tolerance=("per lane: 2 layers hidden 0.0, kv rows 0.0, logits 1e-3, cb0 equal; "
+                   "all layers cosine 0.99"))
+    del kv0
+
+
+def check_code_predictor_per_lane(tts, report, iters, B=64):
+    """K6 with per-lane temperature and top-p (``lane_sampling``), greedy,
+    sampled and sampled with top-p, B distinct seeds. Gate: every lane's 15
+    codes equal the plain version's, rest_sum within 1e-3."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_code_predictor_batched import (
+        fused_predict_codes_batched, fused_predict_codes_batched_plain)
+
+    key = "fused_predict_codes_batched[per_lane]"
+    cp, ccfg, dev = tts.cp_params, tts.config.code_predictor, tts.device
+    g = torch.Generator(device="cpu").manual_seed(37)
+    th = torch.randn((B, ccfg.hidden_size), generator=g).to(device=dev, dtype=tts.dtype)
+    cb0 = tts.talker_params.codec_embd[torch.arange(B, device=dev) * 31 + 7]
+    seeds = torch.arange(B, dtype=torch.int32, device=dev) * 104729 - 5000
+    samp = lane_sampling(B, dev)
+    lane = dict(temperature=samp["temperature"], top_p=samp["top_p"], top_k=50)
+    err = 0.0
+    for kw in (dict(lane, greedy=True, use_top_p=False),
+               dict(lane, greedy=False, use_top_p=False),
+               dict(lane, greedy=False, use_top_p=True)):
+        ca, sa = fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw)
+        cb, sb = fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds, **kw)
+        lanes_equal = int((ca.long() == cb.long()).all(dim=1).sum())
+        e = _max_err(sa, sb)
+        print(f"kernel {key} B={B} greedy={kw['greedy']} top_p={kw['use_top_p']}: codes equal "
+              f"in {lanes_equal}/{B} lanes; rest_sum err {e:.3e}")
+        if not (lanes_equal == B and e <= 1e-3):
+            raise SmokeFailure(f"{key} disagrees with its plain version")
+        err = max(err, e)
+    bound_ms, bound_by = code_predictor_bound(cp, ccfg, B)
+    report[key] = dict(
+        max_abs_err=err,
+        ms=timed(lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw), dev,
+                 iters),
+        plain_ms=timed(lambda: fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds, **kw),
+                       dev, iters),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        shape=f"B={B}, one frame-set, per-lane temperature and top-p",
+        tolerance="codes equal per lane; rest_sum 1e-3 abs")
+
+
 def _bf16_ulp(a):
     """The bf16 spacing at each |a| (8 significant bits)."""
     import torch
@@ -1025,7 +1222,7 @@ UNFUSED_REQUESTS = [
      dict(max_audio_tokens=600, seed=5)),
 ]
 # 520 frames: the fewest that keep C = 1280 (frame bucket 1024), so the
-# decode-attention kernel runs while the whole smoke stays under 900 s
+# decode-attention kernel runs at the depth of a long request
 UNFUSED_BATCHES = [(16, dict(max_audio_tokens=520, temperature=0.0, seed=1))]
 
 
@@ -1174,20 +1371,275 @@ def serve_batches(tts, batches, min_frames_per_lane=8):
     return stats, read_counts()
 
 
-def profile_request(tts, text, kw):
+def _check_codes(codes, V, what):
+    if not ((codes >= 0).all() and (codes[:, 0] < 2048).all() and (codes[:, 1:] < V).all()):
+        raise SmokeFailure(f"{what}: codes out of range")
+
+
+def run_scheduler(tts, requests, *, text_bucket, **kw):
+    """requests [(tokens, n_tokens, budget, seed)] through one
+    ContinuousScheduler on tts's weights and decode flags (kw: the
+    scheduler's other arguments), the launch counts set to 0 just before
+    run() and read just after. Returns (scheduler, each request's codes in
+    submission order, the run() wall in ms, the counts)."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch.runtime.continuous import ContinuousScheduler
+
+    tcfg = tts.config.talker
+    sched = ContinuousScheduler(tts.talker_params, tts.cp_params, tcfg,
+                                tts.config.code_predictor, text_bucket=text_bucket, **tts.fused,
+                                **kw)
+    spk = np.zeros((tcfg.hidden_size,), np.float32)
+    rids = [sched.submit(t, n, spk, tcfg.english_language_id, seed=s, max_frames=bd)
+            for t, n, bd, s in requests]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = sched.run()
+    if tts.device.type == "cuda":
+        torch.cuda.synchronize(tts.device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return sched, [out[r] for r in rids], wall_ms, read_counts()
+
+
+def _sched_stats(sched):
+    return dict(chunks=sched.chunks_run, refills=sched.refills,
+                compactions=sched.compactions, sessions=sched.sessions)
+
+
+def bench_queue(tts, n=48, lanes=16, kv_capacity=512, chunk_frames=32, max_frames=96):
+    """The JAX package's bench mini-run of continuous serving
+    (bench.py:439-459) on the port: n requests of 10-31 random token ids,
+    budgets lognormal(ln 52, 0.4) clipped to [24, 96] (both scaled by
+    max_frames / 96), np.random.default_rng(5), temperature 0.9, top-k 50,
+    EOS suppressed, 16 lanes, C = 512, K = 32, 8 refill slots. Every request
+    must emit exactly its budget. Returns (stats, counts); the aggregate
+    frames/s is the bench's: useful frames over the run() wall."""
+    import numpy as np
+
+    tcfg, V = tts.config.talker, tts.config.code_predictor.vocab_size
+    scale = max_frames / 96
+    rng = np.random.default_rng(5)
+    budgets = np.clip(rng.lognormal(np.log(52 * scale), 0.4, n), 24 * scale,
+                      max_frames).astype(np.int64)
+    reqs = []
+    for i in range(n):
+        nt = int(rng.integers(10, 32))
+        reqs.append((rng.integers(2, min(2000, tcfg.text_vocab_size), nt), nt,
+                     int(budgets[i]), i))
+    sched, codes, wall_ms, counts = run_scheduler(
+        tts, reqs, text_bucket=32, lanes=lanes, kv_capacity=kv_capacity,
+        chunk_frames=chunk_frames, refill_slots=8, max_frames=max_frames, temperature=0.9,
+        top_k=50, repetition_penalty=1.05, allow_eos=False)
+    for i, (c, bd) in enumerate(zip(codes, budgets)):
+        if c.shape[0] != bd:
+            raise SmokeFailure(f"bench queue: request {i} emitted {c.shape[0]} frames, "
+                               f"not its budget {bd}")
+        _check_codes(c, V, f"bench queue request {i}")
+    useful = int(budgets.sum())
+    st = dict(queue="bench mix", requests=n, lanes=lanes, kv_capacity=kv_capacity,
+              chunk_frames=chunk_frames, useful_frames=useful, wall_ms=wall_ms,
+              aggregate_frames_per_s=useful / wall_ms * 1e3, **_sched_stats(sched),
+              launches=counts)
+    print(f"queue bench mix: {n} requests, {useful} frames in {wall_ms:.1f} ms: "
+          f"{st['aggregate_frames_per_s']:.2f} frames/s; {_sched_stats(sched)}")
+    return st, counts
+
+
+def serve_queue(tts, texts, kw, lanes, what, **queue_kw):
+    """texts through synthesize_queue with sampling kw, the launch counts
+    set to 0 just before and read just after. Every result must succeed with
+    finite audio of n_frames * 1920 samples and codes in range. Returns
+    (stats, counts); frames/s is over the generate wall."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    spf, V = tts.config.vocoder.samples_per_frame, tts.config.code_predictor.vocab_size
+    reset_counts()
+    rs = tts.synthesize_queue(texts, SamplingConfig(**kw), lanes=lanes, **queue_kw)
+    counts = read_counts()
+    for i, r in enumerate(rs):
+        if not (r.success and r.n_frames > 0 and len(r.audio) == r.n_frames * spf
+                and bool(np.isfinite(r.audio).all())):
+            raise SmokeFailure(f"{what}: request {i} failed ({r.error_msg or 'checks'})")
+        _check_codes(r.codes, V, f"{what} request {i}")
+    n = len(texts)
+    frames = sum(r.n_frames for r in rs)
+    gen_ms = rs[0].timings.t_generate_ms * n     # results carry the queue's wall / n
+    st = dict(queue=what, texts=n, request=kw, frames=frames,
+              frames_per_s=frames / gen_ms * 1e3, generate_ms=gen_ms,
+              vocoder_ms=rs[0].timings.t_decode_ms * n, **tts.last_queue_stats,
+              launches=counts)
+    print(f"queue {what}: {n} texts on {lanes} lanes, {frames} frames, "
+          f"{st['frames_per_s']:.2f} frames/s (generate {gen_ms:.1f} ms); "
+          f"{tts.last_queue_stats}; launches {counts}")
+    return st, counts
+
+
+def static_batches(tts, texts, kw, group):
+    """The same texts through synthesize_batch in groups of `group`, one
+    call after another: (frames, the sum of the generate walls in ms, the
+    counts of the calls)."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    frames, gen_ms = 0, 0.0
+    reset_counts()
+    for o in range(0, len(texts), group):
+        rs = tts.synthesize_batch(texts[o:o + group], SamplingConfig(**kw))
+        frames += sum(r.n_frames for r in rs)
+        gen_ms += rs[0].timings.t_generate_ms * len(rs)
+    return frames, gen_ms, read_counts()
+
+
+# The queues of the serve phase (continuous serving): the JAX bench's mix;
+# 128 texts on 64 lanes, sampled, beside synthesize_batch in two groups of
+# 64; a tight greedy queue (16 lanes, C = 384) whose budgets force a
+# compaction and a session reset; the bf16 tier; the unfused path at C =
+# 1280 (where the non-continuous unfused step would take the attention
+# kernel)
+TIGHT_QUEUE = dict(lanes=16, kv_capacity=384, chunk_frames=8, refill_slots=8, max_frames=128)
+QUEUE_SPECS = dict(
+    bench=dict(n=48, lanes=16, kv_capacity=512, chunk_frames=32, max_frames=96),
+    sampled=dict(texts=128, lanes=64, group=64, kw=dict(max_audio_tokens=128, seed=3)),
+    tight=dict(TIGHT_QUEUE),
+    bf16=dict(texts=32, lanes=16, kw=dict(max_audio_tokens=32, temperature=0.0, seed=1),
+              budgets=[8 + (7 * i) % 25 for i in range(32)]),
+    # max_audio_tokens 512 sizes the cache at C = 1280; the budgets keep the
+    # requests short
+    unfused=dict(texts=8, lanes=4, kw=dict(max_audio_tokens=512, temperature=0.0, seed=1),
+                 budgets=[16, 20, 24, 28] * 2),
+)
+
+
+def tight_budgets(lanes=16, max_frames=128, chunk_frames=8):
+    """Budgets of the tight queue, in four fills of `lanes` requests: M =
+    max_frames frames, which end together; M - K, spliced above row 0,
+    whose end blocks admission with lanes active (a compaction); M - 2K,
+    which end past the admission limit with every lane idle (a session
+    reset); then a staggered mix."""
+    M, K = max_frames, chunk_frames
+    stagger = [24, 40, 56, 72, 88, 104, 120, 128]
+    return ([M] * lanes + [M - K] * lanes + [M - 2 * K] * lanes
+            + [max(1, stagger[i % 8] * M // 128) for i in range(lanes)])
+
+
+def tight_queue(tts, **kw):
+    """The tight-capacity greedy queue through one ContinuousScheduler
+    (TIGHT_QUEUE, or kw; EOS suppressed so that the budgets alone set the
+    schedule). It must compact at least once and reset its session at least
+    once, and its host mirrors must equal the state. The first fill (the
+    first `lanes` requests, spliced at rows [0, P): the absolute positions
+    of a fresh run) must give synthesize_batch's greedy codes for the same
+    texts over the frames both emit (synthesize_batch stops a lane at EOS;
+    K5's lanes are independent). Returns (stats, counts)."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    cfg = dict(TIGHT_QUEUE, **kw)
+    budgets = tight_budgets(cfg["lanes"], cfg["max_frames"], cfg["chunk_frames"])
+    n = len(budgets)
+    # numbers 10 and up: every text of a subject has the same length, so the
+    # first fill's longest prompt is the queue's and both calls pad the
+    # prompts to one bucket (the same shapes in every product)
+    texts = batch_texts(n + 10)[10:]
+    fitted = [tts._fit_tokens(tts.tokenizer.encode_for_tts(t)) for t in texts]
+    reqs = [(p, k, b, i) for i, ((p, k), b) in enumerate(zip(fitted, budgets))]
+    sched, codes, wall_ms, counts = run_scheduler(
+        tts, reqs, text_bucket=max(p.shape[0] for p, _ in fitted), temperature=0.0, top_k=50,
+        repetition_penalty=1.05, allow_eos=False, **cfg)
+    sched.check_host_mirrors()
+    st = dict(queue="tight greedy", requests=n, **cfg, frames=int(sum(budgets)),
+              wall_ms=wall_ms, aggregate_frames_per_s=sum(budgets) / wall_ms * 1e3,
+              **_sched_stats(sched), launches=counts)
+    if sched.compactions < 1 or sched.sessions < 1:
+        raise SmokeFailure(f"tight queue: {_sched_stats(sched)}: no compaction or no reset")
+    lanes = cfg["lanes"]
+    ref = tts.synthesize_batch(texts[:lanes], SamplingConfig(
+        temperature=0.0, max_audio_tokens=cfg["max_frames"], seed=1))
+    compared = 0
+    for i, r in enumerate(ref):
+        m = min(r.n_frames, len(codes[i]))
+        if m == 0 or not (codes[i][:m] == r.codes[:m]).all():
+            raise SmokeFailure(f"tight queue: first-fill request {i} differs from its "
+                               f"synthesize_batch lane over {m} frames")
+        compared += m
+    st.update(first_fill_frames_compared=compared)
+    print(f"queue tight greedy: {_sched_stats(sched)}; host mirrors equal the state; first "
+          f"fill equals synthesize_batch over {compared} frames")
+    return st, counts
+
+
+def serve_queues(tts, tts_u, bf16, smi, specs=QUEUE_SPECS):
+    """The serve phase's continuous queues (QUEUE_SPECS), each with the
+    launch counts set to 0 just before it and checked just after: (1) the
+    JAX bench's mix, int8 fused: K5 with start, K6 per lane, the GEMM, no K1
+    or K2; (2) synthesize_queue on many sampled texts, then the same texts
+    through synthesize_batch in groups (aggregate frames/s of both over
+    their generate walls); (3) the tight greedy queue (compaction, reset,
+    host mirrors, first fill == synthesize_batch); (4) the bf16 tier
+    (bf16): K5 with start in bf16 mode, no K6 and no GEMM; (5) the unfused
+    path (tts_u) at C >= 1024: the GEMM and no decode-attention kernel, none
+    of K1, K2, K5, K6. Prints one serve_queue line each; returns the
+    counts of every run."""
+    int8_forbidden = QUEUE_FORBIDDEN + tier_forbidden(dict(mode="w8a8", forbidden=()))
+    runs = []
+
+    def report(st, counts, path, forbidden):
+        check_launches(f"queue {st['queue']}", counts, path, forbidden)
+        runs.append(counts)
+        print("serve_queue " + json.dumps(dict(st, card=smi)))
+
+    st, c = bench_queue(tts, **specs["bench"])
+    report(st, c, QUEUE_PATH, int8_forbidden)
+    sp = specs["sampled"]
+    texts = batch_texts(sp["texts"])
+    st, c = serve_queue(tts, texts, sp["kw"], sp["lanes"], "sampled")
+    frames, gen_ms, sc = static_batches(tts, texts, sp["kw"], sp["group"])
+    runs.append(sc)
+    st.update(static_frames=frames, static_generate_ms=gen_ms,
+              static_frames_per_s=frames / gen_ms * 1e3,
+              continuous_over_static=st["frames_per_s"] / (frames / gen_ms * 1e3))
+    print(f"queue sampled beside synthesize_batch in groups of {sp['group']}: {frames} frames, "
+          f"{st['static_frames_per_s']:.2f} frames/s; continuous/static "
+          f"{st['continuous_over_static']:.3f}")
+    report(st, c, QUEUE_PATH + ("fused_res_block",), int8_forbidden)
+    st, c = tight_queue(tts, **specs["tight"])
+    report(st, c, QUEUE_PATH, int8_forbidden)
+    sp = specs["bf16"]
+    st, c = serve_queue(bf16, batch_texts(sp["texts"]), sp["kw"], sp["lanes"], "bf16",
+                        max_audio_tokens_per_request=sp["budgets"])
+    report(st, c, ("fused_talker_step_batched[bf16]", "fused_talker_step_batched[start]",
+                   "fused_res_block"),
+           tier_forbidden(TIER_SERVE[None]) + ("fused_talker_step[bf16]",
+                                               "fused_predict_codes_batched[per_lane]"))
+    sp = specs["unfused"]
+    st, c = serve_queue(tts_u, batch_texts(sp["texts"]), sp["kw"], sp["lanes"], "unfused",
+                        max_audio_tokens_per_request=sp["budgets"])
+    if tts.device.type == "cuda" and st["kv_capacity"] < 1024:
+        raise SmokeFailure(f"the unfused queue runs at C = {st['kv_capacity']}, below the "
+                           f"decode-attention kernel's 1024 rows")
+    report(st, c, UNFUSED_PATH, FUSED_ONLY + ("decode_attention",))
+    return runs
+
+
+def profile_request(tts, text, kw, queue=None):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
     intervals in the trace; the wall is the host clock around the request
-    (synthesize and synthesize_batch synchronize before they return). A
-    list of texts runs as one synthesize_batch call. Returns (results, wall
-    ms, busy ms, the device activities with the most time)."""
+    (synthesize, synthesize_batch and synthesize_queue synchronize before
+    they return). A list of texts runs as one synthesize_batch call, or as
+    one synthesize_queue call with the arguments `queue`. Returns (results,
+    wall ms, busy ms, the device activities with the most time)."""
     from torch.profiler import ProfilerActivity, profile
 
     from qwen3tts_tpu_torch import SamplingConfig
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        if isinstance(text, list):
+        if queue is not None:
+            r = tts.synthesize_queue(text, SamplingConfig(**kw), **queue)
+        elif isinstance(text, list):
             r = tts.synthesize_batch(text, SamplingConfig(**kw))
         else:
             r = [tts.synthesize(text, SamplingConfig(**kw))]
@@ -1325,6 +1777,8 @@ def main():
         check_code_predictor(tts, report, iters=3)
         check_talker_step_batched(tts, report, iters=3)
         check_code_predictor_batched(tts, report, iters=3)
+        check_talker_step_start(tts, report, iters=3)
+        check_code_predictor_per_lane(tts, report, iters=3)
         check_res_block(tts, report, iters=3)
         check_int8_matmul(tts, report, iters=5)
         check_decode_attention(tts, report, iters=5)
@@ -1355,17 +1809,21 @@ def main():
             check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH, int8_forbidden)
             print("serve_batch " + json.dumps(dict(st, card=smi)))
         tts_u = unfused_pipeline(tts)
-        ustats, unfused_counts = serve(tts_u, UNFUSED_REQUESTS)
+        runs = [single_counts, batch_counts]
+        ustats, c = serve(tts_u, UNFUSED_REQUESTS)
+        runs.append(c)
         for st in ustats:
             check_launches(f"unfused request {st['request']}", st["launches"],
-                           unfused_path(tts, st["request"]), FUSED_ONLY)
+                           unfused_path(tts_u, st["request"]), FUSED_ONLY)
             print("serve_unfused " + json.dumps(dict(st, card=smi)))
-        ubstats, unfused_batch_counts = serve_batches(tts_u, UNFUSED_BATCHES)
+        ubstats, c = serve_batches(tts_u, UNFUSED_BATCHES)
+        runs.append(c)
         for st in ubstats:
+            if "decode_attention" not in unfused_path(tts_u, st["request"]):
+                raise SmokeFailure("the unfused batch's cache is below the kernel's 1024 rows")
             check_launches(f"unfused batch {st['lanes']}", st["launches"],
-                           unfused_path(tts, st["request"]), FUSED_ONLY)
+                           unfused_path(tts_u, st["request"]), FUSED_ONLY)
             print("serve_unfused_batch " + json.dumps(dict(st, card=smi)))
-        runs = [single_counts, batch_counts, unfused_counts, unfused_batch_counts]
         for q, spec in TIER_SERVE.items():
             label = spec["mode"]
             forbidden = tier_forbidden(spec)
@@ -1388,14 +1846,18 @@ def main():
             check_launches(f"unfused q4 request {st['request']}", st["launches"],
                            unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
+        runs += serve_queues(tts, tts_u, tiers[None], smi)
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
 
-        for what, pipe, (text, kw) in (
-                ("request", tts, MAIN_REQUESTS[1]),
-                ("batch", tts, (batch_texts(BATCH_REQUESTS[0][0]), BATCH_REQUESTS[0][1])),
-                ("unfused request", tts_u, UNFUSED_REQUESTS[0]),
-                ("bf16 request", tiers[None], TIER_SERVE[None]["requests"][1])):
-            rs, wall_ms, busy_ms, top = profile_request(pipe, text, kw)
+        sp = QUEUE_SPECS["sampled"]
+        for what, pipe, (text, kw), queue in (
+                ("request", tts, MAIN_REQUESTS[1], None),
+                ("batch", tts, (batch_texts(BATCH_REQUESTS[0][0]), BATCH_REQUESTS[0][1]), None),
+                ("unfused request", tts_u, UNFUSED_REQUESTS[0], None),
+                ("bf16 request", tiers[None], TIER_SERVE[None]["requests"][1], None),
+                ("sampled queue", tts, (batch_texts(sp["texts"]), sp["kw"]),
+                 dict(lanes=sp["lanes"]))):
+            rs, wall_ms, busy_ms, top = profile_request(pipe, text, kw, queue)
             if not any(r.success for r in rs):
                 raise SmokeFailure(f"profiled {what} failed: {rs[0].error_msg}")
             if not busy_ms > 0:

@@ -54,6 +54,7 @@ SIGNATURES = {
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, P, F, F, F, I, I, I, I, I,    # seen seeds temp top_p pen top_k
                                          # greedy use_top_p suppress eos
+        P, I, P, P, P,                   # start, start_min, temps, topps, pens
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
     "qtts_project_ws_bytes": [I, I, I, I],                  # mode B K N
     "qtts_project_layers": [
@@ -69,6 +70,7 @@ SIGNATURES = {
         P, P,                            # heads, embds
         I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
         F, F, I, I, I, P,                # temp top_p top_k greedy use_top_p seeds
+        P, P,                            # temps, topps
         P, P, P, P, P],                  # codes, rest_sum, kv, ws, stream
     "qtts_code_predictor": [
         P, P, P,                         # xinit, cos, sin

@@ -44,7 +44,7 @@ extern "C" int qtts_code_predictor(
   predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
                 (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
                 (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, seed,
-                nullptr, (int*)codes_out, (float*)rest_sum, (float*)kv, w,
+                nullptr, nullptr, nullptr, (int*)codes_out, (float*)rest_sum, (float*)kv, w,
                 (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

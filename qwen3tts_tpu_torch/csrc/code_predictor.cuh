@@ -35,7 +35,9 @@ __global__ void cp_embed_kernel(const __nv_bfloat16* __restrict__ embds, int V, 
 
 // xinit [2, B, H] float32: the lanes' talker hidden, then their cb0
 // embedding. codes [B, S] int32; rest_sum [B, H] float32, zeroed by the
-// caller. Lane b samples with seeds[b] (or `seed` when seeds is null).
+// caller. Lane b samples with seeds[b] (or `seed` when seeds is null) and
+// with temps[b] and topps[b] (or the scalars when null: K6 in continuous
+// serving takes each request's own, pallas_code_predictor_batched.py:86-88).
 // Attention rounds neither q nor p (the Pallas kernels' code predictor);
 // T is the KV scratch's type.
 template <typename T>
@@ -43,8 +45,9 @@ void predict_codes(const Dims& d, const StackWeights& sw, int L, int V, int CTX,
                    const float* xinit, const float* cos_tab, const float* sin_tab,
                    const float* out_norm, const __nv_bfloat16* heads,
                    const __nv_bfloat16* embds, float temp, float top_p, int top_k, int greedy,
-                   int use_top_p, int seed, const int* seeds, int* codes, float* rest_sum,
-                   T* kv, const Work& w, cudaStream_t st) {
+                   int use_top_p, int seed, const int* seeds, const float* temps,
+                   const float* topps, int* codes, float* rest_sum, T* kv, const Work& w,
+                   cudaStream_t st) {
   const int B = w.B, H = d.H, half = d.D / 2;
   const long head_stride = (long)CTX * d.D, lane_stride = (long)d.Hkv * head_stride;
   const size_t layer_kv = (size_t)B * lane_stride;
@@ -73,7 +76,7 @@ void predict_codes(const Dims& d, const StackWeights& sw, int L, int V, int CTX,
     const int splits = project_bf16(w, w.hnorm, heads + (size_t)(p - 1) * H * V, H, V, st);
     head_sample_kernel<<<B, kRowThreads, smem, st>>>(
         w.head, splits, V, nullptr, codes, S, p - 1, V, -1, nullptr, 1.0f, temp, top_p, top_k,
-        greedy, use_top_p, seed, seeds, p);
+        greedy, use_top_p, seed, seeds, p, temps, topps, nullptr);
   }
   cp_embed_kernel<<<B, kRowThreads, 0, st>>>(embds, V, H, codes, S, S - 1, S - 1, nullptr,
                                              rest_sum);

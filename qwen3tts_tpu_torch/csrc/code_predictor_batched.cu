@@ -3,8 +3,10 @@
 // (code_predictor.cuh).
 //
 // Replaces qwen3tts_tpu/ops/pallas_code_predictor_batched.py:235
-// fused_predict_codes_batched (w8a8 mode). Lane b equals K2 run with seed
-// seeds[b]: the per-lane activation scales, the exact int32 dots and the
+// fused_predict_codes_batched (w8a8 mode), with its per-lane temperature and
+// top-p operands (:86-88, :291-299; temps and topps [B] float32, or null for
+// the scalars: continuous serving gives each request its own). Lane b
+// equals K2 run with seed seeds[b] (and the lane's temperature and top-p): the per-lane activation scales, the exact int32 dots and the
 // counter-hash noise (a function of seed, step and vocab slot only) make the
 // lanes independent. As in the Pallas kernel, the KV scratch is stored in
 // the embedding dtype (bf16 here, float32 in K2) and neither q nor the
@@ -43,7 +45,8 @@ extern "C" int qtts_code_predictor_batched(
     const void* heads, const void* embds,
     int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
     float temp, float top_p, int top_k, int greedy, int use_top_p, const void* seeds,
-    void* codes_out, void* rest_sum, void* kv, void* ws, void* stream) {
+    const void* temps, const void* topps, void* codes_out, void* rest_sum, void* kv, void* ws,
+    void* stream) {
   const Dims d{H, Hq, Hkv, D, F, eps};
   if (int bad = check_dims(d, V, B)) return bad;
   if (S + 1 > CTX || B > 64) return (int)cudaErrorInvalidValue;
@@ -54,7 +57,7 @@ extern "C" int qtts_code_predictor_batched(
   predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
                 (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
                 (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, 0,
-                (const int*)seeds, (int*)codes_out, (float*)rest_sum, (__nv_bfloat16*)kv, w,
-                (cudaStream_t)stream);
+                (const int*)seeds, (const float*)temps, (const float*)topps, (int*)codes_out,
+                (float*)rest_sum, (__nv_bfloat16*)kv, w, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -56,6 +56,18 @@
 // Pallas kernel's online softmax computes the same function in another
 // summation order.
 //
+// Per-lane start (K5 in continuous serving, pallas_talker_step.py:1419-1423,
+// :1516-1517): with a `start` operand [B], lane b attends the rows
+// [start[b], pos] only (lane_start: clamped to [0, pos], so the current row
+// always counts, as the Pallas kernel folds it in after its chunk loop).
+// Rows below start are never read: they enter neither the softmax max nor
+// its sum nor p @ V, and a chunk wholly below a lane's start writes a zero
+// partial, which adds nothing to the float64 merge. The attention grid may
+// begin at chunk start_min / kAttnChunk, where start_min is the caller's
+// lower bound of every lane's start (the Pallas kernel's min-start DMA
+// skip, :1445); merge then sums from that chunk. K1, K2 and K6 pass no
+// start.
+//
 // Every float sum whose result feeds a rounding — the projections of the
 // float modes, the RMSNorm variances, q.k, the softmax sum, p @ V — runs in
 // float64 and is rounded to float32 once, and exp (softmax, SiLU) is
@@ -583,14 +595,21 @@ __global__ void qkv_post_kernel(ProjOut in, const float* __restrict__ qn,
   else kdst[(long)(h - Hq) * head_stride + d] = from_f<T>(o);
 }
 
-// scores[b, hq, t] = q_bhq . K[b, h, t] * scale, t in this chunk; q is
-// rounded to T first when round_q. grid (Hkv, chunks, B); each warp takes
-// one position at a time.
+// Lane b's first attended row: start[b] clamped to [0, n_valid - 1], or 0
+// without a start operand.
+__device__ __forceinline__ int lane_start(const int* start, int b, int n_valid) {
+  return start == nullptr ? 0 : min(max(start[b], 0), n_valid - 1);
+}
+
+// scores[b, hq, t] = q_bhq . K[b, h, t] * scale, t in chunk chunk0 +
+// blockIdx.y and not below the lane's start; q is rounded to T first when
+// round_q. grid (Hkv, chunks - chunk0, B); each warp takes one position at
+// a time.
 template <typename T>
 __global__ void attn_scores_kernel(const float* __restrict__ q, const T* __restrict__ K,
                                    long head_stride, long lane_stride, int n_valid, int G,
                                    int D, float scale, int round_q, float* __restrict__ scores,
-                                   int ld) {
+                                   int ld, const int* __restrict__ start, int chunk0) {
   extern __shared__ float qs[];
   const int h = blockIdx.x, b = blockIdx.z, Hq = gridDim.x * G;
   q += (size_t)b * Hq * D;
@@ -602,7 +621,8 @@ __global__ void attn_scores_kernel(const float* __restrict__ q, const T* __restr
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int t0 = blockIdx.y * kAttnChunk, t1 = min(n_valid, t0 + kAttnChunk);
+  const int c0 = (chunk0 + blockIdx.y) * kAttnChunk;
+  const int t0 = max(c0, lane_start(start, b, n_valid)), t1 = min(n_valid, c0 + kAttnChunk);
   for (int t = t0 + wid; t < t1; t += nw) {
     const T* krow = K + (long)h * head_stride + (size_t)t * D;
     double a[kMaxGroup];
@@ -619,48 +639,52 @@ __global__ void attn_scores_kernel(const float* __restrict__ q, const T* __restr
   }
 }
 
-// p = softmax(scores[b, hq, 0:n_valid]): e = exp(s - max) and its sum in
-// float64, p = e / sum rounded to float32, and further to T when round_p.
-// grid (Hq, B).
+// p = softmax(scores[b, hq, t0:n_valid]), t0 the lane's start: e = exp(s -
+// max) and its sum in float64, p = e / sum rounded to float32, and further
+// to T when round_p. grid (Hq, B).
 template <typename T>
 __global__ void attn_softmax_kernel(float* __restrict__ scores, int ld, int n_valid,
-                                    int round_p) {
+                                    int round_p, const int* __restrict__ start) {
   __shared__ float red[32];
   __shared__ double redd[32];
   float* s = scores + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ld;
+  const int t0 = lane_start(start, blockIdx.y, n_valid);
   float m = -3.4e38f;
-  for (int t = threadIdx.x; t < n_valid; t += blockDim.x) m = fmaxf(m, s[t]);
+  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) m = fmaxf(m, s[t]);
   m = block_max(m, red);
   double sum = 0.0;
-  for (int t = threadIdx.x; t < n_valid; t += blockDim.x) sum += exp((double)(s[t] - m));
+  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) sum += exp((double)(s[t] - m));
   sum = block_sum(sum, redd);
-  for (int t = threadIdx.x; t < n_valid; t += blockDim.x) {
+  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) {
     const float p = (float)(exp((double)(s[t] - m)) / sum);
     s[t] = round_p ? to_f<T>(from_f<T>(p)) : p;
   }
 }
 
-// partial[b, chunk, hq, d] = sum_{t in chunk, t < n_valid} p[b, hq, t] *
-// V[b, h, t, d] in float64; lane b's partials start at b * chunk_cap * Hq *
-// D. grid (Hkv, chunks, B), block G * D threads.
+// partial[b, c, hq, d] = sum_{t in chunk c, start_b <= t < n_valid} p[b,
+// hq, t] * V[b, h, t, d] in float64 (0 for a chunk wholly below the lane's
+// start), c = chunk0 + blockIdx.y; lane b's partials start at b * chunk_cap
+// * Hq * D. grid (Hkv, chunks - chunk0, B), block G * D threads.
 template <typename T>
 __global__ void attn_pv_kernel(const float* __restrict__ p, int ld, const T* __restrict__ V,
                                long head_stride, long lane_stride, int n_valid, int G, int D,
-                               int Hq, int chunk_cap, double* __restrict__ partial) {
+                               int Hq, int chunk_cap, double* __restrict__ partial,
+                               const int* __restrict__ start, int chunk0) {
   const int h = blockIdx.x, b = blockIdx.z, g = threadIdx.x / D, d = threadIdx.x % D;
-  const int hq = h * G + g;
-  const int t0 = blockIdx.y * kAttnChunk, t1 = min(n_valid, t0 + kAttnChunk);
+  const int hq = h * G + g, c = chunk0 + blockIdx.y;
+  const int t0 = max(c * kAttnChunk, lane_start(start, b, n_valid));
+  const int t1 = min(n_valid, (c + 1) * kAttnChunk);
   const float* pr = p + ((size_t)b * Hq + hq) * ld;
   const T* vb = V + (size_t)b * lane_stride + (long)h * head_stride + d;
   double o = 0.0;
   for (int t = t0; t < t1; ++t) o += (double)pr[t] * to_f<T>(vb[(size_t)t * D]);
-  partial[((size_t)b * chunk_cap + blockIdx.y) * Hq * D + (size_t)hq * D + d] = o;
+  partial[((size_t)b * chunk_cap + c) * Hq * D + (size_t)hq * D + d] = o;
 }
 
-// Lane blockIdx.x: o = sum over chunks of the float64 partials, rounded to
-// float32; emit(o) to o_proj.
-__global__ void merge_kernel(const double* __restrict__ partial, int chunks, int chunk_cap,
-                             int n, Emit e) {
+// Lane blockIdx.x: o = sum over chunks chunk0..chunks-1 of the float64
+// partials, rounded to float32; emit(o) to o_proj.
+__global__ void merge_kernel(const double* __restrict__ partial, int chunk0, int chunks,
+                             int chunk_cap, int n, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   const int b = blockIdx.x;
@@ -668,7 +692,7 @@ __global__ void merge_kernel(const double* __restrict__ partial, int chunks, int
   float am = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     double acc = 0.0;
-    for (int c = 0; c < chunks; ++c) acc += partial[(size_t)c * n + i];
+    for (int c = chunk0; c < chunks; ++c) acc += partial[(size_t)c * n + i];
     const float o = (float)acc;
     buf[i] = o;
     am = fmaxf(am, fabsf(o));
@@ -698,13 +722,18 @@ __global__ void swiglu_kernel(ProjOut in, int F, Emit e) {
 // partials partial[split, b, V] (fixed order); optionally written to
 // logits_out[b]; optionally sampled (sampler.cuh) into
 // tok_out[b * tok_ld + tok_idx] with seeds[b] (or `seed` when seeds is
-// null) and the lane's row of `seen` [B, V].
+// null), the lane's row of `seen` [B, V], and the lane's temps[b],
+// topps[b] and pens[b] (continuous serving: each request its own; a null
+// array means the scalar, as for seeds).
 __global__ void head_sample_kernel(const float* __restrict__ partial, int splits, int V,
                                    float* __restrict__ logits_out, int* __restrict__ tok_out,
                                    int tok_ld, int tok_idx, int suppress_start, int eos_id,
                                    const int8_t* __restrict__ seen, float penalty, float temp,
                                    float top_p, int top_k, int greedy, int use_top_p,
-                                   int seed, const int* __restrict__ seeds, int step) {
+                                   int seed, const int* __restrict__ seeds, int step,
+                                   const float* __restrict__ temps,
+                                   const float* __restrict__ topps,
+                                   const float* __restrict__ pens) {
   extern __shared__ float smem[];
   __shared__ float red[32];
   __shared__ int redi[32];
@@ -721,7 +750,8 @@ __global__ void head_sample_kernel(const float* __restrict__ partial, int splits
   if (tok_out == nullptr) return;
   const int tok = suppress_penalize_sample(
       l, p, V, suppress_start, eos_id, seen != nullptr ? seen + (size_t)b * V : nullptr,
-      penalty, temp, top_p, top_k, greedy != 0, use_top_p != 0,
+      pens != nullptr ? pens[b] : penalty, temps != nullptr ? temps[b] : temp,
+      topps != nullptr ? topps[b] : top_p, top_k, greedy != 0, use_top_p != 0,
       seeds != nullptr ? seeds[b] : seed, step, red, redi);
   if (threadIdx.x == 0) tok_out[(size_t)b * tok_ld + tok_idx] = tok;
 }
@@ -1041,16 +1071,19 @@ inline Emit emit_for(const Work& w, const Proj& p, int j, int* acc, int n) {
 }
 
 // Launch one layer for the w.B lanes' tokens at position `pos` (their K/V
-// rows are written at `pos`, attention covers rows [0, pos]). `prev` is the
-// previous layer's down projection (empty for the first layer: x already
-// holds the layer input). Returns this layer's down projection. round_q /
-// round_p: see the header.
+// rows are written at `pos`, attention covers rows [0, pos], or [start[b],
+// pos] with a per-lane start operand, whose lower bound over the lanes is
+// start_min). `prev` is the previous layer's down projection (empty for
+// the first layer: x already holds the layer input). Returns this layer's
+// down projection. round_q / round_p: see the header.
 template <typename T>
 ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
                   const float* cosv, const float* sinv, int pos, int C, int round_q,
-                  int round_p, cudaStream_t st) {
+                  int round_p, cudaStream_t st, const int* start = nullptr,
+                  int start_min = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, G = d.Hq / d.Hkv, B = w.B;
   const int n_valid = pos + 1, chunks = (n_valid + kAttnChunk - 1) / kAttnChunk;
+  const int chunk0 = min(max(start_min, 0), pos) / kAttnChunk;
   const size_t row_smem = sizeof(float) * (size_t)(d.H > d.F ? (d.H > hd ? d.H : hd)
                                                             : (d.F > hd ? d.F : hd));
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
@@ -1059,14 +1092,15 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
   qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
       oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
       lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
-  attn_scores_kernel<T><<<dim3(d.Hkv, chunks, B), 256, sizeof(float) * G * d.D, st>>>(
+  attn_scores_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), 256, sizeof(float) * G * d.D, st>>>(
       w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D, 1.0f / sqrtf((float)d.D),
-      round_q, w.scores, C);
-  attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid, round_p);
-  attn_pv_kernel<T><<<dim3(d.Hkv, chunks, B), G * d.D, 0, st>>>(
+      round_q, w.scores, C, start, chunk0);
+  attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid, round_p,
+                                                                 start);
+  attn_pv_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), G * d.D, 0, st>>>(
       w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
-      w.partial);
-  merge_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunks, w.chunk_cap, hd,
+      w.partial, start, chunk0);
+  merge_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunk0, chunks, w.chunk_cap, hd,
                                                  emit_for(w, lv.o, 1, w.acc_o, d.H));
   const ProjOut oo = project(w, lv.o, hd, d.H, w.acc_o, w.s + 1 * B, st);
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(

@@ -75,7 +75,8 @@ extern "C" int qtts_talker_step(
                        (int)smem);
   head_sample_kernel<<<1, kRowThreads, smem, st>>>(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
-      (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, seed, nullptr, 0);
+      (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, seed, nullptr, 0,
+      nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,17 @@
 // Replaces qwen3tts_tpu/ops/pallas_talker_step.py:1604
 // fused_talker_step_batched (kernel _make_kernel_batched :1402) in its
 // weight modes (w8a8, bf16, w4bf16 and the q4 tier's per-projection tuple;
-// layer.cuh), batch-major cache [B, L, 2, Hkv, C, D] bf16. The `start`
-// operand and the per-lane sampling parameters (continuous serving only)
-// and the int8-KV operand are not ported yet.
+// layer.cuh), batch-major cache [B, L, 2, Hkv, C, D] bf16, with the two
+// operands only continuous serving uses (runtime/continuous.py): `start`
+// [B] int32, lane b's first valid cache row (:1618; rows below it hold the
+// lane's previous occupant, and lane b attends [start[b], n_past] only),
+// whose lower bound over the lanes, start_min (a host int: the scheduler's
+// mirror, so no per-frame read of `start` back to the host), moves the
+// attention grid's first chunk up, the counterpart of the Pallas min-start
+// DMA skip (:1445); and per-lane temperature, top-p and repetition penalty
+// [B] float32 for the cb0 epilogue (:1691-1695, _sample_operands :237).
+// Null pointers give the scalars and start 0, as synthesize_batch runs it.
+// The int8-KV operand is not ported yet.
 //
 // What bounds it on the H100: bytes. A frame-set reads the 28 layers'
 // projections (440 MB in int8, 881 MB in bf16, 375 MB in q4, 330 MB in
@@ -57,7 +65,8 @@ extern "C" int qtts_talker_step_batched(
     const void* out_norm, const void* codec_head, int modes, void* kv,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, const void* seeds, float temp, float top_p, float penalty, int top_k,
-    int greedy, int use_top_p, int suppress_start, int eos_id,
+    int greedy, int use_top_p, int suppress_start, int eos_id, const void* start,
+    int start_min, const void* temps, const void* topps, const void* pens,
     void* hidden_out, void* logits_out, void* tok_out, void* ws, void* stream) {
   const Dims d{H, Hq, Hkv, D, F, eps};
   const StackWeights sw{
@@ -81,7 +90,7 @@ extern "C" int qtts_talker_step_batched(
                                kvb + (size_t)(2 * l + 1) * layer_stride, head_stride,
                                lane_stride);
     last = run_layer(d, lv, last, w, (const float*)cosv, (const float*)sinv, n_past, C, 1,
-                     0, st);
+                     0, st, (const int*)start, start_min);
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,
@@ -92,6 +101,6 @@ extern "C" int qtts_talker_step_batched(
   head_sample_kernel<<<B, kRowThreads, smem, st>>>(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, 0,
-      (const int*)seeds, 0);
+      (const int*)seeds, 0, (const float*)temps, (const float*)topps, (const float*)pens);
   return (int)cudaGetLastError();
 }

@@ -42,8 +42,8 @@ def init_code_predictor_params(gen: torch.Generator, cfg, dtype=torch.bfloat16,
 
 
 def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
-                  cb0_embd: torch.Tensor, seeds, *, temperature: float, top_k: int,
-                  top_p: float = 1.0, greedy=None, use_top_p=None) -> torch.Tensor:
+                  cb0_embd: torch.Tensor, seeds, *, temperature, top_k: int,
+                  top_p=1.0, greedy=None, use_top_p=None) -> torch.Tensor:
     """The 15 residual codes of one frame, unfused (counterpart of
     ``predict_codes``, ``qwen3tts_tpu/models/code_predictor.py:68-108``).
 
@@ -53,7 +53,8 @@ def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
     position s+1 and takes code s from heads[s]. The cache holds max_ctx = 16
     rows, so attention takes the XLA semantics (ops/attention.py). Code s is
     drawn by sample_token with the counter-hash Gumbel noise of (seed, s).
-    Returns int64 [15] (or [B, 15])."""
+    temperature and top_p are scalars, or per lane [B] (continuous serving;
+    greedy and use_top_p then given). Returns int64 [15] (or [B, 15])."""
     if greedy is None or use_top_p is None:
         greedy, use_top_p = sampling_flags(temperature, top_p)
     lanes = talker_hidden.dim() == 2

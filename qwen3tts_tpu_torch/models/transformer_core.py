@@ -131,7 +131,7 @@ def forward_prefill(blocks: BlockParams, cfg, x: torch.Tensor, positions: torch.
 
 
 def forward_step(blocks: BlockParams, cfg, x: torch.Tensor, n_past: int,
-                 kv: torch.Tensor) -> torch.Tensor:
+                 kv: torch.Tensor, start=None) -> torch.Tensor:
     """Single-token decode step (counterpart of ``forward_step`` in
     ``qwen3tts_tpu/models/transformer_core.py:182-255``) on x [H] with kv
     [L, 2, Hkv, C, D], or on B lanes x [B, H] with kv [B, L, 2, Hkv, C, D]
@@ -139,8 +139,12 @@ def forward_step(blocks: BlockParams, cfg, x: torch.Tensor, n_past: int,
     kv (in place) at n_past; attention over cache[0:n_past+1] goes through
     ``ops/attention.decode_attention_auto`` (the decode-attention kernel at
     capacities of 1024 rows and more, the XLA semantics below); the
-    projections through ``quant.matmul``. Returns the pre-output-norm hidden
-    of x's shape."""
+    projections through ``quant.matmul``. `start` (an int, or [B] per lane)
+    masks the cache rows below it: continuous serving splices a request
+    mid-cache, and the rows below its splice belong to the lane's previous
+    occupant (RoPE uses absolute positions, so the spliced request computes
+    what a fresh run would). Returns the pre-output-norm hidden of x's
+    shape."""
     n = int(n_past)
     pos = torch.tensor([n], device=x.device)
     cos, sin = rope_for_positions(pos, cfg.head_dim, cfg.rope_theta)
@@ -150,7 +154,7 @@ def forward_step(blocks: BlockParams, cfg, x: torch.Tensor, n_past: int,
         def attend(q, k, v, l=l):
             kvl[:, l, 0, :, n] = k.to(kv.dtype)
             kvl[:, l, 1, :, n] = v.to(kv.dtype)
-            return decode_attention_auto(q, kvl, l, n + 1)
+            return decode_attention_auto(q, kvl, l, n + 1, start)
 
         h = _layer(blocks, cfg, l, h, cos, sin, attend)
     return h.reshape(x.shape)

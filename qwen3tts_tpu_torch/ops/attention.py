@@ -13,8 +13,15 @@ capacity C >= 1024, C a multiple of 128, head_dim a multiple of 128, the
 query heads a multiple of the KV heads — and ``decode_attention`` everywhere
 else. So each capacity gets the same numbers as in the JAX package on a TPU.
 (On a CPU the JAX package always takes its XLA path; the port keeps the
-TPU's split there too, where the kernel's plain version runs.) The
-``start`` operand of continuous serving is not ported.
+TPU's split there too, where the kernel's plain version runs.)
+
+``start`` is continuous serving's per-lane first valid cache row (a lane
+refilled mid-session holds its previous occupant's rows below it,
+``runtime/continuous.py``): rows below it are masked as the JAX package's
+``decode_attention`` masks them. Given a start, the dispatch keeps the XLA
+semantics at every capacity, as the JAX package takes its Pallas kernel only
+when ``start is None`` (``qwen3tts_tpu/ops/attention.py:73, :101``): the
+continuous path launches no decode-attention kernel.
 """
 
 from __future__ import annotations
@@ -52,22 +59,32 @@ def attend(q, k, v, mask=None):
     return o.reshape(*lead, Hkv, G, T, D).movedim(-2, -4).reshape(*lead, T, Hq, D).to(v.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, n_valid: int) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, n_valid: int, start=None) -> torch.Tensor:
     """q [..., Hq, D]; k_cache, v_cache [..., Hkv, C, D] head-major; `attend`
-    of the one query over rows [0, n_valid). Returns [..., Hq, D] in the
-    cache dtype. (JAX masks the rows past n_valid with -1e30, whose
-    probabilities are exactly 0; reading only the valid rows is the same.)"""
+    of the one query over rows [0, n_valid), and, when `start` is given (an
+    int, or one per lane of q's leading dimension [B]), not below start.
+    Returns [..., Hq, D] in the cache dtype. (JAX masks the rows past
+    n_valid with -1e30, whose probabilities are exactly 0; reading only the
+    rows below n_valid is the same. Rows below start are masked with -1e30,
+    as JAX masks them.)"""
     n = int(n_valid)
     k = k_cache[..., :n, :].transpose(-3, -2)   # [..., n, Hkv, D]
     v = v_cache[..., :n, :].transpose(-3, -2)
-    return attend(q.unsqueeze(-3), k, v).squeeze(-3)
+    mask = None
+    if start is not None:
+        st = torch.as_tensor(start, device=q.device).reshape(-1, 1, 1, 1, 1)
+        mask = torch.arange(n, device=q.device) >= st         # [B|1, 1, 1, 1, n]
+        if q.dim() == 2:
+            mask = mask[0]
+    return attend(q.unsqueeze(-3), k, v, mask).squeeze(-3)
 
 
-def decode_attention_auto(q, kv, layer: int, n_valid: int) -> torch.Tensor:
+def decode_attention_auto(q, kv, layer: int, n_valid: int, start=None) -> torch.Tensor:
     """Decode attention of q [(B,) Hq, D] over layer `layer` of the stacked
-    cache kv [(B,) L, 2, Hkv, C, D] (see the module docstring)."""
+    cache kv [(B,) L, 2, Hkv, C, D], rows below `start` masked (see the
+    module docstring)."""
     Hkv, C, D = kv.shape[-3:]
-    if use_decode_kernel(C, D, q.shape[-2], Hkv):
+    if start is None and use_decode_kernel(C, D, q.shape[-2], Hkv):
         return decode_attention_kernel(q, kv, layer, n_valid)
     layer_kv = kv.select(-5, layer)
-    return decode_attention(q, layer_kv.select(-4, 0), layer_kv.select(-4, 1), n_valid)
+    return decode_attention(q, layer_kv.select(-4, 0), layer_kv.select(-4, 1), n_valid, start)

@@ -39,7 +39,8 @@ def _xinit(cp_params, talker_hidden, cb0_embd):
 def predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seeds, *, kv_dtype,
                         temperature, top_k, top_p=1.0, greedy=False, use_top_p=True):
     """Plain PyTorch version of K2 and K6 for B lanes: talker_hidden and
-    cb0_embd [B, H], seeds int [B]. K/V rows are stored rounded to kv_dtype
+    cb0_embd [B, H], seeds int [B], temperature and top_p scalars or [B]
+    (``kernel_prng.per_row``). K/V rows are stored rounded to kv_dtype
     (float32 in K2, the embedding dtype in K6); attention rounds neither q
     nor p. Returns (codes [B, 15] int64, rest_sum [B, H] f32)."""
     L, S, V, eps = cfg.n_layers, cfg.n_steps, cfg.vocab_size, cfg.rms_norm_eps

@@ -9,7 +9,9 @@ stack once for all lanes).
 
 Per lane the semantics are K2's (``fused_code_predictor.py``): activations
 quantized per lane, the counter-hash sampler with the lane's seed, so lane b
-equals K2 run with seeds[b]. As in the Pallas kernel, K/V rows are stored in
+equals K2 run with seeds[b]. Temperature and top-p are scalars or per-lane
+[B] tensors (the Pallas kernel's per-lane operands, :86-88: continuous
+serving gives each request its own). As in the Pallas kernel, K/V rows are stored in
 the embedding dtype (K2 keeps them in float32); on float32 weights the two
 agree exactly. The Pallas kernel's one-hot embedding gather and lane-major
 KV scratch are TPU tiling artifacts and are not copied.
@@ -21,7 +23,7 @@ import torch
 
 from .. import _kernels
 from .fused_code_predictor import _xinit, cuda_operands, predict_codes_plain
-from .fused_talker_step import check_w8a8_blocks
+from .fused_talker_step import _lane_values, check_w8a8_blocks
 
 MAX_LANES = 64   # lanes of one call (the Pallas kernel's VMEM budget)
 
@@ -29,7 +31,8 @@ MAX_LANES = 64   # lanes of one call (the Pallas kernel's VMEM budget)
 def fused_predict_codes_batched_plain(cp_params, cfg, talker_hidden, cb0_embd, seeds, *,
                                       temperature, top_k, top_p=1.0, greedy=False,
                                       use_top_p=True):
-    """Plain PyTorch version of K6: (codes [B, 15] int64, rest_sum [B, H])."""
+    """Plain PyTorch version of K6: (codes [B, 15] int64, rest_sum [B, H]);
+    temperature and top_p scalars or [B]."""
     return predict_codes_plain(
         cp_params, cfg, talker_hidden, cb0_embd, seeds, kv_dtype=cp_params.embds.dtype,
         temperature=temperature, top_k=top_k, top_p=top_p, greedy=greedy,
@@ -40,7 +43,8 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
                                 temperature, top_k, top_p=1.0, greedy=False,
                                 use_top_p=True):
     """talker_hidden, cb0_embd [B, H]; seeds int32 [B] (a tensor, or a list
-    of ints). Returns (codes [B, 15], rest_sum [B, H] f32).
+    of ints); temperature and top_p scalars or per-lane [B] tensors.
+    Returns (codes [B, 15], rest_sum [B, H] f32).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
     heads and embedding tables, B <= 64) or raise; there is no fallback. The
@@ -69,14 +73,22 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     kv = torch.empty((2, L, B, Hkv, CTX, D), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(lib.qtts_cp_batched_ws_bytes(B, H, Hq, Hkv, D, F, CTX, V),
                      dtype=torch.uint8, device=dev)
+    temp, temps = _lane_values(temperature, B, dev)
+    topp, topps = _lane_values(top_p, B, dev)
     err = lib.qtts_code_predictor_batched(
         xinit.data_ptr(), B, *[t.data_ptr() for t in tensors], *dims,
-        float(temperature), float(top_p), int(top_k), int(greedy), int(use_top_p),
-        seeds.data_ptr(), codes.data_ptr(), rest_sum.data_ptr(), kv.data_ptr(),
-        ws.data_ptr(), _kernels.stream_ptr(dev))
+        temp, topp, int(top_k), int(greedy), int(use_top_p), seeds.data_ptr(),
+        None if temps is None else temps.data_ptr(), None if topps is None else topps.data_ptr(),
+        codes.data_ptr(), rest_sum.data_ptr(), kv.data_ptr(), ws.data_ptr(),
+        _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_predict_codes_batched")
     fused_predict_codes_batched.launches += 1
+    if temps is not None or topps is not None:
+        ops = fused_predict_codes_batched.operand_launches
+        ops["per_lane"] = ops.get("per_lane", 0) + 1
     return codes, rest_sum
 
 
 fused_predict_codes_batched.launches = 0
+# launches with per-lane sampling parameters (continuous serving)
+fused_predict_codes_batched.operand_launches = {}

@@ -10,8 +10,11 @@ cache lives; on the H100 it always lives in device memory, so one kernel
 ``fused_talker_step_batched`` (:1604) in its batch-major form
 (``csrc/talker_step_batched.cu``). The sources say what bounds them (the
 bytes of 28 layers of weights per frame, read once for all lanes in K5) and
-what this first design does about it. The int8-KV operand, K5's ``start``
-operand and its per-lane sampling parameters are not ported yet.
+what this first design does about it. K5 also takes the two operands only
+continuous serving uses (``runtime/continuous.py``): ``start`` [B], each
+lane's first valid cache row, and per-lane temperature, top-p and
+repetition penalty ([B] each) for its cb0 epilogue. The int8-KV operand is
+not ported yet.
 
 The weight mode is set per projection from the leaf type (``weight_mode``,
 the counterpart of ``_weight_mode``, :153): an int8 ``QuantLinear`` runs in
@@ -36,7 +39,8 @@ summation order.
 Per layer: RMSNorm -> fused QKV -> q/k RMSNorm -> NEOX RoPE -> K/V row write
 at n_past -> GQA attention over [0, n_past] (float32 probabilities; q cast
 to the KV dtype, and in K1 the probabilities too) -> o_proj -> RMSNorm ->
-SwiGLU -> residual. Then the output RMSNorm, the codec head, and, when
+SwiGLU -> residual (K5 with ``start``: attention over [start[b], n_past]
+for lane b). Then the output RMSNorm, the codec head, and, when
 ``seen`` is given, the cb0 epilogue: suppress [suppress_start, V) except
 eos_id, repetition penalty over ``seen``, and the counter-hash sampler.
 
@@ -88,15 +92,22 @@ def mm_w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return acc * (s_act * scale.float())
 
 
-def gqa_attention(q, K, V, p_dtype):
+def gqa_attention(q, K, V, p_dtype, valid=None):
     """q [..., Hq, D] @ K [..., Hkv, S, D]^T * D^-0.5 -> softmax -> the
     probabilities rounded to float32, then to p_dtype -> @ V [..., Hkv, S,
     D]. Returns [..., Hq*D] float32. The dot products, exp and the softmax
     sum run in float64 and are rounded to float32 once, as in the kernels
-    (layer.cuh), so that summation order cannot change a bit."""
+    (layer.cuh), so that summation order cannot change a bit. valid [..., S]
+    (bool), when given, leaves out the rows it marks False: they set no
+    maximum, and their exact zeros add nothing to the float64 sums, so the
+    result is that of the valid rows alone, which the kernels read."""
     *lead, Hkv, _, D = K.shape
     s = torch.matmul(q.reshape(*lead, Hkv, -1, D).double(),
                      K.double().transpose(-1, -2)).float() * D ** -0.5
+    if valid is not None:
+        keep = valid[..., None, None, :]
+        s = torch.where(keep, s, torch.full_like(s, float("-inf")))
+        V = torch.where(keep.transpose(-1, -2), V, torch.zeros_like(V))
     e = torch.exp((s - torch.amax(s, dim=-1, keepdim=True)).double())
     p = (e / torch.sum(e, dim=-1, keepdim=True)).float().to(p_dtype)
     return torch.matmul(p.double(), V.double()).float().reshape(*lead, -1)
@@ -187,22 +198,37 @@ def layer_plain(blocks, cfg, l, x, cos, sin, attend):
 def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_norm,
                       codec_head, seen=None, seeds=None, temperature=1.0, top_p=1.0,
                       repetition_penalty=1.0, top_k=0, suppress_start=None, eos_id=-1,
-                      greedy=False, use_top_p=True) -> StepOut:
+                      greedy=False, use_top_p=True, start=None, start_min=0) -> StepOut:
     """Plain PyTorch version of K1 and K5 for B lanes: step_embd [B, H], kv
     [B, L, 2, Hkv, C, D] updated in place at n_past, seen [B, Vc] and seeds
-    [B] when cb0 is sampled. q is rounded to the KV dtype, the softmax
-    probabilities to p_dtype (the KV dtype in K1, float32 in K5)."""
+    [B] when cb0 is sampled (temperature, top_p, repetition_penalty scalars
+    or [B]). q is rounded to the KV dtype, the softmax probabilities to
+    p_dtype (the KV dtype in K1, float32 in K5). start [B], when given:
+    lane b attends rows [start[b], n_past] (start clamped to [0, n_past],
+    as the kernel clamps it). start_min is K5's promise that no lane's
+    start lies below it (the kernel skips the rows under it, so a lane
+    below would read scores it never wrote): raises ValueError where a
+    lane's clamped start, or 0 without ``start``, breaks it."""
     n = int(n_past)
     dev = kv.device
     B = step_embd.shape[0]
     cos, sin = _rope_row(n, cfg, dev, kv.shape[4])
     x = step_embd.float().reshape(B, cfg.hidden_size)
+    valid = None
+    first = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    if start is not None:
+        first = torch.clamp(torch.as_tensor(start, device=dev).reshape(B, 1), 0, n)
+        valid = torch.arange(n + 1, device=dev) >= first                # [B, n+1]
+    floor = min(max(int(start_min), 0), n)
+    if floor and bool((first < floor).any()):
+        raise ValueError(f"start_min {int(start_min)} lies above the start of lanes "
+                         f"{torch.nonzero(first[:, 0] < floor)[:, 0].tolist()}")
     for l in range(cfg.n_layers):
         def attend(q, k, v, l=l):
             kv[:, l, 0, :, n] = k.to(kv.dtype)
             kv[:, l, 1, :, n] = v.to(kv.dtype)
             return gqa_attention(q.to(kv.dtype).float(), kv[:, l, 0, :, :n + 1].float(),
-                                 kv[:, l, 1, :, :n + 1].float(), p_dtype)
+                                 kv[:, l, 1, :, :n + 1].float(), p_dtype, valid)
 
         x = layer_plain(blocks, cfg, l, x, cos, sin, attend)
     normed = _rms(x, output_norm, cfg.rms_norm_eps)
@@ -379,11 +405,23 @@ def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv,
     return talker_step_plain(blocks, cfg, step_embd, n_past, kv, p_dtype=torch.float32, **kw)
 
 
+def _lane_values(v, B, dev):
+    """(scalar, pointer) of a sampling parameter: a scalar passes by value
+    with a null pointer; per-lane values [B] as a float32 array on the card
+    (the scalar slot then unused)."""
+    if isinstance(v, torch.Tensor) and v.dim() >= 1:
+        t = v.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+        if t.numel() != B:
+            raise ValueError(f"a per-lane sampling parameter needs {B} values, got {t.numel()}")
+        return 1.0, t
+    return float(v), None
+
+
 def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm,
                               codec_head, seen=None, seeds=None, temperature=1.0,
                               top_p=1.0, repetition_penalty=1.0, top_k=0,
                               suppress_start=None, eos_id=-1, greedy=False,
-                              use_top_p=True) -> StepOut:
+                              use_top_p=True, start=None, start_min=0) -> StepOut:
     """One talker decode step for B lockstep lanes (kernel K5; counterpart
     of the Pallas ``fused_talker_step_batched``, batch-major, in the blocks'
     weight mode as in ``fused_talker_step``).
@@ -392,9 +430,17 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     D], each lane's row written in place at n_past. Returns StepOut with
     hidden [B, H] (output-normed, f32), logits [B, Vc] f32 and, when
     ``seen`` ([B, Vc] bool or int8) is given, cb0 [B]: each lane's next
-    codebook-0 token sampled with seeds[b] (int32 [B]). Unlike K1, the
-    attention keeps its probabilities in float32, as the batched Pallas
-    kernel does. B <= 128.
+    codebook-0 token sampled with seeds[b] (int32 [B]). temperature, top_p
+    and repetition_penalty are scalars or per-lane [B] tensors (continuous
+    serving: each request its own). Unlike K1, the attention keeps its
+    probabilities in float32, as the batched Pallas kernel does. B <= 128.
+
+    start ([B] int32 tensor), continuous serving's per-lane first valid
+    cache row: lane b attends rows [start[b], n_past] only. start_min, a
+    host int at most every lane's start (the scheduler's host mirror: the
+    wrapper never reads `start` back), lets the kernel skip the attention
+    chunks below it; 0 is always safe. The plain version raises where a
+    lane's start lies below start_min.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
     KV cache, codec head and plain weights) or raise; there is no fallback.
@@ -410,7 +456,9 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
             codec_head=codec_head, seen=seen, seeds=seeds, temperature=temperature,
             top_p=top_p, repetition_penalty=repetition_penalty, top_k=top_k,
             suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
-            use_top_p=use_top_p)
+            use_top_p=use_top_p, start=start, start_min=start_min)
+    if start is None and start_min > 0:
+        raise ValueError("start_min > 0 needs the per-lane start operand")
     lib = _kernels.load_library()
     _kernels.require_cuda(kv, step_embd, codec_head, blocks.attn_norm)
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
@@ -432,6 +480,14 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         seeds32 = torch.as_tensor(seeds, dtype=torch.int32, device=dev).contiguous()
         if tuple(seen8.shape) != (B, Vc) or tuple(seeds32.shape) != (B,):
             raise ValueError("seen must be [B, Vc] and seeds [B]")
+    temp, temps = _lane_values(temperature, B, dev)
+    topp, topps = _lane_values(top_p, B, dev)
+    pen, pens = _lane_values(repetition_penalty, B, dev)
+    start32 = None
+    if start is not None:
+        start32 = torch.as_tensor(start, dtype=torch.int32, device=dev).reshape(-1).contiguous()
+        if start32.numel() != B:
+            raise ValueError(f"start must be [{B}], got {tuple(start32.shape)}")
     ws = torch.empty(lib.qtts_talker_batched_ws_bytes(B, H, cfg.n_heads, Hkv, D,
                                                       cfg.intermediate_size, C, Vc, modes),
                      dtype=torch.uint8, device=dev)
@@ -439,15 +495,20 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
         kv.data_ptr(), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(),
-        None if seeds32 is None else seeds32.data_ptr(), float(temperature), float(top_p),
-        float(repetition_penalty), int(top_k), int(greedy), int(use_top_p),
-        Vc if suppress_start is None else int(suppress_start), int(eos_id),
+        None if seeds32 is None else seeds32.data_ptr(), temp, topp, pen, int(top_k),
+        int(greedy), int(use_top_p), Vc if suppress_start is None else int(suppress_start),
+        int(eos_id), _ptrs([start32])[0], int(start_min), *_ptrs([temps, topps, pens]),
         hidden.data_ptr(), logits.data_ptr(), None if tok is None else tok.data_ptr(),
         ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step_batched")
     _count(fused_talker_step_batched, blocks)
+    if start32 is not None:
+        ops = fused_talker_step_batched.operand_launches
+        ops["start"] = ops.get("start", 0) + 1
     return StepOut(hidden, logits, tok)
 
 
 fused_talker_step_batched.launches = 0
 fused_talker_step_batched.mode_launches = {}
+# launches with an operand only continuous serving passes, by operand name
+fused_talker_step_batched.operand_launches = {}

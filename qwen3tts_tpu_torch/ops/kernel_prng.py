@@ -29,6 +29,14 @@ def sampling_flags(temperature: float, top_p: float):
     return float(temperature) <= 0.0, float(top_p) < 1.0
 
 
+def per_row(value, device) -> torch.Tensor:
+    """A sampling parameter as float32: a scalar stays 0-d, per-row values
+    [R] become a column [R, 1] that broadcasts over the vocabulary, as the
+    JAX package's per-lane [R, 1] operands do."""
+    t = torch.as_tensor(value, dtype=torch.float32, device=device)
+    return t.reshape(-1, 1) if t.dim() >= 1 else t
+
+
 def _mulmod(x: torch.Tensor, m: int) -> torch.Tensor:
     """(x * m) mod 2**32 for 0 <= x < 2**32, without int64 overflow."""
     lo = x * (m & 0xFFFF)
@@ -72,13 +80,14 @@ def make_sampler(top_k: int, vocab: int, *, greedy: bool = False,
     threshold by a 30-step bisection on the value range (ties kept) ->
     nucleus top-p by a 20-step bisection on the probability threshold (only
     when `use_top_p`; the crossing token and its ties kept) -> argmax of
-    logits plus Gumbel noise. seed is an int or an [R, 1] tensor."""
+    logits plus Gumbel noise. seed is an int or an [R, 1] tensor; temp and
+    top_p are scalars or per-row [R] values (``per_row``)."""
 
     def sample(logits, temp, top_p, seed, step):
         if greedy:
             return torch.argmax(logits, dim=-1)
         dev = logits.device
-        t = torch.tensor(temp, dtype=torch.float32, device=dev)
+        t = per_row(temp, dev)
         l = logits * (1.0 / torch.clamp(t, min=1e-6))
         if 0 < top_k < vocab:
             lo = torch.amin(l, dim=-1, keepdim=True) - 1.0
@@ -90,7 +99,7 @@ def make_sampler(top_k: int, vocab: int, *, greedy: bool = False,
                 lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
             l = torch.where(l >= lo, l, torch.full_like(l, NEG_INF))
         if use_top_p:
-            p = torch.tensor(top_p, dtype=torch.float32, device=dev)
+            p = per_row(top_p, dev)
             m = torch.amax(l, dim=-1, keepdim=True)
             e = torch.exp(l - m)
             probs = e / torch.sum(e, dim=-1, keepdim=True)

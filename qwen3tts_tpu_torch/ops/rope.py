@@ -14,8 +14,11 @@ def inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
-    """(cos, sin) of shape [..., head_dim/2] for integer positions, float32."""
+def rope_angles(positions, head_dim: int, theta: float):
+    """(cos, sin) of shape [..., head_dim/2] for integer positions (a tensor
+    or an int), float32. A negative position rotates backwards: compaction
+    re-rotates cached K rows by -shift (``runtime/continuous.compact``)."""
+    positions = torch.as_tensor(positions)
     ang = positions.float()[..., None] * inv_freq(head_dim, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .kernel_prng import NEG_INF, make_sampler, sampling_flags
+from .kernel_prng import NEG_INF, make_sampler, per_row, sampling_flags
 
 
 def apply_suppression(logits: torch.Tensor, suppress_start: int,
@@ -39,10 +39,11 @@ def apply_suppression(logits: torch.Tensor, suppress_start: int,
 
 
 def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
-                             penalty: float) -> torch.Tensor:
-    """HF-style penalty on previously seen ids (seen: bool [vocab]):
-    positive logits divided, negative multiplied."""
-    pen = torch.tensor(penalty, dtype=torch.float32, device=logits.device)
+                             penalty) -> torch.Tensor:
+    """HF-style penalty on previously seen ids (seen: bool [vocab], or
+    [R, vocab] for rows): positive logits divided, negative multiplied.
+    penalty is a scalar or one value per row ([R])."""
+    pen = per_row(penalty, logits.device)
     penalized = torch.where(logits > 0.0, logits / pen, logits * pen)
     return torch.where(seen, penalized, logits)
 
@@ -59,13 +60,15 @@ def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
 _TOPP_BSEARCH_ITERS = 30
 
 
-def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+def apply_top_p(logits: torch.Tensor, top_p) -> torch.Tensor:
     """Nucleus filtering: keep the ids whose probability is at least tau, the
     largest threshold whose kept mass reaches top_p (found by a 30-step
     bisection; the crossing token and its ties are kept). top_p >= 1 keeps
-    everything."""
-    if top_p >= 1.0:
+    everything. top_p is a scalar or one value per row ([R]), as the JAX
+    package's traced top_p."""
+    if isinstance(top_p, (int, float)) and top_p >= 1.0:
         return logits
+    p = per_row(top_p, logits.device)
     probs = torch.softmax(logits.float(), dim=-1)
     lo = torch.zeros_like(probs[..., :1])
     hi = torch.amax(probs, dim=-1, keepdim=True)
@@ -73,26 +76,33 @@ def apply_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
         mid = 0.5 * (lo + hi)
         mass = torch.sum(torch.where(probs >= mid, probs, torch.zeros_like(probs)), dim=-1,
                          keepdim=True)
-        take = mass >= top_p
+        take = mass >= p
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
-    return torch.where(probs >= lo, logits, torch.full_like(logits, NEG_INF))
+    masked = torch.where(probs >= lo, logits, torch.full_like(logits, NEG_INF))
+    return torch.where(p >= 1.0, logits, masked)
 
 
-def sample_token(logits: torch.Tensor, noise, *, temperature: float, top_k: int,
-                 top_p: float = 1.0, greedy=None, use_top_p=None) -> torch.Tensor:
+def sample_token(logits: torch.Tensor, noise, *, temperature, top_k: int,
+                 top_p=1.0, greedy=None, use_top_p=None) -> torch.Tensor:
     """One token id per row of logits [..., V]: the first-max argmax when
     greedy; else logits / max(temperature, 1e-6), the exact top-k, top-p
     when use_top_p, then argmax(logits + noise). With Gumbel(0, 1) noise of
     the logits' shape that last step is ``jax.random.categorical``; the
-    noise comes from the caller (None when greedy). Returns int64 [...]."""
+    noise comes from the caller (None when greedy). temperature and top_p
+    are scalars or one value per row of [R, V] logits (continuous serving:
+    each request its own); greedy and use_top_p, derived from scalars when
+    not given, must then be given. Greedy is one flag for all rows: the
+    continuous scheduler refuses a request outside its server's greedy or
+    sampled class, so a sampled call never holds a row at temperature <= 0.
+    Returns int64 [...]."""
     if greedy is None or use_top_p is None:
         greedy, use_top_p = sampling_flags(temperature, top_p)
     if greedy:
         return torch.argmax(logits, dim=-1)
     # a true division by a tensor on the logits' device (torch turns a
     # division by a host scalar into a product with its reciprocal on CUDA)
-    t = torch.tensor(max(float(temperature), 1e-6), dtype=torch.float32, device=logits.device)
-    scaled = apply_top_k(logits.float() / t, top_k)
+    t = per_row(temperature, logits.device)
+    scaled = apply_top_k(logits.float() / torch.clamp(t, min=1e-6), top_k)
     if use_top_p:
         scaled = apply_top_p(scaled, top_p)
     return torch.argmax(scaled + noise, dim=-1)
@@ -101,7 +111,8 @@ def sample_token(logits: torch.Tensor, noise, *, temperature: float, top_k: int,
 def sample_rows_plain(logits, seeds, step, *, temperature, top_p, top_k,
                       greedy, use_top_p, suppress_start=None, eos_id=-1,
                       seen=None, repetition_penalty=1.0):
-    """Plain version of K4: rows [R, V] f32, seeds int [R] -> int32 [R]."""
+    """Plain version of K4: rows [R, V] f32, seeds int [R] -> int32 [R].
+    temperature, top_p and repetition_penalty are scalars or per-row [R]."""
     R, V = logits.shape
     l = logits.float()
     if suppress_start is not None:

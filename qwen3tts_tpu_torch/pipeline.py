@@ -119,6 +119,9 @@ class Qwen3TTS:
         self.vocoder_params = None
         self._loaded = False
         self.error_msg = ""
+        # the last synthesize_queue call's lanes, KV capacity and scheduler
+        # counts (chunks, refills, compactions, sessions)
+        self.last_queue_stats: dict = {}
 
     def load_models(self, model_dir: Optional[str] = None, *, synthetic: bool = False,
                     seed: int = 0) -> bool:
@@ -316,6 +319,91 @@ class Qwen3TTS:
             r.timings.t_decode_ms = t_dec / max(B, 1)
             r.timings.t_total_ms = now_ms() - t_total0
             if n == 0:
+                r.error_msg = "No speech codes generated"
+                continue
+            r.audio = a
+            r.sample_rate = self.config.vocoder.sample_rate
+            r.success = True
+        return results
+
+    def synthesize_queue(self, texts, params: SamplingConfig = SamplingConfig(),
+                         speakers=None, *, lanes: Optional[int] = None,
+                         kv_capacity: Optional[int] = None, chunk_frames: int = 8,
+                         refill_slots: int = 8, on_audio=None,
+                         max_audio_tokens_per_request=None):
+        """Continuous serving of a request queue (counterpart of
+        ``synthesize_queue``, ``qwen3tts_tpu/pipeline.py:722-978``): finished
+        lanes are refilled mid-flight (``runtime/continuous.py``), so a mix
+        of unequal lengths keeps the lanes busy where ``synthesize_batch``
+        idles them until its longest request ends. Returns TTSResults in
+        submission order, each vocoded (K3) on exactly its frames.
+
+        Defaults as in the JAX package: lanes = min(64, len(texts));
+        kv_capacity from P + 2 * frame bucket + chunk_frames + kv_margin,
+        rounded up to 256 (about two request generations per session);
+        request i samples with seed params.seed + i, so it equals
+        ``synthesize`` of its text with that seed on the same path.
+        max_audio_tokens_per_request (a list, one int per text) overrides
+        params.max_audio_tokens per request. Every weight tier runs: K5 with
+        ``start`` (fused_talker) and K6 with per-lane parameters (fused_cp),
+        or the unfused step. on_audio streaming belongs to the streaming
+        path, which is not ported yet: passing it raises
+        NotImplementedError."""
+        if on_audio is not None:
+            raise NotImplementedError(
+                "synthesize_queue(on_audio=...): streaming audio is not ported yet "
+                "(the streaming path); call without on_audio for whole results")
+        from .runtime.continuous import ContinuousScheduler, prefill_window_len
+
+        rt, tcfg = self.config.runtime, self.config.talker
+        B = len(texts)
+        results = [TTSResult() for _ in texts]
+        if not self._loaded:
+            for r in results:
+                r.error_msg = "Models not loaded"
+            return results
+        if speakers is None:
+            speakers = np.zeros((B, tcfg.hidden_size), np.float32)
+        t_total0 = now_ms()
+        fitted = [self._fit_tokens(self.tokenizer.encode_for_tts(t)) for t in texts]
+        Tb = max(p.shape[0] for p, _ in fitted)
+        max_frames = pick_bucket(params.max_audio_tokens, rt.frame_buckets)
+        nothink = params.language_id < 0
+        if lanes is None:
+            lanes = max(1, min(64, B))
+        if kv_capacity is None:
+            P = prefill_window_len(nothink)
+            kv_capacity = -(-(P + 2 * max_frames + chunk_frames + rt.kv_margin) // 256) * 256
+        sched = ContinuousScheduler(
+            self.talker_params, self.cp_params, tcfg, self.config.code_predictor, lanes=lanes,
+            kv_capacity=kv_capacity, text_bucket=Tb, chunk_frames=chunk_frames,
+            refill_slots=refill_slots, max_frames=max_frames, temperature=params.temperature,
+            top_k=params.top_k, top_p=params.top_p,
+            repetition_penalty=params.repetition_penalty, nothink=nothink, **self.fused)
+        budgets = [params.max_audio_tokens if max_audio_tokens_per_request is None
+                   else int(max_audio_tokens_per_request[i]) for i in range(B)]
+        t0 = now_ms()
+        rids = [sched.submit(p_i, n_i, np.asarray(speakers[i], np.float32), params.language_id,
+                             seed=params.seed + i, max_frames=min(budgets[i], max_frames))
+                for i, (p_i, n_i) in enumerate(fitted)]
+        out = sched.run()
+        _sync(self.device)
+        t_gen = now_ms() - t0
+        self.last_queue_stats = dict(lanes=lanes, kv_capacity=kv_capacity,
+                                     chunks=sched.chunks_run, refills=sched.refills,
+                                     compactions=sched.compactions, sessions=sched.sessions)
+
+        t0 = now_ms()
+        codes = [out[rid][:budgets[i]].astype(np.int32) for i, rid in enumerate(rids)]
+        audio = [self.decode_codes(c) if len(c) else None for c in codes]
+        t_dec = now_ms() - t0
+        for r, c, a in zip(results, codes, audio):
+            r.codes = c
+            r.n_frames = len(c)
+            r.timings.t_generate_ms = t_gen / max(B, 1)
+            r.timings.t_decode_ms = t_dec / max(B, 1)
+            r.timings.t_total_ms = now_ms() - t_total0
+            if a is None:
                 r.error_msg = "No speech codes generated"
                 continue
             r.audio = a

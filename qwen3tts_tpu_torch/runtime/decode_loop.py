@@ -93,15 +93,15 @@ def draw_seeds(gen: torch.Generator, n: int) -> list:
                          dtype=torch.int64).tolist()
 
 
-def sample_cb0(logits, seeds, *, suppress_start: int, eos_id: int, temperature: float,
-               top_k: int, top_p: float, greedy: bool, use_top_p: bool, seen=None,
-               repetition_penalty: float = 1.0):
+def sample_cb0(logits, seeds, *, suppress_start: int, eos_id: int, temperature, top_k: int,
+               top_p, greedy: bool, use_top_p: bool, seen=None, repetition_penalty=1.0):
     """Codebook-0 tokens from talker logits [R, Vc] as the JAX package's
     XLA path draws them (``decode_loop.py:318-325``): suppression of
     [suppress_start, Vc) except eos_id, the repetition penalty over seen
     [R, Vc] when given (frame 0 has none: its seen-set is empty), then
     ``sample_token`` with row r's counter-hash noise of (seeds[r], 0).
-    Returns int64 [R]."""
+    temperature, top_p and repetition_penalty are scalars or per-row [R]
+    (continuous serving). Returns int64 [R]."""
     l = apply_suppression(logits.float(), suppress_start, eos_id)
     if seen is not None:
         l = apply_repetition_penalty(l, seen.bool(), repetition_penalty)
@@ -125,11 +125,14 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
                          repetition_penalty: float = 1.05, nothink: bool = False,
-                         fused_talker="auto", fused_cp="auto") -> GenerateResult:
+                         fused_talker="auto", fused_cp="auto",
+                         allow_eos: bool = True) -> GenerateResult:
     """Prefill + the frame loop for one request; see the module docstring.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
     frames into a KV cache of kv_capacity rows. fused_talker / fused_cp pick
-    kernels K1 / K2 or the unfused talker step / code predictor."""
+    kernels K1 / K2 or the unfused talker step / code predictor.
+    allow_eos=False also suppresses EOS, so the request runs all max_frames
+    frames (the JAX package's benchmark mode)."""
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
@@ -140,7 +143,8 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
     greedy, use_top_p = sampling_flags(temperature, top_p)
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
-    cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=tcfg.codec_eos_id)
+    cb0_kw = dict(samp, suppress_start=suppress_start,
+                  eos_id=tcfg.codec_eos_id if allow_eos else -1)
 
     with torch.no_grad():
         prefill = talker_model.build_prefill(
@@ -161,7 +165,7 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
         n_past = P
         for frame in range(max_frames):
             cb0 = cb0_next.reshape(1).to(torch.int64)
-            if int(cb0) == tcfg.codec_eos_id:
+            if allow_eos and int(cb0) == tcfg.codec_eos_id:
                 break
             seed_cp, seed_cb0 = draw_seeds(gen, 2)
             cb0_embd = talker_params.codec_embd[cb0[0]]
@@ -202,8 +206,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                  max_frames: int, kv_capacity: int, temperature: float,
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
-                                 budgets=None, fused_talker="auto",
-                                 fused_cp="auto") -> BatchedGenerateResult:
+                                 budgets=None, fused_talker="auto", fused_cp="auto",
+                                 allow_eos: bool = True) -> BatchedGenerateResult:
     """Prefill + the frame loop for B requests in lockstep (counterpart of
     ``_generate_batched_fused``, fused kernels, every weight tier; with both
     flags off, of the vmapped unfused loop, ``decode_loop.py:651-667``).
@@ -211,9 +215,12 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     tokens [B, Tb] padded ids with n_tokens[b] real ones (one shared Tb, so
     every lane's prefill window has the same length and the lanes share
     n_past); speaker_embd [B, H]; language_ids [B]; budgets, when given,
-    caps lane b at budgets[b] frames. Per lane: build_prefill and the dense
-    prefill into its slice kv[b]; frame 0's cb0 from ``sample_cb0`` on the
-    [B, Vc] prefill logits. Then per frame-set: K6 (in groups of
+    caps lane b at budgets[b] frames; allow_eos=False suppresses EOS, as in
+    generate_from_tokens. The B prefill windows run as one prefill
+    (``build_prefill`` and ``talker_prefill`` on [B, P, H], each projection
+    one product of B*P rows, as continuous serving's refill runs them; every
+    lane computes what its own prefill would); frame 0's cb0 from
+    ``sample_cb0`` on the [B, Vc] prefill logits. Then per frame-set: K6 (in groups of
     CP_KERNEL_MAX_LANES lanes), or ``predict_codes`` on all B lanes as M = B
     rows, predicts codes 1..15 and rest_sum; the codes are written for
     emitting lanes only and their seen-sets updated; step_embd =
@@ -242,7 +249,7 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     greedy, use_top_p = sampling_flags(temperature, top_p)
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
-    cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos)
+    cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos if allow_eos else -1)
     # lane b's draws: 1 for frame 0's cb0, then (code predictor, next cb0)
     # per frame, as generate_from_tokens draws them
     lane_seeds = []
@@ -254,20 +261,19 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     lanes = torch.arange(B, device=dev)
 
     with torch.no_grad():
-        prefills = [talker_model.build_prefill(
-            talker_params, tcfg, torch.as_tensor(tokens[b]), int(n_tokens[b]),
-            speaker_embd[b], int(language_ids[b]), nothink=nothink) for b in range(B)]
-        P = prefills[0].prefill_embd.shape[0]
-        trailing = torch.stack([p.trailing for p in prefills])       # [B, Trb, H]
+        prefill = talker_model.build_prefill(
+            talker_params, tcfg, torch.as_tensor(tokens), torch.as_tensor(n_tokens),
+            speaker_embd, torch.as_tensor(language_ids), nothink=nothink)
+        P = prefill.prefill_embd.shape[1]
+        trailing = prefill.trailing                                  # [B, Trb, H]
         Trb = trailing.shape[1]
         if P + max_frames > kv_capacity:
             raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
         kv = torch.zeros((B, tcfg.n_layers, 2, tcfg.n_kv_heads, kv_capacity, tcfg.head_dim),
                          dtype=dtype, device=dev)
-        outs = [talker_model.talker_prefill(talker_params, tcfg, p.prefill_embd, kv[b])
-                for b, p in enumerate(prefills)]
-        last_hidden = torch.stack([h for h, _ in outs])
-        cb0_next = sample_cb0(torch.stack([lg for _, lg in outs]), seeds[:, 0], **cb0_kw)
+        last_hidden, logits = talker_model.talker_prefill(talker_params, tcfg,
+                                                          prefill.prefill_embd, kv)
+        cb0_next = sample_cb0(logits, seeds[:, 0], **cb0_kw)
         seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         frame = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -277,7 +283,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
         n_past = P
         for it in range(max_frames):
             cb0 = cb0_next.to(torch.int64)
-            done = done | (cb0 == eos)
+            if allow_eos:
+                done = done | (cb0 == eos)
             emit = ~done
             if not bool(emit.any()):
                 break

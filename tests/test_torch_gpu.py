@@ -26,7 +26,9 @@ def tts():
 @pytest.mark.parametrize("check", ["check_sampler", "check_talker_step",
                                    "check_code_predictor", "check_talker_step_batched",
                                    "check_code_predictor_batched", "check_res_block",
-                                   "check_int8_matmul", "check_decode_attention"])
+                                   "check_int8_matmul", "check_decode_attention",
+                                   "check_talker_step_start",
+                                   "check_code_predictor_per_lane"])
 def test_kernel_matches_plain_on_card(tts, check):
     report = {}
     getattr(chip_smoke, check)(tts, report, iters=1)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
@@ -33,7 +34,7 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.text.bpe", "qwen3tts_tpu_torch.ops.int8_matmul",
     "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
     "qwen3tts_tpu_torch.models.code_predictor", "qwen3tts_tpu_torch.ops.quant",
-    "qwen3tts_tpu_torch.ops.w4_gemv_probe",
+    "qwen3tts_tpu_torch.ops.w4_gemv_probe", "qwen3tts_tpu_torch.runtime.continuous",
 ]
 
 
@@ -220,11 +221,15 @@ def test_device_request_raises_without_the_library(no_library, kernel):
         elif base == "fused_talker_step_batched":
             kv = torch.zeros((2, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
                              device=meta)
+            start = (dict(start=torch.zeros(2, dtype=torch.int32, device=meta))
+                     if kernel in chip_smoke.OPERAND_ENTRIES else {})
             fn(tp.blocks, tcfg, torch.zeros((2, tcfg.hidden_size), device=meta), 3, kv,
-               output_norm=tp.output_norm, codec_head=tp.codec_head)
-        elif kernel == "fused_predict_codes_batched":
+               output_norm=tp.output_norm, codec_head=tp.codec_head, **start)
+        elif base == "fused_predict_codes_batched":
             h = torch.zeros((2, ccfg.hidden_size), device=meta)
-            fn(cp, ccfg, h, h, [0, 1], temperature=0.0, top_k=50, greedy=True)
+            temp = (torch.ones(2, device=meta) if kernel in chip_smoke.OPERAND_ENTRIES
+                    else 0.0)
+            fn(cp, ccfg, h, h, [0, 1], temperature=temp, top_k=50, greedy=True)
         elif kernel == "int8_matmul":
             fn(torch.zeros((2, 128), device=meta), torch.zeros((128, 64), dtype=torch.int8,
                                                              device=meta),
@@ -269,6 +274,10 @@ def test_chip_smoke_phases_at_tiny_config():
     chip_smoke.check_talker_step_batched(
         tts, report, iters=1, shapes=((2, 32, (3,)), (3, 32, (5, 20)), (2, 64, (40,))))
     chip_smoke.check_code_predictor_batched(tts, report, iters=1, B=6)
+    chip_smoke.check_talker_step_start(tts, report, iters=1, B=5, C=64, n_past=40, lows=(0, 24))
+    assert {"ms_start_min_24", "bound_ms_start_min_24"} <= set(
+        report["fused_talker_step_batched[start]"])
+    chip_smoke.check_code_predictor_per_lane(tts, report, iters=1, B=6)
     chip_smoke.check_res_block(tts, report, iters=1)
     chip_smoke.check_int8_matmul(tts, report, iters=1, rows=(1, 3))
     chip_smoke.check_decode_attention(tts, report, iters=1, L=2,
@@ -317,17 +326,57 @@ def test_chip_smoke_phases_at_tiny_config():
     assert all(s["ok"] for s in stats)
 
 
+def test_chip_smoke_queues_at_tiny_config(capsys):
+    """The serve phase's continuous queues at the tiny configuration on the
+    CPU (plain versions, so every launch count stays 0 and only the
+    launch checks are left out): the bench mix emits every budget, the
+    tight queue compacts and resets and its first fill equals
+    synthesize_batch, the sampled queue stands beside synthesize_batch."""
+    tts = _tiny_pipeline()
+    bf16 = _tiny_pipeline(None)
+    specs = dict(
+        bench=dict(n=6, lanes=2, kv_capacity=64, chunk_frames=4, max_frames=8),
+        sampled=dict(texts=5, lanes=2, group=3, kw=dict(max_audio_tokens=4, seed=3)),
+        # a small tight queue whose budgets still force a compaction and a
+        # session reset
+        tight=dict(lanes=2, kv_capacity=56, chunk_frames=2, refill_slots=1, max_frames=16),
+        bf16=dict(texts=3, lanes=2, kw=dict(max_audio_tokens=4, temperature=0.0, seed=1),
+                  budgets=[2, 4, 3]),
+        unfused=dict(texts=3, lanes=2, kw=dict(max_audio_tokens=4, temperature=0.0, seed=1),
+                     budgets=[3, 2, 4]))
+    check = chip_smoke.check_launches
+    chip_smoke.check_launches = lambda *a, **k: None
+    try:
+        runs = chip_smoke.serve_queues(tts, chip_smoke.unfused_pipeline(tts), bf16, "cpu",
+                                       specs)
+    finally:
+        chip_smoke.check_launches = check
+    assert len(runs) == 6 and all(set(r.values()) == {0} for r in runs)
+    lines = [json.loads(l.split(" ", 1)[1]) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("serve_queue ")]
+    assert [l["queue"] for l in lines] == ["bench mix", "sampled", "tight greedy", "bf16",
+                                           "unfused"]
+    assert lines[2]["compactions"] >= 1 and lines[2]["sessions"] >= 1
+    assert lines[2]["first_fill_frames_compared"] > 0
+    assert lines[1]["static_frames"] > 0 and lines[1]["continuous_over_static"] > 0
+
+
 def test_unfused_path_needs_decode_attention_from_1024_rows():
     """The kernels the smoke demands of an unfused request: the GEMM and K3,
     and decode attention where the request's KV capacity takes the kernel
-    (at the full widths: 600 tokens give C = 1280, 64 give C = 256)."""
-    from qwen3tts_tpu_torch.config import PipelineConfig
+    (at the full widths: 600 tokens give C = 1280, 64 give C = 256; the
+    smoke's long request and its batch both run at C = 1280)."""
+    from qwen3tts_tpu_torch.config import PipelineConfig, SamplingConfig
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 
     tts = Qwen3TTS(PipelineConfig(), device="cpu")    # no weights needed
     assert chip_smoke.unfused_path(tts, dict(max_audio_tokens=64)) == chip_smoke.UNFUSED_PATH
     assert chip_smoke.unfused_path(tts, dict(max_audio_tokens=600)) == (
         chip_smoke.UNFUSED_PATH + ("decode_attention",))
+    for kw in ([kw for _, kw in chip_smoke.UNFUSED_REQUESTS[1:]]
+               + [kw for _, kw in chip_smoke.UNFUSED_BATCHES]):
+        assert tts._frame_budget(SamplingConfig(**kw))[1] == 1280
+        assert "decode_attention" in chip_smoke.unfused_path(tts, kw)
 
 
 def test_check_launches_demands_the_path_and_forbids_the_rest():
