@@ -18,7 +18,13 @@ Phases (each prints a line; any failure exits non-zero):
      starts over [0, n_past], one lane at n_past, and per-lane sampling
      parameters; 0.0 over 2 layers, cb0 equal in every lane; timed beside K5
      without start) and K6 with per-lane temperature and top-p (codes
-     equal). Then the 4-bit GEMV probe (int8 and packed-nibble weights,
+     equal). K1 and K5 over the int8-KV tier's (q, scale) cache
+     (check_talker_step_kv_int8): over 2 layers and at full depth, hidden
+     0.0 and the whole (q, scale) cache bit for bit after the step, cb0
+     equal; timed beside their bf16-KV times at K1 C = 4352, n_past 300 and
+     4000, K5 B = 16, C = 4352, n_past = 4000 and B = 64, C = 512, n_past =
+     300; the cache's bytes and the peak memory of one K5 call at B = 64,
+     C = 4352 in both tiers. Then the 4-bit GEMV probe (int8 and packed-nibble weights,
      exact) beside K1's projection kernels at the probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
@@ -29,7 +35,11 @@ Phases (each prints a line; any failure exits non-zero):
      projections); then two synthesize_batch calls (16 texts greedy, 64
      texts sampled), whose lanes must have finite audio and codes in range,
      which must emit at least 8 frames per lane in all and launch K5, K6, K3
-     and the GEMM; then the unfused path on the same weights,
+     and the GEMM; then the int8-KV tier on the same weights
+     (RuntimeConfig.kv_quant="int8", `serve_kv_int8` lines): the sampled
+     1500-token request (C = 2304) and the 64-lane sampled batch, which
+     must launch K1[kv_int8] or K5[kv_int8] and no K1/K5 over a bf16 cache;
+     then the unfused path on the same weights,
      Qwen3TTS(..., fused_talker=False, fused_cp=False): a greedy 64-token
      request (C = 256: the GEMM, attention in PyTorch), then, with
      RuntimeConfig.kv_margin = 1000, a sampled request of
@@ -133,12 +143,25 @@ for _mode in MODE_TIERS:
 # per-lane temperature and top-p (the wrappers' operand_launches)
 OPERAND_ENTRIES = {"fused_talker_step_batched[start]": "start",
                    "fused_predict_codes_batched[per_lane]": "per_lane"}
+# the int8-KV tier's operand, one entry each for K1 and K5: their launches
+# over the (q, scale) cache, which count in no weight mode's entry
+KV_INT8_ENTRIES = ("fused_talker_step[kv_int8]", "fused_talker_step_batched[kv_int8]")
+OPERAND_ENTRIES.update({name: "kv_int8" for name in KV_INT8_ENTRIES})
 for _name in OPERAND_ENTRIES:
     KERNELS[_name] = KERNELS[_name.partition("[")[0]]
+# K1's int8-KV operand is the Pallas HBM kernel's (kv_int8 in :564 and :765)
+KERNELS["fused_talker_step[kv_int8]"] = KERNELS["fused_talker_step"][:3] + (
+    "qwen3tts_tpu/ops/pallas_talker_step.py:980",)
 # TPU kernels a kernel replaces besides the one KERNELS names
 ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201"}
 ALSO_REPLACES.update({name: "qwen3tts_tpu/ops/pallas_talker_step.py:980" for name in KERNELS
-                      if name.partition("[")[0] == "fused_talker_step"})
+                      if name.partition("[")[0] == "fused_talker_step"
+                      and name not in KV_INT8_ENTRIES})
+# K1 and K5 over a bf16 cache, in every weight mode and with `start`
+BF16_KV_TALKER = tuple(name for name in KERNELS
+                       if name.partition("[")[0] in ("fused_talker_step",
+                                                     "fused_talker_step_batched")
+                       and name not in KV_INT8_ENTRIES)
 # the kernels each main path must launch (K4's standalone entry is on none:
 # see the module docstring); the unfused path launches decode attention
 # only at KV capacities of 1024 rows and more
@@ -266,17 +289,18 @@ def _stack(blocks):
     return _nbytes(*ts), counts
 
 
-def talker_step_bound(tp, tcfg, B, n_past, rows=None):
+def talker_step_bound(tp, tcfg, B, n_past, rows=None, kv_int8=False):
     """One talker step for B lanes at n_past: the stack, output norm and
-    codec head once; each lane's KV rows 0..n_past (bf16), or rows[b] of
-    them (the rows [start_b, n_past] a lane attends with K5's start
-    operand), and its input, outputs, seen-set and seed (with per-lane
-    sampling parameters, 12 bytes more). Operations: the projections'
-    products by type, the bf16 head, the float32 attention (q.k and p.v)
-    over the rows read."""
+    codec head once; each lane's KV rows 0..n_past (bf16; kv_int8: int8
+    values and a float32 scale per row and head), or rows[b] of them (the
+    rows [start_b, n_past] a lane attends with K5's start operand), and its
+    input, outputs, seen-set and seed (with per-lane sampling parameters,
+    12 bytes more). Operations: the projections' products by type, the bf16
+    head, the float32 attention (q.k and p.v) over the rows read."""
     H, Vc, L = tcfg.hidden_size, tcfg.codec_vocab_size, tcfg.n_layers
     sb, n = _stack(tp.blocks)
-    kv_row = L * 2 * tcfg.n_kv_heads * tcfg.head_dim * 2
+    D = tcfg.head_dim
+    kv_row = L * 2 * tcfg.n_kv_heads * (D + 4 if kv_int8 else 2 * D)
     lane = H * 2 + H * 4 + Vc * 4 + Vc + 8 + (0 if rows is None else 12)
     n_rows = B * (n_past + 1) if rows is None else int(sum(rows))
     nbytes = sb + _nbytes(tp.output_norm, tp.codec_head) + n_rows * kv_row + B * lane
@@ -810,6 +834,230 @@ def check_talker_step_start(tts, report, iters, B=64, C=1024, n_past=600, lows=(
     del kv0
 
 
+def _int8_cache(kv):
+    """The (q, scale) pair of a bf16 cache (ops/kv_quant.quantize_kv),
+    quantized slice by slice along its first axis (no float32 copy of the
+    whole cache)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.kv_quant import quantize_kv
+
+    parts = [quantize_kv(kv[i]) for i in range(kv.shape[0])]
+    return torch.stack([q for q, _ in parts]), torch.stack([s for _, s in parts])
+
+
+def _clone_pair(pair, n_layers=None, lane_axis=False):
+    """A contiguous copy of an int8 cache pair, cut to its first n_layers
+    layers (axis 0, or 1 with lane_axis)."""
+    import torch
+
+    cut = (slice(None),) * int(lane_axis) + (slice(0, n_layers),)
+    return tuple(t[cut].clone(memory_format=torch.contiguous_format) for t in pair)
+
+
+def _same_pair(a, b):
+    """Both halves of two int8 cache pairs equal bit for bit."""
+    import torch
+
+    return bool(torch.equal(a[0], b[0])) and bool(torch.equal(a[1].view(torch.int32),
+                                                             b[1].view(torch.int32)))
+
+
+def _kv_int8_gates(step, plain, full_blocks, cfg, short_blocks, short_cfg, x, n_past, pair,
+                   greedy, sampled, what, lane_axis):
+    """Hold `step` (K1 or K5) over the int8 cache `pair` against `plain` on
+    clones of it, from identical inputs: (1) the first 2 layers, greedy and
+    sampled: hidden 0.0, logits 1e-3 (the head sums in float32 in two
+    orders), the whole (q, scale) cache equal bit for bit after the step,
+    cb0 equal in every lane; (2) all layers, greedy: hidden 0.0, the cache
+    equal, cb0 equal unless the plain logits' top-2 gap is below twice the
+    logits error. Returns the worst (2-layer, all-layer) error."""
+    import torch
+
+    worst = [0.0, 0.0]
+    for i, (blocks, c, runs) in enumerate(((short_blocks, short_cfg, (greedy, sampled)),
+                                           (full_blocks, cfg, (greedy,)))):
+        for kw in runs:
+            ka = _clone_pair(pair, c.n_layers, lane_axis)
+            kb = _clone_pair(pair, c.n_layers, lane_axis)
+            a = step(blocks, c, x, n_past, ka, **kw)
+            b = plain(blocks, c, x, n_past, kb, **kw)
+            eh, el = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits)
+            same = _same_pair(ka, kb)
+            ca, cb = a.cb0.reshape(-1).long(), b.cb0.reshape(-1).long()
+            top2 = torch.topk(b.logits.float().reshape(ca.numel(), -1), 2, dim=-1).values
+            cb0_ok = bool(((ca == cb) | (top2[:, 0] - top2[:, 1] < 2 * el)).all()) if i \
+                else bool((ca == cb).all())
+            print(f"kernel {what} {c.n_layers} layers n_past={n_past} greedy={kw['greedy']}: "
+                  f"hidden err {eh:.3e}, logits err {el:.3e}, (q, scale) cache "
+                  f"{'equal' if same else 'DIFFERS'}, cb0 equal {int((ca == cb).sum())}/"
+                  f"{ca.numel()}")
+            if not (eh == 0.0 and (i or el <= 1e-3) and same and cb0_ok):
+                raise SmokeFailure(f"{what} ({c.n_layers} layers, n_past {n_past}) disagrees "
+                                   f"with its plain version")
+            worst[i] = max(worst[i], eh, el)
+        del ka, kb
+    return worst
+
+
+def check_talker_step_kv_int8(tts, report, iters, single=((512, (10, 300)), (4352, (4000,))),
+                              batched=((16, 4352, (4000,)), (64, 512, (10, 300)),
+                                       (5, 512, (10,)))):
+    """K1 and K5 over the int8-KV tier's (q, scale) cache against their
+    plain versions, in tts's weight mode, teacher-forced single steps from
+    clones of one quantized cache (a random bf16 cache through quantize_kv),
+    with the gates of ``_kv_int8_gates`` at each K1 (C, n_past) of `single`
+    and K5 (B, C, n_past) of `batched`. Timed: K1 at C = 4352, n_past 300
+    and 4000; K5 at B = 16, C = 4352, n_past = 4000 and at B = 64, C = 512,
+    n_past = 300 (the headline, K5's bf16-KV headline shape), each beside
+    the bf16-KV time at the same shape where ``check_talker_step`` and
+    ``check_talker_step_batched`` put it in the report; the kernels of one
+    call over each cache (``device_breakdown``): K1 at its last (C,
+    n_past), K5 at C > 4000. Bound:
+    the bytes of the weights, head, int8 rows and row scales read. Then the
+    memory of one K5 call at B = 64, C = 4352 in both tiers
+    (``kv_memory``)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (
+        fused_talker_step, fused_talker_step_batched, fused_talker_step_batched_plain,
+        fused_talker_step_plain)
+
+    tp, dev = tts.talker_params, tts.device
+    tcfg = tts.config.talker
+    L, Hkv, D, Vc = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim, tcfg.codec_vocab_size
+    g = torch.Generator(device=dev).manual_seed(41)
+    short_blocks, short_cfg = _truncated(tts, min(2, L))
+
+    def kws(B, per_lane):
+        seen = torch.zeros((B, Vc) if per_lane else (Vc,), dtype=torch.int8, device=dev)
+        seen[..., :64] = 1
+        base = dict(output_norm=tp.output_norm, codec_head=tp.codec_head, seen=seen, top_k=50,
+                    repetition_penalty=1.05, suppress_start=Vc - 1024, eos_id=tcfg.codec_eos_id)
+        if per_lane:
+            base["seeds"] = torch.arange(B, dtype=torch.int32, device=dev) * 7919 - 1000
+        else:
+            base["seed"] = 17
+        return (dict(base, temperature=0.0, greedy=True, use_top_p=False),
+                dict(base, temperature=0.9, greedy=False, use_top_p=False))
+
+    def cache(shape):
+        kv = torch.randn(shape, generator=g, device=dev, dtype=tts.dtype) * 0.5
+        return kv, _int8_cache(kv)
+
+    # K1
+    key = "fused_talker_step[kv_int8]"
+    x = torch.randn((tcfg.hidden_size,), generator=g, device=dev).to(tts.dtype)
+    greedy, sampled = kws(1, False)
+    errs, r = [0.0, 0.0], {}
+    for C, n_pasts in single:
+        kv, pair = cache((L, 2, Hkv, C, D))
+        for n_past in n_pasts:
+            w = _kv_int8_gates(fused_talker_step, fused_talker_step_plain, tp.blocks, tcfg,
+                               short_blocks, short_cfg, x, n_past, pair, greedy, sampled,
+                               f"{key} C={C}", False)
+            errs = [max(a, b) for a, b in zip(errs, w)]
+    # the kernels of one call over each cache, at the last C and n_past
+    r.update(top_device_ms=device_breakdown(
+        lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, pair, **greedy), dev),
+        bf16_kv_top_device_ms=device_breakdown(
+            lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, kv, **greedy), dev))
+    del kv
+    bf16 = report.get("fused_talker_step", {})
+    for n_past, sfx in ((300, ""), (4000, "_n_past_4000")):
+        run = lambda n=n_past: fused_talker_step(tp.blocks, tcfg, x, n, pair,  # noqa: E731
+                                                 **greedy)
+        r[f"ms{sfx}"] = timed(run, dev, iters)
+        r[f"device_ms{sfx}"] = device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES + ("kv_row_",),
+                                                  dev)
+        r[f"bound_ms{sfx}"], bound_by = talker_step_bound(tp, tcfg, 1, n_past, kv_int8=True)
+        r[f"bf16_kv_ms{sfx}"] = bf16.get(f"ms{sfx}")
+    r["plain_ms"] = timed(lambda: fused_talker_step_plain(tp.blocks, tcfg, x, 300, pair,
+                                                          **greedy), dev, iters)
+    report[key] = dict(
+        r, bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
+        max_abs_err_2_layers=errs[0], max_abs_err_all_layers=errs[1],
+        shape=f"C={pair[0].shape[3]} n_past=300 (and 4000)",
+        tolerance=("2 layers: hidden 0.0, (q, scale) cache bit for bit, logits 1e-3, cb0 equal; "
+                   "all layers: hidden 0.0, cache bit for bit"))
+    del pair
+
+    # K5
+    key = "fused_talker_step_batched[kv_int8]"
+    errs, times = [0.0, 0.0], {}
+    bf16 = report.get("fused_talker_step_batched", {})
+    for B, C, n_pasts in batched:
+        x = torch.randn((B, tcfg.hidden_size), generator=g, device=dev).to(tts.dtype)
+        greedy, sampled = kws(B, True)
+        kv, pair = cache((B, L, 2, Hkv, C, D))
+        for n_past in n_pasts:
+            w = _kv_int8_gates(fused_talker_step_batched, fused_talker_step_batched_plain,
+                               tp.blocks, tcfg, short_blocks, short_cfg, x, n_past, pair,
+                               greedy, sampled, f"{key} B={B} C={C}", True)
+            errs = [max(a, b) for a, b in zip(errs, w)]
+        n_t = n_pasts[-1]
+        run = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, pair,  # noqa: E731
+                                                **greedy)
+        where = f"B={B} C={C} n_past={n_t}"
+        times[where] = dict(
+            ms=timed(run, dev, iters),
+            device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES + ("kv_row_",), dev),
+            bound_ms=talker_step_bound(tp, tcfg, B, n_t, kv_int8=True)[0],
+            bf16_kv_ms=(bf16.get("times", {}).get(where) or {}).get("ms"))
+        if C > 4000:   # where attention costs most: the kernels of one call, both caches
+            times[where].update(top_device_ms=device_breakdown(run, dev), bf16_kv_top_device_ms=(
+                device_breakdown(lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, kv,
+                                                                   **greedy), dev)))
+        del kv
+        if (B, C) == (64, 512):
+            head = dict(times[where], plain_ms=timed(lambda: fused_talker_step_batched_plain(
+                tp.blocks, tcfg, x, n_t, pair, **greedy), dev, iters), shape=where)
+            bound_by = talker_step_bound(tp, tcfg, B, n_t, kv_int8=True)[1]
+        del pair
+    report[key] = dict(
+        head, bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
+        max_abs_err_2_layers=errs[0], max_abs_err_all_layers=errs[1], times=times,
+        memory=kv_memory(tts) if dev.type == "cuda" else None,
+        tolerance=("per lane: 2 layers hidden 0.0, (q, scale) cache bit for bit, logits 1e-3, "
+                   "cb0 equal; all layers hidden 0.0, cache bit for bit"))
+
+
+def kv_memory(tts, B=64, C=4352, n_past=300):
+    """The cache's bytes and torch.cuda.max_memory_allocated around one K5
+    call (greedy, no sampling) at B lanes and capacity C, for a bf16 cache
+    and for the int8 (q, scale) pair: each cache allocated, the peak
+    statistics reset, the call made and synchronized. Returns {tier:
+    {cache_bytes, allocated_before, peak_allocated}}."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import fused_talker_step_batched
+
+    tp, dev, tcfg = tts.talker_params, tts.device, tts.config.talker
+    shape = (B, tcfg.n_layers, 2, tcfg.n_kv_heads, C, tcfg.head_dim)
+    x = torch.zeros((B, tcfg.hidden_size), device=dev, dtype=tts.dtype)
+    out = {}
+    for tier in ("bf16", "int8"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        kv = (torch.zeros(shape, dtype=torch.bfloat16, device=dev) if tier == "bf16" else
+              (torch.zeros(shape, dtype=torch.int8, device=dev),
+               torch.full(shape[:-1], 1e-8 / 127, dtype=torch.float32, device=dev)))
+        nbytes = _nbytes(*(kv if isinstance(kv, tuple) else (kv,)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kv, output_norm=tp.output_norm,
+                                  codec_head=tp.codec_head)
+        torch.cuda.synchronize(dev)
+        out[tier] = dict(cache_bytes=nbytes, allocated_before=before,
+                         peak_allocated=torch.cuda.max_memory_allocated(dev))
+        print(f"memory K5 B={B} C={C} {tier} KV: cache {nbytes} bytes, allocated before the "
+              f"call {before}, peak {out[tier]['peak_allocated']}")
+        del kv
+    torch.cuda.empty_cache()
+    out["int8_over_bf16_cache"] = out["int8"]["cache_bytes"] / out["bf16"]["cache_bytes"]
+    return out
+
+
 def check_code_predictor_per_lane(tts, report, iters, B=64):
     """K6 with per-lane temperature and top-p (``lane_sampling``), greedy,
     sampled and sampled with top-p, B distinct seeds. Gate: every lane's 15
@@ -1214,6 +1462,53 @@ BATCH_REQUESTS = [
     (64, dict(max_audio_tokens=256, seed=3)),
 ]
 
+# the int8-KV tier (RuntimeConfig.kv_quant="int8") on the int8 pipeline's
+# weights: the sampled 1500-token request (C = 2304) and the 64-lane sampled
+# batch; each must launch its [kv_int8] entry and no K1/K5 over a bf16 cache
+KV_INT8_REQUESTS = [MAIN_REQUESTS[2]]
+KV_INT8_BATCHES = [BATCH_REQUESTS[1]]
+KV_INT8_SINGLE = ("fused_talker_step[kv_int8]", "fused_predict_codes", "fused_res_block",
+                  "int8_matmul")
+KV_INT8_BATCH = ("fused_talker_step_batched[kv_int8]", "fused_predict_codes_batched",
+                 "fused_res_block", "int8_matmul")
+
+
+def kv_int8_pipeline(tts):
+    """A Qwen3TTS on tts's weights and flags with RuntimeConfig.kv_quant =
+    "int8"."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    cfg = dataclasses.replace(tts.config, runtime=dataclasses.replace(tts.config.runtime,
+                                                                      kv_quant="int8"))
+    q = Qwen3TTS(cfg, device=tts.device, **tts.fused)
+    q.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params)
+    return q
+
+
+def serve_kv_int8(tts, smi, requests=KV_INT8_REQUESTS, batches=KV_INT8_BATCHES,
+                  min_frames_per_lane=8):
+    """The int8-KV tier's serve phase on tts's weights: the requests, then
+    the batches, each run's launch counts set to 0 just before it and
+    checked just after (its [kv_int8] entry, K2/K6, K3 and the GEMM; none
+    of K1/K5 over a bf16 cache). Prints serve_kv_int8 lines; returns the
+    counts of both runs."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    tts_kv = kv_int8_pipeline(tts)
+    stats, single = serve(tts_kv, requests)
+    for st in stats:
+        check_launches(f"int8-KV request {st['request']}", st["launches"], KV_INT8_SINGLE,
+                       BF16_KV_TALKER + KV_INT8_ENTRIES[1:])
+        C = tts_kv._frame_budget(SamplingConfig(**st["request"]))[1]
+        print("serve_kv_int8 " + json.dumps(dict(st, kv_capacity=C, card=smi)))
+    stats, batch = serve_batches(tts_kv, batches, min_frames_per_lane)
+    for st in stats:
+        check_launches(f"int8-KV batch {st['lanes']}", st["launches"], KV_INT8_BATCH,
+                       BF16_KV_TALKER + KV_INT8_ENTRIES[:1])
+        print("serve_kv_int8_batch " + json.dumps(dict(st, card=smi)))
+    return [single, batch]
+
+
 # the unfused path on the same weights: single-stream requests (C = 256 and
 # C = 1280), then a batch (C = 1280)
 UNFUSED_REQUESTS = [
@@ -1277,10 +1572,11 @@ MODE_BATCH_SHAPES = ((16, 512, (10, 300)), (64, 512, (10, 300)), (5, 512, (10,))
 
 def tier_forbidden(spec):
     """The kernels a tier's serve path must not launch: its own forbidden
-    list and every K1/K5 entry of another weight mode (w8a8 included)."""
+    list, every K1/K5 entry of another weight mode (w8a8 included) and K1/K5
+    over the int8 KV cache (the tier's cache is bf16)."""
     other = tuple(name for name in KERNELS
                   if kernel_mode(name) not in (None, spec["mode"]))
-    return tuple(spec["forbidden"]) + other
+    return tuple(spec["forbidden"]) + other + KV_INT8_ENTRIES
 
 
 def default_pipeline(seed=0):
@@ -1717,6 +2013,22 @@ def device_ms_per_call(fn, calls, prefixes, device, expect=None, tries=3):
     return None
 
 
+def device_breakdown(fn, device, n=12):
+    """device_top of one call of fn under the profiler (device activity
+    only), after a warm-up call; None off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    return device_top(device_events(prof), n)
+
+
 def device_top(events, n=8):
     """The n device activities with the most time in the trace: [name, ms,
     launches]; a kernel's name is cut to its bare function name (no return
@@ -1778,6 +2090,7 @@ def main():
         check_talker_step_batched(tts, report, iters=3)
         check_code_predictor_batched(tts, report, iters=3)
         check_talker_step_start(tts, report, iters=3)
+        check_talker_step_kv_int8(tts, report, iters=3)
         check_code_predictor_per_lane(tts, report, iters=3)
         check_res_block(tts, report, iters=3)
         check_int8_matmul(tts, report, iters=5)
@@ -1808,8 +2121,8 @@ def main():
         for st in bstats:
             check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH, int8_forbidden)
             print("serve_batch " + json.dumps(dict(st, card=smi)))
+        runs = [single_counts, batch_counts] + serve_kv_int8(tts, smi)
         tts_u = unfused_pipeline(tts)
-        runs = [single_counts, batch_counts]
         ustats, c = serve(tts_u, UNFUSED_REQUESTS)
         runs.append(c)
         for st in ustats:

@@ -39,7 +39,7 @@ SIGNATURES = {
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
         P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
         P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
-        P, P, I, P,                      # output_norm, codec_head, modes, kv
+        P, P, I, P, P,                   # output_norm, codec_head, modes, kv, kv_scale
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
                                          # use_top_p suppress eos seed
@@ -50,7 +50,7 @@ SIGNATURES = {
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
         P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
         P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
-        P, P, I, P,                      # output_norm, codec_head, modes, kv
+        P, P, I, P, P,                   # output_norm, codec_head, modes, kv, kv_scale
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, P, F, F, F, I, I, I, I, I,    # seen seeds temp top_p pen top_k
                                          # greedy use_top_p suppress eos

@@ -188,8 +188,9 @@ class SamplingConfig:
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Execution policy: dtypes and shape buckets. The port reads dtype,
-    quant, the prefill and frame buckets and kv_margin; the other fields are
-    kept so the two packages' configs stay interchangeable."""
+    quant, the prefill and frame buckets, vocoder_chunk_frames, kv_margin
+    and kv_quant; the other fields are kept so the two packages' configs
+    stay interchangeable."""
 
     # Parameter / activation compute dtype ("bfloat16" or "float32").
     dtype: str = "bfloat16"
@@ -204,7 +205,8 @@ class RuntimeConfig:
     frame_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
     # Vocoder frame buckets (one compiled graph per bucket).
     vocoder_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
-    # Streaming vocoder chunk size in frames (0 = whole clip in one graph).
+    # Vocoder chunk size in frames (0 = the whole clip in one pass; else
+    # longer clips are vocoded in chunks with 16 frames of left context).
     vocoder_chunk_frames: int = 0
     # Samples buckets for the speaker-encoder mel front end (seconds * 24k).
     speaker_buckets: Tuple[int, ...] = tuple(24000 * s for s in (2, 5, 10, 20, 30, 60))
@@ -217,10 +219,10 @@ class RuntimeConfig:
     # the ACTUAL frame count.
     fused_dispatch: bool = False
     # KV-cache storage: "none" (cache at compute dtype) | "int8" (per-row
-    # quantized: halves the cache footprint and slab DMA of the fused HBM
-    # talker kernels — a MEMORY tier; the per-element int8 dequant cast
-    # currently offsets the DMA speedup, see pipeline.resolve_kv_quant) |
-    # "auto" (policy in resolve_kv_quant). Env override: QWEN3TTS_KV_INT8=1/0.
+    # quantized (q, scale) pair on the fused talker step: 0.516 of the bf16
+    # cache's bytes, a MEMORY tier) | "auto" (policy in
+    # pipeline.resolve_kv_quant: "none"). The JAX package also reads an
+    # environment override, which the port does not.
     kv_quant: str = "auto"
 
 

@@ -68,6 +68,23 @@
 // skip, :1445); merge then sums from that chunk. K1, K2 and K6 pass no
 // start.
 //
+// The int8 KV cache (the int8-KV tier; the Pallas kernels' kv_int8 operand,
+// :564, :765, :1402): int8 rows with one float32 scale per row, read by
+// their own attention kernels (attn_scores_q8, attn_softmax_q8,
+// attn_pv_q8). The current step's K/V rows go to a bf16 staging buffer
+// instead of the cache and are attended from there, unquantized, folded in
+// after the cached rows as the Pallas kernels fold them into their flash
+// state (:716-725, :930, :1554-1566); kv_row_quant then writes their (q,
+// scale) at pos. A cached score is (q . k) * D^-0.5 * k_scale (:693, :907,
+// :1529-1533); a cached row's e = exp(s - m) (m the cached rows' maximum,
+// not yet normalized) is multiplied by its V scale, then rounded to bf16 in
+// K1 (:701-703) and kept in float32 in K5 (:1541-1543), once per row and
+// query head (attn_softmax_q8), before p @ V; merge_kernel folds
+// in the current row and divides by the sum last (o = (acc * alpha + p *
+// v) / l, :711-725). q is rounded to bf16. The quantization is
+// ops/kv_quant.py's: scale = max(amax, 1e-8) * float32(1/127), q =
+// clip(rint(x / scale), -127, 127) with an IEEE divide (__fdiv_rn).
+//
 // Every float sum whose result feeds a rounding — the projections of the
 // float modes, the RMSNorm variances, q.k, the softmax sum, p @ V — runs in
 // float64 and is rounded to float32 once, and exp (softmax, SiLU) is
@@ -80,6 +97,8 @@
 // add (__fmul_rn, __fadd_rn, __fsub_rn) where the plain version rounds it
 // first.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "sampler.cuh"
@@ -681,10 +700,138 @@ __global__ void attn_pv_kernel(const float* __restrict__ p, int ld, const T* __r
   partial[((size_t)b * chunk_cap + c) * Hq * D + (size_t)hq * D + d] = o;
 }
 
+// --- the int8 KV cache (see the header) -------------------------------------
+
+// Row t of (kv half, head h) of lane b in an int8 cache half K or V (lane b
+// at b * lane_stride, head h at h * head_stride, row t at t * D) has its
+// scale at (b * lane_stride + h * head_stride) / D + t of that half's
+// scales: the scale array is the cache's shape without its last axis.
+__device__ __forceinline__ long q8_scale_base(int b, int h, long head_stride,
+                                              long lane_stride, int D) {
+  return ((long)b * lane_stride + (long)h * head_stride) / D;
+}
+
+// scores[b, hq, t] for the rows t of chunk blockIdx.y up to pos: t < pos
+// from the int8 cache, (q_bhq . k_t) * scale * ks_t; t = pos from the bf16
+// staging rows cur [B, 2, Hkv, D] (K at 0), (q . k) * scale.
+// q is rounded to bf16. grid (Hkv, chunks, B); each warp takes one row at
+// a time.
+__global__ void attn_scores_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ K,
+                                      const float* __restrict__ Ks,
+                                      const __nv_bfloat16* __restrict__ cur, long head_stride,
+                                      long lane_stride, int pos, int G, int D, float scale,
+                                      float* __restrict__ scores, int ld) {
+  extern __shared__ float qs[];
+  const int h = blockIdx.x, b = blockIdx.z, Hkv = gridDim.x, Hq = Hkv * G;
+  q += (size_t)b * Hq * D;
+  scores += (size_t)b * Hq * ld;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
+    qs[i] = bf16_round(q[(size_t)h * G * D + i]);
+  __syncthreads();
+  const int8_t* kb = K + (long)b * lane_stride + (long)h * head_stride;
+  const float* ksb = Ks + q8_scale_base(b, h, head_stride, lane_stride, D);
+  const __nv_bfloat16* kcur = cur + ((size_t)b * 2 * Hkv + h) * D;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int c0 = blockIdx.y * kAttnChunk, t1 = min(pos + 1, c0 + kAttnChunk);
+  for (int t = c0 + wid; t < t1; t += nw) {
+    double a[kMaxGroup];
+    for (int g = 0; g < G; ++g) a[g] = 0.0;
+    for (int d = lane; d < D; d += 32) {
+      const double kv =
+          t < pos ? (double)kb[(size_t)t * D + d] : (double)__bfloat162float(kcur[d]);
+      for (int g = 0; g < G; ++g) a[g] += qs[g * D + d] * kv;
+    }
+    for (int g = 0; g < G; ++g) {
+      double s = a[g];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      float y = __fmul_rn((float)s, scale);
+      if (t < pos) y = __fmul_rn(y, ksb[t]);
+      if (lane == 0) scores[(size_t)(h * G + g) * ld + t] = y;
+    }
+  }
+}
+
+// The softmax of the int8 cache (grid (Hq, B)), in the Pallas kernels'
+// flash form over one chunk: m = the maximum of the cached rows' scores
+// (t < pos), e_t = exp(s_t - m), and pv_t = e_t * vs_t (vs_t the row's V
+// scale) in float32, rounded to bf16 when round_p, written over s_t for
+// attn_pv_q8; the current row folds in after them: m' = max(m, s_pos),
+// alpha = exp(m - m'), p_pos = exp(s_pos - m'), l = alpha * sum(e) +
+// p_pos; fold[b, hq] = (alpha, p_pos, l) for merge_kernel. exp and the sum
+// in float64.
+__global__ void attn_softmax_q8_kernel(float* __restrict__ scores, int ld, int pos,
+                                       const float* __restrict__ Vs, long head_stride,
+                                       long lane_stride, int D, int G, int round_p,
+                                       float* __restrict__ fold) {
+  __shared__ float red[32];
+  __shared__ double redd[32];
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const size_t row = (size_t)b * gridDim.x + hq;
+  float* s = scores + row * ld;
+  const float* vsb = Vs + q8_scale_base(b, hq / G, head_stride, lane_stride, D);
+  float m = -3.4e38f;
+  for (int t = threadIdx.x; t < pos; t += blockDim.x) m = fmaxf(m, s[t]);
+  m = block_max(m, red);
+  double sum = 0.0;
+  for (int t = threadIdx.x; t < pos; t += blockDim.x) {
+    const float e = (float)exp((double)(s[t] - m));
+    sum += e;
+    const float pv = __fmul_rn(e, vsb[t]);
+    s[t] = round_p ? bf16_round(pv) : pv;
+  }
+  sum = block_sum(sum, redd);
+  if (threadIdx.x == 0) {
+    const float mf = fmaxf(m, s[pos]);
+    const float alpha = (float)exp((double)(m - mf)), p = (float)exp((double)(s[pos] - mf));
+    fold[row * 3 + 0] = alpha;
+    fold[row * 3 + 1] = p;
+    fold[row * 3 + 2] = __fadd_rn(__fmul_rn(alpha, (float)sum), p);
+  }
+}
+
+// partial[b, c, hq, d] = sum over the cached rows t < pos of chunk c =
+// blockIdx.y of pv_t * V[t, d] in float64, pv from attn_softmax_q8 (the
+// current row folds in at merge_kernel). Lane b's partials start at b *
+// chunk_cap * Hq * D. grid (Hkv, chunks, B), block G * D threads.
+__global__ void attn_pv_q8_kernel(const float* __restrict__ pv, int ld,
+                                  const int8_t* __restrict__ V, long head_stride,
+                                  long lane_stride, int pos, int G, int D, int chunk_cap,
+                                  double* __restrict__ partial) {
+  const int h = blockIdx.x, b = blockIdx.z, Hq = gridDim.x * G;
+  const int g = threadIdx.x / D, d = threadIdx.x % D, hq = h * G + g, c = blockIdx.y;
+  const int t0 = c * kAttnChunk, t1 = min(pos, t0 + kAttnChunk);
+  const float* pr = pv + ((size_t)b * Hq + hq) * ld;
+  const int8_t* vb = V + (long)b * lane_stride + (long)h * head_stride + d;
+  double o = 0.0;
+  for (int t = t0; t < t1; ++t) o += (double)pr[t] * (double)vb[(size_t)t * D];
+  partial[((size_t)b * chunk_cap + c) * Hq * D + (size_t)hq * D + d] = o;
+}
+
+// One staged bf16 row (lane blockIdx.y, row blockIdx.x of its [2 * Hkv]: K
+// heads, then V heads) quantized as ops/kv_quant.quantize_kv quantizes it,
+// into row pos of the int8 cache (K, V) and its scale (Ks, Vs). Block = D
+// threads.
+__global__ void kv_row_quant_kernel(const __nv_bfloat16* __restrict__ cur, int Hkv, int D,
+                                    int8_t* __restrict__ K, int8_t* __restrict__ V,
+                                    float* __restrict__ Ks, float* __restrict__ Vs,
+                                    long head_stride, long lane_stride, int pos) {
+  __shared__ float red[32];
+  const int j = blockIdx.x, b = blockIdx.y, h = j % Hkv, d = threadIdx.x;
+  const float x = __bfloat162float(cur[((size_t)b * 2 * Hkv + j) * D + d]);
+  const float s = __fmul_rn(fmaxf(block_max(fabsf(x), red), 1e-8f), 1.0f / 127.0f);
+  const long row = (long)b * lane_stride + (long)h * head_stride + (long)pos * D;
+  (j < Hkv ? K : V)[row + d] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+  if (d == 0) (j < Hkv ? Ks : Vs)[q8_scale_base(b, h, head_stride, lane_stride, D) + pos] = s;
+}
+
 // Lane blockIdx.x: o = sum over chunks chunk0..chunks-1 of the float64
-// partials, rounded to float32; emit(o) to o_proj.
+// partials, rounded to float32; emit(o) to o_proj. With `fold` (the int8
+// cache: attn_softmax_q8's (alpha, p, l) per (lane, query head) of D
+// values, G query heads per KV head), the current row's staged V (vcur
+// [B, 2, Hkv, D], V at Hkv * D) folds in: o = (o * alpha + p * v) / l.
 __global__ void merge_kernel(const double* __restrict__ partial, int chunk0, int chunks,
-                             int chunk_cap, int n, Emit e) {
+                             int chunk_cap, int n, Emit e, const float* __restrict__ fold,
+                             const __nv_bfloat16* __restrict__ vcur, int D, int G) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   const int b = blockIdx.x;
@@ -693,7 +840,14 @@ __global__ void merge_kernel(const double* __restrict__ partial, int chunk0, int
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     double acc = 0.0;
     for (int c = chunk0; c < chunks; ++c) acc += partial[(size_t)c * n + i];
-    const float o = (float)acc;
+    float o = (float)acc;
+    if (fold != nullptr) {
+      const int hq = i / D, Hkv = n / (D * G);
+      const float* f = fold + ((size_t)b * (n / D) + hq) * 3;
+      const float v = __bfloat162float(
+          vcur[((size_t)b * 2 + 1) * Hkv * D + (size_t)(hq / G) * D + i % D]);
+      o = __fdiv_rn(__fadd_rn(__fmul_rn(o, f[0]), __fmul_rn(f[1], v)), f[2]);
+    }
     buf[i] = o;
     am = fmaxf(am, fabsf(o));
   }
@@ -785,6 +939,8 @@ struct Work {
   double* partial; // [B, chunk_cap, Hq*D] attention partials
   float* hnorm;    // [B, H] output-normed hidden
   float* head;     // [splits, B, Vh] head projection partials
+  __nv_bfloat16* stage;  // [B, 2, Hkv, D] this step's K/V rows (int8 KV cache)
+  float* fold;           // [B, Hq, 3] int8 KV cache: alpha, p, l (attn_softmax_q8)
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
@@ -864,6 +1020,8 @@ inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int V
   t.partial = (double*)take(sizeof(double) * B * (size_t)t.chunk_cap * hd);
   t.hnorm = (float*)take(sizeof(float) * B * d.H);
   t.head = (float*)take(sizeof(float) * (size_t)head_splits * B * Vh);
+  t.stage = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * (size_t)B * 2 * d.Hkv * d.D);
+  t.fold = (float*)take(sizeof(float) * (size_t)B * d.Hq * 3);
   if (w) *w = t;
   return off;
 }
@@ -1023,7 +1181,8 @@ inline Proj layer_proj(const Proj& p, int l, int K, int N) {
   return o;
 }
 
-// One layer's weights and cache view.
+// One layer's weights and cache view (T = int8_t: the int8 KV cache, with
+// its row scales Ks and Vs; see q8_scale_base).
 template <typename T>
 struct LayerView {
   Proj qkv, o, gu, d;
@@ -1032,6 +1191,8 @@ struct LayerView {
   T* V;  // lane b at + b * lane_stride
   long head_stride;
   long lane_stride;
+  float* Ks = nullptr;
+  float* Vs = nullptr;
 };
 
 template <typename T>
@@ -1075,7 +1236,9 @@ inline Emit emit_for(const Work& w, const Proj& p, int j, int* acc, int n) {
 // pos] with a per-lane start operand, whose lower bound over the lanes is
 // start_min). `prev` is the previous layer's down projection (empty for
 // the first layer: x already holds the layer input). Returns this layer's
-// down projection. round_q / round_p: see the header.
+// down projection. round_q / round_p: see the header. T = int8_t runs the
+// int8 KV cache's attention (the header; q rounded to bf16 whatever
+// round_q, round_p rounds p * v_scale; no start operand).
 template <typename T>
 ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
                   const float* cosv, const float* sinv, int pos, int C, int round_q,
@@ -1089,19 +1252,39 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
       w.x, prev, lv.attn_n, d.H, d.eps, emit_for(w, lv.qkv, 0, w.acc_qkv, qkv), nullptr);
   const ProjOut oq = project(w, lv.qkv, d.H, qkv, w.acc_qkv, w.s + 0 * B, st);
-  qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
-      oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
-      lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
-  attn_scores_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), 256, sizeof(float) * G * d.D, st>>>(
-      w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D, 1.0f / sqrtf((float)d.D),
-      round_q, w.scores, C, start, chunk0);
-  attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid, round_p,
-                                                                 start);
-  attn_pv_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), G * d.D, 0, st>>>(
-      w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
-      w.partial, start, chunk0);
+  const float scale = 1.0f / sqrtf((float)d.D);
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const long stage_lane = 2L * d.Hkv * d.D;
+    qkv_post_kernel<__nv_bfloat16><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
+        oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, w.stage,
+        w.stage + (size_t)d.Hkv * d.D, (long)d.D, stage_lane);
+    attn_scores_q8_kernel<<<dim3(d.Hkv, chunks, B), 256, sizeof(float) * G * d.D, st>>>(
+        w.q, lv.K, lv.Ks, w.stage, lv.head_stride, lv.lane_stride, pos, G, d.D, scale,
+        w.scores, C);
+    attn_softmax_q8_kernel<<<dim3(d.Hq, B), kRowThreads, 0, st>>>(
+        w.scores, C, pos, lv.Vs, lv.head_stride, lv.lane_stride, d.D, G, round_p, w.fold);
+    attn_pv_q8_kernel<<<dim3(d.Hkv, chunks, B), G * d.D, 0, st>>>(
+        w.scores, C, lv.V, lv.head_stride, lv.lane_stride, pos, G, d.D, w.chunk_cap,
+        w.partial);
+    kv_row_quant_kernel<<<dim3(2 * d.Hkv, B), d.D, 0, st>>>(
+        w.stage, d.Hkv, d.D, lv.K, lv.V, lv.Ks, lv.Vs, lv.head_stride, lv.lane_stride, pos);
+  } else {
+    qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
+        oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
+        lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
+    attn_scores_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), 256, sizeof(float) * G * d.D,
+                            st>>>(w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D,
+                                  scale, round_q, w.scores, C, start, chunk0);
+    attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid,
+                                                                   round_p, start);
+    attn_pv_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), G * d.D, 0, st>>>(
+        w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
+        w.partial, start, chunk0);
+  }
+  const bool q8 = std::is_same<T, int8_t>::value;
   merge_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunk0, chunks, w.chunk_cap, hd,
-                                                 emit_for(w, lv.o, 1, w.acc_o, d.H));
+                                                 emit_for(w, lv.o, 1, w.acc_o, d.H),
+                                                 q8 ? w.fold : nullptr, w.stage, d.D, G);
   const ProjOut oo = project(w, lv.o, hd, d.H, w.acc_o, w.s + 1 * B, st);
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
       w.x, oo, lv.ffn_n, d.H, d.eps, emit_for(w, lv.gu, 2, w.acc_gu, 2 * d.F), nullptr);

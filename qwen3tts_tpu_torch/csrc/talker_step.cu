@@ -6,14 +6,20 @@
 // the per-projection tuple of the q4 tier; layer.cuh). On the TPU the two
 // differ only in where the KV cache lives (VMEM blocks vs HBM slabs); here
 // the cache always lives in device memory, so one kernel serves every
-// capacity. Their int8-KV operand is not ported yet.
+// capacity. With kv_scale given, the cache is the int8-KV tier's (q, scale)
+// pair (their kv_int8 operand, _make_kernel_hbm :564 and
+// _make_kernel_hbm_pipelined :765): kv int8 [L, 2, Hkv, C, D], kv_scale
+// float32 [L, 2, Hkv, C]; the attention reads the int8 rows below n_past
+// and attends the new row in bf16 before quantizing it into the cache
+// (layer.cuh's header).
 //
 // What bounds it on the H100: bytes. At 0.6B widths one frame reads the
 // projections of 28 layers — 440 MB in int8, 881 MB in bf16, 375 MB in the
 // q4 tier and 330 MB in q4pure (u4 nibbles plus 8 bytes of float32 scale
 // and offset per 32 rows and column) — the bf16 codec head (6.3 MB) and the
 // valid KV prefix: 28 layers x 2 (K, V) x 8 heads x 128 x 2 bytes = 114,688
-// bytes per cached row, 115 MB at n = 1000. At 3.35 TB/s the int8 weights
+// bytes per cached row, 115 MB at n = 1000 (the int8 cache: 57,344 bytes
+// of values and 1,792 of scales per row). At 3.35 TB/s the int8 weights
 // and head alone take ~0.13 ms; everything else is small. The design
 // streams each weight once with coalesced loads spread over all SMs
 // (split-K GEMVs: int32 atomics in w8a8, exact in any order; float64
@@ -23,8 +29,9 @@
 // trip inside a frame); launch latency, not bandwidth, is what this first
 // version pays for — a persistent kernel or a CUDA graph is later work.
 //
-// The KV cache is updated in place: the new K/V row is written at n_past
-// (the Pallas kernel aliases its KV operand to its output instead).
+// The KV cache is updated in place: the new K/V row (or its int8 row and
+// scale) is written at n_past (the Pallas kernel returns the row and its
+// wrapper scatters it instead).
 #include "layer.cuh"
 
 extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int C, int Vc,
@@ -40,7 +47,7 @@ extern "C" int qtts_talker_step(
     const void* w1, const void* s1, const void* z1, int G1,
     const void* w2, const void* s2, const void* z2, int G2,
     const void* w3, const void* s3, const void* z3, int G3,
-    const void* out_norm, const void* codec_head, int modes, void* kv,
+    const void* out_norm, const void* codec_head, int modes, void* kv, void* kv_scale,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, float temp, float top_p, float penalty, int top_k, int greedy,
     int use_top_p, int suppress_start, int eos_id, int seed,
@@ -57,15 +64,26 @@ extern "C" int qtts_talker_step(
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, 1, C, Vc, modes);
-  const long head_stride = (long)C * D;
-  __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
+  const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * H, cudaMemcpyDeviceToDevice, st);
   ProjOut last{};
   for (int l = 0; l < L; ++l) {
-    const auto lv = layer_view(sw, d, l, kvb + (size_t)(2 * l) * Hkv * head_stride,
-                               kvb + (size_t)(2 * l + 1) * Hkv * head_stride, head_stride, 0L);
-    last = run_layer(d, lv, last, w, (const float*)cosv, (const float*)sinv, n_past, C, 1,
-                     1, st);
+    const float* cs = (const float*)cosv;
+    const float* sn = (const float*)sinv;
+    if (kv_scale != nullptr) {
+      int8_t* kvq = (int8_t*)kv;
+      float* ks = (float*)kv_scale;
+      auto lv = layer_view(sw, d, l, kvq + 2 * l * layer_stride, kvq + (2 * l + 1) * layer_stride,
+                           head_stride, 0L);
+      lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
+      lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
+      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 1, st);
+    } else {
+      __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
+      const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
+                                 kvb + (2 * l + 1) * layer_stride, head_stride, 0L);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 1, st);
+    }
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,

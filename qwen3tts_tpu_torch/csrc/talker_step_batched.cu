@@ -15,7 +15,10 @@
 // DMA skip (:1445); and per-lane temperature, top-p and repetition penalty
 // [B] float32 for the cb0 epilogue (:1691-1695, _sample_operands :237).
 // Null pointers give the scalars and start 0, as synthesize_batch runs it.
-// The int8-KV operand is not ported yet.
+// With kv_scale given, the cache is the int8-KV tier's (q, scale) pair (its
+// kv_int8 operand, :1402, :1641): kv int8 [B, L, 2, Hkv, C, D], kv_scale
+// float32 [B, L, 2, Hkv, C] (layer.cuh's header); it takes no `start`,
+// which the JAX package never combines with it.
 //
 // What bounds it on the H100: bytes. A frame-set reads the 28 layers'
 // projections (440 MB in int8, 881 MB in bf16, 375 MB in q4, 330 MB in
@@ -45,8 +48,10 @@
 // step's K/V, which the Pallas kernel folds in as an extra column at n_past
 // (:1554-1567), is written into the cache first and attended with the rest,
 // the same function; the softmax is dense where the Pallas kernel's is
-// online, a difference of summation order only. The KV cache is updated in
-// place at n_past. Cap: B <= 128 (kMaxLanes).
+// online, a difference of summation order only. (With the int8 cache the
+// row is attended from a bf16 staging row and folded in last, as the Pallas
+// kernel folds it: layer.cuh's header.) The KV cache is updated in place at
+// n_past. Cap: B <= 128 (kMaxLanes).
 #include "layer.cuh"
 
 extern "C" size_t qtts_talker_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
@@ -62,7 +67,7 @@ extern "C" int qtts_talker_step_batched(
     const void* w1, const void* s1, const void* z1, int G1,
     const void* w2, const void* s2, const void* z2, int G2,
     const void* w3, const void* s3, const void* z3, int G3,
-    const void* out_norm, const void* codec_head, int modes, void* kv,
+    const void* out_norm, const void* codec_head, int modes, void* kv, void* kv_scale,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, const void* seeds, float temp, float top_p, float penalty, int top_k,
     int greedy, int use_top_p, int suppress_start, int eos_id, const void* start,
@@ -77,20 +82,33 @@ extern "C" int qtts_talker_step_batched(
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, B)) return bad;
   if (int bad = check_groups(sw, d)) return bad;
+  if (kv_scale != nullptr && (start != nullptr || start_min != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, B, C, Vc, modes);
   const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
   const long lane_stride = (long)L * 2 * layer_stride;
-  __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, st);
   ProjOut last{};
   for (int l = 0; l < L; ++l) {
-    const auto lv = layer_view(sw, d, l, kvb + (size_t)(2 * l) * layer_stride,
-                               kvb + (size_t)(2 * l + 1) * layer_stride, head_stride,
-                               lane_stride);
-    last = run_layer(d, lv, last, w, (const float*)cosv, (const float*)sinv, n_past, C, 1,
-                     0, st, (const int*)start, start_min);
+    const float* cs = (const float*)cosv;
+    const float* sn = (const float*)sinv;
+    if (kv_scale != nullptr) {
+      int8_t* kvq = (int8_t*)kv;
+      float* ks = (float*)kv_scale;
+      auto lv = layer_view(sw, d, l, kvq + 2 * l * layer_stride, kvq + (2 * l + 1) * layer_stride,
+                           head_stride, lane_stride);
+      lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
+      lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
+      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 0, st);
+    } else {
+      __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
+      const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
+                                 kvb + (2 * l + 1) * layer_stride, head_stride, lane_stride);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 0, st, (const int*)start,
+                       start_min);
+    }
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,

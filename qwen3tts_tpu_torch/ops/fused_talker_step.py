@@ -13,8 +13,9 @@ bytes of 28 layers of weights per frame, read once for all lanes in K5) and
 what this first design does about it. K5 also takes the two operands only
 continuous serving uses (``runtime/continuous.py``): ``start`` [B], each
 lane's first valid cache row, and per-lane temperature, top-p and
-repetition penalty ([B] each) for its cb0 epilogue. The int8-KV operand is
-not ported yet.
+repetition penalty ([B] each) for its cb0 epilogue. Both take the int8-KV
+tier's cache, the (q, scale) pair of ``ops/kv_quant.py`` (the Pallas
+kernels' ``kv_int8`` operand, :564, :765, :1402), in every weight mode.
 
 The weight mode is set per projection from the leaf type (``weight_mode``,
 the counterpart of ``_weight_mode``, :153): an int8 ``QuantLinear`` runs in
@@ -46,6 +47,28 @@ eos_id, repetition penalty over ``seen``, and the counter-hash sampler.
 
 The KV cache is updated IN PLACE: the new K/V row is written into ``kv`` at
 ``n_past`` (JAX aliases the kernel's KV operand to its output instead).
+
+With the int8 (q, scale) cache the attention follows the Pallas kernels'
+int8 form, where it differs from the bf16 one in four ways:
+  - the current row is never read from the cache: it is attended in bf16,
+    unquantized, as one more column (:716-725, :930; batched :1554-1566),
+    and only then is its bf16-rounded value quantized (``quantize_kv``)
+    into q and scale at n_past (the wrappers' scatter, :1202-1212, :1809);
+  - q is rounded to bf16, and a cached row's score is (q . k) * D^-0.5 *
+    k_scale, two float32 roundings in that order (:693, :907, :1529-1533);
+  - V's scale folds into the probability: e * v_scale, with e = exp(s -
+    m) not yet normalized (m the cached rows' maximum), rounded to bf16 in
+    K1 (:701-703, :915-917), kept in float32 in K5 (:1541-1543); the
+    current row's p is neither scaled nor rounded;
+  - the current row folds in after the cached rows and the sum is divided
+    out last, as in the Pallas kernels' online softmax (:711-725, the
+    flash state of one chunk: ``gqa_attention``). The port's sums stay in
+    float64 and its maximum is taken over all cached rows at once, so the
+    kernels and the plain versions agree bit for bit, and JAX to float32
+    rounding while the cached rows fit one of its chunks (256 rows on a
+    TPU).
+K5 takes no ``start`` with an int8 cache (the JAX package never combines
+them: continuous serving keeps a compute-dtype cache).
 """
 
 from __future__ import annotations
@@ -56,6 +79,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _kernels
+from .kv_quant import is_quantized_kv, quantize_kv
 from .quant import QuantLinear, QuantLinear4, group_rows, unpack4
 from .rope import rope_angles
 from .sampling import sample_rows_plain
@@ -92,7 +116,7 @@ def mm_w8a8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     return acc * (s_act * scale.float())
 
 
-def gqa_attention(q, K, V, p_dtype, valid=None):
+def gqa_attention(q, K, V, p_dtype, valid=None, cur=None):
     """q [..., Hq, D] @ K [..., Hkv, S, D]^T * D^-0.5 -> softmax -> the
     probabilities rounded to float32, then to p_dtype -> @ V [..., Hkv, S,
     D]. Returns [..., Hq*D] float32. The dot products, exp and the softmax
@@ -100,10 +124,36 @@ def gqa_attention(q, K, V, p_dtype, valid=None):
     (layer.cuh), so that summation order cannot change a bit. valid [..., S]
     (bool), when given, leaves out the rows it marks False: they set no
     maximum, and their exact zeros add nothing to the float64 sums, so the
-    result is that of the valid rows alone, which the kernels read."""
-    *lead, Hkv, _, D = K.shape
-    s = torch.matmul(q.reshape(*lead, Hkv, -1, D).double(),
-                     K.double().transpose(-1, -2)).float() * D ** -0.5
+    result is that of the valid rows alone, which the kernels read.
+
+    int8 cache (``cur`` given; no ``valid``): K and V are (q, scale) pairs
+    ([..., Hkv, S, D] int8 and [..., Hkv, S] float32) and cur = (k, v)
+    [..., Hkv, D] is the current row, attended unquantized after the
+    cached rows, as the Pallas kernels fold it into their flash state
+    (module docstring).
+    Cached scores are multiplied by their K scale; e = exp(s - m) over the
+    cached rows with m their maximum, e * v_scale rounded to p_dtype and
+    dotted with V; then the current row folds in with m' = max(m, s_cur),
+    alpha = exp(m - m'), p_cur = exp(s_cur - m'): o = (acc * alpha + p_cur
+    * v) / (alpha * sum(e) + p_cur), each float32 operation rounded."""
+    if cur is not None:
+        (K, ksc), (V, vsc) = K, V
+    *lead, Hkv, S, D = K.shape
+    qg = q.reshape(*lead, Hkv, -1, D).double()
+    s = torch.matmul(qg, K.double().transpose(-1, -2)).float() * D ** -0.5
+    if cur is not None:
+        s = s * ksc[..., None, :]
+        s_cur = torch.matmul(qg, cur[0].double()[..., None]).float() * D ** -0.5
+        m = torch.amax(torch.cat([torch.full_like(s_cur, -3.4e38), s], -1), -1, keepdim=True)
+        m_fin = torch.maximum(m, s_cur)
+        e = torch.exp((s - m).double()).float()
+        alpha = torch.exp((m - m_fin).double()).float()
+        p_cur = torch.exp((s_cur - m_fin).double()).float()
+        total = alpha * torch.sum(e.double(), -1, keepdim=True).float() + p_cur
+        pv = (e * vsc[..., None, :]).to(p_dtype)
+        acc = torch.matmul(pv.double(), V.double()).float()
+        o = (acc * alpha + p_cur * cur[1][..., None, :].float()) / total
+        return o.reshape(*lead, -1)
     if valid is not None:
         keep = valid[..., None, None, :]
         s = torch.where(keep, s, torch.full_like(s, float("-inf")))
@@ -200,19 +250,26 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
                       repetition_penalty=1.0, top_k=0, suppress_start=None, eos_id=-1,
                       greedy=False, use_top_p=True, start=None, start_min=0) -> StepOut:
     """Plain PyTorch version of K1 and K5 for B lanes: step_embd [B, H], kv
-    [B, L, 2, Hkv, C, D] updated in place at n_past, seen [B, Vc] and seeds
-    [B] when cb0 is sampled (temperature, top_p, repetition_penalty scalars
-    or [B]). q is rounded to the KV dtype, the softmax probabilities to
-    p_dtype (the KV dtype in K1, float32 in K5). start [B], when given:
+    [B, L, 2, Hkv, C, D] (or the int8 pair of [B, L, 2, Hkv, C, D] and [B,
+    L, 2, Hkv, C]) updated in place at n_past, seen [B, Vc] and seeds [B]
+    when cb0 is sampled (temperature, top_p, repetition_penalty scalars or
+    [B]). q is rounded to the KV dtype (int8 cache: bf16), the softmax
+    probabilities to p_dtype (the KV dtype in K1, bf16 with an int8 cache;
+    float32 in K5; int8: see the module docstring). start [B], when given:
     lane b attends rows [start[b], n_past] (start clamped to [0, n_past],
     as the kernel clamps it). start_min is K5's promise that no lane's
     start lies below it (the kernel skips the rows under it, so a lane
     below would read scores it never wrote): raises ValueError where a
     lane's clamped start, or 0 without ``start``, breaks it."""
     n = int(n_past)
-    dev = kv.device
+    quant = is_quantized_kv(kv)
+    cache = kv[0] if quant else kv
+    if quant and start is not None:
+        raise ValueError("the int8 KV cache takes no per-lane start (continuous serving "
+                         "keeps a compute-dtype cache)")
+    dev = cache.device
     B = step_embd.shape[0]
-    cos, sin = _rope_row(n, cfg, dev, kv.shape[4])
+    cos, sin = _rope_row(n, cfg, dev, cache.shape[4])
     x = step_embd.float().reshape(B, cfg.hidden_size)
     valid = None
     first = torch.zeros((B, 1), dtype=torch.int64, device=dev)
@@ -225,6 +282,15 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
                          f"{torch.nonzero(first[:, 0] < floor)[:, 0].tolist()}")
     for l in range(cfg.n_layers):
         def attend(q, k, v, l=l):
+            if quant:
+                kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+                qc, sc = kv[0][:, l], kv[1][:, l]
+                out = gqa_attention(q.to(torch.bfloat16).float(),
+                                    (qc[:, 0, :, :n], sc[:, 0, :, :n]),
+                                    (qc[:, 1, :, :n], sc[:, 1, :, :n]), p_dtype,
+                                    cur=(kb.float(), vb.float()))
+                qc[:, :, :, n], sc[:, :, :, n] = quantize_kv(torch.stack([kb, vb], 1))
+                return out
             kv[:, l, 0, :, n] = k.to(kv.dtype)
             kv[:, l, 1, :, n] = v.to(kv.dtype)
             return gqa_attention(q.to(kv.dtype).float(), kv[:, l, 0, :, :n + 1].float(),
@@ -247,8 +313,13 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
 def fused_talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, seen=None, seed=0,
                             **kw) -> StepOut:
     """Plain PyTorch version of K1 (same semantics; kv updated in place):
-    one lane of talker_step_plain, probabilities rounded to the KV dtype."""
-    out = talker_step_plain(blocks, cfg, step_embd[None], n_past, kv[None], p_dtype=kv.dtype,
+    one lane of talker_step_plain, probabilities rounded to the KV dtype
+    (bf16 with the int8 pair)."""
+    if is_quantized_kv(kv):
+        kv, p_dtype = (kv[0][None], kv[1][None]), torch.bfloat16
+    else:
+        kv, p_dtype = kv[None], kv.dtype
+    out = talker_step_plain(blocks, cfg, step_embd[None], n_past, kv, p_dtype=p_dtype,
                             seen=None if seen is None else seen[None], seeds=[int(seed)],
                             **kw)
     return StepOut(out.hidden[0], out.logits[0], out.cb0)
@@ -279,7 +350,28 @@ def check_w8a8_blocks(blocks):
                              f"these are {tier}: pass fused_cp=False or 'auto'")
 
 
-def _cuda_operands(blocks, cfg, kv, kv_shape, output_norm, codec_head):
+def _cache_operands(kv, kv_shape):
+    """(cache, row scales or None) of K1's and K5's KV operand, checked: a
+    contiguous bf16 cache of kv_shape, or the int8 pair, a contiguous int8
+    q of kv_shape and float32 scale of kv_shape[:-1]."""
+    if is_quantized_kv(kv):
+        q, scale = kv
+        if (q.dtype != torch.int8 or scale.dtype != torch.float32 or not q.is_contiguous()
+                or not scale.is_contiguous() or tuple(q.shape) != tuple(kv_shape)
+                or tuple(scale.shape) != tuple(kv_shape[:-1])):
+            raise ValueError(f"the int8 KV cache must be a contiguous int8 {tuple(kv_shape)} "
+                             f"and float32 {tuple(kv_shape[:-1])} pair, got {q.dtype} "
+                             f"{tuple(q.shape)} and {scale.dtype} {tuple(scale.shape)}")
+        return q, scale
+    if kv.dtype != torch.bfloat16:
+        raise NotImplementedError("the CUDA talker step takes a bf16 KV cache or the int8 pair")
+    if not kv.is_contiguous() or tuple(kv.shape) != tuple(kv_shape):
+        raise ValueError(f"kv must be a contiguous {tuple(kv_shape)} cache, "
+                         f"got {tuple(kv.shape)}")
+    return kv, None
+
+
+def _cuda_operands(blocks, output_norm, codec_head):
     """Checks shared by K1 and K5, then (mode code, operands) for their C
     signatures: the packed per-projection mode codes (2 bits each, wqkv
     first) and, between (cos, sin) and the KV cache, the four norms (f32),
@@ -287,11 +379,8 @@ def _cuda_operands(blocks, cfg, kv, kv_shape, output_norm, codec_head):
     output norm (f32) and the codec head, contiguous. A "bf16" projection
     must hold bf16 weights on the card (its plain version follows
     ``x.astype(wq.dtype)``, so float32 weights run on the CPU only)."""
-    if kv.dtype != torch.bfloat16 or codec_head.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA talker step takes a bf16 KV cache and codec head")
-    if not kv.is_contiguous() or tuple(kv.shape) != tuple(kv_shape):
-        raise ValueError(f"kv must be a contiguous {tuple(kv_shape)} cache, "
-                         f"got {tuple(kv.shape)}")
+    if codec_head.dtype != torch.bfloat16:
+        raise NotImplementedError("the CUDA talker step takes a bf16 codec head")
     f32 = lambda t: t.float().contiguous()   # noqa: E731
     ops = [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm), f32(blocks.ffn_norm)]
     modes = 0
@@ -322,12 +411,15 @@ def _ptrs(ops):
     return [o.data_ptr() if isinstance(o, torch.Tensor) else o for o in ops]
 
 
-def _count(fn, blocks):
-    """One launch of fn's kernel in the blocks' mode: the wrapper's total
-    and its per-mode count (``mode_launches``, keyed by ``mode_label``)."""
+def _count(fn, blocks, scales):
+    """One launch of fn's kernel: the wrapper's total, and either its count
+    over the int8 KV cache (``operand_launches["kv_int8"]``, scales given)
+    or its per-mode count over a bf16 cache (``mode_launches``, keyed by
+    ``mode_label``), so that a mode's count holds bf16-KV launches only."""
     fn.launches += 1
-    label = mode_label(weight_mode(blocks))
-    fn.mode_launches[label] = fn.mode_launches.get(label, 0) + 1
+    counts, key = ((fn.operand_launches, "kv_int8") if scales is not None
+                   else (fn.mode_launches, mode_label(weight_mode(blocks))))
+    counts[key] = counts.get(key, 0) + 1
 
 
 def _dims(cfg, C, Vc):
@@ -345,17 +437,21 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
     blocks: BlockParams whose projections are QuantLinear ([L, K, N] int8,
     scale [L, 1, N]), QuantLinear4 ([L, K/2, N] packed, scale and zero [L,
     G, N]) or plain [L, K, N] tensors, in any mix (``weight_mode``);
-    step_embd [H]; n_past: int; kv [L, 2, Hkv, C, D], written in place at
-    n_past; codec_head [H, Vc]. When ``seen`` ([Vc] bool or int8) is given,
+    step_embd [H]; n_past: int; kv [L, 2, Hkv, C, D], or the int8 pair
+    (q [L, 2, Hkv, C, D] int8, scale [L, 2, Hkv, C] float32; module
+    docstring), written in place at n_past; codec_head [H, Vc]. When
+    ``seen`` ([Vc] bool or int8) is given,
     the result's cb0 is next frame's codebook-0 token sampled with ``seed``.
     Norm weights and scales already in float32 and ``seen`` in int8 (as the
     pipeline and the decode loop keep them) are passed to the kernel without
     a copy.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    KV cache, codec head and plain weights) or raise; there is no fallback.
+    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
+    no fallback.
     """
-    if kv.device.type == "cpu":
+    cache = kv[0] if is_quantized_kv(kv) else kv
+    if cache.device.type == "cpu":
         return fused_talker_step_plain(
             blocks, cfg, step_embd, n_past, kv, output_norm=output_norm,
             codec_head=codec_head, seen=seen, seed=seed,
@@ -364,14 +460,16 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
             suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
             use_top_p=use_top_p)
     lib = _kernels.load_library()
-    _kernels.require_cuda(kv, step_embd, codec_head, blocks.attn_norm)
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    C, Vc = kv.shape[3], codec_head.shape[-1]
-    modes, ops = _cuda_operands(blocks, cfg, kv, (L, 2, Hkv, C, D), output_norm, codec_head)
+    C, Vc = cache.shape[3], codec_head.shape[-1]
+    cache, scales = _cache_operands(kv, (L, 2, Hkv, C, D))
+    _kernels.require_cuda(*(t for t in (cache, scales) if t is not None), step_embd,
+                          codec_head, blocks.attn_norm)
+    modes, ops = _cuda_operands(blocks, output_norm, codec_head)
     n = int(n_past)
     if not 0 <= n < C:
         raise ValueError(f"n_past {n} outside the cache capacity {C}")
-    dev = kv.device
+    dev = cache.device
     cos, sin = _rope_row(n, cfg, dev, C)
     x = step_embd.float().contiguous()
     hidden = torch.empty((H,), dtype=torch.float32, device=dev)
@@ -382,7 +480,7 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
                                               C, Vc, modes), dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step(
         x.data_ptr(), n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
-        kv.data_ptr(), *_dims(cfg, C, Vc),
+        *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(), float(temperature),
         float(top_p), float(repetition_penalty), int(top_k), int(greedy),
         int(use_top_p), Vc if suppress_start is None else int(suppress_start),
@@ -390,12 +488,14 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
         None if tok is None else tok.data_ptr(), ws.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step")
-    _count(fused_talker_step, blocks)
+    _count(fused_talker_step, blocks, scales)
     return StepOut(hidden, logits, tok)
 
 
 fused_talker_step.launches = 0
 fused_talker_step.mode_launches = {}
+# launches over the int8 KV cache ("kv_int8")
+fused_talker_step.operand_launches = {}
 
 
 def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv,
@@ -427,7 +527,8 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     weight mode as in ``fused_talker_step``).
 
     step_embd [B, H]; n_past: int, shared by the lanes; kv [B, L, 2, Hkv, C,
-    D], each lane's row written in place at n_past. Returns StepOut with
+    D], or the int8 pair (q [B, L, 2, Hkv, C, D] int8, scale [B, L, 2, Hkv,
+    C] float32), each lane's row written in place at n_past. Returns StepOut with
     hidden [B, H] (output-normed, f32), logits [B, Vc] f32 and, when
     ``seen`` ([B, Vc] bool or int8) is given, cb0 [B]: each lane's next
     codebook-0 token sampled with seeds[b] (int32 [B]). temperature, top_p
@@ -440,17 +541,24 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     host int at most every lane's start (the scheduler's host mirror: the
     wrapper never reads `start` back), lets the kernel skip the attention
     chunks below it; 0 is always safe. The plain version raises where a
-    lane's start lies below start_min.
+    lane's start lies below start_min. An int8 cache takes no ``start``
+    (ValueError), as the JAX package never passes one with it.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    KV cache, codec head and plain weights) or raise; there is no fallback.
+    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
+    no fallback.
     """
     B = step_embd.shape[0]
     if not 1 <= B <= MAX_LANES:
         raise ValueError(f"fused_talker_step_batched takes 1..{MAX_LANES} lanes, got {B}")
     if seen is not None and seeds is None:
         raise ValueError("sampling cb0 needs per-lane seeds")
-    if kv.device.type == "cpu":
+    cache = kv[0] if is_quantized_kv(kv) else kv
+    if start is not None and cache is not kv:
+        raise ValueError("fused_talker_step_batched takes no per-lane start with the int8 KV "
+                         "cache: continuous serving keeps a compute-dtype cache, as in the "
+                         "JAX package")
+    if cache.device.type == "cpu":
         return fused_talker_step_batched_plain(
             blocks, cfg, step_embd, n_past, kv, output_norm=output_norm,
             codec_head=codec_head, seen=seen, seeds=seeds, temperature=temperature,
@@ -460,15 +568,16 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     if start is None and start_min > 0:
         raise ValueError("start_min > 0 needs the per-lane start operand")
     lib = _kernels.load_library()
-    _kernels.require_cuda(kv, step_embd, codec_head, blocks.attn_norm)
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    C, Vc = kv.shape[4], codec_head.shape[-1]
-    modes, ops = _cuda_operands(blocks, cfg, kv, (B, L, 2, Hkv, C, D), output_norm,
-                                codec_head)
+    C, Vc = cache.shape[4], codec_head.shape[-1]
+    cache, scales = _cache_operands(kv, (B, L, 2, Hkv, C, D))
+    _kernels.require_cuda(*(t for t in (cache, scales) if t is not None), step_embd,
+                          codec_head, blocks.attn_norm)
+    modes, ops = _cuda_operands(blocks, output_norm, codec_head)
     n = int(n_past)
     if not 0 <= n < C:
         raise ValueError(f"n_past {n} outside the cache capacity {C}")
-    dev = kv.device
+    dev = cache.device
     cos, sin = _rope_row(n, cfg, dev, C)
     x = step_embd.float().contiguous()
     hidden = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -493,7 +602,7 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step_batched(
         x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
-        kv.data_ptr(), *_dims(cfg, C, Vc),
+        *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(),
         None if seeds32 is None else seeds32.data_ptr(), temp, topp, pen, int(top_k),
         int(greedy), int(use_top_p), Vc if suppress_start is None else int(suppress_start),
@@ -501,7 +610,7 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         hidden.data_ptr(), logits.data_ptr(), None if tok is None else tok.data_ptr(),
         ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step_batched")
-    _count(fused_talker_step_batched, blocks)
+    _count(fused_talker_step_batched, blocks, scales)
     if start32 is not None:
         ops = fused_talker_step_batched.operand_launches
         ops["start"] = ops.get("start", 0) + 1
@@ -510,5 +619,6 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
 
 fused_talker_step_batched.launches = 0
 fused_talker_step_batched.mode_launches = {}
-# launches with an operand only continuous serving passes, by operand name
+# launches with an operand only continuous serving passes ("start"), and
+# over the int8 KV cache ("kv_int8")
 fused_talker_step_batched.operand_launches = {}

@@ -11,10 +11,15 @@ resolves it (``qwen3tts_tpu/pipeline.py:385-396``):
   - "q4": the talker's attention projections int8 and its FFN affine u4
     (``QuantLinear4``), the code predictor int8;
   - "q4pure": every talker projection u4, the code predictor int8.
-The KV cache is stored at the compute dtype: ``RuntimeConfig.kv_quant``
-"auto" and "none" resolve to that, as the JAX package's
-``resolve_kv_quant`` does without its environment override; the int8 KV
-tier ("int8") is not ported yet and is refused.
+The KV cache is stored at the compute dtype, or, with
+``RuntimeConfig.kv_quant="int8"`` (the int8-KV tier, a memory tier: 0.516
+of the bf16 cache's bytes), as the (q, scale) pair of ``ops/kv_quant.py``
+on the fused talker step (K1, K5); ``resolve_kv_quant`` resolves the field
+as the JAX package's does, without its environment override ("auto" gives
+"none"; above 64 lanes a batch gets "none"); an unknown value is refused.
+``RuntimeConfig.vocoder_chunk_frames`` > 0 vocodes clips longer than that
+many frames in windows with 16 frames of left context
+(``stream_decode_chunks``), as the JAX package's ``decode_codes`` does.
 ``load_models(None, synthetic=True, seed=...)`` draws deterministic
 synthetic weights at the configured widths (no checkpoint ships with the
 repository; the checkpoint loaders are not ported yet). ``synthesize``
@@ -49,6 +54,7 @@ the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Optional
 
 import numpy as np
@@ -73,13 +79,30 @@ MAX_BATCH_LANES = 128
 WEIGHT_TIERS = (None, "int8", "q4", "q4pure")
 
 
-def resolve_kv_quant(rt) -> str:
-    """RuntimeConfig.kv_quant as the cache this port stores: "auto" and
-    "none" give "none" (the cache at the compute dtype), as the JAX
-    package's ``resolve_kv_quant`` (``pipeline.py:178-217``) does without
-    its environment override; "int8" is returned as it is (not ported)."""
+# the KV-cache tiers RuntimeConfig.kv_quant may name
+KV_TIERS = ("auto", "none", "int8")
+# lanes above which a batch gets a compute-dtype cache whatever kv_quant says
+INT8_KV_MAX_LANES = 64
+
+
+def resolve_kv_quant(rt, *, batched: bool = False, lanes: int = 0) -> str:
+    """RuntimeConfig.kv_quant as the decode loops' kv_quant, as the JAX
+    package's ``resolve_kv_quant`` (``pipeline.py:178-217``) resolves it
+    without its environment override: "auto" gives "none" (the cache at the
+    compute dtype), another value is returned as it is, except that "int8"
+    for a batch of more than 64 lanes gives "none", with the JAX package's
+    message on stderr. The card needs no such cap (128 lanes at C = 4352
+    take 33 GB in int8); it is kept so that both packages give the same
+    output for every config."""
     mode = getattr(rt, "kv_quant", "auto")
-    return "none" if mode == "auto" else mode
+    if mode == "auto":
+        return "none"
+    if mode == "int8" and batched and lanes > INT8_KV_MAX_LANES:
+        print(f"qwen3tts: int8 KV requested at {lanes} lanes — capped at "
+              f"{INT8_KV_MAX_LANES} (as the JAX package caps it); using bf16 KV",
+              file=sys.stderr)
+        return "none"
+    return mode
 
 
 @dataclasses.dataclass
@@ -128,8 +151,8 @@ class Qwen3TTS:
         """Deterministic synthetic weights (model_dir None or synthetic=True)
         drawn from torch Generators on the device, seeded by `seed`, then
         quantized to the weight tier (module docstring). Checkpoint
-        directories, unknown weight tiers and the int8 KV tier are not
-        supported: returns False with error_msg set."""
+        directories and unknown weight or KV tiers are not supported:
+        returns False with error_msg set."""
         rt = self.config.runtime
         if model_dir is not None and not synthetic:
             self.error_msg = "Failed to load models: checkpoint loading is not ported yet"
@@ -138,12 +161,9 @@ class Qwen3TTS:
             self.error_msg = (f"Failed to load models: quant tier {rt.quant!r} is not one of "
                               f"{WEIGHT_TIERS}")
             return False
-        kv_quant = resolve_kv_quant(rt)
-        if kv_quant != "none":
-            self.error_msg = (f"Failed to load models: kv_quant={kv_quant!r}: the int8 KV "
-                              f"tier is not ported (the cache is stored at the compute dtype)"
-                              if kv_quant == "int8" else
-                              f"Failed to load models: unknown kv_quant {kv_quant!r}")
+        if rt.kv_quant not in KV_TIERS:
+            self.error_msg = (f"Failed to load models: kv_quant {rt.kv_quant!r} is not one "
+                              f"of {KV_TIERS}")
             return False
         cfg = self.config
         gens = []
@@ -228,7 +248,7 @@ class Qwen3TTS:
             max_frames=max_frames, kv_capacity=kv_capacity,
             temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
             repetition_penalty=params.repetition_penalty,
-            nothink=params.language_id < 0, **self.fused)
+            nothink=params.language_id < 0, kv_quant=resolve_kv_quant(rt), **self.fused)
         n_frames = gen_out.n_frames
         result.codes = gen_out.codes.cpu().numpy().astype(np.int32)
         result.hidden_states = gen_out.hidden.float().cpu().numpy()
@@ -248,15 +268,44 @@ class Qwen3TTS:
         return result
 
     def decode_codes(self, codes: np.ndarray) -> np.ndarray:
-        """codes [n_frames, 16] -> float32 waveform [n_frames * 1920]. The
-        stack is causal, so the JAX pipeline's right-padding to a vocoder
-        bucket (a compile-cache device) changes no valid sample and is not
-        copied."""
-        c = torch.as_tensor(np.asarray(codes), dtype=torch.int64, device=self.device)
+        """codes [n_frames, 16] -> float32 waveform [n_frames * 1920]: the
+        whole clip in one vocoder pass, or, when
+        RuntimeConfig.vocoder_chunk_frames is set and the clip is longer,
+        in chunks (``stream_decode_chunks``), as the JAX package's
+        ``decode_codes`` (``pipeline.py:1062-1076``). The stack is causal,
+        so the JAX pipeline's right-padding to a vocoder bucket (a
+        compile-cache device) changes no valid sample and is not copied."""
+        codes = np.asarray(codes)
+        chunk = self.config.runtime.vocoder_chunk_frames
+        if chunk and codes.shape[0] > chunk:
+            return np.concatenate(list(self.stream_decode_chunks(codes, chunk)))
+        return self._vocode(codes)
+
+    def _vocode(self, codes: np.ndarray) -> np.ndarray:
+        """One vocoder pass over exactly codes [n, 16]."""
+        c = torch.as_tensor(codes, dtype=torch.int64, device=self.device)
         audio = vocoder_model.vocoder_decode(self.vocoder_params, self.config.vocoder, c,
                                              c.shape[0])
         _sync(self.device)
         return audio.cpu().numpy()
+
+    def stream_decode_chunks(self, codes: np.ndarray, chunk: int, history: int = 16):
+        """Chunked vocoder decode (counterpart of ``stream_decode_chunks``,
+        ``qwen3tts_tpu/pipeline.py:1081-1103``): each chunk of `chunk`
+        frames is vocoded with up to `history` frames of left context whose
+        samples are dropped; yields each chunk's float32 samples. The
+        stack's convolutions are causal, but its pre-transformer's causal
+        attention is unbounded, so the audio differs from one pass over the
+        whole clip; it equals the JAX package's chunked decode. Each window
+        is vocoded at its exact length (the JAX package pads it to a
+        bucket, which changes no valid sample)."""
+        spf = self.config.vocoder.samples_per_frame
+        n = codes.shape[0]
+        start = 0
+        while start < n:
+            lo, hi = max(0, start - history), min(n, start + chunk)
+            yield self._vocode(codes[lo:hi])[(start - lo) * spf:(hi - lo) * spf]
+            start = hi
 
     def synthesize_batch(self, texts, params: SamplingConfig = SamplingConfig(),
                          speakers=None):
@@ -270,7 +319,9 @@ class Qwen3TTS:
         t_decode_ms on each result are the batch's stage walls divided by
         B; t_total_ms is the whole-batch wall. Lane b of a group samples with
         its own seed drawn from params.seed (decode_loop), so lanes are
-        independent and the grouping changes no lane's output."""
+        independent and the grouping changes no lane's output. The KV tier
+        is resolved once for the whole batch (``resolve_kv_quant`` with
+        lanes = B, as the JAX pipeline resolves it)."""
         tcfg = self.config.talker
         B = len(texts)
         results = [TTSResult() for _ in texts]
@@ -289,6 +340,7 @@ class Qwen3TTS:
             tokens[i, : p_i.shape[0]] = p_i
         n_tok = [n for _, n in fitted]
         max_frames, kv_capacity = self._frame_budget(params)
+        kv_quant = resolve_kv_quant(self.config.runtime, batched=True, lanes=B)
         spk = torch.as_tensor(np.asarray(speakers), dtype=torch.float32, device=self.device)
 
         t0 = now_ms()
@@ -304,7 +356,7 @@ class Qwen3TTS:
                 talker_cfg=tcfg, cp_cfg=self.config.code_predictor, max_frames=max_frames,
                 kv_capacity=kv_capacity, temperature=params.temperature, top_k=params.top_k,
                 top_p=params.top_p, repetition_penalty=params.repetition_penalty,
-                nothink=params.language_id < 0, **self.fused)
+                nothink=params.language_id < 0, kv_quant=kv_quant, **self.fused)
             codes += list(out.codes.numpy().astype(np.int32))
             n_frames += out.n_frames
         t_gen = now_ms() - t0
@@ -346,7 +398,10 @@ class Qwen3TTS:
         max_audio_tokens_per_request (a list, one int per text) overrides
         params.max_audio_tokens per request. Every weight tier runs: K5 with
         ``start`` (fused_talker) and K6 with per-lane parameters (fused_cp),
-        or the unfused step. on_audio streaming belongs to the streaming
+        or the unfused step. The cache stays at the compute dtype whatever
+        RuntimeConfig.kv_quant says: the JAX package's queue passes no
+        kv_quant either (``pipeline.py:788-927``; K5 takes no ``start``
+        with the int8 cache). on_audio streaming belongs to the streaming
         path, which is not ported yet: passing it raises
         NotImplementedError."""
         if on_audio is not None:

@@ -36,6 +36,14 @@ matches only in distribution (and at kernel level, given the same seeds).
 
 The batched loop runs B lanes in lockstep (one shared n_past: every lane's
 prefill window has the same length); see ``generate_from_tokens_batched``.
+
+``kv_quant="int8"`` (the int8-KV tier) stores the decode cache as the (q,
+scale) pair of ``ops/kv_quant.py`` when the fused talker step runs, and
+only then, as the JAX package's loops do (``decode_loop.py:249-252,
+735-738``): the dense prefill writes a bf16 window of P rows, which is
+quantized into a cache of kv_capacity rows whose unwritten rows hold zeros
+and the floor scale (the bits ``quantize_kv`` gives the zero-padded cache;
+they are never read). The unfused step ignores the setting.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
 from ..ops.fused_talker_step import (check_w8a8_blocks, fused_talker_step,
                                      fused_talker_step_batched)
 from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops.kv_quant import quantize_cache
 from ..ops.quant import QuantLinear
 from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
 
@@ -85,6 +94,15 @@ def resolve_fused_cp(fused_cp, cp_params) -> bool:
     if fused_cp:
         check_w8a8_blocks(cp_params.blocks)
     return bool(fused_cp)
+
+
+def int8_kv(kv_quant: str, fused_talker: bool) -> bool:
+    """Whether a loop stores the int8 (q, scale) cache: kv_quant "int8" on
+    the fused talker step (an unfused step ignores it); "none" keeps the
+    compute dtype; any other value raises ValueError."""
+    if kv_quant not in ("none", "int8"):
+        raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+    return kv_quant == "int8" and fused_talker
 
 
 def draw_seeds(gen: torch.Generator, n: int) -> list:
@@ -126,16 +144,18 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
                          repetition_penalty: float = 1.05, nothink: bool = False,
                          fused_talker="auto", fused_cp="auto",
-                         allow_eos: bool = True) -> GenerateResult:
+                         allow_eos: bool = True, kv_quant: str = "none") -> GenerateResult:
     """Prefill + the frame loop for one request; see the module docstring.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
-    frames into a KV cache of kv_capacity rows. fused_talker / fused_cp pick
+    frames into a KV cache of kv_capacity rows (kv_quant "int8": the int8
+    pair on the fused talker step). fused_talker / fused_cp pick
     kernels K1 / K2 or the unfused talker step / code predictor.
     allow_eos=False also suppresses EOS, so the request runs all max_frames
     frames (the JAX package's benchmark mode)."""
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
+    quant_kv = int8_kv(kv_quant, fused_talker)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     Vc = tcfg.codec_vocab_size
@@ -154,9 +174,11 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
         P = prefill.prefill_embd.shape[0]
         if P + max_frames > kv_capacity:
             raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
-        kv = talker_model.make_kv_cache(tcfg, kv_capacity, dtype, dev)
+        kv = talker_model.make_kv_cache(tcfg, P if quant_kv else kv_capacity, dtype, dev)
         last_hidden, logits = talker_model.talker_prefill(
             talker_params, tcfg, prefill.prefill_embd, kv)
+        if quant_kv:
+            kv = quantize_cache(kv, kv_capacity)
 
         cb0_next = sample_cb0(logits[None], draw_seeds(gen, 1), **cb0_kw)
         # int8, the dtype the talker kernel reads: no per-frame conversion
@@ -207,7 +229,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
                                  budgets=None, fused_talker="auto", fused_cp="auto",
-                                 allow_eos: bool = True) -> BatchedGenerateResult:
+                                 allow_eos: bool = True,
+                                 kv_quant: str = "none") -> BatchedGenerateResult:
     """Prefill + the frame loop for B requests in lockstep (counterpart of
     ``_generate_batched_fused``, fused kernels, every weight tier; with both
     flags off, of the vmapped unfused loop, ``decode_loop.py:651-667``).
@@ -215,7 +238,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     tokens [B, Tb] padded ids with n_tokens[b] real ones (one shared Tb, so
     every lane's prefill window has the same length and the lanes share
     n_past); speaker_embd [B, H]; language_ids [B]; budgets, when given,
-    caps lane b at budgets[b] frames; allow_eos=False suppresses EOS, as in
+    caps lane b at budgets[b] frames; allow_eos=False suppresses EOS, and
+    kv_quant "int8" stores the int8 pair [B, ...], as in
     generate_from_tokens. The B prefill windows run as one prefill
     (``build_prefill`` and ``talker_prefill`` on [B, P, H], each projection
     one product of B*P rows, as continuous serving's refill runs them; every
@@ -240,6 +264,7 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
+    quant_kv = int8_kv(kv_quant, fused_talker)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     B = int(tokens.shape[0])
@@ -269,10 +294,12 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
         Trb = trailing.shape[1]
         if P + max_frames > kv_capacity:
             raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
-        kv = torch.zeros((B, tcfg.n_layers, 2, tcfg.n_kv_heads, kv_capacity, tcfg.head_dim),
-                         dtype=dtype, device=dev)
+        kv = torch.zeros((B, tcfg.n_layers, 2, tcfg.n_kv_heads, P if quant_kv else kv_capacity,
+                          tcfg.head_dim), dtype=dtype, device=dev)
         last_hidden, logits = talker_model.talker_prefill(talker_params, tcfg,
                                                           prefill.prefill_embd, kv)
+        if quant_kv:
+            kv = quantize_cache(kv, kv_capacity)
         cb0_next = sample_cb0(logits, seeds[:, 0], **cb0_kw)
         seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)

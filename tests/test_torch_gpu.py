@@ -27,7 +27,7 @@ def tts():
                                    "check_code_predictor", "check_talker_step_batched",
                                    "check_code_predictor_batched", "check_res_block",
                                    "check_int8_matmul", "check_decode_attention",
-                                   "check_talker_step_start",
+                                   "check_talker_step_start", "check_talker_step_kv_int8",
                                    "check_code_predictor_per_lane"])
 def test_kernel_matches_plain_on_card(tts, check):
     report = {}

@@ -35,6 +35,7 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
     "qwen3tts_tpu_torch.models.code_predictor", "qwen3tts_tpu_torch.ops.quant",
     "qwen3tts_tpu_torch.ops.w4_gemv_probe", "qwen3tts_tpu_torch.runtime.continuous",
+    "qwen3tts_tpu_torch.ops.kv_quant",
 ]
 
 
@@ -99,20 +100,20 @@ def test_pipeline_defaults_to_the_card():
 
 @pytest.mark.parametrize("kv_quant", ["int8", "none", "auto"])
 def test_kv_quant_is_read_and_the_int8_tier_refused(kv_quant):
-    """RuntimeConfig.kv_quant is no longer ignored: "int8" (not ported) is
-    refused with a message where it once ran a bf16 cache without a word;
-    "auto" and "none" resolve to "none" and load."""
+    """RuntimeConfig.kv_quant is read, never ignored: the int8-KV tier
+    ("int8", refused until it was ported) loads and resolves to "int8";
+    "auto" and "none" load and resolve to "none"; an unknown tier is
+    refused with a message."""
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS, resolve_kv_quant
 
     cfg = tiny_pipeline_config()
     rt = dataclasses.replace(cfg.runtime, quant="int8", kv_quant=kv_quant)
     tts = Qwen3TTS(dataclasses.replace(cfg, runtime=rt), device="cpu")
-    loaded = tts.load_models(None, synthetic=True)
-    if kv_quant == "int8":
-        assert not loaded and "int8 KV" in tts.error_msg and "not ported" in tts.error_msg
-    else:
-        assert loaded, tts.error_msg
-        assert resolve_kv_quant(rt) == "none"
+    assert tts.load_models(None, synthetic=True), tts.error_msg
+    assert resolve_kv_quant(rt) == ("int8" if kv_quant == "int8" else "none")
+    bad = Qwen3TTS(dataclasses.replace(cfg, runtime=dataclasses.replace(rt, kv_quant="fp8")),
+                   device="cpu")
+    assert not bad.load_models(None, synthetic=True) and "fp8" in bad.error_msg
 
 
 def test_unknown_weight_tier_is_refused():
@@ -209,21 +210,24 @@ def test_device_request_raises_without_the_library(no_library, kernel):
     fn = chip_smoke.wrapper(kernel)
     meta = torch.device("meta")
     base = kernel.partition("[")[0]
+    def cache(*lead):
+        shape = (*lead, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim)
+        if kernel not in chip_smoke.KV_INT8_ENTRIES:
+            return torch.zeros(shape, device=meta)
+        return (torch.zeros(shape, dtype=torch.int8, device=meta),
+                torch.zeros(shape[:-1], device=meta))
+
     with pytest.raises(RuntimeError, match="absent"):
         if base == "fused_talker_step":
-            kv = torch.zeros((tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
-                             device=meta)
-            fn(tp.blocks, tcfg, torch.zeros(tcfg.hidden_size, device=meta), 3, kv,
+            fn(tp.blocks, tcfg, torch.zeros(tcfg.hidden_size, device=meta), 3, cache(),
                output_norm=tp.output_norm, codec_head=tp.codec_head)
         elif kernel == "fused_predict_codes":
             h = torch.zeros(ccfg.hidden_size, device=meta)
             fn(cp, ccfg, h, h, 0, temperature=0.0, top_k=50, greedy=True)
         elif base == "fused_talker_step_batched":
-            kv = torch.zeros((2, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim),
-                             device=meta)
             start = (dict(start=torch.zeros(2, dtype=torch.int32, device=meta))
-                     if kernel in chip_smoke.OPERAND_ENTRIES else {})
-            fn(tp.blocks, tcfg, torch.zeros((2, tcfg.hidden_size), device=meta), 3, kv,
+                     if kernel == "fused_talker_step_batched[start]" else {})
+            fn(tp.blocks, tcfg, torch.zeros((2, tcfg.hidden_size), device=meta), 3, cache(2),
                output_norm=tp.output_norm, codec_head=tp.codec_head, **start)
         elif base == "fused_predict_codes_batched":
             h = torch.zeros((2, ccfg.hidden_size), device=meta)
@@ -277,6 +281,11 @@ def test_chip_smoke_phases_at_tiny_config():
     chip_smoke.check_talker_step_start(tts, report, iters=1, B=5, C=64, n_past=40, lows=(0, 24))
     assert {"ms_start_min_24", "bound_ms_start_min_24"} <= set(
         report["fused_talker_step_batched[start]"])
+    chip_smoke.check_talker_step_kv_int8(tts, report, iters=1,
+                                         single=((32, (0, 20)), (4352, (4000,))),
+                                         batched=((3, 32, (0, 5)), (64, 512, (300,))))
+    assert {"ms_n_past_4000", "bf16_kv_ms", "bound_ms_n_past_4000"} <= set(
+        report["fused_talker_step[kv_int8]"])
     chip_smoke.check_code_predictor_per_lane(tts, report, iters=1, B=6)
     chip_smoke.check_res_block(tts, report, iters=1)
     chip_smoke.check_int8_matmul(tts, report, iters=1, rows=(1, 3))
@@ -359,6 +368,38 @@ def test_chip_smoke_queues_at_tiny_config(capsys):
     assert lines[2]["compactions"] >= 1 and lines[2]["sessions"] >= 1
     assert lines[2]["first_fill_frames_compared"] > 0
     assert lines[1]["static_frames"] > 0 and lines[1]["continuous_over_static"] > 0
+
+
+def test_chip_smoke_kv_int8_serve_at_tiny_config(capsys):
+    """The serve phase of the int8-KV tier at the tiny configuration on the
+    CPU (plain versions: every count stays 0, so only the launch checks are
+    left out): a request and a batch on RuntimeConfig.kv_quant="int8", and
+    the paths it demands and forbids (its [kv_int8] entry; no K1/K5 over a
+    bf16 cache; the full-width request runs at C = 2304)."""
+    from qwen3tts_tpu_torch.config import PipelineConfig, SamplingConfig
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    tts = _tiny_pipeline()
+    check = chip_smoke.check_launches
+    chip_smoke.check_launches = lambda *a, **k: None
+    try:
+        runs = chip_smoke.serve_kv_int8(
+            tts, "cpu", requests=[("Hello.", dict(max_audio_tokens=4, seed=4))],
+            batches=[(3, dict(max_audio_tokens=4, seed=3))], min_frames_per_lane=1)
+    finally:
+        chip_smoke.check_launches = check
+    assert len(runs) == 2 and all(set(r.values()) == {0} for r in runs)
+    assert chip_smoke.kv_int8_pipeline(tts).config.runtime.kv_quant == "int8"
+    out = capsys.readouterr().out
+    assert "serve_kv_int8 " in out and "serve_kv_int8_batch " in out
+    for path, own in ((chip_smoke.KV_INT8_SINGLE, "fused_talker_step[kv_int8]"),
+                      (chip_smoke.KV_INT8_BATCH, "fused_talker_step_batched[kv_int8]")):
+        assert own in path and not set(path) & set(chip_smoke.BF16_KV_TALKER)
+    assert {"fused_talker_step", "fused_talker_step_batched",
+            "fused_talker_step_batched[start]"} <= set(chip_smoke.BF16_KV_TALKER)
+    full = Qwen3TTS(PipelineConfig(), device="cpu")    # no weights needed
+    for _, kw in chip_smoke.KV_INT8_REQUESTS:
+        assert full._frame_budget(SamplingConfig(**kw))[1] == 2304
 
 
 def test_unfused_path_needs_decode_attention_from_1024_rows():
