@@ -24,8 +24,15 @@ Phases (each prints a line; any failure exits non-zero):
      equal; timed beside their bf16-KV times at K1 C = 4352, n_past 300 and
      4000, K5 B = 16, C = 4352, n_past = 4000 and B = 64, C = 512, n_past =
      300; the cache's bytes and the peak memory of one K5 call at B = 64,
-     C = 4352 in both tiers. Then the 4-bit GEMV probe (int8 and packed-nibble weights,
-     exact) beside K1's projection kernels at the probe's shape;
+     C = 4352 in both tiers. K2 and K6 (one persistent cooperative kernel
+     per call) also report their device time, their grid (blocks, grid
+     barriers per call) and the kernels one call launches under the
+     profiler: exactly one of the port's library, or the phase fails.
+     Decode attention's yardstick (scaled_dot_product_attention) is timed
+     by events and by device time at B = 1, C = 1280, n_valid = 300 and B =
+     16, C = 4352, n_valid = 4000. Then the 4-bit GEMV probe (int8 and
+     packed-nibble weights, exact) beside K1's projection kernels at the
+     probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -520,7 +527,10 @@ def check_talker_step(tts, report, iters, key="fused_talker_step",
 def check_code_predictor(tts, report, iters):
     """K2 at full width, greedy and sampled (temperature 0.9, top-k 50, one
     seed). Tolerance: the 15 codes equal, and rest_sum within 1e-3 of the
-    plain version's (a sum of 15 bf16 rows in float32)."""
+    plain version's (a sum of 15 bf16 rows in float32). On the card also:
+    one call launches exactly one kernel of the port's library, the
+    persistent kernel (``cp_kernels_per_call``), whose device time and grid
+    are reported."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_code_predictor import (
@@ -530,6 +540,7 @@ def check_code_predictor(tts, report, iters):
     g = torch.Generator(device="cpu").manual_seed(7)
     th = torch.randn((ccfg.hidden_size,), generator=g).to(device=dev, dtype=tts.dtype)
     cb0 = tts.talker_params.codec_embd[123]
+    grid = cp_grid(ccfg, None, dev)
     err = 0.0
     for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
                dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
@@ -539,18 +550,66 @@ def check_code_predictor(tts, report, iters):
         e = _max_err(sa, sb)
         print(f"kernel fused_predict_codes greedy={kw['greedy']}: codes "
               f"{'equal' if same else 'DIFFER'} {ca.tolist()} vs {cb.tolist()}; "
-              f"rest_sum err {e:.3e}")
+              f"rest_sum err {e:.3e}; grid {grid}")
         if not (same and e <= 1e-3):
             raise SmokeFailure("fused_predict_codes disagrees with its plain version")
         err = max(err, e)
+    run = lambda: fused_predict_codes(cp, ccfg, th, cb0, 991, **kw)  # noqa: E731
     bound_ms, bound_by = code_predictor_bound(cp, ccfg, 1)
     report["fused_predict_codes"] = dict(
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape="one frame",
-        max_abs_err=err,
-        ms=timed(lambda: fused_predict_codes(cp, ccfg, th, cb0, 991, **kw), dev, iters),
+        max_abs_err=err, ms=timed(run, dev, iters),
+        device_ms=device_ms_per_call(run, 1, (CP_KERNEL,), dev, expect=1),
+        kernels_per_call=cp_kernels_per_call(run, dev, "fused_predict_codes"), grid=grid,
         plain_ms=timed(lambda: fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw),
                        dev, iters),
         tolerance="codes equal; rest_sum 1e-3 abs")
+
+
+# the persistent code predictor kernel (K2, K6), and every kernel name of
+# the port's library that a code predictor call could launch besides it
+# (those of layer.cuh, which the multi-launch design launched)
+CP_KERNEL = "cp_persistent_kernel"
+
+
+def cp_grid(ccfg, B, device):
+    """The persistent kernel's grid for K2 (B None) or K6 at B lanes
+    (fused_code_predictor.kernel_grid); None off the card."""
+    if device.type != "cuda":
+        return None
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import kernel_grid
+
+    return kernel_grid(ccfg, B)
+
+
+def cp_kernels_per_call(fn, device, what, tries=3):
+    """The device kernels one call of fn (one K2 or K6 call) launches, read
+    from the profiler: dict(library: the port's kernels, all: every kernel,
+    PyTorch's operand preparation included, names). Fails unless the
+    library's kernels are exactly one, the persistent kernel. A trace that
+    caught none of the library's kernels (the profiler can drop a short
+    run's events) is taken again, up to `tries` times. None off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(device)
+        names = [kernel_name(e["name"]) for e in device_events(prof) if e["cat"] == "kernel"]
+        ours = [n for n in names if n.startswith(TALKER_KERNEL_PREFIXES + ("cp_",))]
+        if ours:
+            break
+    out = dict(library=len(ours), all=len(names), names=sorted(set(names)))
+    print(f"kernels per call of {what}: {out}")
+    if ours != [CP_KERNEL]:
+        raise SmokeFailure(f"one {what} call launched {ours} of the port's kernels, "
+                           f"not one {CP_KERNEL}")
+    return out
 
 
 def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
@@ -678,6 +737,7 @@ def check_code_predictor_batched(tts, report, iters, B=64):
     th = torch.randn((B, ccfg.hidden_size), generator=g).to(device=dev, dtype=tts.dtype)
     cb0 = tts.talker_params.codec_embd[torch.arange(B, device=dev) * 29 + 5]
     seeds = torch.arange(B, dtype=torch.int32, device=dev) * 104729 - 3000
+    grids = {n: cp_grid(ccfg, n, dev) for n in (B, 20, 16, 5) if n <= B}
     err = 0.0
     for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
                dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
@@ -689,7 +749,7 @@ def check_code_predictor_batched(tts, report, iters, B=64):
         e = _max_err(sa, sb)
         print(f"kernel fused_predict_codes_batched B={B} greedy={kw['greedy']}: codes equal "
               f"in {lanes_equal}/{B} lanes; rest_sum err {e:.3e}; lanes equal to K2 "
-              f"single-stream {single}/{B} (information)")
+              f"single-stream {single}/{B} (information); grid {grids[B]}")
         if not (lanes_equal == B and e <= 1e-3):
             raise SmokeFailure("fused_predict_codes_batched disagrees with its plain version")
         err = max(err, e)
@@ -699,19 +759,25 @@ def check_code_predictor_batched(tts, report, iters, B=64):
             cn, sn = fused_predict_codes_batched(cp, ccfg, th[:n], cb0[:n], seeds[:n], **kw)
             en = _max_err(sn, sb[:n])
             print(f"kernel fused_predict_codes_batched B={n} greedy={kw['greedy']}: codes "
-                  f"equal {bool((cn.long() == cb[:n].long()).all())}; rest_sum err {en:.3e}")
+                  f"equal {bool((cn.long() == cb[:n].long()).all())}; rest_sum err {en:.3e}; "
+                  f"grid {grids[n]}")
             if not (bool((cn.long() == cb[:n].long()).all()) and en <= 1e-3):
                 raise SmokeFailure(f"fused_predict_codes_batched disagrees at B={n}")
             err = max(err, en)
     bound_ms, bound_by = code_predictor_bound(cp, ccfg, B)
+    run = lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw)  # noqa: E731
+    run16 = lambda: fused_predict_codes_batched(  # noqa: E731
+        cp, ccfg, th[:16], cb0[:16], seeds[:16], **kw)
     report["fused_predict_codes_batched"] = dict(
-        max_abs_err=err,
-        ms=timed(lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw), dev,
-                 iters),
+        max_abs_err=err, ms=timed(run, dev, iters),
+        device_ms=device_ms_per_call(run, 1, (CP_KERNEL,), dev, expect=1),
+        kernels_per_call=cp_kernels_per_call(run, dev, "fused_predict_codes_batched"),
+        grid=grids[B],
         plain_ms=timed(lambda: fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds,
                                                                  **kw), dev, iters),
-        ms_b16=timed(lambda: fused_predict_codes_batched(cp, ccfg, th[:16], cb0[:16],
-                                                         seeds[:16], **kw), dev, iters),
+        ms_b16=timed(run16, dev, iters),
+        device_ms_b16=device_ms_per_call(run16, 1, (CP_KERNEL,), dev, expect=1),
+        grid_b16=grids.get(16),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         bound_ms_b16=code_predictor_bound(cp, ccfg, 16)[0],
         shape=f"B={B}, one frame-set", tolerance="codes equal per lane; rest_sum 1e-3 abs")
@@ -1089,10 +1155,11 @@ def check_code_predictor_per_lane(tts, report, iters, B=64):
             raise SmokeFailure(f"{key} disagrees with its plain version")
         err = max(err, e)
     bound_ms, bound_by = code_predictor_bound(cp, ccfg, B)
+    run = lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw)  # noqa: E731
     report[key] = dict(
-        max_abs_err=err,
-        ms=timed(lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw), dev,
-                 iters),
+        max_abs_err=err, ms=timed(run, dev, iters),
+        device_ms=device_ms_per_call(run, 1, (CP_KERNEL,), dev, expect=1),
+        kernels_per_call=cp_kernels_per_call(run, dev, key), grid=cp_grid(ccfg, B, dev),
         plain_ms=timed(lambda: fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds, **kw),
                        dev, iters),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -1194,6 +1261,29 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
         times=times, tolerance="one bf16 ulp (float32 x: 1e-5 rel) + 1e-5 * max|plain| abs")
 
 
+# the shapes at which the decode-attention row reports its yardstick
+# (scaled_dot_product_attention's event and device times)
+LIBRARY_ATTENTION_SHAPES = ((1, 1280, 300), (16, 4352, 4000))
+
+
+def _sdpa_layers(q, kv, n):
+    """Per layer l, torch.nn.functional.scaled_dot_product_attention of q
+    [B, Hq, D] over the valid prefix of layer l of kv (the decode-attention
+    kernel's yardstick; the port never calls it)."""
+    import torch
+
+    B, Hq, D = q.shape
+    Hkv = kv.shape[3]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q.reshape(B, Hq, 1, D)
+    try:
+        sdpa(q4, kv[:, 0, 0, :, :n], kv[:, 0, 1, :, :n], enable_gqa=True)
+        return lambda l: sdpa(q4, kv[:, l, 0, :, :n], kv[:, l, 1, :, :n], enable_gqa=True)
+    except TypeError:   # a PyTorch without enable_gqa: the heads expanded beforehand
+        kx = [kv[:, l, :, :, :n].repeat_interleave(Hq // Hkv, dim=2) for l in range(kv.shape[1])]
+        return lambda l: sdpa(q4, kx[l][:, 0], kx[l][:, 1])
+
+
 def check_decode_attention(tts, report, iters, L=None,
                            shapes=((1, 1280, (1, 300, 1000)), (16, 1280, (1, 300, 1000)),
                                    (1, 4352, (1, 300, 1000, 4000)),
@@ -1206,7 +1296,9 @@ def check_decode_attention(tts, report, iters, L=None,
     over the layers, as the unfused step calls it (ms and device_ms as in
     check_int8_matmul). library_ms is
     torch.nn.functional.scaled_dot_product_attention on the same valid
-    prefix (the port never calls it)."""
+    prefix (the port never calls it), and library_device_ms its device time
+    per call under the profiler, over every kernel it launches, at each
+    shape of LIBRARY_ATTENTION_SHAPES that `shapes` holds."""
     import torch
 
     from qwen3tts_tpu_torch.ops.decode_attention import (decode_attention_kernel,
@@ -1232,31 +1324,28 @@ def check_decode_attention(tts, report, iters, L=None,
                 raise SmokeFailure(f"decode_attention disagrees at B={B}, C={C}, n_valid={n}")
             worst = max(worst, e)
             run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
-            times[f"B={B} C={C} n_valid={n}"] = dict(
+            t = times[f"B={B} C={C} n_valid={n}"] = dict(
                 ms=timed(run, dev, iters) / L,
                 device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
                 bound_ms=attention_bound(B, Hq, Hkv, D, n)[0])
+            if (B, C, n) in LIBRARY_ATTENTION_SHAPES:
+                lib = _layer_cycle(_sdpa_layers(q, kv, n), L)
+                t.update(library_ms=timed(lib, dev, iters) / L,
+                         library_device_ms=device_ms_per_call(lib, L, ("",), dev))
         del kv
     B, C, n = 1, 1280, 300
     kv = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype)
     q = torch.randn((B, Hq, D), generator=g, device=dev).to(tts.dtype)
     bound_ms, bound_by = attention_bound(B, Hq, Hkv, D, n)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    q4 = q.reshape(B, Hq, 1, D)
-    try:
-        sdpa(q4, kv[:, 0, 0, :, :n], kv[:, 0, 1, :, :n], enable_gqa=True)
-        library = lambda l: sdpa(q4, kv[:, l, 0, :, :n], kv[:, l, 1, :, :n],  # noqa: E731
-                                 enable_gqa=True)
-    except TypeError:   # a PyTorch without enable_gqa: the heads expanded beforehand
-        kx = [kv[:, l, :, :, :n].repeat_interleave(Hq // Hkv, dim=2) for l in range(L)]
-        library = lambda l: sdpa(q4, kx[l][:, 0], kx[l][:, 1])  # noqa: E731
     run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
+    library = _layer_cycle(_sdpa_layers(q, kv, n), L)
     report["decode_attention"] = dict(
         max_abs_err=worst, ms=timed(run, dev, iters) / L,
         device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
         plain_ms=timed(_layer_cycle(lambda l: decode_attention_kernel_plain(q, kv, l, n), L),
                        dev, iters) / L,
-        library_ms=timed(_layer_cycle(library, L), dev, iters) / L,
+        library_ms=timed(library, dev, iters) / L,
+        library_device_ms=device_ms_per_call(library, L, ("",), dev),
         bound_ms=bound_ms, bound_by=bound_by, times=times,
         shape=f"B={B} C={C} n_valid={n} (the unfused 600-token request), per layer",
         tolerance="one bf16 ulp + 1e-6 abs")
@@ -2105,9 +2194,10 @@ def main():
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         for name, r in report.items():
+            grid = f", grid {r['grid']}" if r.get("grid") else ""
             print(f"time {name}: kernel {r['ms']:.4f} ms (device {r.get('device_ms')}), "
                   f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}) [{smi}]")
+                  f"({r['bound_by']}){grid} [{smi}]")
 
         # each main path with the counts set to 0 just before it and read
         # just after

@@ -63,6 +63,8 @@ SIGNATURES = {
     "qtts_w4_gemv_probe": [P, P, I, I, I, I, P, P],        # x w packed L K N out stream
     "qtts_cp_ws_bytes": [I, I, I, I, I, I, I],
     "qtts_cp_batched_ws_bytes": [I, I, I, I, I, I, I, I],
+    "qtts_cp_grid": [I, I, I, I, I, I, I, I, I, P],        # L H Hq Hkv D F V CTX S, out[5]
+    "qtts_cp_batched_grid": [I, I, I, I, I, I, I, I, I, I, P],   # B, then as above
     "qtts_code_predictor_batched": [
         P, I, P, P,                      # xinit, B, cos, sin
         P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)

@@ -1,27 +1,27 @@
 // K2: the 15 residual codes of one frame — the code predictor's whole
-// autoregressive inner loop in one C call (code_predictor.cuh, one lane).
+// autoregressive inner loop as one cooperative launch of the persistent
+// kernel in code_predictor_persistent.cuh, for one lane.
 //
 // Replaces qwen3tts_tpu/ops/pallas_code_predictor.py:260 fused_predict_codes
-// (w8a8 mode).
+// (w8a8 mode), one pallas_call per frame on the TPU; one kernel per frame
+// here too.
 //
-// What bounds it on the H100: bytes, re-read every pass. The TPU kernel
-// keeps the int8 block stack (~78.6 MB at 0.6B widths) resident in 128 MB
-// of VMEM and reads it once per frame. An H100 SM has 227 KB of shared
-// memory and the card 50 MB of L2, so the stack cannot stay on chip: each of
-// the 16 passes streams it again, 16 x 78.6 = 1.26 GB per frame, plus 15
-// bf16 LM heads (15 x 4.2 MB = 63 MB) and 15 embedding rows. The card's
-// bound counts each byte once (~0.14 GB, ~0.04 ms); the re-reads are this
-// design's cost, a floor of ~0.4 ms per frame at 3.35 TB/s. This first
-// version streams the weights with split-K GEMVs and launches ~13 kernels
-// per layer (~1,100 per frame) from one C call; launch latency dominates it.
-// Splitting the stack across SMs in a persistent kernel is later work.
+// What bounds it on the H100: the card's bound counts each byte once (the
+// ~78.6 MB int8 block stack at 0.6B widths, 15 bf16 heads, ~0.04 ms), but
+// the TPU kernel keeps the stack resident in VMEM for all 16 passes and an
+// H100 cannot (227 KB of shared memory per SM, 50 MB of L2): each pass
+// streams it again, 16 x 78.6 MB = 1.26 GB per frame, a floor of ~0.38 ms
+// at 3.35 TB/s. Launch latency no longer bounds it (one launch per frame,
+// not ~1,020): its grid barriers (670 per call, ~1.4 us each) and the
+// chains of dependent latencies of the phases between them do, the row
+// work that one lane leaves to one block while the others wait above all.
 //
 // The KV scratch is float32, [2, L, Hkv, 16, D], as the Pallas kernel's.
-#include "code_predictor.cuh"
+#include "code_predictor_persistent.cuh"
 
 extern "C" size_t qtts_cp_ws_bytes(int H, int Hq, int Hkv, int D, int F, int CTX, int V) {
-  const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, 1, CTX, V);
+  (void)CTX;
+  return cp_carve(nullptr, nullptr, 1, H, Hq, Hkv, D, F, V);
 }
 
 extern "C" int qtts_code_predictor(
@@ -34,17 +34,22 @@ extern "C" int qtts_code_predictor(
     int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
     float temp, float top_p, int top_k, int greedy, int use_top_p, int seed,
     void* codes_out, void* rest_sum, void* kv, void* ws, void* stream) {
-  const Dims d{H, Hq, Hkv, D, F, eps};
-  if (int bad = check_dims(d, V, 1)) return bad;
-  if (S + 1 > CTX) return (int)cudaErrorInvalidValue;
-  Work w;
-  carve_work(&w, (char*)ws, d, 1, CTX, V);
-  const StackWeights sw = w8a8_stack(wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s,
-                                     attn_n, q_n, k_n, ffn_n);
-  predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
-                (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
-                (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, seed,
-                nullptr, nullptr, nullptr, (int*)codes_out, (float*)rest_sum, (float*)kv, w,
-                (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  if (int bad = cp_check(1, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
+  const CpParams P = cp_params(xinit, 1, cos_tab, sin_tab, attn_n, q_n, k_n, ffn_n, out_norm,
+                               wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s, heads,
+                               embds, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p, top_k,
+                               greedy, use_top_p, seed, nullptr, nullptr, nullptr, codes_out,
+                               rest_sum, kv, ws);
+  return cp_launch<float, 0>(P, (cudaStream_t)stream);
+}
+
+// The grid one K2 call launches: out[0..4] = blocks, grid barriers per
+// call, blocks per SM, SMs, dynamic shared bytes per block.
+extern "C" int qtts_cp_grid(int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S,
+                            void* out) {
+  if (int bad = cp_check(1, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
+  CpParams P{};
+  P.B = 1; P.L = L; P.H = H; P.Hq = Hq; P.Hkv = Hkv; P.D = D; P.F = F; P.V = V;
+  P.CTX = CTX; P.S = S;
+  return CpGrid<float, 0>::go(P, (int*)out);
 }

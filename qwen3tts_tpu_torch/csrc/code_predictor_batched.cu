@@ -1,39 +1,44 @@
 // K6: the 15 residual codes of one frame for each of B lanes — the code
-// predictor's autoregressive inner loop for a batch in one C call
-// (code_predictor.cuh).
+// predictor's autoregressive inner loop for a batch as one cooperative
+// launch of the persistent kernel in code_predictor_persistent.cuh.
 //
 // Replaces qwen3tts_tpu/ops/pallas_code_predictor_batched.py:235
 // fused_predict_codes_batched (w8a8 mode), with its per-lane temperature and
 // top-p operands (:86-88, :291-299; temps and topps [B] float32, or null for
 // the scalars: continuous serving gives each request its own). Lane b
-// equals K2 run with seed seeds[b] (and the lane's temperature and top-p): the per-lane activation scales, the exact int32 dots and the
+// equals K2 run with seed seeds[b] (and the lane's temperature and top-p):
+// the per-lane activation scales, the exact int32 dots and the
 // counter-hash noise (a function of seed, step and vocab slot only) make the
 // lanes independent. As in the Pallas kernel, the KV scratch is stored in
 // the embedding dtype (bf16 here, float32 in K2) and neither q nor the
 // probabilities are rounded, so on bf16 weights a lane can differ from K2 in
 // the last bits of its attention.
 //
-// What bounds it on the H100: bytes. Per frame-set the 5 int8 layers (78.6
-// MB at 0.6B widths) and the 15 bf16 heads (62.9 MB) are the card's bound
-// (~0.04 ms at 3.35 TB/s); at B = 64 the int8 products are 2 x 64 x 16
-// passes x 78.6 M = 0.16 T operations, ~0.08 ms at the int8 peak. The TPU
-// kernel keeps the block stack in VMEM for all 16 passes; an H100 cannot
-// (227 KB shared per SM, 50 MB L2), so each pass streams the stack once for
-// all B lanes (the gemm_w8a8 tiles of layer.cuh: a weight byte is read once
-// per pass, not once per lane), 16 x 78.6 MB = 1.26 GB per frame-set, a
-// floor of ~0.4 ms. The TPU kernel's one-hot matmul embedding gather and
-// its lane-major KV scratch [L, Hkv, CTX, B, D] are TPU tiling artifacts:
-// here a block per lane fetches its embedding row, and the scratch is
-// lane-major over heads, [2, L, B, Hkv, 16, D].
+// What bounds it on the H100: per frame-set the 5 int8 layers (78.6 MB at
+// 0.6B widths) and the 15 bf16 heads (62.9 MB) are the card's bound by
+// bytes (~0.04 ms at 3.35 TB/s); at B = 64 the int8 products are 2 x 64 x 16
+// passes x 78.6 M = 0.16 T operations, ~0.08 ms at the int8 tensor-core
+// peak. The TPU kernel keeps the block stack in VMEM for all 16 passes; an
+// H100 cannot (227 KB shared per SM, 50 MB L2), so each pass streams the
+// stack once for all B lanes (a weight tile is read by one block and
+// multiplied against every lane's activation row), 16 x 78.6 MB = 1.26 GB
+// per frame-set, a floor of ~0.38 ms. Launch latency no longer bounds it
+// (one launch per frame-set, not ~1,020): at B = 64 the __dp4a products on
+// the CUDA cores (~20 G instructions per call) set the GEMM phases' time,
+// and the 670 grid barriers and the one-block lane phases between them add
+// theirs; IMMA products are the next step. The TPU kernel's one-hot matmul
+// embedding gather and its lane-major KV scratch [L, Hkv, CTX, B, D] are
+// TPU tiling artifacts: here the block of a lane fetches its embedding row,
+// and the scratch is lane-major over heads, [2, L, B, Hkv, 16, D].
 //
 // Cap: B <= 64 per call, the Pallas kernel's VMEM lane budget; the decode
 // loop runs larger batches in groups of 64.
-#include "code_predictor.cuh"
+#include "code_predictor_persistent.cuh"
 
 extern "C" size_t qtts_cp_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
                                            int CTX, int V) {
-  const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, B, CTX, V);
+  (void)CTX;
+  return cp_carve(nullptr, nullptr, B, H, Hq, Hkv, D, F, V);
 }
 
 extern "C" int qtts_code_predictor_batched(
@@ -47,17 +52,21 @@ extern "C" int qtts_code_predictor_batched(
     float temp, float top_p, int top_k, int greedy, int use_top_p, const void* seeds,
     const void* temps, const void* topps, void* codes_out, void* rest_sum, void* kv, void* ws,
     void* stream) {
-  const Dims d{H, Hq, Hkv, D, F, eps};
-  if (int bad = check_dims(d, V, B)) return bad;
-  if (S + 1 > CTX || B > 64) return (int)cudaErrorInvalidValue;
-  Work w;
-  carve_work(&w, (char*)ws, d, B, CTX, V);
-  const StackWeights sw = w8a8_stack(wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s,
-                                     attn_n, q_n, k_n, ffn_n);
-  predict_codes(d, sw, L, V, CTX, S, (const float*)xinit, (const float*)cos_tab,
-                (const float*)sin_tab, (const float*)out_norm, (const __nv_bfloat16*)heads,
-                (const __nv_bfloat16*)embds, temp, top_p, top_k, greedy, use_top_p, 0,
-                (const int*)seeds, (const float*)temps, (const float*)topps, (int*)codes_out,
-                (float*)rest_sum, (__nv_bfloat16*)kv, w, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  if (int bad = cp_check(B, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
+  const CpParams P = cp_params(xinit, B, cos_tab, sin_tab, attn_n, q_n, k_n, ffn_n, out_norm,
+                               wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s, heads,
+                               embds, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p, top_k,
+                               greedy, use_top_p, 0, seeds, temps, topps, codes_out, rest_sum,
+                               kv, ws);
+  return cp_by_lanes<__nv_bfloat16, CpLaunch>(B, P, (cudaStream_t)stream);
+}
+
+// The grid one K6 call for B lanes launches (as qtts_cp_grid).
+extern "C" int qtts_cp_batched_grid(int B, int L, int H, int Hq, int Hkv, int D, int F, int V,
+                                    int CTX, int S, void* out) {
+  if (int bad = cp_check(B, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
+  CpParams P{};
+  P.B = B; P.L = L; P.H = H; P.Hq = Hq; P.Hkv = Hkv; P.D = D; P.F = F; P.V = V;
+  P.CTX = CTX; P.S = S;
+  return cp_by_lanes<__nv_bfloat16, CpGrid>(B, P, (int*)out);
 }

@@ -1,7 +1,9 @@
 // One Qwen3 decoder layer for one token in each of B lanes, as a handful of
-// kernels: the building blocks of K1 (talker_step.cu) and K2
-// (code_predictor.cu), which run one lane, and of K5
-// (talker_step_batched.cu) and K6 (code_predictor_batched.cu), which run B.
+// kernels: the building blocks of K1 (talker_step.cu), which runs one lane,
+// and of K5 (talker_step_batched.cu), which runs B. K2 and K6 (the
+// persistent kernel of code_predictor_persistent.cuh) reuse the device
+// helpers (emit/quantize, proj_value's arithmetic) and the w8a8 tile of
+// gemm_w8a8_kernel.
 //
 //   resid_rms        x += previous projection; h = RMSNorm(x); emit(h)
 //   project          y[b, :] = x[b, :] @ W     (in the projection's mode)
@@ -18,7 +20,7 @@
 //
 // Weight modes. Each projection has its own (the Pallas kernels' per-weight
 // modes, qwen3tts_tpu/ops/pallas_talker_step.py:71 _make_mm_values and :153
-// _weight_mode; K2 and K6 run w8a8 only):
+// _weight_mode; the code predictor runs w8a8 only):
 //   w8a8    int8 W [K, N] and scales [N]. emit() quantizes the activation
 //           per token (s = max(amax, 1e-8) * (1/127), round half to even),
 //           the dot accumulates in int32 (exact and independent of order, so
@@ -65,8 +67,7 @@
 // partial, which adds nothing to the float64 merge. The attention grid may
 // begin at chunk start_min / kAttnChunk, where start_min is the caller's
 // lower bound of every lane's start (the Pallas kernel's min-start DMA
-// skip, :1445); merge then sums from that chunk. K1, K2 and K6 pass no
-// start.
+// skip, :1445); merge then sums from that chunk. K1 passes no start.
 //
 // The int8 KV cache (the int8-KV tier; the Pallas kernels' kv_int8 operand,
 // :564, :765, :1402): int8 rows with one float32 scale per row, read by
@@ -985,7 +986,7 @@ inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
 
 // Carve `w` out of base (or only count the bytes when base is null). modes
 // packs the four projections' WeightMode, 2 bits each, wqkv first (0: all
-// w8a8, as K2 and K6 run).
+// w8a8).
 inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int Vh,
                          int modes = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
@@ -1149,21 +1150,6 @@ struct StackWeights {
   Proj qkv, o, gu, d;
   const float *attn_n, *q_n, *k_n, *ffn_n;
 };
-
-inline Proj w8a8_proj(const void* q, const void* s) {
-  return Proj{kW8A8, q, (const float*)s, nullptr, 0};
-}
-
-// The int8 stack of K2 and K6.
-inline StackWeights w8a8_stack(const void* wqkv_q, const void* wqkv_s, const void* wo_q,
-                               const void* wo_s, const void* wgu_q, const void* wgu_s,
-                               const void* wd_q, const void* wd_s, const void* attn_n,
-                               const void* q_n, const void* k_n, const void* ffn_n) {
-  return StackWeights{w8a8_proj(wqkv_q, wqkv_s), w8a8_proj(wo_q, wo_s),
-                      w8a8_proj(wgu_q, wgu_s),   w8a8_proj(wd_q, wd_s),
-                      (const float*)attn_n,      (const float*)q_n,
-                      (const float*)k_n,         (const float*)ffn_n};
-}
 
 // Layer l of a stacked [L, K, N] projection.
 inline Proj layer_proj(const Proj& p, int l, int K, int N) {

@@ -1,10 +1,11 @@
 """K2: the 15 residual codes of one frame (the code predictor's inner loop).
 
 Counterpart of ``qwen3tts_tpu/ops/pallas_code_predictor.py``: replaces the
-Pallas kernel ``fused_predict_codes`` (:260) in its w8a8 mode, with the CUDA
-kernel in ``csrc/code_predictor.cu`` (whose source says what bounds it: the
-~78.5 MB int8 block stack, re-read by each of the 16 passes because it does
-not fit on chip).
+Pallas kernel ``fused_predict_codes`` (:260) in its w8a8 mode, with one
+cooperative launch per frame of the persistent CUDA kernel in
+``csrc/code_predictor_persistent.cuh`` (entry ``csrc/code_predictor.cu``,
+whose source says what bounds it: the ~78.6 MB int8 block stack, re-read by
+each of the 16 passes because it does not fit on chip).
 
 Pass 0 runs the talker hidden through the layers (conditioning only). Pass
 p = 1..15 feeds the cb0 embedding (p = 1) or embds[p-2][code_{p-2}], then
@@ -119,9 +120,11 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
                         use_top_p=True):
     """Returns (codes [15], rest_sum [H] f32); see the module docstring.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    heads and embedding tables) or raise; there is no fallback. The kernel's
-    KV scratch [2, L, Hkv, 16, D] f32 is allocated here with torch.empty.
+    CPU tensors run the plain version. CUDA tensors make one cooperative
+    launch of the persistent kernel (bf16 heads and embedding tables) or
+    raise, also when the grid cannot be co-resident or the device refuses
+    the cooperative launch; there is no fallback. The kernel's KV scratch
+    [2, L, Hkv, 16, D] f32 is allocated here with torch.empty.
     """
     check_w8a8_blocks(cp_params.blocks)
     if cp_params.embds.device.type == "cpu":
@@ -136,7 +139,7 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
     dev = cp_params.embds.device
     xinit = _xinit(cp_params, talker_hidden, cb0_embd).contiguous()
     codes = torch.empty((S,), dtype=torch.int32, device=dev)
-    rest_sum = torch.zeros((H,), dtype=torch.float32, device=dev)
+    rest_sum = torch.empty((H,), dtype=torch.float32, device=dev)   # zeroed by the kernel
     kv = torch.empty((2, L, Hkv, CTX, D), dtype=torch.float32, device=dev)
     ws = torch.empty(lib.qtts_cp_ws_bytes(H, Hq, Hkv, D, F, CTX, V),
                      dtype=torch.uint8, device=dev)
@@ -151,3 +154,23 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
 
 
 fused_predict_codes.launches = 0
+
+
+def kernel_grid(cfg, B=None):
+    """The grid of one CUDA call of K2 (B None) or K6 for B lanes at cfg's
+    shapes, on the current device: dict(blocks, barriers (grid barriers per
+    call), blocks_per_sm, sms, smem_bytes (dynamic shared memory per
+    block)). Raises as the launch would when the shapes are refused or the
+    grid cannot be co-resident."""
+    import ctypes
+
+    lib = _kernels.load_library()
+    out = (ctypes.c_int * 5)()
+    dims = (cfg.n_layers, cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.intermediate_size, cfg.vocab_size, cfg.max_ctx, cfg.n_steps)
+    if B is None:
+        err = lib.qtts_cp_grid(*dims, ctypes.addressof(out))
+    else:
+        err = lib.qtts_cp_batched_grid(int(B), *dims, ctypes.addressof(out))
+    _kernels.check(err, "code predictor grid")
+    return dict(zip(("blocks", "barriers", "blocks_per_sm", "sms", "smem_bytes"), list(out)))

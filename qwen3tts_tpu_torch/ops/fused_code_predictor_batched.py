@@ -3,9 +3,10 @@ predictor's inner loop for a batch in lockstep).
 
 Counterpart of ``qwen3tts_tpu/ops/pallas_code_predictor_batched.py``:
 replaces the Pallas kernel ``fused_predict_codes_batched`` (:235) in its
-w8a8 mode, with the CUDA kernel in ``csrc/code_predictor_batched.cu``
-(whose source says what bounds it and how each pass reads the int8 block
-stack once for all lanes).
+w8a8 mode, with one cooperative launch per frame-set of the persistent
+CUDA kernel in ``csrc/code_predictor_persistent.cuh`` (entry
+``csrc/code_predictor_batched.cu``, whose source says what bounds it and how
+each pass reads the int8 block stack once for all lanes).
 
 Per lane the semantics are K2's (``fused_code_predictor.py``): activations
 quantized per lane, the counter-hash sampler with the lane's seed, so lane b
@@ -46,10 +47,11 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     of ints); temperature and top_p scalars or per-lane [B] tensors.
     Returns (codes [B, 15], rest_sum [B, H] f32).
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    heads and embedding tables, B <= 64) or raise; there is no fallback. The
-    kernel's KV scratch [2, L, B, Hkv, 16, D] bf16 is allocated here with
-    torch.empty.
+    CPU tensors run the plain version. CUDA tensors make one cooperative
+    launch of the persistent kernel (bf16 heads and embedding tables, B <=
+    64) or raise, also when the grid cannot be co-resident or the device
+    refuses the cooperative launch; there is no fallback. The kernel's KV
+    scratch [2, L, B, Hkv, 16, D] bf16 is allocated here with torch.empty.
     """
     check_w8a8_blocks(cp_params.blocks)
     B = talker_hidden.shape[0]
@@ -69,7 +71,7 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     L, H, Hq, Hkv, D, F, V, CTX, S, _ = dims
     xinit = _xinit(cp_params, talker_hidden, cb0_embd).contiguous()
     codes = torch.empty((B, S), dtype=torch.int32, device=dev)
-    rest_sum = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    rest_sum = torch.empty((B, H), dtype=torch.float32, device=dev)   # zeroed by the kernel
     kv = torch.empty((2, L, B, Hkv, CTX, D), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(lib.qtts_cp_batched_ws_bytes(B, H, Hq, Hkv, D, F, CTX, V),
                      dtype=torch.uint8, device=dev)

@@ -2,7 +2,9 @@
 main path's full widths (the same checks as chip_smoke.py's kernel phase).
 
 Marked ``gpu``; on a machine without a CUDA device every test skips. On the
-card: ``python -m pytest -m gpu tests/test_torch_gpu.py -q``.
+card: ``python -m pytest -m gpu tests/test_torch_gpu.py -q``; the code
+predictor's alone (K2, K6, K6 per lane: codes equal to the plain version,
+one persistent launch per call): ``-k code_predictor``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,25 @@ def test_kernel_matches_plain_on_card(tts, check):
     getattr(chip_smoke, check)(tts, report, iters=1)
     torch.cuda.synchronize()
     assert report
+
+
+@pytest.mark.parametrize("check, key", [
+    ("check_code_predictor", "fused_predict_codes"),
+    ("check_code_predictor_batched", "fused_predict_codes_batched"),
+    ("check_code_predictor_per_lane", "fused_predict_codes_batched[per_lane]")])
+def test_code_predictor_is_one_persistent_launch(tts, check, key):
+    """K2 (one lane) and K6 (B = 64, 20 and 5; per-lane sampling): codes
+    equal to the plain version (the check's gate), one kernel of the port's
+    library per call under the profiler, the phase plan's barriers."""
+    report = {}
+    getattr(chip_smoke, check)(tts, report, iters=1)
+    r, ccfg = report[key], tts.config.code_predictor
+    L, S = ccfg.n_layers, ccfg.n_steps
+    assert r["kernels_per_call"]["library"] == 1
+    # 8 per layer and pass, 2 more per pass that samples
+    assert r["grid"]["barriers"] == (S + 1) * L * 8 + 2 * S
+    assert r["grid"]["blocks"] >= r["grid"]["sms"]
+    assert r["device_ms"] is not None and r["device_ms"] > 0
 
 
 @pytest.mark.parametrize("quant", [None, "q4", "q4pure"], ids=["bf16", "q4", "q4pure"])

@@ -256,6 +256,19 @@ def test_device_request_raises_without_the_library(no_library, kernel):
     assert fn.launches == 0 and chip_smoke.read_counts()[kernel] == 0
 
 
+@pytest.mark.parametrize("lanes", [None, 1, 64], ids=["K2", "K6_B1", "K6_B64"])
+def test_code_predictor_grid_needs_the_library(no_library, lanes):
+    """The persistent code predictor's grid query (the grid chip_smoke.py
+    reports) goes to the library like a launch: without it, it raises; off
+    the card chip_smoke reports no grid."""
+    from qwen3tts_tpu_torch.config import CodePredictorConfig
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import kernel_grid
+
+    with pytest.raises(RuntimeError, match="absent"):
+        kernel_grid(CodePredictorConfig(), lanes)
+    assert chip_smoke.cp_grid(CodePredictorConfig(), lanes, torch.device("cpu")) is None
+
+
 def test_cuda_pipeline_has_no_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the path without one")
