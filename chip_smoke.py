@@ -30,7 +30,15 @@ Phases (each prints a line; any failure exits non-zero):
      profiler: exactly one of the port's library, or the phase fails.
      Decode attention's yardstick (scaled_dot_product_attention) is timed
      by events and by device time at B = 1, C = 1280, n_valid = 300 and B =
-     16, C = 4352, n_valid = 4000. Then the 4-bit GEMV probe (int8 and
+     16, C = 4352, n_valid = 4000; decode attention must launch one kernel
+     per call under the profiler (launches_per_call), and the kernels' split
+     rules must equal their Python mirrors, which the CPU tests hold to
+     cover every row once. K1 and K5 report the device time of their
+     attention stage (attention_device_ms: attn_layer_kernel, attn_emit_kernel
+     and, over the int8 cache, kv_row_quant_kernel) and the port's kernels
+     per call (launches_per_call); the W8A16 GEMM's yardstick
+     torch._weight_int8pack_mm its device time (library_device_ms) at the
+     QKV shape (M = 1) and w_down at M = 128. Then the 4-bit GEMV probe (int8 and
      packed-nibble weights, exact) beside K1's projection kernels at the
      probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
@@ -413,7 +421,38 @@ def _lane_cos(a, b):
 # the kernels of layer.cuh that K1 and K5 launch (their device time is the
 # sum of these, one stream, in order)
 TALKER_KERNEL_PREFIXES = ("resid_rms_kernel", "gemv_", "gemm_", "qkv_post_kernel",
-                          "attn_", "merge_kernel", "swiglu_kernel", "head_sample_kernel")
+                          "attn_", "swiglu_kernel", "head_sample_kernel")
+# the attention stage of K1 and K5: the attention kernel and the per-lane
+# emit (attn_layer_kernel, attn_emit_kernel), and with the int8 cache the
+# current row's quantization (kv_row_quant_kernel)
+ATTENTION_PREFIXES = ("attn_", "kv_row_")
+
+
+def talker_call_stats(run, device, key="", tries=3):
+    """One K1/K5 call's device_ms (the port's kernels' device time),
+    attention_device_ms (its attention stage's) and launches_per_call (the
+    port's kernels it launches), under names ending in `key`, from the one
+    of `tries` profiler traces that caught the most of its kernels (the
+    profiler can drop a short run's events). None off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = [f"{k}{key}" for k in ("device_ms", "attention_device_ms", "launches_per_call")]
+    if device.type != "cuda":
+        return dict.fromkeys(names)
+    run()
+    torch.cuda.synchronize(device)
+    best = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(device)
+        ours = [e for e in device_events(prof) if e["cat"] == "kernel" and kernel_name(
+            e["name"]).startswith(TALKER_KERNEL_PREFIXES + ATTENTION_PREFIXES)]
+        best = ours if len(ours) > len(best) else best
+    attention = [e for e in best if kernel_name(e["name"]).startswith(ATTENTION_PREFIXES)]
+    return dict(zip(names, (sum(e["dur"] for e in best) / 1e3,
+                            sum(e["dur"] for e in attention) / 1e3, len(best))))
 
 
 def _gates(exact):
@@ -511,16 +550,17 @@ def check_talker_step(tts, report, iters, key="fused_talker_step",
         max_abs_err_all_layers=max(errs_full),
         min_cos_all_layers=min(cos_full),
         ms=timed(run, dev, iters),
-        device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES, dev),
+        **talker_call_stats(run, dev),
         plain_ms=timed(lambda: fused_talker_step_plain(tp.blocks, tcfg, x, n_past, kv,
                                                        **greedy), dev, iters),
         shape=f"C={C} n_past={n_past}",
         tolerance=(f"2 layers: hidden {tol_h} abs, kv row {tol_kv}, logits 1e-3, cb0 equal; "
                    f"all layers: cosine 0.99"))
     if C > 4000:   # the rows a default request (max_audio_tokens=4096) attends over
+        run = lambda: fused_talker_step(tp.blocks, tcfg, x, 4000, kv, **greedy)  # noqa: E731
         report[key].update(
-            ms_n_past_4000=timed(lambda: fused_talker_step(tp.blocks, tcfg, x, 4000, kv,
-                                                           **greedy), dev, iters),
+            ms_n_past_4000=timed(run, dev, iters),
+            **talker_call_stats(run, dev, "_n_past_4000"),
             bound_ms_n_past_4000=talker_step_bound(tp, tcfg, 1, 4000)[0])
 
 
@@ -697,8 +737,7 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
         run = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_t, kva,  # noqa: E731
                                                 **greedy)
         times[(B, C, n_t)] = dict(ms=timed(run, dev, iters),
-                                  device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES,
-                                                               dev),
+                                  **talker_call_stats(run, dev),
                                   bound_ms=talker_step_bound(tp, tcfg, B, n_t)[0])
         if i == 1:
             plain_ms = timed(lambda: fused_talker_step_batched_plain(
@@ -713,6 +752,8 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
         max_abs_err_all_layers=max(errs_full),
         min_lane_cos_all_layers=min(cos_full),
         ms=head["ms"], device_ms=head["device_ms"], plain_ms=plain_ms,
+        attention_device_ms=head["attention_device_ms"],
+        launches_per_call=head["launches_per_call"],
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=f"B={B} C={C} n_past={n_past}",
         times={f"B={b} C={c} n_past={n}": t for (b, c, n), t in times.items()},
@@ -876,7 +917,7 @@ def check_talker_step_start(tts, report, iters, B=64, C=1024, n_past=600, lows=(
             f"min_lane_cos_all_layers{sfx}": float(min(ch.min(), cl.min())),
             f"max_abs_err{sfx}": max(errs_short + [eh, float(el.max())]),
             f"ms{sfx}": timed(run, dev, iters),
-            f"device_ms{sfx}": device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES, dev),
+            **talker_call_stats(run, dev, sfx),
             f"bound_ms{sfx}": bound_ms, f"rows_attended{sfx}": int(sum(rows))})
         if not sfx:
             no_start = {k: v for k, v in greedy.items() if k not in ("start", "start_min")}
@@ -1034,8 +1075,7 @@ def check_talker_step_kv_int8(tts, report, iters, single=((512, (10, 300)), (435
         run = lambda n=n_past: fused_talker_step(tp.blocks, tcfg, x, n, pair,  # noqa: E731
                                                  **greedy)
         r[f"ms{sfx}"] = timed(run, dev, iters)
-        r[f"device_ms{sfx}"] = device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES + ("kv_row_",),
-                                                  dev)
+        r.update(talker_call_stats(run, dev, sfx))
         r[f"bound_ms{sfx}"], bound_by = talker_step_bound(tp, tcfg, 1, n_past, kv_int8=True)
         r[f"bf16_kv_ms{sfx}"] = bf16.get(f"ms{sfx}")
     r["plain_ms"] = timed(lambda: fused_talker_step_plain(tp.blocks, tcfg, x, 300, pair,
@@ -1067,7 +1107,7 @@ def check_talker_step_kv_int8(tts, report, iters, single=((512, (10, 300)), (435
         where = f"B={B} C={C} n_past={n_t}"
         times[where] = dict(
             ms=timed(run, dev, iters),
-            device_ms=device_ms_per_call(run, 1, TALKER_KERNEL_PREFIXES + ("kv_row_",), dev),
+            **talker_call_stats(run, dev),
             bound_ms=talker_step_bound(tp, tcfg, B, n_t, kv_int8=True)[0],
             bf16_kv_ms=(bf16.get("times", {}).get(where) or {}).get("ms"))
         if C > 4000:   # where attention costs most: the kernels of one call, both caches
@@ -1242,21 +1282,31 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
     w, x = blocks.wqkv, headline_x
     K, N = w.q.shape[1:]
     head = times[f"wqkv M=1 K={K} N={N}"]
-    library_ms = None
+    library_ms = library_device_ms = None
     if hasattr(torch, "_weight_int8pack_mm"):
-        wt = [(w.q[l].t().contiguous(), w.scale[l].reshape(-1).to(tts.dtype)) for l in range(L)]
-        try:
-            torch._weight_int8pack_mm(x, *wt[0])
-            library_ms = timed(_layer_cycle(lambda l: torch._weight_int8pack_mm(x, *wt[l]), L),
-                               dev, iters) / L
-        except (RuntimeError, NotImplementedError) as err:
-            print(f"library _weight_int8pack_mm not available here: {str(err)[:120]}")
+        for name, xl in (("wqkv", x), ("w_down", torch.randn(
+                (rows[-1], blocks.w_down.q.shape[1]), generator=g).to(device=dev, dtype=tts.dtype))):
+            wl = getattr(blocks, name)
+            wt = [(wl.q[l].t().contiguous(), wl.scale[l].reshape(-1).to(tts.dtype))
+                  for l in range(L)]
+            try:
+                torch._weight_int8pack_mm(xl, *wt[0])
+            except (RuntimeError, NotImplementedError) as err:
+                print(f"library _weight_int8pack_mm not available here: {str(err)[:120]}")
+                break
+            lib = _layer_cycle(lambda l, xl=xl, wt=wt: torch._weight_int8pack_mm(xl, *wt[l]), L)
+            t = times[f"{name} M={xl.shape[0]} K={xl.shape[1]} N={wl.q.shape[2]}"]
+            t.update(library_ms=timed(lib, dev, iters) / L,
+                     library_device_ms=device_ms_per_call(lib, L, ("",), dev))
+            if name == "wqkv":
+                library_ms, library_device_ms = t["library_ms"], t["library_device_ms"]
     bound_ms, bound_by = bound(K * N + K * 2 + N * 4 + N * 2, {"bf16": 2 * K * N})
     report["int8_matmul"] = dict(
         max_abs_err=worst, ms=head["ms"], device_ms=head["device_ms"],
         plain_ms=timed(_layer_cycle(lambda l: int8_matmul_plain(x, w.q[l], w.scale[l]), L), dev,
                        iters) / L,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        library_device_ms=library_device_ms,
         shape=f"wqkv M=1 K={K} N={N} (one unfused step's QKV), per call over {L} layers",
         times=times, tolerance="one bf16 ulp (float32 x: 1e-5 rel) + 1e-5 * max|plain| abs")
 
@@ -1282,6 +1332,43 @@ def _sdpa_layers(q, kv, n):
     except TypeError:   # a PyTorch without enable_gqa: the heads expanded beforehand
         kx = [kv[:, l, :, :, :n].repeat_interleave(Hq // Hkv, dim=2) for l in range(kv.shape[1])]
         return lambda l: sdpa(q4, kx[l][:, 0], kx[l][:, 1])
+
+
+def one_launch(run, L, device, where):
+    """Kernels per call of run (L decode-attention calls) under the profiler,
+    every kernel counted; fails unless it is one (None off the card)."""
+    n = launches_per_call(run, L, ("",), device)
+    if n is not None and n != 1:
+        raise SmokeFailure(f"decode_attention launched {n} kernels per call at {where}, not 1")
+    return n
+
+
+def split_rules(device):
+    """The kernels' split rules (the library's C functions) against their
+    mirrors in the wrappers' modules, which the CPU tests hold to cover each
+    lane's rows once: decode attention's splits, and K1/K5's attention
+    clusters over a bf16 and an int8 cache, for every B from 1 to 128 at
+    the talker's heads and a range of row counts. Returns the cases
+    compared; None off the card."""
+    if device.type != "cuda":
+        return None
+    from qwen3tts_tpu_torch import _kernels
+    from qwen3tts_tpu_torch.ops.decode_attention import decode_attention_split
+    from qwen3tts_tpu_torch.ops.fused_talker_step import attention_clusters
+
+    lib, cases = _kernels.load_library(), 0
+    for B in range(1, 129):
+        for n in (1, 2, 63, 64, 65, 300, 1000, 4000, 4352, 16000):
+            for Hkv, G in ((8, 2), (2, 8)):
+                c_dec = lib.qtts_decode_attention_splits(B, Hkv, n)
+                c_tlk = [lib.qtts_talker_attention_clusters(B, Hkv, G, n, q8) for q8 in (0, 1)]
+                if (c_dec != decode_attention_split(B, Hkv, n)[0]
+                        or c_tlk != [attention_clusters(B, Hkv, G, n, q8) for q8 in (0, 1)]):
+                    raise SmokeFailure(f"a split rule and its mirror differ at B={B} n={n} "
+                                       f"Hkv={Hkv}")
+                cases += 3
+    print(f"split rules: {cases} cases equal to their mirrors")
+    return cases
 
 
 def check_decode_attention(tts, report, iters, L=None,
@@ -1327,6 +1414,7 @@ def check_decode_attention(tts, report, iters, L=None,
             t = times[f"B={B} C={C} n_valid={n}"] = dict(
                 ms=timed(run, dev, iters) / L,
                 device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
+                launches_per_call=one_launch(run, L, dev, f"B={B} C={C} n_valid={n}"),
                 bound_ms=attention_bound(B, Hq, Hkv, D, n)[0])
             if (B, C, n) in LIBRARY_ATTENTION_SHAPES:
                 lib = _layer_cycle(_sdpa_layers(q, kv, n), L)
@@ -1342,6 +1430,8 @@ def check_decode_attention(tts, report, iters, L=None,
     report["decode_attention"] = dict(
         max_abs_err=worst, ms=timed(run, dev, iters) / L,
         device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
+        launches_per_call=one_launch(run, L, dev, f"B={B} C={C} n_valid={n}"),
+        splits=split_rules(dev),
         plain_ms=timed(_layer_cycle(lambda l: decode_attention_kernel_plain(q, kv, l, n), L),
                        dev, iters) / L,
         library_ms=timed(library, dev, iters) / L,
@@ -2102,6 +2192,29 @@ def device_ms_per_call(fn, calls, prefixes, device, expect=None, tries=3):
     return None
 
 
+def launches_per_call(fn, calls, prefixes, device, tries=3):
+    """Kernels per call whose bare names start with one of `prefixes`, over
+    one run of fn (`calls` calls) under torch.profiler. None off the card,
+    and None when `tries` traces in a row caught none of them (the profiler
+    can drop a short run's events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(device)
+        n = sum(1 for e in device_events(prof)
+                if e["cat"] == "kernel" and kernel_name(e["name"]).startswith(prefixes))
+        if n:
+            return n / calls
+    return None
+
+
 def device_breakdown(fn, device, n=12):
     """device_top of one call of fn under the profiler (device activity
     only), after a warm-up call; None off the card."""
@@ -2194,10 +2307,12 @@ def main():
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         for name, r in report.items():
-            grid = f", grid {r['grid']}" if r.get("grid") else ""
+            extra = "".join(f", {k} {r[k]}" for k in ("grid", "launches_per_call",
+                                                       "attention_device_ms",
+                                                       "library_device_ms") if r.get(k))
             print(f"time {name}: kernel {r['ms']:.4f} ms (device {r.get('device_ms')}), "
                   f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}){grid} [{smi}]")
+                  f"({r['bound_by']}){extra} [{smi}]")
 
         # each main path with the counts set to 0 just before it and read
         # just after

@@ -33,7 +33,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "qtts_sample_rows": [
         P, I, I, P, I, F, F, I, I, I, I, I, P, F, P, P],
-    "qtts_talker_ws_bytes": [I, I, I, I, I, I, I, I],       # H Hq Hkv D F C Vc modes
+    "qtts_talker_ws_bytes": [I, I, I, I, I, I, I],          # H Hq Hkv D F Vc modes
     "qtts_talker_step": [
         P, I, P, P,                      # x_in, n_past, cos, sin
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
@@ -44,7 +44,7 @@ SIGNATURES = {
         P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
                                          # use_top_p suppress eos seed
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
-    "qtts_talker_batched_ws_bytes": [I, I, I, I, I, I, I, I, I],   # B, then as above
+    "qtts_talker_batched_ws_bytes": [I, I, I, I, I, I, I, I],   # B, then as above
     "qtts_talker_step_batched": [
         P, I, I, P, P,                   # x_in, B, n_past, cos, sin
         P, P, P, P,                      # attn/q/k/ffn norms (f32)
@@ -89,11 +89,12 @@ SIGNATURES = {
     "qtts_int8_matmul": [
         P, P, P, P, P,                   # x, q, scale, y, ws
         I, I, I, I, P],                  # M K N x_bf16, stream
-    "qtts_decode_attention_ws_bytes": [I, I, I, I, I],      # B Hq Hkv D n_valid
+    "qtts_decode_attention_splits": [I, I, I],              # B Hkv n_valid
     "qtts_decode_attention": [
         P, P, LL,                        # q, kv (the layer's K, lane 0), lane stride
         I, I, I, I, I, I, F,             # B Hq Hkv C D n_valid scale
-        P, P, P],                        # out, ws, stream
+        P, P],                           # out, stream
+    "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_int8
 }
 
 _LIB = None

@@ -617,9 +617,9 @@ __device__ __forceinline__ void cp_widen(const __nv_bfloat16*, uint4 v, float* o
 // and RoPE; the K/V rows into the scratch at pos; K/V rows 0..pos staged in
 // shared memory; per query head the scores, their softmax and p @ V,
 // written to P.o. The lane's last item to finish quantizes the lane's whole
-// o for the O projection. layer.cuh's qkv_post, attn_scores, attn_softmax,
-// attn_pv and merge kernels. The item's HP * (G + 2) roles (per head slot:
-// its query heads, K, V) go to the warps in turn.
+// o for the O projection: the work of layer.cuh's qkv_post, attention and
+// emit kernels. The item's HP * (G + 2) roles (per head slot: its query
+// heads, K, V) go to the warps in turn.
 template <typename T>
 __device__ __noinline__ void cp_attention(const CpParams& P, int b, int h0, int HP, int l,
                                           int pos, float* smem, CpShared& sh) {

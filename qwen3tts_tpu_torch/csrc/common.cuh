@@ -1,4 +1,5 @@
-// Block-wide reductions shared by the port's kernels.
+// Block-wide reductions, bulk copies and the cluster launch shared by the
+// port's kernels.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file
 // that includes it gets its own copy, so the shared library links without
@@ -8,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -74,6 +77,81 @@ __device__ int block_argmax(float v, int i, float* shv, int* shi) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// Eight bf16 values (16 bytes) as float32.
+__device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// Hopper's bulk copy (TMA without a tensor map) of contiguous bytes from
+// device to shared memory, completing on an mbarrier in shared memory. One
+// thread initializes each barrier (one arrival per phase), then per use
+// posts the bytes the phase expects and issues the copies (16-byte aligned,
+// a multiple of 16 bytes); every thread waits for the phase with its
+// parity: the k-th use of a barrier completes phase k, parity k & 1.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)));
+}
+// After the inits, before any use (a __syncthreads() must follow).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Launch `kernel` on `grid` as clusters of grid.x blocks (one cluster per
+// (y, z)), with `smem` bytes of dynamic shared memory (the attribute is set
+// first, as above 48 KB it must be). A cluster of more than 8 blocks needs
+// the non-portable attribute, which Hopper grants up to 16. Returns the
+// first error: an attribute the card refuses or a launch it refuses.
+template <typename... Exp, typename... Act>
+cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads, size_t smem,
+                           cudaStream_t st, Act&&... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess && grid.x > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }
 
 template <typename T> __device__ __forceinline__ float to_f(T x);

@@ -14,230 +14,266 @@
 // What bounds it on the H100: bytes. Each lane and KV head reads n_valid
 // K rows and n_valid V rows of D = 128 bf16: 2 * n_valid * Hkv * D * 2 bytes
 // per lane and layer, 4.1 MB at n_valid = 1000 (1.2 us at 3.35 TB/s); the
-// arithmetic is 4 G D flops per row, far below the float32 rate. The design
-// is a split-K flash-decode. The grid is lanes x KV heads x splits of
-// [0, n_valid), sized so that ~264 blocks fill the 132 SMs even for one
-// lane. A block takes the G query rows of its KV head over its chunk, 32
-// rows at a time: each half-warp reads a K row with 16-byte loads (eight
-// bf16 a thread) and reduces the G dot products with shuffles; one warp per
-// query row updates the running max, rescale factor and denominator (an
-// online softmax, as in the Pallas kernel); then 16 column groups x 8 row
-// groups read the V rows with 16-byte loads into [G, 8] float32
-// accumulators per thread. The block writes its unnormalised partial
-// (m, l, acc[G, D]) to a workspace, and a combine kernel rescales the
-// partials by exp(m_i - M), sums them in split order and divides. Nothing at
-// or past n_valid is read, and there are no atomics: every run gives the
-// same bits. The same one-pass structure is the cure PERF.md names for the
-// three-pass attention of the fused talker kernels (layer.cuh); it is kept
-// self-contained here so that a later change can lift it there.
+// arithmetic is 4 G D flops per row, far below the float32 rate. The rows
+// of one (lane, KV head) are contiguous, so the design streams them through
+// a ring of tiles in shared memory: each stage holds 64 K rows and the same
+// 64 V rows, two bulk copies (TMA without a tensor map) that complete on the
+// stage's mbarrier, issued by one thread two tiles ahead of the one being
+// consumed (64 KB in flight a block, two blocks an SM). A tile is consumed
+// from shared memory with one block barrier: each warp owns 8 of its 64
+// rows and keeps its own online softmax state (running max, rescale
+// factor and denominator, as in the Pallas kernel) and p.V sums; a
+// quarter-warp takes a row (its 16-byte reads cover the row's 256 bytes,
+// one bank each; q in registers; three shuffles), and each lane
+// accumulates p.V for 4 columns in [G, 4] float32 registers. At the end the
+// block adds its warps' states in warp order, rescaled to their common max.
+// The splits of [0, n_valid) of one (lane, KV head) form a thread block
+// cluster, sized so that the grid fills the 132 SMs about twice; each block
+// leaves (m, l, acc[G, D]) in its shared memory, and rank 0 reads the
+// others' over distributed shared memory, rescales them by exp(m_i - M),
+// sums them in rank order and divides: one launch per call, no workspace,
+// and every run gives the same bits.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kAttnD = 128;         // head_dim the kernel takes
-constexpr int kAttnThreads = 128;   // four warps; thread d owns column d at the end
-constexpr int kAttnTile = 32;       // cached rows per step (one per lane of a warp)
-constexpr int kAttnRowGroups = 8;   // p.V: 16 column groups x 8 row groups
-constexpr int kAttnBlockTarget = 264;
+constexpr int kD = 128;                     // head_dim the kernel takes
+constexpr int kThreads = 256;
+constexpr int kTile = 64;                   // K and V rows per ring stage
+constexpr int kStages = 3;
+constexpr int kRowBytes = kD * 2;           // a row in shared memory
+constexpr int kStageBytes = 2 * kTile * kRowBytes;
+constexpr int kBlockTarget = 264;           // two blocks on each of 132 SMs
+constexpr int kMaxSplits = 16;              // a non-portable cluster
 
-struct AttnSplit { int splits, chunk; };
+struct Split { int splits, per; };
 
-// Splits of [0, n_valid) into chunks of a multiple of kAttnTile rows.
-AttnSplit attn_split(int B, int Hkv, int n_valid) {
-  const int want = (kAttnBlockTarget + B * Hkv - 1) / (B * Hkv);
-  int chunk = (n_valid + want - 1) / want;
-  chunk = ((chunk + kAttnTile - 1) / kAttnTile) * kAttnTile;
-  return AttnSplit{(n_valid + chunk - 1) / chunk, chunk};
+// Splits of [0, n_valid) (a cluster per lane and KV head), at most one per
+// tile of rows, each `per` rows but the last.
+Split decode_split(int B, int Hkv, int n_valid) {
+  int s = kBlockTarget / (B * Hkv);
+  s = min(min(s, (n_valid + kTile - 1) / kTile), kMaxSplits);
+  s = max(s, 1);
+  const int per = (n_valid + s - 1) / s;
+  return Split{(n_valid + per - 1) / per, per};
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
+size_t decode_smem(int G) {
+  return (size_t)kStages * kStageBytes + sizeof(float) * ((size_t)2 * G + G * kD) +
+         sizeof(uint64_t) * (kStages + 1);
 }
 
-// Block (split blockIdx.x, KV head blockIdx.y, lane blockIdx.z). kv points
-// at the layer's K half of lane 0 ([2, Hkv, C, D] per lane, lane_stride
-// elements apart); q and the partials are dense.
+// Block (split = cluster rank, KV head blockIdx.y, lane blockIdx.z). kv
+// points at the layer's K half of lane 0 ([2, Hkv, C, D] per lane,
+// lane_stride elements apart); q and out are dense [B, Hq, D]. Warp w owns
+// rows 4w..4w+3 and 4w+32..4w+35 of every tile and keeps its own online
+// softmax state (m, l) and p.V sums over them; the warps' states are
+// combined at the end, then the cluster's.
 template <int G>
-__global__ void __launch_bounds__(kAttnThreads)
-decode_attn_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ kv, long long lane_stride,
-                           int Hkv, int C, int n_valid, int chunk, float scale,
-                           float* __restrict__ part_acc, float* __restrict__ part_ml) {
-  __shared__ float sp[G][kAttnTile];   // scores, then probabilities
-  __shared__ float s_m[G], s_l[G], s_alpha[G];
-  __shared__ float sacc[kAttnRowGroups][G][kAttnD];
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(kThreads)
+decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
+                   long long lane_stride, int Hkv, int C, int n_valid, int per, float scale,
+                   __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_m = reinterpret_cast<float*>(smem + kStages * kStageBytes);   // [G]
+  float* s_l = s_m + G;                                                  // [G]
+  float* o_blk = s_l + G;                                                // [G, kD]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(o_blk + G * kD) + 7) & ~(uintptr_t)7);   // [kStages]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int half = lane >> 4, hl = lane & 15;
-  const int dg = tid & 15, rg = tid >> 4;
-  const int t0 = split * chunk, t1 = min(n_valid, t0 + chunk);
-  const size_t head = (size_t)C * kAttnD;
-  const __nv_bfloat16* K = kv + (size_t)b * lane_stride + (size_t)h * head;
-  const __nv_bfloat16* V = K + (size_t)Hkv * head;
-  const __nv_bfloat16* qh = q + ((size_t)b * Hkv + h) * G * kAttnD;
+  const int lo = rank * per, hi = min(n_valid, lo + per), nr = max(hi - lo, 0);
+  const int nt = (nr + kTile - 1) / kTile;
+  const __nv_bfloat16* K = kv + (size_t)b * lane_stride + (size_t)h * C * kD;
+  const __nv_bfloat16* V = K + (size_t)Hkv * C * kD;
 
-  float qr[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g) load8(qh + (size_t)g * kAttnD + hl * 8, qr[g]);
-  if (tid < G) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
+  auto load = [&](int i) {   // thread 0: tile i's K rows and V rows into stage i % kStages
+    const int r0 = lo + i * kTile;
+    const unsigned bytes = min(kTile, hi - r0) * kRowBytes;
+    unsigned char* st = smem + (i % kStages) * kStageBytes;
+    mbar_expect(bar + i % kStages, 2 * bytes);
+    bulk_load(st, K + (size_t)r0 * kD, bytes, bar + i % kStages);
+    bulk_load(st + kTile * kRowBytes, V + (size_t)r0 * kD, bytes, bar + i % kStages);
+  };
+  if (tid == 0) {   // the first tiles are in flight while q is read
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+    mbar_init_fence();
+    for (int i = 0; i < kStages - 1 && i < nt; ++i) load(i);
   }
-  float acc[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
 
-  for (int base = t0; base < t1; base += kAttnTile) {
-    const int tn = min(kAttnTile, t1 - base);
-    // scores: half-warp (warp, half) takes rows warp*2 + half + 8 i; every
-    // lane of a warp joins the shuffles, valid row or not
-    for (int r0 = warp * 2; r0 < tn; r0 += 8) {
-      const int r = r0 + half;
-      float kf[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (r < tn) load8(K + (size_t)(base + r) * kAttnD + hl * 8, kf);
-      float d[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        d[g] = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[g] = fmaf(qr[g][i], kf[i], d[g]);
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1) d[g] += __shfl_xor_sync(0xffffffffu, d[g], o);
-      }
-      if (hl == 0 && r < tn) {
-#pragma unroll
-        for (int g = 0; g < G; ++g) sp[g][r] = d[g] * scale;
-      }
-    }
-    __syncthreads();
-    // online softmax: warp w updates query rows g = w, w + 4, ...
-    for (int g = warp; g < G; g += kAttnThreads / 32) {
-      const float s = lane < tn ? sp[g][lane] : -3.4e38f;
-      float mt = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mt);
-      const float p = lane < tn ? expf(s - m_new) : 0.f;
-      float ps = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      sp[g][lane] = p;
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        s_alpha[g] = a;
-        s_l[g] = a * s_l[g] + ps;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // p.V: thread (dg, rg) takes columns dg*8.. and rows rg + 8 i
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = s_alpha[g];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= a;
-    }
-    for (int r = rg; r < tn; r += kAttnRowGroups) {
-      float vf[8];
-      load8(V + (size_t)(base + r) * kAttnD + dg * 8, vf);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = sp[g][r];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
-      }
-    }
-    __syncthreads();
-  }
-  // the row groups' partials summed in order by the thread of each column
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sacc[rg][g][dg * 8 + i] = acc[g][i];
-  __syncthreads();
-  const size_t row = ((size_t)b * Hkv + h) * gridDim.x + split;
+  // scores: a quarter-warp per row (lane bits 3-4 pick it), its 8 lanes the
+  // 16-byte column chunks `part` and `part + 8` (bits 0-2)
+  const int part = lane & 7, quarter = lane >> 3;
+  float qr[G][16];
+  const __nv_bfloat16* qh = q + ((size_t)b * Hkv + h) * G * kD;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float o = 0.f;
+    bf16x8(__ldg(reinterpret_cast<const uint4*>(qh + g * kD + 8 * part)), qr[g]);
+    bf16x8(__ldg(reinterpret_cast<const uint4*>(qh + g * kD + 8 * (part + 8))), qr[g] + 8);
+  }
+  // the warp's softmax state, and p.V for columns 4 lane.. in each lane
+  float m[G], l[G], acc[G][4];
 #pragma unroll
-    for (int r = 0; r < kAttnRowGroups; ++r) o += sacc[r][g][tid];
-    part_acc[(row * G + g) * kAttnD + tid] = o;
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.f;
   }
-  if (tid < G) {
-    part_ml[(row * G + tid) * 2] = s_m[tid];
-    part_ml[(row * G + tid) * 2 + 1] = s_l[tid];
+  __syncthreads();   // the barriers are set
+  for (int i = 0; i < nt; ++i) {
+    mbar_wait(bar + i % kStages, (i / kStages) & 1);
+    __syncthreads();   // tile i landed; stage (i - 1) % kStages is free
+    if (tid == 0 && i + kStages - 1 < nt) load(i + kStages - 1);
+    const unsigned char* Kt = smem + (i % kStages) * kStageBytes;
+    const unsigned char* Vt = Kt + kTile * kRowBytes;
+    const int rows = min(kTile, nr - i * kTile);
+    float s[2][G];   // this lane's rows: 4 warp + quarter (+ 32)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = warp * 4 + quarter + 32 * j;
+      const unsigned char* rp = Kt + r * kRowBytes;
+      float kf[16];
+      bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * part), kf);
+      bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * (part + 8)), kf + 8);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[j][g] = r < rows ? d * scale : -3.4e38f;
+      }
+    }
+    // online softmax over the warp's 8 rows of the tile
+    float p[2][G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mt = fmaxf(s[0][g], s[1][g]);
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+      const float m_new = fmaxf(m[g], mt), alpha = expf(m[g] - m_new);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        p[j][g] = warp * 4 + quarter + 32 * j < rows ? expf(s[j][g] - m_new) : 0.f;
+      float ps = p[0][g] + p[1][g];
+      ps += __shfl_xor_sync(0xffffffffu, ps, 8);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      l[g] = alpha * l[g] + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[g][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int r = warp * 4 + qq + 32 * j;
+        if (r >= rows) continue;   // the same for every lane of the warp
+        const uint2 u = *reinterpret_cast<const uint2*>(Vt + r * kRowBytes + lane * 8);
+        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float pr = __shfl_sync(0xffffffffu, p[j][g], qq * 8);
+          acc[g][0] = fmaf(pr, v01.x, acc[g][0]);
+          acc[g][1] = fmaf(pr, v01.y, acc[g][1]);
+          acc[g][2] = fmaf(pr, v23.x, acc[g][2]);
+          acc[g][3] = fmaf(pr, v23.y, acc[g][3]);
+        }
+      }
   }
-}
-
-// Block (query head blockIdx.x, lane blockIdx.y), thread d: the splits'
-// partials rescaled to the common max, summed in split order, divided.
-__global__ void decode_attn_combine_kernel(const float* __restrict__ part_acc,
-                                           const float* __restrict__ part_ml, int Hkv, int G,
-                                           int splits, __nv_bfloat16* __restrict__ out) {
-  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int h = hq / G, g = hq % G;
-  const size_t row0 = ((size_t)b * Hkv + h) * splits;
-  float M = kNegInf;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, part_ml[((row0 + s) * G + g) * 2]);
-  float L = 0.f, O = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const size_t r = (row0 + s) * G + g;
-    const float w = expf(part_ml[r * 2] - M);
-    L += part_ml[r * 2 + 1] * w;
-    O += part_acc[r * kAttnD + d] * w;
+  // the warps' states rescaled to the block's max and added in warp order
+  __syncthreads();   // the ring's last readers are done
+  float* wacc = reinterpret_cast<float*>(smem);   // [8, G, kD]
+  float* wml = wacc + 8 * G * kD;                  // [8, G, 2]
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wacc[(warp * G + g) * kD + lane * 4 + c] = acc[g][c];
+    if (lane == 0) {
+      wml[(warp * G + g) * 2] = m[g];
+      wml[(warp * G + g) * 2 + 1] = l[g];
+    }
   }
-  out[((size_t)b * Hkv * G + hq) * kAttnD + d] = __float2bfloat16(O / fmaxf(L, 1e-30f));
+  __syncthreads();
+  for (int i = tid; i < G * kD; i += kThreads) {
+    const int g = i / kD;
+    float M = kNegInf;
+    for (int w = 0; w < 8; ++w) M = fmaxf(M, wml[(w * G + g) * 2]);
+    float L = 0.f, O = 0.f;
+    for (int w = 0; w < 8; ++w) {
+      const float f = expf(wml[(w * G + g) * 2] - M);
+      L += wml[(w * G + g) * 2 + 1] * f;
+      O += wacc[(w * G + g) * kD + i % kD] * f;
+    }
+    o_blk[i] = O;
+    if (i % kD == 0) {
+      s_m[g] = M;
+      s_l[g] = L;
+    }
+  }
+  cluster.sync();
+  // rank 0: the splits rescaled to the common max, summed in rank order
+  if (rank == 0) {
+    for (int i = tid; i < G * kD; i += kThreads) {
+      const int g = i / kD;
+      float M = kNegInf;
+      for (int r = 0; r < S; ++r) M = fmaxf(M, cluster.map_shared_rank(s_m, r)[g]);
+      float L = 0.f, O = 0.f;
+      for (int r = 0; r < S; ++r) {
+        const float w = expf(cluster.map_shared_rank(s_m, r)[g] - M);
+        L += cluster.map_shared_rank(s_l, r)[g] * w;
+        O += cluster.map_shared_rank(o_blk, r)[i] * w;
+      }
+      out[((size_t)b * Hkv + h) * G * kD + i] = __float2bfloat16(O / fmaxf(L, 1e-30f));
+    }
+  }
+  cluster.sync();    // the other blocks' shared memory stays until rank 0 has read it
 }
 
 template <int G>
-void launch_partial(dim3 grid, const __nv_bfloat16* q, const __nv_bfloat16* kv,
-                    long long lane_stride, int Hkv, int C, int n_valid, int chunk, float scale,
-                    float* acc, float* ml, cudaStream_t st) {
-  decode_attn_partial_kernel<G><<<grid, kAttnThreads, 0, st>>>(q, kv, lane_stride, Hkv, C,
-                                                               n_valid, chunk, scale, acc, ml);
+cudaError_t launch(const Split& sp, int B, const __nv_bfloat16* q, const __nv_bfloat16* kv,
+                   long long lane_stride, int Hkv, int C, int n_valid, float scale,
+                   __nv_bfloat16* out, cudaStream_t st) {
+  return launch_cluster(decode_attn_kernel<G>, dim3(sp.splits, Hkv, B), kThreads,
+                        decode_smem(G), st, q, kv, lane_stride, Hkv, C, n_valid, sp.per, scale,
+                        out);
 }
 
 }  // namespace
 
-// Bytes of the partials (m, l, acc[D]) per lane, query row and split.
-extern "C" size_t qtts_decode_attention_ws_bytes(int B, int Hq, int Hkv, int D, int n_valid) {
-  return sizeof(float) * (size_t)B * Hq * attn_split(B, Hkv, n_valid).splits * (D + 2);
+// The splits (cluster size) one call uses; for the tests of the split rule.
+extern "C" int qtts_decode_attention_splits(int B, int Hkv, int n_valid) {
+  return decode_split(B, Hkv, n_valid).splits;
 }
 
 // q [B, Hq, D] bf16; kv: the layer's K half of lane 0 inside the stacked
 // cache (V follows at Hkv * C * D elements, lanes lane_stride apart),
 // 16-byte aligned; out [B, Hq, D] bf16. D = 128, Hq / Hkv in {1, 2, 4, 8},
-// 1 <= n_valid <= C.
+// 1 <= n_valid <= C. One launch; returns its cudaError_t.
 extern "C" int qtts_decode_attention(const void* q, const void* kv, long long lane_stride,
                                      int B, int Hq, int Hkv, int C, int D, int n_valid,
-                                     float scale, void* out, void* ws, void* stream) {
+                                     float scale, void* out, void* stream) {
   const int G = Hkv > 0 && Hq % Hkv == 0 ? Hq / Hkv : 0;
-  if (D != kAttnD || B < 1 || n_valid < 1 || n_valid > C || !(G == 1 || G == 2 || G == 4 || G == 8))
+  if (D != kD || B < 1 || n_valid < 1 || n_valid > C || !(G == 1 || G == 2 || G == 4 || G == 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const AttnSplit sp = attn_split(B, Hkv, n_valid);
-  float* acc = (float*)ws;
-  float* ml = acc + (size_t)B * Hq * sp.splits * D;
-  const dim3 grid(sp.splits, Hkv, B);
+  const Split sp = decode_split(B, Hkv, n_valid);
   const auto* qb = (const __nv_bfloat16*)q;
   const auto* kvb = (const __nv_bfloat16*)kv;
+  auto* ob = (__nv_bfloat16*)out;
   switch (G) {
-    case 1: launch_partial<1>(grid, qb, kvb, lane_stride, Hkv, C, n_valid, sp.chunk, scale, acc, ml, st); break;
-    case 2: launch_partial<2>(grid, qb, kvb, lane_stride, Hkv, C, n_valid, sp.chunk, scale, acc, ml, st); break;
-    case 4: launch_partial<4>(grid, qb, kvb, lane_stride, Hkv, C, n_valid, sp.chunk, scale, acc, ml, st); break;
-    default: launch_partial<8>(grid, qb, kvb, lane_stride, Hkv, C, n_valid, sp.chunk, scale, acc, ml, st); break;
+    case 1: return (int)launch<1>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
+    case 2: return (int)launch<2>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
+    case 4: return (int)launch<4>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
+    default: return (int)launch<8>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
   }
-  decode_attn_combine_kernel<<<dim3(Hq, B), kAttnD, 0, st>>>(acc, ml, Hkv, G, sp.splits,
-                                                             (__nv_bfloat16*)out);
-  return (int)cudaGetLastError();
 }

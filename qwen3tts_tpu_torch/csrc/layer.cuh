@@ -8,10 +8,9 @@
 //   resid_rms        x += previous projection; h = RMSNorm(x); emit(h)
 //   project          y[b, :] = x[b, :] @ W     (in the projection's mode)
 //   qkv_post         q/k RMSNorm + NEOX RoPE; K/V row written into the cache
-//   attn_scores      s[b, h, t] = q_bh . k_bt * D^-0.5  for t < n_valid
-//   attn_softmax     p = softmax(s) (optionally rounded to the KV dtype)
-//   attn_pv          per-chunk partial sums of p @ V
-//   merge            sum of the chunk partials; emit(o)
+//   attn_layer       o = softmax(q . K^T * D^-0.5) @ V for every lane and
+//                    KV head, one cluster each, in one launch
+//   attn_emit        emit(o)
 //   project          o_proj
 //   resid_rms        x += o_proj; h = RMSNorm(x); emit(h)
 //   project          gate/up
@@ -53,26 +52,43 @@
 // (round_q, round_p: the single-stream talker kernel casts both, :338 and
 // :349; the batched one casts q only, :1529; the code predictors neither),
 // and reads only positions below n_valid: no masked position is ever
-// multiplied by cache memory, stale or not. The softmax is dense: one pass
-// for the row maximum, one for the sum, then p = e / sum; the batched
-// Pallas kernel's online softmax computes the same function in another
-// summation order.
+// multiplied by cache memory, stale or not. The softmax is dense: the row
+// maximum, then the sum, then p = e / sum; the batched Pallas kernel's
+// online softmax computes the same function in another summation order.
+//
+// What bounds the attention on the H100: the K and V rows, 2 * Hkv * D * 2
+// bytes a row per lane and layer (7.34 GB per K5 call at B = 16, n_past =
+// 4000: 2.19 ms at 3.35 TB/s), and beside them the conversions of every K
+// and V element to float64 (16 a clock per SM; about 1 ms of that call).
+// attn_layer_kernel therefore streams each (lane, KV head)'s rows, which
+// are contiguous, through a ring of 64-row tiles in shared memory, each one
+// bulk copy (TMA without a tensor map) completing on the stage's mbarrier,
+// issued by one thread all but one stage ahead: K for the scores, then V,
+// whose first tiles are in flight while the softmax runs. The rows are
+// split over a thread block cluster of up to 16 blocks (about two blocks on
+// each SM for the whole grid, at least 64 rows each); a block keeps its
+// slice's scores in shared memory, the cluster exchanges the maximum and
+// the float64 sum over distributed shared memory, and rank 0 adds the
+// blocks' float64 partial o. In a tile, a quarter-warp shares a row's dot
+// products (its 16-byte reads cover the row once, one bank each; q in
+// registers as float64; three shuffles), and p @ V runs in [G, 4] float64
+// accumulators per thread. One launch per layer replaces three and a
+// merge, and neither the scores nor the partials touch device memory.
 //
 // Per-lane start (K5 in continuous serving, pallas_talker_step.py:1419-1423,
 // :1516-1517): with a `start` operand [B], lane b attends the rows
 // [start[b], pos] only (lane_start: clamped to [0, pos], so the current row
 // always counts, as the Pallas kernel folds it in after its chunk loop).
 // Rows below start are never read: they enter neither the softmax max nor
-// its sum nor p @ V, and a chunk wholly below a lane's start writes a zero
-// partial, which adds nothing to the float64 merge. The attention grid may
-// begin at chunk start_min / kAttnChunk, where start_min is the caller's
-// lower bound of every lane's start (the Pallas kernel's min-start DMA
-// skip, :1445); merge then sums from that chunk. K1 passes no start.
+// its sum nor p @ V. The cluster splits only rows from start_min on, the
+// caller's lower bound of every lane's start (the Pallas kernel's
+// min-start DMA skip, :1445), so the blocks' slices shrink with it. K1
+// passes no start.
 //
 // The int8 KV cache (the int8-KV tier; the Pallas kernels' kv_int8 operand,
 // :564, :765, :1402): int8 rows with one float32 scale per row, read by
-// their own attention kernels (attn_scores_q8, attn_softmax_q8,
-// attn_pv_q8). The current step's K/V rows go to a bf16 staging buffer
+// attn_layer_kernel<int8_t> (128-byte rows; the ring, the cluster and the
+// order as above). The current step's K/V rows go to a bf16 staging buffer
 // instead of the cache and are attended from there, unquantized, folded in
 // after the cached rows as the Pallas kernels fold them into their flash
 // state (:716-725, :930, :1554-1566); kv_row_quant then writes their (q,
@@ -80,9 +96,9 @@
 // :1529-1533); a cached row's e = exp(s - m) (m the cached rows' maximum,
 // not yet normalized) is multiplied by its V scale, then rounded to bf16 in
 // K1 (:701-703) and kept in float32 in K5 (:1541-1543), once per row and
-// query head (attn_softmax_q8), before p @ V; merge_kernel folds
-// in the current row and divides by the sum last (o = (acc * alpha + p *
-// v) / l, :711-725). q is rounded to bf16. The quantization is
+// query head, before p @ V; rank 0 folds in the current row and divides by
+// the sum last (o = (acc * alpha + p * v) / l, :711-725). q is rounded to
+// bf16. The quantization is
 // ops/kv_quant.py's: scale = max(amax, 1e-8) * float32(1/127), q =
 // clip(rint(x / scale), -127, 127) with an IEEE divide (__fdiv_rn).
 //
@@ -90,8 +106,11 @@
 // float modes, the RMSNorm variances, q.k, the softmax sum, p @ V — runs in
 // float64 and is rounded to float32 once, and exp (softmax, SiLU) is
 // evaluated in float64 and rounded. Products of float32 operands are exact
-// in float64, so these results do not depend on summation order, and the
-// plain versions, which do the same in PyTorch, get the same float32 bits.
+// in float64, so these results depend on summation order only through
+// float64 roundings, far below float32's, and the plain versions, which do
+// the same in PyTorch, get the same float32 bits (tests/
+// test_torch_attention_order.py rebuilds the attention's cluster order and
+// holds it to the plain version bit for bit).
 // Without this, a last bit of difference now and then flips an activation's
 // int8 or bf16 rounding (at B = 64 already within two layers), and the
 // layers amplify the flip. For the same reason no product is fused into an
@@ -99,6 +118,9 @@
 // first.
 #pragma once
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -106,8 +128,9 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kRowThreads = 1024;   // one block handles one lane's vector
-constexpr int kAttnChunk = 64;      // positions per attention block
 constexpr int kMaxGroup = 8;        // query heads per KV head
 constexpr int kSplitTarget = 264;   // ~2 blocks per SM of an H100
 constexpr int kMaxLanes = 128;      // lanes of one batched call
@@ -621,87 +644,35 @@ __device__ __forceinline__ int lane_start(const int* start, int b, int n_valid) 
   return start == nullptr ? 0 : min(max(start[b], 0), n_valid - 1);
 }
 
-// scores[b, hq, t] = q_bhq . K[b, h, t] * scale, t in chunk chunk0 +
-// blockIdx.y and not below the lane's start; q is rounded to T first when
-// round_q. grid (Hkv, chunks - chunk0, B); each warp takes one position at
-// a time.
-template <typename T>
-__global__ void attn_scores_kernel(const float* __restrict__ q, const T* __restrict__ K,
-                                   long head_stride, long lane_stride, int n_valid, int G,
-                                   int D, float scale, int round_q, float* __restrict__ scores,
-                                   int ld, const int* __restrict__ start, int chunk0) {
-  extern __shared__ float qs[];
-  const int h = blockIdx.x, b = blockIdx.z, Hq = gridDim.x * G;
-  q += (size_t)b * Hq * D;
-  K += (size_t)b * lane_stride;
-  scores += (size_t)b * Hq * ld;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const float v = q[(size_t)h * G * D + i];
-    qs[i] = round_q ? to_f<T>(from_f<T>(v)) : v;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int c0 = (chunk0 + blockIdx.y) * kAttnChunk;
-  const int t0 = max(c0, lane_start(start, b, n_valid)), t1 = min(n_valid, c0 + kAttnChunk);
-  for (int t = t0 + wid; t < t1; t += nw) {
-    const T* krow = K + (long)h * head_stride + (size_t)t * D;
-    double a[kMaxGroup];
-    for (int g = 0; g < G; ++g) a[g] = 0.0;
-    for (int d = lane; d < D; d += 32) {
-      const double kv = to_f<T>(krow[d]);
-      for (int g = 0; g < G; ++g) a[g] += qs[g * D + d] * kv;
-    }
-    for (int g = 0; g < G; ++g) {
-      double s = a[g];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) scores[(size_t)(h * G + g) * ld + t] = (float)s * scale;
-    }
-  }
-}
+// --- attention: one cluster per (lane, KV head), one launch per layer -------
 
-// p = softmax(scores[b, hq, t0:n_valid]), t0 the lane's start: e = exp(s -
-// max) and its sum in float64, p = e / sum rounded to float32, and further
-// to T when round_p. grid (Hq, B).
-template <typename T>
-__global__ void attn_softmax_kernel(float* __restrict__ scores, int ld, int n_valid,
-                                    int round_p, const int* __restrict__ start) {
-  __shared__ float red[32];
-  __shared__ double redd[32];
-  float* s = scores + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * ld;
-  const int t0 = lane_start(start, blockIdx.y, n_valid);
-  float m = -3.4e38f;
-  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) m = fmaxf(m, s[t]);
-  m = block_max(m, red);
-  double sum = 0.0;
-  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) sum += exp((double)(s[t] - m));
-  sum = block_sum(sum, redd);
-  for (int t = t0 + threadIdx.x; t < n_valid; t += blockDim.x) {
-    const float p = (float)(exp((double)(s[t] - m)) / sum);
-    s[t] = round_p ? to_f<T>(from_f<T>(p)) : p;
+constexpr int kAttD = 128;           // head_dim the attention kernel takes
+constexpr int kAttThreads = 256;
+constexpr int kAttTile = 64;         // K or V rows per ring stage
+constexpr int kAttStages = 3;
+constexpr int kAttMinRows = 64;      // rows a block of a cluster takes at least
+constexpr int kAttMaxCluster = 16;   // a non-portable cluster
+constexpr size_t kAttMaxSmem = 232448;   // shared memory a block may have
+
+// Byte offsets in the attention kernel's shared memory, for G query heads
+// per KV head, slices of at most `cap` rows and cache rows of row_bytes.
+struct AttLayout {
+  size_t o_blk, pd, dstat, redd, fstat, redf, bar, scores, total;
+  __host__ __device__ AttLayout(int G, int cap, int row_bytes) {
+    size_t ring = (size_t)kAttStages * kAttTile * row_bytes;
+    const size_t red = (size_t)8 * G * kAttD * sizeof(double);   // reuses the ring
+    if (red > ring) ring = red;
+    o_blk = ring;                                             // double [G, D]
+    pd = o_blk + (size_t)G * kAttD * sizeof(double);          // double [2, G, tile]
+    dstat = pd + (size_t)2 * G * kAttTile * sizeof(double);   // double [2, G]
+    redd = dstat + (size_t)2 * G * sizeof(double);            // double [32]
+    fstat = redd + 32 * sizeof(double);                       // float [6, G]
+    redf = fstat + (size_t)6 * G * sizeof(float);             // float [32]
+    bar = redf + 32 * sizeof(float);                          // uint64 [stages]
+    scores = bar + kAttStages * sizeof(uint64_t);             // float [G, cap]
+    total = scores + (size_t)G * cap * sizeof(float);
   }
-}
-
-// partial[b, c, hq, d] = sum_{t in chunk c, start_b <= t < n_valid} p[b,
-// hq, t] * V[b, h, t, d] in float64 (0 for a chunk wholly below the lane's
-// start), c = chunk0 + blockIdx.y; lane b's partials start at b * chunk_cap
-// * Hq * D. grid (Hkv, chunks - chunk0, B), block G * D threads.
-template <typename T>
-__global__ void attn_pv_kernel(const float* __restrict__ p, int ld, const T* __restrict__ V,
-                               long head_stride, long lane_stride, int n_valid, int G, int D,
-                               int Hq, int chunk_cap, double* __restrict__ partial,
-                               const int* __restrict__ start, int chunk0) {
-  const int h = blockIdx.x, b = blockIdx.z, g = threadIdx.x / D, d = threadIdx.x % D;
-  const int hq = h * G + g, c = chunk0 + blockIdx.y;
-  const int t0 = max(c * kAttnChunk, lane_start(start, b, n_valid));
-  const int t1 = min(n_valid, (c + 1) * kAttnChunk);
-  const float* pr = p + ((size_t)b * Hq + hq) * ld;
-  const T* vb = V + (size_t)b * lane_stride + (long)h * head_stride + d;
-  double o = 0.0;
-  for (int t = t0; t < t1; ++t) o += (double)pr[t] * to_f<T>(vb[(size_t)t * D]);
-  partial[((size_t)b * chunk_cap + c) * Hq * D + (size_t)hq * D + d] = o;
-}
-
-// --- the int8 KV cache (see the header) -------------------------------------
+};
 
 // Row t of (kv half, head h) of lane b in an int8 cache half K or V (lane b
 // at b * lane_stride, head h at h * head_stride, row t at t * D) has its
@@ -712,100 +683,280 @@ __device__ __forceinline__ long q8_scale_base(int b, int h, long head_stride,
   return ((long)b * lane_stride + (long)h * head_stride) / D;
 }
 
-// scores[b, hq, t] for the rows t of chunk blockIdx.y up to pos: t < pos
-// from the int8 cache, (q_bhq . k_t) * scale * ks_t; t = pos from the bf16
-// staging rows cur [B, 2, Hkv, D] (K at 0), (q . k) * scale.
-// q is rounded to bf16. grid (Hkv, chunks, B); each warp takes one row at
-// a time.
-__global__ void attn_scores_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ K,
-                                      const float* __restrict__ Ks,
-                                      const __nv_bfloat16* __restrict__ cur, long head_stride,
-                                      long lane_stride, int pos, int G, int D, float scale,
-                                      float* __restrict__ scores, int ld) {
-  extern __shared__ float qs[];
-  const int h = blockIdx.x, b = blockIdx.z, Hkv = gridDim.x, Hq = Hkv * G;
-  q += (size_t)b * Hq * D;
-  scores += (size_t)b * Hq * ld;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x)
-    qs[i] = bf16_round(q[(size_t)h * G * D + i]);
+// One layer's attention for lane b = blockIdx.z and KV head h = blockIdx.y,
+// its G query heads of q [B, Hq * D] float32 into out [B, Hq * D] float32
+// (the header gives the function and its bits). The gridDim.x blocks of a
+// cluster split the lane's rows [t0, n_end) into contiguous slices of at
+// most `cap` rows, rank r the r-th. T = bf16: t0 = max(start_b, floor_row),
+// n_end = n_valid. T = int8: the cached rows [0, n_end = pos) with their
+// scales Ks and Vs, then the current row from cur [B, 2, Hkv, D] (bf16).
+// Each block streams its K rows, then its V rows, through one ring of
+// kAttStages tiles (one bulk copy each, kAttStages - 1 tiles in flight)
+// and keeps its slice's scores in shared memory; the max and the
+// float64 sum of exp(s - m) are exchanged over distributed shared memory
+// (the sum added in rank order), and rank 0 adds the blocks' float64
+// partial o in rank order and rounds it to float32 once.
+template <typename T, int G>
+__global__ void __launch_bounds__(kAttThreads)
+attn_layer_kernel(const float* __restrict__ q, const T* __restrict__ K, const T* __restrict__ V,
+                  long head_stride, long lane_stride, int n_end, int floor_row, int cap,
+                  float scale, int round_q, int round_p, const int* __restrict__ start,
+                  const float* __restrict__ Ks, const float* __restrict__ Vs,
+                  const __nv_bfloat16* __restrict__ cur, float* __restrict__ out) {
+  constexpr bool kQ8 = std::is_same<T, int8_t>::value;
+  constexpr int kRow = kAttD * (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  const AttLayout lay(G, cap, kRow);
+  double* o_blk = reinterpret_cast<double*>(att_smem + lay.o_blk);
+  double* pd = reinterpret_cast<double*>(att_smem + lay.pd);
+  double* dstat = reinterpret_cast<double*>(att_smem + lay.dstat);   // sum of e: block, cluster
+  double* redd = reinterpret_cast<double*>(att_smem + lay.redd);
+  // max: block, cluster; int8 only: s_cur, alpha, p_cur, l
+  float* fstat = reinterpret_cast<float*>(att_smem + lay.fstat);
+  float* redf = reinterpret_cast<float*>(att_smem + lay.redf);
+  float* sc = reinterpret_cast<float*>(att_smem + lay.scores);      // [G, cap]: s, then p
+  uint64_t* bar = reinterpret_cast<uint64_t*>(att_smem + lay.bar);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
+  const int h = blockIdx.y, b = blockIdx.z, Hkv = gridDim.y, Hq = Hkv * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t0 = kQ8 ? 0 : max(lane_start(start, b, n_end), floor_row);
+  const int per = (n_end - t0 + S - 1) / S;
+  const int lo = t0 + rank * per, hi = min(n_end, lo + per), nr = max(hi - lo, 0);
+  const int nt = (nr + kAttTile - 1) / kAttTile, total = 2 * nt;
+  const T* Kb = K + (size_t)b * lane_stride + (size_t)h * head_stride;
+  const T* Vb = V + (size_t)b * lane_stride + (size_t)h * head_stride;
+  const float* qh = q + (size_t)b * Hq * kAttD + (size_t)h * G * kAttD;
+
+  // tile i < nt: K rows [lo + 64 i, ...); tile nt + j: V rows [lo + 64 j, ...)
+  auto load = [&](int i) {   // thread 0: one bulk copy of the tile's rows
+    const int j = i < nt ? i : i - nt, r0 = lo + j * kAttTile;
+    const unsigned bytes = min(kAttTile, hi - r0) * kRow;
+    mbar_expect(bar + i % kAttStages, bytes);
+    bulk_load(att_smem + (size_t)(i % kAttStages) * kAttTile * kRow,
+              (i < nt ? Kb : Vb) + (size_t)r0 * kAttD, bytes, bar + i % kAttStages);
+  };
+  auto wait_tile = [&](int i) { mbar_wait(bar + i % kAttStages, (i / kAttStages) & 1); };
+  if (tid == 0) {   // the first tiles are in flight while q is read
+    for (int s = 0; s < kAttStages; ++s) mbar_init(bar + s);
+    mbar_init_fence();
+    for (int i = 0; i < kAttStages - 1 && i < total; ++i) load(i);
+  }
+
+  // scores: lane bits 3-4 pick the row (warp w: rows 4w.. and 4w + 32..),
+  // bits 0-2 the 16-byte chunks `part` (and part + 8 for bf16) of it
+  const int part = lane & 7;
+  const int srow = warp * 4 + (lane >> 3);
+  double qr[G][16];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int col = kQ8 ? 16 * part + e : (e < 8 ? 8 * part + e : 8 * (part + 8) + e - 8);
+      const float v = qh[g * kAttD + col];
+      qr[g][e] = kQ8 || round_q ? bf16_round(v) : v;
+    }
+  if (kQ8 && warp < G) {   // the current row's score, (q . k) * scale
+    const __nv_bfloat16* kc = cur + ((size_t)b * 2 * Hkv + h) * kAttD;
+    double a = 0.0;
+    for (int d = lane; d < kAttD; d += 32)
+      a += (double)bf16_round(qh[warp * kAttD + d]) * (double)__bfloat162float(kc[d]);
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (lane == 0) fstat[2 * G + warp] = __fmul_rn((float)a, scale);
+  }
+  __syncthreads();   // the barriers are set
+  const float* ksb =
+      kQ8 ? Ks + q8_scale_base(b, h, head_stride, lane_stride, kAttD) + lo : nullptr;
+  float mloc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) mloc[g] = -3.4e38f;
+  for (int i = 0; i < nt; ++i) {
+    wait_tile(i);
+    __syncthreads();   // tile i landed; stage (i - 1) % kAttStages is free
+    if (tid == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
+    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kAttTile * kRow;
+    const int rows = min(kAttTile, nr - i * kAttTile);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = srow + 32 * j;
+      const unsigned char* rp = tile + r * kRow;
+      double a[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) a[g] = 0.0;
+      if constexpr (kQ8) {
+        const uint4 u = *reinterpret_cast<const uint4*>(rp + 16 * part);
+        const int8_t* k8 = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const double kv = (double)k8[e];
+#pragma unroll
+          for (int g = 0; g < G; ++g) a[g] = fma(qr[g][e], kv, a[g]);
+        }
+      } else {
+        float kf[16];
+        bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * part), kf);
+        bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * (part + 8)), kf + 8);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const double kv = (double)kf[e];
+#pragma unroll
+          for (int g = 0; g < G; ++g) a[g] = fma(qr[g][e], kv, a[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) a[g] += __shfl_xor_sync(0xffffffffu, a[g], o);
+      if (part == 0 && r < rows) {
+        const int t = i * kAttTile + r;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float s = __fmul_rn((float)a[g], scale);
+          if (kQ8) s = __fmul_rn(s, ksb[t]);
+          sc[g * cap + t] = s;
+          mloc[g] = fmaxf(mloc[g], s);
+        }
+      }
+    }
+  }
+
+  // the cluster's max m (exact in any order), then its float64 sum of
+  // e = exp(s - m), the blocks' sums added in rank order
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float m = block_max(mloc[g], redf);
+    if (tid == 0) fstat[g] = m;
+  }
+  cluster.sync();
+  if (tid < G) {
+    float m = -3.4e38f;
+    for (int r = 0; r < S; ++r) m = fmaxf(m, cluster.map_shared_rank(fstat, r)[tid]);
+    fstat[G + tid] = m;
+  }
   __syncthreads();
-  const int8_t* kb = K + (long)b * lane_stride + (long)h * head_stride;
-  const float* ksb = Ks + q8_scale_base(b, h, head_stride, lane_stride, D);
-  const __nv_bfloat16* kcur = cur + ((size_t)b * 2 * Hkv + h) * D;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const int c0 = blockIdx.y * kAttnChunk, t1 = min(pos + 1, c0 + kAttnChunk);
-  for (int t = c0 + wid; t < t1; t += nw) {
-    double a[kMaxGroup];
-    for (int g = 0; g < G; ++g) a[g] = 0.0;
-    for (int d = lane; d < D; d += 32) {
-      const double kv =
-          t < pos ? (double)kb[(size_t)t * D + d] : (double)__bfloat162float(kcur[d]);
-      for (int g = 0; g < G; ++g) a[g] += qs[g * D + d] * kv;
-    }
+  const float* vsb =
+      kQ8 ? Vs + q8_scale_base(b, h, head_stride, lane_stride, kAttD) + lo : nullptr;
+  double sl[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) sl[g] = 0.0;
+  for (int t = tid; t < nr; t += kAttThreads) {
+#pragma unroll
     for (int g = 0; g < G; ++g) {
-      double s = a[g];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      float y = __fmul_rn((float)s, scale);
-      if (t < pos) y = __fmul_rn(y, ksb[t]);
-      if (lane == 0) scores[(size_t)(h * G + g) * ld + t] = y;
+      const float s = sc[g * cap + t], m = fstat[G + g];
+      if constexpr (kQ8) {   // e in float32, times the row's V scale: p @ V's weight
+        const float e = (float)exp((double)(s - m));
+        sl[g] += e;
+        const float pv = __fmul_rn(e, vsb[t]);
+        sc[g * cap + t] = round_p ? bf16_round(pv) : pv;
+      } else {
+        sl[g] += exp((double)(s - m));
+      }
     }
   }
-}
-
-// The softmax of the int8 cache (grid (Hq, B)), in the Pallas kernels'
-// flash form over one chunk: m = the maximum of the cached rows' scores
-// (t < pos), e_t = exp(s_t - m), and pv_t = e_t * vs_t (vs_t the row's V
-// scale) in float32, rounded to bf16 when round_p, written over s_t for
-// attn_pv_q8; the current row folds in after them: m' = max(m, s_pos),
-// alpha = exp(m - m'), p_pos = exp(s_pos - m'), l = alpha * sum(e) +
-// p_pos; fold[b, hq] = (alpha, p_pos, l) for merge_kernel. exp and the sum
-// in float64.
-__global__ void attn_softmax_q8_kernel(float* __restrict__ scores, int ld, int pos,
-                                       const float* __restrict__ Vs, long head_stride,
-                                       long lane_stride, int D, int G, int round_p,
-                                       float* __restrict__ fold) {
-  __shared__ float red[32];
-  __shared__ double redd[32];
-  const int hq = blockIdx.x, b = blockIdx.y;
-  const size_t row = (size_t)b * gridDim.x + hq;
-  float* s = scores + row * ld;
-  const float* vsb = Vs + q8_scale_base(b, hq / G, head_stride, lane_stride, D);
-  float m = -3.4e38f;
-  for (int t = threadIdx.x; t < pos; t += blockDim.x) m = fmaxf(m, s[t]);
-  m = block_max(m, red);
-  double sum = 0.0;
-  for (int t = threadIdx.x; t < pos; t += blockDim.x) {
-    const float e = (float)exp((double)(s[t] - m));
-    sum += e;
-    const float pv = __fmul_rn(e, vsb[t]);
-    s[t] = round_p ? bf16_round(pv) : pv;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const double v = block_sum(sl[g], redd);
+    if (tid == 0) dstat[g] = v;
   }
-  sum = block_sum(sum, redd);
-  if (threadIdx.x == 0) {
-    const float mf = fmaxf(m, s[pos]);
-    const float alpha = (float)exp((double)(m - mf)), p = (float)exp((double)(s[pos] - mf));
-    fold[row * 3 + 0] = alpha;
-    fold[row * 3 + 1] = p;
-    fold[row * 3 + 2] = __fadd_rn(__fmul_rn(alpha, (float)sum), p);
+  cluster.sync();
+  if (tid < G) {
+    double tot = 0.0;
+    for (int r = 0; r < S; ++r) tot += cluster.map_shared_rank(dstat, r)[tid];
+    dstat[G + tid] = tot;
+    if (kQ8) {   // the current row folds in after the cached rows
+      const float m = fstat[G + tid], s_cur = fstat[2 * G + tid], mf = fmaxf(m, s_cur);
+      const float alpha = (float)exp((double)(m - mf)), p = (float)exp((double)(s_cur - mf));
+      fstat[3 * G + tid] = alpha;
+      fstat[4 * G + tid] = p;
+      fstat[5 * G + tid] = __fadd_rn(__fmul_rn(alpha, (float)tot), p);
+    }
   }
-}
+  __syncthreads();
+  if constexpr (!kQ8) {   // p = e / sum, rounded to float32 (and to T when round_p)
+    for (int t = tid; t < nr; t += kAttThreads) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = (float)(exp((double)(sc[g * cap + t] - fstat[G + g])) / dstat[G + g]);
+        sc[g * cap + t] = round_p ? bf16_round(p) : p;
+      }
+    }
+    __syncthreads();
+  }
 
-// partial[b, c, hq, d] = sum over the cached rows t < pos of chunk c =
-// blockIdx.y of pv_t * V[t, d] in float64, pv from attn_softmax_q8 (the
-// current row folds in at merge_kernel). Lane b's partials start at b *
-// chunk_cap * Hq * D. grid (Hkv, chunks, B), block G * D threads.
-__global__ void attn_pv_q8_kernel(const float* __restrict__ pv, int ld,
-                                  const int8_t* __restrict__ V, long head_stride,
-                                  long lane_stride, int pos, int G, int D, int chunk_cap,
-                                  double* __restrict__ partial) {
-  const int h = blockIdx.x, b = blockIdx.z, Hq = gridDim.x * G;
-  const int g = threadIdx.x / D, d = threadIdx.x % D, hq = h * G + g, c = blockIdx.y;
-  const int t0 = c * kAttnChunk, t1 = min(pos, t0 + kAttnChunk);
-  const float* pr = pv + ((size_t)b * Hq + hq) * ld;
-  const int8_t* vb = V + (long)b * lane_stride + (long)h * head_stride + d;
-  double o = 0.0;
-  for (int t = t0; t < t1; ++t) o += (double)pr[t] * (double)vb[(size_t)t * D];
-  partial[((size_t)b * chunk_cap + c) * Hq * D + (size_t)hq * D + d] = o;
+  // p @ V in float64: thread (lane, warp) takes columns 4 lane.. and rows
+  // warp + 8 i of each tile, 4 G independent sums
+  double acc[G][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[g][c] = 0.0;
+  for (int i = nt; i < total; ++i) {
+    const int j = i - nt, rows = min(kAttTile, nr - j * kAttTile);
+    wait_tile(i);
+    double* pj = pd + (j & 1) * G * kAttTile;   // the tile's p, as doubles
+    for (int k = tid; k < G * kAttTile; k += kAttThreads) {
+      const int g = k / kAttTile, r = k % kAttTile;
+      if (r < rows) pj[k] = (double)sc[g * cap + j * kAttTile + r];
+    }
+    __syncthreads();
+    if (tid == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
+    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kAttTile * kRow;
+    for (int r = warp; r < rows; r += 8) {
+      double v[4];
+      if constexpr (kQ8) {
+        const char4 u = *reinterpret_cast<const char4*>(tile + r * kRow + lane * 4);
+        v[0] = u.x;
+        v[1] = u.y;
+        v[2] = u.z;
+        v[3] = u.w;
+      } else {
+        const uint2 u = *reinterpret_cast<const uint2*>(tile + r * kRow + lane * 8);
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        v[0] = a.x;
+        v[1] = a.y;
+        v[2] = c.x;
+        v[3] = c.y;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const double p = pj[g * kAttTile + r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[g][c] = fma(p, v[c], acc[g][c]);
+      }
+    }
+  }
+  __syncthreads();   // the ring's last readers are done: it holds the row groups' sums
+  double* red = reinterpret_cast<double*>(att_smem);   // [8, G, D]
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(warp * G + g) * kAttD + lane * 4 + c] = acc[g][c];
+  __syncthreads();
+  for (int k = tid; k < G * kAttD; k += kAttThreads) {
+    double o = 0.0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) o += red[r * G * kAttD + k];
+    o_blk[k] = o;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    float* ob = out + (size_t)b * Hq * kAttD + (size_t)h * G * kAttD;
+    for (int k = tid; k < G * kAttD; k += kAttThreads) {
+      double o = 0.0;
+      for (int r = 0; r < S; ++r) o += cluster.map_shared_rank(o_blk, r)[k];
+      float of = (float)o;
+      if constexpr (kQ8) {   // o = (o * alpha + p_cur * v_cur) / l
+        const int g = k / kAttD;
+        const float v = __bfloat162float(
+            cur[((size_t)b * 2 + 1) * Hkv * kAttD + (size_t)h * kAttD + k % kAttD]);
+        of = __fdiv_rn(__fadd_rn(__fmul_rn(of, fstat[3 * G + g]), __fmul_rn(fstat[4 * G + g], v)),
+                       fstat[5 * G + g]);
+      }
+      ob[k] = of;
+    }
+  }
+  cluster.sync();   // the blocks' shared memory stays until rank 0 has read it
 }
 
 // One staged bf16 row (lane blockIdx.y, row blockIdx.x of its [2 * Hkv]: K
@@ -825,32 +976,17 @@ __global__ void kv_row_quant_kernel(const __nv_bfloat16* __restrict__ cur, int H
   if (d == 0) (j < Hkv ? Ks : Vs)[q8_scale_base(b, h, head_stride, lane_stride, D) + pos] = s;
 }
 
-// Lane blockIdx.x: o = sum over chunks chunk0..chunks-1 of the float64
-// partials, rounded to float32; emit(o) to o_proj. With `fold` (the int8
-// cache: attn_softmax_q8's (alpha, p, l) per (lane, query head) of D
-// values, G query heads per KV head), the current row's staged V (vcur
-// [B, 2, Hkv, D], V at Hkv * D) folds in: o = (o * alpha + p * v) / l.
-__global__ void merge_kernel(const double* __restrict__ partial, int chunk0, int chunks,
-                             int chunk_cap, int n, Emit e, const float* __restrict__ fold,
-                             const __nv_bfloat16* __restrict__ vcur, int D, int G) {
+// Lane blockIdx.x: its attention output o [n] (attn_layer_kernel's) to the
+// O projection: emit(o).
+__global__ void attn_emit_kernel(const float* __restrict__ o, int n, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   const int b = blockIdx.x;
-  partial += (size_t)b * chunk_cap * n;
   float am = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    double acc = 0.0;
-    for (int c = chunk0; c < chunks; ++c) acc += partial[(size_t)c * n + i];
-    float o = (float)acc;
-    if (fold != nullptr) {
-      const int hq = i / D, Hkv = n / (D * G);
-      const float* f = fold + ((size_t)b * (n / D) + hq) * 3;
-      const float v = __bfloat162float(
-          vcur[((size_t)b * 2 + 1) * Hkv * D + (size_t)(hq / G) * D + i % D]);
-      o = __fdiv_rn(__fadd_rn(__fmul_rn(o, f[0]), __fmul_rn(f[1], v)), f[2]);
-    }
-    buf[i] = o;
-    am = fmaxf(am, fabsf(o));
+    const float v = o[(size_t)b * n + i];
+    buf[i] = v;
+    am = fmaxf(am, fabsf(v));
   }
   emit_row(buf, n, am, e, b, red);
 }
@@ -925,7 +1061,6 @@ struct Dims {
 struct Work {
   int B;           // lanes
   int ldq;         // row stride of xq and xf
-  int chunk_cap;   // attention chunks of a full cache: ceil(C / kAttnChunk)
   float* x;        // [B, H] residual carry
   int8_t* xq;      // [B, ldq] quantized activation (w8a8 projections)
   float* xf;       // [B, ldq] float32 activation (bf16 / w4bf16 projections)
@@ -936,12 +1071,11 @@ struct Work {
   int* acc_d;      // [B, H]
   double* part;    // float-mode projection partials [halves, splits, B, N]
   float* q;        // [B, Hq*D]
-  float* scores;   // [B, Hq, C]
-  double* partial; // [B, chunk_cap, Hq*D] attention partials
+  float* attn;     // [B, Hq*D] attention output
   float* hnorm;    // [B, H] output-normed hidden
   float* head;     // [splits, B, Vh] head projection partials
   __nv_bfloat16* stage;  // [B, 2, Hkv, D] this step's K/V rows (int8 KV cache)
-  float* fold;           // [B, Hq, 3] int8 KV cache: alpha, p, l (attn_softmax_q8)
+  mutable cudaError_t err = cudaSuccess;   // the first refused attention launch
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
@@ -987,8 +1121,7 @@ inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
 // Carve `w` out of base (or only count the bytes when base is null). modes
 // packs the four projections' WeightMode, 2 bits each, wqkv first (0: all
 // w8a8).
-inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int Vh,
-                         int modes = 0) {
+inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int Vh, int modes = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
   const int head_splits = B == 1 ? kSplitTarget : kHeadSplits;
@@ -1006,7 +1139,6 @@ inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int V
   Work t;
   t.B = B;
   t.ldq = (xqn + 3) & ~3;
-  t.chunk_cap = (C + kAttnChunk - 1) / kAttnChunk;
   t.x = (float*)take(sizeof(float) * B * d.H);
   t.xq = (int8_t*)take((size_t)B * t.ldq);
   t.xf = modes != 0 ? (float*)take(sizeof(float) * B * t.ldq) : nullptr;
@@ -1017,12 +1149,10 @@ inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int C, int V
   t.acc_d = (int*)take(sizeof(int) * B * d.H);
   t.part = part_n ? (double*)take(sizeof(double) * part_n) : nullptr;
   t.q = (float*)take(sizeof(float) * B * hd);
-  t.scores = (float*)take(sizeof(float) * B * (size_t)d.Hq * C);
-  t.partial = (double*)take(sizeof(double) * B * (size_t)t.chunk_cap * hd);
+  t.attn = (float*)take(sizeof(float) * B * hd);
   t.hnorm = (float*)take(sizeof(float) * B * d.H);
   t.head = (float*)take(sizeof(float) * (size_t)head_splits * B * Vh);
   t.stage = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * (size_t)B * 2 * d.Hkv * d.D);
-  t.fold = (float*)take(sizeof(float) * (size_t)B * d.Hq * 3);
   if (w) *w = t;
   return off;
 }
@@ -1217,60 +1347,87 @@ inline Emit emit_for(const Work& w, const Proj& p, int j, int* acc, int n) {
   return e;
 }
 
+inline int attn_cap(int rows, int clusters) { return std::max(1, (rows + clusters - 1) / clusters); }
+
+// The cluster size of the attention kernel for B lanes, Hkv KV heads and at
+// most `rows` rows a lane: about two blocks on each SM (kSplitTarget
+// blocks), each of at least kAttMinRows rows, at most kAttMaxCluster; more
+// where one block's slice of scores would not fit its shared memory.
+inline int attn_clusters(int B, int Hkv, int G, int rows, int row_bytes) {
+  int s = std::min(kSplitTarget / (B * Hkv), (rows + kAttMinRows - 1) / kAttMinRows);
+  s = std::max(1, std::min(s, kAttMaxCluster));
+  while (s < kAttMaxCluster && AttLayout(G, attn_cap(rows, s), row_bytes).total > kAttMaxSmem) ++s;
+  return s;
+}
+
+template <typename T, int G>
+cudaError_t attn_launch(const Dims& d, const LayerView<T>& lv, const Work& w, int n_end,
+                        int floor_row, int round_q, int round_p, const int* start,
+                        cudaStream_t st) {
+  constexpr int row = kAttD * (int)sizeof(T);
+  const int rows = n_end - floor_row, S = attn_clusters(w.B, d.Hkv, G, rows, row);
+  const int cap = attn_cap(rows, S);
+  return launch_cluster(attn_layer_kernel<T, G>, dim3(S, d.Hkv, w.B), kAttThreads,
+                        AttLayout(G, cap, row).total, st, (const float*)w.q, (const T*)lv.K,
+                        (const T*)lv.V, lv.head_stride, lv.lane_stride, n_end, floor_row, cap,
+                        1.0f / sqrtf((float)d.D), round_q, round_p, start,
+                        (const float*)lv.Ks, (const float*)lv.Vs,
+                        (const __nv_bfloat16*)w.stage, w.attn);
+}
+
+// One attention launch for the w.B lanes into w.attn: rows [floor_row,
+// n_end) of each lane's cache (the kernel takes the lane's start above
+// floor_row); int8: the cached rows [0, n_end) and the staged current row.
+template <typename T>
+cudaError_t attention(const Dims& d, const LayerView<T>& lv, const Work& w, int n_end,
+                      int floor_row, int round_q, int round_p, const int* start,
+                      cudaStream_t st) {
+  switch (d.Hq / d.Hkv) {
+    case 1: return attn_launch<T, 1>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    case 2: return attn_launch<T, 2>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    case 4: return attn_launch<T, 4>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    default: return attn_launch<T, 8>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+  }
+}
+
 // Launch one layer for the w.B lanes' tokens at position `pos` (their K/V
 // rows are written at `pos`, attention covers rows [0, pos], or [start[b],
 // pos] with a per-lane start operand, whose lower bound over the lanes is
 // start_min). `prev` is the previous layer's down projection (empty for
 // the first layer: x already holds the layer input). Returns this layer's
-// down projection. round_q / round_p: see the header. T = int8_t runs the
-// int8 KV cache's attention (the header; q rounded to bf16 whatever
-// round_q, round_p rounds p * v_scale; no start operand).
+// down projection; a refused attention launch is kept in w.err. round_q /
+// round_p: see the header. T = int8_t runs the int8 KV cache's attention
+// (the header; q rounded to bf16 whatever round_q, round_p rounds p *
+// v_scale; no start operand).
 template <typename T>
 ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
-                  const float* cosv, const float* sinv, int pos, int C, int round_q,
-                  int round_p, cudaStream_t st, const int* start = nullptr,
-                  int start_min = 0) {
-  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, G = d.Hq / d.Hkv, B = w.B;
-  const int n_valid = pos + 1, chunks = (n_valid + kAttnChunk - 1) / kAttnChunk;
-  const int chunk0 = min(max(start_min, 0), pos) / kAttnChunk;
+                  const float* cosv, const float* sinv, int pos, int round_q, int round_p,
+                  cudaStream_t st, const int* start = nullptr, int start_min = 0) {
+  constexpr bool q8 = std::is_same<T, int8_t>::value;
+  const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, B = w.B;
   const size_t row_smem = sizeof(float) * (size_t)(d.H > d.F ? (d.H > hd ? d.H : hd)
                                                             : (d.F > hd ? d.F : hd));
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
       w.x, prev, lv.attn_n, d.H, d.eps, emit_for(w, lv.qkv, 0, w.acc_qkv, qkv), nullptr);
   const ProjOut oq = project(w, lv.qkv, d.H, qkv, w.acc_qkv, w.s + 0 * B, st);
-  const float scale = 1.0f / sqrtf((float)d.D);
-  if constexpr (std::is_same<T, int8_t>::value) {
-    const long stage_lane = 2L * d.Hkv * d.D;
+  if constexpr (q8) {   // the new rows go to the staging rows, attended from there
     qkv_post_kernel<__nv_bfloat16><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
         oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, w.stage,
-        w.stage + (size_t)d.Hkv * d.D, (long)d.D, stage_lane);
-    attn_scores_q8_kernel<<<dim3(d.Hkv, chunks, B), 256, sizeof(float) * G * d.D, st>>>(
-        w.q, lv.K, lv.Ks, w.stage, lv.head_stride, lv.lane_stride, pos, G, d.D, scale,
-        w.scores, C);
-    attn_softmax_q8_kernel<<<dim3(d.Hq, B), kRowThreads, 0, st>>>(
-        w.scores, C, pos, lv.Vs, lv.head_stride, lv.lane_stride, d.D, G, round_p, w.fold);
-    attn_pv_q8_kernel<<<dim3(d.Hkv, chunks, B), G * d.D, 0, st>>>(
-        w.scores, C, lv.V, lv.head_stride, lv.lane_stride, pos, G, d.D, w.chunk_cap,
-        w.partial);
-    kv_row_quant_kernel<<<dim3(2 * d.Hkv, B), d.D, 0, st>>>(
-        w.stage, d.Hkv, d.D, lv.K, lv.V, lv.Ks, lv.Vs, lv.head_stride, lv.lane_stride, pos);
+        w.stage + (size_t)d.Hkv * d.D, (long)d.D, 2L * d.Hkv * d.D);
   } else {
     qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
         oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
         lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
-    attn_scores_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), 256, sizeof(float) * G * d.D,
-                            st>>>(w.q, lv.K, lv.head_stride, lv.lane_stride, n_valid, G, d.D,
-                                  scale, round_q, w.scores, C, start, chunk0);
-    attn_softmax_kernel<T><<<dim3(d.Hq, B), kRowThreads, 0, st>>>(w.scores, C, n_valid,
-                                                                   round_p, start);
-    attn_pv_kernel<T><<<dim3(d.Hkv, chunks - chunk0, B), G * d.D, 0, st>>>(
-        w.scores, C, lv.V, lv.head_stride, lv.lane_stride, n_valid, G, d.D, d.Hq, w.chunk_cap,
-        w.partial, start, chunk0);
   }
-  const bool q8 = std::is_same<T, int8_t>::value;
-  merge_kernel<<<B, kRowThreads, row_smem, st>>>(w.partial, chunk0, chunks, w.chunk_cap, hd,
-                                                 emit_for(w, lv.o, 1, w.acc_o, d.H),
-                                                 q8 ? w.fold : nullptr, w.stage, d.D, G);
+  const int floor_row = q8 ? 0 : std::min(std::max(start_min, 0), pos);
+  const cudaError_t e =
+      attention(d, lv, w, q8 ? pos : pos + 1, floor_row, round_q, round_p, start, st);
+  if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
+  if constexpr (q8)
+    kv_row_quant_kernel<<<dim3(2 * d.Hkv, B), d.D, 0, st>>>(
+        w.stage, d.Hkv, d.D, lv.K, lv.V, lv.Ks, lv.Vs, lv.head_stride, lv.lane_stride, pos);
+  attn_emit_kernel<<<B, kRowThreads, row_smem, st>>>(w.attn, hd,
+                                                     emit_for(w, lv.o, 1, w.acc_o, d.H));
   const ProjOut oo = project(w, lv.o, hd, d.H, w.acc_o, w.s + 1 * B, st);
   resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
       w.x, oo, lv.ffn_n, d.H, d.eps, emit_for(w, lv.gu, 2, w.acc_gu, 2 * d.F), nullptr);
@@ -1291,7 +1448,7 @@ inline void final_norm(const Dims& d, const ProjOut& last, const float* out_norm
 // (cudaErrorInvalidValue) when they do not hold.
 inline int check_dims(const Dims& d, int N_head, int B) {
   const int G = d.Hq / d.Hkv;
-  if (d.D % 32 != 0 || d.D > 1024 || d.Hq % d.Hkv != 0 || G > kMaxGroup || G * d.D > 1024)
+  if (d.D != kAttD || G < 1 || d.Hq % d.Hkv != 0 || G > kMaxGroup || (G & (G - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (d.H % 4 != 0 || d.F % 4 != 0 || N_head % 4 != 0) return (int)cudaErrorInvalidValue;
   if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;

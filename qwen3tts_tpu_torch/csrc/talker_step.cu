@@ -25,19 +25,29 @@
 // (split-K GEMVs: int32 atomics in w8a8, exact in any order; float64
 // per-split partials merged in split order in the float modes), keeps the
 // single-token activations in one block each, and reads only the valid KV
-// rows. It launches ~13 kernels per layer from one C call (no host round
-// trip inside a frame); launch latency, not bandwidth, is what this first
-// version pays for — a persistent kernel or a CUDA graph is later work.
+// rows, streamed through shared memory by one attention launch per layer
+// (layer.cuh). It launches 10 kernels per layer (11 over the int8 cache)
+// from one C call (no host round trip inside a frame); launch latency, not
+// bandwidth, is what it pays for at short prefixes — a persistent kernel or
+// a CUDA graph is later work.
 //
 // The KV cache is updated in place: the new K/V row (or its int8 row and
 // scale) is written at n_past (the Pallas kernel returns the row and its
 // wrapper scatters it instead).
 #include "layer.cuh"
 
-extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int C, int Vc,
+extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int Vc,
                                        int modes) {
   const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, 1, C, Vc, modes);
+  return carve_work(nullptr, nullptr, d, 1, Vc, modes);
+}
+
+// The attention kernel's cluster size (layer.cuh attn_clusters) for B
+// lanes, Hkv KV heads, G query heads per KV head and at most `rows` rows a
+// lane, over a bf16 (kv_int8 = 0) or an int8 cache; K1 and K5 share it. For
+// the tests of the split rule.
+extern "C" int qtts_talker_attention_clusters(int B, int Hkv, int G, int rows, int kv_int8) {
+  return attn_clusters(B, Hkv, G, rows, kAttD * (kv_int8 ? 1 : 2));
 }
 
 extern "C" int qtts_talker_step(
@@ -63,7 +73,7 @@ extern "C" int qtts_talker_step(
   if (int bad = check_groups(sw, d)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
-  carve_work(&w, (char*)ws, d, 1, C, Vc, modes);
+  carve_work(&w, (char*)ws, d, 1, Vc, modes);
   const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * H, cudaMemcpyDeviceToDevice, st);
   ProjOut last{};
@@ -77,12 +87,12 @@ extern "C" int qtts_talker_step(
                            head_stride, 0L);
       lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
       lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
-      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 1, st);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 1, st);
     } else {
       __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
       const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
                                  kvb + (2 * l + 1) * layer_stride, head_stride, 0L);
-      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 1, st);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 1, st);
     }
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
@@ -95,7 +105,8 @@ extern "C" int qtts_talker_step(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, seed, nullptr, 0,
       nullptr, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  const int last_err = (int)cudaGetLastError();
+  return w.err != cudaSuccess ? (int)w.err : last_err;
 }
 
 // A timing harness for K1's projection kernels alone: for each of L layers

@@ -38,10 +38,10 @@
 // CUDA cores, where float64 runs at half the float32 rate; tensor cores
 // come later. The per-lane steps
 // (norms, quantization, RoPE, attention, sampling) run one block per lane or
-// per (head, lane). This first version pays for launch latency (~13
-// kernels per layer, as in K1) and, at long prefixes, for its three-pass
-// attention (one warp per cached row, float64 sums), which reads the KV rows
-// well below the memory rate; PERF.md has the measured times.
+// per (head, lane); the attention is one launch per layer, a cluster per
+// (lane, KV head) streaming the rows through shared memory (layer.cuh). It
+// pays for launch latency (10 kernels per layer, as in K1); PERF.md has the
+// measured times.
 //
 // Numerics follow the batched Pallas kernel, not K1: q is rounded to the KV
 // dtype (:1529), the probabilities stay float32 (:1535-1543). The current
@@ -55,9 +55,9 @@
 #include "layer.cuh"
 
 extern "C" size_t qtts_talker_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
-                                               int C, int Vc, int modes) {
+                                               int Vc, int modes) {
   const Dims d{H, Hq, Hkv, D, F, 0.f};
-  return carve_work(nullptr, nullptr, d, B, C, Vc, modes);
+  return carve_work(nullptr, nullptr, d, B, Vc, modes);
 }
 
 extern "C" int qtts_talker_step_batched(
@@ -86,7 +86,7 @@ extern "C" int qtts_talker_step_batched(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
-  carve_work(&w, (char*)ws, d, B, C, Vc, modes);
+  carve_work(&w, (char*)ws, d, B, Vc, modes);
   const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
   const long lane_stride = (long)L * 2 * layer_stride;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, st);
@@ -101,12 +101,12 @@ extern "C" int qtts_talker_step_batched(
                            head_stride, lane_stride);
       lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
       lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
-      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 0, st);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 0, st);
     } else {
       __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
       const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
                                  kvb + (2 * l + 1) * layer_stride, head_stride, lane_stride);
-      last = run_layer(d, lv, last, w, cs, sn, n_past, C, 1, 0, st, (const int*)start,
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 0, st, (const int*)start,
                        start_min);
     }
   }
@@ -120,5 +120,6 @@ extern "C" int qtts_talker_step_batched(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, 0,
       (const int*)seeds, 0, (const float*)temps, (const float*)topps, (const float*)pens);
-  return (int)cudaGetLastError();
+  const int last_err = (int)cudaGetLastError();
+  return w.err != cudaSuccess ? (int)w.err : last_err;
 }

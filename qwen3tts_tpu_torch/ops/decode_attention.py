@@ -31,6 +31,21 @@ def _lanes(q, kv):
     return (q, kv, True) if lanes else (q[None], kv[None], False)
 
 
+# csrc/decode_attention.cu's split rule: rows per ring tile, blocks that fill
+# the H100 about twice, the largest cluster
+SPLIT_TILE, SPLIT_BLOCK_TARGET, SPLIT_MAX = 64, 264, 16
+
+
+def decode_attention_split(B: int, Hkv: int, n_valid: int):
+    """(splits, rows per split) of the kernel's cluster over [0, n_valid)
+    for B lanes and Hkv KV heads (decode_split in the source): split r takes
+    rows [r * per, min(n_valid, (r + 1) * per)), rank 0 rescales and sums
+    the splits' partials in rank order."""
+    s = max(1, min(SPLIT_BLOCK_TARGET // (B * Hkv), -(-n_valid // SPLIT_TILE), SPLIT_MAX))
+    per = -(-n_valid // s)
+    return -(-n_valid // per), per
+
+
 def decode_attention_kernel_plain(q, kv, layer: int, n_valid: int) -> torch.Tensor:
     """Plain version: q [Hq, D] and kv [L, 2, Hkv, C, D], or with a leading
     lane dimension each; attention of each query row over rows [0, n_valid)
@@ -76,11 +91,9 @@ def decode_attention_kernel(q, kv, layer: int, n_valid: int) -> torch.Tensor:
                          "and 16-byte aligned")
     q3 = q3.contiguous()
     out = torch.empty((B, Hq, D), dtype=q3.dtype, device=q3.device)
-    ws = torch.empty(lib.qtts_decode_attention_ws_bytes(B, Hq, Hkv, D, n), dtype=torch.uint8,
-                     device=q3.device)
     err = lib.qtts_decode_attention(
         q3.data_ptr(), layer_kv.data_ptr(), kv6.stride(0), B, Hq, Hkv, C, D, n,
-        1.0 / D ** 0.5, out.data_ptr(), ws.data_ptr(), _kernels.stream_ptr(q3.device))
+        1.0 / D ** 0.5, out.data_ptr(), _kernels.stream_ptr(q3.device))
     _kernels.check(err, "decode_attention_kernel")
     decode_attention_kernel.launches += 1
     return out if lanes else out[0]

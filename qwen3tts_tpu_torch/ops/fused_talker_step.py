@@ -163,6 +163,42 @@ def gqa_attention(q, K, V, p_dtype, valid=None, cur=None):
     return torch.matmul(p.double(), V.double()).float().reshape(*lead, -1)
 
 
+# csrc/layer.cuh's attention grid: ring tiles and stages, rows a block takes
+# at least, the largest cluster, the shared memory a block may have, the
+# blocks that fill the H100 about twice (kSplitTarget)
+ATTN_TILE, ATTN_STAGES, ATTN_MIN_ROWS, ATTN_MAX_CLUSTER = 64, 3, 64, 16
+ATTN_MAX_SMEM, ATTN_BLOCK_TARGET = 232448, 264
+
+
+def attention_clusters(B: int, Hkv: int, G: int, rows: int, kv_int8: bool = False,
+                       D: int = 128) -> int:
+    """The cluster size of K1/K5's attention kernel (attn_clusters in the
+    source) for B lanes, Hkv KV heads, G query heads per KV head and at most
+    `rows` rows a lane: about two blocks an SM, each of at least 64 rows, at
+    most 16, more where a block's slice of scores would not fit its shared
+    memory (the AttLayout bytes)."""
+    row = D * (1 if kv_int8 else 2)
+
+    def smem(s):
+        cap = max(1, -(-rows // s))
+        ring = max(ATTN_STAGES * ATTN_TILE * row, 8 * G * D * 8)
+        return (ring + 8 * G * D + 16 * G * ATTN_TILE + 16 * G + 256 + 24 * G + 128
+                + 8 * ATTN_STAGES + 4 * G * cap)
+
+    s = max(1, min(ATTN_BLOCK_TARGET // (B * Hkv), -(-rows // ATTN_MIN_ROWS), ATTN_MAX_CLUSTER))
+    while s < ATTN_MAX_CLUSTER and smem(s) > ATTN_MAX_SMEM:
+        s += 1
+    return s
+
+
+def attention_slices(t0: int, n_end: int, clusters: int):
+    """The rows [lo, hi) of each block of a cluster, in rank order, over a
+    lane's rows [t0, n_end): contiguous slices of ceil((n_end - t0) /
+    clusters) rows (the last ones shorter or empty)."""
+    per = -(-(n_end - t0) // clusters)
+    return [(min(n_end, t0 + r * per), min(n_end, t0 + (r + 1) * per)) for r in range(clusters)]
+
+
 def mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] f32 rounded to w's dtype @ w [K, N]: the dot in float64,
     rounded to float32 once (a product of two bf16 values is exact)."""
@@ -477,7 +513,7 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
     tok = torch.empty((1,), dtype=torch.int32, device=dev) if seen is not None else None
     seen8 = seen.to(torch.int8).contiguous() if seen is not None else None
     ws = torch.empty(lib.qtts_talker_ws_bytes(H, cfg.n_heads, Hkv, D, cfg.intermediate_size,
-                                              C, Vc, modes), dtype=torch.uint8, device=dev)
+                                              Vc, modes), dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step(
         x.data_ptr(), n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
         *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
@@ -598,7 +634,7 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         if start32.numel() != B:
             raise ValueError(f"start must be [{B}], got {tuple(start32.shape)}")
     ws = torch.empty(lib.qtts_talker_batched_ws_bytes(B, H, cfg.n_heads, Hkv, D,
-                                                      cfg.intermediate_size, C, Vc, modes),
+                                                      cfg.intermediate_size, Vc, modes),
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step_batched(
         x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,

@@ -4,7 +4,9 @@ main path's full widths (the same checks as chip_smoke.py's kernel phase).
 Marked ``gpu``; on a machine without a CUDA device every test skips. On the
 card: ``python -m pytest -m gpu tests/test_torch_gpu.py -q``; the code
 predictor's alone (K2, K6, K6 per lane: codes equal to the plain version,
-one persistent launch per call): ``-k code_predictor``.
+one persistent launch per call): ``-k code_predictor``; the attention kernels
+alone (decode attention in one launch per call, K1/K5's attention stage in
+one launch per layer, the split rules): ``-k attention``.
 """
 
 from __future__ import annotations
@@ -80,3 +82,38 @@ def test_w4_gemv_probe_exact_on_card():
     report = {}
     chip_smoke.check_w4_gemv_probe(report, torch.device("cuda", 0), iters=1)
     assert report["w4_gemv_probe"]["max_abs_err"] == 0.0
+
+
+def test_decode_attention_is_one_launch_on_card(tts):
+    """Decode attention within one bf16 ulp + 1e-6 of its plain version (the
+    check's gate) at B = 1 and 16 up to n_valid = 4000, one kernel per call
+    under the profiler, and its split rule equal to the wrapper module's
+    mirror for every B from 1 to 128."""
+    report = {}
+    chip_smoke.check_decode_attention(tts, report, iters=1, L=4,
+                                      shapes=((1, 1280, (1, 63, 65, 300)),
+                                              (16, 4352, (1000, 4000))))
+    r = report["decode_attention"]
+    assert r["launches_per_call"] == 1
+    assert all(t["launches_per_call"] == 1 for t in r["times"].values())
+    assert r["splits"] > 0
+
+
+@pytest.mark.parametrize("check, key", [
+    ("check_talker_step", "fused_talker_step"),
+    ("check_talker_step_batched", "fused_talker_step_batched"),
+    ("check_talker_step_start", "fused_talker_step_batched[start]"),
+    ("check_talker_step_kv_int8", "fused_talker_step_batched[kv_int8]")])
+def test_talker_attention_on_card(tts, check, key):
+    """K1 and K5 (with start, and over the int8 cache) against their plain
+    versions (the checks' gates) with the attention stage in one launch per
+    layer: ten of the port's kernels per layer over a bf16 cache (eleven
+    with the int8 cache's row quantization), three after the last, and the
+    attention stage's device time measured."""
+    report = {}
+    getattr(chip_smoke, check)(tts, report, iters=1)
+    r, L = report[key], tts.config.talker.n_layers
+    per_layer = 11 if "kv_int8" in key else 10
+    stats = r if "launches_per_call" in r else next(iter(r["times"].values()))
+    assert stats["launches_per_call"] == per_layer * L + 3
+    assert stats["attention_device_ms"] is not None and stats["attention_device_ms"] > 0
