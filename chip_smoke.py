@@ -38,9 +38,16 @@ Phases (each prints a line; any failure exits non-zero):
      and, over the int8 cache, kv_row_quant_kernel) and the port's kernels
      per call (launches_per_call); the W8A16 GEMM's yardstick
      torch._weight_int8pack_mm its device time (library_device_ms) at the
-     QKV shape (M = 1) and w_down at M = 128. Then the 4-bit GEMV probe (int8 and
-     packed-nibble weights, exact) beside K1's projection kernels at the
-     probe's shape;
+     QKV shape (M = 1) and w_down at M = 128. Then K5's projection GEMMs
+     alone (check_projections: the four talker projections over 28 seeded
+     layers in w8a8, bf16 and w4bf16; one layer against its plain version
+     at B = 16, 64 and 128, int32 equal or float32 bits equal; each 28-layer
+     pass timed by events and device time beside its bound and the library
+     call that computes the same function, torch._int_mm or float64
+     torch.matmul, reported in K5's entry of the mode under
+     "projections"), and the split rules include K5's GEMM plan against its
+     mirror. Then the 4-bit GEMV probe (int8 and packed-nibble weights,
+     exact) beside K1's projection kernels at the probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -196,9 +203,11 @@ QUEUE_PATH = ("fused_talker_step_batched", "fused_talker_step_batched[start]",
 QUEUE_FORBIDDEN = ("fused_talker_step", "fused_predict_codes")
 
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
-# second by operand type (float32 on the CUDA cores, no TF32)
+# second by operand type (float32 on the CUDA cores, no TF32; float64 on
+# the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
+                  "f64": 67e12}   # f64: the float64 tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -669,8 +678,9 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
     (2) all layers, greedy: each lane's hidden and logits cosine >= 0.99 and
     its cb0 equal unless the plain logits' top-2 gap is below twice that
     lane's logits error (check_talker_step says why). The lane counts 5, 16,
-    24, 64 and 128 reach every lanes-per-thread instantiation of the batched
-    GEMMs (layer.cuh, by_lanes). Timed at each shape's last n_past."""
+    24, 64 and 128 reach every lane-tile instantiation of the batched
+    GEMMs (layer.cuh, gemm_i8 and gemm_f64). Timed at each shape's last
+    n_past."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_talker_step import (
@@ -1348,8 +1358,10 @@ def split_rules(device):
     mirrors in the wrappers' modules, which the CPU tests hold to cover each
     lane's rows once: decode attention's splits, and K1/K5's attention
     clusters over a bf16 and an int8 cache, for every B from 1 to 128 at
-    the talker's heads and a range of row counts. Returns the cases
-    compared; None off the card."""
+    the talker's heads and a range of row counts; K5's GEMM plan in each
+    mode (tests/test_torch_gemm_order.py holds its mirror to cover each
+    weight row once) and its harness's workspace bytes for every B from 2
+    to 128. Returns the cases compared; None off the card."""
     if device.type != "cuda":
         return None
     from qwen3tts_tpu_torch import _kernels
@@ -1367,6 +1379,27 @@ def split_rules(device):
                     raise SmokeFailure(f"a split rule and its mirror differ at B={B} n={n} "
                                        f"Hkv={Hkv}")
                 cases += 3
+    # K5's GEMM plan (every mode, the talker's projections and other
+    # widths), and the harness's workspace for every B from 2 to 128
+    import ctypes
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import MODE_CODES, gemm_plan
+    from qwen3tts_tpu_torch.ops.w4_gemv_probe import project_ws_bytes
+
+    out = (ctypes.c_int * 3)()
+    for mode, code in MODE_CODES.items():
+        for K, N in ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (64, 16),
+                     (4096, 256), (1536, 8960), (8192, 128)):
+            lib.qtts_gemm_plan(code, K, N, ctypes.addressof(out))
+            if tuple(out) != gemm_plan(mode, K, N):
+                raise SmokeFailure(f"K5's GEMM plan and its mirror differ in {mode} at K={K} "
+                                   f"N={N}: {tuple(out)} != {gemm_plan(mode, K, N)}")
+            cases += 1
+            for B in range(2, 129):
+                if lib.qtts_project_ws_bytes(code, B, K, N) != project_ws_bytes(mode, B, K, N):
+                    raise SmokeFailure(f"the projection workspace and its mirror differ in "
+                                       f"{mode} at B={B} K={K} N={N}")
+                cases += 1
     print(f"split rules: {cases} cases equal to their mirrors")
     return cases
 
@@ -1513,6 +1546,202 @@ def check_w4_gemv_probe(report, device, iters, shape=None):
     for name, t in times.items():
         print(f"time w4_gemv_probe {name}: {t['ms']:.4f} ms (device {t['device_ms']}), "
               f"{t['gb_per_s']:.1f} GB/s of weights")
+
+
+# K5's projections alone (check_projections): the talker's four projections
+# as (name, K, N) at 0.6B widths, the lane counts timed, the K5 entry each
+# weight mode reports under
+PROJ_LANES = (16, 64, 128)
+K5_KEYS = {"w8a8": "fused_talker_step_batched", "bf16": "fused_talker_step_batched[bf16]",
+           "w4bf16": "fused_talker_step_batched[w4bf16]"}
+
+
+def talker_projections(tcfg):
+    H, hd, F = tcfg.hidden_size, tcfg.n_heads * tcfg.head_dim, tcfg.intermediate_size
+    qkv = (tcfg.n_heads + 2 * tcfg.n_kv_heads) * tcfg.head_dim
+    return (("wqkv", H, qkv), ("wo", hd, H), ("w_gateup", H, 2 * F), ("w_down", F, H))
+
+
+def projection_weights(mode, L, K, N, device, seed):
+    """L random layers [L, K, N] of one projection in `mode` (seeded): an
+    int8 QuantLinear, a bf16 tensor or a u4 QuantLinear4, and their values
+    as the kernels multiply them, in float64 (int8 values; bf16 values;
+    dequantized u4 rounded to bf16), for the library's product."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.quant import dequantize4, quantize_per_channel, quantize_w4
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    wf = torch.randn((L, K, N), generator=g, device=device).div_(K ** 0.5)
+    if mode == "w8a8":
+        w = quantize_per_channel(wf)
+        return w, None
+    if mode == "bf16":
+        w = wf.to(torch.bfloat16)
+        return w, w.double()
+    w = quantize_w4(wf)
+    return w, dequantize4(w).to(torch.bfloat16).double()
+
+
+def _layer(w, l):
+    """Layer l of a stacked weight, kept as a stack of one."""
+    return type(w)(*(t[l:l + 1] for t in w)) if hasattr(w, "_fields") else w[l:l + 1]
+
+
+def projection_bound(w, mode, L, B, K, N):
+    """(bound_ms, bound_by, f64_floor_ms) of one pass of L layers of x [B, K]
+    @ W_l [K, N]. The bound: the weights (every leaf), x and the L float32
+    or int32 results [B, N] once each; 2 B K N operations a layer at the
+    peak of the operands' type, int8 or bf16 (as _stack counts K5's
+    products). f64_floor_ms (float modes; None for w8a8) is a floor of the
+    port's design, not of the function: the same bytes, and the operations
+    at the float64 tensor cores' peak, where the kernels sum to keep the
+    plain versions' bits."""
+    nbytes = _nbytes(*(w if hasattr(w, "_fields") else (w,))) + B * K * (
+        1 if mode == "w8a8" else 4) + L * B * N * 4
+    ops = 2 * L * B * K * N
+    if mode == "w8a8":
+        return (*bound(nbytes, {"int8": ops}), None)
+    return (*bound(nbytes, {"bf16": ops}), bound(nbytes, {"f64": ops})[0])
+
+
+def _library_ms(lib, device, iters):
+    """(ms, device ms) of one yardstick run `lib`: CUDA events around the
+    run (the host's dispatch of its calls included) and its kernels' own
+    time under the profiler; (None, None) where there is none or the
+    library refuses the shape (printed: a yardstick's refusal is no fault
+    of the port)."""
+    if lib is None:
+        return None, None
+    try:
+        return timed(lib, device, iters), device_ms_per_call(lib, 1, ("",), device)
+    except RuntimeError as e:
+        print(f"library call refused: {e}")
+        return None, None
+
+
+def _pass_device_ms(run, counts, device, tries=3):
+    """Device ms of each group of one run of `run` under the profiler, its
+    GEMV and GEMM kernels (bare names starting with gemv_ or gemm_) in
+    launch order cut into groups of counts[i]; None off the card or when
+    `tries` traces in a row did not catch every such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    run()
+    torch.cuda.synchronize(device)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(device)
+        ks = sorted((e for e in device_events(prof) if e["cat"] == "kernel" and kernel_name(
+            e["name"]).startswith(("gemv_", "gemm_"))), key=lambda e: e["ts"])
+        if len(ks) == sum(counts):
+            out, i = [], 0
+            for n in counts:
+                out.append(sum(e["dur"] for e in ks[i:i + n]) / 1e3)
+                i += n
+            return out
+    return None
+
+
+def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf16"),
+                      lanes=PROJ_LANES, check_lanes=PROJ_LANES, L=None):
+    """K5's GEMMs alone (ops/w4_gemv_probe.project_layers: one launch per
+    layer, as run_layer launches them for B >= 2 lanes) in each weight mode,
+    for the talker's four projections on L seeded random layers (default:
+    all). For each B of check_lanes and projection: one layer on a zeroed
+    workspace against project_layer_plain, the int32 accumulator equal
+    (w8a8) or the float32 result of the partials, summed as the consumer
+    sums them, with the same bits (float modes); any difference fails. For
+    each B of lanes: each projection's L-layer pass timed by CUDA events
+    (ms) and the profiler (device_ms), its bound and the float modes'
+    float64 floor (projection_bound), and the library yardstick, timed the
+    same two ways (library_ms, library_device_ms): one PyTorch call per
+    layer for the same function, which the port never calls: torch._int_mm
+    (int8 x int8 -> int32; on CUDA it takes more than 16 rows, so null at
+    B = 16) or float64 torch.matmul over the values the kernels multiply.
+    The stage's totals (the four projections:
+    one K5 call's projections) and the per-projection rows go into K5's
+    report entry of the mode (K5_KEYS), under "projections"."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
+
+    L = L or tcfg.n_layers
+    shapes = talker_projections(tcfg)
+    g = torch.Generator(device=device).manual_seed(31)
+    t0 = time.perf_counter()
+    for mode in modes:
+        rows = {B: {} for B in lanes}
+        for j, (name, K, N) in enumerate(shapes):
+            w, wd = projection_weights(mode, L, K, N, device, seed=100 + j)
+            w1 = _layer(w, L - 1)
+            for B in sorted(set(check_lanes) | set(lanes)):
+                if mode == "w8a8":
+                    x = torch.randint(-127, 128, (B, K), generator=g, device=device,
+                                      dtype=torch.int8)
+                else:   # bf16 values, as the row kernels emit them
+                    x = torch.randn((B, K), generator=g, device=device).to(
+                        torch.bfloat16).float()
+                if B in check_lanes:
+                    ws = torch.zeros(probe.project_ws_bytes(mode, B, K, N),
+                                     dtype=torch.uint8, device=device)
+                    a = probe.project_result(probe.project_layers(x, w1, mode, ws), mode, B,
+                                             K, N)
+                    b = probe.project_layer_plain(x, w1, mode, 0)
+                    same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    print(f"kernel K5 projection {mode} {name} K={K} N={N} B={B}: "
+                          f"{'equal' if same else 'DIFFERS'} (max abs err {_max_err(a, b):.3e})")
+                    if not same:
+                        raise SmokeFailure(f"K5's {mode} GEMM differs from its plain version "
+                                           f"at {name}, B={B}")
+                if B not in lanes:
+                    continue
+                ws = probe.project_layers(x, w, mode)
+                run = lambda x=x, w=w, ws=ws: probe.project_layers(x, w, mode, ws)  # noqa: E731
+                if mode == "w8a8":
+                    lib = (None if B <= 16 else _layer_cycle(
+                        lambda l, x=x, q=w.q: torch._int_mm(x, q[l]), L))
+                else:
+                    xd = x.double()
+                    lib = _layer_cycle(lambda l, xd=xd: torch.matmul(xd, wd[l]), L)
+                bound_ms, bound_by, floor_ms = projection_bound(w, mode, L, B, K, N)
+                lib_ms, lib_device_ms = _library_ms(lib, device, iters)
+                rows[B][name] = dict(ms=timed(run, device, iters), run=run,
+                                     library_ms=lib_ms, library_device_ms=lib_device_ms,
+                                     bound_ms=bound_ms, bound_by=bound_by,
+                                     f64_floor_ms=floor_ms)
+            del w, wd, w1
+        out = {}
+        for B, per in rows.items():
+            runs = [r.pop("run") for r in per.values()]
+            dms = _pass_device_ms(lambda runs=runs: [r() for r in runs], [L] * len(runs),
+                                  device)
+            for r, d in zip(per.values(), dms or [None] * len(runs)):
+                r["device_ms"] = d
+            def total(key):
+                v = [r[key] for r in per.values()]
+                return None if None in v else sum(v)
+
+            t = out[f"B={B}"] = dict(
+                ms=total("ms"), device_ms=None if dms is None else sum(dms),
+                bound_ms=total("bound_ms"), f64_floor_ms=total("f64_floor_ms"),
+                library_ms=total("library_ms"), library_device_ms=total("library_device_ms"),
+                shapes=per)
+            print(f"time K5 projections {mode} B={B}, {L} layers: {t['ms']:.4f} ms "
+                  f"(device {t['device_ms']}), bound {t['bound_ms']:.4f} ms (float64 floor "
+                  f"{t['f64_floor_ms']}), library {t['library_ms']} ms (device "
+                  f"{t['library_device_ms']})")
+        entry = report.setdefault(K5_KEYS[mode], {})
+        entry["projections"] = dict(
+            layers=L, checked_lanes=list(check_lanes), times=out,
+            library="torch._int_mm (int32; B > 16 only)" if mode == "w8a8" else
+            "float64 torch.matmul over the multiplied values",
+            tolerance="exact: int32 equal (w8a8), float32 bits equal (float modes)")
+    print(f"projection phase: {time.perf_counter() - t0:.1f} s")
 
 
 def attention_bound(B, Hq, Hkv, D, n):
@@ -1744,7 +1973,8 @@ TIER_SERVE = {
 UNFUSED_Q4_REQUESTS = [("An unfused request on the q4 tier.",
                         dict(max_audio_tokens=32, temperature=0.0, seed=1))]
 # K5's shapes in the non-w8a8 modes (B, C, n_past): shapes[1] is the
-# headline; B = 5, 16, 24, 64 and 128 reach every by_lanes instantiation
+# headline; B = 5, 16, 24, 64 and 128 reach every lane-tile instantiation
+# of the batched GEMMs
 MODE_BATCH_SHAPES = ((16, 512, (10, 300)), (64, 512, (10, 300)), (5, 512, (10,)),
                      (24, 512, (10,)), (128, 512, (10,)))
 
@@ -2303,6 +2533,7 @@ def main():
                               positions=((512, (10, 300)), (4352, (300, 4000))), exact=True)
             check_talker_step_batched(tiers[q], report, iters=3, shapes=MODE_BATCH_SHAPES,
                                       key=f"fused_talker_step_batched[{mode}]", exact=True)
+        check_projections(tts.config.talker, report, dev, iters=3)
         check_w4_gemv_probe(report, dev, iters=10)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()

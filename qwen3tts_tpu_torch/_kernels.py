@@ -95,6 +95,7 @@ SIGNATURES = {
         I, I, I, I, I, I, F,             # B Hq Hkv C D n_valid scale
         P, P],                           # out, stream
     "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_int8
+    "qtts_gemm_plan": [I, I, I, P],                         # mode K N, out[3]
 }
 
 _LIB = None

@@ -2,8 +2,8 @@
 // kernels: the building blocks of K1 (talker_step.cu), which runs one lane,
 // and of K5 (talker_step_batched.cu), which runs B. K2 and K6 (the
 // persistent kernel of code_predictor_persistent.cuh) reuse the device
-// helpers (emit/quantize, proj_value's arithmetic) and the w8a8 tile of
-// gemm_w8a8_kernel.
+// helpers (emit/quantize, proj_value's arithmetic); their own w8a8 tile
+// keeps the __dp4a form of the earlier batched GEMM.
 //
 //   resid_rms        x += previous projection; h = RMSNorm(x); emit(h)
 //   project          y[b, :] = x[b, :] @ W     (in the projection's mode)
@@ -25,8 +25,8 @@
 //           the dot accumulates in int32 (exact and independent of order, so
 //           the split-K atomics and the GEMV/GEMM choice change nothing),
 //           and the consumer reads acc * (s * w_scale) in float32;
-//   bf16    bf16 W [K, N]. emit() writes the float32 activation, which the
-//           projection rounds to bf16;
+//   bf16    bf16 W [K, N]. emit() writes the float32 activation rounded to
+//           bf16 (the GEMVs round it again, which changes nothing);
 //   w4bf16  split-half nibbles [K/2, N] (byte i: row i low, row i + K/2
 //           high) with float32 scale and zero [G, N] per group of gs = K/G
 //           logical rows. Per half, w = q * s - z (product rounded first)
@@ -41,12 +41,15 @@
 // Lanes. Every per-token kernel takes its lane from the grid (blockIdx.x
 // for the row kernels, y or z for the others) and finds lane b's vectors at
 // b times their length; one lane is the grid of one. `project` is a GEMV
-// for one lane and, for B lanes, a tiled GEMM that stages each weight tile
-// in shared memory once and multiplies it against all B lanes' activation
-// rows: every weight byte leaves device memory once per call, whatever B
-// is. That is the point of the batched Pallas kernels
-// (pallas_talker_step.py:1463 and pallas_code_predictor_batched.py:69, M = B
-// MXU dots).
+// for one lane (split-K, on the CUDA cores) and, for B lanes, a GEMM on the
+// tensor cores (gemm_i8_mma_kernel: int8 mma into int32; gemm_f64_mma_kernel:
+// float64 mma over bf16 values widened exactly) that streams each weight
+// tile into shared memory once, by asynchronous copies through a ring, and
+// multiplies it against all B lanes' activation rows: every weight byte
+// leaves device memory once per call, whatever B is. That is the point of
+// the batched Pallas kernels (pallas_talker_step.py:1463 and
+// pallas_code_predictor_batched.py:69, M = B MXU dots). The GEMMs' section
+// below says what bounds them and how they are built.
 //
 // Attention optionally casts q and the softmax probabilities to the KV dtype
 // (round_q, round_p: the single-stream talker kernel casts both, :338 and
@@ -134,12 +137,9 @@ constexpr int kRowThreads = 1024;   // one block handles one lane's vector
 constexpr int kMaxGroup = 8;        // query heads per KV head
 constexpr int kSplitTarget = 264;   // ~2 blocks per SM of an H100
 constexpr int kMaxLanes = 128;      // lanes of one batched call
-constexpr int kGemmTN = 128;        // output columns per GEMM block
-constexpr int kGemmTK = 128;        // int8 weight rows per shared tile
-constexpr int kGemmTKf = 32;        // bf16 weight rows per shared tile
-constexpr int kGemm4TN = 64;        // output columns per u4 GEMM block
-constexpr int kGemm4TK = 16;        // packed u4 rows per shared tile (32 logical)
-constexpr int kGemmThreads = 256;   // 32 column groups x 8 lane groups
+constexpr int kGemmTN = 128;        // output columns per codec head GEMM block
+constexpr int kGemmTKf = 32;        // bf16 head rows per shared tile
+constexpr int kGemmThreads = 256;   // threads of a GEMM block
 constexpr int kHeadSplits = 8;      // K splits of the batched head GEMM
 
 enum WeightMode { kW8A8 = 0, kBF16 = 1, kW4BF16 = 2 };
@@ -166,7 +166,7 @@ struct ProjOut {
 struct Emit {
   int8_t* xq;     // w8a8: int8 rows [B, ldq] and their scales s_out [B]
   float* s_out;
-  float* xf;      // bf16 / w4bf16: float32 rows [B, ldq] (rounded by the projection)
+  float* xf;      // bf16 / w4bf16: float32 rows [B, ldq] holding bf16 values
   int ldq;
   int* zero;      // w8a8: the projection's int32 accumulator [B, zero_n], cleared
   int zero_n;
@@ -203,8 +203,9 @@ __device__ void quantize_buf(const float* buf, int n, float amax_local, int8_t* 
 // blockDim) to the next projection, in its mode.
 __device__ void emit_row(const float* buf, int n, float amax_local, const Emit& e, int b,
                          float* red) {
-  if (e.xf != nullptr) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) e.xf[(size_t)b * e.ldq + i] = buf[i];
+  if (e.xf != nullptr) {   // rounded to bf16 here, once (the projections' operand)
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      e.xf[(size_t)b * e.ldq + i] = bf16_round(buf[i]);
   } else {
     quantize_buf(buf, n, amax_local, e.xq + (size_t)b * e.ldq, e.s_out + b, red);
   }
@@ -280,73 +281,211 @@ __global__ void gemv_w8a8_kernel(const int8_t* __restrict__ xq, const int8_t* __
   }
 }
 
-// B lanes: acc[b, n] += sum_{k in this block's tiles} xq[b, k] * W[k, n].
-// Block = one 128-column strip x a run of 128-row K tiles. Per tile, the
-// int8 weights are staged in shared memory with four consecutive k packed
-// in one 32-bit word (a 4x4 byte transpose per thread), the lanes'
-// activation rows likewise, and each thread accumulates 4 columns x BPT
-// lanes (lanes ty, ty+8, ...) with __dp4a. Each weight byte is read from
-// device memory by exactly one block. K and N are multiples of 4.
-template <int BPT>
+// --- the batched projections on the tensor cores (B >= 2) -----------------
+//
+// gemm_i8_mma_kernel (w8a8) and gemm_f64_mma_kernel (bf16, w4bf16) stand in
+// for the M = B dots of the batched Pallas talker kernel
+// (qwen3tts_tpu/ops/pallas_talker_step.py:1604 fused_talker_step_batched,
+// its projections at :1463): y[b, :] = x[b, :] @ W for the B lanes of a
+// step, every weight byte read from device memory once, whatever B is.
+//
+// What bounds them on the H100, over one K5 call (28 layers at 0.6B
+// widths): the weight bytes, 440 MB in int8 (0.131 ms at 3.35 TB/s), 881 MB
+// in bf16 (0.263 ms), 330 MB in q4pure (0.099 ms); the int8 products, 2 x B
+// x 440 M operations (56 G at B = 64: 0.028 ms at 1,979 TOPS); and the float
+// modes' products, which are summed in float64 to keep the plain versions'
+// bits: the same 56 G at B = 64 on the float64 tensor cores' 67 TFLOP/s,
+// 0.84 ms (0.21 ms at B = 16).
+//
+// Design. Output columns go on the mma's M (16) and lanes on its N (8), so
+// B pads to a multiple of 8. A block owns a strip of columns and a run of K
+// tiles (gemm_plan: about one block per SM in int8, two in the float
+// modes, each with several tiles). Weight tiles and the lanes' activation
+// tiles stream into a ring of S stages by 16-byte cp.async, S - 1 tiles
+// ahead. Per tile, one pass readies the weights for the mma in one of two
+// buffers while the warps multiply the previous tile out of the other, so
+// one barrier per tile orders copies, passes and products. Warp (mw, lw)
+// multiplies 2 M tiles of 16 columns (32 * mw + 16 * m) against the lane
+// tiles lw, lw + LW, ... (WL of them, 8 lanes each; empty ones skipped).
+//   int8: mma.sync m16n8k32 s8 x s8 -> s32 (IMMA). Its weight operand wants
+//         four consecutive k of a column in one word: the pass transposes
+//         the tile's 4x4 byte blocks into a packed tile (padded rows, no
+//         bank conflicts); the activation rows are k-contiguous as they are.
+//         Split-K sums combine by int32 atomics into the accumulator that
+//         the row kernels cleared: exact in any order.
+//   float: mma.sync m16n8k8 f64 (DMMA). The pass widens each weight of the
+//         tile to float64 once, in shared memory: bf16, or one half's u4
+//         nibbles dequantized as dequant4 does (a u4 weight's two halves go
+//         to two blocks, blockIdx.z, which read the same packed bytes, one
+//         projection's at most 3 MB, within the 50 MB L2). The activation
+//         arrives rounded to bf16 (emit_row rounds it) and is widened as a
+//         warp loads it. A bf16 x bf16 product is exact in float64, so
+//         only the float64 addition order differs from the plain version
+//         (tests/test_torch_gemm_order.py holds the plan's order to the
+//         plain version's float32 bits). Each split writes its float64
+//         partials [halves, splits, B, N]; the consumer adds the splits in
+//         order.
+constexpr int kGemmMinTiles = 2;      // K tiles a block takes at least (where K allows)
+constexpr int kI8Blocks = 132;        // int8: blocks a GEMM aims at (one per SM)
+constexpr int kI8Stages = 4;          // int8: ring stages
+constexpr int kI8TN = 128;            // int8: output columns per block
+constexpr int kI8TK = 128;            // int8: weight rows per tile
+constexpr int kI8XRow = kI8TK + 16;   // int8: bytes per lane row of an activation stage
+constexpr int kI8PRow = kI8TN + 8;    // int8: words per row of the packed tile
+constexpr int kI8PWords = (kI8TK / 4) * kI8PRow;   // int8: words of one packed tile
+constexpr int kI8MW = 4, kI8LW = 2;   // int8: warps along columns, along lanes
+constexpr int kFBlocks = 264;         // float: blocks a GEMM aims at (two per SM)
+constexpr int kFTN = 64;              // float: output columns per block
+constexpr int kFTK = 32;              // float: weight rows (u4: packed rows) per tile
+constexpr int kFXRow = kFTK + 4;      // float: floats per lane row of an activation stage
+constexpr int kFWRow = kFTN + 8;      // float: doubles per row of the widened tile
+constexpr int kFMW = 2, kFLW = 4;     // float: warps along columns, along lanes
+
+// 16 bytes from device to shared memory, asynchronously; zeros when !ok.
+__device__ __forceinline__ void gemm_cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void gemm_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void gemm_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a (16 x 32, row) . b (32 x 8, col), int8 operands, int32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 8, row) . b (8 x 8, col) in float64.
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4], double b0,
+                                        double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// Four words w0..w3 (rows k..k+3, columns n..n+3 of an int8 tile) ->
+// column j's four k packed in word j (byte i = row k + i).
+__device__ __forceinline__ int4 byte_transpose(uint32_t w0, uint32_t w1, uint32_t w2,
+                                               uint32_t w3) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
+  return make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
+                   (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
+}
+
+// Bytes of shared memory of an int8 GEMM block for B8 lanes (B rounded up
+// to 8): the ring's stages (weight tile, then the lanes' activation rows),
+// then the two packed tiles.
+__host__ __device__ constexpr int i8_stage_bytes(int B8) { return kI8TK * kI8TN + B8 * kI8XRow; }
+__host__ __device__ constexpr int i8_smem_bytes(int B8) {
+  return kI8Stages * i8_stage_bytes(B8) + 2 * kI8PWords * 4;
+}
+
+// acc[b, n] += sum over this block's K tiles of xq[b, k] * W[k, n]: int8 W
+// [K, N], xq [B, ldq] (K, N, ldq multiples of 16), int32 atomics. Grid
+// (column strips, K splits of `per` tiles); B <= 16 * WL.
+template <int WL>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_w8a8_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* __restrict__ W,
-                 int K, int N, int tiles_per_split, int* __restrict__ acc) {
-  __shared__ __align__(16) int ws[kGemmTK / 4][kGemmTN];
-  __shared__ int xs[kMaxLanes][kGemmTK / 4];
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const int n = blockIdx.x * kGemmTN + 4 * tx;
-  const int n_tiles = (K + kGemmTK - 1) / kGemmTK;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  int a[BPT][4];
-#pragma unroll
-  for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kGemmTK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int r = ty; r < kGemmTK / 4; r += 8) {
-      const int k = k0 + 4 * r;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        w[i] = (k + i < K && n < N)
-                   ? *reinterpret_cast<const uint32_t*>(W + (size_t)(k + i) * N + n)
-                   : 0u;
-      // column j of the 4x4 byte block: (w0.bj, w1.bj, w2.bj, w3.bj)
-      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140), t1 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362), t3 = __byte_perm(w[2], w[3], 0x7362);
-      *reinterpret_cast<int4*>(&ws[r][4 * tx]) =
-          make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-                    (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
+gemm_i8_mma_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* __restrict__ W,
+                   int K, int N, int per, int* __restrict__ acc) {
+  constexpr int S = kI8Stages;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  const int B8 = (B + 7) & ~7, stage = i8_stage_bytes(B8);
+  uint32_t* P = reinterpret_cast<uint32_t*>(gemm_smem + S * stage);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int mw = warp % kI8MW, lw = warp / kI8MW;
+  const int n0 = blockIdx.x * kI8TN, n_tiles = (K + kI8TK - 1) / kI8TK;
+  const int t0 = blockIdx.y * per, nt = min(n_tiles, t0 + per) - t0;
+  auto load = [&](int i) {   // tile t0 + i into stage i % S
+    unsigned char* ws = gemm_smem + (i % S) * stage;
+    const int k0 = (t0 + i) * kI8TK;
+    for (int c = tid; c < kI8TK * (kI8TN / 16); c += kGemmThreads) {
+      const int r = c / (kI8TN / 16), n = n0 + 16 * (c % (kI8TN / 16));
+      const bool ok = k0 + r < K && n < N;
+      gemm_cp16(ws + r * kI8TN + (n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
     }
-    for (int i = tid; i < B * (kGemmTK / 4); i += kGemmThreads) {
-      const int b = i / (kGemmTK / 4), kw = i % (kGemmTK / 4), k = k0 + 4 * kw;
-      xs[b][kw] = k < K ? *reinterpret_cast<const int*>(xq + (size_t)b * ldq + k) : 0;
+    for (int c = tid; c < B8 * (kI8TK / 16); c += kGemmThreads) {
+      const int b = c / (kI8TK / 16), k = k0 + 16 * (c % (kI8TK / 16));
+      const bool ok = b < B && k < K;
+      gemm_cp16(ws + kI8TK * kI8TN + b * kI8XRow + (k - k0),
+                ok ? xq + (size_t)b * ldq + k : xq, ok);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kw = 0; kw < kGemmTK / 4; ++kw) {
-      const int4 wv = *reinterpret_cast<const int4*>(&ws[kw][4 * tx]);
+  };
+  auto pack = [&](int i) {   // tile i's weights, transposed into packed tile i & 1
+    const uint32_t* raw = reinterpret_cast<const uint32_t*>(gemm_smem + (i % S) * stage);
+    uint32_t* p = P + (i & 1) * kI8PWords;
+    for (int j = tid; j < (kI8TK / 4) * (kI8TN / 4); j += kGemmThreads) {
+      const int kw = j / (kI8TN / 4), q = j % (kI8TN / 4);
+      const uint32_t* r = raw + 4 * kw * (kI8TN / 4) + q;
+      *reinterpret_cast<int4*>(p + kw * kI8PRow + 4 * q) =
+          byte_transpose(r[0], r[kI8TN / 4], r[2 * (kI8TN / 4)], r[3 * (kI8TN / 4)]);
+    }
+  };
+  int c[2][WL][4];
 #pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        const int xv = xs[ty + 8 * i][kw];  // rows >= B hold stale data, never written out
-        a[i][0] = __dp4a(xv, wv.x, a[i][0]);
-        a[i][1] = __dp4a(xv, wv.y, a[i][1]);
-        a[i][2] = __dp4a(xv, wv.z, a[i][2]);
-        a[i][3] = __dp4a(xv, wv.w, a[i][3]);
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < WL; ++j) c[m][j][0] = c[m][j][1] = c[m][j][2] = c[m][j][3] = 0;
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nt) load(i);
+    gemm_commit();
+  }
+  gemm_wait<S - 2>();
+  __syncthreads();
+  pack(0);
+  for (int i = 0; i < nt; ++i) {
+    gemm_wait<S - 3>();
+    __syncthreads();   // tiles i + 1 in, i packed; every warp done with tile i - 1
+    if (i + S - 1 < nt) load(i + S - 1);
+    gemm_commit();
+    if (i + 1 < nt) pack(i + 1);
+    const uint32_t* p0 = P + (i & 1) * kI8PWords;
+    const uint32_t* xs = reinterpret_cast<const uint32_t*>(gemm_smem + (i % S) * stage +
+                                                           kI8TK * kI8TN);
+#pragma unroll
+    for (int s = 0; s < kI8TK / 32; ++s) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t* p = p0 + (8 * s + t) * kI8PRow + 32 * mw + 16 * m + g;
+        a[m][0] = p[0];                 // column g,     k 4t..4t+3
+        a[m][1] = p[8];                 // column g + 8
+        a[m][2] = p[4 * kI8PRow];       // column g,     k 16+4t..
+        a[m][3] = p[4 * kI8PRow + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < WL; ++j) {
+        const int lt = lw + kI8LW * j;
+        if (8 * lt >= B) continue;   // uniform over the warp
+        const uint32_t* xr = xs + (8 * lt + g) * (kI8XRow / 4) + 8 * s + t;
+        mma_s8(c[0][j], a[0], xr[0], xr[4]);
+        mma_s8(c[1][j], a[1], xr[0], xr[4]);
       }
     }
   }
-  if (n >= N) return;
 #pragma unroll
-  for (int i = 0; i < BPT; ++i) {
-    const int b = ty + 8 * i;
-    if (b >= B) break;
-    int* out = acc + (size_t)b * N + n;
-    atomicAdd(out + 0, a[i][0]);
-    atomicAdd(out + 1, a[i][1]);
-    atomicAdd(out + 2, a[i][2]);
-    atomicAdd(out + 3, a[i][3]);
+  for (int m = 0; m < 2; ++m) {
+    const int n = n0 + 32 * mw + 16 * m + g;
+#pragma unroll
+    for (int j = 0; j < WL; ++j) {
+      const int b = 8 * (lw + kI8LW * j) + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // c[e]: column n + 8 * (e >> 1), lane b + (e & 1)
+        const int ne = n + 8 * (e >> 1), be = b + (e & 1);
+        if (ne < N && be < B) atomicAdd(acc + (size_t)be * N + ne, c[m][j][e]);
+      }
+    }
   }
 }
 
@@ -387,15 +526,17 @@ __global__ void gemv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat1
   }
 }
 
-// B lanes: x [B, ldx] float32 (rounded to bf16) @ W bf16 [K, N]: partial
-// sums of this block's K tiles into partial[split, b, N], accumulated in Acc.
-// The tiling of gemm_w8a8 with 32-row float tiles: each weight element is
-// read from device memory by exactly one block.
-template <typename Acc, int BPT>
+// The codec head for B lanes: x [B, ldx] float32 (rounded to bf16) @ W bf16
+// [K, N]: float32 partial sums of this block's 32-row K tiles into
+// partial[split, b, N] (the consumer sums the splits in float32). Block =
+// one 128-column strip x a run of tiles; each thread accumulates 4 columns x
+// BPT lanes (lanes ty, ty + 8, ...); each weight element is read from
+// device memory by exactly one block.
+template <int BPT>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
                  const __nv_bfloat16* __restrict__ W, int K, int N, int tiles_per_split,
-                 Acc* __restrict__ partial) {
+                 float* __restrict__ partial) {
   __shared__ __align__(16) float ws[kGemmTKf][kGemmTN];
   __shared__ float xs[kMaxLanes][kGemmTKf];
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -403,7 +544,7 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
   const int n_tiles = (K + kGemmTKf - 1) / kGemmTKf;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  Acc a[BPT][4];
+  float a[BPT][4];
 #pragma unroll
   for (int i = 0; i < BPT; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0;
   for (int t = t_begin; t < t_end; ++t) {
@@ -431,11 +572,11 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
       const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][4 * tx]);
 #pragma unroll
       for (int i = 0; i < BPT; ++i) {
-        const Acc xv = xs[ty + 8 * i][kk];
-        a[i][0] += xv * (Acc)wv.x;
-        a[i][1] += xv * (Acc)wv.y;
-        a[i][2] += xv * (Acc)wv.z;
-        a[i][3] += xv * (Acc)wv.w;
+        const float xv = xs[ty + 8 * i][kk];
+        a[i][0] += xv * wv.x;
+        a[i][1] += xv * wv.y;
+        a[i][2] += xv * wv.z;
+        a[i][3] += xv * wv.w;
       }
     }
   }
@@ -444,7 +585,7 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
   for (int i = 0; i < BPT; ++i) {
     const int b = ty + 8 * i;
     if (b >= B) break;
-    Acc* out = partial + ((size_t)blockIdx.y * B + b) * N + n;
+    float* out = partial + ((size_t)blockIdx.y * B + b) * N + n;
     out[0] = a[i][0];
     out[1] = a[i][1];
     out[2] = a[i][2];
@@ -513,93 +654,145 @@ __global__ void gemv_w4_kernel(const float* __restrict__ x, const int8_t* __rest
   }
 }
 
-// B lanes: x [B, ldx] float32 (rounded to bf16) @ a u4 weight, as
-// gemv_w4_kernel. Block = one 64-column strip x a run of 16-packed-row
-// tiles. Per tile, each thread loads one 4-byte word of packed weights,
-// dequantizes both nibbles of its 4 columns with their groups' scales
-// (a tile may cross a group boundary: the group is taken per row) and
-// stages the two bf16-rounded halves in shared memory as float32; the
-// lanes' activation rows of both halves likewise. Each thread accumulates
-// 2 columns x BPT lanes x 2 halves in float64. Each packed byte is read
-// from device memory by exactly one block, so a call reads the weights
-// once, whatever B is.
-template <int BPT>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_w4_kernel(const float* __restrict__ x, int ldx, int B, const int8_t* __restrict__ Q,
-               const float* __restrict__ S, const float* __restrict__ Z, int Kh, int N,
-               int gs, int G, int tiles_per_split, double* __restrict__ partial) {
-  static_assert(kGemm4TK * kGemm4TN / 4 == kGemmThreads, "one packed word per thread");
-  __shared__ __align__(16) float wl[kGemm4TK][kGemm4TN];
-  __shared__ __align__(16) float wh[kGemm4TK][kGemm4TN];
-  __shared__ float xl[kMaxLanes][kGemm4TK];
-  __shared__ float xh[kMaxLanes][kGemm4TK];
-  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5, Gh = G / 2;
-  const int n = blockIdx.x * kGemm4TN + 2 * tx;
-  const int lr = tid / (kGemm4TN / 4), lc = 4 * (tid % (kGemm4TN / 4));   // load slot
-  const int ln = blockIdx.x * kGemm4TN + lc;
-  const int n_tiles = (Kh + kGemm4TK - 1) / kGemm4TK;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  double al[BPT][2], ah[BPT][2];
-#pragma unroll
-  for (int i = 0; i < BPT; ++i) al[i][0] = al[i][1] = ah[i][0] = ah[i][1] = 0.0;
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kGemm4TK;
-    __syncthreads();
-    {
-      float4 fl = make_float4(0.f, 0.f, 0.f, 0.f), fh = fl;
-      const int i = k0 + lr;
-      if (i < Kh && ln < N) {
-        const int g = i / gs;
-        const uint32_t q = *reinterpret_cast<const uint32_t*>(Q + (size_t)i * N + ln);
-        const float4 sl = *reinterpret_cast<const float4*>(S + (size_t)g * N + ln);
-        const float4 zl = *reinterpret_cast<const float4*>(Z + (size_t)g * N + ln);
-        const float4 sh = *reinterpret_cast<const float4*>(S + (size_t)(Gh + g) * N + ln);
-        const float4 zh = *reinterpret_cast<const float4*>(Z + (size_t)(Gh + g) * N + ln);
-        fl = make_float4((float)dequant4(q & 15u, sl.x, zl.x),
-                         (float)dequant4((q >> 8) & 15u, sl.y, zl.y),
-                         (float)dequant4((q >> 16) & 15u, sl.z, zl.z),
-                         (float)dequant4((q >> 24) & 15u, sl.w, zl.w));
-        fh = make_float4((float)dequant4((q >> 4) & 15u, sh.x, zh.x),
-                         (float)dequant4((q >> 12) & 15u, sh.y, zh.y),
-                         (float)dequant4((q >> 20) & 15u, sh.z, zh.z),
-                         (float)dequant4((q >> 28) & 15u, sh.w, zh.w));
+// Bytes of shared memory of a float-mode GEMM block (W4: a u4 weight) for
+// B8 lanes with S ring stages: the stages (the raw weight tile, for u4 its
+// group's scale and offset rows, then the lanes' activation rows), then the
+// two widened float64 tiles.
+__host__ __device__ constexpr int f_wbytes(bool w4) {
+  return w4 ? kFTK * kFTN + 2 * kFTN * 4 : kFTK * kFTN * 2;
+}
+__host__ __device__ constexpr int f_stage_bytes(bool w4, int B8) {
+  return f_wbytes(w4) + B8 * kFXRow * 4;
+}
+__host__ __device__ constexpr int f_smem_bytes(bool w4, int B8, int S) {
+  return S * f_stage_bytes(w4, B8) + 2 * kFTK * kFWRow * 8;
+}
+
+// Float64 partials of this block's K tiles of x [B, ldx] (float32 holding
+// bf16 values) @ W into partial[h, split, b, N]. W4 = false: W bf16 [K, N]
+// (Wv), h = 0. W4: a u4 weight Q [K/2, N] (Wv, split-half nibbles) with
+// scale S and offset Z [G, N], gs = K / G a multiple of kFTK; block
+// (x, y, h) sums half h: the packed rows' low (h = 0) or high nibbles
+// against x[:, h K/2 : (h + 1) K/2]. Grid (column strips, K splits of `per`
+// tiles, halves); B <= 32 * WL; ST ring stages.
+template <bool W4, int WL, int ST>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __restrict__ Wv,
+                    const float* __restrict__ S, const float* __restrict__ Z, int K, int N,
+                    int gs, int G, int per, double* __restrict__ partial) {
+  constexpr int WB = f_wbytes(W4);
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  const int B8 = (B + 7) & ~7, stage = f_stage_bytes(W4, B8);
+  double* Wd = reinterpret_cast<double*>(gemm_smem + ST * stage);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int mw = warp % kFMW, lw = warp / kFMW, h = blockIdx.z;
+  const int rows = W4 ? K / 2 : K;   // weight rows in memory
+  const int n0 = blockIdx.x * kFTN, n_tiles = (rows + kFTK - 1) / kFTK;
+  const int t0 = blockIdx.y * per, nt = min(n_tiles, t0 + per) - t0;
+  auto load = [&](int i) {   // tile t0 + i into stage i % ST
+    unsigned char* ws = gemm_smem + (i % ST) * stage;
+    const int k0 = (t0 + i) * kFTK;
+    if constexpr (W4) {
+      const int8_t* Q = (const int8_t*)Wv;
+      for (int c = tid; c < kFTK * (kFTN / 16); c += kGemmThreads) {
+        const int r = c / (kFTN / 16), n = n0 + 16 * (c % (kFTN / 16));
+        const bool ok = k0 + r < rows && n < N;
+        gemm_cp16(ws + r * kFTN + n - n0, ok ? Q + (size_t)(k0 + r) * N + n : Q, ok);
       }
-      *reinterpret_cast<float4*>(&wl[lr][lc]) = fl;
-      *reinterpret_cast<float4*>(&wh[lr][lc]) = fh;
+      // the tile's group in half h: its scale row, then its offset row
+      const size_t grp = (size_t)(k0 / gs + h * (G / 2)) * N;
+      float* sc = reinterpret_cast<float*>(ws + kFTK * kFTN);
+      for (int c = tid; c < 2 * (kFTN / 4); c += kGemmThreads) {
+        const int n = n0 + 4 * (c % (kFTN / 4));
+        gemm_cp16(sc + (c / (kFTN / 4)) * kFTN + n - n0,
+                  n < N ? (c < kFTN / 4 ? S : Z) + grp + n : S, n < N);
+      }
+    } else {
+      const __nv_bfloat16* W = (const __nv_bfloat16*)Wv;
+      for (int c = tid; c < kFTK * (kFTN / 8); c += kGemmThreads) {
+        const int r = c / (kFTN / 8), n = n0 + 8 * (c % (kFTN / 8));
+        const bool ok = k0 + r < rows && n < N;
+        gemm_cp16(ws + 2 * (r * kFTN + n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
+      }
     }
-    for (int j = tid; j < B * kGemm4TK; j += kGemmThreads) {
-      const int b = j / kGemm4TK, kk = j % kGemm4TK, i = k0 + kk;
-      const float* xb = x + (size_t)b * ldx;
-      xl[b][kk] = i < Kh ? bf16_round(xb[i]) : 0.f;
-      xh[b][kk] = i < Kh ? bf16_round(xb[Kh + i]) : 0.f;
+    float* xs = reinterpret_cast<float*>(ws + WB);
+    for (int c = tid; c < B8 * (kFTK / 4); c += kGemmThreads) {
+      const int b = c / (kFTK / 4), k = k0 + 4 * (c % (kFTK / 4));
+      const bool ok = b < B && k < rows;
+      gemm_cp16(xs + b * kFXRow + k - k0, ok ? x + (size_t)b * ldx + h * rows + k : x, ok);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kGemm4TK; ++kk) {
-      const float2 vl = *reinterpret_cast<const float2*>(&wl[kk][2 * tx]);
-      const float2 vh = *reinterpret_cast<const float2*>(&wh[kk][2 * tx]);
+  };
+  auto widen = [&](int i) {   // tile i's weights, in float64, into widened tile i & 1
+    const unsigned char* ws = gemm_smem + (i % ST) * stage;
+    double* d = Wd + (i & 1) * kFTK * kFWRow;
+    for (int j = tid; j < kFTK * kFTN; j += kGemmThreads) {
+      const int r = j / kFTN, n = j % kFTN;
+      if constexpr (W4) {
+        const float* sc = reinterpret_cast<const float*>(ws + kFTK * kFTN);
+        const uint32_t q = ws[r * kFTN + n];
+        d[r * kFWRow + n] = dequant4(h ? q >> 4 : q & 15u, sc[n], sc[kFTN + n]);
+      } else {
+        d[r * kFWRow + n] =
+            __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(ws)[r * kFTN + n]);
+      }
+    }
+  };
+  double c[2][WL][4];
 #pragma unroll
-      for (int i = 0; i < BPT; ++i) {
-        const double a = xl[ty + 8 * i][kk], c = xh[ty + 8 * i][kk];
-        al[i][0] += a * (double)vl.x;
-        al[i][1] += a * (double)vl.y;
-        ah[i][0] += c * (double)vh.x;
-        ah[i][1] += c * (double)vh.y;
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < WL; ++j) c[m][j][0] = c[m][j][1] = c[m][j][2] = c[m][j][3] = 0.0;
+#pragma unroll
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < nt) load(i);
+    gemm_commit();
+  }
+  gemm_wait<ST - 2>();
+  __syncthreads();
+  widen(0);
+  for (int i = 0; i < nt; ++i) {
+    gemm_wait<ST - 3>();
+    __syncthreads();   // tile i + 1 in, i widened; every warp done with tile i - 1
+    if (i + ST - 1 < nt) load(i + ST - 1);
+    gemm_commit();
+    if (i + 1 < nt) widen(i + 1);
+    const double* wd = Wd + (i & 1) * kFTK * kFWRow;
+    const float* xs = reinterpret_cast<const float*>(gemm_smem + (i % ST) * stage + WB);
+#pragma unroll
+    for (int s = 0; s < kFTK / 8; ++s) {
+      double a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const double* p = wd + (8 * s + t) * kFWRow + 32 * mw + 16 * m + g;
+        a[m][0] = p[0];                 // column g,     k t
+        a[m][1] = p[8];                 // column g + 8, k t
+        a[m][2] = p[4 * kFWRow];        // column g,     k t + 4
+        a[m][3] = p[4 * kFWRow + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < WL; ++j) {
+        const int lt = lw + kFLW * j;
+        if (8 * lt >= B) continue;   // uniform over the warp
+        const float* xr = xs + (8 * lt + g) * kFXRow + 8 * s + t;
+        const double b0 = xr[0], b1 = xr[4];
+        mma_f64(c[0][j], a[0], b0, b1);
+        mma_f64(c[1][j], a[1], b0, b1);
       }
     }
   }
-  if (n >= N) return;
-  const size_t half = (size_t)gridDim.y * B * N;
+  double* out = partial + ((size_t)h * gridDim.y + blockIdx.y) * B * N;
 #pragma unroll
-  for (int i = 0; i < BPT; ++i) {
-    const int b = ty + 8 * i;
-    if (b >= B) break;
-    double* out = partial + ((size_t)blockIdx.y * B + b) * N + n;
-    out[0] = al[i][0];
-    out[1] = al[i][1];
-    out[half] = ah[i][0];
-    out[half + 1] = ah[i][1];
+  for (int m = 0; m < 2; ++m) {
+    const int n = n0 + 32 * mw + 16 * m + g;
+#pragma unroll
+    for (int j = 0; j < WL; ++j) {
+      const int b = 8 * (lw + kFLW * j) + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {   // c[e]: column n + 8 * (e >> 1), lane b + (e & 1)
+        const int ne = n + 8 * (e >> 1), be = b + (e & 1);
+        if (ne < N && be < B) out[(size_t)be * N + ne] = c[m][j][e];
+      }
+    }
   }
 }
 
@@ -1095,6 +1288,30 @@ inline int tile_split(int n_tiles, int max_splits, int* per) {
   return (n_tiles + *per - 1) / *per;
 }
 
+// The tile plan of a batched projection (B >= 2) x [B, K] @ W [K, N] in
+// `mode`: gx column strips of tn columns; the weight rows (packed rows for
+// w4bf16) cut into n_tiles tiles of tk, split into ks runs of `per` tiles
+// (the last one shorter) of at least kGemmMinTiles tiles where there are
+// enough, one block per (strip, run, u4 half): about kI8Blocks (int8) or
+// kFBlocks (float) blocks, or fewer. The same for every B
+// (ops/fused_talker_step.gemm_plan mirrors it).
+struct GemmPlan {
+  int tn, tk, gx, n_tiles, per, ks;
+};
+
+inline GemmPlan gemm_plan(int mode, int K, int N) {
+  GemmPlan p;
+  p.tn = mode == kW8A8 ? kI8TN : kFTN;
+  p.tk = mode == kW8A8 ? kI8TK : kFTK;
+  const int rows = mode == kW4BF16 ? K / 2 : K, halves = mode == kW4BF16 ? 2 : 1;
+  p.gx = (N + p.tn - 1) / p.tn;
+  p.n_tiles = (rows + p.tk - 1) / p.tk;
+  const int blocks = mode == kW8A8 ? kI8Blocks : kFBlocks;
+  const int splits = std::min(blocks / (p.gx * halves), p.n_tiles / kGemmMinTiles);
+  p.ks = tile_split(p.n_tiles, std::max(1, splits), &p.per);
+  return p;
+}
+
 // The grid of a float-mode projection x [B, K] @ W [K, N]: column blocks
 // gx, K splits ks, and per split the rows (GEMV, B = 1) or tiles (GEMM).
 struct FSplit {
@@ -1103,16 +1320,15 @@ struct FSplit {
 
 inline FSplit float_split(int B, int mode, int K, int N) {
   FSplit f;
-  const bool w4 = mode == kW4BF16;
-  const int rows = w4 ? K / 2 : K;
   if (B == 1) {
     f.gx = (N / 4 + 31) / 32;
-    f.ks = split_for(rows, f.gx, &f.chunk);
+    f.ks = split_for(mode == kW4BF16 ? K / 2 : K, f.gx, &f.chunk);
     return f;
   }
-  const int tn = w4 ? kGemm4TN : kGemmTN, tk = w4 ? kGemm4TK : kGemmTKf;
-  f.gx = (N + tn - 1) / tn;
-  f.ks = tile_split((rows + tk - 1) / tk, (kSplitTarget + f.gx - 1) / f.gx, &f.chunk);
+  const GemmPlan p = gemm_plan(mode, K, N);
+  f.gx = p.gx;
+  f.ks = p.ks;
+  f.chunk = p.per;
   return f;
 }
 
@@ -1138,7 +1354,7 @@ inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int Vh, int 
   auto take = [&](size_t bytes) { char* p = base ? base + off : nullptr; off += align256(bytes); return p; };
   Work t;
   t.B = B;
-  t.ldq = (xqn + 3) & ~3;
+  t.ldq = (xqn + 15) & ~15;   // 16-byte rows for the GEMMs' copies
   t.x = (float*)take(sizeof(float) * B * d.H);
   t.xq = (int8_t*)take((size_t)B * t.ldq);
   t.xf = modes != 0 ? (float*)take(sizeof(float) * B * t.ldq) : nullptr;
@@ -1167,39 +1383,59 @@ inline void by_lanes(int B, Args... args) {
 }
 
 template <int BPT>
-struct GemmW8A8 {
-  static void go(dim3 grid, cudaStream_t st, const int8_t* xq, int ldq, int B, const int8_t* W,
-                 int K, int N, int per, int* acc) {
-    gemm_w8a8_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(xq, ldq, B, W, K, N, per, acc);
-  }
-};
-
-template <int BPT>
 struct GemmHead {
   static void go(dim3 grid, cudaStream_t st, const float* x, int B, const __nv_bfloat16* W,
                  int K, int N, int per, float* partial) {
-    gemm_bf16_kernel<float, BPT><<<grid, kGemmThreads, 0, st>>>(x, K, B, W, K, N, per, partial);
+    gemm_bf16_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, K, B, W, K, N, per, partial);
   }
 };
 
-template <int BPT>
-struct GemmBF16 {
-  static void go(dim3 grid, cudaStream_t st, const float* x, int ldx, int B,
-                 const __nv_bfloat16* W, int K, int N, int per, double* partial) {
-    gemm_bf16_kernel<double, BPT><<<grid, kGemmThreads, 0, st>>>(x, ldx, B, W, K, N, per,
-                                                                 partial);
-  }
-};
+// The batched GEMMs for B lanes (B >= 2): the lane tiles each warp takes
+// (WL) from B; the dynamic shared memory granted once per instantiation (a
+// refusal shows in the launch's error).
+template <int WL>
+void launch_i8(const GemmPlan& p, cudaStream_t st, const int8_t* xq, int ldq, int B,
+               const int8_t* W, int K, int N, int* acc) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemm_i8_mma_kernel<WL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           i8_smem_bytes(kMaxLanes));
+  (void)attr;
+  gemm_i8_mma_kernel<WL><<<dim3(p.gx, p.ks), kGemmThreads, i8_smem_bytes((B + 7) & ~7), st>>>(
+      xq, ldq, B, W, K, N, p.per, acc);
+}
 
-template <int BPT>
-struct GemmW4 {
-  static void go(dim3 grid, cudaStream_t st, const float* x, int ldx, int B, const int8_t* Q,
-                 const float* S, const float* Z, int Kh, int N, int gs, int G, int per,
-                 double* partial) {
-    gemm_w4_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, ldx, B, Q, S, Z, Kh, N, gs, G, per,
-                                                       partial);
-  }
-};
+inline void gemm_i8(const GemmPlan& p, cudaStream_t st, const int8_t* xq, int ldq, int B,
+                    const int8_t* W, int K, int N, int* acc) {
+  const int wl = (B + 8 * kI8LW - 1) / (8 * kI8LW);
+  if (wl <= 1) launch_i8<1>(p, st, xq, ldq, B, W, K, N, acc);
+  else if (wl <= 2) launch_i8<2>(p, st, xq, ldq, B, W, K, N, acc);
+  else if (wl <= 4) launch_i8<4>(p, st, xq, ldq, B, W, K, N, acc);
+  else launch_i8<8>(p, st, xq, ldq, B, W, K, N, acc);
+}
+
+template <bool W4, int WL, int ST>
+void launch_f64(const GemmPlan& p, cudaStream_t st, const float* x, int ldx, int B,
+                const void* W, const float* S, const float* Z, int K, int N, int gs, int G,
+                double* partial) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gemm_f64_mma_kernel<W4, WL, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      f_smem_bytes(W4, kMaxLanes, ST));
+  (void)attr;
+  gemm_f64_mma_kernel<W4, WL, ST><<<dim3(p.gx, p.ks, W4 ? 2 : 1), kGemmThreads,
+                                    f_smem_bytes(W4, (B + 7) & ~7, ST), st>>>(
+      x, ldx, B, W, S, Z, K, N, gs, G, p.per, partial);
+}
+
+// Lanes per warp from B; four ring stages, three for more than 64 lanes
+// (two blocks still fit an SM).
+template <bool W4>
+void gemm_f64(const GemmPlan& p, cudaStream_t st, const float* x, int ldx, int B, const void* W,
+              const float* S, const float* Z, int K, int N, int gs, int G, double* partial) {
+  const int wl = (B + 8 * kFLW - 1) / (8 * kFLW);
+  if (wl <= 1) launch_f64<W4, 1, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+  else if (wl <= 2) launch_f64<W4, 2, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+  else launch_f64<W4, 4, 3>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+}
 
 // y[b, :] = x[b, :] @ W for the w.B lanes, in p's mode: w8a8 reads w.xq and
 // adds into acc (cleared by the kernel before) with activation scales
@@ -1218,11 +1454,7 @@ inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
       const int ks = split_for(K, gx, &kchunk);
       gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(w.xq, W, K, N, kchunk, acc);
     } else {
-      const int gx = (N + kGemmTN - 1) / kGemmTN;
-      int per;
-      const int ks = tile_split((K + kGemmTK - 1) / kGemmTK, (kSplitTarget + gx - 1) / gx, &per);
-      by_lanes<GemmW8A8>(w.B, dim3(gx, ks), st, (const int8_t*)w.xq, w.ldq, w.B, W, K, N, per,
-                         acc);
+      gemm_i8(gemm_plan(kW8A8, K, N), st, w.xq, w.ldq, w.B, W, K, N, acc);
     }
     o.acc = acc;
     o.s_act = s_act;
@@ -1234,22 +1466,18 @@ inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
   o.splits = f.ks;
   o.halves = p.mode == kW4BF16 ? 2 : 1;
   const dim3 grid(f.gx, f.ks);
-  if (p.mode == kBF16) {
-    const __nv_bfloat16* W = (const __nv_bfloat16*)p.w;
-    if (w.B == 1)
-      gemv_bf16_kernel<double><<<grid, dim3(32, 8), 0, st>>>(w.xf, W, K, N, f.chunk, w.part);
+  if (w.B > 1) {
+    const GemmPlan g = gemm_plan(p.mode, K, N);
+    if (p.mode == kBF16)
+      gemm_f64<false>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
     else
-      by_lanes<GemmBF16>(w.B, grid, st, (const float*)w.xf, w.ldq, w.B, W, K, N, f.chunk,
-                         w.part);
+      gemm_f64<true>(g, st, w.xf, w.ldq, w.B, p.w, p.s, p.z, K, N, K / p.G, p.G, w.part);
+  } else if (p.mode == kBF16) {
+    gemv_bf16_kernel<double><<<grid, dim3(32, 8), 0, st>>>(
+        w.xf, (const __nv_bfloat16*)p.w, K, N, f.chunk, w.part);
   } else {
-    const int8_t* Q = (const int8_t*)p.w;
-    const int gs = K / p.G;
-    if (w.B == 1)
-      gemv_w4_kernel<<<grid, dim3(32, 8), 0, st>>>(w.xf, Q, p.s, p.z, K / 2, N, gs, p.G,
-                                                   f.chunk, w.part);
-    else
-      by_lanes<GemmW4>(w.B, grid, st, (const float*)w.xf, w.ldq, w.B, Q, p.s, p.z, K / 2, N,
-                       gs, p.G, f.chunk, w.part);
+    gemv_w4_kernel<<<grid, dim3(32, 8), 0, st>>>(w.xf, (const int8_t*)p.w, p.s, p.z, K / 2, N,
+                                                 K / p.G, p.G, f.chunk, w.part);
   }
   return o;
 }
@@ -1451,21 +1679,26 @@ inline int check_dims(const Dims& d, int N_head, int B) {
   if (d.D != kAttD || G < 1 || d.Hq % d.Hkv != 0 || G > kMaxGroup || (G & (G - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (d.H % 4 != 0 || d.F % 4 != 0 || N_head % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (B > 1 && (d.H % 16 != 0 || d.F % 16 != 0))   // the GEMMs copy 16-byte pieces
+    return (int)cudaErrorInvalidValue;
   if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// Check the u4 projections' groups: G even, and gs = K / G logical rows
-// dividing each half of K.
-inline int check_groups(const StackWeights& s, const Dims& d) {
+// Check a u4 projection's groups: G even, and gs = K / G logical rows
+// dividing each half of K; for B >= 2 lanes (each of the GEMM's tiles lies
+// in one group) gs a multiple of kFTK.
+inline bool groups_ok(int K, int G, int B) {
+  return G >= 2 && G % 2 == 0 && K % G == 0 && (K / 2) % (K / G) == 0 &&
+         (B == 1 || (K / G) % kFTK == 0);
+}
+
+inline int check_groups(const StackWeights& s, const Dims& d, int B) {
   const Proj* ps[4] = {&s.qkv, &s.o, &s.gu, &s.d};
   const int ks[4] = {d.H, d.Hq * d.D, d.H, d.F};
-  for (int j = 0; j < 4; ++j) {
-    if (ps[j]->mode != kW4BF16) continue;
-    const int G = ps[j]->G, K = ks[j];
-    if (G < 2 || G % 2 != 0 || K % G != 0 || (K / 2) % (K / G) != 0)
+  for (int j = 0; j < 4; ++j)
+    if (ps[j]->mode == kW4BF16 && !groups_ok(ks[j], ps[j]->G, B))
       return (int)cudaErrorInvalidValue;
-  }
   return 0;
 }
 

@@ -50,6 +50,18 @@ extern "C" int qtts_talker_attention_clusters(int B, int Hkv, int G, int rows, i
   return attn_clusters(B, Hkv, G, rows, kAttD * (kv_int8 ? 1 : 2));
 }
 
+// The tile plan of K5's GEMM for x [B >= 2, K] @ W [K, N] in `mode`
+// (layer.cuh gemm_plan): out[0..2] = column strips, K splits, tiles per
+// split.
+extern "C" int qtts_gemm_plan(int mode, int K, int N, void* out) {
+  const GemmPlan p = gemm_plan(mode, K, N);
+  int* o = (int*)out;
+  o[0] = p.gx;
+  o[1] = p.ks;
+  o[2] = p.per;
+  return 0;
+}
+
 extern "C" int qtts_talker_step(
     const void* x_in, int n_past, const void* cosv, const void* sinv,
     const void* attn_n, const void* q_n, const void* k_n, const void* ffn_n,
@@ -70,7 +82,7 @@ extern "C" int qtts_talker_step(
       Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, 1)) return bad;
-  if (int bad = check_groups(sw, d)) return bad;
+  if (int bad = check_groups(sw, d, 1)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, 1, Vc, modes);
@@ -109,13 +121,18 @@ extern "C" int qtts_talker_step(
   return w.err != cudaSuccess ? (int)w.err : last_err;
 }
 
-// A timing harness for K1's projection kernels alone: for each of L layers
-// of one stacked [L, K, N] projection in `mode` (WeightMode; w, s, z, G as
-// in qtts_talker_step), y = x @ W_l for B lanes, as run_layer launches it.
-// x is int8 [B, K] (w8a8) or float32 [B, K]; the results land in the
-// workspace and are overwritten layer by layer (w8a8 accumulates into
-// int32 without clearing: only the time is read). Off every serving path:
-// chip_smoke.py times it beside the w4 GEMV probe (w4_gemv_probe.cu).
+// A harness for the projection kernels alone, K1's GEMVs (B = 1) and K5's
+// tensor-core GEMMs (B >= 2): for each of L layers of one stacked [L, K, N]
+// projection in `mode` (WeightMode; w, s, z, G as in qtts_talker_step), y =
+// x @ W_l for B lanes, as run_layer launches it. x is int8 [B, K] (w8a8) or
+// float32 [B, K] (for the GEMM holding bf16 values, as the row kernels
+// emit them); the results land in the workspace: the int32 accumulator
+// [B, N] (w8a8, added to, never cleared) or the float64 partials [halves,
+// splits, B, N] (overwritten layer by layer): a check runs one layer on a
+// cleared workspace.
+// Off every serving path: chip_smoke.py
+// times K1's beside the w4 GEMV probe (w4_gemv_probe.cu) and K5's in its
+// projection phase.
 extern "C" size_t qtts_project_ws_bytes(int mode, int B, int K, int N) {
   const FSplit f = float_split(B, mode, K, N);
   return mode == kW8A8 ? sizeof(int) * (size_t)B * N
@@ -125,7 +142,8 @@ extern "C" size_t qtts_project_ws_bytes(int mode, int B, int K, int N) {
 extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const void* s,
                                    const void* z, int G, int L, int B, int K, int N, void* ws,
                                    void* stream) {
-  if (B < 1 || B > kMaxLanes || K % 4 != 0 || N % 4 != 0 || (mode == kW4BF16 && G < 2))
+  if (B < 1 || B > kMaxLanes || K % 4 != 0 || N % 4 != 0 ||
+      (mode == kW4BF16 && !groups_ok(K, G, B)) || (B > 1 && (K % 16 != 0 || N % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   Work wk{};
   wk.B = B;

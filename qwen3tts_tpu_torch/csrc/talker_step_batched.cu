@@ -29,14 +29,15 @@
 // B = 64, 0.03 ms at the int8 peak), far below the 0.13 ms that the
 // weights take at 3.35 TB/s. The TPU kernel's point is that the weights are
 // read once per frame-set, not once per lane (M = B MXU dots, :1463); here
-// each projection is one tiled GEMM (layer.cuh: gemm_w8a8 with __dp4a,
-// gemm_bf16 and gemm_w4 with float64 sums on the CUDA cores) that stages a
-// weight tile in shared memory once and multiplies it against all B lanes'
-// activation rows, so every weight byte leaves device memory once, whatever
-// B is. The float64 sums of the float modes are this first design's cost at
-// large B: 2 x B operations per weight (56 G at B = 64 in q4pure) on the
-// CUDA cores, where float64 runs at half the float32 rate; tensor cores
-// come later. The per-lane steps
+// each projection is one GEMM on the tensor cores (layer.cuh:
+// gemm_i8_mma_kernel, int8 mma into exact int32 sums; gemm_f64_mma_kernel,
+// float64 mma over bf16 values widened exactly, for bf16 and w4bf16) that
+// streams the weight tiles through a ring in shared memory by asynchronous
+// copies and multiplies each against all B lanes' activation rows, so every
+// weight byte leaves device memory once, whatever B is. The float modes'
+// 2 x B float64 operations per weight (56 G at B = 64) bound them at 0.84
+// ms per call on the float64 tensor cores' 67 TFLOP/s, above their bytes
+// (0.26 ms in bf16). The per-lane steps
 // (norms, quantization, RoPE, attention, sampling) run one block per lane or
 // per (head, lane); the attention is one launch per layer, a cluster per
 // (lane, KV head) streaming the rows through shared memory (layer.cuh). It
@@ -51,7 +52,9 @@
 // online, a difference of summation order only. (With the int8 cache the
 // row is attended from a bf16 staging row and folded in last, as the Pallas
 // kernel folds it: layer.cuh's header.) The KV cache is updated in place at
-// n_past. Cap: B <= 128 (kMaxLanes).
+// n_past. Cap: B <= 128 (kMaxLanes); u4 groups of a multiple of 32 rows
+// (kFTK, the float GEMM's packed-row tile, so that each tile lies in one
+// group: layer.cuh's groups_ok; the talker's groups are 32 rows).
 #include "layer.cuh"
 
 extern "C" size_t qtts_talker_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
@@ -81,7 +84,7 @@ extern "C" int qtts_talker_step_batched(
       Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, B)) return bad;
-  if (int bad = check_groups(sw, d)) return bad;
+  if (int bad = check_groups(sw, d, B)) return bad;
   if (kv_scale != nullptr && (start != nullptr || start_min != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

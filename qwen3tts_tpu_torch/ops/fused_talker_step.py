@@ -10,7 +10,8 @@ cache lives; on the H100 it always lives in device memory, so one kernel
 ``fused_talker_step_batched`` (:1604) in its batch-major form
 (``csrc/talker_step_batched.cu``). The sources say what bounds them (the
 bytes of 28 layers of weights per frame, read once for all lanes in K5) and
-what this first design does about it. K5 also takes the two operands only
+what the design does about it; K5's projections run on the tensor cores
+(int8 and float64 mma, ``gemm_plan`` mirrors their tile plan). K5 also takes the two operands only
 continuous serving uses (``runtime/continuous.py``): ``start`` [B], each
 lane's first valid cache row, and per-lane temperature, top-p and
 repetition penalty ([B] each) for its cb0 epilogue. Both take the int8-KV
@@ -197,6 +198,45 @@ def attention_slices(t0: int, n_end: int, clusters: int):
     clusters) rows (the last ones shorter or empty)."""
     per = -(-(n_end - t0) // clusters)
     return [(min(n_end, t0 + r * per), min(n_end, t0 + (r + 1) * per)) for r in range(clusters)]
+
+
+# csrc/layer.cuh's batched projections (B >= 2, on the tensor cores): a
+# block's output columns and weight rows per tile (packed rows for w4bf16)
+# by mode, the blocks a GEMM aims at (kI8Blocks, kFBlocks: one or two per
+# SM of the H100), and the k depth of one mma (m16n8k32 int8, m16n8k8
+# float64)
+GEMM_TILES = {"w8a8": (128, 128), "bf16": (64, 32), "w4bf16": (64, 32)}
+GEMM_BLOCKS = {"w8a8": 132, "bf16": 264, "w4bf16": 264}
+GEMM_DEPTH = {"w8a8": 32, "bf16": 8, "w4bf16": 8}
+GEMM_MIN_TILES = 2   # K tiles a block takes at least, where K allows (kGemmMinTiles)
+
+
+def gemm_plan(mode: str, K: int, N: int):
+    """The tile plan of K5's GEMM for x [B, K] @ W [K, N] in `mode`, B >= 2
+    (gemm_plan in the source): (column strips, K splits, tiles per split).
+    The weight rows (K, or the K/2 packed rows of w4bf16) are cut into tiles
+    of GEMM_TILES[mode][1] rows, and each split takes a run of `per`
+    consecutive tiles (the last run shorter), so that about
+    GEMM_BLOCKS[mode] blocks (strips x splits, x 2 halves for w4bf16), or
+    fewer, stream at least GEMM_MIN_TILES tiles each. The same for every
+    B."""
+    tn, tk = GEMM_TILES[mode]
+    rows, halves = (K // 2, 2) if mode == "w4bf16" else (K, 1)
+    gx, n_tiles = -(-N // tn), -(-rows // tk)
+    max_splits = max(1, min(GEMM_BLOCKS[mode] // (gx * halves), n_tiles // GEMM_MIN_TILES))
+    ks = max_splits if max_splits < n_tiles else n_tiles
+    per = -(-n_tiles // ks)
+    return gx, -(-n_tiles // per), per
+
+
+def gemm_split_rows(mode: str, K: int, N: int):
+    """The weight rows [lo, hi) (packed rows for w4bf16) that each split of
+    gemm_plan sums, in split order; a split walks its tiles in order and
+    each tile's rows in mma depth chunks of GEMM_DEPTH[mode]."""
+    _, ks, per = gemm_plan(mode, K, N)
+    tk = GEMM_TILES[mode][1]
+    rows = K // 2 if mode == "w4bf16" else K
+    return [(min(rows, s * per * tk), min(rows, (s + 1) * per * tk)) for s in range(ks)]
 
 
 def mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,11 @@ i + K/2 in its high nibble, each biased by 8). The kernel is
 ``csrc/w4_gemv_probe.cu``; the probe is off every serving path and asks
 whether 4-bit weights halve a weight-streaming GEMV's time on the card.
 
-``project_layers`` times K1's own projection kernels (``csrc/layer.cuh``)
-at the same shape, beside the probe.
+``project_layers`` runs the talker's own projection kernels
+(``csrc/layer.cuh``: K1's GEMVs for one lane, K5's tensor-core GEMMs for
+B >= 2) alone, layer after layer, for their times; ``project_result`` reads
+one layer's result out of its workspace and ``project_layer_plain`` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .fused_talker_step import MODE_CODES
+from .fused_talker_step import MODE_CODES, gemm_plan, project_plain
 
 L, K, N = 28, 1024, 4096   # the probe's shape: a wqkv-like projection over 28 layers
 
@@ -71,11 +74,16 @@ w4_gemv_probe.launches = 0
 
 
 def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> torch.Tensor:
-    """Launch K1's projection kernel of `mode` once per layer of the stacked
+    """Launch the projection kernel of `mode` once per layer of the stacked
     weight w (a QuantLinear's q, a QuantLinear4, or a bf16 [L, K, N] tensor)
-    on x [B, K] (int8 for "w8a8", float32 otherwise), as run_layer does; a
-    timing harness on the card only (the results are not kept). Returns the
-    workspace, which a caller may pass back in."""
+    on x [B, K] (int8 for "w8a8", float32 otherwise), as run_layer does: a
+    GEMV for B = 1, K5's GEMM for B >= 2; a harness of the card only. The
+    results land in the workspace, which is returned and may be passed back
+    in: w8a8 adds every layer into its int32 accumulator (never cleared),
+    the float modes overwrite their partials layer by layer, so a check runs
+    one layer on a zeroed workspace and reads it with project_result. A
+    float x must hold bf16 values, as the row kernels emit it (K5's GEMM
+    takes it as it is; the GEMVs round it again)."""
     _kernels.require_cuda(x)
     lib = _kernels.load_library()
     B, Kx = x.shape
@@ -96,3 +104,40 @@ def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> to
         _kernels.stream_ptr(x.device))
     _kernels.check(err, "project_layers")
     return ws
+
+
+def project_ws_bytes(mode: str, B: int, K: int, N: int) -> int:
+    """Bytes of project_layers' workspace for B >= 2 lanes
+    (qtts_project_ws_bytes): the int32 accumulator [B, N] (w8a8) or the
+    float64 partials [halves, splits, B, N] of gemm_plan's splits."""
+    if mode == "w8a8":
+        return 4 * B * N
+    return 8 * (2 if mode == "w4bf16" else 1) * gemm_plan(mode, K, N)[1] * B * N
+
+
+def project_result(ws: torch.Tensor, mode: str, B: int, K: int, N: int) -> torch.Tensor:
+    """The result of one K5 GEMM (B >= 2) in its workspace: w8a8 the int32
+    accumulator [B, N]; a float mode its float64 partials [halves, splits,
+    B, N] (splits from gemm_plan) added split by split in order from zero
+    and rounded to float32 per half, the halves then added in float32, as
+    the kernels' consumer (proj_value) reads them."""
+    if mode == "w8a8":
+        return ws[:4 * B * N].view(torch.int32).view(B, N)
+    halves, splits = 2 if mode == "w4bf16" else 1, gemm_plan(mode, K, N)[1]
+    part = ws[:8 * halves * splits * B * N].view(torch.float64).view(halves, splits, B, N)
+    y = None
+    for h in range(halves):
+        s = torch.zeros((B, N), dtype=torch.float64, device=ws.device)
+        for sp in range(splits):
+            s = s + part[h, sp]
+        y = s.float() if y is None else y + s.float()
+    return y
+
+
+def project_layer_plain(x: torch.Tensor, w, mode: str, l: int) -> torch.Tensor:
+    """Plain version of layer l of project_layers: w8a8 the int32 dot of the
+    int8 x with the int8 weights (in float64, exact); a float mode
+    fused_talker_step.project_plain."""
+    if mode == "w8a8":
+        return torch.matmul(x.double(), w.q[l].double()).to(torch.int32)
+    return project_plain(x, w, l)

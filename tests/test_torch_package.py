@@ -348,6 +348,53 @@ def test_chip_smoke_phases_at_tiny_config():
     assert all(s["ok"] for s in stats)
 
 
+def test_chip_smoke_projection_phase_at_tiny_config(capsys, monkeypatch):
+    """K5's projection phase at the tiny configuration on the CPU, with the
+    card's harness (project_layers) stood in for by one that writes the
+    plain layer's result into its workspace as project_result reads it:
+    every projection in every mode reported equal, each timed pass in its
+    mode's K5 entry with a bound, the float modes' float64 floor above it,
+    and the library call's time; a harness whose result is off by one in
+    one element fails the phase."""
+    from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
+
+    def stand_in(x, w, mode, ws=None, off=0):
+        B, K = x.shape
+        N = (w if isinstance(w, torch.Tensor) else w.q).shape[-1]
+        if ws is None:
+            ws = torch.zeros(probe.project_ws_bytes(mode, B, K, N), dtype=torch.uint8)
+        y = probe.project_layer_plain(x, w, mode, 0)
+        y[0, 0] += off
+        if mode == "w8a8":
+            ws[:4 * B * N].view(torch.int32).view(B, N).copy_(y)
+        else:   # split 0 of the first half; the others stay 0
+            ws[:8 * B * N].view(torch.float64).view(B, N).copy_(y.double())
+        return ws
+
+    tts = _tiny_pipeline()
+    monkeypatch.setattr(probe, "project_layers", stand_in)
+    report = {}
+    chip_smoke.check_projections(tts.config.talker, report, torch.device("cpu"), iters=1,
+                                 lanes=(2, 3), check_lanes=(2, 5))
+    out = capsys.readouterr().out
+    assert out.count(" equal (max abs err") == 3 * 4 * 2 and "DIFFERS" not in out
+    for mode, key in chip_smoke.K5_KEYS.items():
+        r = report[key]["projections"]
+        assert set(r["times"]) == {"B=2", "B=3"}
+        for t in r["times"].values():
+            assert t["bound_ms"] > 0 and t["device_ms"] is None
+            assert t["library_device_ms"] is None and len(t["shapes"]) == 4
+            if mode == "w8a8":
+                assert t["f64_floor_ms"] is None
+            else:
+                assert t["library_ms"] is not None and t["f64_floor_ms"] >= t["bound_ms"]
+    monkeypatch.setattr(probe, "project_layers", lambda *a: stand_in(*a, off=1))
+    for mode in chip_smoke.K5_KEYS:
+        with pytest.raises(chip_smoke.SmokeFailure, match="differs"):
+            chip_smoke.check_projections(tts.config.talker, {}, torch.device("cpu"), iters=1,
+                                         modes=(mode,), lanes=(), check_lanes=(2,))
+
+
 def test_chip_smoke_queues_at_tiny_config(capsys):
     """The serve phase's continuous queues at the tiny configuration on the
     CPU (plain versions, so every launch count stays 0 and only the
