@@ -38,7 +38,12 @@ Phases (each prints a line; any failure exits non-zero):
      and, over the int8 cache, kv_row_quant_kernel) and the port's kernels
      per call (launches_per_call); the W8A16 GEMM's yardstick
      torch._weight_int8pack_mm its device time (library_device_ms) at the
-     QKV shape (M = 1) and w_down at M = 128. Then K5's projection GEMMs
+     QKV shape (M = 1) and w_down at M = 128, and the GEMM must run as one
+     kernel per call in every case. K3 reports its device time per
+     decoder width and over the 12 res blocks of a 64-frame clip beside
+     cuDNN's two convolutions alone, and must take the plan's launches per
+     res block (one at C = 96 and 192, two at 384 and 768); the split
+     rules include K3's and the GEMM's plans. Then K5's projection GEMMs
      alone (check_projections: the four talker projections over 28 seeded
      layers in w8a8, bf16 and w4bf16; one layer against its plain version
      at B = 16, 64 and 128, int32 equal or float32 bits equal; each 28-layer
@@ -1236,18 +1241,26 @@ def _layer_cycle(fn, n):
     return run
 
 
+# the M at which the W8A16 GEMM is checked with float32 x (always on its
+# FFMA path): one and two row blocks (8 | 9), a batch's lanes and the
+# batched code predictor's prefill (256)
+INT8_MM_FLOAT_ROWS = (1, 8, 9, 16, 128, 256)
+
+
 def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
     """The W8A16 GEMM at the four projection shapes (K, N) of the talker's
     blocks, for each M of `rows` (1: an unfused single-stream step; 10: the
-    prefill; up to 128: the batched unfused step's lanes) with bf16 x, plus
-    float32 x and M = 2 * 128 (the batched code predictor's prefill) at one
-    shape. Tolerance: each element within one bf16 ulp (float32 x: 1e-5
-    relative) of the plain version, plus 1e-5 of the largest |plain| for
-    outputs near 0, where the two float32 summation orders' rounding is the
-    larger term. Timed per call cycling over the 28 layers' weights (cold in
-    L2, as on the main path): ms from CUDA events around the run (the
-    host's launch gaps included), device_ms the kernels' own time under the
-    profiler; library_ms is torch._weight_int8pack_mm where
+    prefill; up to 128: the batched unfused step's lanes) with bf16 x, at
+    w_down for M = 2 * the last of `rows`, and with float32 x at the QKV
+    shape for each M of INT8_MM_FLOAT_ROWS.
+    Tolerance: each element within one bf16 ulp (float32 x: 1e-5 relative)
+    of the plain version, plus 1e-5 of the largest |plain| for outputs near
+    0, where the two float32 summation orders' rounding is the larger term.
+    Every case must run as one kernel launch per call (the profiler's count
+    over a 28-layer cycle). Timed per call cycling over the 28 layers'
+    weights (cold in L2, as on the main path): ms from CUDA events around
+    the run (the host's launch gaps included), device_ms the kernel's own
+    time under the profiler; library_ms is torch._weight_int8pack_mm where
     this PyTorch has it for CUDA (the port never calls it)."""
     import torch
 
@@ -1265,7 +1278,9 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
         return float(((a.float() - b.float()).abs() - tol).max()) <= 0
 
     cases = [(name, M, tts.dtype) for name in names for M in rows]
-    cases += [("wqkv", rows[-1], torch.float32), ("w_down", 2 * rows[-1], tts.dtype)]
+    cases += [("wqkv", M, torch.float32) for M in INT8_MM_FLOAT_ROWS]
+    cases += [("w_down", 2 * rows[-1], tts.dtype)]
+    per_call = {}
     for name, M, dt in cases:
         w = getattr(blocks, name)
         K, N = w.q.shape[1:]
@@ -1274,10 +1289,15 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
         b = int8_matmul_plain(x, w.q[0], w.scale[0])
         e = _max_err(a, b)
         ok = gate(a, b, rel=dt == torch.float32)
+        cycle = _layer_cycle(lambda l: int8_matmul(x, w.q[l], w.scale[l]), L)
+        n = launches_per_call(cycle, L, ("",), dev)
         print(f"kernel int8_matmul {name} M={M} K={K} N={N} x {str(dt)[6:]}: err {e:.3e} "
-              f"({'within' if ok else 'OUTSIDE'} tolerance)")
+              f"({'within' if ok else 'OUTSIDE'} tolerance), {n} launches per call")
         if not ok:
             raise SmokeFailure(f"int8_matmul disagrees at {name}, M={M}, {dt}")
+        if dev.type == "cuda" and n != 1:
+            raise SmokeFailure(f"int8_matmul took {n} launches per call at {name}, M={M}, {dt}")
+        per_call[f"{name} M={M} x {str(dt)[6:]}"] = n
         worst = max(worst, e)
         if (name, M) == ("wqkv", 1):
             headline_x = x
@@ -1318,7 +1338,8 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
         library_device_ms=library_device_ms,
         shape=f"wqkv M=1 K={K} N={N} (one unfused step's QKV), per call over {L} layers",
-        times=times, tolerance="one bf16 ulp (float32 x: 1e-5 rel) + 1e-5 * max|plain| abs")
+        times=times, launches_per_call=per_call,
+        tolerance="one bf16 ulp (float32 x: 1e-5 rel) + 1e-5 * max|plain| abs")
 
 
 # the shapes at which the decode-attention row reports its yardstick
@@ -1361,7 +1382,9 @@ def split_rules(device):
     the talker's heads and a range of row counts; K5's GEMM plan in each
     mode (tests/test_torch_gemm_order.py holds its mirror to cover each
     weight row once) and its harness's workspace bytes for every B from 2
-    to 128. Returns the cases compared; None off the card."""
+    to 128; K3's plan (every width, ragged T, each dilation) and the W8A16
+    GEMM's (M = 1..256 at the talker's shapes, bf16 and float32 x).
+    Returns the cases compared; None off the card."""
     if device.type != "cuda":
         return None
     from qwen3tts_tpu_torch import _kernels
@@ -1399,6 +1422,29 @@ def split_rules(device):
                 if lib.qtts_project_ws_bytes(code, B, K, N) != project_ws_bytes(mode, B, K, N):
                     raise SmokeFailure(f"the projection workspace and its mirror differ in "
                                        f"{mode} at B={B} K={K} N={N}")
+                cases += 1
+    # K3's plan and the W8A16 GEMM's (tests/test_torch_kernel_plans.py holds
+    # their mirrors to cover each row, column and K row once)
+    from qwen3tts_tpu_torch.ops.fused_vocoder import res_block_plan
+    from qwen3tts_tpu_torch.ops.int8_matmul import int8_mm_plan
+
+    out = (ctypes.c_int * 6)()
+    for C in (96, 192, 384, 768, 8, 64, 136):
+        for T in (1, 127, 128, 129, 64 * 47 + 37, 2048, 10240, 40960, 122880, 2880000):
+            for d in (1, 3, 9):
+                lib.qtts_res_block_plan(T, C, d, ctypes.addressof(out))
+                if tuple(out) != res_block_plan(T, C, d):
+                    raise SmokeFailure(f"K3's plan and its mirror differ at T={T} C={C} d={d}: "
+                                       f"{tuple(out)} != {res_block_plan(T, C, d)}")
+                cases += 1
+    out = (ctypes.c_int * 5)()
+    for K, N in ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (64, 64), (8192, 128)):
+        for M in range(1, 257):
+            for x_bf16 in (0, 1):
+                lib.qtts_int8_mm_plan(M, K, N, x_bf16, ctypes.addressof(out))
+                if tuple(out) != int8_mm_plan(M, K, N, bool(x_bf16)):
+                    raise SmokeFailure(f"the W8A16 GEMM's plan and its mirror differ at M={M} "
+                                       f"K={K} N={N} x_bf16={x_bf16}")
                 cases += 1
     print(f"split rules: {cases} cases equal to their mirrors")
     return cases
@@ -1751,14 +1797,37 @@ def attention_bound(B, Hq, Hkv, D, n):
     return bound(B * (2 * n * Hkv * D * 2 + 2 * Hq * D * 2), {"f32": 4 * B * Hq * n * D})
 
 
+# K3's kernel (csrc/res_block.cu), by its bare name's prefix
+K3_PREFIXES = ("res_conv_kernel",)
+
+
+def _conv_pair(args, d):
+    """The res block's two convolutions alone through cuDNN
+    (torch.nn.functional.conv1d, channels first, TF32 off): the dilated
+    7-tap conv over x padded in advance, then the 1x1 conv, with their
+    biases, no snake (a yardstick for K3's row; the port never calls it)."""
+    import torch.nn.functional as F
+
+    x, w1, b1, _, _, w2, b2 = args[:7]
+    xp = F.pad(x.t().unsqueeze(0), (6 * d, 0)).contiguous()
+    w1c, w2c = w1.permute(2, 1, 0).contiguous(), w2.permute(2, 1, 0).contiguous()
+    return lambda: F.conv1d(F.conv1d(xp, w1c, b1, dilation=d), w2c, b2)
+
+
 def check_res_block(tts, report, iters):
-    """K3 at each decoder block's (C, T, d) for a clip of 64 frames,
-    on the synthetic res-block weights and unit-normal inputs. Tolerance:
-    max abs error <= 1e-4 * (1 + max |plain|): both run float32 FMAs (TF32
-    off) and differ only in summation order."""
+    """K3 at each decoder block's (C, T, d) for a clip of 64 frames, on the
+    synthetic res-block weights and unit-normal inputs, and a ragged T.
+    Tolerance: max abs error <= 1e-4 * (1 + max |plain|): both run float32
+    FMAs (TF32 off) and differ only in summation order. Timed per width
+    (the three dilations summed) and over all 12 blocks: CUDA-event ms and
+    the kernels' device ms under the profiler, beside the two convolutions
+    alone through cuDNN. Launches per res block (the profiler's count of
+    K3's kernels in one call) must equal the plan's: one at C = 96 and 192,
+    two at the wide widths."""
     import torch
 
-    from qwen3tts_tpu_torch.ops.fused_vocoder import fused_res_block, res_block_plain
+    from qwen3tts_tpu_torch.ops.fused_vocoder import (RB_FUSED_WIDTHS, fused_res_block,
+                                                      res_block_plain, res_block_plan)
 
     vcfg, dev = tts.config.vocoder, tts.device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1766,12 +1835,23 @@ def check_res_block(tts, report, iters):
     g = torch.Generator(device="cpu").manual_seed(9)
     frames = 64
     T = frames * 2 ** vcfg.n_convnext
-    worst, times, nbytes, flops = 0.0, [], 0, 0
+    worst, times, nbytes, flops, widths = 0.0, [], 0, 0, {}
+
+    def launches(run, C, T, d):
+        want = res_block_plan(T, C, d)[0]
+        n = launches_per_call(lambda: [run() for _ in range(3)], 3, K3_PREFIXES, dev)
+        if want != (1 if C in RB_FUSED_WIDTHS else 2) or (dev.type == "cuda" and n != want):
+            raise SmokeFailure(f"fused_res_block took {n} launches at C={C} T={T} d={d}; "
+                               f"the plan says {want}")
+        return n
+
     for blk, rate in zip(tts.vocoder_params.dec_blocks, vcfg.upsample_rates):
         T *= rate
         C = blk.convt_w.shape[-1]
         x = torch.randn((T, C), generator=g).to(dev)
         res = blk.res
+        w = widths.setdefault(C, dict(T=T, ms=0.0, device_ms=0.0, cudnn_convs_device_ms=0.0,
+                                      launches_per_res_block=[]))
         for i, d in enumerate(vcfg.res_dilations):
             args = (x, res.conv1_w[i], res.conv1_b[i], res.act1_alpha[i], res.act1_beta[i],
                     res.conv2_w[i], res.conv2_b[i], res.act2_alpha[i], res.act2_beta[i])
@@ -1787,24 +1867,42 @@ def check_res_block(tts, report, iters):
             # x in, y out, the weights once
             flops += 16 * C * C * T
             nbytes += 2 * T * C * 4 + _nbytes(*args[1:])
-            times.append((timed(lambda: fused_res_block(*args, dilation=d), dev, iters),
+            run = lambda args=args, d=d: fused_res_block(*args, dilation=d)  # noqa: E731
+            times.append((timed(run, dev, iters),
                           timed(lambda: res_block_plain(*args, dilation=d), dev, iters)))
-    # a ragged T (not a multiple of the 64-row tile) at the narrowest width,
-    # as a request of an odd frame count gives: correctness only, not timed
-    res = tts.vocoder_params.dec_blocks[-1].res
-    x = torch.randn((64 * 47 + 37, res.conv1_w.shape[-1]), generator=g).to(dev)
-    args = (x, res.conv1_w[2], res.conv1_b[2], res.act1_alpha[2], res.act1_beta[2],
-            res.conv2_w[2], res.conv2_b[2], res.act2_alpha[2], res.act2_beta[2])
-    b = res_block_plain(*args, dilation=9)
-    e = _max_err(fused_res_block(*args, dilation=9), b)
-    print(f"kernel fused_res_block ragged T={x.shape[0]} C={x.shape[1]} d=9: err {e:.3e}")
-    if not e <= 1e-4 * (1.0 + float(b.abs().max())):
-        raise SmokeFailure("fused_res_block disagrees on a ragged T")
-    worst = max(worst, e)
+            dms = device_ms_per_call(run, 1, K3_PREFIXES, dev)
+            cms = device_ms_per_call(_conv_pair(args, d), 1, ("",), dev)
+            w["ms"] += times[-1][0]
+            w["device_ms"] = None if dms is None or w["device_ms"] is None \
+                else w["device_ms"] + dms
+            w["cudnn_convs_device_ms"] = None if cms is None or w["cudnn_convs_device_ms"] is None \
+                else w["cudnn_convs_device_ms"] + cms
+            w["launches_per_res_block"].append(launches(run, C, T, d))
+    # a ragged T (not a multiple of the 128-row tile) at the narrowest width,
+    # as a request of an odd frame count gives, and at a wide one:
+    # correctness and launches only, not timed
+    for blk, T in ((tts.vocoder_params.dec_blocks[-1], 64 * 47 + 37),
+                   (tts.vocoder_params.dec_blocks[1], 32 * 47 + 37)):
+        res = blk.res
+        x = torch.randn((T, res.conv1_w.shape[-1]), generator=g).to(dev)
+        args = (x, res.conv1_w[2], res.conv1_b[2], res.act1_alpha[2], res.act1_beta[2],
+                res.conv2_w[2], res.conv2_b[2], res.act2_alpha[2], res.act2_beta[2])
+        b = res_block_plain(*args, dilation=9)
+        e = _max_err(fused_res_block(*args, dilation=9), b)
+        print(f"kernel fused_res_block ragged T={x.shape[0]} C={x.shape[1]} d=9: err {e:.3e}")
+        if not e <= 1e-4 * (1.0 + float(b.abs().max())):
+            raise SmokeFailure("fused_res_block disagrees on a ragged T")
+        launches(lambda args=args: fused_res_block(*args, dilation=9), x.shape[1], T, 9)
+        worst = max(worst, e)
     bound_ms, bound_by = bound(nbytes, {"f32": flops})
+    dev_all = [w["device_ms"] for w in widths.values()]
+    cudnn_all = [w["cudnn_convs_device_ms"] for w in widths.values()]
     report["fused_res_block"] = dict(
         max_abs_err=worst, ms=sum(t[0] for t in times), plain_ms=sum(t[1] for t in times),
+        device_ms=None if None in dev_all else sum(dev_all),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        cudnn_convs_device_ms=None if None in cudnn_all else sum(cudnn_all),
+        widths=widths,
         shape=f"all 12 res blocks of a {frames}-frame clip (times summed)",
         tolerance="1e-4 * (1 + max|plain|) abs")
 
@@ -2422,27 +2520,37 @@ def device_ms_per_call(fn, calls, prefixes, device, expect=None, tries=3):
     return None
 
 
-def launches_per_call(fn, calls, prefixes, device, tries=3):
-    """Kernels per call whose bare names start with one of `prefixes`, over
-    one run of fn (`calls` calls) under torch.profiler. None off the card,
-    and None when `tries` traces in a row caught none of them (the profiler
-    can drop a short run's events)."""
+def trace_kernel_counts(fn, prefixes, device, tries):
+    """The number of kernels whose bare names start with one of `prefixes`
+    in each of `tries` traces of one run of fn under torch.profiler, after
+    a warm-up run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if device.type != "cuda":
-        return None
     fn()
     torch.cuda.synchronize(device)
+    counts = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize(device)
-        n = sum(1 for e in device_events(prof)
-                if e["cat"] == "kernel" and kernel_name(e["name"]).startswith(prefixes))
-        if n:
-            return n / calls
-    return None
+        counts.append(sum(1 for e in device_events(prof) if e["cat"] == "kernel"
+                          and kernel_name(e["name"]).startswith(prefixes)))
+    return counts
+
+
+def launches_per_call(fn, calls, prefixes, device, tries=5):
+    """Kernels per call whose bare names start with one of `prefixes`, over
+    one run of fn (`calls` calls): the largest count of `tries` traces
+    (trace_kernel_counts). A trace can drop a kernel's event but never adds
+    one, so that count is the one a gate on an exact number of launches can
+    hold; on an H100 about one trace in a hundred came up short, and once
+    three in a row did, hence five. None off the card, and None when no
+    trace caught any of them."""
+    if device.type != "cuda":
+        return None
+    best = max(trace_kernel_counts(fn, prefixes, device, tries))
+    return best / calls if best else None
 
 
 def device_breakdown(fn, device, n=12):

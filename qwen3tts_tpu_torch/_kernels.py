@@ -82,12 +82,13 @@ SIGNATURES = {
         I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
         F, F, I, I, I, I,                # temp top_p top_k greedy use_top_p seed
         P, P, P, P, P],                  # codes, rest_sum, kv, ws, stream
+    "qtts_res_block_plan": [I, I, I, P],                    # T C dilation, out[6]
     "qtts_res_block": [
         P, P, P, P, P, P, P, P, P,       # x, w1, b1, a1, be1, w2, b2, a2, be2
-        P, P, P, I, I, I, P],            # s1, s2, out, T, C, dilation, stream
-    "qtts_int8_matmul_ws_bytes": [I, I, I],                 # M K N
+        P, P, I, I, I, P],               # s2, out, T, C, dilation, stream
+    "qtts_int8_mm_plan": [I, I, I, I, P],                   # M K N x_bf16, out[5]
     "qtts_int8_matmul": [
-        P, P, P, P, P,                   # x, q, scale, y, ws
+        P, P, P, P,                      # x, q, scale, y
         I, I, I, I, P],                  # M K N x_bf16, stream
     "qtts_decode_attention_splits": [I, I, I],              # B Hkv n_valid
     "qtts_decode_attention": [
@@ -179,6 +180,14 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def aligned16(t):
+    """t contiguous, its data 16-byte aligned (the kernels' asynchronous
+    copies move 16 bytes): a copy only for a view that starts off the
+    boundary."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require_cuda(*tensors) -> None:

@@ -56,7 +56,7 @@
 // grid. Attention rounds neither q nor p (the Pallas code predictors). B =
 // 1 takes a GEMV form of the same tiles (the 8 warps split the tile's K
 // rows, as gemv_w8a8_kernel does; BPT = 0); B > 1 the GEMM form (each
-// thread 4 columns x BPT lanes, as gemm_w8a8_kernel).
+// thread 4 columns x BPT lanes, __dp4a over the words byte_transpose packs).
 //
 // Data written by one block and read by another within the call (partials,
 // quantized activations, attention output, normed hidden, the KV rows) is
@@ -124,29 +124,6 @@ struct CpParams {
 
 // Grid barriers of one call (the kernel's phase plan; see the header).
 inline int cp_barriers(int L, int S) { return (S + 1) * L * kCpBarriersPerLayer + 2 * S; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-// The same for a weight tile, which is read once per pass: marked first to
-// leave L2, so that the stream of 78.6 MB per pass does not evict the
-// partials, the KV rows and the norms that the next phases read.
-__device__ __forceinline__ void cp_async16_stream(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "l"(pol)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename T> __device__ __forceinline__ float ld_kv(const T* p);
 template <> __device__ __forceinline__ float ld_kv<float>(const float* p) { return __ldcg(p); }
@@ -276,16 +253,6 @@ __device__ void cp_tiles(Op& op, int n_strips, int n_tiles, int splits) {
   cp_async_wait<0>();
 }
 
-// column j of the 4x4 byte block (w0.bj, w1.bj, w2.bj, w3.bj): four
-// consecutive k of one column packed for __dp4a (gemm_w8a8_kernel's transpose)
-__device__ __forceinline__ int4 cp_transpose(uint32_t w0, uint32_t w1, uint32_t w2,
-                                             uint32_t w3) {
-  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
-  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
-  return make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-                   (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
-}
-
 // part[split, b, n] = xq[b, split's rows] . W[split's rows, n] over int8 W
 // [K, N] (K, N multiples of 128), stored (no atomics: the consumer adds the
 // splits, exact in int32). BPT = 0: one lane, the warps split each tile's
@@ -304,9 +271,9 @@ struct CpGemmI8 {
     const int k0 = t * kCpTK8, n0 = strip * kCpTN;
     unsigned char* ws = sm + stage * kCpWStage;
     unsigned char* xs = sm + 2 * kCpWStage + stage * kCpXStage;
-    for (int c = threadIdx.x; c < kCpTK8 * 8; c += kCpThreads) {
+    for (int c = threadIdx.x; c < kCpTK8 * 8; c += kCpThreads) {   // read once a pass: evict first
       const int r = c >> 3, q = c & 7;
-      cp_async16_stream(ws + r * 128 + q * 16, W + (size_t)(k0 + r) * N + n0 + q * 16);
+      cp_async16(ws + r * 128 + q * 16, W + (size_t)(k0 + r) * N + n0 + q * 16, true, true);
     }
     for (int c = threadIdx.x; c < B * 8; c += kCpThreads) {
       const int b = c >> 3, q = c & 7;
@@ -325,7 +292,7 @@ struct CpGemmI8 {
 #pragma unroll
       for (int kw = ty; kw < kCpTK8 / 4; kw += 8) {
         const uint32_t* r = w + 4 * kw * 32 + tx;
-        const int4 c = cp_transpose(r[0], r[32], r[64], r[96]);
+        const int4 c = byte_transpose(r[0], r[32], r[64], r[96]);
         const int xv = xs[kw];
         a[0][0] = __dp4a(xv, c.x, a[0][0]);
         a[0][1] = __dp4a(xv, c.y, a[0][1]);
@@ -336,7 +303,7 @@ struct CpGemmI8 {
 #pragma unroll 4
       for (int kw = 0; kw < kCpTK8 / 4; ++kw) {
         const uint32_t* r = w + 4 * kw * 32 + tx;
-        const int4 c = cp_transpose(r[0], r[32], r[64], r[96]);
+        const int4 c = byte_transpose(r[0], r[32], r[64], r[96]);
 #pragma unroll
         for (int i = 0; i < BPT; ++i) {
           const int xv = xs[(ty + 8 * i) * 32 + kw];   // rows >= B: stale, never written out
@@ -393,7 +360,7 @@ struct CpGemmHead {
     unsigned char* xs = sm + 2 * kCpWStage + stage * kCpXStage;
     for (int c = threadIdx.x; c < kCpTKh * 16; c += kCpThreads) {
       const int r = c >> 4, q = c & 15;
-      cp_async16_stream(ws + r * 256 + q * 16, W + (size_t)(k0 + r) * N + n0 + q * 8);
+      cp_async16(ws + r * 256 + q * 16, W + (size_t)(k0 + r) * N + n0 + q * 8, true, true);
     }
     for (int c = threadIdx.x; c < B * 8; c += kCpThreads) {
       const int b = c >> 3, q = c & 7;

@@ -1,5 +1,5 @@
-// Block-wide reductions, bulk copies and the cluster launch shared by the
-// port's kernels.
+// Block-wide reductions, bulk and asynchronous copies and the cluster launch
+// shared by the port's kernels.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file
 // that includes it gets its own copy, so the shared library links without
@@ -124,6 +124,47 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       " @!p bra WAIT_%=;\n}" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// Asynchronous 16-byte copies from device to shared memory through L2 only
+// (cp.async.cg), the ring that the GEMMs, K3 and the persistent code
+// predictor stream their tiles through: issue a tile's copies, commit them
+// as one group, and wait until at most N groups are still in flight (then a
+// __syncthreads() makes every thread's copies visible to the block). With
+// !ok the 16 bytes are zeros and src is not read. evict_first marks the
+// line to leave L2 first: for a stream read once (a weight tile of the code
+// predictor's 78.6 MB per pass) that should not evict the data the next
+// phases read again.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok = true,
+                                           bool evict_first = false) {
+  if (evict_first) {
+    uint64_t pol;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+                 ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0), "l"(pol)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four words w0..w3 (rows k..k+3, columns n..n+3 of an int8 tile) ->
+// column j's four k packed in word j (byte i = row k + i).
+__device__ __forceinline__ int4 byte_transpose(uint32_t w0, uint32_t w1, uint32_t w2,
+                                               uint32_t w3) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
+  return make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
+                   (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
 }
 
 // Launch `kernel` on `grid` as clusters of grid.x blocks (one cluster per

@@ -341,20 +341,6 @@ constexpr int kFXRow = kFTK + 4;      // float: floats per lane row of an activa
 constexpr int kFWRow = kFTN + 8;      // float: doubles per row of the widened tile
 constexpr int kFMW = 2, kFLW = 4;     // float: warps along columns, along lanes
 
-// 16 bytes from device to shared memory, asynchronously; zeros when !ok.
-__device__ __forceinline__ void gemm_cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void gemm_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void gemm_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // c += a (16 x 32, row) . b (32 x 8, col), int8 operands, int32 sums.
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
@@ -371,16 +357,6 @@ __device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4], do
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
-}
-
-// Four words w0..w3 (rows k..k+3, columns n..n+3 of an int8 tile) ->
-// column j's four k packed in word j (byte i = row k + i).
-__device__ __forceinline__ int4 byte_transpose(uint32_t w0, uint32_t w1, uint32_t w2,
-                                               uint32_t w3) {
-  const uint32_t t0 = __byte_perm(w0, w1, 0x5140), t1 = __byte_perm(w2, w3, 0x5140);
-  const uint32_t t2 = __byte_perm(w0, w1, 0x7362), t3 = __byte_perm(w2, w3, 0x7362);
-  return make_int4((int)__byte_perm(t0, t1, 0x5410), (int)__byte_perm(t0, t1, 0x7632),
-                   (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
 }
 
 // Bytes of shared memory of an int8 GEMM block for B8 lanes (B rounded up
@@ -412,12 +388,12 @@ gemm_i8_mma_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* 
     for (int c = tid; c < kI8TK * (kI8TN / 16); c += kGemmThreads) {
       const int r = c / (kI8TN / 16), n = n0 + 16 * (c % (kI8TN / 16));
       const bool ok = k0 + r < K && n < N;
-      gemm_cp16(ws + r * kI8TN + (n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
+      cp_async16(ws + r * kI8TN + (n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
     }
     for (int c = tid; c < B8 * (kI8TK / 16); c += kGemmThreads) {
       const int b = c / (kI8TK / 16), k = k0 + 16 * (c % (kI8TK / 16));
       const bool ok = b < B && k < K;
-      gemm_cp16(ws + kI8TK * kI8TN + b * kI8XRow + (k - k0),
+      cp_async16(ws + kI8TK * kI8TN + b * kI8XRow + (k - k0),
                 ok ? xq + (size_t)b * ldq + k : xq, ok);
     }
   };
@@ -439,16 +415,16 @@ gemm_i8_mma_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* 
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
     if (i < nt) load(i);
-    gemm_commit();
+    cp_async_commit();
   }
-  gemm_wait<S - 2>();
+  cp_async_wait<S - 2>();
   __syncthreads();
   pack(0);
   for (int i = 0; i < nt; ++i) {
-    gemm_wait<S - 3>();
+    cp_async_wait<S - 3>();
     __syncthreads();   // tiles i + 1 in, i packed; every warp done with tile i - 1
     if (i + S - 1 < nt) load(i + S - 1);
-    gemm_commit();
+    cp_async_commit();
     if (i + 1 < nt) pack(i + 1);
     const uint32_t* p0 = P + (i & 1) * kI8PWords;
     const uint32_t* xs = reinterpret_cast<const uint32_t*>(gemm_smem + (i % S) * stage +
@@ -697,14 +673,14 @@ gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __r
       for (int c = tid; c < kFTK * (kFTN / 16); c += kGemmThreads) {
         const int r = c / (kFTN / 16), n = n0 + 16 * (c % (kFTN / 16));
         const bool ok = k0 + r < rows && n < N;
-        gemm_cp16(ws + r * kFTN + n - n0, ok ? Q + (size_t)(k0 + r) * N + n : Q, ok);
+        cp_async16(ws + r * kFTN + n - n0, ok ? Q + (size_t)(k0 + r) * N + n : Q, ok);
       }
       // the tile's group in half h: its scale row, then its offset row
       const size_t grp = (size_t)(k0 / gs + h * (G / 2)) * N;
       float* sc = reinterpret_cast<float*>(ws + kFTK * kFTN);
       for (int c = tid; c < 2 * (kFTN / 4); c += kGemmThreads) {
         const int n = n0 + 4 * (c % (kFTN / 4));
-        gemm_cp16(sc + (c / (kFTN / 4)) * kFTN + n - n0,
+        cp_async16(sc + (c / (kFTN / 4)) * kFTN + n - n0,
                   n < N ? (c < kFTN / 4 ? S : Z) + grp + n : S, n < N);
       }
     } else {
@@ -712,14 +688,14 @@ gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __r
       for (int c = tid; c < kFTK * (kFTN / 8); c += kGemmThreads) {
         const int r = c / (kFTN / 8), n = n0 + 8 * (c % (kFTN / 8));
         const bool ok = k0 + r < rows && n < N;
-        gemm_cp16(ws + 2 * (r * kFTN + n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
+        cp_async16(ws + 2 * (r * kFTN + n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
       }
     }
     float* xs = reinterpret_cast<float*>(ws + WB);
     for (int c = tid; c < B8 * (kFTK / 4); c += kGemmThreads) {
       const int b = c / (kFTK / 4), k = k0 + 4 * (c % (kFTK / 4));
       const bool ok = b < B && k < rows;
-      gemm_cp16(xs + b * kFXRow + k - k0, ok ? x + (size_t)b * ldx + h * rows + k : x, ok);
+      cp_async16(xs + b * kFXRow + k - k0, ok ? x + (size_t)b * ldx + h * rows + k : x, ok);
     }
   };
   auto widen = [&](int i) {   // tile i's weights, in float64, into widened tile i & 1
@@ -745,16 +721,16 @@ gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __r
 #pragma unroll
   for (int i = 0; i < ST - 1; ++i) {
     if (i < nt) load(i);
-    gemm_commit();
+    cp_async_commit();
   }
-  gemm_wait<ST - 2>();
+  cp_async_wait<ST - 2>();
   __syncthreads();
   widen(0);
   for (int i = 0; i < nt; ++i) {
-    gemm_wait<ST - 3>();
+    cp_async_wait<ST - 3>();
     __syncthreads();   // tile i + 1 in, i widened; every warp done with tile i - 1
     if (i + ST - 1 < nt) load(i + ST - 1);
-    gemm_commit();
+    cp_async_commit();
     if (i + 1 < nt) widen(i + 1);
     const double* wd = Wd + (i & 1) * kFTK * kFWRow;
     const float* xs = reinterpret_cast<const float*>(gemm_smem + (i % ST) * stage + WB);

@@ -3,11 +3,13 @@
 
 Counterpart of ``qwen3tts_tpu/ops/pallas_vocoder.py``: replaces the Pallas
 kernel ``fused_res_block`` (:162) with ``csrc/res_block.cu`` (whose source
-says what bounds it and how this first design spends its bytes). float32 in
-and out, float32 FMAs, no TF32: the reference for the port is the float32
-XLA vocoder. Any channel width runs unpadded (the TPU kernel needs
-128-lane multiples; the JAX package pads the 96- and 192-channel blocks,
-which the port does not copy).
+says what bounds it and how the design keeps the snake and the 7 taps on
+chip). float32 in and out, float32 FMAs, no TF32: the reference for the
+port is the float32 XLA vocoder. Any channel width that is a multiple of 8
+runs unpadded (the TPU kernel needs 128-lane multiples; the JAX package
+pads the 96- and 192-channel blocks, which the port does not copy): the
+narrow blocks (C = 96, 192) in one launch, the others in two
+(``res_block_plan``).
 """
 
 from __future__ import annotations
@@ -47,27 +49,47 @@ def res_block_plain(x, w1, b1, a1, be1, w2, b2, a2, be2, *, dilation: int):
     return x + h
 
 
+# the tile plan's constants (csrc/res_block.cu)
+RB_TM = 128                  # rows per block
+RB_TAPS = 7
+RB_FUSED_WIDTHS = (96, 192)  # one block holds every column; the 1x1 conv in shared memory
+RB_WIDE_TN = 128             # the others' column tiles
+
+
+def res_block_plan(T: int, C: int, dilation: int):
+    """K3's plan for x [T, C] (res_block_plan in the source): (launches,
+    rows per block, columns per block, row tiles, column tiles, halo rows).
+    One launch where one block holds all C columns (RB_FUSED_WIDTHS), else
+    two (the dilated conv into a scratch, then the 1x1 conv with the
+    residual) over column tiles of RB_WIDE_TN. A block reads the x rows
+    [t0 - halo, t0 + RB_TM) of its row tile, halo = 6 * dilation."""
+    rows, halo = -(-T // RB_TM), (RB_TAPS - 1) * dilation
+    if C in RB_FUSED_WIDTHS:
+        return 1, RB_TM, C, rows, 1, halo
+    return 2, RB_TM, RB_WIDE_TN, rows, -(-C // RB_WIDE_TN), halo
+
+
 def fused_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2, *, dilation: int):
     """x [T, C] f32; w1 [7, C, C]; w2 [1, C, C]; biases and snake params [C].
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel or
-    raise; there is no fallback."""
+    CPU tensors run the plain version. CUDA tensors launch the kernel (C a
+    multiple of 8) or raise; there is no fallback."""
     if x.device.type == "cpu":
         return res_block_plain(x, w1, b1, a1, be1, w2, b2, a2, be2, dilation=dilation)
     lib = _kernels.load_library()
-    args = [t.float().contiguous() for t in (w1, b1, a1, be1, w2, b2, a2, be2)]
+    args = [_kernels.aligned16(t.float()) for t in (w1, b1, a1, be1, w2, b2, a2, be2)]
     _kernels.require_cuda(x, *args)
     T, C = x.shape
     if x.dtype != torch.float32:
         raise ValueError("fused_res_block takes float32 activations")
-    if tuple(w1.shape) != (7, C, C) or tuple(w2.shape) != (1, C, C):
-        raise ValueError(f"res-block weights {tuple(w1.shape)}, {tuple(w2.shape)} for C={C}")
-    x = x.contiguous()
-    s1 = torch.empty_like(x)
-    s2 = torch.empty_like(x)
+    if tuple(w1.shape) != (7, C, C) or tuple(w2.shape) != (1, C, C) or C % 8:
+        raise ValueError(f"res-block weights {tuple(w1.shape)}, {tuple(w2.shape)} for C={C} "
+                         "(C must be a multiple of 8)")
+    x = _kernels.aligned16(x)
     out = torch.empty_like(x)
+    s2 = torch.empty_like(x) if res_block_plan(T, C, dilation)[0] == 2 else None
     err = lib.qtts_res_block(
-        x.data_ptr(), *[t.data_ptr() for t in args], s1.data_ptr(), s2.data_ptr(),
+        x.data_ptr(), *[t.data_ptr() for t in args], None if s2 is None else s2.data_ptr(),
         out.data_ptr(), T, C, int(dilation), _kernels.stream_ptr(x.device))
     _kernels.check(err, "fused_res_block")
     fused_res_block.launches += 1

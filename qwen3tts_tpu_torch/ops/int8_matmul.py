@@ -5,7 +5,9 @@ replaces the Pallas kernel ``int8_matmul_pallas`` (:47) with the CUDA kernel
 in ``csrc/int8_matmul.cu`` (whose source says what bounds it: the K x N int8
 weight bytes). ``quant.matmul`` sends every 2-D int8 product here, so it
 runs in every request's prefill and in each projection of the unfused
-decode step.
+decode step. One cluster launch per call: the K ranges of a column tile are
+the ranks of a thread block cluster, whose float32 partials are added in
+rank order over distributed shared memory (``int8_mm_plan``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,37 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+
+# the tile plan's constants (csrc/int8_matmul.cu)
+MM_TN = 64                       # output columns per block
+MM_BLOCK_TARGET = 264            # two blocks on each of 132 SMs
+MM_MAX_SPLITS = 16               # a non-portable cluster
+MM_ROWS = {0: 8, 1: 128}         # rows of x per block: FFMA path, tensor-core path
+MM_TK = {0: 64, 1: 32}           # weight rows per tile
+
+
+def int8_mm_plan(M: int, K: int, N: int, x_bf16: bool = True):
+    """The GEMM's plan for x [M, K] @ q [K, N] (mm_plan in the source):
+    (path, K splits, tiles per split, column tiles, row blocks). Path 1 (the
+    tensor cores) takes bf16 x with M > 8, path 0 (float32 FMAs) the rest.
+    The K rows are cut into tiles of MM_TK[path] rows; split s (cluster rank
+    s) takes tiles [s * per, (s + 1) * per), so that about MM_BLOCK_TARGET
+    blocks (splits x column tiles x row blocks), or fewer, run, with at most
+    MM_MAX_SPLITS ranks a cluster."""
+    path = 1 if x_bf16 and M > MM_ROWS[0] else 0
+    col_tiles, row_tiles = N // MM_TN, -(-M // MM_ROWS[path])
+    tiles = K // MM_TK[path]
+    s = max(1, min(-(-MM_BLOCK_TARGET // (col_tiles * row_tiles)), tiles, MM_MAX_SPLITS))
+    per = -(-tiles // s)
+    return path, -(-tiles // per), per, col_tiles, row_tiles
+
+
+def int8_mm_split_rows(M: int, K: int, N: int, x_bf16: bool = True):
+    """The K rows [lo, hi) that each cluster rank of int8_mm_plan sums, in
+    rank order (the order in which the ranks' partials are added)."""
+    path, splits, per, _, _ = int8_mm_plan(M, K, N, x_bf16)
+    span = per * MM_TK[path]
+    return [(s * span, min(K, (s + 1) * span)) for s in range(splits)]
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -41,12 +74,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     q = q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError("int8_matmul: q must be 16-byte aligned")
-    x = x.contiguous()
-    scale = scale.float().contiguous()
+    x, scale = _kernels.aligned16(x), _kernels.aligned16(scale.float())
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    ws = torch.empty(lib.qtts_int8_matmul_ws_bytes(M, K, N), dtype=torch.uint8, device=x.device)
     err = lib.qtts_int8_matmul(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                               ws.data_ptr(), M, K, N, int(x.dtype == torch.bfloat16),
+                               M, K, N, int(x.dtype == torch.bfloat16),
                                _kernels.stream_ptr(x.device))
     _kernels.check(err, "int8_matmul")
     int8_matmul.launches += 1

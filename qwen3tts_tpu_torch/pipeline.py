@@ -315,9 +315,13 @@ class Qwen3TTS:
         groups of MAX_BATCH_LANES one after another; then each lane is
         vocoded on exactly its frames. Returns a list of TTSResult.
 
-        Timing attribution, as in the JAX pipeline: t_generate_ms and
-        t_decode_ms on each result are the batch's stage walls divided by
-        B; t_total_ms is the whole-batch wall. Lane b of a group samples with
+        Timing attribution, as in the JAX pipeline
+        (``qwen3tts_tpu/pipeline.py:691-721``): t_generate_ms is the
+        generate wall divided by B; t_decode_ms is the vocoder wall divided
+        by B, or, when chunked vocoding applies (the longest lane exceeds
+        RuntimeConfig.vocoder_chunk_frames), each lane's own decode time;
+        t_total_ms is the wall up to the end of the lane's vocoding. A lane
+        with no frames gets neither. Lane b of a group samples with
         its own seed drawn from params.seed (decode_loop), so lanes are
         independent and the grouping changes no lane's output. The KV tier
         is resolved once for the whole batch (``resolve_kv_quant`` with
@@ -361,21 +365,32 @@ class Qwen3TTS:
             n_frames += out.n_frames
         t_gen = now_ms() - t0
 
+        # the JAX pipeline vocodes the batch in one dispatch unless chunked
+        # vocoding applies (the longest lane exceeds vocoder_chunk_frames);
+        # then it vocodes lane by lane and times each lane on its own
+        chunk = self.config.runtime.vocoder_chunk_frames
+        per_lane = bool(chunk) and max(n_frames, default=0) > chunk
         t0 = now_ms()
-        audio = [self.decode_codes(c[:n]) if n else None for c, n in zip(codes, n_frames)]
+        audio = (None if per_lane else
+                 [self.decode_codes(c[:n]) if n else None for c, n in zip(codes, n_frames)])
         t_dec = now_ms() - t0
-        for r, c, n, a in zip(results, codes, n_frames, audio):
+        for i, (r, c, n) in enumerate(zip(results, codes, n_frames)):
             r.codes = c[:n]
             r.n_frames = n
             r.timings.t_generate_ms = t_gen / max(B, 1)
-            r.timings.t_decode_ms = t_dec / max(B, 1)
-            r.timings.t_total_ms = now_ms() - t_total0
             if n == 0:
                 r.error_msg = "No speech codes generated"
                 continue
-            r.audio = a
+            if per_lane:
+                t0 = now_ms()
+                r.audio = self.decode_codes(r.codes)
+                r.timings.t_decode_ms = now_ms() - t0
+            else:
+                r.audio = audio[i]
+                r.timings.t_decode_ms = t_dec / max(B, 1)
             r.sample_rate = self.config.vocoder.sample_rate
             r.success = True
+            r.timings.t_total_ms = now_ms() - t_total0
         return results
 
     def synthesize_queue(self, texts, params: SamplingConfig = SamplingConfig(),

@@ -6,10 +6,13 @@
 Builds the library if needed (nvcc on a machine with the CUDA toolkit),
 disassembles it with cuobjdump and prints one JSON line: for every kernel
 whose mangled name contains one of PATTERNs (default: the GEMMs, ``gemm_``
-and ``gemv_``), the number of IMMA, DMMA, HMMA, IDP4A, DFMA and DMUL
-instructions, and a few of its IMMA / DMMA lines as cuobjdump prints them.
-It shows which pipe a kernel's products run on: the tensor cores (IMMA,
-DMMA) or the CUDA cores (IDP4A, DFMA). ``--all`` lists every kernel.
+and ``gemv_``), the number of IMMA, DMMA, HMMA, IDP4A, DFMA, DMUL and FFMA
+instructions, and a few of its IMMA / DMMA / HMMA lines as cuobjdump prints
+them (an HMMA line names its operand types: .BF16, or .TF32 for TF32). It
+shows which pipe a kernel's products run on: the tensor cores (IMMA, DMMA,
+HMMA) or the CUDA cores (IDP4A, DFMA, FFMA). ``--all`` lists every kernel.
+K3 and the W8A16 GEMM: ``sass_ops.py res_conv int8_mm_`` (K3: FFMA and no
+HMMA; the GEMM's ``int8_mm_mma_kernel``: HMMA .BF16).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
-OPCODES = ("IMMA", "DMMA", "HMMA", "IDP4A", "DFMA", "DMUL")
+OPCODES = ("IMMA", "DMMA", "HMMA", "IDP4A", "DFMA", "DMUL", "FFMA")
 
 
 def count_ops(sass: str, patterns, every=False):
@@ -42,7 +45,7 @@ def count_ops(sass: str, patterns, every=False):
             op = m.group(2)
             if op in OPCODES:
                 ops[op] = ops.get(op, 0) + 1
-                if op in ("IMMA", "DMMA") and len(lines) < 3:
+                if op in ("IMMA", "DMMA", "HMMA") and len(lines) < 3:
                     lines.append(re.sub(r"\s+", " ", line.split(";")[0]).strip() + " ;")
         out[name] = dict(ops, lines=lines)
     return out

@@ -7,7 +7,10 @@ predictor's alone (K2, K6, K6 per lane: codes equal to the plain version,
 one persistent launch per call): ``-k code_predictor``; the attention kernels
 alone (decode attention in one launch per call, K1/K5's attention stage in
 one launch per layer, the split rules): ``-k attention``; K5's projection
-GEMMs alone (each mode against its plain version): ``-k projections``.
+GEMMs alone (each mode against its plain version): ``-k projections``; K3
+alone (every width, each dilation, a ragged T, launches per res block):
+``-k res_block``; the W8A16 GEMM alone (bf16 and float32 x, one launch per
+call): ``-k int8_matmul``.
 """
 
 from __future__ import annotations
@@ -137,3 +140,30 @@ def test_talker_attention_on_card(tts, check, key):
     stats = r if "launches_per_call" in r else next(iter(r["times"].values()))
     assert stats["launches_per_call"] == per_layer * L + 3
     assert stats["attention_device_ms"] is not None and stats["attention_device_ms"] > 0
+
+
+def test_res_block_launches_on_card(tts):
+    """K3 against its plain version (the check's gate) at every width of the
+    vocoder (C = 768, 384, 192, 96 at a 64-frame clip's T), d = 1, 3 and 9,
+    and a ragged T at C = 96 and 384; one launch per res block at C = 96 and
+    192, two at 384 and 768 (the profiler's count); its device time
+    measured."""
+    report = {}
+    chip_smoke.check_res_block(tts, report, iters=1)
+    r = report["fused_res_block"]
+    assert sorted(r["widths"]) == [96, 192, 384, 768]
+    for C, w in r["widths"].items():
+        assert w["launches_per_res_block"] == [1 if C in (96, 192) else 2] * 3
+        assert w["device_ms"] is not None and w["device_ms"] > 0
+    assert r["device_ms"] is not None
+
+
+def test_int8_matmul_one_launch_on_card(tts):
+    """The W8A16 GEMM against its plain version (the check's gate) at the
+    talker's four shapes for M = 1, 8, 9, 16, 128 (bf16 x; 256 at w_down)
+    and for M = 1, 8, 9, 16, 128, 256 with float32 x: one kernel per call
+    in every case (the check fails otherwise), both paths reached."""
+    report = {}
+    chip_smoke.check_int8_matmul(tts, report, iters=1, rows=(1, 8, 9, 16, 128))
+    per_call = report["int8_matmul"]["launches_per_call"]
+    assert len(per_call) == 4 * 5 + 6 + 1 and set(per_call.values()) == {1}

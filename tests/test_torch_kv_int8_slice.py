@@ -266,3 +266,36 @@ def test_chunked_decode_reaches_batch_lanes(weights):
         assert r.success and r.n_frames > 2
         np.testing.assert_array_equal(
             r.audio, np.concatenate(list(tts.stream_decode_chunks(r.codes, 2))))
+
+
+def test_chunked_batch_times_each_lane(weights, monkeypatch):
+    """When chunked vocoding applies, synthesize_batch times each lane's
+    decode_codes on its own and takes t_total_ms after that lane, as the
+    JAX pipeline does (qwen3tts_tpu/pipeline.py:691-721); without it every
+    lane gets the batch's vocoder wall divided by B. Each lane's decode is
+    held for a different time (10, 20, 30 ms), so its own t_decode_ms shows
+    it."""
+    import time
+
+    (tp, cp, vp), _ = weights
+    tts = _port(_cfg("none", vocoder_chunk_frames=2), tp, cp, vp)
+    decode, calls = tts.decode_codes, []
+
+    def slow_decode(codes):
+        calls.append(len(calls))
+        time.sleep(0.01 * len(calls))
+        return decode(codes)
+
+    monkeypatch.setattr(tts, "decode_codes", slow_decode)
+    kw = SamplingConfig(temperature=0.0, max_audio_tokens=4)
+    rs = tts.synthesize_batch(TEXTS, kw)
+    assert all(r.success and r.n_frames > 2 for r in rs) and len(calls) == len(TEXTS)
+    dec = [r.timings.t_decode_ms for r in rs]
+    assert len(set(dec)) == len(dec)
+    assert all(d >= 10.0 * (i + 1) for i, d in enumerate(dec))
+    total = [r.timings.t_total_ms for r in rs]
+    assert total == sorted(total) and all(t >= d for t, d in zip(total, dec))
+
+    whole = _port(_cfg("none"), tp, cp, vp)
+    rs = whole.synthesize_batch(TEXTS, kw)
+    assert len({r.timings.t_decode_ms for r in rs}) == 1
