@@ -33,26 +33,35 @@ Phases (each prints a line; any failure exits non-zero):
      16, C = 4352, n_valid = 4000; decode attention must launch one kernel
      per call under the profiler (launches_per_call), and the kernels' split
      rules must equal their Python mirrors, which the CPU tests hold to
-     cover every row once. K1 and K5 report the device time of their
-     attention stage (attention_device_ms: attn_layer_kernel, attn_emit_kernel
-     and, over the int8 cache, kv_row_quant_kernel) and the port's kernels
-     per call (launches_per_call); the W8A16 GEMM's yardstick
+     cover every row once. K1 and K5 report their device busy time (the
+     union of their kernels' intervals: K1's chain runs under programmatic
+     dependent launch, so intervals overlap), the shares of it of their
+     attention stage (attention_device_ms: attn_layer_kernel,
+     attn_emit_kernel and, over the int8 cache, kv_row_quant_kernel) and of
+     their projections (gemv_device_ms: GEMVs or GEMMs, the head's
+     included), the event ms of a call with the profiler attached
+     (ms_profiled) and the port's kernels per call (launches_per_call); the
+     W8A16 GEMM's yardstick
      torch._weight_int8pack_mm its device time (library_device_ms) at the
      QKV shape (M = 1) and w_down at M = 128, and the GEMM must run as one
      kernel per call in every case. K3 reports its device time per
      decoder width and over the 12 res blocks of a 64-frame clip beside
      cuDNN's two convolutions alone, and must take the plan's launches per
      res block (one at C = 96 and 192, two at 384 and 768); the split
-     rules include K3's and the GEMM's plans. Then K5's projection GEMMs
+     rules include K3's and the GEMM's plans. Then the projection kernels
      alone (check_projections: the four talker projections over 28 seeded
      layers in w8a8, bf16 and w4bf16; one layer against its plain version
-     at B = 16, 64 and 128, int32 equal or float32 bits equal; each 28-layer
-     pass timed by events and device time beside its bound and the library
-     call that computes the same function, torch._int_mm or float64
-     torch.matmul, reported in K5's entry of the mode under
-     "projections"), and the split rules include K5's GEMM plan against its
-     mirror. Then the 4-bit GEMV probe (int8 and packed-nibble weights,
-     exact) beside K1's projection kernels at the probe's shape;
+     at B = 1 (K1's GEMVs) and 16, 64 and 128 (K5's GEMMs), int32 equal or
+     float32 bits equal; each 28-layer pass timed by events and device time
+     with its weight GB/s, beside its bound and the library call that
+     computes the same function, torch._int_mm or float64 torch.matmul,
+     reported in K1's or K5's entry of the mode under "projections"), K1's
+     codec-head GEMV (check_head_gemv: within 1e-3 of its plain version,
+     timed per call beside float32 torch.matmul, in K1's entry as
+     "codec_head"), and the split rules include K5's GEMM plan and K1's
+     GEMV plan against their mirrors. Then the 4-bit GEMV probe (int8 and
+     packed-nibble weights, exact) beside K1's projection kernels at the
+     probe's shape;
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -443,30 +452,61 @@ ATTENTION_PREFIXES = ("attn_", "kv_row_")
 
 
 def talker_call_stats(run, device, key="", tries=3):
-    """One K1/K5 call's device_ms (the port's kernels' device time),
-    attention_device_ms (its attention stage's) and launches_per_call (the
-    port's kernels it launches), under names ending in `key`, from the one
-    of `tries` profiler traces that caught the most of its kernels (the
+    """One K1/K5 call under the profiler, under names ending in `key`:
+    device_ms, the union of its kernels' intervals (K1 launches its chain
+    with programmatic dependent launch, so a kernel's interval can hold its
+    wait on the one before: summing durations would count the overlap
+    twice); attention_device_ms and gemv_device_ms, the parts of that union
+    that its attention stage's and its projections' kernels (GEMVs or GEMMs,
+    the codec head's included) add when the intervals are taken in the
+    order they start (busy_shares: a kernel of the chain is charged from
+    where the one before it ends; without overlap, its duration);
+    launches_per_call, the port's kernels it launches; and ms_profiled, CUDA
+    events around the call while the profiler traces it (beside the
+    report's ms, taken without: whether the tracing serializes the chain).
+    From the one of `tries` traces that caught the most of its kernels (the
     profiler can drop a short run's events). None off the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = [f"{k}{key}" for k in ("device_ms", "attention_device_ms", "launches_per_call")]
+    names = [f"{k}{key}" for k in ("device_ms", "attention_device_ms", "gemv_device_ms",
+                                   "launches_per_call", "ms_profiled")]
     if device.type != "cuda":
         return dict.fromkeys(names)
     run()
     torch.cuda.synchronize(device)
-    best = []
+    best, best_ms = [], None
     for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
             run()
+            end.record()
             torch.cuda.synchronize(device)
         ours = [e for e in device_events(prof) if e["cat"] == "kernel" and kernel_name(
             e["name"]).startswith(TALKER_KERNEL_PREFIXES + ATTENTION_PREFIXES)]
-        best = ours if len(ours) > len(best) else best
-    attention = [e for e in best if kernel_name(e["name"]).startswith(ATTENTION_PREFIXES)]
-    return dict(zip(names, (sum(e["dur"] for e in best) / 1e3,
-                            sum(e["dur"] for e in attention) / 1e3, len(best))))
+        if len(ours) > len(best):
+            best, best_ms = ours, start.elapsed_time(end)
+    shares = busy_shares(best, (ATTENTION_PREFIXES, ("gemv_", "gemm_")))
+    return dict(zip(names, (device_busy_ms(best), *shares, len(best), best_ms)))
+
+
+def busy_shares(events, groups):
+    """For each tuple of kernel-name prefixes in `groups`, the milliseconds
+    of the events' union (device_busy_ms) that its kernels add when the
+    intervals are taken in the order they start: the union's partition
+    among the kernels, each charged from the latest end before it."""
+    out = [0.0] * len(groups)
+    end = float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if b > end:
+            name = kernel_name(e["name"])
+            for i, prefixes in enumerate(groups):
+                if name.startswith(prefixes):
+                    out[i] += (b - max(a, end)) / 1e3
+            end = b
+    return out
 
 
 def _gates(exact):
@@ -1374,17 +1414,26 @@ def one_launch(run, L, device, where):
     return n
 
 
+# the (K, N) at which split_rules holds the GEMM and GEMV plans to their
+# mirrors: the talker's four projections and its codec head at 0.6B widths,
+# and other widths
+GEMV_PLAN_SHAPES = ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 3072),
+                    (64, 16), (4096, 256), (1536, 8960), (8192, 128))
+
+
 def split_rules(device):
     """The kernels' split rules (the library's C functions) against their
     mirrors in the wrappers' modules, which the CPU tests hold to cover each
     lane's rows once: decode attention's splits, and K1/K5's attention
     clusters over a bf16 and an int8 cache, for every B from 1 to 128 at
-    the talker's heads and a range of row counts; K5's GEMM plan in each
-    mode (tests/test_torch_gemm_order.py holds its mirror to cover each
-    weight row once) and its harness's workspace bytes for every B from 2
-    to 128; K3's plan (every width, ragged T, each dilation) and the W8A16
-    GEMM's (M = 1..256 at the talker's shapes, bf16 and float32 x).
-    Returns the cases compared; None off the card."""
+    the talker's heads and a range of row counts; K5's GEMM plan and K1's
+    GEMV plan in each mode, the codec head's GEMV plan
+    (tests/test_torch_gemm_order.py and tests/test_torch_gemv_order.py hold
+    their mirrors to cover each weight row once), and the projection
+    harness's workspace bytes for every B from 1 to 128 (and the head's);
+    K3's plan (every width, ragged T, each dilation) and the W8A16 GEMM's
+    (M = 1..256 at the talker's shapes, bf16 and float32 x). Returns the
+    cases compared; None off the card."""
     if device.type != "cuda":
         return None
     from qwen3tts_tpu_torch import _kernels
@@ -1402,23 +1451,27 @@ def split_rules(device):
                     raise SmokeFailure(f"a split rule and its mirror differ at B={B} n={n} "
                                        f"Hkv={Hkv}")
                 cases += 3
-    # K5's GEMM plan (every mode, the talker's projections and other
-    # widths), and the harness's workspace for every B from 2 to 128
+    # K5's GEMM plan and K1's GEMV plan (every mode and the head, the
+    # talker's projections, its head and other widths), and the harness's
+    # workspace for every B from 1 to 128
     import ctypes
 
-    from qwen3tts_tpu_torch.ops.fused_talker_step import MODE_CODES, gemm_plan
-    from qwen3tts_tpu_torch.ops.w4_gemv_probe import project_ws_bytes
+    from qwen3tts_tpu_torch.ops.fused_talker_step import gemm_plan, gemv_plan
+    from qwen3tts_tpu_torch.ops.w4_gemv_probe import HARNESS_CODES, project_ws_bytes
 
     out = (ctypes.c_int * 3)()
-    for mode, code in MODE_CODES.items():
-        for K, N in ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (64, 16),
-                     (4096, 256), (1536, 8960), (8192, 128)):
-            lib.qtts_gemm_plan(code, K, N, ctypes.addressof(out))
-            if tuple(out) != gemm_plan(mode, K, N):
-                raise SmokeFailure(f"K5's GEMM plan and its mirror differ in {mode} at K={K} "
-                                   f"N={N}: {tuple(out)} != {gemm_plan(mode, K, N)}")
-            cases += 1
-            for B in range(2, 129):
+    for mode, code in HARNESS_CODES.items():
+        for K, N in GEMV_PLAN_SHAPES:
+            plans = [("K1's GEMV", lib.qtts_gemv_plan, gemv_plan)]
+            if mode != "head":
+                plans.append(("K5's GEMM", lib.qtts_gemm_plan, gemm_plan))
+            for what, c_plan, mirror in plans:
+                c_plan(code, K, N, ctypes.addressof(out))
+                if tuple(out) != mirror(mode, K, N):
+                    raise SmokeFailure(f"{what} plan and its mirror differ in {mode} at K={K} "
+                                       f"N={N}: {tuple(out)} != {mirror(mode, K, N)}")
+                cases += 1
+            for B in range(1, 129) if mode != "head" else (1,):
                 if lib.qtts_project_ws_bytes(code, B, K, N) != project_ws_bytes(mode, B, K, N):
                     raise SmokeFailure(f"the projection workspace and its mirror differ in "
                                        f"{mode} at B={B} K={K} N={N}")
@@ -1575,7 +1628,7 @@ def check_w4_gemv_probe(report, device, iters, shape=None):
             xin, w, mode, ws)
         wb = _nbytes(*(w if hasattr(w, "_fields") else (w,)))
         ms = timed(run, device, iters)
-        dms = device_ms_per_call(run, 1, ("gemv_",), device, expect=L)
+        dms = (_pass_device_ms(run, [L], device) or [None])[0]
         k1_times[mode] = dict(ms=ms, device_ms=dms, weight_bytes=wb,
                               gb_per_s=wb / ((dms or ms) * 1e-3) / 1e9,
                               bound_ms=bound(wb, {})[0])
@@ -1594,10 +1647,13 @@ def check_w4_gemv_probe(report, device, iters, shape=None):
               f"{t['gb_per_s']:.1f} GB/s of weights")
 
 
-# K5's projections alone (check_projections): the talker's four projections
-# as (name, K, N) at 0.6B widths, the lane counts timed, the K5 entry each
-# weight mode reports under
-PROJ_LANES = (16, 64, 128)
+# the projections alone (check_projections): the talker's four projections
+# as (name, K, N) at 0.6B widths, the lane counts checked and timed (B = 1:
+# K1's GEMVs; B >= 2: K5's GEMMs), the K1 and K5 entries each weight mode
+# reports under
+PROJ_LANES = (1, 16, 64, 128)
+K1_KEYS = {"w8a8": "fused_talker_step", "bf16": "fused_talker_step[bf16]",
+           "w4bf16": "fused_talker_step[w4bf16]"}
 K5_KEYS = {"w8a8": "fused_talker_step_batched", "bf16": "fused_talker_step_batched[bf16]",
            "w4bf16": "fused_talker_step_batched[w4bf16]"}
 
@@ -1669,8 +1725,10 @@ def _library_ms(lib, device, iters):
 def _pass_device_ms(run, counts, device, tries=3):
     """Device ms of each group of one run of `run` under the profiler, its
     GEMV and GEMM kernels (bare names starting with gemv_ or gemm_) in
-    launch order cut into groups of counts[i]; None off the card or when
-    `tries` traces in a row did not catch every such kernel."""
+    launch order cut into groups of counts[i], each group's the union of
+    its kernels' intervals (the GEMVs run with programmatic dependent
+    launch, so their intervals overlap); None off the card or when `tries`
+    traces in a row did not catch every such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1687,7 +1745,7 @@ def _pass_device_ms(run, counts, device, tries=3):
         if len(ks) == sum(counts):
             out, i = [], 0
             for n in counts:
-                out.append(sum(e["dur"] for e in ks[i:i + n]) / 1e3)
+                out.append(device_busy_ms(ks[i:i + n]))
                 i += n
             return out
     return None
@@ -1695,23 +1753,27 @@ def _pass_device_ms(run, counts, device, tries=3):
 
 def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf16"),
                       lanes=PROJ_LANES, check_lanes=PROJ_LANES, L=None):
-    """K5's GEMMs alone (ops/w4_gemv_probe.project_layers: one launch per
-    layer, as run_layer launches them for B >= 2 lanes) in each weight mode,
-    for the talker's four projections on L seeded random layers (default:
-    all). For each B of check_lanes and projection: one layer on a zeroed
-    workspace against project_layer_plain, the int32 accumulator equal
-    (w8a8) or the float32 result of the partials, summed as the consumer
-    sums them, with the same bits (float modes); any difference fails. For
-    each B of lanes: each projection's L-layer pass timed by CUDA events
-    (ms) and the profiler (device_ms), its bound and the float modes'
-    float64 floor (projection_bound), and the library yardstick, timed the
-    same two ways (library_ms, library_device_ms): one PyTorch call per
-    layer for the same function, which the port never calls: torch._int_mm
-    (int8 x int8 -> int32; on CUDA it takes more than 16 rows, so null at
-    B = 16) or float64 torch.matmul over the values the kernels multiply.
-    The stage's totals (the four projections:
-    one K5 call's projections) and the per-projection rows go into K5's
-    report entry of the mode (K5_KEYS), under "projections"."""
+    """The projection kernels alone (ops/w4_gemv_probe.project_layers: one
+    launch per layer, as run_layer launches them: K1's GEMVs for B = 1,
+    with programmatic dependent launch, K5's GEMMs for B >= 2) in each
+    weight mode, for the talker's four projections on L seeded random
+    layers (default: all). For each B of check_lanes and projection: one
+    layer on a zeroed workspace against project_layer_plain, the int32
+    accumulator equal (w8a8) or the float32 result of the partials, summed
+    as the consumer sums them, with the same bits (float modes); any
+    difference fails. For each B of lanes: each projection's L-layer pass
+    timed by CUDA events (ms) and the profiler (device_ms, the union of its
+    kernels' intervals), the weight bytes it streams per second of device
+    time (gb_per_s), its bound and the float modes' float64 floor
+    (projection_bound), and the library yardstick, timed the same two ways
+    (library_ms, library_device_ms): one PyTorch call per layer for the
+    same function, which the port never calls: torch._int_mm (int8 x int8
+    -> int32; on CUDA it takes more than 16 rows, so null at B <= 16) or
+    float64 torch.matmul over the values the kernels multiply (for w4bf16
+    dequantized in advance). The stage's totals (the four projections: one
+    K1 or K5 call's projections) and the per-projection rows go into the
+    mode's K1 entry (K1_KEYS, B = 1) or K5 entry (K5_KEYS), under
+    "projections"."""
     import torch
 
     from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
@@ -1732,6 +1794,7 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                 else:   # bf16 values, as the row kernels emit them
                     x = torch.randn((B, K), generator=g, device=device).to(
                         torch.bfloat16).float()
+                kind = "K1 GEMV" if B == 1 else "K5 GEMM"
                 if B in check_lanes:
                     ws = torch.zeros(probe.project_ws_bytes(mode, B, K, N),
                                      dtype=torch.uint8, device=device)
@@ -1739,11 +1802,11 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                                              K, N)
                     b = probe.project_layer_plain(x, w1, mode, 0)
                     same = torch.equal(a.view(torch.int32), b.view(torch.int32))
-                    print(f"kernel K5 projection {mode} {name} K={K} N={N} B={B}: "
+                    print(f"kernel {kind} projection {mode} {name} K={K} N={N} B={B}: "
                           f"{'equal' if same else 'DIFFERS'} (max abs err {_max_err(a, b):.3e})")
                     if not same:
-                        raise SmokeFailure(f"K5's {mode} GEMM differs from its plain version "
-                                           f"at {name}, B={B}")
+                        raise SmokeFailure(f"the {kind} in {mode} differs from its plain "
+                                           f"version at {name}, B={B}")
                 if B not in lanes:
                     continue
                 ws = probe.project_layers(x, w, mode)
@@ -1757,37 +1820,98 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                 bound_ms, bound_by, floor_ms = projection_bound(w, mode, L, B, K, N)
                 lib_ms, lib_device_ms = _library_ms(lib, device, iters)
                 rows[B][name] = dict(ms=timed(run, device, iters), run=run,
+                                     weight_bytes=_nbytes(*(w if hasattr(w, "_fields")
+                                                            else (w,))),
                                      library_ms=lib_ms, library_device_ms=lib_device_ms,
                                      bound_ms=bound_ms, bound_by=bound_by,
                                      f64_floor_ms=floor_ms)
             del w, wd, w1
-        out = {}
         for B, per in rows.items():
             runs = [r.pop("run") for r in per.values()]
             dms = _pass_device_ms(lambda runs=runs: [r() for r in runs], [L] * len(runs),
                                   device)
             for r, d in zip(per.values(), dms or [None] * len(runs)):
                 r["device_ms"] = d
+                r["gb_per_s"] = None if d is None else r["weight_bytes"] / (d * 1e-3) / 1e9
+
             def total(key):
                 v = [r[key] for r in per.values()]
                 return None if None in v else sum(v)
 
-            t = out[f"B={B}"] = dict(
-                ms=total("ms"), device_ms=None if dms is None else sum(dms),
-                bound_ms=total("bound_ms"), f64_floor_ms=total("f64_floor_ms"),
-                library_ms=total("library_ms"), library_device_ms=total("library_device_ms"),
-                shapes=per)
-            print(f"time K5 projections {mode} B={B}, {L} layers: {t['ms']:.4f} ms "
-                  f"(device {t['device_ms']}), bound {t['bound_ms']:.4f} ms (float64 floor "
-                  f"{t['f64_floor_ms']}), library {t['library_ms']} ms (device "
-                  f"{t['library_device_ms']})")
-        entry = report.setdefault(K5_KEYS[mode], {})
-        entry["projections"] = dict(
-            layers=L, checked_lanes=list(check_lanes), times=out,
-            library="torch._int_mm (int32; B > 16 only)" if mode == "w8a8" else
-            "float64 torch.matmul over the multiplied values",
-            tolerance="exact: int32 equal (w8a8), float32 bits equal (float modes)")
+            t = dict(ms=total("ms"), device_ms=None if dms is None else sum(dms),
+                     weight_bytes=total("weight_bytes"), bound_ms=total("bound_ms"),
+                     f64_floor_ms=total("f64_floor_ms"), library_ms=total("library_ms"),
+                     library_device_ms=total("library_device_ms"), shapes=per)
+            t["gb_per_s"] = (None if t["device_ms"] is None
+                             else t["weight_bytes"] / (t["device_ms"] * 1e-3) / 1e9)
+            print(f"time {'K1' if B == 1 else 'K5'} projections {mode} B={B}, {L} layers: "
+                  f"{t['ms']:.4f} ms (device {t['device_ms']}, {t['gb_per_s']} GB/s), bound "
+                  f"{t['bound_ms']:.4f} ms (float64 floor {t['f64_floor_ms']}), library "
+                  f"{t['library_ms']} ms (device {t['library_device_ms']})")
+            key = K1_KEYS[mode] if B == 1 else K5_KEYS[mode]
+            entry = report.setdefault(key, {}).setdefault("projections", dict(
+                layers=L, times={},
+                library=("torch._int_mm (int32; it refuses 16 rows or fewer, so none at B "
+                         "<= 16)" if mode == "w8a8" else
+                         "float64 torch.matmul over the multiplied values"),
+                tolerance="exact: int32 equal (w8a8), float32 bits equal (float modes)"))
+            entry["times"][f"B={B}"] = t
+        for keys, picked in ((K1_KEYS, [B for B in check_lanes if B == 1]),
+                             (K5_KEYS, [B for B in check_lanes if B > 1])):
+            if picked:
+                report.setdefault(keys[mode], {}).setdefault("projections", dict(
+                    layers=L, times={}))["checked_lanes"] = picked
     print(f"projection phase: {time.perf_counter() - t0:.1f} s")
+
+
+def check_head_gemv(tcfg, report, device, iters, L=None):
+    """K1's codec-head GEMV alone (project_layers mode "head", B = 1: x [1,
+    H] float32 @ bf16 [H, Vc] into float32 split partials, which
+    head_sample_kernel adds in order) on L seeded random heads (default:
+    the talker's layer count, so that each call finds its weights cold, as
+    K1 does): the last one against the plain version (x rounded to bf16 @ W
+    in float32) within 1e-3 (both sum in float32, in other orders); the
+    L-call pass timed by events and the profiler (union of intervals), per
+    call, with its weight GB/s, its bound (weights, x and the float32
+    logits once) and the library call: float32 torch.matmul over the bf16
+    values converted in advance (TF32 off). Reported under K1's w8a8 entry
+    as "codec_head" (the head is bf16 in every mode)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L = L or tcfg.n_layers
+    K, N = tcfg.hidden_size, tcfg.codec_vocab_size
+    g = torch.Generator(device=device).manual_seed(37)
+    w = torch.randn((L, K, N), generator=g, device=device).div_(K ** 0.5).to(torch.bfloat16)
+    x = torch.randn((1, K), generator=g, device=device)
+    ws = torch.zeros(probe.project_ws_bytes("head", 1, K, N), dtype=torch.uint8, device=device)
+    a = probe.project_result(probe.project_layers(x, w[L - 1:], "head", ws), "head", 1, K, N)
+    b = probe.project_layer_plain(x, w, "head", L - 1)
+    err = _max_err(a, b)
+    print(f"kernel K1 codec head GEMV K={K} N={N}: max abs err {err:.3e} (tolerance 1e-3)")
+    if not err <= 1e-3:
+        raise SmokeFailure(f"K1's codec-head GEMV differs from its plain version by {err}")
+    run = lambda: probe.project_layers(x, w, "head", ws)  # noqa: E731
+    dms = _pass_device_ms(run, [L], device)
+    wf, xb = w.float(), x.to(torch.bfloat16).float()
+    lib = _layer_cycle(lambda l: torch.matmul(xb, wf[l]), L)
+    lib_ms, lib_device_ms = _library_ms(lib, device, iters)
+    wb = K * N * 2
+    bound_ms, bound_by = bound(wb + K * 4 + N * 4, {"bf16": 2 * K * N})
+    t = dict(ms=timed(run, device, iters) / L, device_ms=None if dms is None else dms[0] / L,
+             weight_bytes=wb, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+             library_ms=None if lib_ms is None else lib_ms / L,
+             library_device_ms=None if lib_device_ms is None else lib_device_ms / L,
+             library="float32 torch.matmul over the bf16 values (TF32 off)",
+             shape=f"K={K} N={N}, per call over {L} heads", tolerance="1e-3 abs")
+    t["gb_per_s"] = None if t["device_ms"] is None else wb / (t["device_ms"] * 1e-3) / 1e9
+    print(f"time K1 codec head GEMV: {t['ms']:.4f} ms (device {t['device_ms']}, "
+          f"{t['gb_per_s']} GB/s), bound {bound_ms:.5f} ms, library {t['library_ms']} ms "
+          f"(device {t['library_device_ms']})")
+    report.setdefault("fused_talker_step", {})["codec_head"] = t
+    del w, wf
 
 
 def attention_bound(B, Hq, Hkv, D, n):
@@ -2642,6 +2766,7 @@ def main():
             check_talker_step_batched(tiers[q], report, iters=3, shapes=MODE_BATCH_SHAPES,
                                       key=f"fused_talker_step_batched[{mode}]", exact=True)
         check_projections(tts.config.talker, report, dev, iters=3)
+        check_head_gemv(tts.config.talker, report, dev, iters=3)
         check_w4_gemv_probe(report, dev, iters=10)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()

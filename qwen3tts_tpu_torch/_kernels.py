@@ -97,6 +97,7 @@ SIGNATURES = {
         P, P],                           # out, stream
     "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_int8
     "qtts_gemm_plan": [I, I, I, P],                         # mode K N, out[3]
+    "qtts_gemv_plan": [I, I, I, P],                         # mode K N, out[3]
 }
 
 _LIB = None

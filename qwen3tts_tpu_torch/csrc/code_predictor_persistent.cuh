@@ -55,7 +55,7 @@
 // rounded once to the float32 logit, so a logit does not depend on the
 // grid. Attention rounds neither q nor p (the Pallas code predictors). B =
 // 1 takes a GEMV form of the same tiles (the 8 warps split the tile's K
-// rows, as gemv_w8a8_kernel does; BPT = 0); B > 1 the GEMM form (each
+// rows; BPT = 0); B > 1 the GEMM form (each
 // thread 4 columns x BPT lanes, __dp4a over the words byte_transpose packs).
 //
 // Data written by one block and read by another within the call (partials,

@@ -1,5 +1,5 @@
-// Block-wide reductions, bulk and asynchronous copies and the cluster launch
-// shared by the port's kernels.
+// Block-wide reductions, bulk and asynchronous copies, programmatic
+// dependent launch and the cluster launch shared by the port's kernels.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file
 // that includes it gets its own copy, so the shared library links without
@@ -167,32 +167,78 @@ __device__ __forceinline__ int4 byte_transpose(uint32_t w0, uint32_t w1, uint32_
                    (int)__byte_perm(t2, t3, 0x5410), (int)__byte_perm(t2, t3, 0x7632));
 }
 
+// Programmatic dependent launch (Hopper): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it in the stream still runs, once every block of that one
+// has called pdl_trigger() (or exited). pdl_wait() then blocks until the
+// kernel before has completed and its writes are visible. Every kernel
+// launched with the attribute waits before it touches a buffer an earlier
+// kernel writes or reads and before it exits, so the order of a chain holds
+// transitively; only reads of data no kernel of the chain writes (weights,
+// norms) may come before the wait. A pointer to a buffer the chain writes
+// is never `const __restrict__` in such a kernel: the compiler may take
+// that data for read-only over the whole kernel and load it early, before
+// the wait. Both are no-ops in a kernel launched without the attribute.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Launch `kernel` on `grid` x `block` with `smem` bytes of dynamic shared
+// memory, as clusters of `cluster` blocks along x when cluster > 0, and
+// with programmatic dependent launch when `pdl` (see pdl_wait). Returns
+// the launch's error.
+template <typename... Exp, typename... Act>
+cudaError_t launch_ex(void (*kernel)(Exp...), dim3 grid, dim3 block, size_t smem,
+                      cudaStream_t st, unsigned cluster, bool pdl, Act&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  unsigned n = 0;
+  if (cluster > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
+}
+
 // Launch `kernel` on `grid` as clusters of grid.x blocks (one cluster per
 // (y, z)), with `smem` bytes of dynamic shared memory (the attribute is set
-// first, as above 48 KB it must be). A cluster of more than 8 blocks needs
-// the non-portable attribute, which Hopper grants up to 16. Returns the
-// first error: an attribute the card refuses or a launch it refuses.
+// first, as above 48 KB it must be), with programmatic dependent launch when
+// `pdl`. A cluster of more than 8 blocks needs the non-portable attribute,
+// which Hopper grants up to 16. Returns the first error: an attribute the
+// card refuses or a launch it refuses.
 template <typename... Exp, typename... Act>
-cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads, size_t smem,
-                           cudaStream_t st, Act&&... args) {
+cudaError_t launch_cluster_ex(void (*kernel)(Exp...), dim3 grid, int threads, size_t smem,
+                              cudaStream_t st, bool pdl, Act&&... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e == cudaSuccess && grid.x > 8)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = grid.x;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
+  return launch_ex(kernel, grid, dim3(threads), smem, st, grid.x, pdl,
+                   std::forward<Act>(args)...);
+}
+
+template <typename... Exp, typename... Act>
+cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads, size_t smem,
+                           cudaStream_t st, Act&&... args) {
+  return launch_cluster_ex(kernel, grid, threads, smem, st, false, std::forward<Act>(args)...);
 }
 
 template <typename T> __device__ __forceinline__ float to_f(T x);

@@ -186,7 +186,7 @@ __device__ __forceinline__ float proj_value(const ProjOut& p, int b, int n) {
   return y;
 }
 
-__device__ __forceinline__ bool proj_present(const ProjOut& p) {
+__host__ __device__ __forceinline__ bool proj_present(const ProjOut& p) {
   return p.acc != nullptr || p.part != nullptr;
 }
 
@@ -216,12 +216,14 @@ __device__ void emit_row(const float* buf, int n, float amax_local, const Emit& 
 // Lane blockIdx.x: x += the previous projection (when present); h =
 // x * rsqrt(mean(x^2)+eps) * norm. Then h goes to the next projection
 // (emit), or, when h_out is given, is written there in float32.
-__global__ void resid_rms_kernel(float* __restrict__ x, ProjOut in,
+__global__ void resid_rms_kernel(float* x, ProjOut in,
                                  const float* __restrict__ norm, int H, float eps, Emit e,
                                  float* __restrict__ h_out) {
   extern __shared__ float buf[];
   __shared__ float red[32];
   __shared__ double redd[32];
+  pdl_trigger();
+  pdl_wait();
   const int b = blockIdx.x;
   const bool add = proj_present(in);
   x += (size_t)b * H;
@@ -246,39 +248,337 @@ __global__ void resid_rms_kernel(float* __restrict__ x, ProjOut in,
   if (h_out == nullptr) emit_row(buf, H, am, e, b, red);
 }
 
-// --- w8a8 ------------------------------------------------------------------
+// --- K1's GEMVs (one lane) -----------------------------------------------
+//
+// y = x @ W for one lane: a projection of K1 in its weight mode, or the
+// codec head (bf16 weights, float32 partials). What bounds them on the
+// H100: the weight bytes, 2-6 MB a projection at 0.6B widths (0.6-1.9 µs
+// at 3.35 TB/s) and 15.7 MB an int8 layer; they are too small to amortize
+// a launch and a cold start, and they ask for about 25 KB of loads in flight
+// on each SM (Little's law at ~1 µs of latency). So:
+//   - a block of 256 threads owns one tile of 128 bytes of every weight row
+//     (128 int8 or packed u4 columns, 64 bf16 ones) by 128 rows (64 packed
+//     u4 rows) and streams it with one 16-byte load per thread and row, all
+//     issued at once: 16 KB (8 KB for u4, plus its scales) per block, and a
+//     grid of one block per tile (128-768 blocks at 0.6B widths), so every
+//     SM has its share of the whole projection in flight at once;
+//   - the weight loads are issued before pdl_wait(): under programmatic
+//     dependent launch (run_layer, B = 1) the blocks become resident while
+//     the row kernel before them still runs, and only x, and the
+//     accumulator that row kernel cleared, wait for it;
+//   - the reduction: each thread sums its rows, a warp's four thread rows
+//     are reduce-scattered by shuffles (gemv_scatter), the 8 warps added in
+//     order in shared memory; then w8a8 adds its int32 sums by atomics
+//     (exact in any order), the float modes write their split's float64
+//     partial [halves, splits, 1, N] (the consumer adds the splits in
+//     order, proj_value), the head its float32 partial.
+// Whatever does not need x also runs before the wait, off the chain's
+// critical path: w8a8 transposes 4 rows x 4 columns of bytes
+// (byte_transpose) for __dp4a against x's 4 bytes (4 dp4a per 16 bytes);
+// the float modes ready each weight for a DFMA without a float64 conversion
+// (cvt to or from f64 issues 16 a clock per SM): a bf16 value's bits
+// shifted into a double's high word with the exponent field widened from 8
+// to 11 bits but not rebiased (bf16_hi) are that value times 2^-896
+// exactly, zeros and subnormals included (finite values only), and x is
+// multiplied by 2^896 once per row (exact: |x| < 2^128), so each DFMA adds
+// the exact product; u4 weights are dequantized as dequant4 does (float32
+// q * s - z, each rounded, then two at a time to bf16, to nearest even, by
+// one cvt) with the group's scale and offset staged in shared memory once
+// per block. After the wait, x is read through L2 (ld_chain).
+// ops/fused_talker_step.gemv_plan mirrors the tiles;
+// tests/test_torch_gemv_order.py holds the summation order to the plain
+// versions' bits.
+constexpr int kGemvThreads = 256;
+constexpr int kGemvTX = 8;                        // threads along a row: 8 x 16 bytes
+constexpr int kGemvTY = kGemvThreads / kGemvTX;   // thread rows
+constexpr int kGemvHead = 3;                      // gemv_plan's mode of the codec head
 
-// One lane: acc[n] += sum_{k in this block's K range} xq[k] * W[k, n], W
-// int8 [K, N] row-major. Block (32, 8): x walks 4-column groups (one 4-byte
-// load per thread per row, a warp reads 128 contiguous bytes), y walks rows;
-// grid.y splits K so that the narrow projections still fill the card.
-__global__ void gemv_w8a8_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ W,
-                                 int K, int N, int kchunk, int* __restrict__ acc) {
-  __shared__ int part[8][32][4];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n0 = (blockIdx.x * 32 + tx) * 4;
-  const int kb = blockIdx.y * kchunk, ke = min(K, kb + kchunk);
-  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  if (n0 < N) {
-#pragma unroll 4
-    for (int k = kb + ty; k < ke; k += 8) {
-      const int xv = xq[k];
-      const char4 w = *reinterpret_cast<const char4*>(W + (size_t)k * N + n0);
-      a0 += xv * w.x;
-      a1 += xv * w.y;
-      a2 += xv * w.z;
-      a3 += xv * w.w;
-    }
+// Rows a thread takes (packed rows for u4), columns of a block.
+__host__ __device__ constexpr int gemv_thread_rows(int mode) { return mode == kW4BF16 ? 2 : 4; }
+__host__ __device__ constexpr int gemv_cols(int mode) {
+  return mode == kBF16 || mode == kGemvHead ? 64 : 128;
+}
+
+// One 16-byte load of weights read once (no L1 allocation); volatile, so
+// that it is issued where it stands, before pdl_wait().
+__device__ __forceinline__ int4 ld_weights16(const void* p) {
+  int4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// A load of data the chain writes (x, xq), through L2, issued where it
+// stands: after pdl_wait().
+__device__ __forceinline__ float ld_chain(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int ld_chain(const int* p) {
+  int v;
+  asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Keep v computed before the next volatile statement (pdl_wait()): the
+// weights' transforms belong to the part of a GEMV that overlaps the
+// kernel before it.
+__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)); }
+
+// The high word of a double equal to the bf16 value held in the top 16 bits
+// of f times 2^-896 (exactly, for every finite value; its low word is 0):
+// the exponent field widened from 8 to 11 bits, not rebiased; the sign kept.
+__device__ __forceinline__ uint32_t bf16_hi(uint32_t f) {
+  return (uint32_t)(((int)f >> 3) & (int)0x8FFFE000);
+}
+__device__ __forceinline__ double from_hi(uint32_t hi) { return __hiloint2double((int)hi, 0); }
+
+constexpr double kBf16Unscale = 0x1p896;   // x's factor against bf16_hi
+
+// x[k] rounded to bf16, as a double times 2^896 (0 past K).
+__device__ __forceinline__ double x_scaled(const float* x, int k, int K) {
+  return k < K ? (double)bf16_round(ld_chain(x + k)) * kBf16Unscale : 0.0;
+}
+
+// Two u4 weights q_a, q_b (0..15) with scales s_a, s_b and offsets z_a,
+// z_b, each bf16(q * s - z) as dequant4 computes it (float32, each
+// operation rounded; then to bf16, to nearest even, both in one cvt), as
+// bf16_hi gives them: *ha, *hb. m_a, m_b: the nibbles as the float32 bits
+// 0x4B0000qq (2^23 + q).
+__device__ __forceinline__ void w4_pair_hi(uint32_t m_a, float s_a, float z_a, uint32_t m_b,
+                                           float s_b, float z_b, uint32_t* ha, uint32_t* hb) {
+  const float a = __fsub_rn(__fmul_rn(__fsub_rn(__uint_as_float(m_a), 8388608.f), s_a), z_a);
+  const float b = __fsub_rn(__fmul_rn(__fsub_rn(__uint_as_float(m_b), 8388608.f), s_b), z_b);
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);   // a in the low half
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&p);
+  *ha = bf16_hi(u << 16);
+  *hb = bf16_hi(u);
+}
+
+// The block's sums of a GEMV. Thread (tx, ty) holds NV values v (sums over
+// its rows; index i is the block's output tx * NV + i); a warp
+// reduce-scatters them over its four thread rows (lane bits 3-4), leaving
+// ((t0 + t1) + (t2 + t3)) of NV / 4 of them in each lane, into red [warps,
+// NV / 4, 32]. Fewer shuffles than a full reduction: NV / 2 + NV / 4 per
+// lane.
+template <typename T, int NV>
+__device__ __forceinline__ void gemv_scatter(T (&v)[NV], T* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool b1 = lane & 8, b2 = lane & 16;
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) {   // lanes with bit 3 set keep the upper half
+    const T send = b1 ? v[i] : v[NV / 2 + i];
+    const T keep = b1 ? v[NV / 2 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
   }
-  part[ty][tx][0] = a0; part[ty][tx][1] = a1; part[ty][tx][2] = a2; part[ty][tx][3] = a3;
+#pragma unroll
+  for (int i = 0; i < NV / 4; ++i) {   // then bit 4 picks the quarter
+    const T send = b2 ? v[i] : v[NV / 4 + i];
+    const T keep = b2 ? v[NV / 4 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int j = 0; j < NV / 4; ++j) red[(warp * (NV / 4) + j) * 32 + lane] = v[j];
+}
+
+// Output o of the block (o < 8 * NV; after a __syncthreads()): its 8
+// warps' sums (gemv_scatter) added in order from zero.
+template <typename T, int NV>
+__device__ __forceinline__ T gemv_block_sum(const T* red, int o) {
+  const int tx = o / NV, i = o % NV, j = i % (NV / 4);
+  const int lane = tx + 8 * (i / (NV / 2) + 2 * ((i % (NV / 2)) / (NV / 4)));
+  T s = 0;
+#pragma unroll
+  for (int r = 0; r < kGemvThreads / 32; ++r) s += red[(r * (NV / 4) + j) * 32 + lane];
+  return s;
+}
+
+// w8a8: acc[n] += sum over this block's 128 rows of xq[k] * W[k, n], W int8
+// [K, N] (K a multiple of 4, N of 16); grid (N / 128, K / 128). Before the
+// wait: the loads and their 4 x 4 byte transposes; after it: x's 4 bytes,
+// 16 dp4a, the sums.
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_i8_kernel(const int8_t* xq, const int8_t* __restrict__ W, int K, int N, int* acc) {
+  __shared__ int red[kGemvThreads / 32 * 4 * 32];
+  pdl_trigger();
+  const int tx = threadIdx.x % kGemvTX, ty = threadIdx.x / kGemvTX;
+  const int n0 = blockIdx.x * 128 + 16 * tx, k0 = blockIdx.y * 128 + 4 * ty;
+  int4 w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = n0 < N && k0 + i < K ? ld_weights16(W + (size_t)(k0 + i) * N + n0)
+                                : make_int4(0, 0, 0, 0);
+  uint32_t t[16];   // t[4q + j]: column 4q + j's rows k0..k0 + 3, one byte each
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int4 v = byte_transpose(reinterpret_cast<const uint32_t*>(&w[0])[q],
+                                  reinterpret_cast<const uint32_t*>(&w[1])[q],
+                                  reinterpret_cast<const uint32_t*>(&w[2])[q],
+                                  reinterpret_cast<const uint32_t*>(&w[3])[q]);
+    t[4 * q] = v.x;
+    t[4 * q + 1] = v.y;
+    t[4 * q + 2] = v.z;
+    t[4 * q + 3] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) pin(t[j]);
+  pdl_wait();
+  const int xw = k0 < K ? ld_chain(reinterpret_cast<const int*>(xq + k0)) : 0;
+  int a[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) a[j] = __dp4a((int)t[j], xw, 0);
+  gemv_scatter(a, red);
   __syncthreads();
-  if (ty == 0 && n0 < N) {
-    for (int j = 0; j < 4; ++j) {
-      int s = 0;
-      for (int y = 0; y < 8; ++y) s += part[y][tx][j];
-      atomicAdd(acc + n0 + j, s);
+  const int n = blockIdx.x * 128 + threadIdx.x;
+  if (threadIdx.x < 128 && n < N) atomicAdd(acc + n, gemv_block_sum<int, 16>(red, threadIdx.x));
+}
+
+// bf16 weights W [K, N] (N a multiple of 8) against x float32 (rounded to
+// bf16): this block's 128 rows x 64 columns into partial[blockIdx.y, N].
+// Acc = double: a bf16 projection, exact products summed in float64 (the
+// weights widened to bf16_hi before the wait); Acc = float: the codec head,
+// summed in float32 (the consumer adds the splits in float32).
+template <typename Acc>
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_bf16_kernel(const float* x, const __nv_bfloat16* __restrict__ W, int K, int N,
+                 Acc* partial) {
+  constexpr bool kF64 = std::is_same<Acc, double>::value;
+  __shared__ Acc red[kGemvThreads / 32 * 2 * 32];
+  pdl_trigger();
+  const int tx = threadIdx.x % kGemvTX, ty = threadIdx.x / kGemvTX;
+  const int n0 = blockIdx.x * 64 + 8 * tx, k0 = blockIdx.y * 128 + 4 * ty;
+  int4 w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = n0 < N && k0 + i < K ? ld_weights16(W + (size_t)(k0 + i) * N + n0)
+                                : make_int4(0, 0, 0, 0);
+  uint32_t h[4][8];   // row i, column j: bf16_hi (double) or float32 bits (float)
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {   // word c: columns 2c (low half), 2c + 1 (high)
+      const uint32_t u = reinterpret_cast<const uint32_t*>(&w[i])[c];
+      h[i][2 * c] = kF64 ? bf16_hi(u << 16) : u << 16;
+      h[i][2 * c + 1] = kF64 ? bf16_hi(u) : u & 0xffff0000u;
+      pin(h[i][2 * c]);
+      pin(h[i][2 * c + 1]);
+    }
+  pdl_wait();
+  Acc xv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kF64) xv[i] = x_scaled(x, k0 + i, K);
+    else xv[i] = k0 + i < K ? bf16_round(ld_chain(x + k0 + i)) : 0.f;
+  }
+  Acc a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    Acc v = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {   // a bf16 x bf16 product is exact in float32
+      if constexpr (kF64) v = __fma_rn(xv[i], from_hi(h[i][j]), v);
+      else v = __fmaf_rn(xv[i], __uint_as_float(h[i][j]), v);
+    }
+    a[j] = v;
+  }
+  gemv_scatter(a, red);
+  __syncthreads();
+  const int n = blockIdx.x * 64 + threadIdx.x;
+  if (threadIdx.x < 64 && n < N)
+    partial[(size_t)blockIdx.y * N + n] = gemv_block_sum<Acc, 8>(red, threadIdx.x);
+}
+
+// One u4 weight: (q * s - z) in float32 with the product rounded first (no
+// FMA), rounded to bf16, widened to double (K5's GEMM widens its tiles with
+// it; the GEMV takes w4_pair_hi).
+__device__ __forceinline__ double dequant4(uint32_t q, float s, float z) {
+  return (double)bf16_round(__fsub_rn(__fmul_rn((float)q, s), z));
+}
+
+// u4: x float32 [2 * Kh] (rounded to bf16) @ the weight Q [Kh, N] (split-
+// half nibbles, N a multiple of 16) with scale S and offset Z [G, N], gs =
+// 2 * Kh / G logical rows per group, a multiple of 32: this block's 64
+// packed rows x 128 columns, float64 partials of the low half (rows [0,
+// Kh)) into partial[0, blockIdx.y, N] and of the high half into
+// partial[1, blockIdx.y, N]. The block's rows lie in at most two groups per
+// half, whose scale and offset rows it copies into shared memory; the
+// weights are dequantized before the wait, so that only x's products and
+// the sums follow it.
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_w4_kernel(const float* x, const int8_t* __restrict__ Q, const float* __restrict__ S,
+               const float* __restrict__ Z, int Kh, int N, int gs, int G, double* partial) {
+  constexpr int R = gemv_thread_rows(kW4BF16), kRows = kGemvTY * R;
+  __shared__ __align__(16) float sc[2][2][2][128];   // [group][half][scale, offset][column]
+  __shared__ double red[kGemvThreads / 32 * 8 * 32];
+  pdl_trigger();
+  const int tx = threadIdx.x % kGemvTX, ty = threadIdx.x / kGemvTX;
+  const int nb = blockIdx.x * 128, n0 = nb + 16 * tx;
+  const int r0 = blockIdx.y * kRows, i0 = r0 + R * ty, g0 = r0 / gs, Gh = G / 2;
+  int4 w[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    w[i] = n0 < N && i0 + i < Kh ? ld_weights16(Q + (size_t)(i0 + i) * N + n0)
+                                 : make_int4(0, 0, 0, 0);
+  {   // one 16-byte copy a thread: (group, half, scale or offset, 4 columns)
+    const int c = threadIdx.x, q = c % 32, sz = (c / 32) % 2, h = (c / 64) % 2, gi = c / 128;
+    const int g = g0 + gi, n = nb + 4 * q;
+    const bool ok = g * gs < Kh && n < N;
+    cp_async16(&sc[gi][h][sz][4 * q], ok ? (sz ? Z : S) + (size_t)(h * Gh + g) * N + n : S, ok);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int gi = i0 / gs - g0;
+  uint32_t hl[R][16], hh[R][16];   // row i, column j: the low and high weights' bf16_hi
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // columns 16 tx + 4q .. + 3
+    const float4 sl = *reinterpret_cast<const float4*>(&sc[gi][0][0][16 * tx + 4 * q]);
+    const float4 zl = *reinterpret_cast<const float4*>(&sc[gi][0][1][16 * tx + 4 * q]);
+    const float4 sh = *reinterpret_cast<const float4*>(&sc[gi][1][0][16 * tx + 4 * q]);
+    const float4 zh = *reinterpret_cast<const float4*>(&sc[gi][1][1][16 * tx + 4 * q]);
+    const float s_l[4] = {sl.x, sl.y, sl.z, sl.w}, z_l[4] = {zl.x, zl.y, zl.z, zl.w};
+    const float s_h[4] = {sh.x, sh.y, sh.z, sh.w}, z_h[4] = {zh.x, zh.y, zh.z, zh.w};
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const uint32_t word = reinterpret_cast<const uint32_t*>(&w[i])[q];
+      const uint32_t lo4 = word & 0x0F0F0F0Fu, hi4 = (word >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // byte j's nibbles as 0x4B0000qq
+        const uint32_t sel = 0x7540u | j;
+        w4_pair_hi(__byte_perm(lo4, 0x4B000000u, sel), s_l[j], z_l[j],
+                   __byte_perm(hi4, 0x4B000000u, sel), s_h[j], z_h[j], &hl[i][4 * q + j],
+                   &hh[i][4 * q + j]);
+        pin(hl[i][4 * q + j]);
+        pin(hh[i][4 * q + j]);
+      }
     }
   }
+  pdl_wait();
+  double xl[R], xh[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    xl[i] = x_scaled(x, i0 + i, Kh);
+    xh[i] = i0 + i < Kh ? x_scaled(x, Kh + i0 + i, 2 * Kh) : 0.0;
+  }
+  double a[32];   // a[16 h + j]: half h, column 16 tx + j
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    double lo = 0.0, hi = 0.0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      lo = __fma_rn(xl[i], from_hi(hl[i][j]), lo);
+      hi = __fma_rn(xh[i], from_hi(hh[i][j]), hi);
+    }
+    a[j] = lo;
+    a[16 + j] = hi;
+  }
+  gemv_scatter(a, red);
+  __syncthreads();
+  const int o = threadIdx.x, h = (o % 32) / 16, n = nb + 16 * (o / 32) + o % 16;
+  if (n < N)
+    partial[((size_t)h * gridDim.y + blockIdx.y) * N + n] = gemv_block_sum<double, 32>(red, o);
 }
 
 // --- the batched projections on the tensor cores (B >= 2) -----------------
@@ -465,43 +765,6 @@ gemm_i8_mma_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* 
   }
 }
 
-// --- bf16 ------------------------------------------------------------------
-
-// One lane: float32 x (rounded to bf16) @ W bf16 [K, N]: per-split partial
-// sums into partial[split, N], accumulated in Acc (float for the codec head,
-// whose consumer sums the splits in float32; double for a bf16 projection).
-template <typename Acc>
-__global__ void gemv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ W,
-                                 int K, int N, int kchunk, Acc* __restrict__ partial) {
-  __shared__ Acc part[8][32][4];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n0 = (blockIdx.x * 32 + tx) * 4;
-  const int kb = blockIdx.y * kchunk, ke = min(K, kb + kchunk);
-  Acc a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  if (n0 < N) {
-#pragma unroll 4
-    for (int k = kb + ty; k < ke; k += 8) {
-      const Acc xv = bf16_round(x[k]);
-      const uint2 raw = *reinterpret_cast<const uint2*>(W + (size_t)k * N + n0);
-      const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-      const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-      a0 += xv * (Acc)__low2float(w01);
-      a1 += xv * (Acc)__high2float(w01);
-      a2 += xv * (Acc)__low2float(w23);
-      a3 += xv * (Acc)__high2float(w23);
-    }
-  }
-  part[ty][tx][0] = a0; part[ty][tx][1] = a1; part[ty][tx][2] = a2; part[ty][tx][3] = a3;
-  __syncthreads();
-  if (ty == 0 && n0 < N) {
-    for (int j = 0; j < 4; ++j) {
-      Acc s = 0;
-      for (int y = 0; y < 8; ++y) s += part[y][tx][j];
-      partial[(size_t)blockIdx.y * N + n0 + j] = s;
-    }
-  }
-}
-
 // The codec head for B lanes: x [B, ldx] float32 (rounded to bf16) @ W bf16
 // [K, N]: float32 partial sums of this block's 32-row K tiles into
 // partial[split, b, N] (the consumer sums the splits in float32). Block =
@@ -566,67 +829,6 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
     out[1] = a[i][1];
     out[2] = a[i][2];
     out[3] = a[i][3];
-  }
-}
-
-// --- w4bf16 ----------------------------------------------------------------
-
-// One u4 weight: (q * s - z) in float32 with the product rounded first (no
-// FMA), rounded to bf16, widened to double.
-__device__ __forceinline__ double dequant4(uint32_t q, float s, float z) {
-  return (double)bf16_round(__fsub_rn(__fmul_rn((float)q, s), z));
-}
-
-// One lane: x float32 [2 * Kh] (rounded to bf16) @ a u4 weight Q [Kh, N]
-// (split-half nibbles) with scale S and zero Z [G, N], gs logical rows per
-// group. Per-split float64 partials of the low half (rows [0, Kh)) into
-// partial[0, split, N] and of the high half into partial[1, split, N].
-// Block (32, 8) as gemv_w8a8: x walks 4-column groups, y packed rows; the
-// group's scales are reloaded when a thread's row crosses into another group.
-__global__ void gemv_w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ Q,
-                               const float* __restrict__ S, const float* __restrict__ Z,
-                               int Kh, int N, int gs, int G, int kchunk,
-                               double* __restrict__ partial) {
-  __shared__ double part[2][8][32][4];
-  const int tx = threadIdx.x, ty = threadIdx.y, Gh = G / 2;
-  const int n0 = (blockIdx.x * 32 + tx) * 4;
-  const int kb = blockIdx.y * kchunk, ke = min(Kh, kb + kchunk);
-  double lo[4] = {0.0, 0.0, 0.0, 0.0}, hi[4] = {0.0, 0.0, 0.0, 0.0};
-  if (n0 < N) {
-    int gcur = -1;
-    float4 sl, zl, sh, zh;
-    for (int i = kb + ty; i < ke; i += 8) {
-      const int g = i / gs;
-      if (g != gcur) {
-        gcur = g;
-        sl = *reinterpret_cast<const float4*>(S + (size_t)g * N + n0);
-        zl = *reinterpret_cast<const float4*>(Z + (size_t)g * N + n0);
-        sh = *reinterpret_cast<const float4*>(S + (size_t)(Gh + g) * N + n0);
-        zh = *reinterpret_cast<const float4*>(Z + (size_t)(Gh + g) * N + n0);
-      }
-      const double xl = bf16_round(x[i]), xh = bf16_round(x[Kh + i]);
-      const uint32_t q = *reinterpret_cast<const uint32_t*>(Q + (size_t)i * N + n0);
-      lo[0] += xl * dequant4(q & 15u, sl.x, zl.x);
-      lo[1] += xl * dequant4((q >> 8) & 15u, sl.y, zl.y);
-      lo[2] += xl * dequant4((q >> 16) & 15u, sl.z, zl.z);
-      lo[3] += xl * dequant4((q >> 24) & 15u, sl.w, zl.w);
-      hi[0] += xh * dequant4((q >> 4) & 15u, sh.x, zh.x);
-      hi[1] += xh * dequant4((q >> 12) & 15u, sh.y, zh.y);
-      hi[2] += xh * dequant4((q >> 20) & 15u, sh.z, zh.z);
-      hi[3] += xh * dequant4((q >> 28) & 15u, sh.w, zh.w);
-    }
-  }
-  for (int j = 0; j < 4; ++j) {
-    part[0][ty][tx][j] = lo[j];
-    part[1][ty][tx][j] = hi[j];
-  }
-  __syncthreads();
-  if (ty < 2 && n0 < N) {   // warp 0 writes the low half, warp 1 the high
-    for (int j = 0; j < 4; ++j) {
-      double s = 0.0;
-      for (int y = 0; y < 8; ++y) s += part[ty][y][tx][j];
-      partial[((size_t)ty * gridDim.y + blockIdx.y) * N + n0 + j] = s;
-    }
   }
 }
 
@@ -786,6 +988,8 @@ __global__ void qkv_post_kernel(ProjOut in, const float* __restrict__ qn,
                                 T* __restrict__ vdst, long head_stride, long lane_stride) {
   __shared__ float v[1024];
   __shared__ double redd[32];
+  pdl_trigger();
+  pdl_wait();
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, i = h * D + d;
   const float y = proj_value(in, b, i);
   kdst += (size_t)b * lane_stride;
@@ -867,11 +1071,11 @@ __device__ __forceinline__ long q8_scale_base(int b, int h, long head_stride,
 // partial o in rank order and rounds it to float32 once.
 template <typename T, int G>
 __global__ void __launch_bounds__(kAttThreads)
-attn_layer_kernel(const float* __restrict__ q, const T* __restrict__ K, const T* __restrict__ V,
+attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__ V,
                   long head_stride, long lane_stride, int n_end, int floor_row, int cap,
                   float scale, int round_q, int round_p, const int* __restrict__ start,
                   const float* __restrict__ Ks, const float* __restrict__ Vs,
-                  const __nv_bfloat16* __restrict__ cur, float* __restrict__ out) {
+                  const __nv_bfloat16* cur, float* __restrict__ out) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
   constexpr int kRow = kAttD * (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char att_smem[];
@@ -885,6 +1089,8 @@ attn_layer_kernel(const float* __restrict__ q, const T* __restrict__ K, const T*
   float* redf = reinterpret_cast<float*>(att_smem + lay.redf);
   float* sc = reinterpret_cast<float*>(att_smem + lay.scores);      // [G, cap]: s, then p
   uint64_t* bar = reinterpret_cast<uint64_t*>(att_smem + lay.bar);
+  pdl_trigger();
+  pdl_wait();   // the current row and q come from the kernel before
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
   const int h = blockIdx.y, b = blockIdx.z, Hkv = gridDim.y, Hq = Hkv * G;
@@ -1132,11 +1338,13 @@ attn_layer_kernel(const float* __restrict__ q, const T* __restrict__ K, const T*
 // heads, then V heads) quantized as ops/kv_quant.quantize_kv quantizes it,
 // into row pos of the int8 cache (K, V) and its scale (Ks, Vs). Block = D
 // threads.
-__global__ void kv_row_quant_kernel(const __nv_bfloat16* __restrict__ cur, int Hkv, int D,
+__global__ void kv_row_quant_kernel(const __nv_bfloat16* cur, int Hkv, int D,
                                     int8_t* __restrict__ K, int8_t* __restrict__ V,
                                     float* __restrict__ Ks, float* __restrict__ Vs,
                                     long head_stride, long lane_stride, int pos) {
   __shared__ float red[32];
+  pdl_trigger();
+  pdl_wait();
   const int j = blockIdx.x, b = blockIdx.y, h = j % Hkv, d = threadIdx.x;
   const float x = __bfloat162float(cur[((size_t)b * 2 * Hkv + j) * D + d]);
   const float s = __fmul_rn(fmaxf(block_max(fabsf(x), red), 1e-8f), 1.0f / 127.0f);
@@ -1147,9 +1355,11 @@ __global__ void kv_row_quant_kernel(const __nv_bfloat16* __restrict__ cur, int H
 
 // Lane blockIdx.x: its attention output o [n] (attn_layer_kernel's) to the
 // O projection: emit(o).
-__global__ void attn_emit_kernel(const float* __restrict__ o, int n, Emit e) {
+__global__ void attn_emit_kernel(const float* o, int n, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
+  pdl_trigger();
+  pdl_wait();
   const int b = blockIdx.x;
   float am = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -1165,6 +1375,8 @@ __global__ void attn_emit_kernel(const float* __restrict__ o, int n, Emit e) {
 __global__ void swiglu_kernel(ProjOut in, int F, Emit e) {
   extern __shared__ float buf[];
   __shared__ float red[32];
+  pdl_trigger();
+  pdl_wait();
   const int b = blockIdx.x;
   float am = 0.f;
   for (int i = threadIdx.x; i < F; i += blockDim.x) {
@@ -1185,7 +1397,7 @@ __global__ void swiglu_kernel(ProjOut in, int F, Emit e) {
 // null), the lane's row of `seen` [B, V], and the lane's temps[b],
 // topps[b] and pens[b] (continuous serving: each request its own; a null
 // array means the scalar, as for seeds).
-__global__ void head_sample_kernel(const float* __restrict__ partial, int splits, int V,
+__global__ void head_sample_kernel(const float* partial, int splits, int V,
                                    float* __restrict__ logits_out, int* __restrict__ tok_out,
                                    int tok_ld, int tok_idx, int suppress_start, int eos_id,
                                    const int8_t* __restrict__ seen, float penalty, float temp,
@@ -1197,6 +1409,8 @@ __global__ void head_sample_kernel(const float* __restrict__ partial, int splits
   extern __shared__ float smem[];
   __shared__ float red[32];
   __shared__ int redi[32];
+  pdl_trigger();
+  pdl_wait();
   const int b = blockIdx.x, B = gridDim.x;
   float* l = smem;
   float* p = smem + V;
@@ -1244,16 +1458,26 @@ struct Work {
   float* hnorm;    // [B, H] output-normed hidden
   float* head;     // [splits, B, Vh] head projection partials
   __nv_bfloat16* stage;  // [B, 2, Hkv, D] this step's K/V rows (int8 KV cache)
-  mutable cudaError_t err = cudaSuccess;   // the first refused attention launch
+  mutable cudaError_t err = cudaSuccess;   // the first refused launch it saw (see run_layer)
 };
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
 
-inline int split_for(int K, int gx, int* kchunk) {
-  int ks = (kSplitTarget + gx - 1) / gx;
-  if (ks > K / 8) ks = K / 8 > 0 ? K / 8 : 1;
-  *kchunk = (K + ks - 1) / ks;
-  return (K + *kchunk - 1) / *kchunk;
+// The grid of a GEMV (one lane) x [K] @ W [K, N] in `mode` (WeightMode or
+// kGemvHead): gx column blocks of gemv_cols(mode), ks K splits of `rows`
+// weight rows (packed rows for w4bf16), one block each
+// (ops/fused_talker_step.gemv_plan mirrors it).
+struct GemvPlan {
+  int gx, ks, rows;
+};
+
+inline GemvPlan gemv_plan(int mode, int K, int N) {
+  GemvPlan p;
+  p.rows = kGemvTY * gemv_thread_rows(mode);
+  const int cols = gemv_cols(mode), krows = mode == kW4BF16 ? K / 2 : K;
+  p.gx = (N + cols - 1) / cols;
+  p.ks = (krows + p.rows - 1) / p.rows;
+  return p;
 }
 
 // Split n_tiles K tiles over at most max_splits blocks per column strip;
@@ -1288,24 +1512,10 @@ inline GemmPlan gemm_plan(int mode, int K, int N) {
   return p;
 }
 
-// The grid of a float-mode projection x [B, K] @ W [K, N]: column blocks
-// gx, K splits ks, and per split the rows (GEMV, B = 1) or tiles (GEMM).
-struct FSplit {
-  int gx, ks, chunk;
-};
-
-inline FSplit float_split(int B, int mode, int K, int N) {
-  FSplit f;
-  if (B == 1) {
-    f.gx = (N / 4 + 31) / 32;
-    f.ks = split_for(mode == kW4BF16 ? K / 2 : K, f.gx, &f.chunk);
-    return f;
-  }
-  const GemmPlan p = gemm_plan(mode, K, N);
-  f.gx = p.gx;
-  f.ks = p.ks;
-  f.chunk = p.per;
-  return f;
+// The K splits of a float-mode projection x [B, K] @ W [K, N]: the GEMV's
+// (B = 1) or the GEMM's; the partials are [halves, splits, B, N].
+inline int float_splits(int B, int mode, int K, int N) {
+  return B == 1 ? gemv_plan(mode, K, N).ks : gemm_plan(mode, K, N).ks;
 }
 
 inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
@@ -1316,14 +1526,14 @@ inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
 inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int Vh, int modes = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
-  const int head_splits = B == 1 ? kSplitTarget : kHeadSplits;
+  const int head_splits = B == 1 ? gemv_plan(kGemvHead, d.H, Vh).ks : kHeadSplits;
   const int shapes[4][2] = {{d.H, qkv}, {hd, d.H}, {d.H, 2 * d.F}, {d.F, d.H}};
   size_t part_n = 0;
   for (int j = 0; j < 4; ++j) {
     const int m = proj_mode(modes, j);
     if (m == kW8A8) continue;
-    const FSplit f = float_split(B, m, shapes[j][0], shapes[j][1]);
-    const size_t n = (size_t)(m == kW4BF16 ? 2 : 1) * f.ks * B * shapes[j][1];
+    const size_t n = (size_t)(m == kW4BF16 ? 2 : 1) *
+                     float_splits(B, m, shapes[j][0], shapes[j][1]) * B * shapes[j][1];
     if (n > part_n) part_n = n;
   }
   size_t off = 0;
@@ -1416,59 +1626,64 @@ void gemm_f64(const GemmPlan& p, cudaStream_t st, const float* x, int ldx, int B
 // y[b, :] = x[b, :] @ W for the w.B lanes, in p's mode: w8a8 reads w.xq and
 // adds into acc (cleared by the kernel before) with activation scales
 // s_act; the float modes read w.xf and write split partials into w.part.
-// Returns how the consumer reads y.
+// One lane: the GEMV, launched with programmatic dependent launch (its
+// weight stream starts while the kernel before it runs); a refused launch
+// is kept in w.err. Returns how the consumer reads y.
 inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
                        const float* s_act, cudaStream_t st) {
   ProjOut o{};
   o.B = w.B;
   o.N = N;
+  cudaError_t e = cudaSuccess;
   if (p.mode == kW8A8) {
     const int8_t* W = (const int8_t*)p.w;
     if (w.B == 1) {
-      const int gx = (N / 4 + 31) / 32;
-      int kchunk;
-      const int ks = split_for(K, gx, &kchunk);
-      gemv_w8a8_kernel<<<dim3(gx, ks), dim3(32, 8), 0, st>>>(w.xq, W, K, N, kchunk, acc);
+      const GemvPlan g = gemv_plan(kW8A8, K, N);
+      e = launch_ex(gemv_i8_kernel, dim3(g.gx, g.ks), dim3(kGemvThreads), 0, st, 0, true,
+                    (const int8_t*)w.xq, W, K, N, acc);
     } else {
       gemm_i8(gemm_plan(kW8A8, K, N), st, w.xq, w.ldq, w.B, W, K, N, acc);
     }
     o.acc = acc;
     o.s_act = s_act;
     o.ws = p.s;
-    return o;
-  }
-  const FSplit f = float_split(w.B, p.mode, K, N);
-  o.part = w.part;
-  o.splits = f.ks;
-  o.halves = p.mode == kW4BF16 ? 2 : 1;
-  const dim3 grid(f.gx, f.ks);
-  if (w.B > 1) {
-    const GemmPlan g = gemm_plan(p.mode, K, N);
-    if (p.mode == kBF16)
-      gemm_f64<false>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
-    else
-      gemm_f64<true>(g, st, w.xf, w.ldq, w.B, p.w, p.s, p.z, K, N, K / p.G, p.G, w.part);
-  } else if (p.mode == kBF16) {
-    gemv_bf16_kernel<double><<<grid, dim3(32, 8), 0, st>>>(
-        w.xf, (const __nv_bfloat16*)p.w, K, N, f.chunk, w.part);
   } else {
-    gemv_w4_kernel<<<grid, dim3(32, 8), 0, st>>>(w.xf, (const int8_t*)p.w, p.s, p.z, K / 2, N,
-                                                 K / p.G, p.G, f.chunk, w.part);
+    o.part = w.part;
+    o.splits = float_splits(w.B, p.mode, K, N);
+    o.halves = p.mode == kW4BF16 ? 2 : 1;
+    if (w.B > 1) {
+      const GemmPlan g = gemm_plan(p.mode, K, N);
+      if (p.mode == kBF16)
+        gemm_f64<false>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
+      else
+        gemm_f64<true>(g, st, w.xf, w.ldq, w.B, p.w, p.s, p.z, K, N, K / p.G, p.G, w.part);
+    } else {
+      const GemvPlan g = gemv_plan(p.mode, K, N);
+      if (p.mode == kBF16)
+        e = launch_ex(gemv_bf16_kernel<double>, dim3(g.gx, g.ks), dim3(kGemvThreads), 0, st, 0,
+                      true, (const float*)w.xf, (const __nv_bfloat16*)p.w, K, N, w.part);
+      else
+        e = launch_ex(gemv_w4_kernel, dim3(g.gx, g.ks), dim3(kGemvThreads), 0, st, 0, true,
+                      (const float*)w.xf, (const int8_t*)p.w, p.s, p.z, K / 2, N, K / p.G, p.G,
+                      w.part);
+    }
   }
+  if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
   return o;
 }
 
 // The w.B lanes' x [B, K] float32 @ W bf16 [K, N] (the codec head or the
 // code predictor's LM head) into float32 split partials w.head [splits, B,
-// N]; returns the number of splits.
+// N]; returns the number of splits. One lane: the GEMV, launched as
+// project launches it.
 inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, int K, int N,
                         cudaStream_t st) {
   if (w.B == 1) {
-    const int gx = (N / 4 + 31) / 32;
-    int kchunk;
-    const int ks = split_for(K, gx, &kchunk);
-    gemv_bf16_kernel<float><<<dim3(gx, ks), dim3(32, 8), 0, st>>>(x, W, K, N, kchunk, w.head);
-    return ks;
+    const GemvPlan g = gemv_plan(kGemvHead, K, N);
+    const cudaError_t e = launch_ex(gemv_bf16_kernel<float>, dim3(g.gx, g.ks),
+                                    dim3(kGemvThreads), 0, st, 0, true, x, W, K, N, w.head);
+    if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
+    return g.ks;
   }
   const int gx = (N + kGemmTN - 1) / kGemmTN;
   int per;
@@ -1571,12 +1786,12 @@ cudaError_t attn_launch(const Dims& d, const LayerView<T>& lv, const Work& w, in
   constexpr int row = kAttD * (int)sizeof(T);
   const int rows = n_end - floor_row, S = attn_clusters(w.B, d.Hkv, G, rows, row);
   const int cap = attn_cap(rows, S);
-  return launch_cluster(attn_layer_kernel<T, G>, dim3(S, d.Hkv, w.B), kAttThreads,
-                        AttLayout(G, cap, row).total, st, (const float*)w.q, (const T*)lv.K,
-                        (const T*)lv.V, lv.head_stride, lv.lane_stride, n_end, floor_row, cap,
-                        1.0f / sqrtf((float)d.D), round_q, round_p, start,
-                        (const float*)lv.Ks, (const float*)lv.Vs,
-                        (const __nv_bfloat16*)w.stage, w.attn);
+  return launch_cluster_ex(attn_layer_kernel<T, G>, dim3(S, d.Hkv, w.B), kAttThreads,
+                           AttLayout(G, cap, row).total, st, w.B == 1, (const float*)w.q,
+                           (const T*)lv.K, (const T*)lv.V, lv.head_stride, lv.lane_stride, n_end,
+                           floor_row, cap, 1.0f / sqrtf((float)d.D), round_q, round_p, start,
+                           (const float*)lv.Ks, (const float*)lv.Vs,
+                           (const __nv_bfloat16*)w.stage, w.attn);
 }
 
 // One attention launch for the w.B lanes into w.attn: rows [floor_row,
@@ -1594,15 +1809,35 @@ cudaError_t attention(const Dims& d, const LayerView<T>& lv, const Work& w, int 
   }
 }
 
+// Launch a row kernel of the w.B lanes' chain on `grid` x `block`: for one
+// lane (K1) with programmatic dependent launch unless `first` (the chain's
+// first kernel, after a copy), for B lanes (K5) as a plain launch; a
+// refused launch is kept in w.err.
+template <typename... Exp, typename... Act>
+void chain_launch(const Work& w, bool first, void (*kernel)(Exp...), dim3 grid, dim3 block,
+                  size_t smem, cudaStream_t st, Act&&... args) {
+  const cudaError_t e = launch_ex(kernel, grid, block, smem, st, 0, w.B == 1 && !first,
+                                  std::forward<Act>(args)...);
+  if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
+}
+
 // Launch one layer for the w.B lanes' tokens at position `pos` (their K/V
 // rows are written at `pos`, attention covers rows [0, pos], or [start[b],
 // pos] with a per-lane start operand, whose lower bound over the lanes is
 // start_min). `prev` is the previous layer's down projection (empty for
 // the first layer: x already holds the layer input). Returns this layer's
-// down projection; a refused attention launch is kept in w.err. round_q /
-// round_p: see the header. T = int8_t runs the int8 KV cache's attention
-// (the header; q rounded to bf16 whatever round_q, round_p rounds p *
-// v_scale; no start operand).
+// down projection; a refused launch is kept in w.err. round_q / round_p:
+// see the header. T = int8_t runs the int8 KV cache's attention (the
+// header; q rounded to bf16 whatever round_q, round_p rounds p * v_scale;
+// no start operand).
+//
+// One lane (K1): every kernel but the first of the chain is launched with
+// programmatic dependent launch, and every kernel of layer.cuh that it
+// launches calls pdl_trigger() on entry and pdl_wait() before its first
+// access to a buffer of the chain (common.cuh): a GEMV's blocks become
+// resident and stream their weights while the row kernel before them runs,
+// and a row kernel is resident when the GEMV before it ends. K5 (B lanes)
+// launches the same kernels plainly, where both calls are no-ops.
 template <typename T>
 ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
                   const float* cosv, const float* sinv, int pos, int round_q, int round_p,
@@ -1611,32 +1846,37 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D, B = w.B;
   const size_t row_smem = sizeof(float) * (size_t)(d.H > d.F ? (d.H > hd ? d.H : hd)
                                                             : (d.F > hd ? d.F : hd));
-  resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
-      w.x, prev, lv.attn_n, d.H, d.eps, emit_for(w, lv.qkv, 0, w.acc_qkv, qkv), nullptr);
+  const dim3 rows(B), row_threads(kRowThreads);
+  chain_launch(w, !proj_present(prev), resid_rms_kernel, rows, row_threads, row_smem, st, w.x,
+               prev, lv.attn_n, d.H, d.eps, emit_for(w, lv.qkv, 0, w.acc_qkv, qkv),
+               (float*)nullptr);
   const ProjOut oq = project(w, lv.qkv, d.H, qkv, w.acc_qkv, w.s + 0 * B, st);
+  const dim3 heads(d.Hq + 2 * d.Hkv, B);
   if constexpr (q8) {   // the new rows go to the staging rows, attended from there
-    qkv_post_kernel<__nv_bfloat16><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
-        oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, w.stage,
-        w.stage + (size_t)d.Hkv * d.D, (long)d.D, 2L * d.Hkv * d.D);
+    chain_launch(w, false, qkv_post_kernel<__nv_bfloat16>, heads, dim3(d.D), 0, st, oq, lv.q_n,
+                 lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, w.stage,
+                 w.stage + (size_t)d.Hkv * d.D, (long)d.D, 2L * d.Hkv * d.D);
   } else {
-    qkv_post_kernel<T><<<dim3(d.Hq + 2 * d.Hkv, B), d.D, 0, st>>>(
-        oq, lv.q_n, lv.k_n, cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q,
-        lv.K + (size_t)pos * d.D, lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
+    chain_launch(w, false, qkv_post_kernel<T>, heads, dim3(d.D), 0, st, oq, lv.q_n, lv.k_n,
+                 cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, lv.K + (size_t)pos * d.D,
+                 lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
   }
   const int floor_row = q8 ? 0 : std::min(std::max(start_min, 0), pos);
   const cudaError_t e =
       attention(d, lv, w, q8 ? pos : pos + 1, floor_row, round_q, round_p, start, st);
   if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
   if constexpr (q8)
-    kv_row_quant_kernel<<<dim3(2 * d.Hkv, B), d.D, 0, st>>>(
-        w.stage, d.Hkv, d.D, lv.K, lv.V, lv.Ks, lv.Vs, lv.head_stride, lv.lane_stride, pos);
-  attn_emit_kernel<<<B, kRowThreads, row_smem, st>>>(w.attn, hd,
-                                                     emit_for(w, lv.o, 1, w.acc_o, d.H));
+    chain_launch(w, false, kv_row_quant_kernel, dim3(2 * d.Hkv, B), dim3(d.D), 0, st,
+                 (const __nv_bfloat16*)w.stage, d.Hkv, d.D, lv.K, lv.V, lv.Ks, lv.Vs,
+                 lv.head_stride, lv.lane_stride, pos);
+  chain_launch(w, false, attn_emit_kernel, rows, row_threads, row_smem, st, (const float*)w.attn,
+               hd, emit_for(w, lv.o, 1, w.acc_o, d.H));
   const ProjOut oo = project(w, lv.o, hd, d.H, w.acc_o, w.s + 1 * B, st);
-  resid_rms_kernel<<<B, kRowThreads, row_smem, st>>>(
-      w.x, oo, lv.ffn_n, d.H, d.eps, emit_for(w, lv.gu, 2, w.acc_gu, 2 * d.F), nullptr);
+  chain_launch(w, false, resid_rms_kernel, rows, row_threads, row_smem, st, w.x, oo, lv.ffn_n,
+               d.H, d.eps, emit_for(w, lv.gu, 2, w.acc_gu, 2 * d.F), (float*)nullptr);
   const ProjOut og = project(w, lv.gu, d.H, 2 * d.F, w.acc_gu, w.s + 2 * B, st);
-  swiglu_kernel<<<B, kRowThreads, row_smem, st>>>(og, d.F, emit_for(w, lv.d, 3, w.acc_d, d.H));
+  chain_launch(w, false, swiglu_kernel, rows, row_threads, row_smem, st, og, d.F,
+               emit_for(w, lv.d, 3, w.acc_d, d.H));
   return project(w, lv.d, d.F, d.H, w.acc_d, w.s + 3 * B, st);
 }
 
@@ -1644,8 +1884,8 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
 // RMSNorm(x) * out_norm for each of the w.B lanes.
 inline void final_norm(const Dims& d, const ProjOut& last, const float* out_norm,
                        const Work& w, float* hnorm, cudaStream_t st) {
-  resid_rms_kernel<<<w.B, kRowThreads, sizeof(float) * d.H, st>>>(
-      w.x, last, out_norm, d.H, d.eps, Emit{}, hnorm);
+  chain_launch(w, false, resid_rms_kernel, dim3(w.B), dim3(kRowThreads), sizeof(float) * d.H, st,
+               w.x, last, out_norm, d.H, d.eps, Emit{}, hnorm);
 }
 
 // Check the shapes the kernels assume; returns a cudaError_t-like code
@@ -1654,26 +1894,26 @@ inline int check_dims(const Dims& d, int N_head, int B) {
   const int G = d.Hq / d.Hkv;
   if (d.D != kAttD || G < 1 || d.Hq % d.Hkv != 0 || G > kMaxGroup || (G & (G - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  if (d.H % 4 != 0 || d.F % 4 != 0 || N_head % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (B > 1 && (d.H % 16 != 0 || d.F % 16 != 0))   // the GEMMs copy 16-byte pieces
+  // the GEMMs and GEMVs copy 16-byte pieces of rows; the head GEMV's take 8
+  // bf16 columns (B = 1), the head GEMM's 4
+  if (d.H % 16 != 0 || d.F % 16 != 0 || N_head % (B == 1 ? 8 : 4) != 0)
     return (int)cudaErrorInvalidValue;
   if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 // Check a u4 projection's groups: G even, and gs = K / G logical rows
-// dividing each half of K; for B >= 2 lanes (each of the GEMM's tiles lies
-// in one group) gs a multiple of kFTK.
-inline bool groups_ok(int K, int G, int B) {
-  return G >= 2 && G % 2 == 0 && K % G == 0 && (K / 2) % (K / G) == 0 &&
-         (B == 1 || (K / G) % kFTK == 0);
+// dividing each half of K, a multiple of kFTK (32): each tile of the GEMM
+// (B >= 2) lies in one group, and the GEMV's 64-row blocks in at most two.
+inline bool groups_ok(int K, int G) {
+  return G >= 2 && G % 2 == 0 && K % G == 0 && (K / 2) % (K / G) == 0 && (K / G) % kFTK == 0;
 }
 
-inline int check_groups(const StackWeights& s, const Dims& d, int B) {
+inline int check_groups(const StackWeights& s, const Dims& d) {
   const Proj* ps[4] = {&s.qkv, &s.o, &s.gu, &s.d};
   const int ks[4] = {d.H, d.Hq * d.D, d.H, d.F};
   for (int j = 0; j < 4; ++j)
-    if (ps[j]->mode == kW4BF16 && !groups_ok(ks[j], ps[j]->G, B))
+    if (ps[j]->mode == kW4BF16 && !groups_ok(ks[j], ps[j]->G))
       return (int)cudaErrorInvalidValue;
   return 0;
 }

@@ -21,15 +21,18 @@
 // bytes per cached row, 115 MB at n = 1000 (the int8 cache: 57,344 bytes
 // of values and 1,792 of scales per row). At 3.35 TB/s the int8 weights
 // and head alone take ~0.13 ms; everything else is small. The design
-// streams each weight once with coalesced loads spread over all SMs
-// (split-K GEMVs: int32 atomics in w8a8, exact in any order; float64
-// per-split partials merged in split order in the float modes), keeps the
-// single-token activations in one block each, and reads only the valid KV
-// rows, streamed through shared memory by one attention launch per layer
-// (layer.cuh). It launches 10 kernels per layer (11 over the int8 cache)
-// from one C call (no host round trip inside a frame); launch latency, not
-// bandwidth, is what it pays for at short prefixes — a persistent kernel or
-// a CUDA graph is later work.
+// streams each weight once by GEMVs that put a whole projection's loads in
+// flight over all SMs, 16 bytes a thread and row (split-K: int32 atomics
+// in w8a8, exact in any order; float64 per-split partials merged in split
+// order in the float modes; layer.cuh), keeps the single-token activations
+// in one block each, and reads only the valid KV rows, streamed through
+// shared memory by one attention launch per layer. It launches 10 kernels
+// per layer (11 over the int8 cache) from one C call (no host round trip
+// inside a frame), all but the first with programmatic dependent launch:
+// each kernel is resident before the one it follows ends, and each GEMV
+// streams its weights while the row kernel before it runs (layer.cuh
+// run_layer). Folding the row kernels into the GEMVs, or a CUDA graph of
+// the frame, is later work.
 //
 // The KV cache is updated in place: the new K/V row (or its int8 row and
 // scale) is written at n_past (the Pallas kernel returns the row and its
@@ -62,6 +65,18 @@ extern "C" int qtts_gemm_plan(int mode, int K, int N, void* out) {
   return 0;
 }
 
+// The grid of K1's GEMV for x [K] @ W [K, N] in `mode` (WeightMode, or 3:
+// the codec head; layer.cuh gemv_plan): out[0..2] = column blocks, K
+// splits, weight rows per split.
+extern "C" int qtts_gemv_plan(int mode, int K, int N, void* out) {
+  const GemvPlan p = gemv_plan(mode, K, N);
+  int* o = (int*)out;
+  o[0] = p.gx;
+  o[1] = p.ks;
+  o[2] = p.rows;
+  return 0;
+}
+
 extern "C" int qtts_talker_step(
     const void* x_in, int n_past, const void* cosv, const void* sinv,
     const void* attn_n, const void* q_n, const void* k_n, const void* ffn_n,
@@ -82,7 +97,7 @@ extern "C" int qtts_talker_step(
       Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, 1)) return bad;
-  if (int bad = check_groups(sw, d, 1)) return bad;
+  if (int bad = check_groups(sw, d)) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, 1, Vc, modes);
@@ -113,10 +128,11 @@ extern "C" int qtts_talker_step(
   const size_t smem = 2 * (size_t)Vc * sizeof(float);
   cudaFuncSetAttribute(head_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  head_sample_kernel<<<1, kRowThreads, smem, st>>>(
-      w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
-      (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, seed, nullptr, 0,
-      nullptr, nullptr, nullptr);
+  chain_launch(w, false, head_sample_kernel, dim3(1), dim3(kRowThreads), smem, st,
+               (const float*)w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0,
+               suppress_start, eos_id, (const int8_t*)seen, penalty, temp, top_p, top_k, greedy,
+               use_top_p, seed, (const int*)nullptr, 0, (const float*)nullptr,
+               (const float*)nullptr, (const float*)nullptr);
   const int last_err = (int)cudaGetLastError();
   return w.err != cudaSuccess ? (int)w.err : last_err;
 }
@@ -124,26 +140,28 @@ extern "C" int qtts_talker_step(
 // A harness for the projection kernels alone, K1's GEMVs (B = 1) and K5's
 // tensor-core GEMMs (B >= 2): for each of L layers of one stacked [L, K, N]
 // projection in `mode` (WeightMode; w, s, z, G as in qtts_talker_step), y =
-// x @ W_l for B lanes, as run_layer launches it. x is int8 [B, K] (w8a8) or
-// float32 [B, K] (for the GEMM holding bf16 values, as the row kernels
-// emit them); the results land in the workspace: the int32 accumulator
-// [B, N] (w8a8, added to, never cleared) or the float64 partials [halves,
-// splits, B, N] (overwritten layer by layer): a check runs one layer on a
-// cleared workspace.
-// Off every serving path: chip_smoke.py
-// times K1's beside the w4 GEMV probe (w4_gemv_probe.cu) and K5's in its
-// projection phase.
+// x @ W_l for B lanes, as run_layer launches it (the GEMVs with
+// programmatic dependent launch, one after the other). x is int8 [B, K]
+// (w8a8) or float32 [B, K] (holding bf16 values, as the row kernels emit
+// them); the results land in the workspace: the int32 accumulator [B, N]
+// (w8a8, added to, never cleared) or the float64 partials [halves, splits,
+// B, N] (overwritten layer by layer): a check runs one layer on a cleared
+// workspace. Mode 3 (kGemvHead, B = 1) runs the codec head's GEMV over
+// bf16 W_l into float32 partials [splits, N]. Off every serving path:
+// chip_smoke.py times K1's GEMVs beside the w4 GEMV probe
+// (w4_gemv_probe.cu) and both in its projection phase.
 extern "C" size_t qtts_project_ws_bytes(int mode, int B, int K, int N) {
-  const FSplit f = float_split(B, mode, K, N);
+  if (mode == kGemvHead) return sizeof(float) * (size_t)gemv_plan(kGemvHead, K, N).ks * N;
   return mode == kW8A8 ? sizeof(int) * (size_t)B * N
-                       : sizeof(double) * (mode == kW4BF16 ? 2 : 1) * (size_t)f.ks * B * N;
+                       : sizeof(double) * (mode == kW4BF16 ? 2 : 1) *
+                             (size_t)float_splits(B, mode, K, N) * B * N;
 }
 
 extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const void* s,
                                    const void* z, int G, int L, int B, int K, int N, void* ws,
                                    void* stream) {
-  if (B < 1 || B > kMaxLanes || K % 4 != 0 || N % 4 != 0 ||
-      (mode == kW4BF16 && !groups_ok(K, G, B)) || (B > 1 && (K % 16 != 0 || N % 16 != 0)))
+  if (B < 1 || B > kMaxLanes || K % 16 != 0 || N % 16 != 0 || mode < 0 || mode > kGemvHead ||
+      (mode == kGemvHead && B != 1) || (mode == kW4BF16 && !groups_ok(K, G)))
     return (int)cudaErrorInvalidValue;
   Work wk{};
   wk.B = B;
@@ -151,8 +169,15 @@ extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const
   wk.xq = (int8_t*)x;
   wk.xf = (float*)x;
   wk.part = (double*)ws;
-  const Proj p{mode, w, (const float*)s, (const float*)z, G};
-  for (int l = 0; l < L; ++l)
-    project(wk, layer_proj(p, l, K, N), K, N, (int*)ws, nullptr, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  wk.head = (float*)ws;
+  cudaStream_t st = (cudaStream_t)stream;
+  for (int l = 0; l < L; ++l) {
+    if (mode == kGemvHead)
+      project_bf16(wk, (const float*)x, (const __nv_bfloat16*)w + (size_t)l * K * N, K, N, st);
+    else
+      project(wk, layer_proj(Proj{mode, w, (const float*)s, (const float*)z, G}, l, K, N), K,
+              N, (int*)ws, nullptr, st);
+  }
+  const int last = (int)cudaGetLastError();
+  return wk.err != cudaSuccess ? (int)wk.err : last;
 }

@@ -84,7 +84,7 @@ extern "C" int qtts_talker_step_batched(
       Proj{proj_mode(modes, 3), w3, (const float*)s3, (const float*)z3, G3},
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, B)) return bad;
-  if (int bad = check_groups(sw, d, B)) return bad;
+  if (int bad = check_groups(sw, d)) return bad;
   if (kv_scale != nullptr && (start != nullptr || start_min != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -12,11 +12,13 @@
 // The probe asks whether 4-bit weights halve the time of a weight-streaming
 // GEMV or whether the unpacking eats the saving. What bounds it on the
 // H100: bytes, L x K x N (int8) or half that (packed), 117 MB or 59 MB at
-// L = 28, K = 1024, N = 4096, ~0.035 or ~0.018 ms at 3.35 TB/s. The design
-// is gemv_w8a8's (layer.cuh) over the flattened (layer, row) axis: a block
-// of 32 x 8 threads walks 4-column groups with one 4-byte load per thread
-// and row, grid.y splits the rows over enough blocks to fill the card, and
-// the per-block int32 sums are added with atomics (exact in any order).
+// L = 28, K = 1024, N = 4096, ~0.035 or ~0.018 ms at 3.35 TB/s. The design:
+// one launch for all L layers over the flattened (layer, row) axis, a
+// block of 32 x 8 threads walking 4-column groups with one 4-byte load per
+// thread and row, grid.y splitting the rows over about four blocks an SM,
+// and the per-block int32 sums added with atomics (exact in any order).
+// K1's GEMVs (layer.cuh) take another design, 16-byte loads of whole tiles
+// in flight, one launch per layer; chip_smoke.py times them beside it.
 #include "common.cuh"
 
 namespace {

@@ -11,7 +11,9 @@ cache lives; on the H100 it always lives in device memory, so one kernel
 (``csrc/talker_step_batched.cu``). The sources say what bounds them (the
 bytes of 28 layers of weights per frame, read once for all lanes in K5) and
 what the design does about it; K5's projections run on the tensor cores
-(int8 and float64 mma, ``gemm_plan`` mirrors their tile plan). K5 also takes the two operands only
+(int8 and float64 mma, ``gemm_plan`` mirrors their tile plan), K1's on
+GEMVs that keep whole tiles of weights in flight (``gemv_plan`` mirrors
+their grid). K5 also takes the two operands only
 continuous serving uses (``runtime/continuous.py``): ``start`` [B], each
 lane's first valid cache row, and per-lane temperature, top-p and
 repetition penalty ([B] each) for its cb0 epilogue. Both take the int8-KV
@@ -237,6 +239,34 @@ def gemm_split_rows(mode: str, K: int, N: int):
     tk = GEMM_TILES[mode][1]
     rows = K // 2 if mode == "w4bf16" else K
     return [(min(rows, s * per * tk), min(rows, (s + 1) * per * tk)) for s in range(ks)]
+
+
+# csrc/layer.cuh's GEMVs (one lane, K1): a block's output columns and weight
+# rows (packed rows for w4bf16) by mode, "head" the codec head (bf16
+# weights, float32 partials); a block's 256 threads are 8 along the row
+# (16 bytes each) by 32 along K, each thread GEMV_THREAD_ROWS consecutive
+# rows
+GEMV_TILES = {"w8a8": (128, 128), "bf16": (64, 128), "w4bf16": (128, 64), "head": (64, 128)}
+GEMV_THREAD_ROWS = {"w8a8": 4, "bf16": 4, "w4bf16": 2, "head": 4}
+GEMV_WARPS, GEMV_WARP_ROWS = 8, 4   # warps of a block; thread rows (of K) in a warp
+
+
+def gemv_plan(mode: str, K: int, N: int):
+    """The grid of K1's GEMV for x [K] @ W [K, N] in `mode` (gemv_plan in
+    the source): (column blocks, K splits, weight rows per split). Each
+    split is one block over GEMV_TILES[mode][1] consecutive weight rows (the
+    K/2 packed rows of w4bf16), the last shorter."""
+    tn, tk = GEMV_TILES[mode]
+    rows = K // 2 if mode == "w4bf16" else K
+    return -(-N // tn), -(-rows // tk), tk
+
+
+def gemv_split_rows(mode: str, K: int, N: int):
+    """The weight rows [lo, hi) (packed rows for w4bf16) that each split of
+    gemv_plan sums, in split order."""
+    _, ks, tk = gemv_plan(mode, K, N)
+    rows = K // 2 if mode == "w4bf16" else K
+    return [(s * tk, min(rows, (s + 1) * tk)) for s in range(ks)]
 
 
 def mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,9 @@ whether 4-bit weights halve a weight-streaming GEMV's time on the card.
 
 ``project_layers`` runs the talker's own projection kernels
 (``csrc/layer.cuh``: K1's GEMVs for one lane, K5's tensor-core GEMMs for
-B >= 2) alone, layer after layer, for their times; ``project_result`` reads
-one layer's result out of its workspace and ``project_layer_plain`` is its
-plain version.
+B >= 2; mode "head" the codec head's GEMV) alone, layer after layer, for
+their times; ``project_result`` reads one layer's result out of its
+workspace and ``project_layer_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .fused_talker_step import MODE_CODES, gemm_plan, project_plain
+from .fused_talker_step import MODE_CODES, gemm_plan, gemv_plan, project_plain
 
 L, K, N = 28, 1024, 4096   # the probe's shape: a wqkv-like projection over 28 layers
+# project_layers' modes: the weight modes, and the codec head's GEMV
+HARNESS_CODES = dict(MODE_CODES, head=3)
 
 
 def pack_nibbles(w: torch.Tensor) -> torch.Tensor:
@@ -77,13 +79,15 @@ def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> to
     """Launch the projection kernel of `mode` once per layer of the stacked
     weight w (a QuantLinear's q, a QuantLinear4, or a bf16 [L, K, N] tensor)
     on x [B, K] (int8 for "w8a8", float32 otherwise), as run_layer does: a
-    GEMV for B = 1, K5's GEMM for B >= 2; a harness of the card only. The
-    results land in the workspace, which is returned and may be passed back
-    in: w8a8 adds every layer into its int32 accumulator (never cleared),
-    the float modes overwrite their partials layer by layer, so a check runs
-    one layer on a zeroed workspace and reads it with project_result. A
-    float x must hold bf16 values, as the row kernels emit it (K5's GEMM
-    takes it as it is; the GEMVs round it again)."""
+    GEMV for B = 1 (launched with programmatic dependent launch, as in K1),
+    K5's GEMM for B >= 2; mode "head" is the codec head's GEMV (bf16 [L, K,
+    N], B = 1). A harness of the card only. The results land in the
+    workspace, which is returned and may be passed back in: w8a8 adds every
+    layer into its int32 accumulator (never cleared), the float modes
+    overwrite their partials layer by layer, so a check runs one layer on a
+    zeroed workspace and reads it with project_result. A float x must hold
+    bf16 values, as the row kernels emit it (K5's GEMM takes it as it is;
+    the GEMVs round it again)."""
     _kernels.require_cuda(x)
     lib = _kernels.load_library()
     B, Kx = x.shape
@@ -94,7 +98,7 @@ def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> to
     else:
         wt, s, z, G = w, None, None, 0
     Lw, Nw = wt.shape[0], wt.shape[-1]
-    code = MODE_CODES[mode]
+    code = HARNESS_CODES[mode]
     if ws is None:
         ws = torch.empty(lib.qtts_project_ws_bytes(code, B, Kx, Nw), dtype=torch.uint8,
                          device=x.device)
@@ -106,24 +110,41 @@ def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> to
     return ws
 
 
+def _splits(mode: str, B: int, K: int, N: int) -> int:
+    """The K splits of one projection's partials: the GEMV's (B = 1, or the
+    head) or the GEMM's."""
+    return gemv_plan(mode, K, N)[1] if B == 1 else gemm_plan(mode, K, N)[1]
+
+
 def project_ws_bytes(mode: str, B: int, K: int, N: int) -> int:
-    """Bytes of project_layers' workspace for B >= 2 lanes
-    (qtts_project_ws_bytes): the int32 accumulator [B, N] (w8a8) or the
-    float64 partials [halves, splits, B, N] of gemm_plan's splits."""
+    """Bytes of project_layers' workspace (qtts_project_ws_bytes): the int32
+    accumulator [B, N] (w8a8), the float64 partials [halves, splits, B, N]
+    of the float modes, or the head's float32 partials [splits, N], with
+    gemv_plan's splits for B = 1 and gemm_plan's for B >= 2."""
     if mode == "w8a8":
         return 4 * B * N
-    return 8 * (2 if mode == "w4bf16" else 1) * gemm_plan(mode, K, N)[1] * B * N
+    if mode == "head":
+        return 4 * _splits(mode, 1, K, N) * N
+    return 8 * (2 if mode == "w4bf16" else 1) * _splits(mode, B, K, N) * B * N
 
 
 def project_result(ws: torch.Tensor, mode: str, B: int, K: int, N: int) -> torch.Tensor:
-    """The result of one K5 GEMM (B >= 2) in its workspace: w8a8 the int32
-    accumulator [B, N]; a float mode its float64 partials [halves, splits,
-    B, N] (splits from gemm_plan) added split by split in order from zero
-    and rounded to float32 per half, the halves then added in float32, as
-    the kernels' consumer (proj_value) reads them."""
+    """The result of one projection (B lanes) in its workspace: w8a8 the
+    int32 accumulator [B, N]; a float mode its float64 partials [halves,
+    splits, B, N] added split by split in order from zero and rounded to
+    float32 per half, the halves then added in float32, as the kernels'
+    consumer (proj_value) reads them; the head its float32 partials added
+    in order, as head_sample_kernel adds them."""
     if mode == "w8a8":
         return ws[:4 * B * N].view(torch.int32).view(B, N)
-    halves, splits = 2 if mode == "w4bf16" else 1, gemm_plan(mode, K, N)[1]
+    splits = _splits(mode, B, K, N)
+    if mode == "head":
+        part = ws[:4 * splits * N].view(torch.float32).view(splits, 1, N)
+        y = torch.zeros((1, N), dtype=torch.float32, device=ws.device)
+        for sp in range(splits):
+            y = y + part[sp]
+        return y
+    halves = 2 if mode == "w4bf16" else 1
     part = ws[:8 * halves * splits * B * N].view(torch.float64).view(halves, splits, B, N)
     y = None
     for h in range(halves):
@@ -137,7 +158,10 @@ def project_result(ws: torch.Tensor, mode: str, B: int, K: int, N: int) -> torch
 def project_layer_plain(x: torch.Tensor, w, mode: str, l: int) -> torch.Tensor:
     """Plain version of layer l of project_layers: w8a8 the int32 dot of the
     int8 x with the int8 weights (in float64, exact); a float mode
-    fused_talker_step.project_plain."""
+    fused_talker_step.project_plain; the head x rounded to bf16 @ W_l in
+    float32, as the plain K1 computes its logits."""
     if mode == "w8a8":
         return torch.matmul(x.double(), w.q[l].double()).to(torch.int32)
+    if mode == "head":
+        return torch.matmul(x.to(torch.bfloat16).float(), w[l].float())
     return project_plain(x, w, l)

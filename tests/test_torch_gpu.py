@@ -6,8 +6,9 @@ card: ``python -m pytest -m gpu tests/test_torch_gpu.py -q``; the code
 predictor's alone (K2, K6, K6 per lane: codes equal to the plain version,
 one persistent launch per call): ``-k code_predictor``; the attention kernels
 alone (decode attention in one launch per call, K1/K5's attention stage in
-one launch per layer, the split rules): ``-k attention``; K5's projection
-GEMMs alone (each mode against its plain version): ``-k projections``; K3
+one launch per layer, the split rules): ``-k attention``; K1's GEMVs and
+K5's projection GEMMs alone (each mode against its plain version): ``-k
+"projections or head_gemv"``; K3
 alone (every width, each dilation, a ragged T, launches per res block):
 ``-k res_block``; the W8A16 GEMM alone (bf16 and float32 x, one launch per
 call): ``-k int8_matmul``.
@@ -82,21 +83,32 @@ def test_talker_modes_match_plain_on_card(quant):
 
 @pytest.mark.parametrize("mode", ["w8a8", "bf16", "w4bf16"])
 def test_projections_match_plain_on_card(mode):
-    """K5's tensor-core GEMMs alone (project_layers, one layer on a zeroed
+    """The projection kernels alone (project_layers, one layer on a zeroed
     workspace) against project_layer_plain for the talker's four
     projections: int32 accumulators equal (w8a8), float32 bits equal (the
-    float modes). B = 2, 5, 24, 64 and 128 reach every lane-tile
-    instantiation of both kernels (int8: 1, 2, 4, 8 lane tiles a warp;
-    float64: 1, 2, 4)."""
+    float modes). B = 1 runs K1's GEMV; B = 2, 5, 24, 64 and 128 K5's
+    tensor-core GEMMs and reach every lane-tile instantiation of both
+    (int8: 1, 2, 4, 8 lane tiles a warp; float64: 1, 2, 4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
     report = {}
     chip_smoke.check_projections(PipelineConfig().talker, report, torch.device("cuda", 0),
-                                 iters=1, modes=(mode,), lanes=(), check_lanes=(2, 5, 24, 64, 128),
-                                 L=2)
+                                 iters=1, modes=(mode,), lanes=(),
+                                 check_lanes=(1, 2, 5, 24, 64, 128), L=2)
     torch.cuda.synchronize()
     assert report[chip_smoke.K5_KEYS[mode]]["projections"]["checked_lanes"] == [2, 5, 24, 64,
                                                                                   128]
+    assert report[chip_smoke.K1_KEYS[mode]]["projections"]["checked_lanes"] == [1]
+
+
+def test_head_gemv_matches_plain_on_card():
+    """K1's codec-head GEMV alone against its plain version within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no interpret mode)")
+    report = {}
+    chip_smoke.check_head_gemv(PipelineConfig().talker, report, torch.device("cuda", 0),
+                               iters=1, L=2)
+    assert report["fused_talker_step"]["codec_head"]["max_abs_err"] <= 1e-3
 
 
 def test_w4_gemv_probe_exact_on_card():
