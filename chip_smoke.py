@@ -98,7 +98,21 @@ Phases (each prints a line; any failure exits non-zero):
      1280; the fused int8 queues must launch K5 with `start`, K6 with
      per-lane sampling and the GEMM and no K1 or K2, the bf16 one K5 with
      `start` in bf16 mode and no K6 or GEMM, the unfused one the GEMM and no
-     decode-attention kernel. No path may launch K1/K5 in another tier's mode. K4's
+     decode-attention kernel. Then the checkpoint path (serve_checkpoint,
+     `serve_checkpoint` lines), in a temporary directory: a full-width
+     checkpoint written by tools/hf_fixture.py (BF16 main model, float32
+     tokenizer, config.json files; its bytes and write seconds printed);
+     Qwen3TTS.from_pretrained of it in the int8 tier (every leaf on the
+     card, a sample equal to the written tensors after the layout
+     contract; t_load_ms), a sampled 256-token request and a
+     synthesize_with_voice from a seeded 10 s WAV (both K1, K2, K3 and
+     the GEMM; t_encode_ms; the embedding within 1e-4 relative of the
+     CPU's), the bf16 tier's from_pretrained and a greedy 64-token
+     request (K1[bf16] and K3, no K2 or GEMM), a Q8_0 GGUF directory
+     written from it, load_models and the 256-token request, the CLI
+     in-process (-r, --quant int8, --max-tokens 64: rc 0, a 24 kHz WAV of
+     K1's launches x 1920 samples) and unload_models. No path may launch
+     K1/K5 in another tier's mode. K4's
      standalone entry (sample_rows) has no caller on a serve path: frame 0's
      codebook-0 token is drawn by the PyTorch sampler with the JAX
      package's exact top-k, and K4's device code runs inside K1, K2, K5 and
@@ -125,6 +139,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNELS = {
@@ -2111,7 +2126,7 @@ def kv_int8_pipeline(tts):
     cfg = dataclasses.replace(tts.config, runtime=dataclasses.replace(tts.config.runtime,
                                                                       kv_quant="int8"))
     q = Qwen3TTS(cfg, device=tts.device, **tts.fused)
-    q.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params)
+    q.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params, tts.tokenizer)
     return q
 
 
@@ -2226,7 +2241,7 @@ def unfused_pipeline(tts):
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 
     u = Qwen3TTS(tts.config, device=tts.device, fused_talker=False, fused_cp=False)
-    u.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params)
+    u.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params, tts.tokenizer)
     return u
 
 
@@ -2550,6 +2565,224 @@ def serve_queues(tts, tts_u, bf16, smi, specs=QUEUE_SPECS):
     return runs
 
 
+# The checkpoint phase (serve_checkpoint): a full-width checkpoint written
+# by tools/hf_fixture.py and served through the user's entry points. The
+# int8 requests must launch the main path's kernels (SINGLE_PATH), the bf16
+# tier's its own (TIER_SERVE[None]).
+CHECKPOINT_REQUEST = MAIN_REQUESTS[1]
+CHECKPOINT_BF16_REQUEST = TIER_SERVE[None]["requests"][0]
+CHECKPOINT_VOICE_SECONDS = 10.0
+CHECKPOINT_CLI_TOKENS = 64
+# the speaker embedding on the card against the same audio on the CPU
+EMBEDDING_REL_TOL = 1e-4
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, tuple):
+        for t in tree:
+            yield from _tensors(t)
+
+
+def _to_device(tree, device):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(t, device) for t in tree))
+    return tuple(_to_device(t, device) for t in tree)
+
+
+def _dir_bytes(*dirs):
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d in dirs for f in os.listdir(d))
+
+
+def check_checkpoint_params(tts, tts_dir, tok_dir):
+    """Every leaf of tts's talker, code-predictor and vocoder params lies on
+    tts's device, and a sample of leaves equals the checkpoint's tensors
+    after the loaders' layout contract (linear .T, conv permute(2, 1, 0),
+    transposed conv permuted and flipped, codebooks divided by their usage
+    in float64, norms widened to float32)."""
+    import torch
+
+    from qwen3tts_tpu_torch.io.safetensors_io import SafetensorsDir
+
+    trees = (tts.talker_params, tts.cp_params, tts.vocoder_params)
+    off = {str(t.device) for tree in trees for t in _tensors(tree)
+           if t.device.type != tts.device.type}
+    if off:
+        raise SmokeFailure(f"checkpoint leaves on {off}, not on {tts.device}")
+    st, tk = SafetensorsDir(tts_dir), SafetensorsDir(tok_dir)
+    tp, vp = tts.talker_params, tts.vocoder_params
+    usage = tk.tensor("decoder.quantizer.rvq_first.vq.layers.0._codebook.cluster_usage")
+    emb = tk.tensor("decoder.quantizer.rvq_first.vq.layers.0._codebook.embedding_sum")
+    samples = [
+        ("text_embd", tp.text_embd, st.tensor("talker.model.text_embedding.weight")),
+        ("codec_head", tp.codec_head, st.tensor("talker.codec_head.weight").T),
+        ("text_proj_fc2_w", tp.text_proj_fc2_w,
+         st.tensor("talker.text_projection.linear_fc2.weight").T),
+        ("blocks.attn_norm[-1]", tp.blocks.attn_norm[-1],
+         st.tensor(f"talker.model.layers.{tts.config.talker.n_layers - 1}"
+                   ".input_layernorm.weight")),
+        ("cp.embds[14]", tts.cp_params.embds[14],
+         st.tensor("talker.code_predictor.model.codec_embedding.14.weight")),
+        ("pre_conv_w", vp.pre_conv_w, tk.tensor("decoder.pre_conv.conv.weight").permute(2, 1, 0)),
+        ("dec_blocks[0].convt_w", vp.dec_blocks[0].convt_w,
+         tk.tensor("decoder.decoder.1.block.1.conv.weight").permute(2, 0, 1).flip(0)),
+        ("vq_first_cb", vp.vq_first_cb,
+         emb.double() / usage.double().clamp(min=1e-5)[:, None]),
+    ]
+    for name, got, want in samples:
+        if not torch.equal(got.cpu(), want.to(got.dtype)):
+            raise SmokeFailure(f"checkpoint leaf {name} differs from the written tensor")
+
+
+def _voice_request(tts, text, kw, ref_path):
+    """synthesize_with_voice with the launch counts set to 0 just before it;
+    the serve() checks on its result. Returns (stats, counts)."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    reset_counts()
+    r = tts.synthesize_with_voice(text, ref_path, SamplingConfig(**kw))
+    counts = read_counts()
+    spf = tts.config.vocoder.samples_per_frame
+    ok = (r.success and r.n_frames > 0 and len(r.audio) == r.n_frames * spf
+          and bool(np.isfinite(r.audio).all()))
+    if not ok:
+        raise SmokeFailure(f"voice request {kw} failed: {r.error_msg or 'checks'}")
+    gen_ms = r.timings.t_generate_ms
+    return dict(request=kw, n_frames=r.n_frames, frames_per_s=r.n_frames / gen_ms * 1e3,
+                vocoder_ms=r.timings.t_decode_ms, t_encode_ms=r.timings.t_encode_ms,
+                total_ms=r.timings.t_total_ms, launches=counts, ok=ok), counts
+
+
+def serve_checkpoint(cfg, device, smi, root, *, request=CHECKPOINT_REQUEST,
+                     bf16_request=CHECKPOINT_BF16_REQUEST,
+                     voice_seconds=CHECKPOINT_VOICE_SECONDS, cli_tokens=CHECKPOINT_CLI_TOKENS):
+    """The checkpoint path at cfg's widths, under the directory root: write
+    a checkpoint with tools/hf_fixture.py (BF16 main model, float32
+    tokenizer, config.json files), then, each run with the launch counts
+    set to 0 just before it and checked just after:
+      1. Qwen3TTS.from_pretrained(root, int8): every leaf on the device and
+         a sample equal to the written tensors; one request (`request`),
+         then synthesize_with_voice from a seeded voice_seconds WAV (both
+         the main path's kernels, SINGLE_PATH); the embedding on the device
+         against the CPU's of the same audio (EMBEDDING_REL_TOL);
+      2. the bf16 tier, Qwen3TTS.from_pretrained(root): `bf16_request`, its
+         tier's kernels and no K2 or GEMM;
+      3. a Q8_0 GGUF directory written from it (write_gguf_dir): load_models
+         then `request` (SINGLE_PATH);
+      4. cli.main in-process (-r, --quant int8, --max-tokens cli_tokens,
+         --seed 3): rc 0, a 24 kHz WAV of n_frames * 1920 samples (on the
+         card n_frames = K1's launches) and SINGLE_PATH;
+      5. unload_models, then is_loaded is False.
+    Prints serve_checkpoint lines; returns the counts of every run."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch import cli
+    from qwen3tts_tpu_torch.audio.wav import load_wav, save_wav
+    from qwen3tts_tpu_torch.models import speaker_encoder as se
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+    from qwen3tts_tpu_torch.tools import hf_fixture
+
+    t_phase = time.perf_counter()
+    int8_forbidden = tier_forbidden(dict(mode="w8a8", forbidden=()))
+    runs = []
+
+    def report(what, st, counts, path, forbidden):
+        check_launches(f"checkpoint {what}", counts, path, forbidden)
+        runs.append(counts)
+        print("serve_checkpoint " + json.dumps(dict(st, what=what, card=smi)))
+
+    t0 = time.perf_counter()
+    tts_dir, tok_dir = hf_fixture.write_checkpoint_dir(root, cfg)
+    ckpt = dict(checkpoint_bytes=_dir_bytes(tts_dir, tok_dir),
+                write_s=time.perf_counter() - t0)
+    print(f"checkpoint: {ckpt['checkpoint_bytes']} bytes written in {ckpt['write_s']:.1f} s")
+
+    rt = dataclasses.replace(cfg.runtime, quant="int8")
+    tts = Qwen3TTS.from_pretrained(root, rt, device=device)
+    check_checkpoint_params(tts, tts_dir, tok_dir)
+    stats, c = serve(tts, [request])
+    report("int8 request", dict(stats[0], t_load_ms=tts.t_load_ms, **ckpt), c, SINGLE_PATH,
+           int8_forbidden)
+
+    sr = tts.config.speaker_encoder.sample_rate
+    t = np.arange(int(voice_seconds * sr)) / sr
+    rng = np.random.default_rng(0)
+    ref = (0.3 * np.sin(2 * np.pi * 180.0 * t) * (1.0 + 0.5 * np.sin(2 * np.pi * 3.0 * t))
+           + 0.03 * rng.standard_normal(t.shape)).astype(np.float32)
+    ref_path = os.path.join(root, "ref.wav")
+    save_wav(ref_path, ref, sr)
+    st, c = _voice_request(tts, *request, ref_path)
+    samples, _ = load_wav(ref_path)
+    t0 = time.perf_counter()
+    emb = tts.extract_speaker_embedding(samples)
+    st["encode_ms_steady"] = (time.perf_counter() - t0) * 1e3
+    cpu = se.speaker_embedding(_to_device(tts.speaker_params, "cpu"),
+                               tts.config.speaker_encoder,
+                               torch.from_numpy(samples[:max(rt.speaker_buckets)])).numpy()
+    st["embedding_rel_err"] = float(np.abs(emb - cpu).max() / np.abs(cpu).max())
+    if not st["embedding_rel_err"] <= EMBEDDING_REL_TOL:
+        raise SmokeFailure(f"speaker embedding on {device} vs the CPU: relative error "
+                           f"{st['embedding_rel_err']:.3g} > {EMBEDDING_REL_TOL}")
+    report("int8 voice request", dict(st, voice_seconds=voice_seconds), c, SINGLE_PATH,
+           int8_forbidden)
+
+    bf16 = Qwen3TTS.from_pretrained(root, device=device)
+    stats, c = serve(bf16, [bf16_request])
+    report("bf16 request", dict(stats[0], t_load_ms=bf16.t_load_ms), c,
+           TIER_SERVE[None]["single"], tier_forbidden(TIER_SERVE[None]))
+    bf16.unload_models()
+
+    gdir = os.path.join(root, "gguf")
+    t0 = time.perf_counter()
+    hf_fixture.write_gguf_dir(root, gdir)
+    gguf_write_s = time.perf_counter() - t0
+    g = Qwen3TTS(dataclasses.replace(cfg, runtime=rt), device=device)
+    if not g.load_models(gdir):
+        raise SmokeFailure(f"load_models of the GGUF directory: {g.error_msg}")
+    stats, c = serve(g, [request])
+    report("int8 GGUF request", dict(stats[0], t_load_ms=g.t_load_ms,
+                                     gguf_bytes=_dir_bytes(gdir), gguf_write_s=gguf_write_s),
+           c, SINGLE_PATH, int8_forbidden)
+    g.unload_models()
+
+    out = os.path.join(root, "cli.wav")
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["-m", root, "-t", request[0], "-r", ref_path, "-o", out, "--quant", "int8",
+                   "--max-tokens", str(cli_tokens), "--seed", "3", "--device", str(device)])
+    cli_s = time.perf_counter() - t0
+    c = read_counts()
+    if rc != 0:
+        raise SmokeFailure(f"cli.main returned {rc}")
+    audio, wav_sr = load_wav(out)
+    spf = tts.config.vocoder.samples_per_frame
+    frames = c["fused_talker_step"] if tts.device.type == "cuda" else len(audio) // spf
+    if not (wav_sr == 24000 and 0 < len(audio) == frames * spf and frames <= cli_tokens):
+        raise SmokeFailure(f"cli wav: {len(audio)} samples at {wav_sr} Hz for {frames} frames")
+    report("cli", dict(n_frames=frames, wav_samples=len(audio), command_s=cli_s), c,
+           SINGLE_PATH, int8_forbidden)
+
+    tts.unload_models()
+    if tts.is_loaded:
+        raise SmokeFailure("is_loaded after unload_models")
+    print(f"serve_checkpoint: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return runs
+
+
 def profile_request(tts, text, kw, queue=None):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
@@ -2829,6 +3062,9 @@ def main():
                            unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
         runs += serve_queues(tts, tts_u, tiers[None], smi)
+        with tempfile.TemporaryDirectory() as root:
+            runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
+        torch.cuda.empty_cache()
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
 
         sp = QUEUE_SPECS["sampled"]

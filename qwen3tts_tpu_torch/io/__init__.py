@@ -1,1 +1,2 @@
-"""Weight seams into the port."""
+"""Checkpoint readers and loaders of the port, and the weight seam from the
+JAX package (``from_jax``)."""

@@ -1,7 +1,7 @@
 """The weight seam from the JAX package into the port.
 
-Input: the JAX package's ``TalkerParams``, ``CodePredictorParams`` or
-``VocoderParams`` with numpy leaves — the caller runs
+Input: the JAX package's ``TalkerParams``, ``CodePredictorParams``,
+``VocoderParams`` or ``SpeakerEncoderParams`` with numpy leaves — the caller runs
 ``jax.tree_util.tree_map(np.asarray, params)`` on the JAX side, so this
 module never imports jax. The NamedTuples are read by field name and rebuilt
 as the port's NamedTuples of the same names; quantized leaves (int8
@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import code_predictor, talker, transformer_core, vocoder
+from ..models import code_predictor, speaker_encoder, talker, transformer_core, vocoder
 from ..ops import quant
 
 _PORT_TYPES = {
@@ -26,7 +26,8 @@ _PORT_TYPES = {
         transformer_core.BlockParams, quant.QuantLinear, quant.QuantLinear4,
         vocoder.VocoderParams,
         vocoder.PreTfmBlockParams, vocoder.ConvNeXtParams, vocoder.ResBlockParams,
-        vocoder.DecoderBlockParams)
+        vocoder.DecoderBlockParams, speaker_encoder.SEResBlockParams,
+        speaker_encoder.SpeakerEncoderParams)
 }
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as Fn
 
 from ..ops.fused_vocoder import conv1d_causal, fused_res_block, snake
 from ..ops.norms import layer_norm, rms_norm
+from ..ops.precision import full_float32
 from ..ops.rope import apply_rope, rope_for_positions
 
 NEG_INF = -1e30
@@ -264,15 +265,8 @@ def vocoder_forward(params: VocoderParams, cfg, codes: torch.Tensor,
 
 def vocoder_decode(params: VocoderParams, cfg, codes: torch.Tensor,
                    n_frames=None) -> torch.Tensor:
-    """vocoder_forward with TF32 off for the call: the plain float32 stages
-    must run in full float32 on the card, as the XLA reference does (the
-    matmul default is already float32; cuDNN's convolution default is TF32).
-    The previous settings are restored afterwards."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            return vocoder_forward(params, cfg, codes, n_frames)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    """vocoder_forward with TF32 off for the call (``ops/precision.py``): the
+    plain float32 stages must run in full float32 on the card, as the XLA
+    reference does."""
+    with full_float32(), torch.no_grad():
+        return vocoder_forward(params, cfg, codes, n_frames)

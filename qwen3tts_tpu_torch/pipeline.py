@@ -1,5 +1,6 @@
 """Qwen3TTS pipeline of the port (counterpart of ``qwen3tts_tpu/pipeline.py``:
-single-stream synthesis and batched serving).
+the model lifecycle, single-stream synthesis, voice cloning, batched and
+continuous serving).
 
 ``Qwen3TTS(config, device="cuda")`` holds the weights on one device: bf16
 talker and code-predictor weights and KV cache, and a float32 vocoder. The
@@ -20,9 +21,18 @@ as the JAX package's does, without its environment override ("auto" gives
 ``RuntimeConfig.vocoder_chunk_frames`` > 0 vocodes clips longer than that
 many frames in windows with 16 frames of left context
 (``stream_decode_chunks``), as the JAX package's ``decode_codes`` does.
+``Qwen3TTS.from_pretrained(model_dir)`` and ``load_models(model_dir)``
+load a checkpoint directory (safetensors or the reference's GGUF files;
+``io/loader.py``) with the tokenizer it carries, and
 ``load_models(None, synthetic=True, seed=...)`` draws deterministic
-synthetic weights at the configured widths (no checkpoint ships with the
-repository; the checkpoint loaders are not ported yet). ``synthesize``
+synthetic weights at the configured widths; ``unload_models``,
+``is_loaded``, ``set_progress_callback`` and ``low_mem`` (drop the talker
+after generation and the vocoder after decode, reloading them from what
+load_models read on the next call) are the JAX pipeline's lifecycle, with ``low_mem`` an argument where
+the JAX package reads ``QWEN3_TTS_LOW_MEM``. ``synthesize_with_voice``
+clones a voice: the reference audio's ECAPA-TDNN embedding
+(``models/speaker_encoder.py``, loaded on first use) replaces the default
+voice's zero embedding. ``synthesize``
 runs host BPE, the prefill, the frame loop and the vocoder (kernel K3);
 ``synthesize_batch`` runs B requests in lockstep through the batched frame
 loop, then vocodes each lane (K3). The prefill's int8 projections run in
@@ -54,14 +64,21 @@ the kernels' plain versions.
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
-from .config import PipelineConfig, SamplingConfig
+from .audio.wav import load_wav, resample_linear, save_wav  # noqa: F401 (re-export)
+from .config import PipelineConfig, RuntimeConfig, SamplingConfig
+from .io import loader
+from .io.config_io import config_from_model_dir, infer_speaker_config, infer_vocoder_config
+from .io.gguf import GGUFReader
+from .io.gguf_checkpoint import GGUFCheckpoint, find_gguf_models
 from .models import code_predictor as cp_model
+from .models import speaker_encoder as se_model
 from .models import talker as talker_model
 from .models import vocoder as vocoder_model
 from .models.transformer_core import float32_norms
@@ -74,6 +91,10 @@ from .text.bpe import TextTokenizer, synthetic_tokenizer
 # lanes of one batched frame loop (the batched talker kernel's cap); larger
 # batches run in groups of this many, one after another
 MAX_BATCH_LANES = 128
+
+# the synthetic speaker encoder's generator seed is this plus load_models'
+# seed (the talker, code predictor and vocoder take seed * 3 + 0, 1, 2)
+SPEAKER_SEED_OFFSET = 1 << 32
 
 # the weight tiers RuntimeConfig.quant may name (None: plain bf16 blocks)
 WEIGHT_TIERS = (None, "int8", "q4", "q4pure")
@@ -105,6 +126,21 @@ def resolve_kv_quant(rt, *, batched: bool = False, lanes: int = 0) -> str:
     return mode
 
 
+# Language name/code -> codec language id (reference src/main.cpp:104-113).
+LANGUAGE_IDS = {
+    "en": 2050, "english": 2050,
+    "de": 2053, "german": 2053,
+    "es": 2054, "spanish": 2054,
+    "zh": 2055, "chinese": 2055,
+    "ja": 2058, "japanese": 2058,
+    "fr": 2061, "french": 2061,
+    "ko": 2064, "korean": 2064,
+    "ru": 2069, "russian": 2069,
+    "it": 2070, "italian": 2070,
+    "pt": 2071, "portuguese": 2071,
+}
+
+
 @dataclasses.dataclass
 class TTSResult:
     audio: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0, np.float32))
@@ -131,7 +167,7 @@ class Qwen3TTS:
     """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
 
     def __init__(self, config: Optional[PipelineConfig] = None, device="cuda", *,
-                 fused_talker="auto", fused_cp="auto"):
+                 fused_talker="auto", fused_cp="auto", low_mem: bool = False):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
         self.fused = dict(fused_talker=fused_talker, fused_cp=fused_cp)
@@ -140,23 +176,48 @@ class Qwen3TTS:
         self.talker_params = None
         self.cp_params = None
         self.vocoder_params = None
+        self.speaker_params = None
+        self.low_mem = low_mem
+        self.progress_callback: Optional[Callable[[int, int], None]] = None
         self._loaded = False
+        self._model_dir: Optional[str] = None
+        self._synthetic_seed: Optional[int] = None
+        self.t_load_ms = 0.0
         self.error_msg = ""
         # the last synthesize_queue call's lanes, KV capacity and scheduler
         # counts (chunks, refills, compactions, sessions)
         self.last_queue_stats: dict = {}
 
+    @classmethod
+    def from_pretrained(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,
+                        device="cuda", **kw) -> "Qwen3TTS":
+        """Construct with hyperparameters read from the checkpoint's
+        config.json files (defaults fill gaps) and load the weights; raises
+        RuntimeError with error_msg when load_models fails. kw: the
+        constructor's keyword arguments."""
+        tts = cls(config_from_model_dir(model_dir, runtime), device, **kw)
+        if not tts.load_models(model_dir):
+            raise RuntimeError(tts.error_msg)
+        return tts
+
+    # ------------------------------------------------------------------
+    # model lifecycle (JAX pipeline.py:288-440)
+    # ------------------------------------------------------------------
+
     def load_models(self, model_dir: Optional[str] = None, *, synthetic: bool = False,
                     seed: int = 0) -> bool:
-        """Deterministic synthetic weights (model_dir None or synthetic=True)
-        drawn from torch Generators on the device, seeded by `seed`, then
-        quantized to the weight tier (module docstring). Checkpoint
-        directories and unknown weight or KV tiers are not supported:
-        returns False with error_msg set."""
+        """Load weights from a checkpoint directory: safetensors (the
+        Qwen3-TTS-12Hz-0.6B-Base and Qwen3-TTS-Tokenizer-12Hz subdirectories,
+        or the main model's safetensors directly) or the reference's two GGUF
+        files; or, with model_dir None or synthetic=True, deterministic
+        synthetic weights drawn from torch Generators on the device, seeded
+        by `seed`. The talker and code predictor load in the compute dtype
+        and are quantized to the weight tier (module docstring); the
+        vocoder (float32) loads now unless low_mem; the speaker encoder on
+        the first voice-cloning request. A bad directory or an unknown
+        weight or KV tier returns False with error_msg set; an error of the
+        device raises."""
         rt = self.config.runtime
-        if model_dir is not None and not synthetic:
-            self.error_msg = "Failed to load models: checkpoint loading is not ported yet"
-            return False
         if rt.quant not in WEIGHT_TIERS:
             self.error_msg = (f"Failed to load models: quant tier {rt.quant!r} is not one of "
                               f"{WEIGHT_TIERS}")
@@ -165,37 +226,169 @@ class Qwen3TTS:
             self.error_msg = (f"Failed to load models: kv_quant {rt.kv_quant!r} is not one "
                               f"of {KV_TIERS}")
             return False
-        cfg = self.config
-        gens = []
-        for k in range(3):
-            g = torch.Generator(device=self.device)
-            g.manual_seed(seed * 3 + k)
-            gens.append(g)
-        with torch.no_grad():
-            tp = talker_model.init_talker_params(gens[0], cfg.talker, self.dtype, self.device)
-            cp = cp_model.init_code_predictor_params(
-                gens[1], cfg.code_predictor, self.dtype, self.device)
-            vp = vocoder_model.init_vocoder_params(gens[2], cfg.vocoder, self.device)
-            if rt.quant is not None:
-                tp = tp._replace(blocks=quantize_talker_blocks(tp.blocks, rt.quant))
-                cp = cp._replace(blocks=quantize_block_params(cp.blocks))
-            self.set_params(tp, cp, vp)
+        t0 = now_ms()
+        self._model_dir = model_dir
+        self._synthetic_seed = seed if (synthetic or model_dir is None) else None
+        self.speaker_params = None
+        try:
+            tokenizer = self._load_tokenizer()
+            tp, cp = self._load_talker()
+            vp = None if self.low_mem else self._load_vocoder()
+        except (OSError, KeyError, ValueError) as e:
+            self.error_msg = f"Failed to load models: {e}"
+            return False
+        self.set_params(tp, cp, vp, tokenizer)
+        _sync(self.device)
+        self.t_load_ms = now_ms() - t0
         return True
 
-    def set_params(self, talker_params, cp_params, vocoder_params) -> None:
-        """Install talker/code-predictor params already in their weight tier
-        and vocoder params (e.g. from ``io.from_jax``) and the synthetic
-        tokenizer. The
-        norm weights are kept in float32, as the kernels read them, so no
-        frame converts them again."""
+    def set_params(self, talker_params, cp_params, vocoder_params, tokenizer=None) -> None:
+        """Install talker/code-predictor params already in their weight tier,
+        vocoder params and a text tokenizer: load_models passes the one it
+        chose; None (e.g. weights from ``io.from_jax``) installs the
+        synthetic tokenizer. The norm weights are kept in float32, as the
+        kernels read them, so no frame converts them again."""
+        self._set_talker(talker_params, cp_params)
+        self.vocoder_params = vocoder_params
+        self.tokenizer = (tokenizer if tokenizer is not None
+                          else synthetic_tokenizer(self.config.talker.text_vocab_size))
+        self._loaded = True
+
+    def _set_talker(self, talker_params, cp_params) -> None:
         self.talker_params = talker_params._replace(
             blocks=float32_norms(talker_params.blocks),
             output_norm=talker_params.output_norm.float())
         self.cp_params = cp_params._replace(
             blocks=float32_norms(cp_params.blocks), output_norm=cp_params.output_norm.float())
-        self.vocoder_params = vocoder_params
-        self.tokenizer = synthetic_tokenizer(self.config.talker.text_vocab_size)
-        self._loaded = True
+
+    def unload_models(self) -> None:
+        self.talker_params = self.cp_params = None
+        self.vocoder_params = self.speaker_params = None
+        self._loaded = False
+
+    @property
+    def is_loaded(self) -> bool:
+        return self._loaded
+
+    def set_progress_callback(self, cb: Optional[Callable[[int, int], None]]) -> None:
+        """cb(frames_so_far, max_audio_tokens), called once per frame of
+        ``synthesize`` and ``synthesize_with_voice``."""
+        self.progress_callback = cb
+
+    def _paths(self):
+        """(main model dir, tokenizer dir) under the model directory, as the
+        JAX pipeline's ``_paths`` finds them (``pipeline.py:309-324``)."""
+        d = self._model_dir
+        tts_dir, tok_dir = None, None
+        if d:
+            for name in sorted(os.listdir(d)):
+                sub = os.path.join(d, name)
+                if not os.path.isdir(sub):
+                    continue
+                low = name.lower()
+                if "tokenizer" in low:
+                    tok_dir = sub
+                elif "tts" in low or "base" in low:
+                    tts_dir = sub
+            if tts_dir is None and any(f.endswith(".safetensors") for f in os.listdir(d)):
+                tts_dir = d
+        return tts_dir, tok_dir
+
+    def _gguf_paths(self):
+        """The reference's convention: <dir>/qwen3-tts-0.6b-f16.gguf and
+        <dir>/qwen3-tts-tokenizer-f16.gguf (qwen3_tts.cpp:118-119)."""
+        if not self._model_dir:
+            return None, None
+        return find_gguf_models(self._model_dir)
+
+    def _open_checkpoint(self, which: int, what: str):
+        d = self._paths()[which]
+        if d is not None:
+            return loader.open_checkpoint_dir(d)
+        gguf_path = self._gguf_paths()[which]
+        if gguf_path is not None:
+            return GGUFCheckpoint(gguf_path)
+        raise FileNotFoundError(f"no {what} checkpoint (safetensors or gguf) under "
+                                f"{self._model_dir}")
+
+    def _generator(self, k: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self._synthetic_seed * 3 + k)
+        return g
+
+    def _load_tokenizer(self) -> TextTokenizer:
+        """The tokenizer the JAX pipeline's ``_load_tokenizer`` chooses
+        (``pipeline.py:354-372``): the main model directory's vocab, else
+        the GGUF file's; the synthetic one for synthetic weights, or, with
+        a warning, for a GGUF with no vocabulary."""
+        vocab = self.config.talker.text_vocab_size
+        if self._synthetic_seed is not None:
+            return synthetic_tokenizer(vocab)
+        tts_dir, _ = self._paths()
+        if tts_dir is not None:
+            return TextTokenizer.from_hf_dir(tts_dir)
+        tts_gguf, _ = self._gguf_paths()
+        if tts_gguf is None:
+            return synthetic_tokenizer(vocab)
+        try:
+            return TextTokenizer.from_gguf(GGUFReader(tts_gguf))
+        except ValueError:
+            print("warning: GGUF file carries no tokenizer vocab; "
+                  "using the embedded synthetic tokenizer", file=sys.stderr)
+            return synthetic_tokenizer(vocab)
+
+    def _load_talker(self):
+        """(talker, code predictor) params in the compute dtype, quantized to
+        the weight tier."""
+        cfg, rt = self.config, self.config.runtime
+        with torch.no_grad():
+            if self._synthetic_seed is not None:
+                tp = talker_model.init_talker_params(self._generator(0), cfg.talker, self.dtype,
+                                                     self.device)
+                cp = cp_model.init_code_predictor_params(
+                    self._generator(1), cfg.code_predictor, self.dtype, self.device)
+            else:
+                st = self._open_checkpoint(0, "TTS")
+                tp = loader.load_talker(st, cfg.talker, self.dtype, self.device)
+                cp = loader.load_code_predictor(st, cfg.code_predictor, self.dtype, self.device)
+            if rt.quant is not None:
+                tp = tp._replace(blocks=quantize_talker_blocks(tp.blocks, rt.quant))
+                cp = cp._replace(blocks=quantize_block_params(cp.blocks))
+        return tp, cp
+
+    def _load_vocoder(self):
+        """float32 vocoder params; the config's vocoder dimensions are
+        replaced by those the checkpoint's shapes give."""
+        if self._synthetic_seed is not None:
+            return vocoder_model.init_vocoder_params(self._generator(2), self.config.vocoder,
+                                                     self.device)
+        st = self._open_checkpoint(1, "tokenizer/vocoder")
+        vcfg = infer_vocoder_config(st, self.config.vocoder)
+        if vcfg != self.config.vocoder:
+            self.config = dataclasses.replace(self.config, vocoder=vcfg)
+        with torch.no_grad():
+            return loader.load_vocoder(st, vcfg, torch.float32, self.device)
+
+    def _load_speaker_encoder(self):
+        """float32 speaker-encoder params; the config's encoder dimensions are
+        replaced by those the checkpoint's shapes give (and the mel
+        filterbank follows them: the JAX pipeline builds it from the config
+        before that replacement, ``pipeline.py:412-424``)."""
+        if self._synthetic_seed is not None:
+            g = torch.Generator(device=self.device)
+            g.manual_seed(SPEAKER_SEED_OFFSET + self._synthetic_seed)
+            return se_model.init_speaker_encoder_params(g, self.config.speaker_encoder,
+                                                        torch.float32, self.device)
+        st = self._open_checkpoint(0, "TTS")
+        scfg = infer_speaker_config(st, self.config.speaker_encoder)
+        if scfg != self.config.speaker_encoder:
+            self.config = dataclasses.replace(self.config, speaker_encoder=scfg)
+        with torch.no_grad():
+            return loader.load_speaker_encoder(st, scfg, torch.float32, self.device)
+
+    # ------------------------------------------------------------------
+    # synthesis
+    # ------------------------------------------------------------------
 
     def _fit_tokens(self, tokens):
         """Pad token ids into a prefill bucket (truncating, with the template
@@ -220,7 +413,55 @@ class Qwen3TTS:
 
     def synthesize(self, text: str, params: SamplingConfig = SamplingConfig()) -> TTSResult:
         """Basic synthesis with the default voice (zero speaker embedding)."""
+        speaker = np.zeros((self.config.talker.hidden_size,), np.float32)
+        return self._synthesize_internal(text, speaker, params, t_encode_ms=0.0)
+
+    def synthesize_with_voice(self, text: str, reference_audio: Union[str, np.ndarray],
+                              params: SamplingConfig = SamplingConfig(),
+                              reference_sample_rate: Optional[int] = None) -> TTSResult:
+        """Voice cloning from a reference waveform: a WAV path, or samples at
+        reference_sample_rate (default: the encoder's 24 kHz), resampled to
+        24 kHz; its speaker embedding takes the default voice's place in the
+        prefill. t_encode_ms times the embedding (the encoder's lazy load on
+        the first call included, as in the JAX pipeline)."""
         result = TTSResult()
+        if not self._loaded:
+            result.error_msg = "Models not loaded"
+            return result
+        sr_enc = self.config.speaker_encoder.sample_rate
+        if isinstance(reference_audio, str):
+            samples, sr = load_wav(reference_audio)
+        else:
+            samples = np.asarray(reference_audio, np.float32)
+            sr = reference_sample_rate or sr_enc
+        if sr != sr_enc:
+            samples = resample_linear(samples, sr, sr_enc)
+        t0 = now_ms()
+        speaker = self.extract_speaker_embedding(samples)
+        return self._synthesize_internal(text, speaker, params, t_encode_ms=now_ms() - t0)
+
+    def extract_speaker_embedding(self, samples: np.ndarray) -> np.ndarray:
+        """The ECAPA-TDNN x-vector [embedding_dim] of 24 kHz samples, run on
+        exactly the samples given; beyond the largest of
+        RuntimeConfig.speaker_buckets they are truncated, with the JAX
+        pipeline's warning, so the embedding equals its."""
+        if self.speaker_params is None:
+            self.speaker_params = self._load_speaker_encoder()
+        cfg = self.config.speaker_encoder
+        max_n = max(self.config.runtime.speaker_buckets)
+        if len(samples) > max_n:
+            print(f"warning: reference audio of {len(samples) / cfg.sample_rate:.1f}s "
+                  f"exceeds the largest speaker bucket ({max_n / cfg.sample_rate:.0f}s); "
+                  "truncating", file=sys.stderr)
+            samples = samples[:max_n]
+        x = torch.as_tensor(np.asarray(samples, np.float32), device=self.device)
+        return se_model.speaker_embedding(self.speaker_params, cfg, x).cpu().numpy()
+
+    def _synthesize_internal(self, text: str, speaker: np.ndarray, params: SamplingConfig,
+                             t_encode_ms: float) -> TTSResult:
+        result = TTSResult()
+        result.timings.t_load_ms = self.t_load_ms
+        result.timings.t_encode_ms = t_encode_ms
         result.timings.mem_rss_start = rss_bytes()
         t_total0 = now_ms()
         if not self._loaded:
@@ -236,19 +477,28 @@ class Qwen3TTS:
             result.error_msg = "Text produced no tokens"
             return result
 
+        if self.talker_params is None:
+            self._set_talker(*self._load_talker())
         t0 = now_ms()
         padded, n_tok = self._fit_tokens(tokens)
         max_frames, kv_capacity = self._frame_budget(params)
+        progress_cb = None
+        if self.progress_callback is not None:
+            user_cb, total = self.progress_callback, params.max_audio_tokens
+
+            def progress_cb(frame):  # noqa: ANN001
+                user_cb(frame, total)
         gen = torch.Generator()
         gen.manual_seed(params.seed)
         gen_out = decode_loop.generate_from_tokens(
             self.talker_params, self.cp_params, torch.from_numpy(padded), n_tok,
-            torch.zeros((tcfg.hidden_size,), dtype=torch.float32, device=self.device),
+            torch.as_tensor(speaker, dtype=torch.float32, device=self.device),
             params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
             max_frames=max_frames, kv_capacity=kv_capacity,
             temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
             repetition_penalty=params.repetition_penalty,
-            nothink=params.language_id < 0, kv_quant=resolve_kv_quant(rt), **self.fused)
+            nothink=params.language_id < 0, kv_quant=resolve_kv_quant(rt),
+            progress_cb=progress_cb, **self.fused)
         n_frames = gen_out.n_frames
         result.codes = gen_out.codes.cpu().numpy().astype(np.int32)
         result.hidden_states = gen_out.hidden.float().cpu().numpy()
@@ -257,10 +507,16 @@ class Qwen3TTS:
         if n_frames == 0:
             result.error_msg = "No speech codes generated"
             return result
+        if self.low_mem:
+            self.talker_params = self.cp_params = None
 
         t0 = now_ms()
+        if self.vocoder_params is None:
+            self.vocoder_params = self._load_vocoder()
         result.audio = self.decode_codes(result.codes)
         result.timings.t_decode_ms = now_ms() - t0
+        if self.low_mem:
+            self.vocoder_params = None
         result.sample_rate = self.config.vocoder.sample_rate
         result.success = True
         result.timings.t_total_ms = now_ms() - t_total0

@@ -144,14 +144,18 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
                          repetition_penalty: float = 1.05, nothink: bool = False,
                          fused_talker="auto", fused_cp="auto",
-                         allow_eos: bool = True, kv_quant: str = "none") -> GenerateResult:
+                         allow_eos: bool = True, kv_quant: str = "none",
+                         progress_cb=None) -> GenerateResult:
     """Prefill + the frame loop for one request; see the module docstring.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
     frames into a KV cache of kv_capacity rows (kv_quant "int8": the int8
     pair on the fused talker step). fused_talker / fused_cp pick
     kernels K1 / K2 or the unfused talker step / code predictor.
     allow_eos=False also suppresses EOS, so the request runs all max_frames
-    frames (the JAX package's benchmark mode)."""
+    frames (the JAX package's benchmark mode). progress_cb, if given, is
+    called with the frames emitted so far after each frame, as the JAX
+    loop's io_callback (``decode_loop.py:423-425``); the count is a host
+    integer, so it adds no sync to the loop's one per frame."""
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
@@ -200,6 +204,8 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                 rest_sum = _rest_embd_sum(cp_params, rest)
             codes.append(torch.cat([cb0, rest.to(torch.int64)]))
             hidden_out.append(last_hidden.to(dtype))
+            if progress_cb is not None:
+                progress_cb(frame + 1)
             seen[cb0] = 1
             trailing_row = prefill.trailing[min(frame, Trb - 1)]
             step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)

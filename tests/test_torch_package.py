@@ -35,24 +35,34 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
     "qwen3tts_tpu_torch.models.code_predictor", "qwen3tts_tpu_torch.ops.quant",
     "qwen3tts_tpu_torch.ops.w4_gemv_probe", "qwen3tts_tpu_torch.runtime.continuous",
-    "qwen3tts_tpu_torch.ops.kv_quant",
+    "qwen3tts_tpu_torch.ops.kv_quant", "qwen3tts_tpu_torch.cli",
+    "qwen3tts_tpu_torch.audio.mel", "qwen3tts_tpu_torch.audio.wav",
+    "qwen3tts_tpu_torch.io.safetensors_io", "qwen3tts_tpu_torch.io.tensor_names",
+    "qwen3tts_tpu_torch.io.gguf", "qwen3tts_tpu_torch.io.gguf_checkpoint",
+    "qwen3tts_tpu_torch.io.config_io", "qwen3tts_tpu_torch.io.loader",
+    "qwen3tts_tpu_torch.models.speaker_encoder", "qwen3tts_tpu_torch.ops.precision",
+    "qwen3tts_tpu_torch.tools.hf_fixture",
 ]
+# packages the port never imports: the JAX package and JAX, and ml_dtypes
+# and safetensors, which the machine with the card lacks
+BANNED = ("jax", "jaxlib", "qwen3tts_tpu", "ml_dtypes", "safetensors")
 
 
 def test_port_never_imports_jax():
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
             "import qwen3tts_tpu_torch as q; q.Qwen3TTS\n"
-            "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
-            "assert 'qwen3tts_tpu' not in sys.modules\n")
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {BANNED!r})\n"
+            "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 
 
 def test_no_port_module_imports_jax_or_the_jax_package():
-    """An AST walk over every .py file of the port: no import names jax or a
-    module of qwen3tts_tpu (relative imports stay inside the port)."""
+    """An AST walk over every .py file of the port: no import names jax, a
+    module of qwen3tts_tpu, ml_dtypes or safetensors (relative imports stay
+    inside the port)."""
     bad = []
     root = os.path.join(REPO, "qwen3tts_tpu_torch")
     for dirpath, _, files in os.walk(root):
@@ -67,7 +77,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
             names += [n.module for n in ast.walk(tree)
                       if isinstance(n, ast.ImportFrom) and n.level == 0]
             bad += [(os.path.relpath(path, REPO), m) for m in names
-                    if m.split(".")[0] in ("jax", "jaxlib", "qwen3tts_tpu")]
+                    if m.split(".")[0] in BANNED]
     assert not bad, bad
 
 
@@ -168,14 +178,15 @@ def test_tier_paths_forbid_every_other_talker_mode():
 
 def test_chip_smoke_names_no_jax_package_module():
     """chip_smoke.py imports the port only: no import statement and no
-    module string it loads names jax or a module of qwen3tts_tpu."""
+    module string it loads names jax, a module of qwen3tts_tpu, ml_dtypes
+    or safetensors."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     names += [mod for mod, _, _, _ in chip_smoke.KERNELS.values()]
     assert "qwen3tts_tpu_torch.ops.w4_gemv_probe" in names
-    assert names and all(m.split(".")[0] not in ("jax", "qwen3tts_tpu") for m in names), names
+    assert names and all(m.split(".")[0] not in BANNED for m in names), names
 
 
 @pytest.fixture
