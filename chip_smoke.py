@@ -47,8 +47,11 @@ Phases (each prints a line; any failure exits non-zero):
      kernel per call in every case. K3 reports its device time per
      decoder width and over the 12 res blocks of a 64-frame clip beside
      cuDNN's two convolutions alone, and must take the plan's launches per
-     res block (one at C = 96 and 192, two at 384 and 768); the split
-     rules include K3's and the GEMM's plans. Then the projection kernels
+     res block (one at C = 96 and 192, two at 384 and 768); over a group
+     of 16 lanes of 64 frames at each width (check_res_block_lanes), every
+     lane must equal K3 on that lane alone bit for bit, the group must
+     take the plan's launches, and it is timed beside 16 one-lane calls;
+     the split rules include K3's and the GEMM's plans. Then the projection kernels
      alone (check_projections: the four talker projections over 28 seeded
      layers in w8a8, bf16 and w4bf16; one layer against its plain version
      at B = 1 (K1's GEMVs) and 16, 64 and 128 (K5's GEMMs), int32 equal or
@@ -98,7 +101,18 @@ Phases (each prints a line; any failure exits non-zero):
      1280; the fused int8 queues must launch K5 with `start`, K6 with
      per-lane sampling and the GEMM and no K1 or K2, the bf16 one K5 with
      `start` in bf16 mode and no K6 or GEMM, the unfused one the GEMM and no
-     decode-attention kernel. Then the checkpoint path (serve_checkpoint,
+     decode-attention kernel. Then streaming (serve_stream,
+     `serve_stream` lines): synthesize_streaming of the sampled 256-token
+     request (codes equal to synthesize's, each chunk equal to its window
+     vocoded alone, K1, K2, K3 and the GEMM launched, TTFA over nine
+     seeds, frames/s beside synthesize's); the 128-text queue on 64 lanes
+     with on_audio (codes equal to the same queue's on the serial loop,
+     one finish per request, each request's TTFA, frames/s beside the
+     queue without on_audio; K5 with start, K6 per lane, K3, the GEMM);
+     the 64-lane batch's codes through vocode_batched beside lane by lane
+     (each lane within VOCODE_LANE_TOL, both walls, the peak memory); the
+     bf16 tier's greedy stream (codes equal to synthesize's). Then the
+     checkpoint path (serve_checkpoint,
      `serve_checkpoint` lines), in a temporary directory: a full-width
      checkpoint written by tools/hf_fixture.py (BF16 main model, float32
      tokenizer, config.json files; its bytes and write seconds printed);
@@ -2046,6 +2060,73 @@ def check_res_block(tts, report, iters):
         tolerance="1e-4 * (1 + max|plain|) abs")
 
 
+RB_LANES, RB_LANE_FRAMES = 16, 64
+
+
+def check_res_block_lanes(tts, report, iters, lanes=RB_LANES, frames=RB_LANE_FRAMES):
+    """K3 over a group of lanes (the batched vocoder's groups) at each
+    decoder block's (C, T) for `lanes` lanes of `frames` frames, d = 9 (the
+    widest halo), unit-normal inputs: every lane of the group equal to K3
+    on that lane alone, bit for bit (0.0: the tile arithmetic is per lane,
+    and a lane's halo before its row 0 reads zeros, not the previous lane's
+    rows), and the group within K3's tolerance of the plain version; the
+    group takes the plan's launches per res block (one at C = 96 and 192,
+    two at 384 and 768) whatever the lane count. Timed: the group's event
+    and device ms beside `lanes` one-lane calls'. Adds "lanes" to K3's
+    report entry."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_vocoder import (fused_res_block, res_block_plain,
+                                                      res_block_plan)
+
+    vcfg, dev = tts.config.vocoder, tts.device
+    g = torch.Generator(device="cpu").manual_seed(19)
+    T, d = frames * 2 ** vcfg.n_convnext, vcfg.res_dilations[-1]
+    out = {}
+    for blk, rate in zip(tts.vocoder_params.dec_blocks, vcfg.upsample_rates):
+        T *= rate
+        C = blk.convt_w.shape[-1]
+        res = blk.res
+        x = torch.randn((lanes, T, C), generator=g).to(dev)
+        w = (res.conv1_w[2], res.conv1_b[2], res.act1_alpha[2], res.act1_beta[2],
+             res.conv2_w[2], res.conv2_b[2], res.act2_alpha[2], res.act2_beta[2])
+        group = fused_res_block(x, *w, dilation=d)
+        lane_err = max(_max_err(group[b], fused_res_block(x[b], *w, dilation=d))
+                       for b in range(lanes))
+        plain = res_block_plain(x, *w, dilation=d)
+        e = _max_err(group, plain)
+        tol = 1e-4 * (1.0 + float(plain.abs().max()))
+        print(f"kernel fused_res_block {lanes} lanes C={C} T={T} d={d}: each lane against "
+              f"the one-lane call {lane_err:.3e} (must be 0.0); against the plain version "
+              f"{e:.3e} (tolerance {tol:.3e})")
+        if lane_err != 0.0:
+            raise SmokeFailure(f"fused_res_block over {lanes} lanes differs from the one-lane "
+                               f"call at C={C}: {lane_err}")
+        if not e <= tol:
+            raise SmokeFailure(f"fused_res_block over {lanes} lanes disagrees with its plain "
+                               f"version at C={C}")
+        del plain
+        run = lambda x=x, w=w: fused_res_block(x, *w, dilation=d)  # noqa: E731
+        singles = lambda x=x, w=w: [fused_res_block(x[b], *w, dilation=d)  # noqa: E731
+                                    for b in range(lanes)]
+        want = res_block_plan(T, C, d)[0]
+        n = launches_per_call(lambda: [run() for _ in range(3)], 3, K3_PREFIXES, dev)
+        if dev.type == "cuda" and n != want:
+            raise SmokeFailure(f"fused_res_block over {lanes} lanes took {n} launches at "
+                               f"C={C}; the plan says {want}")
+        out[C] = dict(lanes=lanes, T=T, dilation=d, launches_per_res_block=n,
+                      lane_max_abs_err=lane_err, max_abs_err=e,
+                      ms=timed(run, dev, iters), one_lane_calls_ms=timed(singles, dev, iters),
+                      device_ms=device_ms_per_call(run, 1, K3_PREFIXES, dev),
+                      one_lane_calls_device_ms=device_ms_per_call(singles, 1, K3_PREFIXES,
+                                                                  dev))
+        print(f"kernel fused_res_block {lanes} lanes C={C}: {out[C]['ms']:.4f} ms (device "
+              f"{out[C]['device_ms']}) beside {lanes} one-lane calls "
+              f"{out[C]['one_lane_calls_ms']:.4f} ms (device "
+              f"{out[C]['one_lane_calls_device_ms']}); {n} launches per res block")
+    report.setdefault("fused_res_block", {})["lanes"] = out
+
+
 def serve(tts, requests):
     """Run the requests through synthesize; check each result. Returns
     per-request stats (with the launches each request made) and the launch
@@ -2389,6 +2470,31 @@ def bench_queue(tts, n=48, lanes=16, kv_capacity=512, chunk_frames=32, max_frame
     return st, counts
 
 
+def queue_stats(tts):
+    """The last synthesize_queue call's lanes, capacity and scheduler counts
+    (its run()'s start time left out)."""
+    return {k: v for k, v in tts.last_queue_stats.items() if k != "run_started"}
+
+
+def serial_queue(tts, texts, sampling, **queue_kw):
+    """synthesize_queue without on_audio on the scheduler's serial loop, the
+    loop the queue streams on (without on_audio it takes the overlapped
+    one): the same splice rows for every request as the streamed queue."""
+    from qwen3tts_tpu_torch.runtime import continuous
+
+    overlapped = continuous.ContinuousScheduler
+
+    class Serial(overlapped):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **dict(k, overlap_harvest=False))
+
+    continuous.ContinuousScheduler = Serial
+    try:
+        return tts.synthesize_queue(texts, sampling, **queue_kw)
+    finally:
+        continuous.ContinuousScheduler = overlapped
+
+
 def serve_queue(tts, texts, kw, lanes, what, **queue_kw):
     """texts through synthesize_queue with sampling kw, the launch counts
     set to 0 just before and read just after. Every result must succeed with
@@ -2410,13 +2516,13 @@ def serve_queue(tts, texts, kw, lanes, what, **queue_kw):
     n = len(texts)
     frames = sum(r.n_frames for r in rs)
     gen_ms = rs[0].timings.t_generate_ms * n     # results carry the queue's wall / n
+    stats = queue_stats(tts)
     st = dict(queue=what, texts=n, request=kw, frames=frames,
               frames_per_s=frames / gen_ms * 1e3, generate_ms=gen_ms,
-              vocoder_ms=rs[0].timings.t_decode_ms * n, **tts.last_queue_stats,
-              launches=counts)
+              vocoder_ms=rs[0].timings.t_decode_ms * n, **stats, launches=counts)
     print(f"queue {what}: {n} texts on {lanes} lanes, {frames} frames, "
           f"{st['frames_per_s']:.2f} frames/s (generate {gen_ms:.1f} ms); "
-          f"{tts.last_queue_stats}; launches {counts}")
+          f"{stats}; launches {counts}")
     return st, counts
 
 
@@ -2562,6 +2668,274 @@ def serve_queues(tts, tts_u, bf16, smi, specs=QUEUE_SPECS):
         raise SmokeFailure(f"the unfused queue runs at C = {st['kv_capacity']}, below the "
                            f"decode-attention kernel's 1024 rows")
     report(st, c, UNFUSED_PATH, FUSED_ONLY + ("decode_attention",))
+    return runs
+
+
+# The streaming phase (serve_stream): (a) synthesize_streaming of the
+# sampled 256-token request (chunks of 16 frames, 32 frames of history),
+# its TTFA over `ttfa_seeds` (the first nine that give a chunk); (b) the
+# 128-text sampled queue on 64 lanes with on_audio, the JAX package's
+# streaming defaults (chunks of 8, history 16, cadence 32); (c) the 64-lane
+# sampled batch's codes vocoded by vocode_batched and lane by lane; (d) the
+# bf16 tier's greedy 64-token stream (eager code predictor).
+STREAM_SPEC = dict(
+    request=MAIN_REQUESTS[1], chunk_frames=16, history=32, ttfa_seeds=tuple(range(3, 23)),
+    ttfa_n=9,
+    queue=dict(texts=QUEUE_SPECS["sampled"]["texts"], lanes=QUEUE_SPECS["sampled"]["lanes"],
+               kw=QUEUE_SPECS["sampled"]["kw"], chunk_frames=8, history=16, cadence=32),
+    batch=BATCH_REQUESTS[1],
+    bf16=dict(request=TIER_SERVE[None]["requests"][0], chunk_frames=16, history=32))
+# each streamed chunk against its window vocoded alone (the same path):
+# max abs error (samples in [-1, 1])
+STREAM_TOL = 1e-4
+# each lane of vocode_batched against its decode_codes. The plain float32
+# stages' products and reductions run in another order at another row
+# count (cuBLAS and the reduction kernels choose by shape), and the
+# synthetic weights' snakes amplify a last-bit difference about a
+# thousandfold: on an H100 the one-lane vocoder itself moved by 9.1e-4 when
+# its clip was padded by one frame, and grouped lanes by up to 1.4e-3
+# (PERF.md §6), so 1e-4 is below the floor of the float32 path. A lane that
+# read another lane's rows or its padding would move by O(0.1). The line
+# also reports lane 0's padded-by-a-frame difference (the floor, measured).
+VOCODE_LANE_TOL = 5e-3
+
+
+def _percentiles(ms):
+    import numpy as np
+
+    return dict(p50=float(np.percentile(ms, 50)), p90=float(np.percentile(ms, 90)),
+                n=len(ms))
+
+
+def stream_request(tts, text, kw, chunk_frames, history):
+    """One synthesize_streaming call: (chunks, codes, frames per chunk, wall
+    ms of the whole stream, ms to the first chunk in host memory)."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    chunks, t_first = [], None
+    t0 = time.perf_counter()
+    for c in tts.synthesize_streaming(text, SamplingConfig(**kw), chunk_frames=chunk_frames,
+                                      history=history):
+        if t_first is None:
+            t_first = (time.perf_counter() - t0) * 1e3
+        chunks.append(c)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    st = tts.last_stream
+    return chunks, st["codes"], list(st["chunk_frames"]), wall_ms, t_first
+
+
+def stream_ttfa(tts, text, kw, chunk_frames, history, seeds, n):
+    """synthesize_streaming's time to first audio, in ms on the host clock
+    from the call to the first chunk in host memory, over the first n of
+    `seeds` that give a chunk (random synthetic weights may draw EOS at
+    frame 0); each stream is closed after its first chunk."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    ttfa = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        it = tts.synthesize_streaming(text, SamplingConfig(**dict(kw, seed=seed)),
+                                      chunk_frames=chunk_frames, history=history)
+        first = next(it, None)
+        t = (time.perf_counter() - t0) * 1e3
+        it.close()
+        if first is not None:
+            ttfa.append(t)
+        if len(ttfa) == n:
+            break
+    return ttfa
+
+
+def check_stream_chunks(tts, chunks, codes, sizes, history, what):
+    """Each streamed chunk against its window [max(0, e - history), n)
+    vocoded alone through decode_codes' path (the first chunk: [0, n0)),
+    within STREAM_TOL; 1920 samples per frame in all. Returns the worst
+    error."""
+    spf = tts.config.vocoder.samples_per_frame
+    if sum(len(c) for c in chunks) != len(codes) * spf or sum(sizes) != len(codes):
+        raise SmokeFailure(f"{what}: {sum(len(c) for c in chunks)} samples for "
+                           f"{len(codes)} frames")
+    worst, e = 0.0, 0
+    for i, (c, k) in enumerate(zip(chunks, sizes)):
+        lo = 0 if i == 0 else max(0, e - history)
+        want = tts._vocode(codes[lo:e + k])[(e - lo) * spf:(e + k - lo) * spf]
+        err = float(abs(c - want).max()) if len(c) else 0.0
+        if not err <= STREAM_TOL:
+            raise SmokeFailure(f"{what}: chunk {i} differs from its window by {err}")
+        worst, e = max(worst, err), e + k
+    return worst
+
+
+def serve_stream(tts, bf16, smi, spec=STREAM_SPEC):
+    """The streaming phase (STREAM_SPEC), each path with the launch counts
+    set to 0 just before it and read just after: (a) synthesize_streaming:
+    codes equal to synthesize's with the same seed, every chunk within
+    STREAM_TOL of its window vocoded alone, frames x 1920 samples, K1, K2,
+    K3 and the GEMM launched; TTFA p50/p90 on the host clock from the call
+    to the first chunk in host memory, over spec["ttfa_n"] seeds; the
+    stream's frames/s over its wall beside synthesize's; (b) the sampled
+    queue with on_audio: codes equal to the same queue without it, one
+    finished call per request, n x 1920 samples, per-request TTFA from
+    run()'s start to its first on_audio, aggregate frames/s beside the
+    queue without on_audio (the default, overlapped loop; the codes are
+    compared with the serial loop's, whose splice rows the streamed queue
+    shares); K5 with start, K6 per lane, K3, the GEMM; (c)
+    vocode_batched against lane-by-lane decode_codes on the 64-lane
+    batch's codes (each lane within VOCODE_LANE_TOL; both walls; the peak
+    memory of vocode_batched; VOCODE_LANE_TOL says why not STREAM_TOL);
+    (d) the bf16 tier's greedy stream: codes
+    equal to synthesize's. Prints one serve_stream line each; returns the
+    counts of every run."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.pipeline import vocode_batched, vocode_groups
+
+    t_phase = time.perf_counter()
+    dev, spf = tts.device, tts.config.vocoder.samples_per_frame
+    runs = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def line(st):
+        print("serve_stream " + json.dumps(dict(st, card=smi)))
+
+    # (a) one request, streamed
+    text, kw = spec["request"]
+    full = tts.synthesize(text, SamplingConfig(**kw))
+    reset_counts()
+    chunks, codes, sizes, wall_ms, first_ms = stream_request(
+        tts, text, kw, spec["chunk_frames"], spec["history"])
+    counts = read_counts()
+    runs.append(counts)
+    if not (full.success and np.array_equal(codes, full.codes)):
+        raise SmokeFailure(f"stream {kw}: codes differ from synthesize's "
+                           f"({len(codes)} against {full.n_frames} frames)")
+    err = check_stream_chunks(tts, chunks, codes, sizes, spec["history"], f"stream {kw}")
+    check_launches(f"stream {kw}", counts, SINGLE_PATH,
+                   tier_forbidden(dict(mode="w8a8", forbidden=())))
+    ttfa = stream_ttfa(tts, text, kw, spec["chunk_frames"], spec["history"],
+                       spec["ttfa_seeds"], spec["ttfa_n"])
+    if len(ttfa) < spec["ttfa_n"]:
+        raise SmokeFailure(f"stream TTFA: {len(ttfa)} of {len(spec['ttfa_seeds'])} seeds gave "
+                           f"a first chunk")
+    gen_ms = full.timings.t_generate_ms
+    line(dict(what="request", request=kw, chunk_frames=spec["chunk_frames"],
+              history=spec["history"], frames=len(codes), chunks=len(chunks),
+              chunk_max_abs_err=err, first_chunk_ms=first_ms, ttfa_ms=_percentiles(ttfa),
+              stream_wall_ms=wall_ms, stream_frames_per_s=len(codes) / wall_ms * 1e3,
+              synthesize_frames_per_s=full.n_frames / gen_ms * 1e3,
+              synthesize_total_ms=full.timings.t_total_ms, launches=counts))
+
+    # (b) the queue, streamed, beside the same queue without on_audio
+    q = spec["queue"]
+    texts = batch_texts(q["texts"])
+    qkw = dict(lanes=q["lanes"], chunk_frames=q["chunk_frames"])
+    t0 = time.perf_counter()
+    default = tts.synthesize_queue(texts, SamplingConfig(**q["kw"]), **qkw)
+    default_ms = (time.perf_counter() - t0) * 1e3
+    plain = serial_queue(tts, texts, SamplingConfig(**q["kw"]), **qkw)
+    calls, first_at = [], {}
+
+    def on_audio(idx, chunk, finished):
+        first_at.setdefault(idx, time.perf_counter())
+        calls.append((idx, len(chunk), bool(finished)))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rs = tts.synthesize_queue(texts, SamplingConfig(**q["kw"]), on_audio=on_audio,
+                              stream_history=q["history"], stream_cadence=q["cadence"], **qkw)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    runs.append(counts)
+    run0 = tts.last_queue_stats["run_started"]
+    fins = [i for i, _, f in calls if f]
+    if sorted(fins) != list(range(len(texts))):
+        raise SmokeFailure(f"stream queue: finished calls {len(fins)} for {len(texts)} "
+                           f"requests")
+    for i, (r, p) in enumerate(zip(rs, plain)):
+        if not np.array_equal(r.codes, p.codes):
+            raise SmokeFailure(f"stream queue: request {i}'s codes differ from the queue "
+                               f"without on_audio (serial loop)")
+        got = sum(k for j, k, _ in calls if j == i)
+        if r.n_frames and not (r.success and len(r.audio) == got == r.n_frames * spf
+                               and bool(np.isfinite(r.audio).all())):
+            raise SmokeFailure(f"stream queue: request {i} streamed {got} samples for "
+                               f"{r.n_frames} frames")
+    check_launches("stream queue", counts, QUEUE_PATH + ("fused_res_block",),
+                   QUEUE_FORBIDDEN + tier_forbidden(dict(mode="w8a8", forbidden=())))
+    frames = sum(r.n_frames for r in rs)
+    ttfa_q = [(first_at[i] - run0) * 1e3 for i in range(len(texts)) if i in first_at]
+    line(dict(queue_stats(tts), what="queue", texts=len(texts), request=q["kw"],
+              chunk_frames=q["chunk_frames"], history=q["history"], cadence=q["cadence"],
+              frames=frames, on_audio_calls=len(calls), ttfa_ms=_percentiles(ttfa_q),
+              wall_ms=stream_ms, aggregate_frames_per_s=frames / stream_ms * 1e3,
+              plain_wall_ms=default_ms,
+              plain_aggregate_frames_per_s=sum(r.n_frames for r in default) / default_ms * 1e3,
+              launches=counts))
+
+    # (c) the batch's codes through vocode_batched and lane by lane
+    n, bkw = spec["batch"]
+    rs = tts.synthesize_batch(batch_texts(n), SamplingConfig(**bkw))
+    live = [r for r in rs if r.n_frames]
+    nf = [r.n_frames for r in live]
+    bufs = np.zeros((len(live), max(nf), 16), np.int64)
+    for j, r in enumerate(live):
+        bufs[j, :r.n_frames] = r.codes
+    reset_counts()
+    sync()
+    base = peak = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    grouped = vocode_batched(tts.vocoder_params, tts.config.vocoder, bufs, nf)
+    grouped_ms = (time.perf_counter() - t0) * 1e3
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(dev)
+    counts = read_counts()
+    runs.append(counts)
+    t0 = time.perf_counter()
+    alone = [tts.decode_codes(r.codes) for r in live]
+    alone_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for j, (r, a) in enumerate(zip(live, alone)):
+        e = float(abs(grouped[j, :r.n_frames * spf] - a).max())
+        if not e <= VOCODE_LANE_TOL:
+            raise SmokeFailure(f"vocode_batched: lane {j} differs from its decode_codes by {e}")
+        worst = max(worst, e)
+    check_launches("vocode_batched", counts, ("fused_res_block",))
+    r = live[0]
+    padded = tts._vocode(np.concatenate([r.codes, r.codes[:1]]))[:r.n_frames * spf]
+    line(dict(what="vocode_batched", lanes=len(live), request=bkw, frames=sum(nf),
+              groups=vocode_groups(nf), max_abs_err=worst, tolerance=VOCODE_LANE_TOL,
+              one_lane_padded_by_a_frame_max_abs_err=float(abs(padded - alone[0]).max()),
+              wall_ms=grouped_ms,
+              lane_by_lane_wall_ms=alone_ms, memory_before_bytes=base, peak_memory_bytes=peak,
+              launches=counts))
+
+    # (d) the bf16 tier's stream (eager code predictor)
+    text, kw = spec["bf16"]["request"]
+    full = bf16.synthesize(text, SamplingConfig(**kw))
+    reset_counts()
+    chunks, codes, sizes, wall_ms, first_ms = stream_request(
+        bf16, text, kw, spec["bf16"]["chunk_frames"], spec["bf16"]["history"])
+    counts = read_counts()
+    runs.append(counts)
+    if not (full.success and np.array_equal(codes, full.codes)):
+        raise SmokeFailure(f"bf16 stream {kw}: codes differ from synthesize's")
+    if sum(len(c) for c in chunks) != len(codes) * spf:
+        raise SmokeFailure(f"bf16 stream {kw}: samples do not match the frames")
+    check_launches(f"bf16 stream {kw}", counts, TIER_SERVE[None]["single"],
+                   tier_forbidden(TIER_SERVE[None]))
+    line(dict(what="bf16 request", request=kw, frames=len(codes), chunks=len(chunks),
+              first_chunk_ms=first_ms, stream_wall_ms=wall_ms,
+              stream_frames_per_s=len(codes) / wall_ms * 1e3, launches=counts))
+    print(f"serve_stream: {time.perf_counter() - t_phase:.1f} s [{smi}]")
     return runs
 
 
@@ -2990,6 +3364,7 @@ def main():
         check_talker_step_kv_int8(tts, report, iters=3)
         check_code_predictor_per_lane(tts, report, iters=3)
         check_res_block(tts, report, iters=3)
+        check_res_block_lanes(tts, report, iters=3)
         check_int8_matmul(tts, report, iters=5)
         check_decode_attention(tts, report, iters=5)
         for q, spec in TIER_SERVE.items():
@@ -3062,6 +3437,7 @@ def main():
                            unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
         runs += serve_queues(tts, tts_u, tiers[None], smi)
+        runs += serve_stream(tts, tiers[None], smi)
         with tempfile.TemporaryDirectory() as root:
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
         torch.cuda.empty_cache()

@@ -2,9 +2,10 @@
 
 The JAX package beside it is the reference. This package loads HF
 safetensors and GGUF checkpoints (``Qwen3TTS.from_pretrained``, ``io/``),
-runs single-stream synthesis (``Qwen3TTS.synthesize``), voice cloning
-(``Qwen3TTS.synthesize_with_voice``), batched and continuous serving
-(``Qwen3TTS.synthesize_batch``, ``synthesize_queue``) and the CLI
+runs single-stream synthesis (``Qwen3TTS.synthesize``), streaming
+(``Qwen3TTS.synthesize_streaming``, ``synthesize_queue(on_audio=...)``),
+voice cloning (``Qwen3TTS.synthesize_with_voice``), batched and continuous
+serving (``Qwen3TTS.synthesize_batch``, ``synthesize_queue``) and the CLI
 (``python -m qwen3tts_tpu_torch.cli``) in the JAX package's weight tiers
 (bf16, the default; int8; q4; q4pure), through hand-written CUDA kernels
 for the pieces the JAX package wrote in Pallas: the fused talker step

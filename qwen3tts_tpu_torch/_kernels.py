@@ -85,7 +85,7 @@ SIGNATURES = {
     "qtts_res_block_plan": [I, I, I, P],                    # T C dilation, out[6]
     "qtts_res_block": [
         P, P, P, P, P, P, P, P, P,       # x, w1, b1, a1, be1, w2, b2, a2, be2
-        P, P, I, I, I, P],               # s2, out, T, C, dilation, stream
+        P, P, I, I, I, I, P],            # s2, out, B, T, C, dilation, stream
     "qtts_int8_mm_plan": [I, I, I, I, P],                   # M K N x_bf16, out[5]
     "qtts_int8_matmul": [
         P, P, P, P,                      # x, q, scale, y

@@ -7,10 +7,17 @@ conv k=7 -> 4 decoder blocks [Snake -> ConvT x8/5/4/3 -> 3 residual blocks
 d=1/3/9] -> Snake -> causal conv k=7 -> tanh; 1920 samples per frame.
 
 Everything is plain float32 PyTorch except the residual blocks, which run
-kernel K3 (``ops/fused_vocoder.fused_res_block``). Activations are [T, C];
-conv weights are [K, In, Out]; transposed-conv weights are pre-flipped
-[K, In, Out] (the JAX layouts). The JAX package pads the 96- and 192-channel
-decoder blocks to 128 lanes for its TPU kernel; the port does not. Transposed
+kernel K3 (``ops/fused_vocoder.fused_res_block``). Activations are
+[B, T, C], a group of lanes (the counterpart of the JAX package's
+``_vocode_batch``, which maps ``vocoder_forward`` over lanes), or [T, C],
+one clip, which the stages treat as a group of one: every stage pads
+causally per lane, and the pre-transformer masks each lane's keys at its
+frame count. Lanes are
+right-padded to the group's longest; the stack is causal, so a lane's
+valid samples do not depend on the padding. Conv weights are [K, In, Out];
+transposed-conv weights are pre-flipped [K, In, Out] (the JAX layouts).
+The JAX package pads the 96- and 192-channel decoder blocks to 128 lanes
+for its TPU kernel; the port does not. Transposed
 convs trim causally (the JAX package's default ``trim="causal"``; its
 ``"symmetric"`` variant of the C++ reference is not ported).
 """
@@ -158,7 +165,7 @@ def init_vocoder_params(gen: torch.Generator, cfg, device="cpu") -> VocoderParam
 
 
 def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b, *, stride: int) -> torch.Tensor:
-    """Transposed 1-D conv on x [T, Cin] with pre-flipped w [K, In, Out],
+    """Transposed 1-D conv on x [..., T, Cin] with pre-flipped w [K, In, Out],
     K = J * stride, as J accumulated matmuls over all stride phases:
     y[q*s + p] = sum_j w[K-1-p-j*s] @ x[q-j]. The raw length T*s + (K-s) is
     trimmed by K-s from the right (the causal trim: T*s outputs)."""
@@ -166,47 +173,56 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b, *, stride: int) -> tor
     s = stride
     if K % s:
         raise ValueError(f"transposed conv kernel {K} is not a multiple of stride {s}")
-    J, T = K // s, x.shape[0]
+    J, T = K // s, x.shape[-2]
     w2 = w.flip(0).reshape(J, s, cin, cout).permute(0, 2, 1, 3).reshape(J, cin, s * cout)
     xp = Fn.pad(x, (0, 0, J - 1, 0))
-    acc = torch.matmul(xp[J - 1:].float(), w2[0].float())
+    acc = torch.matmul(xp[..., J - 1:, :].float(), w2[0].float())
     for j in range(1, J):
-        acc = acc + torch.matmul(xp[J - 1 - j: xp.shape[0] - j].float(), w2[j].float())
-    y = acc.to(x.dtype).reshape(T * s, cout)
+        acc = acc + torch.matmul(xp[..., J - 1 - j: xp.shape[-2] - j, :].float(),
+                                 w2[j].float())
+    y = acc.to(x.dtype).reshape(*x.shape[:-2], T * s, cout)
     return y if b is None else y + b
 
 
 def depthwise_conv1d_causal(x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
-    """Causal depthwise conv on x [T, C] with w [K, 1, C]."""
-    K, T = w.shape[0], x.shape[0]
+    """Causal depthwise conv on x [..., T, C] with w [K, 1, C]."""
+    K, T = w.shape[0], x.shape[-2]
     xp = Fn.pad(x, (0, 0, K - 1, 0))
-    y = xp[0:T] * w[0, 0]
+    y = xp[..., 0:T, :] * w[0, 0]
     for k in range(1, K):
-        y = y + xp[k:k + T] * w[k, 0]
+        y = y + xp[..., k:k + T, :] * w[k, 0]
     return y + b
 
 
 def _pre_transformer(params: VocoderParams, cfg, x: torch.Tensor, n_valid) -> torch.Tensor:
-    """Causal MHA transformer on [T, W]; keys >= n_valid masked."""
-    T = x.shape[0]
+    """Causal MHA transformer on a group of lanes [B, T, W] (a clip [T, W]
+    runs as a group of one): lane b's keys from n_valid[b] on are masked
+    (none when n_valid is None). A lane's rows past its frame count see its
+    valid keys only; the stack is causal, so no valid row reads them."""
+    if x.dim() == 2:
+        return _pre_transformer(params, cfg, x[None], n_valid)[0]
+    T = x.shape[-2]
     Hn = cfg.n_heads
     D = cfg.pre_tfm_qkv_dim // Hn
     eps = cfg.rms_norm_eps
     pos = torch.arange(T, device=x.device)
     cos, sin = rope_for_positions(pos, D, cfg.rope_theta)
-    mask = pos[None, :] <= pos[:, None]
+    mask = (pos[None, :] <= pos[:, None])[None]
     if n_valid is not None:
-        mask = mask & (pos[None, :] < int(n_valid))
+        # from the host's counts on the device, with no copy to wait for
+        keys = torch.stack([pos < n for n in torch.as_tensor(n_valid).reshape(-1).tolist()])
+        mask = mask & keys[:, None, :]
+    heads = x.shape[:-1] + (Hn, D)
     p = params.pt_blocks
     for l in range(p.attn_norm.shape[0]):
         h = rms_norm(x, p.attn_norm[l], eps)
-        q = apply_rope((h @ p.wq[l]).reshape(T, Hn, D), cos, sin)
-        k = apply_rope((h @ p.wk[l]).reshape(T, Hn, D), cos, sin)
-        v = (h @ p.wv[l]).reshape(T, Hn, D)
-        s = torch.einsum("qhd,khd->hqk", q.float(), k.float()) / (D ** 0.5)
-        s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+        q = apply_rope((h @ p.wq[l]).reshape(heads), cos, sin)
+        k = apply_rope((h @ p.wk[l]).reshape(heads), cos, sin)
+        v = (h @ p.wv[l]).reshape(heads)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (D ** 0.5)
+        s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
         probs = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.einsum("hqk,khd->qhd", probs, v).reshape(T, Hn * D)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(x.shape[:-1] + (Hn * D,))
         x = x + (o @ p.wo[l]) * p.attn_scale[l]
         h = rms_norm(x, p.ffn_norm[l], eps)
         gate = Fn.silu((h @ p.w_gate[l]).float()).to(h.dtype)
@@ -242,12 +258,15 @@ def _decoder_block(x: torch.Tensor, blk: DecoderBlockParams, rate: int,
 
 def vocoder_forward(params: VocoderParams, cfg, codes: torch.Tensor,
                     n_frames=None) -> torch.Tensor:
-    """Decode codes [T, 16] (int) to a waveform [T * 1920] in [-1, 1]."""
+    """Decode codes [T, 16] (int) to a waveform [T * 1920] in [-1, 1]; or a
+    group of lanes, codes [B, T, 16] with n_frames [B] (each lane's frame
+    count; rows past it are padding), to [B, T * 1920], whose lane b holds
+    lane b's waveform in its first n_frames[b] * 1920 samples."""
     codes = codes.to(device=params.vq_first_cb.device, dtype=torch.int64)
-    first = params.vq_first_cb[codes[:, 0]]
+    first = params.vq_first_cb[codes[..., 0]]
     steps = torch.arange(cfg.n_codebooks - 1, device=codes.device)
-    rest = params.vq_rest_cb[steps[None, :], codes[:, 1:]]
-    latent = first @ params.vq_first_proj + torch.sum(rest, dim=1) @ params.vq_rest_proj
+    rest = params.vq_rest_cb[steps, codes[..., 1:]]
+    latent = first @ params.vq_first_proj + torch.sum(rest, dim=-2) @ params.vq_rest_proj
     x = conv1d_causal(latent, params.pre_conv_w, params.pre_conv_b)
     x = x @ params.pt_in_w + params.pt_in_b
     x = _pre_transformer(params, cfg, x, n_frames)
@@ -260,7 +279,7 @@ def vocoder_forward(params: VocoderParams, cfg, codes: torch.Tensor,
         x = _decoder_block(x, blk, rate, cfg.res_dilations)
     x = snake(x, params.final_alpha, params.final_beta)
     x = conv1d_causal(x, params.out_w, params.out_b)
-    return torch.tanh(x.float())[:, 0]
+    return torch.tanh(x.float())[..., 0]
 
 
 def vocoder_decode(params: VocoderParams, cfg, codes: torch.Tensor,

@@ -34,8 +34,14 @@ clones a voice: the reference audio's ECAPA-TDNN embedding
 (``models/speaker_encoder.py``, loaded on first use) replaces the default
 voice's zero embedding. ``synthesize``
 runs host BPE, the prefill, the frame loop and the vocoder (kernel K3);
-``synthesize_batch`` runs B requests in lockstep through the batched frame
-loop, then vocodes each lane (K3). The prefill's int8 projections run in
+``synthesize_streaming`` yields the same request's audio in chunks while
+its frame loop runs (``decode_loop.generate_init`` / ``generate_chunk``,
+``runtime/e2e.start_and_vocode``); ``synthesize_batch`` runs B requests in
+lockstep through the batched frame loop, then vocodes the lanes in groups
+(``vocode_batched``: K3 over a group's lanes in one launch);
+``synthesize_queue`` serves a queue continuously and, with ``on_audio``,
+streams each request's audio on the JAX package's cadence. The prefill's
+int8 projections run in
 the W8A16 kernel (``ops/int8_matmul.py``), its u4 ones in the grouped
 product of ``ops/quant.py`` and its bf16 ones in ``torch.matmul``.
 
@@ -66,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import time
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -106,7 +113,8 @@ KV_TIERS = ("auto", "none", "int8")
 INT8_KV_MAX_LANES = 64
 
 
-def resolve_kv_quant(rt, *, batched: bool = False, lanes: int = 0) -> str:
+def resolve_kv_quant(rt, *, kv_capacity: int = 0, batched: bool = False,
+                     lanes: int = 0) -> str:
     """RuntimeConfig.kv_quant as the decode loops' kv_quant, as the JAX
     package's ``resolve_kv_quant`` (``pipeline.py:178-217``) resolves it
     without its environment override: "auto" gives "none" (the cache at the
@@ -114,7 +122,8 @@ def resolve_kv_quant(rt, *, batched: bool = False, lanes: int = 0) -> str:
     for a batch of more than 64 lanes gives "none", with the JAX package's
     message on stderr. The card needs no such cap (128 lanes at C = 4352
     take 33 GB in int8); it is kept so that both packages give the same
-    output for every config."""
+    output for every config. kv_capacity is taken and ignored, as the JAX
+    package's body ignores it (its streaming path passes it)."""
     mode = getattr(rt, "kv_quant", "auto")
     if mode == "auto":
         return "none"
@@ -124,6 +133,92 @@ def resolve_kv_quant(rt, *, batched: bool = False, lanes: int = 0) -> str:
               file=sys.stderr)
         return "none"
     return mode
+
+
+# The batched vocoder's groups (``vocode_groups``). The float32 activations
+# of the last decoder block are 1920 rows x 96 channels x 4 B = 737,280 B per
+# frame per lane, and a res block or a transposed conv keeps about four
+# alive: ~3 MB per frame per lane. A group's lanes x frames (each lane
+# padded to the group's longest) stays within VOCODE_MAX_LANE_FRAMES, and a
+# group holds at most VOCODE_MAX_LANES lanes; a lane longer than the budget
+# is vocoded alone. (The JAX package's 16 lanes, ``_VOCODE_MAX_LANES``, is a
+# TPU compile limit.) Both constants were chosen on an H100 by
+# tools/time_vocoder_gemm.py --groups (PERF.md §5): on the 64-lane batch,
+# 16 lanes a group vocoded as fast as 32 at half the memory (~3.7 MB a
+# lane-frame), 8 within 3% of it, one group of 64 slower.
+VOCODE_MAX_LANE_FRAMES = 4096
+VOCODE_MAX_LANES = 16
+
+
+def vocode_groups(n_frames):
+    """Contiguous lane groups [(g0, g1)] over frame counts n_frames [B]: a
+    group grows while it holds at most VOCODE_MAX_LANES lanes and its lane
+    count times its longest lane stays within VOCODE_MAX_LANE_FRAMES (both
+    read at the call)."""
+    groups, g0, longest = [], 0, 0
+    for b, n in enumerate(n_frames):
+        grown = max(longest, int(n), 1)
+        if b > g0 and (b - g0 + 1 > VOCODE_MAX_LANES
+                       or (b - g0 + 1) * grown > VOCODE_MAX_LANE_FRAMES):
+            groups.append((g0, b))
+            g0, grown = b, max(int(n), 1)
+        longest = grown
+    if len(n_frames):
+        groups.append((g0, len(n_frames)))
+    return groups
+
+
+def vocode_batched_groups(vparams, cfg, codes, n_frames):
+    """Vocode lanes in groups (``vocode_groups``), yielding (g0, g1,
+    host_audio [g1 - g0, F * 1920] float32) per group, F the group's longest
+    lane: lane b's waveform is its first n_frames[b] * 1920 samples
+    (counterpart of ``vocode_batched_groups``,
+    ``qwen3tts_tpu/pipeline.py:144-169``). codes [B, >= max(n_frames), 16]
+    (host or device), each lane's first n_frames[b] rows valid; a lane of 0
+    frames is vocoded as one padding frame, as the JAX package does.
+
+    Every group is enqueued before the first copy to the host, so group g's
+    copy and the consumer's work on it overlap the later groups' compute:
+    on the card each group's audio goes to pinned host memory by a
+    non-blocking copy with an event of its own, and the generator waits on
+    that event alone. The JAX package's tail-group and lane padding
+    (compile-cache devices) are not copied: a group holds exactly its lanes,
+    each padded to the group's longest only."""
+    n = [max(int(k), 1) for k in n_frames]
+    dev = vparams.vq_first_cb.device
+    # one upload before the first group: a copy from pageable host memory
+    # waits for the stream, so one per group would hold each group back
+    codes = torch.as_tensor(codes).to(dev)
+    pending = []
+    for g0, g1 in vocode_groups(n):
+        F = max(n[g0:g1])
+        audio = vocoder_model.vocoder_decode(vparams, cfg, codes[g0:g1, :F], n[g0:g1])
+        if dev.type == "cuda":
+            host = torch.empty(audio.shape, dtype=audio.dtype, pin_memory=True)
+            host.copy_(audio, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(dev))
+        else:
+            host, ready = audio, None
+        pending.append((g0, g1, host, ready))
+    for g0, g1, host, ready in pending:
+        if ready is not None:
+            ready.synchronize()
+        yield g0, g1, host.numpy()
+
+
+def vocode_batched(vparams, cfg, codes, n_frames) -> np.ndarray:
+    """Vocode B lanes in groups: [B, max(n_frames) * 1920] float32 on the
+    host, lane b's waveform in its first n_frames[b] * 1920 samples and
+    zeros after them (counterpart of ``vocode_batched``,
+    ``qwen3tts_tpu/pipeline.py:172-175``)."""
+    spf = cfg.samples_per_frame
+    n = [int(k) for k in n_frames]
+    out = np.zeros((len(n), max(n, default=0) * spf), np.float32)
+    for g0, g1, audio in vocode_batched_groups(vparams, cfg, codes, n):
+        for b in range(g0, g1):
+            out[b, :n[b] * spf] = audio[b - g0, :n[b] * spf]
+    return out
 
 
 # Language name/code -> codec language id (reference src/main.cpp:104-113).
@@ -184,9 +279,13 @@ class Qwen3TTS:
         self._synthetic_seed: Optional[int] = None
         self.t_load_ms = 0.0
         self.error_msg = ""
-        # the last synthesize_queue call's lanes, KV capacity and scheduler
-        # counts (chunks, refills, compactions, sessions)
+        # the last synthesize_queue call's lanes, KV capacity, scheduler
+        # counts (chunks, refills, compactions, sessions) and the
+        # perf_counter second its run() started
         self.last_queue_stats: dict = {}
+        # the last synthesize_streaming call's codes (the rows copied to the
+        # host), frame count and frames per chunk
+        self.last_stream: dict = {}
 
     @classmethod
     def from_pretrained(cls, model_dir: str, runtime: Optional[RuntimeConfig] = None,
@@ -568,8 +667,13 @@ class Qwen3TTS:
         """Batched synthesis: the requests run one lockstep frame loop
         (``decode_loop.generate_from_tokens_batched``: kernels K5 and K6, or
         the unfused step with the lanes as the rows of each product), in
-        groups of MAX_BATCH_LANES one after another; then each lane is
-        vocoded on exactly its frames. Returns a list of TTSResult.
+        groups of MAX_BATCH_LANES one after another; then the lanes that
+        emitted frames are vocoded together (``vocode_batched``: groups of
+        lanes, K3 over each group's lanes in one launch), each lane on
+        exactly its frames, or, when chunked vocoding applies, lane by lane
+        through ``decode_codes``, as the JAX pipeline does
+        (``qwen3tts_tpu/pipeline.py:684-700``). Returns a list of
+        TTSResult.
 
         Timing attribution, as in the JAX pipeline
         (``qwen3tts_tpu/pipeline.py:691-721``): t_generate_ms is the
@@ -621,14 +725,13 @@ class Qwen3TTS:
             n_frames += out.n_frames
         t_gen = now_ms() - t0
 
-        # the JAX pipeline vocodes the batch in one dispatch unless chunked
+        # the JAX pipeline vocodes the batch together unless chunked
         # vocoding applies (the longest lane exceeds vocoder_chunk_frames);
         # then it vocodes lane by lane and times each lane on its own
         chunk = self.config.runtime.vocoder_chunk_frames
         per_lane = bool(chunk) and max(n_frames, default=0) > chunk
         t0 = now_ms()
-        audio = (None if per_lane else
-                 [self.decode_codes(c[:n]) if n else None for c, n in zip(codes, n_frames)])
+        audio = None if per_lane else self._vocode_lanes(codes, n_frames)
         t_dec = now_ms() - t0
         for i, (r, c, n) in enumerate(zip(results, codes, n_frames)):
             r.codes = c[:n]
@@ -649,17 +752,39 @@ class Qwen3TTS:
             r.timings.t_total_ms = now_ms() - t_total0
         return results
 
+    def _vocode_lanes(self, codes, n_frames):
+        """Each lane's waveform (None for a lane of no frames) through
+        ``vocode_batched`` over the lanes that have frames; codes: one
+        [>= n, 16] array per lane."""
+        if self.vocoder_params is None:
+            self.vocoder_params = self._load_vocoder()
+        spf = self.config.vocoder.samples_per_frame
+        live = [i for i, n in enumerate(n_frames) if n > 0]
+        out = [None] * len(n_frames)
+        if not live:
+            return out
+        nmax = max(n_frames[i] for i in live)
+        bufs = np.zeros((len(live), nmax, self.config.vocoder.n_codebooks), np.int64)
+        for j, i in enumerate(live):
+            bufs[j, :n_frames[i]] = codes[i][:n_frames[i]]
+        audio = vocode_batched(self.vocoder_params, self.config.vocoder, bufs,
+                               [n_frames[i] for i in live])
+        for j, i in enumerate(live):
+            out[i] = audio[j, :n_frames[i] * spf]
+        return out
+
     def synthesize_queue(self, texts, params: SamplingConfig = SamplingConfig(),
                          speakers=None, *, lanes: Optional[int] = None,
                          kv_capacity: Optional[int] = None, chunk_frames: int = 8,
-                         refill_slots: int = 8, on_audio=None,
-                         max_audio_tokens_per_request=None):
+                         refill_slots: int = 8, on_audio=None, stream_history: int = 16,
+                         stream_cadence: int = 32, max_audio_tokens_per_request=None,
+                         admit_per_chunk: Optional[int] = None):
         """Continuous serving of a request queue (counterpart of
         ``synthesize_queue``, ``qwen3tts_tpu/pipeline.py:722-978``): finished
         lanes are refilled mid-flight (``runtime/continuous.py``), so a mix
         of unequal lengths keeps the lanes busy where ``synthesize_batch``
         idles them until its longest request ends. Returns TTSResults in
-        submission order, each vocoded (K3) on exactly its frames.
+        submission order.
 
         Defaults as in the JAX package: lanes = min(64, len(texts));
         kv_capacity from P + 2 * frame bucket + chunk_frames + kv_margin,
@@ -667,21 +792,45 @@ class Qwen3TTS:
         request i samples with seed params.seed + i, so it equals
         ``synthesize`` of its text with that seed on the same path.
         max_audio_tokens_per_request (a list, one int per text) overrides
-        params.max_audio_tokens per request. Every weight tier runs: K5 with
-        ``start`` (fused_talker) and K6 with per-lane parameters (fused_cp),
-        or the unfused step. The cache stays at the compute dtype whatever
-        RuntimeConfig.kv_quant says: the JAX package's queue passes no
-        kv_quant either (``pipeline.py:788-927``; K5 takes no ``start``
-        with the int8 cache). on_audio streaming belongs to the streaming
-        path, which is not ported yet: passing it raises
-        NotImplementedError."""
-        if on_audio is not None:
-            raise NotImplementedError(
-                "synthesize_queue(on_audio=...): streaming audio is not ported yet "
-                "(the streaming path); call without on_audio for whole results")
+        params.max_audio_tokens per request; admit_per_chunk caps the
+        admissions per chunk boundary (``admit_per_boundary``). The
+        scheduler's loop is overlapped without on_audio and serial with it,
+        the JAX package's defaults without its ``QWEN3TTS_OVERLAP_HARVEST``
+        override. The loop decides where each later request is spliced
+        into the cache: the codes of a request spliced elsewhere are the
+        same in exact arithmetic, and on the card they may differ in the
+        last bits, which sampling can turn into other codes. Every weight
+        tier runs: K5 with ``start`` (fused_talker) and K6 with per-lane
+        parameters (fused_cp), or the unfused step. The cache stays at the
+        compute dtype whatever RuntimeConfig.kv_quant says: the JAX
+        package's queue passes no kv_quant either (``pipeline.py:788-927``;
+        K5 takes no ``start`` with the int8 cache).
+
+        Without on_audio the results are vocoded after the run through
+        ``vocode_batched`` (lane by lane through ``decode_codes`` when
+        chunked vocoding applies), t_decode_ms the vocoder wall / B.
+        With on_audio(request_index, audio_chunk, finished), each request's
+        audio streams while the queue runs, on the JAX package's staggered
+        cadence (``_stream_on_chunk``): a request's first decoded frames
+        (at most chunk_frames rounded up to 8) are vocoded at once, with no
+        history; then it emits segments of stream_cadence frames, each
+        vocoded with stream_history frames of left context whose samples
+        are dropped; the rest goes out when it finishes (stream_cadence=0:
+        whatever each chunk brought). A request that finishes with no
+        frames still gets on_audio(i, empty, True). The windows of a chunk
+        boundary are vocoded through ``vocode_batched_groups``, the first
+        windows as one set and the steady ones as another, and on_audio
+        fires per group as that group's audio reaches the host. The
+        harvest is serial while streaming (the JAX package's default
+        then: its first windows would otherwise queue behind the next
+        chunk). The results carry the streamed audio concatenated and
+        t_decode_ms 0 (the vocoder runs inside the generate wall)."""
         from .runtime.continuous import ContinuousScheduler, prefill_window_len
 
+        if on_audio is not None and not callable(on_audio):
+            raise TypeError(f"on_audio must be callable, got {type(on_audio).__name__}")
         rt, tcfg = self.config.runtime, self.config.talker
+        spf = self.config.vocoder.samples_per_frame
         B = len(texts)
         results = [TTSResult() for _ in texts]
         if not self._loaded:
@@ -700,39 +849,232 @@ class Qwen3TTS:
         if kv_capacity is None:
             P = prefill_window_len(nothink)
             kv_capacity = -(-(P + 2 * max_frames + chunk_frames + rt.kv_margin) // 256) * 256
+        if self.talker_params is None:
+            self._set_talker(*self._load_talker())
+        if self.vocoder_params is None:
+            self.vocoder_params = self._load_vocoder()
         sched = ContinuousScheduler(
             self.talker_params, self.cp_params, tcfg, self.config.code_predictor, lanes=lanes,
             kv_capacity=kv_capacity, text_bucket=Tb, chunk_frames=chunk_frames,
             refill_slots=refill_slots, max_frames=max_frames, temperature=params.temperature,
             top_k=params.top_k, top_p=params.top_p,
-            repetition_penalty=params.repetition_penalty, nothink=nothink, **self.fused)
+            repetition_penalty=params.repetition_penalty, nothink=nothink,
+            overlap_harvest=on_audio is None,
+            admit_per_boundary=admit_per_chunk,
+            **self.fused)
         budgets = [params.max_audio_tokens if max_audio_tokens_per_request is None
                    else int(max_audio_tokens_per_request[i]) for i in range(B)]
         t0 = now_ms()
         rids = [sched.submit(p_i, n_i, np.asarray(speakers[i], np.float32), params.language_id,
                              seed=params.seed + i, max_frames=min(budgets[i], max_frames))
                 for i, (p_i, n_i) in enumerate(fitted)]
-        out = sched.run()
+        streamed: dict = {}
+        on_chunk = None
+        if on_audio is not None:
+            on_chunk = self._stream_on_chunk(
+                {rid: i for i, rid in enumerate(rids)}, on_audio, streamed,
+                chunk_frames=chunk_frames, history=stream_history, cadence=stream_cadence)
+        run_started = time.perf_counter()
+        out = sched.run(on_chunk=on_chunk)
         _sync(self.device)
         t_gen = now_ms() - t0
         self.last_queue_stats = dict(lanes=lanes, kv_capacity=kv_capacity,
                                      chunks=sched.chunks_run, refills=sched.refills,
-                                     compactions=sched.compactions, sessions=sched.sessions)
+                                     compactions=sched.compactions, sessions=sched.sessions,
+                                     run_started=run_started)
 
-        t0 = now_ms()
         codes = [out[rid][:budgets[i]].astype(np.int32) for i, rid in enumerate(rids)]
-        audio = [self.decode_codes(c) if len(c) else None for c in codes]
+        n_frames = [len(c) for c in codes]
+        chunk = rt.vocoder_chunk_frames
+        per_lane = bool(chunk) and max(n_frames, default=0) > chunk
+        t0 = now_ms()
+        audio = None if on_audio is not None or per_lane else self._vocode_lanes(codes,
+                                                                                n_frames)
         t_dec = now_ms() - t0
-        for r, c, a in zip(results, codes, audio):
+        for i, (r, c, n) in enumerate(zip(results, codes, n_frames)):
             r.codes = c
-            r.n_frames = len(c)
+            r.n_frames = n
             r.timings.t_generate_ms = t_gen / max(B, 1)
-            r.timings.t_decode_ms = t_dec / max(B, 1)
-            r.timings.t_total_ms = now_ms() - t_total0
-            if a is None:
+            if n == 0:
                 r.error_msg = "No speech codes generated"
                 continue
-            r.audio = a
+            if on_audio is not None:
+                chunks = streamed.get(rids[i], [])
+                r.audio = (np.concatenate(chunks)[: n * spf] if chunks
+                           else np.zeros(0, np.float32))
+                r.timings.t_decode_ms = 0.0
+            elif per_lane:
+                t1 = now_ms()
+                r.audio = self.decode_codes(c)
+                r.timings.t_decode_ms = now_ms() - t1
+            else:
+                r.audio = audio[i]
+                r.timings.t_decode_ms = t_dec / max(B, 1)
             r.sample_rate = self.config.vocoder.sample_rate
             r.success = True
+            r.timings.t_total_ms = now_ms() - t_total0
         return results
+
+    def _stream_on_chunk(self, rid_to_idx, on_audio, streamed, *, chunk_frames: int,
+                         history: int, cadence: int):
+        """The scheduler's on_chunk for synthesize_queue(on_audio=...): the
+        JAX package's staggered-cadence emission (``pipeline.py:819-927``),
+        call for call. Per request: its first emission takes min(available,
+        chunk_frames rounded up to 8) frames with no history; then segments
+        of `cadence` frames (0: whatever is available) with up to `history`
+        frames of context; on finish, the remainder in segments of at most
+        `cadence`. Each emission's window is [history + k, 16] codes; the
+        chunk's first windows are vocoded as one group set, then its steady
+        windows as another, each window at its exact length (the JAX
+        package pads them to two vocoder buckets and its lanes to multiples
+        of 16; a lane's valid samples are the same). Appends each
+        request's chunks to streamed[rid]."""
+        vparams, vcfg = self.vocoder_params, self.config.vocoder
+        spf, ncb = vcfg.samples_per_frame, vcfg.n_codebooks
+        cadence = cadence if cadence > 0 else 0
+        first_k = max(8, -(-chunk_frames // 8) * 8)
+        ctx_codes: dict = {}
+        pend_codes: dict = {}
+        emitted_count: dict = {}
+
+        def vocode_wins(wins):
+            nf = [w[1].shape[0] for w in wins]
+            bufs = np.zeros((len(wins), max(nf), ncb), np.int64)
+            for g, (_, window, *_rest) in enumerate(wins):
+                bufs[g, :window.shape[0]] = window
+            for g0, g1, audio in vocode_batched_groups(vparams, vcfg, bufs, nf):
+                for g in range(g0, g1):
+                    rid, window, hist, k, fin = wins[g]
+                    chunk_audio = audio[g - g0, hist * spf:(hist + k) * spf]
+                    streamed.setdefault(rid, []).append(chunk_audio)
+                    on_audio(rid_to_idx[rid], chunk_audio, fin)
+
+        def on_chunk(events):
+            first_wins, steady_wins = [], []
+            for rid, rows, finished in events:
+                pend = pend_codes.get(rid)
+                pend = rows if pend is None else np.concatenate([pend, rows], axis=0)
+                emits = []   # (k, is_first)
+                avail = pend.shape[0]
+                if emitted_count.get(rid, 0) == 0 and avail:
+                    k = min(avail, first_k)
+                    emits.append((k, True))
+                    avail -= k
+                if cadence:
+                    while avail >= cadence:
+                        emits.append((cadence, False))
+                        avail -= cadence
+                    if finished:
+                        while avail > 0:
+                            k = min(avail, cadence)
+                            emits.append((k, False))
+                            avail -= k
+                elif avail:
+                    emits.append((avail, False))
+                    avail = 0
+                off = 0
+                for k, is_first in emits:
+                    seg = pend[off:off + k]
+                    off += k
+                    ctx = ctx_codes.get(rid)
+                    hist = 0 if is_first or ctx is None else min(history, ctx.shape[0])
+                    window = seg if hist == 0 else np.concatenate([ctx[-hist:], seg], axis=0)
+                    fin = finished and off == pend.shape[0]
+                    (first_wins if is_first else steady_wins).append(
+                        (rid, window, hist, k, fin))
+                    grown = seg if ctx is None else np.concatenate([ctx, seg], axis=0)
+                    ctx_codes[rid] = grown[-history:] if history > 0 else grown[:0]
+                    emitted_count[rid] = emitted_count.get(rid, 0) + k
+                pend_codes[rid] = pend[off:]
+                if finished:
+                    pend_codes.pop(rid, None)
+                    ctx_codes.pop(rid, None)
+                    if not emits:   # a finish with no frames still signals
+                        streamed.setdefault(rid, []).append(np.zeros((0,), np.float32))
+                        on_audio(rid_to_idx[rid], np.zeros((0,), np.float32), True)
+            if first_wins:
+                vocode_wins(first_wins)
+            if steady_wins:
+                vocode_wins(steady_wins)
+
+        return on_chunk
+
+    def synthesize_streaming(self, text: str, params: SamplingConfig = SamplingConfig(), *,
+                             chunk_frames: int = 16, history: int = 32,
+                             speaker: Optional[np.ndarray] = None):
+        """Streaming synthesis: a generator of float32 audio chunks, yielded
+        while generation runs (counterpart of ``synthesize_streaming``,
+        ``qwen3tts_tpu/pipeline.py:980-1060``). The first chunk comes from
+        ``runtime/e2e.start_and_vocode`` (the prefill, up to chunk_frames
+        frames, the vocoder over them); then each ``generate_chunk`` of
+        chunk_frames frames is vocoded over the window
+        codes[max(0, emitted - history):n] (the codes on the device; the
+        window at its exact length) and its new samples are yielded. The
+        stream stops at EOS or at min(max_audio_tokens, frame bucket)
+        frames; its chunks hold 1920 samples per frame in all. speaker: an
+        embedding [H] (the default voice's zeros when None).
+
+        Codes and seeds are those of ``synthesize`` (the same loop, cut into
+        chunks): a streamed request's codes equal its. Only the new code
+        rows are copied to the host; after the stream, last_stream holds
+        them (codes [n, 16] int32), the frame count and each chunk's frames.
+        The windows' pre-transformer attention is unbounded, so the chunks
+        differ from one pass over the whole clip, as the JAX package's
+        do."""
+        from .runtime import e2e
+
+        if not self._loaded:
+            raise RuntimeError("Models not loaded")
+        rt, tcfg = self.config.runtime, self.config.talker
+        vcfg = self.config.vocoder
+        spf = vcfg.samples_per_frame
+        if speaker is None:
+            speaker = np.zeros((tcfg.hidden_size,), np.float32)
+        padded, n_tok = self._fit_tokens(self.tokenizer.encode_for_tts(text))
+        budget, kv_capacity = self._frame_budget(params)
+        if self.talker_params is None:
+            self._set_talker(*self._load_talker())
+        if self.vocoder_params is None:
+            self.vocoder_params = self._load_vocoder()
+        samp = dict(temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
+                    repetition_penalty=params.repetition_penalty)
+        gen = torch.Generator()
+        gen.manual_seed(params.seed)
+        codes, chunks = [], []
+        self.last_stream = dict(codes=np.zeros((0, tcfg.n_codebooks), np.int32), n_frames=0,
+                                chunk_frames=chunks)
+
+        def take(state, lo, hi):
+            """Copy the new code rows [lo, hi) to the host."""
+            codes.append(state.codes[lo:hi].cpu().numpy().astype(np.int32))
+            chunks.append(hi - lo)
+            self.last_stream.update(codes=np.concatenate(codes), n_frames=hi)
+
+        audio0, state, prefill = e2e.start_and_vocode(
+            self.talker_params, self.cp_params, self.vocoder_params, torch.from_numpy(padded),
+            n_tok, torch.as_tensor(speaker, dtype=torch.float32, device=self.device),
+            params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
+            vocoder_cfg=vcfg, chunk_frames=chunk_frames, max_frames=budget,
+            kv_capacity=kv_capacity, nothink=params.language_id < 0,
+            kv_quant=resolve_kv_quant(rt, kv_capacity=kv_capacity), **samp, **self.fused)
+        emitted = min(state.frame, budget)
+        if emitted > 0:
+            take(state, 0, emitted)
+            yield audio0[:emitted * spf].cpu().numpy()
+        if state.done or emitted >= budget:
+            return
+        while True:
+            decode_loop.generate_chunk(
+                self.talker_params, self.cp_params, prefill, state, talker_cfg=tcfg,
+                cp_cfg=self.config.code_predictor, chunk_frames=chunk_frames,
+                max_frames=budget, **samp, **self.fused)
+            n = min(state.frame, budget)
+            if n > emitted:
+                take(state, emitted, n)
+                lo = max(0, emitted - history)
+                audio = vocoder_model.vocoder_decode(self.vocoder_params, vcfg,
+                                                     state.codes[lo:n], n - lo)
+                yield audio[(emitted - lo) * spf:(n - lo) * spf].cpu().numpy()
+                emitted = n
+            if state.done or n >= budget:
+                break

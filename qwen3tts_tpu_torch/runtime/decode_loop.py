@@ -27,12 +27,19 @@ explicit fused_cp=True on bf16 code-predictor blocks raises ValueError. All
 four combinations of the booleans run in every tier.
 
 The loop is a Python loop; the EOS check reads cb0 back, one host sync per
-frame. Seeds: where JAX derives the kernels' int32 seeds with threefry from
-one key, the port draws them from a torch.Generator seeded by the request
-seed (one for frame 0's cb0, then two per frame: code predictor, next cb0).
-``sample_token`` takes the counter-hash Gumbel noise of (seed, step) for
-its rows. Greedy output therefore matches JAX exactly; sampled output
-matches only in distribution (and at kernel level, given the same seeds).
+frame. It runs in chunks (the JAX package's streaming entry points):
+``generate_init`` prefills and draws frame 0's cb0 into a ``LoopState`` (the
+cache, in place; the seen-set, codes and hidden rows on the device; the
+request's generator), ``generate_chunk`` advances it by up to K frames and
+``generate_start`` is the two together; ``generate_from_tokens`` is
+``generate_init`` then one chunk of max_frames, so a streamed request's
+codes are ``synthesize``'s. Seeds: where JAX derives the kernels' int32
+seeds with threefry from one key, the port draws them from a torch.Generator
+seeded by the request seed (one for frame 0's cb0, then two per frame: code
+predictor, next cb0). ``sample_token`` takes the counter-hash Gumbel noise
+of (seed, step) for its rows. Greedy output therefore matches JAX exactly;
+sampled output matches only in distribution (and at kernel level, given the
+same seeds).
 
 The batched loop runs B lanes in lockstep (one shared n_past: every lane's
 prefill window has the same length); see ``generate_from_tokens_batched``.
@@ -48,6 +55,7 @@ they are never read). The unfused step ignores the setting.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -138,6 +146,155 @@ def _rest_embd_sum(cp_params, rest):
     return cp_params.embds[idx, rest].float().sum(dim=-2)
 
 
+@dataclasses.dataclass
+class LoopState:
+    """The single-stream loop between chunks (counterpart of ``_LoopState``,
+    ``qwen3tts_tpu/runtime/decode_loop.py``), updated in place by
+    ``generate_chunk`` (JAX donates the state and returns a new one). The
+    host keeps the counters; the device keeps the rest."""
+    frame: int                  # frames emitted so far
+    n_past: int                 # cache rows written (prefill + frames)
+    cb0_next: torch.Tensor      # the next frame's codebook-0 token
+    last_hidden: torch.Tensor   # [H] the talker's last output-normed hidden
+    kv: object                  # the compute-dtype cache, or the int8 (q, scale) pair
+    seen: torch.Tensor          # [Vc] int8: codebook-0 ids emitted so far
+    codes: torch.Tensor         # [max_frames, 16] int64; rows [0, frame) written
+    hidden_out: torch.Tensor    # [max_frames, H] the hidden state of each frame
+    done: bool                  # EOS was drawn as a frame's cb0
+    gen: torch.Generator        # the request's seeds, drawn in the frame loop's order
+
+
+def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
+                  language_id: int, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                  max_frames: int, kv_capacity: int, temperature: float, top_k: int,
+                  top_p: float = 1.0, repetition_penalty: float = 1.05,
+                  nothink: bool = False, fused_talker="auto", kv_quant: str = "none",
+                  allow_eos: bool = True):
+    """Prefill, then frame 0's codebook-0 token from the prefill logits:
+    returns (LoopState, prefill) ready for ``generate_chunk`` (counterpart
+    of ``generate_init``, ``qwen3tts_tpu/runtime/decode_loop.py:943``).
+    tokens [Tb] padded ids with n_tokens real ones; a cache of kv_capacity
+    rows (kv_quant "int8": the int8 pair, on the fused talker step only);
+    room for max_frames frames. The sampling arguments and allow_eos must
+    be those the chunks use; the generator's first draw seeds frame 0's
+    cb0."""
+    tcfg = talker_cfg
+    quant_kv = int8_kv(kv_quant, resolve_fused_talker(fused_talker))
+    dev = talker_params.codec_embd.device
+    dtype = talker_params.codec_embd.dtype
+    Vc = tcfg.codec_vocab_size
+    greedy, use_top_p = sampling_flags(temperature, top_p)
+    with torch.no_grad():
+        prefill = talker_model.build_prefill(
+            talker_params, tcfg, torch.as_tensor(tokens), n_tokens, speaker_embd,
+            language_id, nothink=nothink)
+        P = prefill.prefill_embd.shape[0]
+        if P + max_frames > kv_capacity:
+            raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
+        kv = talker_model.make_kv_cache(tcfg, P if quant_kv else kv_capacity, dtype, dev)
+        last_hidden, logits = talker_model.talker_prefill(
+            talker_params, tcfg, prefill.prefill_embd, kv)
+        if quant_kv:
+            kv = quantize_cache(kv, kv_capacity)
+        cb0_next = sample_cb0(
+            logits[None], draw_seeds(gen, 1), suppress_start=Vc - tcfg.n_suppressed_tail,
+            eos_id=tcfg.codec_eos_id if allow_eos else -1, temperature=temperature,
+            top_k=top_k, top_p=top_p, greedy=greedy, use_top_p=use_top_p)
+        state = LoopState(
+            frame=0, n_past=P, cb0_next=cb0_next, last_hidden=last_hidden, kv=kv,
+            # int8, the dtype the talker kernel reads: no per-frame conversion
+            seen=torch.zeros((Vc,), dtype=torch.int8, device=dev),
+            codes=torch.zeros((max_frames, tcfg.n_codebooks), dtype=torch.int64, device=dev),
+            hidden_out=torch.zeros((max_frames, tcfg.hidden_size), dtype=dtype, device=dev),
+            done=False, gen=gen)
+    return state, prefill
+
+
+def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talker_cfg,
+                   cp_cfg, chunk_frames: int, max_frames: int, temperature: float,
+                   top_k: int, top_p: float = 1.0, repetition_penalty: float = 1.05,
+                   allow_eos: bool = True, fused_cp="auto", fused_talker="auto",
+                   progress_cb=None) -> LoopState:
+    """Advance the loop by up to chunk_frames frames, in place: it stops
+    early at EOS (state.done) or at max_frames (counterpart of
+    ``generate_chunk``, ``qwen3tts_tpu/runtime/decode_loop.py:1008``). One
+    host sync per frame (the EOS check reads cb0 back). progress_cb, if
+    given, is called with the frames emitted so far after each frame (the
+    JAX loop's io_callback, ``decode_loop.py:423-425``). Returns state."""
+    tcfg, ccfg = talker_cfg, cp_cfg
+    fused_talker = resolve_fused_talker(fused_talker)
+    fused_cp = resolve_fused_cp(fused_cp, cp_params)
+    dtype = talker_params.codec_embd.dtype
+    greedy, use_top_p = sampling_flags(temperature, top_p)
+    samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
+                use_top_p=use_top_p)
+    cb0_kw = dict(samp, suppress_start=tcfg.codec_vocab_size - tcfg.n_suppressed_tail,
+                  eos_id=tcfg.codec_eos_id if allow_eos else -1)
+    Trb = prefill.trailing.shape[0]
+    target = min(state.frame + chunk_frames, max_frames, state.codes.shape[0])
+    with torch.no_grad():
+        while not state.done and state.frame < target:
+            frame = state.frame
+            cb0 = state.cb0_next.reshape(1).to(torch.int64)
+            if allow_eos and int(cb0) == tcfg.codec_eos_id:
+                state.done = True
+                break
+            seed_cp, seed_cb0 = draw_seeds(state.gen, 2)
+            cb0_embd = talker_params.codec_embd[cb0[0]]
+            if fused_cp:
+                rest, rest_sum = fused_predict_codes(
+                    cp_params, ccfg, state.last_hidden.to(dtype), cb0_embd, seed_cp, **samp)
+            else:
+                rest = cp_model.predict_codes(cp_params, ccfg, state.last_hidden.to(dtype),
+                                              cb0_embd, seed_cp, **samp)
+                rest_sum = _rest_embd_sum(cp_params, rest)
+            torch.cat([cb0, rest.to(torch.int64)], out=state.codes[frame])
+            state.hidden_out[frame] = state.last_hidden.to(dtype)
+            if progress_cb is not None:
+                progress_cb(frame + 1)
+            state.seen[cb0] = 1
+            trailing_row = prefill.trailing[min(frame, Trb - 1)]
+            step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
+            if fused_talker:
+                out = fused_talker_step(
+                    talker_params.blocks, tcfg, step_embd, state.n_past, state.kv,
+                    output_norm=talker_params.output_norm,
+                    codec_head=talker_params.codec_head, seen=state.seen, seed=seed_cb0,
+                    repetition_penalty=repetition_penalty, **cb0_kw)
+                state.last_hidden, state.cb0_next = out.hidden.to(dtype), out.cb0
+            else:
+                state.last_hidden, logits = talker_model.talker_step(
+                    talker_params, tcfg, step_embd, state.n_past, state.kv)
+                state.cb0_next = sample_cb0(logits[None], [seed_cb0], seen=state.seen[None],
+                                            repetition_penalty=repetition_penalty, **cb0_kw)
+            state.frame += 1
+            state.n_past += 1
+    return state
+
+
+def generate_start(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
+                   language_id: int, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                   chunk_frames: int, max_frames: int, kv_capacity: int, temperature: float,
+                   top_k: int, top_p: float = 1.0, repetition_penalty: float = 1.05,
+                   nothink: bool = False, allow_eos: bool = True, fused_cp="auto",
+                   fused_talker="auto", kv_quant: str = "none"):
+    """Prefill and the first chunk of up to chunk_frames frames: returns
+    (LoopState, prefill), as ``generate_init`` then ``generate_chunk``
+    (counterpart of ``generate_start``,
+    ``qwen3tts_tpu/runtime/decode_loop.py:1072``; the JAX package fuses
+    them into one dispatch, a single round trip of its device)."""
+    samp = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                repetition_penalty=repetition_penalty, allow_eos=allow_eos)
+    state, prefill = generate_init(
+        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, gen,
+        talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames, kv_capacity=kv_capacity,
+        nothink=nothink, fused_talker=fused_talker, kv_quant=kv_quant, **samp)
+    generate_chunk(talker_params, cp_params, prefill, state, talker_cfg=talker_cfg,
+                   cp_cfg=cp_cfg, chunk_frames=chunk_frames, max_frames=max_frames,
+                   fused_cp=fused_cp, fused_talker=fused_talker, **samp)
+    return state, prefill
+
+
 def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          speaker_embd, language_id: int, gen: torch.Generator, *,
                          talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
@@ -146,7 +303,8 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
                          fused_talker="auto", fused_cp="auto",
                          allow_eos: bool = True, kv_quant: str = "none",
                          progress_cb=None) -> GenerateResult:
-    """Prefill + the frame loop for one request; see the module docstring.
+    """Prefill + the frame loop for one request; see the module docstring:
+    ``generate_init``, then one ``generate_chunk`` of max_frames frames.
     tokens [Tb] padded ids with n_tokens real ones; runs at most max_frames
     frames into a KV cache of kv_capacity rows (kv_quant "int8": the int8
     pair on the fused talker step). fused_talker / fused_cp pick
@@ -156,77 +314,22 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
     called with the frames emitted so far after each frame, as the JAX
     loop's io_callback (``decode_loop.py:423-425``); the count is a host
     integer, so it adds no sync to the loop's one per frame."""
-    tcfg, ccfg = talker_cfg, cp_cfg
-    fused_talker = resolve_fused_talker(fused_talker)
-    fused_cp = resolve_fused_cp(fused_cp, cp_params)
-    quant_kv = int8_kv(kv_quant, fused_talker)
-    dev = talker_params.codec_embd.device
-    dtype = talker_params.codec_embd.dtype
-    Vc = tcfg.codec_vocab_size
-    suppress_start = Vc - tcfg.n_suppressed_tail
-    greedy, use_top_p = sampling_flags(temperature, top_p)
-    samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
-                use_top_p=use_top_p)
-    cb0_kw = dict(samp, suppress_start=suppress_start,
-                  eos_id=tcfg.codec_eos_id if allow_eos else -1)
-
-    with torch.no_grad():
-        prefill = talker_model.build_prefill(
-            talker_params, tcfg, torch.as_tensor(tokens), n_tokens, speaker_embd,
-            language_id, nothink=nothink)
-        Trb = prefill.trailing.shape[0]
-        P = prefill.prefill_embd.shape[0]
-        if P + max_frames > kv_capacity:
-            raise ValueError(f"KV capacity {kv_capacity} < prefill {P} + frames {max_frames}")
-        kv = talker_model.make_kv_cache(tcfg, P if quant_kv else kv_capacity, dtype, dev)
-        last_hidden, logits = talker_model.talker_prefill(
-            talker_params, tcfg, prefill.prefill_embd, kv)
-        if quant_kv:
-            kv = quantize_cache(kv, kv_capacity)
-
-        cb0_next = sample_cb0(logits[None], draw_seeds(gen, 1), **cb0_kw)
-        # int8, the dtype the talker kernel reads: no per-frame conversion
-        seen = torch.zeros((Vc,), dtype=torch.int8, device=dev)
-        codes, hidden_out = [], []
-        n_past = P
-        for frame in range(max_frames):
-            cb0 = cb0_next.reshape(1).to(torch.int64)
-            if allow_eos and int(cb0) == tcfg.codec_eos_id:
-                break
-            seed_cp, seed_cb0 = draw_seeds(gen, 2)
-            cb0_embd = talker_params.codec_embd[cb0[0]]
-            if fused_cp:
-                rest, rest_sum = fused_predict_codes(
-                    cp_params, ccfg, last_hidden.to(dtype), cb0_embd, seed_cp, **samp)
-            else:
-                rest = cp_model.predict_codes(cp_params, ccfg, last_hidden.to(dtype), cb0_embd,
-                                              seed_cp, **samp)
-                rest_sum = _rest_embd_sum(cp_params, rest)
-            codes.append(torch.cat([cb0, rest.to(torch.int64)]))
-            hidden_out.append(last_hidden.to(dtype))
-            if progress_cb is not None:
-                progress_cb(frame + 1)
-            seen[cb0] = 1
-            trailing_row = prefill.trailing[min(frame, Trb - 1)]
-            step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
-            if fused_talker:
-                out = fused_talker_step(
-                    talker_params.blocks, tcfg, step_embd, n_past, kv,
-                    output_norm=talker_params.output_norm,
-                    codec_head=talker_params.codec_head, seen=seen, seed=seed_cb0,
-                    repetition_penalty=repetition_penalty, **cb0_kw)
-                last_hidden, cb0_next = out.hidden.to(dtype), out.cb0
-            else:
-                last_hidden, logits = talker_model.talker_step(
-                    talker_params, tcfg, step_embd, n_past, kv)
-                cb0_next = sample_cb0(logits[None], [seed_cb0], seen=seen[None],
-                                      repetition_penalty=repetition_penalty, **cb0_kw)
-            n_past += 1
-    H = tcfg.hidden_size
-    if not codes:
-        return GenerateResult(torch.zeros((0, tcfg.n_codebooks), dtype=torch.int64), 0,
-                              torch.zeros((0, H), dtype=dtype))
-    return GenerateResult(torch.stack(codes), len(codes), torch.stack(hidden_out))
+    samp = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                repetition_penalty=repetition_penalty, allow_eos=allow_eos)
+    state, prefill = generate_init(
+        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, gen,
+        talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames, kv_capacity=kv_capacity,
+        nothink=nothink, fused_talker=fused_talker, kv_quant=kv_quant, **samp)
+    generate_chunk(talker_params, cp_params, prefill, state, talker_cfg=talker_cfg,
+                   cp_cfg=cp_cfg, chunk_frames=max_frames, max_frames=max_frames,
+                   fused_cp=fused_cp, fused_talker=fused_talker, progress_cb=progress_cb,
+                   **samp)
+    n = state.frame
+    if n == 0:
+        return GenerateResult(torch.zeros((0, talker_cfg.n_codebooks), dtype=torch.int64), 0,
+                              torch.zeros((0, talker_cfg.hidden_size),
+                                          dtype=state.hidden_out.dtype))
+    return GenerateResult(state.codes[:n], n, state.hidden_out[:n])
 
 
 def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd,

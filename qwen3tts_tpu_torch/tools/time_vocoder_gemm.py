@@ -4,7 +4,9 @@ NVIDIA GPU, with the serve paths they sit on, so that two checkouts can be
 compared on one card.
 
     python3 qwen3tts_tpu_torch/tools/time_vocoder_gemm.py [--package DIR]
+        [--groups LANES:FRAMES,...]
     python3 qwen3tts_tpu_torch/tools/time_vocoder_gemm.py --repeat N
+    python3 qwen3tts_tpu_torch/tools/time_vocoder_gemm.py --requests N [--package DIR]
 
 DIR is the root of the checkout whose ``qwen3tts_tpu_torch`` is timed
 (default: the checkout holding this file); its kernels are built first. To
@@ -17,6 +19,12 @@ gate and its launch count), K3's largest error, the launches per res block
 at each width, and every single trace's count of K3's kernels (three runs
 of each res block per trace), so that a trace that dropped an event shows.
 
+With --requests N it times nothing else: the sampled 256-token request of
+chip_smoke.py's serve phase through synthesize, N runs after a warm-up,
+each run's generate frames/s and vocoder ms (t_decode_ms); short enough
+to run each checkout in several processes, in turns, where one process's
+host speed moves a request by several percent.
+
 Prints one JSON line, on the int8 pipeline's seeded synthetic weights:
   - K3 at each decoder width for a 64-frame clip (the three dilations
     summed) and over all 12 res blocks: CUDA-event ms, the device ms of
@@ -24,12 +32,33 @@ Prints one JSON line, on the int8 pipeline's seeded synthetic weights:
     kernels per res block;
   - vocoder_decode of a 64-frame clip: event ms and device ms of all its
     kernels;
+  - synthesize of chip_smoke.py's sampled 256-token request, three runs
+    after a warm-up: each run's generate frames/s and vocoder ms
+    (t_decode_ms);
+  - where the checkout has pipeline.vocode_batched: 64 windows of 8 to 48
+    frames (the streamed queue's window lengths: a first emission of 8,
+    steady ones of 16 history + 32 cadence, remainders between) on random
+    codes, vocoded together, five runs after a warm-up: each run's wall ms;
   - the GEMM at chip_smoke.py's shapes (the talker's four projections at
     M = 1, 10, 64 and 128, bf16 x, cycling over the 28 layers' weights):
     device ms per call and kernels per call;
   - chip_smoke.py's 64-lane sampled batch: its vocoder ms and its generate
     frames/s; the 128-text sampled queue on 64 lanes: frames/s over its
     wall (which includes the vocoding);
+  - the batch's codes vocoded lane by lane (decode_codes) and, where the
+    checkout has it, through pipeline.vocode_batched: wall ms, the peak of
+    torch.cuda.max_memory_allocated, the groups, the largest difference
+    from lane by lane; with --groups, once more per LANES:FRAMES pair with
+    VOCODE_MAX_LANES and VOCODE_MAX_LANE_FRAMES set to it (the sweep the
+    constants were chosen from);
+  - where the checkout streams: the 128-text queue with on_audio (chunks
+    of 8, history 16, cadence 32) beside it without: aggregate frames/s
+    over the wall and each request's time to first audio from run()'s
+    start (p50, p90); synthesize_streaming of the sampled 256-token
+    request (chunks of 16, history 32): TTFA over nine seeds on the host
+    clock from the call to the first chunk in host memory, and the
+    stream's frames/s over its wall (null where the checkout does not
+    stream);
   - the paths on which the GEMM runs every projection or the prefill, each
     with its generate frames/s (one run after a profiled one) and the
     GEMM's device ms and kernels over the profiled run: the fused int8
@@ -45,6 +74,7 @@ import importlib.util
 import json
 import os
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # K3's kernels in either design: the three-kernel one and res_conv_kernel
@@ -68,6 +98,145 @@ def gemm_in(run, dev, smoke):
     frames = sum(r.n_frames for r in rs)
     return dict(frames=frames, frames_per_s=frames / (rs[0].timings.t_generate_ms * len(rs)) * 1e3,
                 gemm_device_ms=sum(durs) / 1e3, gemm_kernels=len(durs))
+
+
+def groups_arg():
+    """--groups LANES:FRAMES,... as [(lanes, frames)] ([] without it)."""
+    if "--groups" not in sys.argv:
+        return []
+    spec = sys.argv[sys.argv.index("--groups") + 1]
+    return [tuple(int(v) for v in pair.split(":")) for pair in spec.split(",")]
+
+
+def vocode_lanes(tts, rs, dev, sweep):
+    """The batch results' codes vocoded lane by lane and, where the
+    checkout has vocode_batched, grouped (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch import pipeline
+
+    live = [r for r in rs if r.n_frames]
+    nf = [r.n_frames for r in live]
+    spf = tts.config.vocoder.samples_per_frame
+
+    def walled(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, dict(wall_ms=(time.perf_counter() - t0) * 1e3, memory_before_bytes=base,
+                         peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+
+    alone, out = walled(lambda: [tts.decode_codes(r.codes) for r in live])
+    out = dict(lanes=len(live), frames=sum(nf), lane_by_lane=out)
+    if not hasattr(pipeline, "vocode_batched"):
+        return dict(out, grouped=None)
+    bufs = np.zeros((len(live), max(nf), 16), np.int64)
+    for j, r in enumerate(live):
+        bufs[j, :r.n_frames] = r.codes
+    consts = (pipeline.VOCODE_MAX_LANES, pipeline.VOCODE_MAX_LANE_FRAMES)
+    runs = {}
+    for lanes, frames in [consts] + [g for g in sweep if g != consts]:
+        pipeline.VOCODE_MAX_LANES, pipeline.VOCODE_MAX_LANE_FRAMES = lanes, frames
+        try:
+            pipeline.vocode_batched(tts.vocoder_params, tts.config.vocoder, bufs, nf)  # warm-up
+            audio, st = walled(lambda: pipeline.vocode_batched(
+                tts.vocoder_params, tts.config.vocoder, bufs, nf))
+            err = max(float(abs(audio[j, :n * spf] - a).max())
+                      for j, (n, a) in enumerate(zip(nf, alone)))
+            st.update(groups=len(pipeline.vocode_groups(nf)), max_abs_err_to_lane_by_lane=err)
+        except torch.cuda.OutOfMemoryError as e:
+            st = dict(out_of_memory=str(e).splitlines()[0])
+        runs[f"{lanes}:{frames}"] = st
+        print(json.dumps({f"vocode_batched {lanes}:{frames}": st}), file=sys.stderr)
+    pipeline.VOCODE_MAX_LANES, pipeline.VOCODE_MAX_LANE_FRAMES = consts
+    return dict(out, grouped=runs, constants=f"{consts[0]}:{consts[1]}")
+
+
+def single_request(tts, smoke, runs=3):
+    """synthesize of the sampled 256-token request (see the module's
+    docstring)."""
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    text, req = smoke.MAIN_REQUESTS[1]
+    tts.synthesize(text, SamplingConfig(**req))
+    out = []
+    for _ in range(runs):
+        r = tts.synthesize(text, SamplingConfig(**req))
+        out.append(dict(frames=r.n_frames,
+                        frames_per_s=r.n_frames / r.timings.t_generate_ms * 1e3,
+                        vocoder_ms=r.timings.t_decode_ms))
+    return dict(request=req, runs=out)
+
+
+def stream_windows(tts, dev, g, runs=5):
+    """64 ragged windows vocoded together (see the module's docstring), or
+    None where the checkout has no vocode_batched."""
+    import torch
+
+    from qwen3tts_tpu_torch import pipeline
+
+    if not hasattr(pipeline, "vocode_batched"):
+        return None
+    vcfg = tts.config.vocoder
+    nf = [8 + (37 * b) % 41 for b in range(64)]
+    codes = torch.randint(0, vcfg.codebook_size, (64, max(nf), vcfg.n_codebooks),
+                          generator=g).numpy()
+    pipeline.vocode_batched(tts.vocoder_params, vcfg, codes, nf)
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        pipeline.vocode_batched(tts.vocoder_params, vcfg, codes, nf)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return dict(windows=len(nf), frames=sum(nf), groups=len(pipeline.vocode_groups(nf)),
+                wall_ms=walls)
+
+
+def stream_queue(tts, smoke, sp):
+    """The sampled queue with on_audio (the JAX package's streaming
+    defaults), or None where the checkout refuses on_audio."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    first_at = {}
+    texts = smoke.batch_texts(sp["texts"])
+    t0 = time.perf_counter()
+    try:
+        rs = tts.synthesize_queue(texts, SamplingConfig(**sp["kw"]), lanes=sp["lanes"],
+                                  on_audio=lambda i, c, f: first_at.setdefault(
+                                      i, time.perf_counter()))
+    except NotImplementedError:
+        return None
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    run0 = tts.last_queue_stats.get("run_started", t0)
+    ttfa = [(t - run0) * 1e3 for t in first_at.values()]
+    frames = sum(r.n_frames for r in rs)
+    return dict(frames=frames, frames_per_s=frames / wall_ms * 1e3, wall_ms=wall_ms,
+                ttfa_p50_ms=float(np.percentile(ttfa, 50)),
+                ttfa_p90_ms=float(np.percentile(ttfa, 90)), requests_heard=len(ttfa))
+
+
+def stream_request(tts, smoke):
+    """synthesize_streaming's TTFA over chip_smoke.py's nine seeds and one
+    whole stream's frames/s, or None where the checkout has no
+    synthesize_streaming."""
+    import numpy as np
+
+    if not hasattr(tts, "synthesize_streaming"):
+        return None
+    sp = smoke.STREAM_SPEC
+    (text, req), k, h = sp["request"], sp["chunk_frames"], sp["history"]
+    ttfa = smoke.stream_ttfa(tts, text, req, k, h, sp["ttfa_seeds"], sp["ttfa_n"])
+    _, codes, _, wall_ms, _ = smoke.stream_request(tts, text, req, k, h)
+    return dict(ttfa_p50_ms=float(np.percentile(ttfa, 50)),
+                ttfa_p90_ms=float(np.percentile(ttfa, 90)), seeds=len(ttfa),
+                frames=len(codes), frames_per_s=len(codes) / wall_ms * 1e3)
 
 
 def repeat_res_block(smoke, n):
@@ -124,6 +293,15 @@ def main() -> int:
         return 2
     if "--repeat" in sys.argv:
         return repeat_res_block(smoke, int(sys.argv[sys.argv.index("--repeat") + 1]))
+    if "--requests" in sys.argv:
+        import qwen3tts_tpu_torch
+        from qwen3tts_tpu_torch import PipelineConfig
+
+        tts = smoke.make_pipeline(PipelineConfig(), torch.device("cuda", 0))
+        runs = single_request(tts, smoke, int(sys.argv[sys.argv.index("--requests") + 1]))
+        print(json.dumps(dict(package=qwen3tts_tpu_torch.__file__, card=smoke.nvidia_smi_line(),
+                              **runs)))
+        return 0
     import qwen3tts_tpu_torch
     from qwen3tts_tpu_torch import PipelineConfig, SamplingConfig, _kernels
     from qwen3tts_tpu_torch.models import vocoder as vocoder_model
@@ -165,6 +343,9 @@ def main() -> int:
                                            device_ms=smoke.device_ms_per_call(voc, 1, ("",),
                                                                               dev))
 
+    out["request sampled 256"] = single_request(tts, smoke)
+    out["vocode stream windows"] = stream_windows(tts, dev, g)
+
     blocks, L, gemm = tts.talker_params.blocks, tts.config.talker.n_layers, {}
     for name in ("wqkv", "wo", "w_gateup", "w_down"):
         wt = getattr(blocks, name)
@@ -186,12 +367,15 @@ def main() -> int:
         request=req, frames=frames,
         vocoder_ms=max(r.timings.t_decode_ms for r in rs) * lanes,
         frames_per_s=frames / (rs[0].timings.t_generate_ms * lanes) * 1e3)
+    out[f"vocode batch {lanes}"] = vocode_lanes(tts, rs, dev, groups_arg())
     sp = smoke.QUEUE_SPECS["sampled"]
     st, _ = smoke.serve_queue(tts, smoke.batch_texts(sp["texts"]), sp["kw"], sp["lanes"],
                               "sampled")
     out[f"queue {sp['texts']} sampled"] = dict(frames=st["frames"],
                                                frames_per_s=st["frames_per_s"],
                                                wall_ms=st["generate_ms"])
+    out[f"queue {sp['texts']} sampled streamed"] = stream_queue(tts, smoke, sp)
+    out["stream request sampled 256"] = stream_request(tts, smoke)
 
     text, req = smoke.MAIN_REQUESTS[0]
     out["fused request greedy 64"] = gemm_in(

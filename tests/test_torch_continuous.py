@@ -439,8 +439,10 @@ def test_synthesize_queue_results_in_submission_order(pipelines):
 
 
 def test_synthesize_queue_streaming_is_refused(pipelines):
-    """on_audio belongs to the streaming slice: it raises, never ignored."""
+    """Streaming is ported (tests/test_torch_streaming.py); what is refused
+    now is an on_audio that cannot be called: it raises before any request
+    runs, never ignored."""
     _, pt = pipelines
-    with pytest.raises(NotImplementedError, match="stream"):
+    with pytest.raises(TypeError, match="on_audio"):
         pt.synthesize_queue(["Hello."], SamplingConfig(max_audio_tokens=2),
-                            on_audio=lambda *a: None)
+                            on_audio="not a callable")

@@ -9,7 +9,8 @@ alone (decode attention in one launch per call, K1/K5's attention stage in
 one launch per layer, the split rules): ``-k attention``; K1's GEMVs and
 K5's projection GEMMs alone (each mode against its plain version): ``-k
 "projections or head_gemv"``; K3
-alone (every width, each dilation, a ragged T, launches per res block):
+alone (every width, each dilation, a ragged T, launches per res block;
+over a group of 16 lanes, each lane bit for bit the one-lane call):
 ``-k res_block``; the W8A16 GEMM alone (bf16 and float32 x, one launch per
 call): ``-k int8_matmul``.
 """
@@ -168,6 +169,22 @@ def test_res_block_launches_on_card(tts):
         assert w["launches_per_res_block"] == [1 if C in (96, 192) else 2] * 3
         assert w["device_ms"] is not None and w["device_ms"] > 0
     assert r["device_ms"] is not None
+
+
+def test_res_block_lanes_on_card(tts):
+    """K3 over a group of 16 lanes of 64 frames at every width, d = 9: each
+    lane equal to the one-lane call bit for bit (the check's 0.0 gate: no
+    lane reads another's rows), the group within K3's tolerance of the
+    plain version, and the plan's launches per res block for the whole
+    group (one at C = 96 and 192, two at 384 and 768)."""
+    report = {}
+    chip_smoke.check_res_block_lanes(tts, report, iters=1)
+    lanes = report["fused_res_block"]["lanes"]
+    assert sorted(lanes) == [96, 192, 384, 768]
+    for C, w in lanes.items():
+        assert w["lanes"] == 16 and w["lane_max_abs_err"] == 0.0
+        assert w["launches_per_res_block"] == (1 if C in (96, 192) else 2)
+        assert w["device_ms"] is not None and w["device_ms"] > 0
 
 
 def test_int8_matmul_one_launch_on_card(tts):
