@@ -64,7 +64,14 @@ Phases (each prints a line; any failure exits non-zero):
      "codec_head"), and the split rules include K5's GEMM plan and K1's
      GEMV plan against their mirrors. Then the 4-bit GEMV probe (int8 and
      packed-nibble weights, exact) beside K1's projection kernels at the
-     probe's shape;
+     probe's shape. Then the JAX package's random streams (check_prng, a
+     `prng` line): the host's keys, splits and bits equal PRNG_GOLDENS; the
+     card's threefry over a [16, 3072] field equal to the host's numpy form
+     bit for bit and to the goldens; the card's Gumbel field within
+     GUMBEL_ULPS of float64 over the same uniforms; the host's key work per
+     frame timed for one stream and 64 lanes (after the serve phase's
+     requests, a `prng_cost` line sets it beside the int8 sampled 256
+     request's ms per frame);
   4. serve, each path with the launch counts set to 0 just before it and
      read just after: one Qwen3TTS(quant="int8", device="cuda") with
      synthetic weights answers three single-stream requests (greedy 64
@@ -112,6 +119,14 @@ Phases (each prints a line; any failure exits non-zero):
      the 64-lane batch's codes through vocode_batched beside lane by lane
      (each lane within VOCODE_LANE_TOL, both walls, the peak memory); the
      bf16 tier's greedy stream (codes equal to synthesize's). Then the
+     random streams on the sampled serves (check_sampled_serves,
+     `sampled_serve` lines): on the int8 pipeline and the bf16 tier, the
+     same seed twice gives the same codes, and the draws the loop hands K2
+     (or the bf16 tier's predict_codes) and K1 each frame equal seed32 of
+     the host's split chain from prng_key(seed); in a 16-lane int8
+     synthesize_batch (4 lanes on the bf16 tier) lane b's draws equal the
+     single stream's from split(prng_key(seed), 16)[b], and the lanes'
+     codes beside the single stream's are counted, not gated. Then the
      checkpoint path (serve_checkpoint,
      `serve_checkpoint` lines), in a temporary directory: a full-width
      checkpoint written by tools/hf_fixture.py (BF16 main model, float32
@@ -251,6 +266,133 @@ QUEUE_FORBIDDEN = ("fused_talker_step", "fused_predict_codes")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
                   "f64": 67e12}   # f64: the float64 tensor cores
+
+
+# The JAX package's random streams (jax 0.9.0, threefry2x32 with
+# partitionable counters, x64 off) for seeds 0, 3, -5, 2**31 - 1 and
+# 2**32 + 7: the key jax.random.PRNGKey(seed); bits32 = jax.random.bits(key,
+# (), "uint32"); frames: the chain key <- split(key, 3)[0] over 8 frames,
+# each row (next key, k_cb0, k_cp as 3 x 2 words, bits32(k_cb0),
+# bits32(k_cp)); uniform_bits: the first 16 float32 bit patterns in [1, 2)
+# of jax.random.uniform's draw of a [3072] field from the key,
+# (bits >> 9) | 0x3F800000. tests/test_torch_prng.py holds them to JAX.
+PRNG_GOLDENS = {
+    0: dict(
+        key=(0, 0), bits32=0xf29a4fa7,
+        frames=(
+            (0x6b200159, 0x99ba4efe, 0x375f238f, 0xcddb151d, 0xf71f4ea9, 0xa20e4081,
+             0x01de0365, 0xe706ef41),
+            (0xf84e8312, 0x2fef64f3, 0x50afc224, 0x7e1f9c78, 0xa93d9cf0, 0x9315c51c,
+             0x1ab2c6af, 0x3a7dfe39),
+            (0x28b634de, 0x60d66271, 0xd27b7b07, 0x1bbbc408, 0xefb19f56, 0x8a79961c,
+             0x15258749, 0x1afbf28f),
+            (0x4261bcc8, 0x503c5210, 0x5bc24216, 0x070c6e87, 0x05a5866e, 0x6a33083a,
+             0x02ba9f11, 0x5668dad3),
+            (0xeb9c96eb, 0xe49d75ba, 0xfecb63f2, 0xc9786838, 0x893bc3c2, 0x93b8f9f4,
+             0x27b4fbc6, 0xf892c906),
+            (0x6e0f73e8, 0x5544d40a, 0x41309a55, 0xa982aeb1, 0x43d6e153, 0xacaf10fc,
+             0x6be451e8, 0x07c82f3f),
+            (0xc8707800, 0x5cb8bf13, 0xe8c62632, 0x3e76ad98, 0xc6a03d68, 0xb8380b38,
+             0x6199bf10, 0xa59fdce9),
+            (0x480e21bc, 0x27fe39cc, 0xc994b17e, 0x86da44d7, 0x0b5f0902, 0x71b16599,
+             0x3a9353a9, 0x54d715cf),
+        ),
+        uniform_bits=(0x3ff94d27, 0x3ffd421b, 0x3faa8887, 0x3fbbfd54, 0x3fc8f21d, 0x3f952f34,
+                      0x3fa7b475, 0x3fd840e6, 0x3fdf960c, 0x3f95e3ce, 0x3ffe2013, 0x3f833c76,
+                      0x3fd1ece4, 0x3fc80641, 0x3ff31970, 0x3ff79eed)),
+    3: dict(
+        key=(0, 3), bits32=0x12f51d7e,
+        frames=(
+            (0xdd8a639b, 0xcf7f7ee5, 0x7405344b, 0x842f0e8e, 0x3d10ce32, 0x9b32c2ec,
+             0x06a7964b, 0x47414215),
+            (0x2ba22c5a, 0x299bf09b, 0x55d47019, 0x5e96a52b, 0x7feb6258, 0x302822a8,
+             0x61a17bdc, 0x64a4b626),
+            (0x8e3d0ff6, 0x49e3f2a4, 0xb1ec3168, 0x3245ea46, 0x8fc951fe, 0x71d694f0,
+             0xd16d9655, 0x5aeb9bb1),
+            (0x77d2f506, 0x375a59c3, 0x7dc1cedc, 0x40f7c80a, 0xbe88da0c, 0xaae09e92,
+             0x2781263a, 0x27e736cc),
+            (0x23212714, 0x020ad073, 0xbe63b4fc, 0xf66117ce, 0xcea9d50f, 0x1565c796,
+             0xf739cfc9, 0x7a7bd5a3),
+            (0x4199014b, 0x30fc9d0a, 0x3e74f545, 0x64caa71e, 0xf6596dc3, 0x3a4b1984,
+             0x2c444841, 0x2e902ea1),
+            (0xf063aafa, 0xdea07ad5, 0xd5ef913b, 0x99e252ff, 0x42b372bd, 0xa0ec5455,
+             0x264bd74e, 0x90698b1c),
+            (0xe1a4f2e3, 0x0f4e538a, 0xcaa4472a, 0xbfd6194c, 0x6d603269, 0xbf71755d,
+             0xf38cb09c, 0xd6d1fac4),
+        ),
+        uniform_bits=(0x3f897a8e, 0x3ff8151d, 0x3fd31106, 0x3ffce126, 0x3fa3a1e2, 0x3fca9db7,
+                      0x3f8da1f9, 0x3fb0d728, 0x3f9aff3b, 0x3f906111, 0x3fde531b, 0x3f93fc09,
+                      0x3fa68444, 0x3fa0e327, 0x3ffc0513, 0x3f8dce49)),
+    -5: dict(
+        key=(0, 4294967291), bits32=0xad4ea3d7,
+        frames=(
+            (0x94fd9837, 0x39b33be0, 0xe0028f47, 0xe4b2f3da, 0x5ce9d9a3, 0x5e8815bd,
+             0x471d94f1, 0x173a8f23),
+            (0x4996f4c2, 0x02b819f8, 0xeb3c038e, 0xb0d498c6, 0x166ed6e2, 0x936a3813,
+             0xd7444168, 0x605157f7),
+            (0x3b6951b9, 0x8e199968, 0x3477cdf7, 0x7c045231, 0x8fd44a30, 0x7bbdee43,
+             0xa178d986, 0xeb298211),
+            (0x70dd0442, 0x3579f7bd, 0x7cd31015, 0x2b426752, 0xa6696ecb, 0x5c646188,
+             0x29f9f670, 0xb61165f7),
+            (0xa6410c53, 0xc5dd2e7c, 0x1b94dee6, 0xf3375d92, 0xe00bd3e8, 0x7247fea0,
+             0xc08502a9, 0xa4073312),
+            (0x04381fee, 0x2b53d9cb, 0xe2799c87, 0x65e020c2, 0x2da87071, 0x3947000b,
+             0x59fd780e, 0xf93a6849),
+            (0x1be563cc, 0x374c4610, 0xaefa62e7, 0x92a9e715, 0xc1685b1b, 0x82a8f169,
+             0xa1d451ac, 0x5590e124),
+            (0x6072d431, 0x6d37405b, 0xa6858f19, 0x6c506edb, 0xec8c06f4, 0x9327f897,
+             0x564737be, 0x4bc018b0),
+        ),
+        uniform_bits=(0x3fd6a751, 0x3f82583e, 0x3f8130e6, 0x3fcf9f1b, 0x3fe38fe9, 0x3fae59e6,
+                      0x3fecd8d5, 0x3fc7ba54, 0x3f97bbcc, 0x3f872664, 0x3fc1dfe8, 0x3fb95e58,
+                      0x3f890432, 0x3ff48ed2, 0x3fb6c934, 0x3f967bed)),
+    2147483647: dict(
+        key=(0, 2147483647), bits32=0x32209ba5,
+        frames=(
+            (0xe8222fe3, 0xda02b446, 0x8e90c653, 0xc734932d, 0x681666d7, 0x3c82a14e,
+             0xc5affa5d, 0xd7fe9d57),
+            (0xf0c145d5, 0x15f15cdf, 0xe0894c4c, 0x3a6e1e4c, 0xaacd47d6, 0x69dcadf5,
+             0xf0ad09e4, 0xd2cb7955),
+            (0xbc2a51f6, 0x2cfc08e4, 0xb304298a, 0x3b72096a, 0x44df5f53, 0xee89a82d,
+             0xce622d6c, 0x9ea05967),
+            (0x3a4afc36, 0x5f47e054, 0xf74fcc20, 0x0986b99d, 0x8ae3252e, 0xc8df7c8d,
+             0xdbaf3905, 0x24d537ed),
+            (0x231ed31b, 0x0de87943, 0x1926c0e1, 0x451d2b7c, 0x6433dd28, 0xfe6f5059,
+             0x37ef003d, 0xaab1ad9c),
+            (0x52e92bf9, 0x8f891d15, 0xa7e7e384, 0x8237a450, 0xcde9cd78, 0xa52bb6e0,
+             0xf11c20ac, 0xbb3481ae),
+            (0xbc43ab06, 0xd42b913e, 0x5b357421, 0xe891cab1, 0x3d4c3a46, 0xf5f16dc7,
+             0x34360f3f, 0x039e1046),
+            (0x3d18dbc9, 0x3a3a0da7, 0xccce4288, 0x4158c485, 0x17c59155, 0xef86f4e3,
+             0xb802f130, 0x431119ce),
+        ),
+        uniform_bits=(0x3f99104d, 0x3fa4d22a, 0x3faa4a63, 0x3fb13415, 0x3fdb0156, 0x3fe2f3da,
+                      0x3f812771, 0x3f8e25ac, 0x3fefa048, 0x3ff1d896, 0x3f93cc6b, 0x3fc844b4,
+                      0x3fecc742, 0x3fa9e9d0, 0x3f9972a1, 0x3fc0ad5e)),
+    4294967303: dict(
+        key=(0, 7), bits32=0xac91290b,
+        frames=(
+            (0xd817648b, 0x74864d80, 0x0ba028bf, 0xf22056bf, 0x399897a9, 0x741fbe03,
+             0xacd58f1f, 0x34bc48e8),
+            (0xa32ec77c, 0x7d253859, 0x1fcc2a28, 0x91a6b5e2, 0x7b48f583, 0x37b1d9b0,
+             0xfcd103fb, 0x031e7c3c),
+            (0x7d775d1b, 0x4d2e3a54, 0x7bfed959, 0xbabb5edb, 0x2937aa79, 0x1bf4d5f6,
+             0xd7c8175c, 0xcda23a53),
+            (0xa0ee99cf, 0x61daf1e9, 0x25c0db38, 0x573f2f39, 0x4b066eb7, 0xc5eed7ba,
+             0xb2ff39b3, 0x05d44e42),
+            (0x62aae9c4, 0x1c548a4c, 0x17d7bcf6, 0x6783f0d5, 0x6eaed00e, 0x7c856dc7,
+             0x06c6260d, 0x7120d919),
+            (0xd63bbc51, 0xe1f38c16, 0x04debdb7, 0x2bffb605, 0x83c7d65f, 0xfcd6c966,
+             0xe2db8e63, 0xaa1ef75c),
+            (0x3eba77f9, 0xb553edbe, 0x46ea0cc9, 0x18981f19, 0xcbfa9008, 0x342fdb5d,
+             0xcadf98c8, 0xebf43c29),
+            (0x7c6482b8, 0xe1475d8d, 0x48b83ca2, 0xcfe7eaa9, 0xbe5af194, 0x36789f2f,
+             0x80613172, 0x616e55e6),
+        ),
+        uniform_bits=(0x3fd64894, 0x3ffcc03f, 0x3fa6c394, 0x3fb8d3a2, 0x3fdd8db1, 0x3fd0c24d,
+                      0x3fb96a19, 0x3fb4ab6a, 0x3f88ee07, 0x3f8b7c58, 0x3faf8347, 0x3febae1e,
+                      0x3fd9c430, 0x3f852b09, 0x3ff70250, 0x3fbe1317)),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -441,15 +583,128 @@ def check_sampler(tts, report, iters):
     # operations per logit (the 30-step top-k bisection, the hash and the
     # two logs of the Gumbel noise, the argmax)
     bound_ms, bound_by = bound(V * 4 + 8, {"f32": 50 * V})
+    run = lambda: sample_rows(logits, seeds, 0, **kw)  # noqa: E731
     report["sample_rows"] = dict(
         max_abs_err=float(worst),   # tokens that differ (0 when the gate passed)
-        ms=timed(lambda: sample_rows(logits, seeds, 0, **kw), dev, iters),
+        ms=timed(run, dev, iters),
+        device_ms=device_ms_per_call(lambda: [run() for _ in range(iters)], iters,
+                                     ("sample_rows_kernel",), dev, expect=iters),
         plain_ms=timed(lambda: sample_rows_plain(logits, seeds, 0, **kw), dev, iters),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=f"one [1, {V}] row, top-k 50",
         tolerance="tokens equal over 48 draws")
-    print(f"kernel sample_rows: tokens equal; {report['sample_rows']['ms']:.4f} ms "
-          f"(plain {report['sample_rows']['plain_ms']:.4f} ms)")
+    print(f"kernel sample_rows: tokens equal; {report['sample_rows']['ms']:.4f} ms (device "
+          f"{report['sample_rows']['device_ms']}; plain {report['sample_rows']['plain_ms']:.4f} "
+          "ms)")
+
+
+def gumbel_ulps(g, u):
+    """The error of a float32 Gumbel field g = -log(-log(u)) against its
+    float64 value from the same uniforms u, in units of one float32 ulp of
+    each log: |g - g64| / (ulp(g64) + ulp(w) / w), w = -log(u). Near
+    g = 0 the outer log cancels, so the output's own ulp is no measure: one
+    ulp of w moves g by ulp(w) / w."""
+    import numpy as np
+
+    u = np.asarray(u, np.float64)
+    g64 = -np.log(-np.log(u))
+    w = -np.log(u)
+    unit = (np.spacing(np.abs(g64).astype(np.float32)).astype(np.float64)
+            + np.spacing(w.astype(np.float32)).astype(np.float64) / w)
+    return np.abs(np.asarray(g, np.float64) - g64) / unit
+
+
+GUMBEL_ULPS = 2.0
+
+
+def host_uniform_bits(keys, V):
+    """uniform_bits of keys [R, 2] over V counters by the numpy form of the
+    hash, on the host: uint32 [R, V]."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch.ops import prng
+
+    k = prng.key_array(keys).reshape(-1, 2)
+    b0, b1 = prng.threefry2x32(k[:, :1], k[:, 1:], np.uint32(0),
+                               np.arange(V, dtype=np.uint32)[None])
+    return ((b0 ^ b1) >> 9) | np.uint32(0x3F800000)
+
+
+def check_prng(device, iters=20):
+    """The JAX package's random streams in the port (ops/prng.py) against
+    PRNG_GOLDENS and across its forms. Host: prng_key, bits32, the split
+    chain of 8 frames and its bits in the Python-int form and the numpy
+    form over the five keys at once, all equal to the goldens. Device: the
+    uniform bit patterns of a [16, 3072] field (the five golden keys and
+    split(prng_key(11), 11)) by the torch form on `device` equal to the
+    numpy form bit for bit, and the goldens' first 16 of each golden key;
+    the Gumbel field on `device` within GUMBEL_ULPS of float64
+    -log(-log(u)) of the same uniforms (gumbel_ulps). Timed: the host's key
+    work per frame (decode_loop.frame_draws: split into 3 and two seeds)
+    for one stream (Python ints) and 64 lanes (numpy), and the [16, 3072]
+    field on `device`. Prints one `prng` line; returns its dict."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch.ops import prng
+    from qwen3tts_tpu_torch.runtime.decode_loop import frame_draws
+
+    bad = []
+    lanes = prng.key_array([prng.prng_key(s) for s in PRNG_GOLDENS])
+    lane_chain = lanes                                      # [5, 2]
+    for i, (seed, g) in enumerate(PRNG_GOLDENS.items()):
+        key = prng.prng_key(seed)
+        if key != g["key"] or prng.bits32(key) != g["bits32"]:
+            bad.append(f"seed {seed}: key or bits32")
+        for f, row in enumerate(g["frames"]):
+            nxt, k_cb0, k_cp = prng.split(key, 3)
+            got = (*nxt, *k_cb0, *k_cp, prng.bits32(k_cb0), prng.bits32(k_cp))
+            if got != tuple(row):
+                bad.append(f"seed {seed} frame {f}: split or bits")
+            key = nxt
+    for f in range(8):
+        s3 = prng.split(lane_chain, 3)
+        want = np.asarray([g["frames"][f] for g in PRNG_GOLDENS.values()], np.uint32)
+        got = np.concatenate([s3.reshape(-1, 6), prng.bits32(s3[:, 1])[:, None],
+                              prng.bits32(s3[:, 2])[:, None]], axis=1)
+        if not np.array_equal(got, want):
+            bad.append(f"lanes frame {f}: split or bits")
+        lane_chain = s3[:, 0]
+    keys = np.concatenate([lanes, prng.key_array(prng.split(prng.prng_key(11), 11))])
+    V = 3072
+    dev_bits = prng.uniform_bits(keys, V, device).cpu().numpy().view(np.uint32)
+    host_bits = host_uniform_bits(keys, V)
+    if not np.array_equal(dev_bits, host_bits):
+        bad.append(f"device field: {int((dev_bits != host_bits).sum())} bit patterns differ "
+                   "from the host form")
+    gold = np.asarray([g["uniform_bits"] for g in PRNG_GOLDENS.values()], np.uint32)
+    if not np.array_equal(dev_bits[:len(gold), :16], gold):
+        bad.append("device field: the goldens' uniform bits differ")
+    u = np.maximum(host_bits.view(np.float32) - np.float32(1.0), np.float32(prng.TINY))
+    g = prng.gumbel(keys, V, device).cpu().numpy()
+    ulps = float(gumbel_ulps(g, u).max())
+    if not ulps <= GUMBEL_ULPS:
+        bad.append(f"Gumbel field {ulps:.3f} ulps from float64 (tolerance {GUMBEL_ULPS})")
+    if bad:
+        raise SmokeFailure("prng: " + "; ".join(bad))
+
+    def per_call_us(fn, n):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    key64 = prng.key_array(prng.split(prng.prng_key(5), 64))
+    out = dict(
+        goldens="equal", device_field_bits="equal to the host form and the goldens",
+        gumbel_max_ulps=ulps, gumbel_tolerance_ulps=GUMBEL_ULPS, field=[len(keys), V],
+        frame_keys_us=per_call_us(lambda: frame_draws((0, 3), True, True), 2000),
+        frame_keys_64_lanes_us=per_call_us(lambda: frame_draws(key64, True, True), 200),
+        field_ms=timed(lambda: prng.gumbel(torch.as_tensor(keys.astype(np.int64), device=device),
+                                           V), device, iters))
+    print("prng " + json.dumps(out))
+    return out
 
 
 def _truncated(tts, n_layers):
@@ -1681,6 +1936,8 @@ def check_w4_gemv_probe(report, device, iters, shape=None):
 # K1's GEMVs; B >= 2: K5's GEMMs), the K1 and K5 entries each weight mode
 # reports under
 PROJ_LANES = (1, 16, 64, 128)
+# the fewest rows torch._int_mm takes on CUDA
+INT_MM_MIN_ROWS = 17
 K1_KEYS = {"w8a8": "fused_talker_step", "bf16": "fused_talker_step[bf16]",
            "w4bf16": "fused_talker_step[w4bf16]"}
 K5_KEYS = {"w8a8": "fused_talker_step_batched", "bf16": "fused_talker_step_batched[bf16]",
@@ -1797,7 +2054,8 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
     (projection_bound), and the library yardstick, timed the same two ways
     (library_ms, library_device_ms): one PyTorch call per layer for the
     same function, which the port never calls: torch._int_mm (int8 x int8
-    -> int32; on CUDA it takes more than 16 rows, so null at B <= 16) or
+    -> int32; on CUDA it takes more than 16 rows, so at B <= 16 x is padded
+    with zero rows to INT_MM_MIN_ROWS = 17 and the padded product is timed) or
     float64 torch.matmul over the values the kernels multiply (for w4bf16
     dequantized in advance). The stage's totals (the four projections: one
     K1 or K5 call's projections) and the per-projection rows go into the
@@ -1841,8 +2099,11 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                 ws = probe.project_layers(x, w, mode)
                 run = lambda x=x, w=w, ws=ws: probe.project_layers(x, w, mode, ws)  # noqa: E731
                 if mode == "w8a8":
-                    lib = (None if B <= 16 else _layer_cycle(
-                        lambda l, x=x, q=w.q: torch._int_mm(x, q[l]), L))
+                    # torch._int_mm takes more than 16 rows on CUDA: at B <= 16
+                    # x is padded with zero rows to 17, which it then computes
+                    xp = x if B > 16 else torch.cat(
+                        [x, x.new_zeros((INT_MM_MIN_ROWS - B, K))])
+                    lib = _layer_cycle(lambda l, xp=xp, q=w.q: torch._int_mm(xp, q[l]), L)
                 else:
                     xd = x.double()
                     lib = _layer_cycle(lambda l, xd=xd: torch.matmul(xd, wd[l]), L)
@@ -1880,8 +2141,8 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
             key = K1_KEYS[mode] if B == 1 else K5_KEYS[mode]
             entry = report.setdefault(key, {}).setdefault("projections", dict(
                 layers=L, times={},
-                library=("torch._int_mm (int32; it refuses 16 rows or fewer, so none at B "
-                         "<= 16)" if mode == "w8a8" else
+                library=("torch._int_mm (int32; it refuses 16 rows or fewer, so at B <= 16 "
+                         "x padded with zero rows to 17)" if mode == "w8a8" else
                          "float64 torch.matmul over the multiplied values"),
                 tolerance="exact: int32 equal (w8a8), float32 bits equal (float modes)"))
             entry["times"][f"B={B}"] = t
@@ -2392,6 +2653,185 @@ def serve_batches(tts, batches, min_frames_per_lane=8):
             raise SmokeFailure(f"batch {n} {kw}: {frames} frames < {min_frames_per_lane * n}")
         stats.append(st)
     return stats, read_counts()
+
+
+def single_stream(tts, text, params, key):
+    """generate_from_tokens on tts's weights and flags for one text, as
+    synthesize runs it, from an explicit key: codes [n, 16] (numpy)."""
+    import numpy as np
+    import torch
+
+    from qwen3tts_tpu_torch.pipeline import resolve_kv_quant
+    from qwen3tts_tpu_torch.runtime import decode_loop
+
+    tcfg = tts.config.talker
+    padded, n_tok = tts._fit_tokens(tts.tokenizer.encode_for_tts(text))
+    max_frames, kv_capacity = tts._frame_budget(params)
+    out = decode_loop.generate_from_tokens(
+        tts.talker_params, tts.cp_params, torch.from_numpy(padded), n_tok,
+        torch.zeros((tcfg.hidden_size,), dtype=torch.float32, device=tts.device),
+        params.language_id, key, talker_cfg=tcfg, cp_cfg=tts.config.code_predictor,
+        max_frames=max_frames, kv_capacity=kv_capacity, temperature=params.temperature,
+        top_k=params.top_k, top_p=params.top_p, repetition_penalty=params.repetition_penalty,
+        nothink=params.language_id < 0, kv_quant=resolve_kv_quant(tts.config.runtime),
+        **tts.fused)
+    return out.codes.cpu().numpy().astype(np.int32)
+
+
+class _DrawSpy:
+    """Records what decode_loop hands the code predictor and the talker
+    step each frame (K2's seed or predict_codes' key, K1's seed; K6's and
+    K5's seeds [B]) and the keys frame 0's cb0 draws with (sample_cb0), by
+    wrapping decode_loop's references to them while in use."""
+
+    NAMES = ("fused_predict_codes", "fused_talker_step", "fused_predict_codes_batched",
+             "fused_talker_step_batched", "sample_cb0")
+
+    def __init__(self):
+        from qwen3tts_tpu_torch.runtime import decode_loop
+
+        self.dl = decode_loop
+        self.real = {n: getattr(decode_loop, n) for n in self.NAMES}
+        self.real_pc = decode_loop.cp_model.predict_codes
+        self.cp, self.k1, self.cb0 = [], [], []
+
+    def __enter__(self):
+        import numpy as np
+
+        r = self.real
+
+        def seeds(v):
+            return v if isinstance(v, int) else v.cpu().numpy().tolist()
+
+        def cp(name):
+            def spy(*a, **kw):
+                self.cp.append(seeds(a[4]))
+                return r[name](*a, **kw)
+            return spy
+
+        def k1(name):
+            def spy(*a, **kw):
+                self.k1.append(seeds(kw["seed"] if "seed" in kw else kw["seeds"]))
+                return r[name](*a, **kw)
+            return spy
+
+        def spy_pc(*a, **kw):
+            self.cp.append(np.array(a[4], dtype=np.uint32))
+            return self.real_pc(*a, **kw)
+
+        def spy_cb0(logits, keys, **kw):
+            self.cb0.append(keys)
+            return r["sample_cb0"](logits, keys, **kw)
+
+        for name in ("fused_predict_codes", "fused_predict_codes_batched"):
+            setattr(self.dl, name, cp(name))
+        for name in ("fused_talker_step", "fused_talker_step_batched"):
+            setattr(self.dl, name, k1(name))
+        self.dl.sample_cb0 = spy_cb0
+        self.dl.cp_model.predict_codes = spy_pc
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.dl, name, fn)
+        self.dl.cp_model.predict_codes = self.real_pc
+
+
+def host_chain(key, n, fused_cp):
+    """The draws the fused talker's loop takes over n frames from `key`, on
+    the host: frame 0's cb0 key split(key, 3)[1], and per frame K2's
+    seed32(k_cp) (or k_cp for predict_codes) and K1's seed32(k_cb0)."""
+    from qwen3tts_tpu_torch.ops import prng
+
+    key, k0, _ = prng.split(prng.key_pair(key), 3)
+    cp, k1 = [], []
+    for _ in range(n):
+        key, k_cb0, k_cp = prng.split(key, 3)
+        cp.append(prng.seed32(k_cp) if fused_cp else k_cp)
+        k1.append(prng.seed32(k_cb0))
+    return k0, cp, k1
+
+
+def _first_difference(a, b):
+    """The first frame at which two code arrays differ (None if equal)."""
+    n = min(len(a), len(b))
+    rows = [f for f in range(n) if (a[f] != b[f]).any()]
+    return rows[0] if rows else (None if len(a) == len(b) else n)
+
+
+# (text, sampling, lanes) of check_sampled_serves, per pipeline
+SAMPLED_SERVES = dict(
+    int8=("The quick brown fox jumps over the lazy dog.",
+          dict(max_audio_tokens=64, seed=3), 16),
+    bf16=("The quick brown fox jumps over the lazy dog.",
+          dict(max_audio_tokens=24, seed=3), 4),
+)
+
+
+def check_sampled_serves(tts, bf16, smi, specs=SAMPLED_SERVES):
+    """The JAX package's random streams on the card's sampled serves, on
+    the int8 pipeline (fused: K1/K2, K5/K6) and the bf16 tier (K1/K5 and the
+    eager predict_codes). For each: synthesize twice with the same seed
+    gives the same codes, and the draws the loop handed the code predictor
+    and K1 each frame, and frame 0's cb0 key, equal host_chain's from
+    prng_key(seed). Then a synthesize_batch of `lanes` copies of the text:
+    the draws handed K6 (or predict_codes) and K5 in each frame-set, and
+    frame 0's keys, hold lane b to host_chain from split(prng_key(seed),
+    lanes)[b], the single stream's draws from that key. Any difference
+    fails. The lanes' codes are set beside the single stream's from the
+    same key, sampled and greedy, and counted, not gated: the batch's
+    prefill runs B * P rows through the W8A16 GEMM where the single stream
+    runs P, and on the card another row count sums in another order, so
+    the codes part where the last bits first move a draw (on the CPU the
+    plain versions agree, tests/test_torch_batch_slice.py). Prints a
+    `sampled_serve` line per pipeline."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.ops import prng
+    from qwen3tts_tpu_torch.runtime.decode_loop import resolve_fused_cp
+
+    for what, pipe in (("int8", tts), ("bf16", bf16)):
+        text, kw, lanes = specs[what]
+        params = SamplingConfig(**kw)
+        fused_cp = resolve_fused_cp(pipe.fused["fused_cp"], pipe.cp_params)
+        with _DrawSpy() as spy:
+            a = pipe.synthesize(text, params)
+        b = pipe.synthesize(text, params)
+        if not (a.success and a.n_frames > 0):
+            raise SmokeFailure(f"sampled serve {what}: {a.error_msg or 'no frames'}")
+        if not np.array_equal(a.codes, b.codes):
+            raise SmokeFailure(f"sampled serve {what}: the same seed gave other codes")
+        k0, want_cp, want_k1 = host_chain(prng.prng_key(kw["seed"]), a.n_frames, fused_cp)
+        got_k0 = prng.key_pair(prng.key_array(spy.cb0[0]).reshape(2))
+        got_cp = spy.cp if fused_cp else [prng.key_pair(c) for c in spy.cp]
+        if (got_k0, got_cp, spy.k1) != (k0, want_cp, want_k1):
+            raise SmokeFailure(f"sampled serve {what}: the loop's draws differ from the host "
+                               f"chain ({len(spy.cp)}, {len(spy.k1)} recorded)")
+        keys = prng.key_array(prng.split(prng.prng_key(kw["seed"]), lanes))
+        with _DrawSpy() as spy:
+            rs = pipe.synthesize_batch([text] * lanes, params)
+        sets = len(spy.k1)
+        for i in range(lanes):
+            k0, want_cp, want_k1 = host_chain(keys[i], sets, fused_cp)
+            got_k0 = prng.key_pair(prng.key_array(spy.cb0[0])[i])
+            got_cp = [c[i] if fused_cp else prng.key_pair(c[i]) for c in spy.cp]
+            if (got_k0, got_cp, [k[i] for k in spy.k1]) != (k0, want_cp, want_k1):
+                raise SmokeFailure(f"sampled serve {what}: lane {i}'s draws differ from the "
+                                   "single stream's with its key")
+        first = [_first_difference(r.codes, single_stream(pipe, text, params, keys[i]))
+                 for i, r in enumerate(rs)]
+        greedy = SamplingConfig(**dict(kw, temperature=0.0))
+        gb = pipe.synthesize_batch([text] * 4, greedy)
+        gs = single_stream(pipe, text, greedy, keys[0])
+        st = dict(what=what, request=kw, frames=a.n_frames, reproducible=True,
+                  draws_equal_host_chain=len(want_k1), lanes=lanes, frame_sets=sets,
+                  lane_draws_equal_host_chain=lanes, lane_frames=[r.n_frames for r in rs],
+                  lanes_codes_equal_single_stream=sum(f is None for f in first),
+                  lanes_first_differing_frame=first,
+                  greedy_lanes_first_differing_frame=[_first_difference(r.codes, gs)
+                                                      for r in gb])
+        print("sampled_serve " + json.dumps(dict(st, card=smi)))
 
 
 def _check_codes(codes, V, what):
@@ -3376,6 +3816,7 @@ def main():
         check_projections(tts.config.talker, report, dev, iters=3)
         check_head_gemv(tts.config.talker, report, dev, iters=3)
         check_w4_gemv_probe(report, dev, iters=10)
+        prng_stats = check_prng(dev)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         for name, r in report.items():
@@ -3394,6 +3835,12 @@ def main():
             check_launches(f"request {st['request']}", st["launches"], SINGLE_PATH,
                            int8_forbidden)
             print("serve " + json.dumps(dict(st, card=smi)))
+        st = stats[1]
+        print("prng_cost " + json.dumps(dict(
+            request=st["request"], frames_per_s=st["frames_per_s"],
+            ms_per_frame=st["ms_per_frame"], frame_keys_us=prng_stats["frame_keys_us"],
+            share_of_frame=prng_stats["frame_keys_us"] * 1e-3 / st["ms_per_frame"],
+            card=smi)))
         bstats, batch_counts = serve_batches(tts, BATCH_REQUESTS)
         for st in bstats:
             check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH, int8_forbidden)
@@ -3438,6 +3885,7 @@ def main():
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
         runs += serve_queues(tts, tts_u, tiers[None], smi)
         runs += serve_stream(tts, tiers[None], smi)
+        check_sampled_serves(tts, tiers[None], smi)
         with tempfile.TemporaryDirectory() as root:
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
         torch.cuda.empty_cache()

@@ -37,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repetition-penalty", type=float, default=1.05)
     p.add_argument("-l", "--language", default="en",
                    help="Language: " + ",".join(sorted(k for k in LANGUAGE_IDS if len(k) == 2)))
-    p.add_argument("--seed", type=int, default=0, help="Sampling PRNG seed")
+    p.add_argument("--seed", type=int, default=0,
+                   help="Sampling seed, the JAX package's: jax.random.PRNGKey(seed)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--quant", choices=["none", "int8", "q4", "q4pure"], default="none",
                    help="Weight quantization (int8 = Q8_0-parity serving mode; q4 = mixed "

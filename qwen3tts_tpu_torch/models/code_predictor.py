@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops import prng
+from ..ops.kernel_prng import sampling_flags
 from ..ops.norms import rms_norm
 from ..ops.sampling import sample_token
 from .transformer_core import (BlockParams, forward_prefill, forward_step, init_block_params,
@@ -41,41 +43,62 @@ def init_code_predictor_params(gen: torch.Generator, cfg, dtype=torch.bfloat16,
     )
 
 
+def code_keys(keys, n: int) -> np.ndarray:
+    """The keys of a frame's n draws for each lane's key [B, 2] (numpy):
+    ``key, k = split(key)`` before each draw, as the JAX package's
+    ``predict_codes`` chains them (``code_predictor.py:93, 103``). Returns
+    [B, n, 2]."""
+    out = []
+    for _ in range(n):
+        s = prng.split(keys)
+        keys = s[:, 0]
+        out.append(s[:, 1])
+    return np.stack(out, axis=1)
+
+
 def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
-                  cb0_embd: torch.Tensor, seeds, *, temperature, top_k: int,
+                  cb0_embd: torch.Tensor, key, *, temperature, top_k: int,
                   top_p=1.0, greedy=None, use_top_p=None) -> torch.Tensor:
     """The 15 residual codes of one frame, unfused (counterpart of
     ``predict_codes``, ``qwen3tts_tpu/models/code_predictor.py:68-108``).
 
-    talker_hidden (output-normed) and cb0_embd are [H] with one int seed, or
-    [B, H] lanes with seeds [B]. A 2-token prefill at positions 0, 1 gives
-    code 0 from heads[0]; step s = 1..14 feeds embds[s-1][code s-1] at
-    position s+1 and takes code s from heads[s]. The cache holds max_ctx = 16
-    rows, so attention takes the XLA semantics (ops/attention.py). Code s is
-    drawn by sample_token with the counter-hash Gumbel noise of (seed, s).
-    temperature and top_p are scalars, or per lane [B] (continuous serving;
-    greedy and use_top_p then given). Returns int64 [15] (or [B, 15])."""
+    talker_hidden (output-normed) and cb0_embd are [H] with one key (a
+    pair), or [B, H] lanes with keys [B, 2] (numpy). A 2-token prefill at
+    positions 0, 1 gives code 0 from heads[0]; step s = 1..14 feeds
+    embds[s-1][code s-1] at position s+1 and takes code s from heads[s]. The
+    cache holds max_ctx = 16 rows, so attention takes the XLA semantics
+    (ops/attention.py). Code s is drawn by sample_token with the Gumbel
+    field of the lane's s-th key (``code_keys``), which is
+    ``jax.random.categorical`` with that key. The keys of a frame are known
+    before any logits, so its 15 fields (every code, every lane) come from
+    one ``prng.gumbel`` pass. temperature and top_p are scalars, or per lane
+    [B] (continuous serving; greedy and use_top_p then given). Returns
+    int64 [15] (or [B, 15])."""
     if greedy is None or use_top_p is None:
         greedy, use_top_p = sampling_flags(temperature, top_p)
     lanes = talker_hidden.dim() == 2
     th = talker_hidden if lanes else talker_hidden[None]
     ce = cb0_embd if lanes else cb0_embd[None]
     B, dt, dev = th.shape[0], params.embds.dtype, params.embds.device
-    seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev).reshape(B, 1)
+    S, V = cfg.n_steps, params.heads.shape[-1]
+    noise = None
+    if not greedy:
+        ks = code_keys(prng.key_array(key).reshape(B, 2), S)
+        noise = prng.gumbel(ks.reshape(B * S, 2), V, dev).reshape(B, S, V)
     kv = torch.zeros((B, cfg.n_layers, 2, cfg.n_kv_heads, cfg.max_ctx, cfg.head_dim),
                      dtype=dt, device=dev)
 
     def sample(hidden, s):
         h = rms_norm(hidden, params.output_norm, cfg.rms_norm_eps)
         logits = torch.matmul(h.float(), params.heads[s].float()).to(h.dtype).float()
-        noise = None if greedy else gumbel_noise(seeds, s, tuple(logits.shape), dev)
-        return sample_token(logits, noise, temperature=temperature, top_k=top_k, top_p=top_p,
+        return sample_token(logits, None if noise is None else noise[:, s],
+                            temperature=temperature, top_k=top_k, top_p=top_p,
                             greedy=greedy, use_top_p=use_top_p)
 
     x = torch.stack([th, ce], dim=1).to(dt)                       # [B, 2, H]
     hidden = forward_prefill(params.blocks, cfg, x, torch.arange(2, device=dev), kv, 0)
     codes = [sample(hidden[:, -1], 0)]
-    for s in range(1, cfg.n_steps):
+    for s in range(1, S):
         emb = params.embds[s - 1, codes[-1]]
         codes.append(sample(forward_step(params.blocks, cfg, emb, s + 1, kv), s))
     out = torch.stack(codes, dim=1)

@@ -8,7 +8,9 @@ sampler (``csrc/sampler.cu``). ``sample_token`` is plain PyTorch, as the
 JAX package's is plain XLA: the decode loops sample frame 0's codebook-0
 token with it (as ``_init_cb0`` does in the JAX package), and the unfused
 path every codebook-0 token and every code of the code predictor. Its top-k
-is exact (the k-th largest value, ties kept). The fused talker and
+is exact (the k-th largest value, ties kept); its noise is the Gumbel field
+of the row's threefry key (``ops/prng.gumbel``), so it draws what
+``jax.random.categorical`` draws with that key. The fused talker and
 code-predictor kernels call the ``__device__`` sampler of K4 in their
 epilogues, whose top-k is a 30-step bisection as in the JAX kernels;
 ``sample_rows`` is that sampler's standalone entry, which no serve path
@@ -86,9 +88,10 @@ def sample_token(logits: torch.Tensor, noise, *, temperature, top_k: int,
                  top_p=1.0, greedy=None, use_top_p=None) -> torch.Tensor:
     """One token id per row of logits [..., V]: the first-max argmax when
     greedy; else logits / max(temperature, 1e-6), the exact top-k, top-p
-    when use_top_p, then argmax(logits + noise). With Gumbel(0, 1) noise of
-    the logits' shape that last step is ``jax.random.categorical``; the
-    noise comes from the caller (None when greedy). temperature and top_p
+    when use_top_p, then argmax(logits + noise). With the Gumbel field of
+    each row's key as noise (``prng.gumbel``), that last step is
+    ``jax.random.categorical``; the noise comes from the caller (None when
+    greedy). temperature and top_p
     are scalars or one value per row of [R, V] logits (continuous serving:
     each request its own); greedy and use_top_p, derived from scalars when
     not given, must then be given. Greedy is one flag for all rows: the

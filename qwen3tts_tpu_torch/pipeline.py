@@ -65,6 +65,13 @@ in ``runtime/decode_loop.py``):
 On a CUDA device every kernel launches on the card or raises; there is no
 CPU fallback. The CPU runs only when asked for (``device="cpu"``), through
 the kernels' plain versions.
+
+``SamplingConfig.seed`` means the JAX package's seed: every entry point
+draws from the threefry key ``prng_key(seed)`` (``ops/prng.py``) as the
+JAX pipeline draws from ``jax.random.PRNGKey(seed)``; ``synthesize_batch``
+gives lane b ``split(prng_key(seed), B)[b]`` and ``synthesize_queue``
+gives request i ``prng_key(seed + i)``. With the same weights, tokens and
+seed, the sampled codes are the JAX package's.
 """
 
 from __future__ import annotations
@@ -89,6 +96,7 @@ from .models import speaker_encoder as se_model
 from .models import talker as talker_model
 from .models import vocoder as vocoder_model
 from .models.transformer_core import float32_norms
+from .ops import prng
 from .ops.quant import quantize_block_params, quantize_talker_blocks
 from .runtime import decode_loop
 from .runtime.buckets import pick_bucket
@@ -587,12 +595,11 @@ class Qwen3TTS:
 
             def progress_cb(frame):  # noqa: ANN001
                 user_cb(frame, total)
-        gen = torch.Generator()
-        gen.manual_seed(params.seed)
         gen_out = decode_loop.generate_from_tokens(
             self.talker_params, self.cp_params, torch.from_numpy(padded), n_tok,
             torch.as_tensor(speaker, dtype=torch.float32, device=self.device),
-            params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
+            params.language_id, prng.prng_key(params.seed), talker_cfg=tcfg,
+            cp_cfg=self.config.code_predictor,
             max_frames=max_frames, kv_capacity=kv_capacity,
             temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
             repetition_penalty=params.repetition_penalty,
@@ -681,9 +688,10 @@ class Qwen3TTS:
         by B, or, when chunked vocoding applies (the longest lane exceeds
         RuntimeConfig.vocoder_chunk_frames), each lane's own decode time;
         t_total_ms is the wall up to the end of the lane's vocoding. A lane
-        with no frames gets neither. Lane b of a group samples with
-        its own seed drawn from params.seed (decode_loop), so lanes are
-        independent and the grouping changes no lane's output. The KV tier
+        with no frames gets neither. Lane b samples with its own key,
+        split(prng_key(params.seed), B)[b], as the JAX pipeline's lanes do
+        (``pipeline.py:667``), so lanes are independent and the grouping
+        changes no lane's output. The KV tier
         is resolved once for the whole batch (``resolve_kv_quant`` with
         lanes = B, as the JAX pipeline resolves it)."""
         tcfg = self.config.talker
@@ -709,14 +717,15 @@ class Qwen3TTS:
 
         t0 = now_ms()
         codes, n_frames = [], []
-        gen = torch.Generator()
-        gen.manual_seed(params.seed)
+        keys = prng.split(prng.prng_key(params.seed), B)
+        keys = np.asarray(keys, np.uint32).reshape(B, 2)
         for o in range(0, B, MAX_BATCH_LANES):
             out = decode_loop.generate_from_tokens_batched(
                 self.talker_params, self.cp_params,
                 torch.from_numpy(tokens[o:o + MAX_BATCH_LANES]),
                 n_tok[o:o + MAX_BATCH_LANES], spk[o:o + MAX_BATCH_LANES],
-                [params.language_id] * len(texts[o:o + MAX_BATCH_LANES]), gen,
+                [params.language_id] * len(texts[o:o + MAX_BATCH_LANES]),
+                keys[o:o + MAX_BATCH_LANES],
                 talker_cfg=tcfg, cp_cfg=self.config.code_predictor, max_frames=max_frames,
                 kv_capacity=kv_capacity, temperature=params.temperature, top_k=params.top_k,
                 top_p=params.top_p, repetition_penalty=params.repetition_penalty,
@@ -789,8 +798,9 @@ class Qwen3TTS:
         Defaults as in the JAX package: lanes = min(64, len(texts));
         kv_capacity from P + 2 * frame bucket + chunk_frames + kv_margin,
         rounded up to 256 (about two request generations per session);
-        request i samples with seed params.seed + i, so it equals
-        ``synthesize`` of its text with that seed on the same path.
+        request i samples with the key prng_key(params.seed + i), as the JAX
+        package's request i does, so it equals ``synthesize`` of its text
+        with that seed on the same path.
         max_audio_tokens_per_request (a list, one int per text) overrides
         params.max_audio_tokens per request; admit_per_chunk caps the
         admissions per chunk boundary (``admit_per_boundary``). The
@@ -1014,8 +1024,9 @@ class Qwen3TTS:
         frames; its chunks hold 1920 samples per frame in all. speaker: an
         embedding [H] (the default voice's zeros when None).
 
-        Codes and seeds are those of ``synthesize`` (the same loop, cut into
-        chunks): a streamed request's codes equal its. Only the new code
+        Codes and keys are those of ``synthesize`` (the same loop, cut into
+        chunks; the key chain carries across chunks in the LoopState): a
+        streamed request's codes equal its. Only the new code
         rows are copied to the host; after the stream, last_stream holds
         them (codes [n, 16] int32), the frame count and each chunk's frames.
         The windows' pre-transformer attention is unbounded, so the chunks
@@ -1038,8 +1049,6 @@ class Qwen3TTS:
             self.vocoder_params = self._load_vocoder()
         samp = dict(temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
                     repetition_penalty=params.repetition_penalty)
-        gen = torch.Generator()
-        gen.manual_seed(params.seed)
         codes, chunks = [], []
         self.last_stream = dict(codes=np.zeros((0, tcfg.n_codebooks), np.int32), n_frames=0,
                                 chunk_frames=chunks)
@@ -1053,8 +1062,9 @@ class Qwen3TTS:
         audio0, state, prefill = e2e.start_and_vocode(
             self.talker_params, self.cp_params, self.vocoder_params, torch.from_numpy(padded),
             n_tok, torch.as_tensor(speaker, dtype=torch.float32, device=self.device),
-            params.language_id, gen, talker_cfg=tcfg, cp_cfg=self.config.code_predictor,
-            vocoder_cfg=vcfg, chunk_frames=chunk_frames, max_frames=budget,
+            params.language_id, prng.prng_key(params.seed), talker_cfg=tcfg,
+            cp_cfg=self.config.code_predictor, vocoder_cfg=vcfg, chunk_frames=chunk_frames,
+            max_frames=budget,
             kv_capacity=kv_capacity, nothink=params.language_id < 0,
             kv_quant=resolve_kv_quant(rt, kv_capacity=kv_capacity), **samp, **self.fused)
         emitted = min(state.frame, budget)

@@ -28,13 +28,15 @@ is idle the session resets (n_past back to P).
 The port's differences, each the counterpart of a JAX mechanism:
 - the state is updated in place (JAX donates it and returns a new one);
   ``n_past`` is a host int, the scheduler's own count;
-- seeds: each request gets a ``torch.Generator`` seeded with its seed. It
-  draws one seed at refill (frame 0's cb0), then two per frame (code
-  predictor, next cb0), in the order ``generate_from_tokens`` draws them,
-  so a request's output equals a fresh run of the same path with a
-  generator seeded the same way. Per chunk the host builds one [B, 2K] seed
-  tensor and uploads it once (JAX carries threefry keys on the device;
-  ``_host_prngkey`` is not ported);
+- keys: each request's threefry key is ``prng_key(seed)`` at refill (the
+  JAX scheduler's ``_host_prngkey``, :81-90, :723); refill draws frame 0's
+  cb0 from a split of it into 3, and every frame of a chunk splits each
+  lane's chain key into 3 (JAX's vmapped split, :193, :373), in the order
+  ``generate_from_tokens`` splits them, so a request's output equals a
+  fresh run of the same path from the same key, and the JAX scheduler's.
+  JAX carries the keys on the device; the host carries them here ([B, 2]
+  uint32, numpy over the lanes) and builds a chunk's keys in one pass
+  before its launch, uploading the kernels' int32 seeds once a chunk;
 - the next cb0 is sampled at the end of each frame (K5's epilogue, or
   ``sample_cb0`` on the unfused step's logits) and carried, on both paths
   (JAX carries logits on its unfused path and samples them next frame: the
@@ -63,12 +65,13 @@ import torch
 
 from ..models import code_predictor as cp_model
 from ..models import talker as talker_model
+from ..ops import prng
 from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
 from ..ops.fused_talker_step import MAX_LANES as TALKER_KERNEL_MAX_LANES
 from ..ops.fused_talker_step import fused_talker_step_batched
 from ..ops.kernel_prng import sampling_flags
 from ..ops.rope import rope_angles
-from .decode_loop import (CP_KERNEL_MAX_LANES, _rest_embd_sum, draw_seeds, resolve_fused_cp,
+from .decode_loop import (CP_KERNEL_MAX_LANES, _rest_embd_sum, resolve_fused_cp,
                           resolve_fused_talker, sample_cb0)
 
 
@@ -119,13 +122,14 @@ def init_state(talker_params, talker_cfg, *, lanes: int, kv_capacity: int, trail
 
 
 def refill(talker_params, state: ContinuousState, lanes, tokens, n_tokens, speaker_embd,
-           language_id, seeds, budgets, samp, *, talker_cfg, nothink: bool = False,
+           language_id, keys, budgets, samp, *, talker_cfg, nothink: bool = False,
            top_k: int = 0, allow_eos: bool = True, greedy: bool = False,
            use_top_p: bool = True) -> None:
     """Splice R new requests into the lanes `lanes` ([R] ints) at the
     current n_past (JAX ``refill``, :145-253): tokens [R, Tb], n_tokens [R],
-    speaker_embd [R, H], language_id [R], seeds [R] (each request's frame-0
-    seed), budgets [R], samp [R, 3] (temperature, top_p, penalty).
+    speaker_embd [R, H], language_id [R], keys [R, 2] (the key each
+    request's frame-0 cb0 draws with: split(prng_key(seed), 3)[1]), budgets
+    [R], samp [R, 3] (temperature, top_p, penalty).
 
     The R windows run as one prefill at positions [n_past - P, n_past)
     (every projection one product of R*P rows); frame 0's cb0 is drawn from
@@ -148,7 +152,7 @@ def refill(talker_params, state: ContinuousState, lanes, tokens, n_tokens, speak
             torch.as_tensor(speaker_embd).to(dev), torch.as_tensor(language_id), nothink=nothink)
         hidden, logits, kv_win = talker_model.talker_prefill_window(
             talker_params, tcfg, pre.prefill_embd, pos0)
-        cb0 = sample_cb0(logits, seeds, suppress_start=Vc - tcfg.n_suppressed_tail,
+        cb0 = sample_cb0(logits, keys, suppress_start=Vc - tcfg.n_suppressed_tail,
                          eos_id=tcfg.codec_eos_id if allow_eos else -1,
                          temperature=samp[:, 0], top_k=top_k, top_p=samp[:, 1], greedy=greedy,
                          use_top_p=use_top_p)
@@ -211,15 +215,17 @@ class ChunkResult(NamedTuple):
         return self.host.numpy()
 
 
-def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, talker_cfg,
+def decode_chunk(talker_params, cp_params, state: ContinuousState, keys, *, talker_cfg,
                  cp_cfg, chunk_frames: int, start_min: int = 0, top_k: int = 0,
                  fused_cp="auto", fused_talker="auto", allow_eos: bool = True,
                  greedy: bool = False, use_top_p: bool = True,
                  non_blocking: bool = False) -> ChunkResult:
     """Advance every lane K = chunk_frames steps (JAX ``decode_chunk``,
     :304-485) with no read back to the host until the chunk's one packed
-    copy. seeds [B, 2K] int: lane b's (code predictor, next cb0) seeds of
-    frame k at columns 2k and 2k+1. start_min: a host lower bound of every
+    copy. keys [B, K, 2, 2] uint32 (numpy): lane b's (code predictor, next
+    cb0) keys of frame k; the kernels take their ``seed32`` (one upload a
+    chunk), the unfused code predictor and sampler the keys. start_min: a
+    host lower bound of every
     lane's effective start (the scheduler's mirror), which lets K5 skip the
     attention chunks below it; 0 is always safe.
 
@@ -246,7 +252,11 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, tal
     eos_for_mask = eos if allow_eos else -1
     dtype = tp.codec_embd.dtype
     Trb = state.trailing.shape[1]
-    seeds = torch.as_tensor(seeds, dtype=torch.int32).to(dev)
+    keys = prng.key_array(keys)
+    if use_cp or use_talker:
+        # [0]: K6's seeds, [1]: K5's, each [K, B]
+        seeds = prng.to_device(np.stack([prng.seed32(keys[:, :, 0]).T,
+                                         prng.seed32(keys[:, :, 1]).T]), dev)
     lanes = torch.arange(B, device=dev)
     temp, top_p, pen = (state.samp[:, i].contiguous() for i in range(3))
     statics = dict(top_k=top_k, greedy=greedy, use_top_p=use_top_p)
@@ -266,7 +276,7 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, tal
                 outs = [fused_predict_codes_batched(
                     cp_params, ccfg, state.last_hidden[o:o + CP_KERNEL_MAX_LANES],
                     cb0_embd[o:o + CP_KERNEL_MAX_LANES],
-                    seeds[o:o + CP_KERNEL_MAX_LANES, 2 * k],
+                    seeds[0, k, o:o + CP_KERNEL_MAX_LANES],
                     temperature=temp[o:o + CP_KERNEL_MAX_LANES],
                     top_p=top_p[o:o + CP_KERNEL_MAX_LANES], **statics)
                     for o in range(0, B, CP_KERNEL_MAX_LANES)]
@@ -274,7 +284,7 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, tal
                 rest_sum = torch.cat([rs for _, rs in outs])
             else:
                 rest = cp_model.predict_codes(cp_params, ccfg, state.last_hidden, cb0_embd,
-                                              seeds[:, 2 * k], temperature=temp, top_p=top_p,
+                                              keys[:, k, 0], temperature=temp, top_p=top_p,
                                               **statics)
                 rest_sum = _rest_embd_sum(cp_params, rest)
             codes_buf[:, k] = torch.cat([cb0[:, None], rest], dim=1)
@@ -288,7 +298,7 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, tal
                 outs = [fused_talker_step_batched(
                     tp.blocks, tcfg, step_embd[o:o + G], state.n_past, state.kv[o:o + G],
                     output_norm=tp.output_norm, codec_head=tp.codec_head,
-                    seen=state.seen[o:o + G], seeds=seeds[o:o + G, 2 * k + 1],
+                    seen=state.seen[o:o + G], seeds=seeds[1, k, o:o + G],
                     start=start_eff[o:o + G], start_min=start_min,
                     temperature=temp[o:o + G], top_p=top_p[o:o + G],
                     repetition_penalty=pen[o:o + G], suppress_start=suppress_start,
@@ -300,7 +310,7 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, seeds, *, tal
                                                           state.kv, start=start_eff)
                 state.last_hidden = hidden.to(dtype)
                 state.cb0_next = sample_cb0(
-                    logits, seeds[:, 2 * k + 1], suppress_start=suppress_start,
+                    logits, keys[:, k, 1], suppress_start=suppress_start,
                     eos_id=eos_for_mask, temperature=temp, top_p=top_p, seen=state.seen,
                     repetition_penalty=pen, **statics)
             state.frame = state.frame + emit.to(torch.int64)
@@ -387,7 +397,8 @@ class ContinuousScheduler:
         self._queue: list[_Request] = []
         self._next_rid = 0
         self._lane_owner: list[Optional[_Lane]] = [None] * lanes
-        self._gens: list[Optional[torch.Generator]] = [None] * lanes
+        # each lane's chain key (two uint32): its occupant's, split per frame
+        self._keys = np.zeros((lanes, 2), np.uint32)
         # host mirrors of the device's scheduling state: n_past moves by K
         # per chunk and -shift per compaction, and every start is set by this
         # scheduler's own refills, so nothing is read back to decide
@@ -470,40 +481,51 @@ class ContinuousScheduler:
         P = prefill_window_len(self.nothink)
         reqs = [self._queue.pop(0) for _ in range(n)]
         lanes = idle[:n]
-        seeds = []
+        keys = prng.key_array([prng.prng_key(r.seed) for r in reqs])
+        first = prng.split(keys, 3)        # frame 0's cb0 draws with [:, 1]
+        self._keys[lanes] = first[:, 0] if self.fused_talker else keys
         for lane, req in zip(lanes, reqs):
-            gen = torch.Generator()
-            gen.manual_seed(req.seed)
-            seeds += draw_seeds(gen, 1)
-            self._gens[lane] = gen
             self._lane_owner[lane] = _Lane(rid=req.rid, codes=[])
             self._start_h[lane] = self._n_past_h - P
             self._done_h[lane] = False
         t0 = time.perf_counter()
         refill(self.tp, self.state, lanes, np.stack([r.tokens for r in reqs]),
                [r.n_tokens for r in reqs], np.stack([r.speaker for r in reqs]),
-               [r.language_id for r in reqs], seeds, [r.budget for r in reqs],
+               [r.language_id for r in reqs], first[:, 1], [r.budget for r in reqs],
                np.asarray([r.samp for r in reqs], np.float32), talker_cfg=self.tcfg,
                nothink=self.nothink, allow_eos=self.allow_eos, **self.statics)
         self.refills += 1
         self._tock("refill_s", t0)
         return n
 
-    def _chunk_seeds(self) -> np.ndarray:
-        """[B, 2K] seeds of the next chunk: each owned lane's next 2K draws
-        from its request's generator, zeros for idle lanes."""
-        seeds = np.zeros((self.B, 2 * self.K), np.int64)
-        for b, gen in enumerate(self._gens):
-            if gen is not None:
-                seeds[b] = draw_seeds(gen, 2 * self.K)
-        return seeds
+    def _chunk_keys(self) -> np.ndarray:
+        """[B, K, 2, 2] keys of the next chunk (``decode_chunk``), every
+        lane's chain advanced K frames at once over the lanes: frame k's
+        split (next key, k_cb0, k_cp) gives the code predictor k_cp; the
+        next cb0 draws with this split's k_cb0 on the fused talker step
+        (K5's epilogue) and with the next frame's unfused (as
+        ``generate_chunk``). Idle lanes' chains advance too, unread, as
+        JAX's do."""
+        keys = np.zeros((self.B, self.K, 2, 2), np.uint32)
+        chain = self._keys
+        s = prng.split(chain, 3)
+        for k in range(self.K):
+            chain = s[:, 0]
+            keys[:, k, 0] = s[:, 2]
+            if self.fused_talker:
+                keys[:, k, 1] = s[:, 1]
+            s = prng.split(chain, 3)
+            if not self.fused_talker:
+                keys[:, k, 1] = s[:, 1]
+        self._keys = chain
+        return keys
 
     def _decode(self, non_blocking: bool) -> ChunkResult:
         """Launch one chunk (K frames) and advance the host mirror."""
         active = [int(self._start_h[b]) for b in range(self.B)
                   if self._lane_owner[b] is not None]
         t0 = time.perf_counter()
-        res = decode_chunk(self.tp, self.cp, self.state, self._chunk_seeds(),
+        res = decode_chunk(self.tp, self.cp, self.state, self._chunk_keys(),
                            talker_cfg=self.tcfg, cp_cfg=self.ccfg, chunk_frames=self.K,
                            start_min=min(active, default=self._n_past_h),
                            fused_cp=self.fused_cp, fused_talker=self.fused_talker,
@@ -546,7 +568,6 @@ class ContinuousScheduler:
                                            else np.zeros((0, nc), np.int32))
                 if self._lane_owner[b] is owner:
                     self._lane_owner[b] = None
-                    self._gens[b] = None
         if on_chunk is not None and events:
             on_chunk(events)
         return done_np

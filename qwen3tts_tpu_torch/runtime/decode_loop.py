@@ -30,16 +30,26 @@ The loop is a Python loop; the EOS check reads cb0 back, one host sync per
 frame. It runs in chunks (the JAX package's streaming entry points):
 ``generate_init`` prefills and draws frame 0's cb0 into a ``LoopState`` (the
 cache, in place; the seen-set, codes and hidden rows on the device; the
-request's generator), ``generate_chunk`` advances it by up to K frames and
-``generate_start`` is the two together; ``generate_from_tokens`` is
-``generate_init`` then one chunk of max_frames, so a streamed request's
-codes are ``synthesize``'s. Seeds: where JAX derives the kernels' int32
-seeds with threefry from one key, the port draws them from a torch.Generator
-seeded by the request seed (one for frame 0's cb0, then two per frame: code
-predictor, next cb0). ``sample_token`` takes the counter-hash Gumbel noise
-of (seed, step) for its rows. Greedy output therefore matches JAX exactly;
-sampled output matches only in distribution (and at kernel level, given the
-same seeds).
+request's key on the host), ``generate_chunk`` advances it by up to K
+frames and ``generate_start`` is the two together; ``generate_from_tokens``
+is ``generate_init`` then one chunk of max_frames, so a streamed request's
+codes are ``synthesize``'s.
+
+Randomness: the JAX package's threefry key chain (``ops/prng.py``), from
+the caller's key (the pipeline's ``prng_key(params.seed)``), so a seed
+gives the JAX package's sampled codes. Each frame splits the chain key
+into (next key, k_cb0, k_cp) (``decode_loop.py:316``): the code predictor
+draws from k_cp (K2's seed ``seed32(k_cp)``, or ``predict_codes``' own
+chain), and the cb0 of a frame from its k_cb0. With the fused talker step
+(the JAX package's in-kernel cb0), frame 0's cb0 is drawn at init from a
+split of the key into 3 (``_init_cb0``) and K1's epilogue draws the next
+frame's cb0 with seed ``seed32(k_cb0)`` of the frame that launches it;
+unfused, frame f's cb0 is drawn with k_cb0 of frame f's own split (the JAX
+body samples the carried logits at the top of the frame; the port samples
+them at the end of the frame before, from the next split). The host
+computes each frame's keys after its launches, while the card runs them.
+``sample_token`` draws with the key's Gumbel field (``prng.gumbel``), as
+``jax.random.categorical`` does.
 
 The batched loop runs B lanes in lockstep (one shared n_past: every lane's
 prefill window has the same length); see ``generate_from_tokens_batched``.
@@ -58,15 +68,17 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models import code_predictor as cp_model
 from ..models import talker as talker_model
+from ..ops import prng
 from ..ops.fused_code_predictor import fused_predict_codes
 from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
 from ..ops.fused_talker_step import (check_w8a8_blocks, fused_talker_step,
                                      fused_talker_step_batched)
-from ..ops.kernel_prng import gumbel_noise, sampling_flags
+from ..ops.kernel_prng import sampling_flags
 from ..ops.kv_quant import quantize_cache
 from ..ops.quant import QuantLinear
 from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
@@ -113,29 +125,32 @@ def int8_kv(kv_quant: str, fused_talker: bool) -> bool:
     return kv_quant == "int8" and fused_talker
 
 
-def draw_seeds(gen: torch.Generator, n: int) -> list:
-    """n int32 seeds from a host torch.Generator."""
-    return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=gen,
-                         dtype=torch.int64).tolist()
-
-
-def sample_cb0(logits, seeds, *, suppress_start: int, eos_id: int, temperature, top_k: int,
+def sample_cb0(logits, keys, *, suppress_start: int, eos_id: int, temperature, top_k: int,
                top_p, greedy: bool, use_top_p: bool, seen=None, repetition_penalty=1.0):
     """Codebook-0 tokens from talker logits [R, Vc] as the JAX package's
     XLA path draws them (``decode_loop.py:318-325``): suppression of
     [suppress_start, Vc) except eos_id, the repetition penalty over seen
     [R, Vc] when given (frame 0 has none: its seen-set is empty), then
-    ``sample_token`` with row r's counter-hash noise of (seeds[r], 0).
-    temperature, top_p and repetition_penalty are scalars or per-row [R]
-    (continuous serving). Returns int64 [R]."""
+    ``sample_token`` with the Gumbel field of row r's key keys[r] (keys
+    [R, 2]: pairs, numpy or an int64 tensor). temperature, top_p and
+    repetition_penalty are scalars or per-row [R] (continuous serving).
+    Returns int64 [R]."""
     l = apply_suppression(logits.float(), suppress_start, eos_id)
     if seen is not None:
         l = apply_repetition_penalty(l, seen.bool(), repetition_penalty)
-    noise = None if greedy else gumbel_noise(
-        torch.as_tensor(seeds, dtype=torch.int64, device=l.device).reshape(-1, 1), 0,
-        tuple(l.shape), l.device)
+    noise = None if greedy else prng.gumbel(keys, l.shape[-1], l.device)
     return sample_token(l, noise, temperature=temperature, top_k=top_k, top_p=top_p,
                         greedy=greedy, use_top_p=use_top_p)
+
+
+def frame_draws(key, fused_cp: bool, fused_talker: bool):
+    """One frame's split of the chain key (a pair, or lanes [B, 2]):
+    (next key, k_cb0, k_cp), each of k_cb0 and k_cp as the int32 seed
+    ``seed32`` where a kernel takes it (K1/K5 for k_cb0, K2/K6 for k_cp)."""
+    s = prng.split(key, 3)
+    nxt, k_cb0, k_cp = s if isinstance(s, tuple) else (s[:, 0], s[:, 1], s[:, 2])
+    return (nxt, prng.seed32(k_cb0) if fused_talker else k_cb0,
+            prng.seed32(k_cp) if fused_cp else k_cp)
 
 
 def _rest_embd_sum(cp_params, rest):
@@ -161,11 +176,11 @@ class LoopState:
     codes: torch.Tensor         # [max_frames, 16] int64; rows [0, frame) written
     hidden_out: torch.Tensor    # [max_frames, H] the hidden state of each frame
     done: bool                  # EOS was drawn as a frame's cb0
-    gen: torch.Generator        # the request's seeds, drawn in the frame loop's order
+    key: tuple                  # the chain key of the next frame (two uint32, host ints)
 
 
 def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
-                  language_id: int, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                  language_id: int, key, *, talker_cfg, cp_cfg,
                   max_frames: int, kv_capacity: int, temperature: float, top_k: int,
                   top_p: float = 1.0, repetition_penalty: float = 1.05,
                   nothink: bool = False, fused_talker="auto", kv_quant: str = "none",
@@ -175,11 +190,16 @@ def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
     of ``generate_init``, ``qwen3tts_tpu/runtime/decode_loop.py:943``).
     tokens [Tb] padded ids with n_tokens real ones; a cache of kv_capacity
     rows (kv_quant "int8": the int8 pair, on the fused talker step only);
-    room for max_frames frames. The sampling arguments and allow_eos must
-    be those the chunks use; the generator's first draw seeds frame 0's
-    cb0."""
+    room for max_frames frames. The sampling arguments, allow_eos and
+    fused_talker must be those the chunks use. key: the request's threefry
+    key (``prng.prng_key(seed)``, or a JAX key); frame 0's cb0 draws with
+    split(key, 3)[1], and the chain goes on from split(key, 3)[0] with the
+    fused talker step, from key itself without (``_init_cb0``)."""
     tcfg = talker_cfg
-    quant_kv = int8_kv(kv_quant, resolve_fused_talker(fused_talker))
+    fused_talker = resolve_fused_talker(fused_talker)
+    quant_kv = int8_kv(kv_quant, fused_talker)
+    key = prng.key_pair(key)
+    key_next, k_cb0, _ = prng.split(key, 3)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     Vc = tcfg.codec_vocab_size
@@ -197,7 +217,7 @@ def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
         if quant_kv:
             kv = quantize_cache(kv, kv_capacity)
         cb0_next = sample_cb0(
-            logits[None], draw_seeds(gen, 1), suppress_start=Vc - tcfg.n_suppressed_tail,
+            logits[None], [k_cb0], suppress_start=Vc - tcfg.n_suppressed_tail,
             eos_id=tcfg.codec_eos_id if allow_eos else -1, temperature=temperature,
             top_k=top_k, top_p=top_p, greedy=greedy, use_top_p=use_top_p)
         state = LoopState(
@@ -206,7 +226,7 @@ def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
             seen=torch.zeros((Vc,), dtype=torch.int8, device=dev),
             codes=torch.zeros((max_frames, tcfg.n_codebooks), dtype=torch.int64, device=dev),
             hidden_out=torch.zeros((max_frames, tcfg.hidden_size), dtype=dtype, device=dev),
-            done=False, gen=gen)
+            done=False, key=key_next if fused_talker else key)
     return state, prefill
 
 
@@ -220,7 +240,8 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
     ``generate_chunk``, ``qwen3tts_tpu/runtime/decode_loop.py:1008``). One
     host sync per frame (the EOS check reads cb0 back). progress_cb, if
     given, is called with the frames emitted so far after each frame (the
-    JAX loop's io_callback, ``decode_loop.py:423-425``). Returns state."""
+    JAX loop's io_callback, ``decode_loop.py:423-425``). The frames draw
+    from state.key's chain (module docstring). Returns state."""
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
@@ -232,6 +253,7 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
                   eos_id=tcfg.codec_eos_id if allow_eos else -1)
     Trb = prefill.trailing.shape[0]
     target = min(state.frame + chunk_frames, max_frames, state.codes.shape[0])
+    draws = frame_draws(state.key, fused_cp, fused_talker)
     with torch.no_grad():
         while not state.done and state.frame < target:
             frame = state.frame
@@ -239,14 +261,14 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
             if allow_eos and int(cb0) == tcfg.codec_eos_id:
                 state.done = True
                 break
-            seed_cp, seed_cb0 = draw_seeds(state.gen, 2)
+            state.key, cb0_draw, cp_draw = draws
             cb0_embd = talker_params.codec_embd[cb0[0]]
             if fused_cp:
                 rest, rest_sum = fused_predict_codes(
-                    cp_params, ccfg, state.last_hidden.to(dtype), cb0_embd, seed_cp, **samp)
+                    cp_params, ccfg, state.last_hidden.to(dtype), cb0_embd, cp_draw, **samp)
             else:
                 rest = cp_model.predict_codes(cp_params, ccfg, state.last_hidden.to(dtype),
-                                              cb0_embd, seed_cp, **samp)
+                                              cb0_embd, cp_draw, **samp)
                 rest_sum = _rest_embd_sum(cp_params, rest)
             torch.cat([cb0, rest.to(torch.int64)], out=state.codes[frame])
             state.hidden_out[frame] = state.last_hidden.to(dtype)
@@ -259,13 +281,17 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
                 out = fused_talker_step(
                     talker_params.blocks, tcfg, step_embd, state.n_past, state.kv,
                     output_norm=talker_params.output_norm,
-                    codec_head=talker_params.codec_head, seen=state.seen, seed=seed_cb0,
+                    codec_head=talker_params.codec_head, seen=state.seen, seed=cb0_draw,
                     repetition_penalty=repetition_penalty, **cb0_kw)
                 state.last_hidden, state.cb0_next = out.hidden.to(dtype), out.cb0
+                # the next frame's keys, while the card runs this one
+                draws = frame_draws(state.key, fused_cp, fused_talker)
             else:
                 state.last_hidden, logits = talker_model.talker_step(
                     talker_params, tcfg, step_embd, state.n_past, state.kv)
-                state.cb0_next = sample_cb0(logits[None], [seed_cb0], seen=state.seen[None],
+                # the next frame's cb0 draws with its own split's k_cb0
+                draws = frame_draws(state.key, fused_cp, fused_talker)
+                state.cb0_next = sample_cb0(logits[None], [draws[1]], seen=state.seen[None],
                                             repetition_penalty=repetition_penalty, **cb0_kw)
             state.frame += 1
             state.n_past += 1
@@ -273,7 +299,7 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
 
 
 def generate_start(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
-                   language_id: int, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                   language_id: int, key, *, talker_cfg, cp_cfg,
                    chunk_frames: int, max_frames: int, kv_capacity: int, temperature: float,
                    top_k: int, top_p: float = 1.0, repetition_penalty: float = 1.05,
                    nothink: bool = False, allow_eos: bool = True, fused_cp="auto",
@@ -286,7 +312,7 @@ def generate_start(talker_params, cp_params, tokens, n_tokens: int, speaker_embd
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                 repetition_penalty=repetition_penalty, allow_eos=allow_eos)
     state, prefill = generate_init(
-        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, gen,
+        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, key,
         talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames, kv_capacity=kv_capacity,
         nothink=nothink, fused_talker=fused_talker, kv_quant=kv_quant, **samp)
     generate_chunk(talker_params, cp_params, prefill, state, talker_cfg=talker_cfg,
@@ -296,7 +322,7 @@ def generate_start(talker_params, cp_params, tokens, n_tokens: int, speaker_embd
 
 
 def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
-                         speaker_embd, language_id: int, gen: torch.Generator, *,
+                         speaker_embd, language_id: int, key, *,
                          talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
                          temperature: float, top_k: int, top_p: float = 1.0,
                          repetition_penalty: float = 1.05, nothink: bool = False,
@@ -317,7 +343,7 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
     samp = dict(temperature=temperature, top_k=top_k, top_p=top_p,
                 repetition_penalty=repetition_penalty, allow_eos=allow_eos)
     state, prefill = generate_init(
-        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, gen,
+        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, key,
         talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames, kv_capacity=kv_capacity,
         nothink=nothink, fused_talker=fused_talker, kv_quant=kv_quant, **samp)
     generate_chunk(talker_params, cp_params, prefill, state, talker_cfg=talker_cfg,
@@ -333,7 +359,7 @@ def generate_from_tokens(talker_params, cp_params, tokens, n_tokens: int,
 
 
 def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd,
-                                 language_ids, gen: torch.Generator, *, talker_cfg, cp_cfg,
+                                 language_ids, keys, *, talker_cfg, cp_cfg,
                                  max_frames: int, kv_capacity: int, temperature: float,
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
@@ -364,11 +390,12 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     when every lane is done or after max_frames, with one host sync per
     frame-set.
 
-    Seeds: B lane seeds are drawn from `gen`; lane b then draws from its own
-    generator, seeded with its lane seed, exactly as generate_from_tokens
-    draws from `gen`. So lane b reproduces generate_from_tokens run with a
-    generator seeded with lane b's seed (the port's analog of
-    jax.random.split(key, B)).
+    Keys: keys [B, 2] (the pipeline's split(prng_key(seed), B), or JAX
+    keys); lane b's chain is the single stream's chain from keys[b], split
+    per frame-set on the host over all lanes at once (numpy) after the
+    frame-set's launches, its kernel seeds uploaded once a frame-set (one
+    [2, B] int32 tensor). So lane b reproduces generate_from_tokens run
+    with keys[b], whatever group of lanes it runs in.
     """
     tcfg, ccfg = talker_cfg, cp_cfg
     fused_talker = resolve_fused_talker(fused_talker)
@@ -384,14 +411,9 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
     cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos if allow_eos else -1)
-    # lane b's draws: 1 for frame 0's cb0, then (code predictor, next cb0)
-    # per frame, as generate_from_tokens draws them
-    lane_seeds = []
-    for s in draw_seeds(gen, B):
-        g = torch.Generator()
-        g.manual_seed(s)
-        lane_seeds.append(draw_seeds(g, 1 + 2 * max_frames))
-    seeds = torch.tensor(lane_seeds, dtype=torch.int32).to(dev)      # [B, 1 + 2F]
+    keys = prng.key_array(keys).reshape(B, 2)
+    init = prng.split(keys, 3)                                        # [B, 3, 2]
+    chain = init[:, 0] if fused_talker else keys
     lanes = torch.arange(B, device=dev)
 
     with torch.no_grad():
@@ -409,7 +431,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                                           prefill.prefill_embd, kv)
         if quant_kv:
             kv = quantize_cache(kv, kv_capacity)
-        cb0_next = sample_cb0(logits, seeds[:, 0], **cb0_kw)
+        cb0_next = sample_cb0(logits, init[:, 1], **cb0_kw)
+        draws = frame_draws(chain, fused_cp, fused_talker)
         seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         frame = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -424,6 +447,12 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
             emit = ~done
             if not bool(emit.any()):
                 break
+            chain, cb0_draw, cp_draw = draws
+            if fused_cp or fused_talker:
+                # the kernels' seeds of this frame-set: [0] K6, [1] K5
+                seeds = prng.to_device(np.stack([
+                    cp_draw if fused_cp else np.zeros(B, np.int32),
+                    cb0_draw if fused_talker else np.zeros(B, np.int32)]), dev)
             cb0_embd = talker_params.codec_embd[cb0]                    # [B, H]
             if fused_cp:
                 rest, rest_sum = [], []
@@ -431,13 +460,13 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                     r, rs = fused_predict_codes_batched(
                         cp_params, ccfg, last_hidden[o:o + CP_KERNEL_MAX_LANES],
                         cb0_embd[o:o + CP_KERNEL_MAX_LANES],
-                        seeds[o:o + CP_KERNEL_MAX_LANES, 1 + 2 * it], **samp)
+                        seeds[0, o:o + CP_KERNEL_MAX_LANES], **samp)
                     rest.append(r.to(torch.int64))
                     rest_sum.append(rs)
                 rest, rest_sum = torch.cat(rest), torch.cat(rest_sum)
             else:
                 rest = cp_model.predict_codes(cp_params, ccfg, last_hidden, cb0_embd,
-                                              seeds[:, 1 + 2 * it], **samp)
+                                              cp_draw, **samp)
                 rest_sum = _rest_embd_sum(cp_params, rest)
             frame_codes = torch.cat([cb0[:, None], rest], dim=1)
             codes[:, it] = torch.where(emit[:, None], frame_codes, codes[:, it])
@@ -448,13 +477,16 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                 out = fused_talker_step_batched(
                     talker_params.blocks, tcfg, step_embd, n_past, kv,
                     output_norm=talker_params.output_norm,
-                    codec_head=talker_params.codec_head, seen=seen, seeds=seeds[:, 2 + 2 * it],
+                    codec_head=talker_params.codec_head, seen=seen, seeds=seeds[1],
                     repetition_penalty=repetition_penalty, **cb0_kw)
                 last_hidden, cb0_next = out.hidden.to(dtype), out.cb0
+                # the next frame-set's keys, while the card runs this one
+                draws = frame_draws(chain, fused_cp, fused_talker)
             else:
                 last_hidden, logits = talker_model.talker_step(
                     talker_params, tcfg, step_embd, n_past, kv)
-                cb0_next = sample_cb0(logits, seeds[:, 2 + 2 * it], seen=seen,
+                draws = frame_draws(chain, fused_cp, fused_talker)
+                cb0_next = sample_cb0(logits, draws[1], seen=seen,
                                       repetition_penalty=repetition_penalty, **cb0_kw)
             frame = frame + emit.to(torch.int64)
             done = done | (frame >= cap)

@@ -19,7 +19,7 @@ from . import decode_loop
 
 
 def start_and_vocode(talker_params, cp_params, vocoder_params, tokens, n_tokens: int,
-                     speaker_embd, language_id: int, gen: torch.Generator, *, talker_cfg,
+                     speaker_embd, language_id: int, key, *, talker_cfg,
                      cp_cfg, vocoder_cfg, chunk_frames: int, max_frames: int,
                      kv_capacity: int, temperature: float, top_k: int, top_p: float = 1.0,
                      repetition_penalty: float = 1.05, nothink: bool = False,
@@ -29,11 +29,12 @@ def start_and_vocode(talker_params, cp_params, vocoder_params, tokens, n_tokens:
     then the vocoder over exactly the frames that chunk emitted. Returns
     (audio [n0 * samples_per_frame] float32 on the weights' device, the
     LoopState, the prefill), n0 = min(state.frame, chunk_frames); continue
-    with ``decode_loop.generate_chunk``. The JAX package vocodes the chunk
+    with ``decode_loop.generate_chunk``. key: the request's threefry key, as
+    ``generate_init`` takes it. The JAX package vocodes the chunk
     padded to chunk_frames rows and masks the padding: the stack is causal,
     so its first n0 frames' samples are these."""
     state, prefill = decode_loop.generate_start(
-        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, gen,
+        talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id, key,
         talker_cfg=talker_cfg, cp_cfg=cp_cfg, chunk_frames=chunk_frames,
         max_frames=max_frames, kv_capacity=kv_capacity, temperature=temperature,
         top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, nothink=nothink,

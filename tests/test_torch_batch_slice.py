@@ -19,6 +19,7 @@ from qwen3tts_tpu.models import vocoder as jvoc
 from qwen3tts_tpu.ops.quant import quantize_block_params
 from qwen3tts_tpu.runtime import decode_loop as jdl
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
 
@@ -88,26 +89,53 @@ def test_greedy_batch_matches_jax_hand_batched_loop(both):
         np.testing.assert_allclose(r.audio, want_audio, rtol=5e-3, atol=5e-4)
 
 
+def _lane_keys(seed, B):
+    """split(prng_key(seed), B), the keys synthesize_batch gives its lanes."""
+    return np.asarray(prng.split(prng.prng_key(seed), B), np.uint32)
+
+
+def test_sampled_batch_matches_jax_hand_batched_loop(both):
+    """Default sampling (temperature 0.9, top-k 50, penalty 1.05), seed 5:
+    synthesize_batch codes EQUAL to the JAX hand-batched fused loop's from
+    jax.random.split(PRNGKey(5), B), lane for lane (the JAX pipeline's lane
+    keys, ``pipeline.py:667``)."""
+    (tp, cp, _), tts = both
+    tokens, n_tok = _tokens(tts, TEXTS)
+    B = len(TEXTS)
+    params = SamplingConfig(max_audio_tokens=4, seed=5)
+    max_frames, kv_capacity = tts._frame_budget(params)
+    gen = jdl._generate_batched_fused(
+        tp, cp, jnp.asarray(tokens, jnp.int32), jnp.asarray(n_tok, jnp.int32),
+        jnp.zeros((B, TCFG.hidden_size), jnp.float32),
+        jnp.full((B,), TCFG.english_language_id, jnp.int32),
+        jax.random.split(jax.random.PRNGKey(5), B), talker_cfg=TCFG, cp_cfg=CCFG,
+        max_frames=max_frames, kv_capacity=kv_capacity, temperature=0.9, top_k=50,
+        top_p=1.0, repetition_penalty=1.05, nothink=False, fused_talker=True)
+    rs = tts.synthesize_batch(TEXTS, params)
+    assert sum(r.n_frames for r in rs) > 0
+    for b, r in enumerate(rs):
+        n = min(int(gen.n_frames[b]), params.max_audio_tokens)
+        assert r.n_frames == n, f"lane {b}"
+        np.testing.assert_array_equal(r.codes, np.asarray(gen.codes[b])[:n],
+                                      err_msg=f"lane {b}")
+
+
 def _batched(tts, tokens, n_tok, seed, **kw):
     B = tokens.shape[0]
-    gen = torch.Generator()
-    gen.manual_seed(seed)
     return pdl.generate_from_tokens_batched(
         tts.talker_params, tts.cp_params, torch.from_numpy(tokens), n_tok,
-        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B, gen,
-        talker_cfg=TCFG, cp_cfg=CCFG, kv_capacity=32, **kw)
+        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B,
+        _lane_keys(seed, B), talker_cfg=TCFG, cp_cfg=CCFG, kv_capacity=32, **kw)
 
 
 def _assert_lanes_equal_single_stream(tts, tokens, n_tok, seed, out, **kw):
-    """Lane b of `out` equals generate_from_tokens run with a generator
-    seeded with lane b's seed: the same frame count and codes."""
-    lane_seeds = pdl.draw_seeds(torch.Generator().manual_seed(seed), tokens.shape[0])
-    for b, s in enumerate(lane_seeds):
+    """Lane b of `out` equals generate_from_tokens run with lane b's key,
+    split(prng_key(seed), B)[b]: the same frame count and codes."""
+    for b, key in enumerate(_lane_keys(seed, tokens.shape[0])):
         single = pdl.generate_from_tokens(
             tts.talker_params, tts.cp_params, torch.from_numpy(tokens[b]), n_tok[b],
-            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id,
-            torch.Generator().manual_seed(s), talker_cfg=TCFG, cp_cfg=CCFG,
-            kv_capacity=32, **kw)
+            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id, key,
+            talker_cfg=TCFG, cp_cfg=CCFG, kv_capacity=32, **kw)
         assert out.n_frames[b] == single.n_frames, f"lane {b}"
         np.testing.assert_array_equal(out.codes[b, : single.n_frames].numpy(),
                                       single.codes.numpy(), err_msg=f"lane {b}")
@@ -117,6 +145,8 @@ SAMPLED = dict(max_frames=6, temperature=0.9, top_k=50, top_p=0.95, repetition_p
 
 
 def test_sampled_lane_equals_single_stream_with_its_seed(both):
+    """Lane b of a sampled batch from split(prng_key(7), B) equals the
+    single-stream loop from that split's key b."""
     _, tts = both
     tokens, n_tok = _tokens(tts, TEXTS)
     out = _batched(tts, tokens, n_tok, 7, **SAMPLED)

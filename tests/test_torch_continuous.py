@@ -7,7 +7,8 @@ The invariant: a request spliced into a lane mid-session at cache rows
 [p - P, p) generates exactly what a fresh single-stream run at [0, P)
 generates (RoPE is relative, the start mask hides the previous occupant).
 Greedy codes are the gate; sampled runs match too, because each request
-draws its seeds from its own generator in the single-stream loop's order.
+draws from its own threefry key chain (prng_key(seed)) in the
+single-stream loop's order, as the JAX scheduler's requests do.
 The float32 queues run the unfused path, as the JAX package's scheduler
 does on a CPU; the int8 queue runs K5 and K6 (plain versions here, the
 Pallas kernels in interpret mode in JAX).
@@ -30,6 +31,7 @@ from qwen3tts_tpu.models import talker as jtalker
 from qwen3tts_tpu.ops.quant import quantize_block_params
 from qwen3tts_tpu.runtime import continuous as jcont
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import continuous as cont
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
@@ -80,14 +82,14 @@ def _requests():
 
 def _fresh(p, req, *, temperature, top_k, top_p=1.0, repetition_penalty=1.05, flags=UNFUSED,
            Tb=16):
-    """The port's single-stream loop on one request, its generator seeded
-    with the request's seed."""
+    """The port's single-stream loop on one request, from the key
+    prng_key(seed) of the request's seed."""
     tp, cp = p
     padded = np.zeros((Tb,), np.int64)
     padded[:req["n_tokens"]] = req["tokens"]
     res = pdl.generate_from_tokens(
         tp, cp, torch.from_numpy(padded), req["n_tokens"], torch.zeros((H,)),
-        TCFG.english_language_id, torch.Generator().manual_seed(req["seed"]),
+        TCFG.english_language_id, prng.prng_key(req["seed"]),
         talker_cfg=TCFG, cp_cfg=CCFG, max_frames=req["budget"],
         kv_capacity=10 + req["budget"] + 8, temperature=temperature, top_k=top_k,
         top_p=top_p, repetition_penalty=repetition_penalty, allow_eos=False, **flags)
@@ -181,7 +183,7 @@ def test_admission_pacing_and_timing_change_no_codes(params):
 
 
 def test_continuous_sampled_matches_fresh_runs(params):
-    """Sampled: each request's generator (one seed at refill, two per frame)
+    """Sampled: each request's key chain (split at refill, then per frame)
     reproduces the single-stream sampled output."""
     reqs = _requests()[:4]
     _, got = _run_continuous(params, reqs, temperature=0.9, top_k=50)
@@ -424,6 +426,23 @@ def test_synthesize_queue_matches_jax(pipelines):
         assert g.n_frames == budgets[i] == w.n_frames
         np.testing.assert_array_equal(g.codes, np.asarray(w.codes), err_msg=f"request {i}")
         assert g.audio.shape == (g.n_frames * 1920,) and np.isfinite(g.audio).all()
+
+
+def test_sampled_synthesize_queue_matches_jax(pipelines):
+    """Default sampling (temperature 0.9, top-k 50, penalty 1.05), seed 30:
+    synthesize_queue's codes EQUAL to the JAX package's on the same weights,
+    request i drawing from prng_key(30 + i) as JAX's _host_prngkey, through
+    refills on 2 lanes."""
+    jt, pt = pipelines
+    params = SamplingConfig(max_audio_tokens=4, seed=30)
+    kw = dict(lanes=2, chunk_frames=2, refill_slots=2)
+    want = jt.synthesize_queue(QUEUE_TEXTS[:4], params, **kw)
+    got = pt.synthesize_queue(QUEUE_TEXTS[:4], params, **kw)
+    assert sum(g.n_frames for g in got) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.n_frames == w.n_frames, f"request {i}"
+        np.testing.assert_array_equal(g.codes, np.asarray(w.codes).reshape(g.codes.shape),
+                                      err_msg=f"request {i}")
 
 
 def test_synthesize_queue_results_in_submission_order(pipelines):

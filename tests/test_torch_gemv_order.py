@@ -191,8 +191,8 @@ def test_projection_phase_reports_k1_at_b1(monkeypatch, capsys):
     """check_projections at B = 1 (the card's harness stood in for by one
     that writes the plain layer's result into split 0 of its workspace)
     reports every projection equal under K1's entry of each mode, with a
-    bound, weight bytes and the library call (none for w8a8, which
-    torch._int_mm refuses at one row); check_head_gemv reports the head
+    bound, weight bytes and the library call (for w8a8, torch._int_mm on
+    x padded to the 17 rows it takes); check_head_gemv reports the head
     under K1's w8a8 entry within its tolerance."""
 
     def stand_in(x, w, mode, ws=None):
@@ -223,7 +223,8 @@ def test_projection_phase_reports_k1_at_b1(monkeypatch, capsys):
         assert r["checked_lanes"] == [1] and set(r["times"]) == {"B=1"}
         t = r["times"]["B=1"]
         assert t["bound_ms"] > 0 and t["weight_bytes"] > 0 and len(t["shapes"]) == 4
-        assert (t["library_ms"] is None) == (mode == "w8a8")
+        # w8a8's yardstick, torch._int_mm, takes x padded to 17 rows
+        assert t["library_ms"] is not None
     head = report["fused_talker_step"]["codec_head"]
     assert head["max_abs_err"] <= 1e-3 and head["bound_ms"] > 0
     assert not any(k.startswith("fused_talker_step_batched") for k in report)

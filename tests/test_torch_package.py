@@ -35,7 +35,7 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.ops.decode_attention", "qwen3tts_tpu_torch.ops.attention",
     "qwen3tts_tpu_torch.models.code_predictor", "qwen3tts_tpu_torch.ops.quant",
     "qwen3tts_tpu_torch.ops.w4_gemv_probe", "qwen3tts_tpu_torch.runtime.continuous",
-    "qwen3tts_tpu_torch.runtime.e2e",
+    "qwen3tts_tpu_torch.runtime.e2e", "qwen3tts_tpu_torch.ops.prng",
     "qwen3tts_tpu_torch.ops.kv_quant", "qwen3tts_tpu_torch.cli",
     "qwen3tts_tpu_torch.audio.mel", "qwen3tts_tpu_torch.audio.wav",
     "qwen3tts_tpu_torch.io.safetensors_io", "qwen3tts_tpu_torch.io.tensor_names",

@@ -19,6 +19,7 @@ from qwen3tts_tpu.ops import sampling as jsampling
 from qwen3tts_tpu.ops.quant import quantize_block_params
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
 from qwen3tts_tpu_torch.models import talker as ptalker
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.ops import sampling
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
 
@@ -84,7 +85,7 @@ def test_sample_token_equals_jax_with_the_same_noise(mode):
 
 
 def test_frame0_sampler_draws_only_from_jax_top_k():
-    """400 seeds on one suppressed random row: every frame-0 draw of the
+    """400 keys on one suppressed random row: every frame-0 draw of the
     port's loops (decode_loop.sample_cb0) lies in the set JAX's sample_token
     can draw from (the exact top 50 of the temperature-scaled row), and the
     draws spread over it."""
@@ -94,8 +95,8 @@ def test_frame0_sampler_draws_only_from_jax_top_k():
     supp = V - tcfg.n_suppressed_tail
     allowed = _kept(jsampling.apply_top_k(
         jsampling.apply_suppression(jnp.asarray(row), supp, tcfg.codec_eos_id) / 0.9, 50))[0]
-    seeds = np.arange(400, dtype=np.int64) * 7919 - 200000
-    drawn = pdl.sample_cb0(torch.from_numpy(np.repeat(row, 400, axis=0)), torch.from_numpy(seeds),
+    keys = prng.key_array([prng.prng_key(s) for s in np.arange(400) * 7919 - 200000])
+    drawn = pdl.sample_cb0(torch.from_numpy(np.repeat(row, 400, axis=0)), keys,
                            suppress_start=supp, eos_id=tcfg.codec_eos_id, temperature=0.9,
                            top_k=50, top_p=1.0, greedy=False, use_top_p=False).numpy()
     outside = sorted(set(drawn[~allowed[drawn]].tolist()))
@@ -146,7 +147,7 @@ LOOP = dict(talker_cfg=CFG.talker, cp_cfg=CFG.code_predictor, max_frames=1, kv_c
 @pytest.mark.parametrize("flags", [{}, dict(fused_talker=False, fused_cp=False)],
                          ids=["fused", "unfused"])
 def test_single_stream_frame0_within_jax_top_k(flat_params, flags):
-    """generate_from_tokens over 40 seeds: frame 0's cb0 (or an EOS stop)
+    """generate_from_tokens over 40 keys: frame 0's cb0 (or an EOS stop)
     always lies in JAX's top-50 set, on the fused path (the defaults) and
     the unfused one."""
     tp, cp = flat_params
@@ -155,7 +156,7 @@ def test_single_stream_frame0_within_jax_top_k(flat_params, flags):
     for seed in range(40):
         out = pdl.generate_from_tokens(
             tp, cp, torch.from_numpy(_tokens()), 12, torch.zeros(CFG.talker.hidden_size),
-            CFG.talker.english_language_id, torch.Generator().manual_seed(seed),
+            CFG.talker.english_language_id, prng.prng_key(seed),
             **flags, **LOOP)
         cb0 = int(out.codes[0, 0]) if out.n_frames else eos
         assert allowed[cb0], f"seed {seed} drew {cb0}"
@@ -170,7 +171,7 @@ def test_batched_frame0_within_jax_top_k(flat_params):
     out = pdl.generate_from_tokens_batched(
         tp, cp, torch.from_numpy(np.tile(_tokens(), (B, 1))), [12] * B,
         torch.zeros((B, CFG.talker.hidden_size)), [CFG.talker.english_language_id] * B,
-        torch.Generator().manual_seed(3), **LOOP)
+        np.asarray(prng.split(prng.prng_key(3), B), np.uint32), **LOOP)
     eos = CFG.talker.codec_eos_id
     cb0 = [int(out.codes[b, 0, 0]) if out.n_frames[b] else eos for b in range(B)]
     assert all(allowed[c] for c in cb0), cb0

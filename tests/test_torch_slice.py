@@ -84,3 +84,27 @@ def test_sampled_synthesis_is_valid_and_reproducible(both):
     assert np.isfinite(a.audio).all()
     np.testing.assert_array_equal(a.codes, b.codes)
     np.testing.assert_array_equal(a.audio, b.audio)
+
+
+def test_sampled_synthesis_matches_jax_fused_path(both):
+    """Default sampling (temperature 0.9, top-k 50, penalty 1.05): codes
+    EQUAL to the JAX fused-kernel loop's from jax.random.PRNGKey(seed), the
+    port drawing from prng_key(seed): frame 0's cb0 by categorical, K2's
+    and K1's seeds seed32 of each frame's split, as the JAX loop draws
+    them."""
+    (tp, cp, _), tts = both
+    tokens = synthetic_tokenizer(CFG.talker.text_vocab_size).encode_for_tts(TEXT)
+    padded = np.zeros((32,), np.int32)
+    padded[:len(tokens)] = tokens
+    gen = jdl.generate_from_tokens(
+        tp, cp, jnp.asarray(padded), jnp.int32(len(tokens)),
+        jnp.zeros((CFG.talker.hidden_size,), jnp.float32),
+        jnp.int32(CFG.talker.english_language_id), jax.random.PRNGKey(3),
+        talker_cfg=CFG.talker, cp_cfg=CFG.code_predictor, max_frames=8, kv_capacity=32,
+        temperature=0.9, top_k=50, repetition_penalty=1.05, fused_cp=True,
+        fused_talker=True)
+    n = int(gen.n_frames)
+    r = tts.synthesize(TEXT, SamplingConfig(max_audio_tokens=8, seed=3))
+    assert r.success, r.error_msg
+    assert r.n_frames == n > 0
+    np.testing.assert_array_equal(r.codes, np.asarray(gen.codes)[:n])

@@ -29,6 +29,7 @@ from qwen3tts_tpu.ops.quant import quantize_block_params
 from qwen3tts_tpu.runtime import decode_loop as jdl
 from qwen3tts_tpu.runtime import e2e as je2e
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.ops.kv_quant import is_quantized_kv
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
@@ -102,7 +103,7 @@ def test_chunked_loop_matches_jax_chunks(pipelines):
     ps, ppre = pdl.generate_init(
         pt.talker_params, pt.cp_params, torch.from_numpy(padded), n,
         torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id,
-        torch.Generator().manual_seed(0), talker_cfg=TCFG, cp_cfg=CCFG,
+        prng.prng_key(0), talker_cfg=TCFG, cp_cfg=CCFG,
         max_frames=max_frames, kv_capacity=kv_capacity, fused_talker=False, **GREEDY)
     assert (ps.frame, ps.n_past, ps.done) == (0, 10, False)
     chunks = 0
@@ -138,9 +139,9 @@ def test_chunked_loop_equals_generate_from_tokens(pipelines, int8_port, which, t
               temperature=temperature, top_k=50, top_p=1.0, repetition_penalty=1.05)
     args = (tts.talker_params, tts.cp_params, torch.from_numpy(padded), n,
             torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id)
-    whole = pdl.generate_from_tokens(*args, torch.Generator().manual_seed(4),
+    whole = pdl.generate_from_tokens(*args, prng.prng_key(4),
                                      kv_quant=kv_quant, **kw, **flags)
-    state, prefill = pdl.generate_init(*args, torch.Generator().manual_seed(4),
+    state, prefill = pdl.generate_init(*args, prng.prng_key(4),
                                        kv_quant=kv_quant, fused_talker=flags["fused_talker"],
                                        **kw)
     assert is_quantized_kv(state.kv) == (kv_quant == "int8" and which == "fused")
@@ -171,7 +172,7 @@ def test_generate_start_and_start_and_vocode_match_jax(pipelines):
     js, _ = jdl.generate_start(jt.talker_params, jt.cp_params, *jargs, fused_cp=False,
                                fused_talker=False, **common)
     ps, _ = pdl.generate_start(pt.talker_params, pt.cp_params, *pargs,
-                               torch.Generator().manual_seed(0), **common, **UNFUSED)
+                               prng.prng_key(0), **common, **UNFUSED)
     assert ps.frame == int(js.frame) == 4
     np.testing.assert_array_equal(ps.codes[:4].numpy(), np.asarray(js.codes)[:4])
 
@@ -179,7 +180,7 @@ def test_generate_start_and_start_and_vocode_match_jax(pipelines):
                                       *jargs, vocoder_cfg=VCFG, fused_cp=False,
                                       fused_talker=False, **common)
     pa, ps, _ = pe2e.start_and_vocode(pt.talker_params, pt.cp_params, pt.vocoder_params,
-                                      *pargs, torch.Generator().manual_seed(0),
+                                      *pargs, prng.prng_key(0),
                                       vocoder_cfg=VCFG, **common, **UNFUSED)
     assert pa.shape == (4 * SPF,) and ps.frame == int(js.frame) == 4
     np.testing.assert_allclose(pa.numpy(), np.asarray(ja)[:4 * SPF], rtol=RTOL, atol=ATOL)
@@ -206,6 +207,24 @@ def test_synthesize_streaming_matches_jax(pipelines, history):
     assert st["n_frames"] == full.n_frames and sum(st["chunk_frames"]) == full.n_frames
     assert sum(len(c) for c in got) == full.n_frames * SPF
     np.testing.assert_array_equal(st["codes"], full.codes)
+
+
+def test_sampled_synthesize_streaming_matches_jax(pipelines):
+    """Default sampling (temperature 0.9, top-k 50, penalty 1.05), seed 3,
+    chunks of 4 frames: the same chunk lengths as the JAX package's stream,
+    each chunk within 2e-3 of its chunk, and the streamed codes equal to the
+    JAX package's synthesize with that seed (the key chain carries across
+    chunks)."""
+    jt, pt = pipelines
+    params = SamplingConfig(max_audio_tokens=12, seed=3)
+    want = list(jt.synthesize_streaming(TEXTS[0], params, chunk_frames=4, history=32))
+    got = list(pt.synthesize_streaming(TEXTS[0], params, chunk_frames=4, history=32))
+    assert [len(c) for c in got] == [len(c) for c in want] and len(got) >= 2
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=S_RTOL, atol=S_ATOL,
+                                   err_msg=f"chunk {i}")
+    full = jt.synthesize(TEXTS[0], params)
+    np.testing.assert_array_equal(pt.last_stream["codes"], np.asarray(full.codes))
 
 
 def test_sampled_stream_codes_equal_synthesize(int8_port):

@@ -25,6 +25,7 @@ from qwen3tts_tpu.ops.quant import quantize_block_params, quantize_talker_blocks
 from qwen3tts_tpu.runtime import decode_loop as jdl
 from qwen3tts_tpu.text.bpe import synthetic_tokenizer
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
 
@@ -136,22 +137,22 @@ SAMPLED = dict(max_frames=6, temperature=0.9, top_k=50, top_p=0.95, repetition_p
 
 
 def test_sampled_lane_equals_single_stream_with_its_seed(tier):
-    """Sampled, default flags: lane b of the batched loop equals the
-    single-stream loop run with lane b's seed (frame count and codes)."""
+    """Sampled, default flags: lane b of the batched loop from keys [B, 2]
+    equals the single-stream loop run with keys[b] (frame count and
+    codes)."""
     _, _, tts = tier
     tokens, n_tok = _tokens(tts, TEXTS)
     B = len(TEXTS)
     common = dict(talker_cfg=TCFG, cp_cfg=CCFG, kv_capacity=32, **SAMPLED)
+    keys = np.asarray(prng.split(prng.prng_key(7), B), np.uint32)
     out = pdl.generate_from_tokens_batched(
         tts.talker_params, tts.cp_params, torch.from_numpy(tokens), n_tok,
-        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B,
-        torch.Generator().manual_seed(7), **common)
+        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B, keys, **common)
     assert sum(out.n_frames) > 0
-    for b, s in enumerate(pdl.draw_seeds(torch.Generator().manual_seed(7), B)):
+    for b in range(B):
         single = pdl.generate_from_tokens(
             tts.talker_params, tts.cp_params, torch.from_numpy(tokens[b]), n_tok[b],
-            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id,
-            torch.Generator().manual_seed(s), **common)
+            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id, keys[b], **common)
         assert out.n_frames[b] == single.n_frames, f"lane {b}"
         np.testing.assert_array_equal(out.codes[b, : single.n_frames].numpy(),
                                       single.codes.numpy(), err_msg=f"lane {b}")

@@ -23,6 +23,7 @@ from qwen3tts_tpu.text.bpe import synthetic_tokenizer
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
 from qwen3tts_tpu_torch.models import code_predictor as pcp
 from qwen3tts_tpu_torch.models import talker as ptalker
+from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
 
@@ -58,15 +59,15 @@ def both():
     return (tp, cp), ports
 
 
-def _jax_single(tp, cp, **flags):
+def _jax_single(tp, cp, temperature=0.0, seed=0, **flags):
     tokens = synthetic_tokenizer(TCFG.text_vocab_size).encode_for_tts(TEXT)
     padded = np.zeros((32,), np.int32)
     padded[:len(tokens)] = tokens
     gen = jdl.generate_from_tokens(
         tp, cp, jnp.asarray(padded), jnp.int32(len(tokens)),
         jnp.zeros((TCFG.hidden_size,), jnp.float32), jnp.int32(TCFG.english_language_id),
-        jax.random.PRNGKey(0), talker_cfg=TCFG, cp_cfg=CCFG, max_frames=8, kv_capacity=32,
-        temperature=0.0, top_k=50, repetition_penalty=1.05, **flags)
+        jax.random.PRNGKey(seed), talker_cfg=TCFG, cp_cfg=CCFG, max_frames=8, kv_capacity=32,
+        temperature=temperature, top_k=50, repetition_penalty=1.05, **flags)
     n = int(gen.n_frames)
     return np.asarray(gen.codes)[:n], np.asarray(gen.hidden)[:n]
 
@@ -93,6 +94,22 @@ def _tokens(tts, texts):
     for i, (p, _) in enumerate(fitted):
         tokens[i, : p.shape[0]] = p
     return tokens, [n for _, n in fitted]
+
+
+@pytest.mark.parametrize("which", ["fused_talker_only", "unfused"])
+def test_sampled_synthesis_matches_jax(both, which):
+    """Default sampling (temperature 0.9, top-k 50, penalty 1.05), seed 3:
+    codes EQUAL to JAX generate_from_tokens from PRNGKey(3) with the same
+    flags: the unfused talker draws frame f's cb0 with its own split's
+    k_cb0, the fused one with the previous frame's (in-kernel);
+    predict_codes draws from k_cp's chain. (The bf16 tier's default path
+    is fused_talker_only.)"""
+    (tp, cp), ports = both
+    want_codes, _ = _jax_single(tp, cp, temperature=0.9, seed=3, **FLAGS[which])
+    r = ports[which].synthesize(TEXT, SamplingConfig(max_audio_tokens=8, seed=3))
+    assert r.success, r.error_msg
+    assert r.n_frames == len(want_codes) > 0
+    np.testing.assert_array_equal(r.codes, want_codes)
 
 
 @pytest.mark.parametrize("which", sorted(FLAGS))
@@ -165,12 +182,34 @@ def test_predict_codes_greedy_matches_jax(step_inputs):
                                                   jax.random.PRNGKey(b), **kw))
                      for b in range(3)])
     cpp = tts.cp_params
-    got = pcp.predict_codes(cpp, CCFG, torch.from_numpy(x), torch.from_numpy(cb0), [0, 1, 2],
+    keys = np.stack([np.asarray(jax.random.PRNGKey(b)) for b in range(3)])
+    got = pcp.predict_codes(cpp, CCFG, torch.from_numpy(x), torch.from_numpy(cb0), keys,
                             **kw).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
-        pcp.predict_codes(cpp, CCFG, torch.from_numpy(x[1]), torch.from_numpy(cb0[1]), 1,
-                          **kw).numpy(), want[1])
+        pcp.predict_codes(cpp, CCFG, torch.from_numpy(x[1]), torch.from_numpy(cb0[1]),
+                          prng.prng_key(1), **kw).numpy(), want[1])
+
+
+def test_predict_codes_sampled_matches_jax(step_inputs):
+    """Sampled predict_codes (temperature 0.9, top-k 50, top-p 0.9), one
+    stream and three lanes with their own keys: the 15 codes EQUAL to JAX's
+    vmapped predict_codes with the same keys (its split chain, one
+    categorical a code); the port draws the frame's 15 Gumbel fields in one
+    pass."""
+    tp, cp, tts, _, x = step_inputs
+    cb0 = np.asarray(tp.codec_embd)[[5, 77, 901]]
+    kw = dict(temperature=0.9, top_k=50, top_p=0.9)
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(41), 3))
+    want = np.asarray(jax.vmap(lambda h, c, k: jcp.predict_codes(cp, CCFG, h, c, k, **kw))(
+        jnp.asarray(x), jnp.asarray(cb0), jnp.asarray(keys)))
+    cpp = tts.cp_params
+    got = pcp.predict_codes(cpp, CCFG, torch.from_numpy(x), torch.from_numpy(cb0), keys,
+                            **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        pcp.predict_codes(cpp, CCFG, torch.from_numpy(x[2]), torch.from_numpy(cb0[2]),
+                          prng.key_pair(keys[2]), **kw).numpy(), want[2])
 
 
 SAMPLED = dict(max_frames=6, temperature=0.9, top_k=50, top_p=0.95, repetition_penalty=1.05)
@@ -190,23 +229,22 @@ def test_sampled_synthesis_is_valid_and_reproducible(both):
 
 
 def test_sampled_lane_equals_single_stream_with_its_seed(both):
-    """Unfused, sampled: lane b of the batched loop equals the single-stream
-    loop run with lane b's seed (frame count and codes)."""
+    """Unfused, sampled: lane b of the batched loop from keys [B, 2] equals
+    the single-stream loop run with keys[b] (frame count and codes)."""
     _, ports = both
     tts = ports["unfused"]
     tokens, n_tok = _tokens(tts, TEXTS)
     B = len(TEXTS)
     common = dict(talker_cfg=TCFG, cp_cfg=CCFG, kv_capacity=32, **UNFUSED, **SAMPLED)
+    keys = np.asarray(prng.split(prng.prng_key(7), B), np.uint32)
     out = pdl.generate_from_tokens_batched(
         tts.talker_params, tts.cp_params, torch.from_numpy(tokens), n_tok,
-        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B,
-        torch.Generator().manual_seed(7), **common)
+        torch.zeros((B, TCFG.hidden_size)), [TCFG.english_language_id] * B, keys, **common)
     assert sum(out.n_frames) > 0
-    for b, s in enumerate(pdl.draw_seeds(torch.Generator().manual_seed(7), B)):
+    for b in range(B):
         single = pdl.generate_from_tokens(
             tts.talker_params, tts.cp_params, torch.from_numpy(tokens[b]), n_tok[b],
-            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id,
-            torch.Generator().manual_seed(s), **common)
+            torch.zeros((TCFG.hidden_size,)), TCFG.english_language_id, keys[b], **common)
         assert out.n_frames[b] == single.n_frames, f"lane {b}"
         np.testing.assert_array_equal(out.codes[b, : single.n_frames].numpy(),
                                       single.codes.numpy(), err_msg=f"lane {b}")
