@@ -87,10 +87,10 @@ Phases (each prints a line; any failure exits non-zero):
      must launch K1[kv_int8] or K5[kv_int8] and no K1/K5 over a bf16 cache;
      then the unfused path on the same weights,
      Qwen3TTS(..., fused_talker=False, fused_cp=False): a greedy 64-token
-     request (C = 256: the GEMM, attention in PyTorch), then, with
-     RuntimeConfig.kv_margin = 1000, a sampled request of
-     max_audio_tokens=200 and a 16-lane greedy batch of 128 (both at C =
-     1280: the GEMM and the decode-attention kernel), which must launch the
+     request (C = 256: the GEMM, attention in PyTorch), then a sampled
+     request of max_audio_tokens=520 and a 16-lane greedy batch of 520
+     (both at C = 1280: the GEMM and the decode-attention kernel), which
+     must launch the
      GEMM and K3 (the C = 1280 ones also decode attention) and none of K1,
      K2, K5, K6. Then the other weight tiers (TIER_SERVE), each on its own
      Qwen3TTS with the default flags: the bf16 tier is Qwen3TTS() itself
@@ -140,8 +140,26 @@ Phases (each prints a line; any failure exits non-zero):
      request (K1[bf16] and K3, no K2 or GEMM), a Q8_0 GGUF directory
      written from it, load_models and the 256-token request, the CLI
      in-process (-r, --quant int8, --max-tokens 64: rc 0, a 24 kHz WAV of
-     K1's launches x 1920 samples) and unload_models. No path may launch
-     K1/K5 in another tier's mode. K4's
+     K1's launches x 1920 samples) and unload_models. Then multi-GPU
+     serving (serve_multi_gpu, `multi_gpu` lines): MULTI_GPU_WORLD ranks
+     spawned after the kernels were built (NCCL with a card a rank, else
+     gloo with every rank on card 0; the backend and each rank's device
+     printed), each on the int8 weights: dp = 2 with the fused batched
+     loop on each rank's 8 of 16 sampled lanes (its lanes equal bit for
+     bit a single-process batch of the same lanes with the same keys, the
+     codes gathered in lane order equal on every rank, its lanes vocoded
+     by vocode_batched_groups and the audio gathered and finite); tp = 2
+     on the unfused greedy step at C = 1280, teacher-forced against the
+     unsharded run for 8 frames (frame 0's codes equal, every step's
+     logits within TP_LOGITS_COS_FLOOR by cosine); a continuous queue on
+     dp = 2 whose requests emit exactly their budgets (the share of frames
+     equal to the unsharded scheduler's reported); each rank must launch
+     K5, K6, K3, the GEMM and decode attention, and neither K1 nor K2, and
+     holds the GEMM and decode attention against their plain versions at
+     every shape its paths gave them (CallShapes: a tp shard's wo and
+     w_down with float32 x, its local heads; a dp rank's rows);
+     ms per frame-set beside the single-process figures. No path may
+     launch K1/K5 in another tier's mode. K4's
      standalone entry (sample_rows) has no caller on a serve path: frame 0's
      codebook-0 token is drawn by the PyTorch sampler with the JAX
      package's exact top-k, and K4's device code runs inside K1, K2, K5 and
@@ -1554,6 +1572,20 @@ def _bf16_ulp(a):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
+def int8_mm_within(a, b, rel):
+    """The W8A16 GEMM's tolerance against its plain version: each element
+    within one bf16 ulp (float32 x, rel: 1e-5 relative) of the plain
+    output, plus 1e-5 of the largest |plain| for outputs near 0."""
+    tol = (1e-5 * b.float().abs() if rel else _bf16_ulp(b)) + 1e-5 * float(b.abs().max())
+    return float(((a.float() - b.float()).abs() - tol).max()) <= 0
+
+
+def attention_within(a, b):
+    """Decode attention's tolerance against its plain version: each element
+    within one bf16 ulp, plus 1e-6 for outputs near 0."""
+    return bool(((a.float() - b.float()).abs() <= _bf16_ulp(b) + 1e-6).all())
+
+
 def _layer_cycle(fn, n):
     """A call of fn(i) for i = 0..n-1: one timed unit that walks n layers'
     operands, so that, as on the main path, each call finds its operands
@@ -1597,10 +1629,6 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
     names = ("wqkv", "wo", "w_gateup", "w_down")
     worst, times = 0.0, {}
 
-    def gate(a, b, rel):
-        tol = (1e-5 * b.float().abs() if rel else _bf16_ulp(b)) + 1e-5 * float(b.abs().max())
-        return float(((a.float() - b.float()).abs() - tol).max()) <= 0
-
     cases = [(name, M, tts.dtype) for name in names for M in rows]
     cases += [("wqkv", M, torch.float32) for M in INT8_MM_FLOAT_ROWS]
     cases += [("w_down", 2 * rows[-1], tts.dtype)]
@@ -1612,7 +1640,7 @@ def check_int8_matmul(tts, report, iters, rows=(1, 10, 64, 128)):
         a = int8_matmul(x, w.q[0], w.scale[0])
         b = int8_matmul_plain(x, w.q[0], w.scale[0])
         e = _max_err(a, b)
-        ok = gate(a, b, rel=dt == torch.float32)
+        ok = int8_mm_within(a, b, rel=dt == torch.float32)
         cycle = _layer_cycle(lambda l: int8_matmul(x, w.q[l], w.scale[l]), L)
         n = launches_per_call(cycle, L, ("",), dev)
         print(f"kernel int8_matmul {name} M={M} K={K} N={N} x {str(dt)[6:]}: err {e:.3e} "
@@ -1820,7 +1848,7 @@ def check_decode_attention(tts, report, iters, L=None,
             a = decode_attention_kernel(q, kv, L - 1, n)
             b = decode_attention_kernel_plain(q, kv, L - 1, n)
             e = _max_err(a, b)
-            ok = bool(((a.float() - b.float()).abs() <= _bf16_ulp(b) + 1e-6).all())
+            ok = attention_within(a, b)
             print(f"kernel decode_attention B={B} C={C} n_valid={n}: err {e:.3e} "
                   f"({'within' if ok else 'OUTSIDE'} one bf16 ulp)")
             if not ok:
@@ -2501,10 +2529,11 @@ def serve_kv_int8(tts, smi, requests=KV_INT8_REQUESTS, batches=KV_INT8_BATCHES,
 UNFUSED_REQUESTS = [
     ("Hello from the port.", dict(max_audio_tokens=64, temperature=0.0, seed=1)),
     ("An unfused request, long enough for a cache of more than a thousand rows.",
-     dict(max_audio_tokens=600, seed=5)),
+     dict(max_audio_tokens=520, seed=5)),
 ]
 # 520 frames: the fewest that keep C = 1280 (frame bucket 1024), so the
-# decode-attention kernel runs at the depth of a long request
+# decode-attention kernel runs at the depth of a long request (the request
+# above too: launch-bound, the unfused paths are the smoke's longest)
 UNFUSED_BATCHES = [(16, dict(max_audio_tokens=520, temperature=0.0, seed=1))]
 
 
@@ -3597,6 +3626,473 @@ def serve_checkpoint(cfg, device, smi, root, *, request=CHECKPOINT_REQUEST,
     return runs
 
 
+# The multi_gpu phase (serve_multi_gpu): MULTI_GPU_WORLD ranks, one process
+# each, spawned after the parent built the kernels; every rank builds the
+# int8 pipeline from the same seed and runs the three checks of MULTI_GPU
+# through the port's mesh entry points (qwen3tts_tpu_torch/parallel):
+#   dp: a (2, 1) mesh, replicated weights, the fused batched loop (K5, K6,
+#       the W8A16 prefill) on each rank's lanes of a sampled batch, codes
+#       gathered over dp, each rank's lanes vocoded by vocode_batched_groups
+#       (K3) and the audio gathered;
+#   tp: a (1, 2) mesh, each rank's heads and FFN columns, the unfused greedy
+#       step teacher-forced with the unsharded run's codes at a KV capacity
+#       of `capacity` rows (the decode-attention kernel on the local heads);
+#   queue: the continuous scheduler on the dp mesh (unfused under a mesh,
+#       as the JAX package's), every request at exactly its budget.
+MULTI_GPU_WORLD = 2
+MULTI_GPU = dict(
+    dp=dict(lanes=16, kw=dict(max_audio_tokens=64, seed=5)),
+    tp=dict(text=MAIN_REQUESTS[0][0], capacity=1280, frames=8),
+    queue=dict(lanes=4, kv_capacity=256, chunk_frames=4, refill_slots=2, max_frames=16,
+               budgets=(12, 16, 8, 14, 16, 10, 8, 12), seed=40),
+)
+# the kernels each rank must launch on the phase's paths, and those it must
+# not (the single-stream kernels)
+MULTI_GPU_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched",
+                  "fused_res_block", "int8_matmul", "decode_attention")
+MULTI_GPU_FORBIDDEN = ("fused_talker_step", "fused_predict_codes")
+# the least cosine of a teacher-forced tp = 2 step's logits against the
+# unsharded step's: the tp sums add the ranks' float32 partials in another
+# order, and 28 random layers amplify a bf16 ulp of the hidden; the H100
+# gave 0.99983 at the least over 9 steps (PERF.md §6), and 0.999
+# leaves that margin 6x
+TP_LOGITS_COS_FLOOR = 0.999
+MULTI_GPU_TIMEOUT_S = 600
+
+
+# the call sites, by module, of the two kernels whose shapes the mesh
+# changes: a tp shard's widths and head counts, a dp rank's rows
+MESH_SHAPE_SITES = (("qwen3tts_tpu_torch.ops.quant", "int8_matmul"),
+                    ("qwen3tts_tpu_torch.parallel.collectives", "int8_matmul"),
+                    ("qwen3tts_tpu_torch.ops.attention", "decode_attention_kernel"))
+
+
+class CallShapes:
+    """While in use, records each distinct shape at which MESH_SHAPE_SITES
+    call the W8A16 GEMM ((M, K, N, x dtype), with the weight and scales of
+    its first call) and decode attention ((q shape, cache shape, dtype,
+    n_valid)), by wrapping the sites' references to the wrappers; the
+    wrappers run and count their launches as before."""
+
+    def __init__(self):
+        self.mm, self.attn = {}, set()
+        self.saved = []
+
+    def __enter__(self):
+        import importlib
+
+        def mm(real):
+            def spy(x, q, scale):
+                self.mm.setdefault((*x.shape, q.shape[1], x.dtype), (q, scale))
+                return real(x, q, scale)
+            return spy
+
+        def attn(real):
+            def spy(q, kv, layer, n_valid):
+                self.attn.add((tuple(q.shape), tuple(kv.shape), kv.dtype, int(n_valid)))
+                return real(q, kv, layer, n_valid)
+            return spy
+
+        for mod_name, fn in MESH_SHAPE_SITES:
+            mod = importlib.import_module(mod_name)
+            real = getattr(mod, fn)
+            self.saved.append((mod, fn, real))
+            setattr(mod, fn, (mm if fn == "int8_matmul" else attn)(real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, real in self.saved:
+            setattr(mod, fn, real)
+        self.saved = []
+
+
+def check_call_shapes(shapes, dev):
+    """The W8A16 GEMM and decode attention at every shape `shapes` (a
+    CallShapes) recorded, each held against its plain version on the same
+    inputs (random x with the call's weight and scales; a random query and
+    cache, the last layer) at check_int8_matmul's and
+    check_decode_attention's tolerances. Raises SmokeFailure on a miss;
+    returns per kernel the shapes checked, their count and the worst
+    error."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.decode_attention import (decode_attention_kernel,
+                                                          decode_attention_kernel_plain)
+    from qwen3tts_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    out = {k: dict(shapes=0, max_abs_err=0.0, cases=[])
+           for k in ("int8_matmul", "decode_attention")}
+    for (M, K, N, dt), (q, scale) in sorted(shapes.mm.items(), key=lambda kv: str(kv[0])):
+        x = torch.randn((M, K), generator=g, device=dev).to(dt)
+        a, b = int8_matmul(x, q, scale), int8_matmul_plain(x, q, scale)
+        if not int8_mm_within(a, b, rel=dt == torch.float32):
+            raise SmokeFailure(f"int8_matmul disagrees at the mesh's M={M} K={K} N={N} {dt}: "
+                               f"err {_max_err(a, b):.3e}")
+        r = out["int8_matmul"]
+        r["cases"].append(f"M={M} K={K} N={N} x {str(dt)[6:]}")
+        r["shapes"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], _max_err(a, b))
+    cache = {}
+    for q_shape, kv_shape, dt, n in sorted(shapes.attn, key=str):
+        if (q_shape, kv_shape, dt) not in cache:
+            cache.clear()
+            cache[(q_shape, kv_shape, dt)] = (
+                torch.randn(q_shape, generator=g, device=dev).to(dt),
+                torch.randn(kv_shape, generator=g, device=dev).to(dt))
+        q, kv = cache[(q_shape, kv_shape, dt)]
+        layer = kv_shape[-5] - 1
+        a = decode_attention_kernel(q, kv, layer, n)
+        b = decode_attention_kernel_plain(q, kv, layer, n)
+        if not attention_within(a, b):
+            raise SmokeFailure(f"decode_attention disagrees at the mesh's q {q_shape}, cache "
+                               f"{kv_shape}, n_valid={n}: err {_max_err(a, b):.3e}")
+        r = out["decode_attention"]
+        r["cases"].append(f"q {list(q_shape)} cache {list(kv_shape)} n_valid={n}")
+        r["shapes"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], _max_err(a, b))
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def batch_tokens(tts, texts):
+    """(tokens [B, Tb] int64, n_tokens [B]) as synthesize_batch pads them."""
+    import numpy as np
+    import torch
+
+    fitted = [tts._fit_tokens(tts.tokenizer.encode_for_tts(t)) for t in texts]
+    tokens = np.zeros((len(texts), max(p.shape[0] for p, _ in fitted)), np.int64)
+    for i, (p, _) in enumerate(fitted):
+        tokens[i, :p.shape[0]] = p
+    return torch.from_numpy(tokens), [n for _, n in fitted]
+
+
+def teacher_forced(tp, cp, cfg, tokens, n_tokens, frames, capacity, forced=None):
+    """Greedy unfused frames through talker and code-predictor params tp, cp
+    (a rank's tensor-parallel shard, or whole): the prefill, then `frames`
+    talker steps into a cache of `capacity` rows, each step's input built
+    from forced[f] (the reference run's codes) when given, else from the
+    frame's own codes. Returns (codes [frames, 16], logits [frames + 1, Vc]
+    float32: the prefill's, then each step's)."""
+    import torch
+
+    from qwen3tts_tpu_torch.models import code_predictor as cpm
+    from qwen3tts_tpu_torch.models import talker as tm
+    from qwen3tts_tpu_torch.parallel.shardings import local_config
+    from qwen3tts_tpu_torch.runtime.decode_loop import _rest_embd_sum, sample_cb0
+
+    tcfg, ccfg = local_config(cfg.talker, tp.blocks), local_config(cfg.code_predictor,
+                                                                    cp.blocks)
+    dev, dt = tp.codec_embd.device, tp.codec_embd.dtype
+    Vc = tcfg.codec_vocab_size
+    greedy = dict(temperature=0.0, top_k=0, top_p=1.0, greedy=True, use_top_p=False)
+    with torch.no_grad():
+        pre = tm.build_prefill(tp, tcfg, torch.as_tensor(tokens), n_tokens,
+                               torch.zeros((tcfg.hidden_size,), device=dev),
+                               tcfg.english_language_id)
+        P, Trb = pre.prefill_embd.shape[0], pre.trailing.shape[0]
+        kv = tm.make_kv_cache(tcfg, capacity, dt, dev)
+        hidden, logits = tm.talker_prefill(tp, tcfg, pre.prefill_embd, kv)
+        seen = torch.zeros((1, Vc), dtype=torch.int8, device=dev)
+        codes, steps = [], [logits]
+        for f in range(frames):
+            cb0 = sample_cb0(logits[None], None, suppress_start=Vc - tcfg.n_suppressed_tail,
+                             eos_id=-1, seen=seen if f else None, repetition_penalty=1.05,
+                             **greedy)
+            rest = cpm.predict_codes(cp, ccfg, hidden.to(dt), tp.codec_embd[cb0[0]], None,
+                                     **greedy)
+            codes.append(torch.cat([cb0.reshape(1), rest.to(torch.int64)]))
+            use = codes[-1] if forced is None else forced[f].to(dev)
+            seen[0, use[0]] = 1
+            step = (tp.codec_embd[use[0]].float() + _rest_embd_sum(cp, use[1:])
+                    + pre.trailing[min(f, Trb - 1)].float()).to(dt)
+            hidden, logits = tm.talker_step(tp, tcfg, step, P + f, kv)
+            steps.append(logits)
+    return torch.stack(codes).cpu(), torch.stack(steps).float().cpu()
+
+
+def _cosine(a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def multi_gpu_checks(cfg, dev, devices, spec):
+    """The three checks of the multi_gpu phase on this rank (the process
+    group is up). Returns the rank's figures, its gathered results, the
+    launch counts of the phase's main paths (the unsharded reference runs
+    are not counted), and the W8A16 GEMM and decode attention held against
+    their plain versions at every shape those paths gave them on this rank
+    (check_call_shapes: a tp shard's widths and local heads, a dp rank's
+    rows)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.ops import prng
+    from qwen3tts_tpu_torch.parallel import collectives, shardings
+    from qwen3tts_tpu_torch.parallel.mesh import make_mesh
+    from qwen3tts_tpu_torch.pipeline import vocode_batched_groups
+    from qwen3tts_tpu_torch.runtime import decode_loop
+    from qwen3tts_tpu_torch.runtime.continuous import ContinuousScheduler
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    tts = make_pipeline(cfg, dev)
+    tcfg, ccfg = cfg.talker, cfg.code_predictor
+    dp_mesh, tp_mesh = make_mesh(world, 1, devices), make_mesh(1, world, devices)
+    main = {k: 0 for k in KERNELS}
+    shapes = CallShapes()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        """fn() on a main path: (its result, its wall ms), its launches added
+        to the phase's counts."""
+        reset_counts()
+        t0 = time.perf_counter()
+        with shapes:
+            r = fn()
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, v in read_counts().items():
+            main[k] += v
+        return r, ms
+
+    def shard(mesh):
+        return (shardings.shard_params(tts.talker_params, shardings.talker_specs(), mesh),
+                shardings.shard_params(tts.cp_params, shardings.code_predictor_specs(), mesh))
+
+    def timed_ms(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    out = dict(rank=rank, device=str(dev), dp_rank=dp_mesh.dp_rank, tp_rank=tp_mesh.tp_rank)
+    # 1. dp: the fused batched loop on each rank's lanes
+    d = spec["dp"]
+    params = SamplingConfig(**d["kw"])
+    B = d["lanes"]
+    tokens, n_tok = batch_tokens(tts, batch_texts(B))
+    spk = torch.zeros((B, tcfg.hidden_size), device=dev)
+    lang = [params.language_id] * B
+    keys = np.asarray(prng.split(prng.prng_key(params.seed), B), np.uint32).reshape(B, 2)
+    max_frames, C = tts._frame_budget(params)
+    gen_kw = dict(talker_cfg=tcfg, cp_cfg=ccfg, max_frames=max_frames, kv_capacity=C,
+                  temperature=params.temperature, top_k=params.top_k, top_p=params.top_p,
+                  repetition_penalty=params.repetition_penalty)
+    tpr, cpr = shard(dp_mesh)
+    lo, hi = collectives.lane_range(dp_mesh, B)
+    dist.barrier()
+    res, dp_ms = counted(lambda: decode_loop.generate_from_tokens_batched(
+        tpr, cpr, tokens, n_tok, spk, lang, keys, **gen_kw))
+    n = list(res.n_frames)
+    spf = cfg.vocoder.samples_per_frame
+
+    def vocode_mine():
+        buf = torch.zeros((hi - lo, max(max(n), 1) * spf))
+        for g0, g1, audio in vocode_batched_groups(tts.vocoder_params, cfg.vocoder,
+                                                   res.codes[lo:hi], n[lo:hi]):
+            for b in range(g0, g1):
+                buf[b, :n[lo + b] * spf] = torch.from_numpy(audio[b - g0, :n[lo + b] * spf])
+        return collectives.gather_lanes(buf, dp_mesh)
+
+    audio, vocode_ms = counted(vocode_mine)
+    # the references run one rank at a time, each alone on its card
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            ref, ref_ms = timed_ms(lambda: decode_loop.generate_from_tokens_batched(
+                tts.talker_params, tts.cp_params, tokens[lo:hi], n_tok[lo:hi], spk[lo:hi],
+                lang[lo:hi], keys[lo:hi], **gen_kw))
+    dist.barrier()
+    whole_ms = None
+    if rank == 0:
+        _, whole_ms = timed_ms(lambda: decode_loop.generate_from_tokens_batched(
+            tts.talker_params, tts.cp_params, tokens, n_tok, spk, lang, keys, **gen_kw))
+    dist.barrier()
+    out["dp"] = dict(
+        lanes=(lo, hi), codes=res.codes.numpy(), n_frames=n,
+        lanes_equal_single_process=bool(torch.equal(ref.codes, res.codes[lo:hi])
+                                        and list(ref.n_frames) == n[lo:hi]),
+        frame_sets=max(n[lo:hi]), ms=dp_ms, ms_per_frame_set=dp_ms / max(max(n[lo:hi]), 1),
+        single_process_lanes_ms_per_frame_set=ref_ms / max(max(ref.n_frames), 1),
+        single_process_batch_ms_per_frame_set=(None if whole_ms is None
+                                               else whole_ms / max(max(n), 1)),
+        vocode_ms=vocode_ms, audio_finite=bool(torch.isfinite(audio).all()),
+        audio_lanes=int(audio.shape[0]))
+    # 2. tp: teacher-forced against the unsharded run
+    t = spec["tp"]
+    ids, n1 = tts._fit_tokens(tts.tokenizer.encode_for_tts(t["text"]))
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            (ref_codes, ref_logits), ref_tp_ms = timed_ms(lambda: teacher_forced(
+                tts.talker_params, tts.cp_params, cfg, ids, n1, t["frames"], t["capacity"]))
+    tps, cps = shard(tp_mesh)
+    dist.barrier()
+    (tp_codes, tp_logits), tp_ms = counted(lambda: teacher_forced(
+        tps, cps, cfg, ids, n1, t["frames"], t["capacity"], forced=ref_codes))
+    cos = [_cosine(a, b) for a, b in zip(tp_logits, ref_logits)]
+    out["tp"] = dict(
+        frame0_codes_equal=bool(torch.equal(tp_codes[0], ref_codes[0])),
+        codes_equal_share=float((tp_codes == ref_codes).float().mean()),
+        cb0_equal=[bool(a.argmax() == b.argmax()) for a, b in zip(tp_logits, ref_logits)],
+        logits_cos=cos, min_cos=min(cos), ms_per_frame=tp_ms / t["frames"],
+        single_process_ms_per_frame=ref_tp_ms / t["frames"],
+        local_heads=shardings.local_config(tcfg, tps.blocks).n_heads,
+        local_wqkv=tuple(tps.blocks.wqkv.q.shape))
+    # 3. a continuous queue on the dp mesh
+    q = spec["queue"]
+    reqs = [tts._fit_tokens(tts.tokenizer.encode_for_tts(x))
+            for x in batch_texts(len(q["budgets"]))]
+    qkw = {k: q[k] for k in ("lanes", "kv_capacity", "chunk_frames", "refill_slots",
+                             "max_frames")}
+    bucket = max(p.shape[0] for p, _ in reqs)
+
+    def run_queue(tp, cp, mesh, **flags):
+        sched = ContinuousScheduler(tp, cp, tcfg, ccfg, text_bucket=bucket, allow_eos=False,
+                                    mesh=mesh, **flags, **qkw)
+        spk1 = np.zeros((tcfg.hidden_size,), np.float32)
+        rids = [sched.submit(p[:k], k, spk1, tcfg.english_language_id, seed=q["seed"] + i,
+                             max_frames=bd)
+                for i, ((p, k), bd) in enumerate(zip(reqs, q["budgets"]))]
+        got = sched.run()
+        sched.check_host_mirrors()
+        return sched, [got[r] for r in rids]
+
+    dist.barrier()
+    (sched, qcodes), q_ms = counted(lambda: run_queue(tpr, cpr, dp_mesh))
+    frames = sum(c.shape[0] for c in qcodes)
+    out["queue"] = dict(codes=qcodes, frames=frames, ms=q_ms, frames_per_s=frames / q_ms * 1e3,
+                        lanes=(sched.lo, sched.hi), fused=(sched.fused_cp, sched.fused_talker),
+                        budgets_exact=[c.shape[0] for c in qcodes] == list(q["budgets"]),
+                        chunks=sched.chunks_run, refills=sched.refills)
+    if rank == 0:
+        (_, base), base_ms = timed_ms(lambda: run_queue(
+            tts.talker_params, tts.cp_params, None, fused_talker=False, fused_cp=False))
+        same = sum(int((a == b).all(axis=1).sum()) for a, b in zip(qcodes, base))
+        out["queue"].update(unsharded_frames_equal_share=same / max(frames, 1),
+                            unsharded_frames_per_s=sum(c.shape[0] for c in base) / base_ms * 1e3)
+    dist.barrier()
+    out["counts"] = main
+    # the two kernels at every shape this rank's main paths gave them
+    out["shapes_checked"] = check_call_shapes(shapes, dev)
+    return out
+
+
+def multi_gpu_rank(rank, world, port, backend, devices, cfg, spec, out_dir):
+    """The body of one rank of the multi_gpu phase (a spawned process): its
+    process group, the checks, and its results saved to out_dir (a
+    traceback instead when a check raised)."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MULTI_GPU_TIMEOUT_S))
+    try:
+        out = multi_gpu_checks(cfg, dev, devices, spec)
+    except Exception:  # noqa: BLE001 - reported by the parent
+        out = {"error": traceback.format_exc()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def serve_multi_gpu(cfg, smi, *, spec=MULTI_GPU, world=MULTI_GPU_WORLD, devices=None,
+                    backend=None):
+    """The multi_gpu phase: spawn `world` ranks (NCCL with a card a rank
+    where the machine has as many; else gloo, every rank on card 0), wait
+    for them, and hold their results: every rank's gathered codes equal; a
+    rank's dp lanes equal, bit for bit, a single-process batch of the same
+    lanes with the same keys, its audio finite; under tp the first frame's
+    codes equal the unsharded run's and every teacher-forced step's logits
+    keep TP_LOGITS_COS_FLOOR; the queue emits every budget exactly; every
+    rank launched the kernels of MULTI_GPU_PATH, and its GEMM and decode
+    attention agreed with their plain versions at each shape it gave them. Prints a `multi_gpu` line
+    per rank and returns their launch counts."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    cards = torch.cuda.device_count()
+    if devices is None:
+        devices = ([f"cuda:{r}" for r in range(world)] if cards >= world
+                   else ["cuda:0"] * world)
+    if backend is None:
+        backend = "nccl" if cards >= world else "gloo"
+    print(f"multi_gpu: {world} ranks, backend {backend}, devices {devices} [{smi}]")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ctx = tmp.start_processes(multi_gpu_rank,
+                                  args=(world, _free_port(), backend, devices, cfg, spec, d),
+                                  nprocs=world, join=False, start_method="spawn")
+        try:
+            deadline = time.monotonic() + MULTI_GPU_TIMEOUT_S
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise SmokeFailure(f"multi_gpu: the ranks did not finish in "
+                                       f"{MULTI_GPU_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(30)
+        outs = [torch.load(f"{d}/rank{r}.pt", weights_only=False) for r in range(world)]
+    for r, o in enumerate(outs):
+        if "error" in o:
+            raise SmokeFailure(f"multi_gpu rank {r} failed:\n{o['error']}")
+    import numpy as np
+
+    q0 = outs[0]["queue"]
+    for o in outs:
+        dp, tpr, q = o["dp"], o["tp"], o["queue"]
+        what = f"multi_gpu rank {o['rank']}"
+        if not (np.array_equal(dp["codes"], outs[0]["dp"]["codes"])
+                and dp["n_frames"] == outs[0]["dp"]["n_frames"]):
+            raise SmokeFailure(f"{what}: the gathered dp codes differ between ranks")
+        if not dp["lanes_equal_single_process"]:
+            raise SmokeFailure(f"{what}: lanes {dp['lanes']} differ from a single-process "
+                               "batch of the same lanes")
+        if not (dp["audio_finite"] and dp["audio_lanes"] == len(dp["n_frames"])):
+            raise SmokeFailure(f"{what}: the gathered audio is not finite or misses lanes")
+        if not tpr["frame0_codes_equal"]:
+            raise SmokeFailure(f"{what}: tp = {world} frame 0's codes differ from the "
+                               "unsharded run's")
+        if tpr["min_cos"] < TP_LOGITS_COS_FLOOR:
+            raise SmokeFailure(f"{what}: a tp step's logits cosine {tpr['min_cos']:.6f} < "
+                               f"{TP_LOGITS_COS_FLOOR}")
+        if not q["budgets_exact"] or q["fused"] != (False, False):
+            raise SmokeFailure(f"{what}: the queue missed a budget or ran a fused kernel")
+        if not all(np.array_equal(a, b) for a, b in zip(q["codes"], q0["codes"])):
+            raise SmokeFailure(f"{what}: the queue's codes differ between ranks")
+        check_launches(what, o["counts"], MULTI_GPU_PATH, MULTI_GPU_FORBIDDEN)
+        line = dict(rank=o["rank"], device=o["device"], backend=backend, world=world,
+                    dp={k: v for k, v in dp.items() if k not in ("codes",)},
+                    tp=tpr, queue={k: v for k, v in q.items() if k != "codes"},
+                    launches=o["counts"], shapes_checked=o["shapes_checked"], card=smi)
+        print("multi_gpu " + json.dumps(line))
+    print(f"multi_gpu: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return [o["counts"] for o in outs]
+
+
 def profile_request(tts, text, kw, queue=None):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
@@ -3889,6 +4385,7 @@ def main():
         with tempfile.TemporaryDirectory() as root:
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
         torch.cuda.empty_cache()
+        runs += serve_multi_gpu(PipelineConfig(), smi)
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
 
         sp = QUEUE_SPECS["sampled"]

@@ -19,6 +19,7 @@ from ..ops import prng
 from ..ops.kernel_prng import sampling_flags
 from ..ops.norms import rms_norm
 from ..ops.sampling import sample_token
+from ..parallel.collectives import full_columns, gather_columns
 from .transformer_core import (BlockParams, forward_prefill, forward_step, init_block_params,
                                normal_init)
 
@@ -80,7 +81,7 @@ def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
     th = talker_hidden if lanes else talker_hidden[None]
     ce = cb0_embd if lanes else cb0_embd[None]
     B, dt, dev = th.shape[0], params.embds.dtype, params.embds.device
-    S, V = cfg.n_steps, params.heads.shape[-1]
+    S, V = cfg.n_steps, full_columns(params.heads)
     noise = None
     if not greedy:
         ks = code_keys(prng.key_array(key).reshape(B, 2), S)
@@ -91,6 +92,7 @@ def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
     def sample(hidden, s):
         h = rms_norm(hidden, params.output_norm, cfg.rms_norm_eps)
         logits = torch.matmul(h.float(), params.heads[s].float()).to(h.dtype).float()
+        logits = gather_columns(logits, params.heads)
         return sample_token(logits, None if noise is None else noise[:, s],
                             temperature=temperature, top_k=top_k, top_p=top_p,
                             greedy=greedy, use_top_p=use_top_p)

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.norms import rms_norm
+from ..parallel.collectives import gather_columns, matmul_rows
 from .transformer_core import (BlockParams, forward_prefill, forward_step, init_block_params,
                                normal_init)
 
@@ -62,7 +63,10 @@ def init_talker_params(gen: torch.Generator, cfg, dtype=torch.bfloat16,
 
 
 def _linear(x, w, b):
-    return (torch.matmul(x.float(), w.float()).to(x.dtype) + b)
+    """x @ w + b; w split over its input rows (fc2 on a tensor-parallel
+    shard) sums the float32 products over "tp" before the cast and the
+    (replicated) bias."""
+    return matmul_rows(x, w, w) + b
 
 
 def project_text_tokens(params: TalkerParams, tokens: torch.Tensor) -> torch.Tensor:
@@ -161,10 +165,11 @@ def talker_prefill_window(params: TalkerParams, cfg, prefill_embd: torch.Tensor,
 
 def _head(params: TalkerParams, cfg, hidden):
     """(output-normed hidden, float32 logits): the codec head as a plain
-    matmul in the hidden's dtype, as XLA leaves it."""
+    matmul in the hidden's dtype, as XLA leaves it; a head split over its
+    vocab gives every rank the full logits (``gather_columns``)."""
     normed = rms_norm(hidden, params.output_norm, cfg.rms_norm_eps)
     logits = torch.matmul(normed.float(), params.codec_head.float()).to(normed.dtype).float()
-    return normed, logits
+    return normed, gather_columns(logits, params.codec_head)
 
 
 def talker_step(params: TalkerParams, cfg, step_embd: torch.Tensor, n_past: int,

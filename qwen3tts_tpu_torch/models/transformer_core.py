@@ -26,6 +26,7 @@ from ..ops.attention import decode_attention_auto
 from ..ops.norms import rms_norm
 from ..ops.quant import QuantLinear, QuantLinear4, matmul
 from ..ops.rope import apply_rope, rope_for_positions
+from ..parallel.collectives import matmul_rows
 
 
 class BlockParams(NamedTuple):
@@ -89,7 +90,12 @@ def _layer_weights(blocks: BlockParams, l: int):
 def _layer(blocks, cfg, l, x, cos, sin, attend):
     """One block on x [..., T, H]; the projections run as [rows, H] products
     (``quant.matmul`` flattens the leading dimensions into M); attend(q, k,
-    v) stores K/V and returns the attention output [..., T, Hq, D]."""
+    v) stores K/V and returns the attention output [..., T, Hq, D].
+
+    On a rank's tensor-parallel shard (``parallel/shardings.py``) cfg holds
+    the rank's head counts, wqkv and w_gateup its heads' and FFN columns,
+    and wo and w_down the matching input rows: their products are summed
+    over "tp" (``collectives.matmul_rows``, a plain ``matmul`` otherwise)."""
     Hq, Hkv, D, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.rms_norm_eps
     lead = x.shape[:-1]
     wqkv, wo, wgu, wd = _layer_weights(blocks, l)
@@ -101,12 +107,12 @@ def _layer(blocks, cfg, l, x, cos, sin, attend):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attend(q, k, v)
-    x = x + matmul(o.reshape(*lead, Hq * D), wo)
+    x = x + matmul_rows(o.reshape(*lead, Hq * D), wo, blocks.wo)
     h = rms_norm(x, blocks.ffn_norm[l], eps)
     gu = matmul(h, wgu)
     F = gu.shape[-1] // 2
     gate = torch.nn.functional.silu(gu[..., :F].float()).to(h.dtype)
-    return x + matmul(gate * gu[..., F:], wd)
+    return x + matmul_rows(gate * gu[..., F:], wd, blocks.w_down)
 
 
 def forward_prefill(blocks: BlockParams, cfg, x: torch.Tensor, positions: torch.Tensor,

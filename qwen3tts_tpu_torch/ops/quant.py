@@ -151,11 +151,11 @@ def quantize_talker_blocks(blocks, tier: str):
     raise ValueError(f"unknown quant tier: {tier!r}")
 
 
-def _matmul4(x: torch.Tensor, w: QuantLinear4) -> torch.Tensor:
+def matmul4_f32(x: torch.Tensor, w: QuantLinear4) -> torch.Tensor:
     """x [..., K] @ a u4 weight with the grouped formula of
     ``quantized_matmul.py:84-105``: per half of K and per group g, p_g =
     x_g @ q_g and t_g = sum(x_g), then sum_g (p_g * s_g - t_g * z_g); the
-    halves are added. Accumulates in float32, cast back to x.dtype."""
+    halves are added. Accumulates and returns float32."""
     lo, hi = unpack4(w.q)
     Kh, N = lo.shape[-2], lo.shape[-1]
     Gh = w.scale.shape[-2] // 2
@@ -167,9 +167,8 @@ def _matmul4(x: torch.Tensor, w: QuantLinear4) -> torch.Tensor:
         t = torch.sum(xg, dim=-1)
         return torch.sum(p * sh.float(), dim=-2) - torch.matmul(t, zh.float())
 
-    y = (half(x[..., :Kh], lo, w.scale[:Gh], w.zero[:Gh])
-         + half(x[..., Kh:], hi, w.scale[Gh:], w.zero[Gh:]))
-    return y.to(x.dtype)
+    return (half(x[..., :Kh], lo, w.scale[:Gh], w.zero[:Gh])
+            + half(x[..., Kh:], hi, w.scale[Gh:], w.zero[Gh:]))
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -184,7 +183,7 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
             raise ValueError(f"quant.matmul takes a 2-D quantized weight, "
                              f"got {tuple(w.q.shape)}")
         if isinstance(w, QuantLinear4):
-            return _matmul4(x, w)
+            return matmul4_f32(x, w).to(x.dtype)
         y = int8_matmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return torch.matmul(x.float(), w.float()).to(x.dtype)

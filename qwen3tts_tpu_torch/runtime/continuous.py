@@ -50,13 +50,27 @@ The port's differences, each the counterpart of a JAX mechanism:
   without blocking, records an event, and harvests chunk N-1 while chunk N
   runs (the ``QWEN3TTS_OVERLAP_HARVEST`` gate is the ``overlap_harvest``
   argument).
-The int8-KV tier and multi-device meshes (``mesh``, ``_shard_state``) are
-not ported here.
+The int8-KV tier is not ported here (the queue keeps a bf16 cache, as
+the JAX package's does).
+
+On a mesh (``ContinuousScheduler(mesh=...)``, the JAX scheduler's ``mesh``
+and ``_shard_state``, :523, :550-574, :671-686), every rank runs this
+scheduler with the same queue, one process per rank. The lane state is
+split over "dp": dp rank r holds lanes [r B/dp, (r+1) B/dp) on its device
+(B a multiple of dp), and the weights may be split over "tp"
+(``parallel/shardings.shard_params``; the models sum and gather over "tp").
+The host scheduling stays global and identical on every rank: each rank
+refills the admitted lanes it holds, advances its lanes' key chains, and
+harvests the chunk's packed copy gathered over "dp" (``gather_lanes``), so
+refills, compactions and each request's codes are the unsharded
+scheduler's. The fused kernels are off under any multi-device mesh, as in
+the JAX package (an explicit True raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import NamedTuple, Optional
 
@@ -71,6 +85,8 @@ from ..ops.fused_talker_step import MAX_LANES as TALKER_KERNEL_MAX_LANES
 from ..ops.fused_talker_step import fused_talker_step_batched
 from ..ops.kernel_prng import sampling_flags
 from ..ops.rope import rope_angles
+from ..parallel.collectives import gather_lanes, lane_range
+from ..parallel.shardings import local_config
 from .decode_loop import (CP_KERNEL_MAX_LANES, _rest_embd_sum, resolve_fused_cp,
                           resolve_fused_talker, sample_cb0)
 
@@ -101,7 +117,9 @@ class ContinuousState:
 def init_state(talker_params, talker_cfg, *, lanes: int, kv_capacity: int, trailing_len: int,
                nothink: bool = False) -> ContinuousState:
     """Every lane idle; n_past starts at the prefill window's length, so the
-    first refill splices at [0, P) like every later one."""
+    first refill splices at [0, P) like every later one. talker_cfg is the
+    params' own (``shardings.local_config`` of a tensor-parallel shard), as
+    for refill and decode_chunk."""
     B, tcfg = lanes, talker_cfg
     H, Vc = tcfg.hidden_size, tcfg.codec_vocab_size
     dtype, dev = talker_params.codec_embd.dtype, talker_params.codec_embd.device
@@ -243,7 +261,7 @@ def decode_chunk(talker_params, cp_params, state: ContinuousState, keys, *, talk
     pinned memory without waiting (the overlapped loop)."""
     tcfg, ccfg = talker_cfg, cp_cfg
     use_cp = resolve_fused_cp(fused_cp, cp_params)
-    use_talker = resolve_fused_talker(fused_talker)
+    use_talker = resolve_fused_talker(fused_talker, talker_params)
     tp = talker_params
     dev = state.kv.device
     B, K = state.kv.shape[0], chunk_frames
@@ -362,14 +380,16 @@ class ContinuousScheduler:
     were). overlap_harvest (default True) keeps one chunk in flight and
     harvests the previous one meanwhile; False is the serial loop. timing
     synchronizes the device after each phase and sums its wall into
-    ``stats`` (a diagnosis mode, not for headline numbers)."""
+    ``stats`` (a diagnosis mode, not for headline numbers). mesh: a
+    ``parallel.mesh.Mesh`` to split the lanes over (module docstring);
+    every rank constructs the scheduler and submits the same requests."""
 
     def __init__(self, talker_params, cp_params, talker_cfg, cp_cfg, *, lanes: int = 64,
                  kv_capacity: int = 1024, text_bucket: int = 32, chunk_frames: int = 32,
                  refill_slots: int = 8, max_frames: int = 256, temperature: float = 0.9,
                  top_k: int = 50, top_p: float = 1.0, repetition_penalty: float = 1.05,
                  nothink: bool = False, allow_eos: bool = True, fused_cp="auto",
-                 fused_talker="auto", compact_threshold: int = 128,
+                 fused_talker="auto", mesh=None, compact_threshold: int = 128,
                  compact_policy: str = "pressure", timing: bool = False,
                  overlap_harvest: bool = True, admit_per_boundary: Optional[int] = None):
         P = prefill_window_len(nothink)
@@ -378,7 +398,9 @@ class ContinuousScheduler:
         if compact_policy not in ("pressure", "opportunistic"):
             raise ValueError(f"unknown compact_policy {compact_policy!r}")
         self.tp, self.cp = talker_params, cp_params
-        self.tcfg, self.ccfg = talker_cfg, cp_cfg
+        # the params' own configs (a tensor-parallel shard's head counts)
+        self.tcfg = local_config(talker_cfg, talker_params.blocks)
+        self.ccfg = local_config(cp_cfg, cp_params.blocks)
         self.B, self.C = lanes, kv_capacity
         self.Tb, self.K, self.R = text_bucket, chunk_frames, refill_slots
         self.max_frames = max_frames
@@ -386,7 +408,21 @@ class ContinuousScheduler:
         self.compact_policy = compact_policy
         self.nothink, self.allow_eos = nothink, allow_eos
         self.fused_cp = resolve_fused_cp(fused_cp, cp_params)
-        self.fused_talker = resolve_fused_talker(fused_talker)
+        self.fused_talker = resolve_fused_talker(fused_talker, talker_params)
+        if mesh is not None and mesh.size > 1 and (self.fused_cp or self.fused_talker):
+            if fused_cp is True or fused_talker is True:
+                raise ValueError(
+                    "fused kernels cannot run under a multi-device mesh in the continuous "
+                    "scheduler (its lane state is split over dp in place); pass "
+                    "fused_cp/fused_talker='auto' for the unfused path")
+            print("qwen3tts: continuous scheduler on a multi-device mesh — fused kernels "
+                  "off, unfused decode path (parallel/kernel_safety.py)", file=sys.stderr)
+            self.fused_cp = self.fused_talker = False
+        self.mesh = mesh
+        if mesh is not None and lanes % mesh.dp:
+            raise ValueError(f"{lanes} lanes do not split over dp = {mesh.dp}")
+        # the lanes [lo, hi) whose state this rank holds
+        self.lo, self.hi = (0, lanes) if mesh is None else lane_range(mesh, lanes)
         # greedy, use_top_p and top_k are the server's; temperature, top_p
         # and repetition_penalty are each request's, defaulting to these
         greedy, use_top_p = sampling_flags(temperature, top_p)
@@ -417,7 +453,7 @@ class ContinuousScheduler:
         self.stats = {k: 0.0 for k in ("refill_s", "decode_s", "compact_s", "harvest_s")}
 
     def _new_state(self) -> ContinuousState:
-        return init_state(self.tp, self.tcfg, lanes=self.B, kv_capacity=self.C,
+        return init_state(self.tp, self.tcfg, lanes=self.hi - self.lo, kv_capacity=self.C,
                           trailing_len=self.Tb - 3, nothink=self.nothink)
 
     def _tock(self, key: str, t0: float) -> None:
@@ -489,11 +525,16 @@ class ContinuousScheduler:
             self._start_h[lane] = self._n_past_h - P
             self._done_h[lane] = False
         t0 = time.perf_counter()
-        refill(self.tp, self.state, lanes, np.stack([r.tokens for r in reqs]),
-               [r.n_tokens for r in reqs], np.stack([r.speaker for r in reqs]),
-               [r.language_id for r in reqs], first[:, 1], [r.budget for r in reqs],
-               np.asarray([r.samp for r in reqs], np.float32), talker_cfg=self.tcfg,
-               nothink=self.nothink, allow_eos=self.allow_eos, **self.statics)
+        # the admitted lanes this rank holds
+        mine = [i for i, lane in enumerate(lanes) if self.lo <= lane < self.hi]
+        if mine:
+            reqs = [reqs[i] for i in mine]
+            refill(self.tp, self.state, [lanes[i] - self.lo for i in mine],
+                   np.stack([r.tokens for r in reqs]), [r.n_tokens for r in reqs],
+                   np.stack([r.speaker for r in reqs]), [r.language_id for r in reqs],
+                   first[mine, 1], [r.budget for r in reqs],
+                   np.asarray([r.samp for r in reqs], np.float32), talker_cfg=self.tcfg,
+                   nothink=self.nothink, allow_eos=self.allow_eos, **self.statics)
         self.refills += 1
         self._tock("refill_s", t0)
         return n
@@ -525,7 +566,7 @@ class ContinuousScheduler:
         active = [int(self._start_h[b]) for b in range(self.B)
                   if self._lane_owner[b] is not None]
         t0 = time.perf_counter()
-        res = decode_chunk(self.tp, self.cp, self.state, self._chunk_keys(),
+        res = decode_chunk(self.tp, self.cp, self.state, self._chunk_keys()[self.lo:self.hi],
                            talker_cfg=self.tcfg, cp_cfg=self.ccfg, chunk_frames=self.K,
                            start_min=min(active, default=self._n_past_h),
                            fused_cp=self.fused_cp, fused_talker=self.fused_talker,
@@ -545,6 +586,8 @@ class ContinuousScheduler:
         occupant). A lane whose snapshot owner is already finalized only
         carries masked emissions and a latched done bit; it is skipped."""
         blob = res.fetch()
+        if self.mesh is not None:
+            blob = gather_lanes(torch.from_numpy(blob), self.mesh).numpy()
         if owners is None:
             owners = self._lane_owner
         K, nc = self.K, self.tcfg.n_codebooks
@@ -611,9 +654,10 @@ class ContinuousScheduler:
         state (a drifted start mirror would compact past a live lane's splice
         and corrupt its history)."""
         assert self._n_past_h == self.state.n_past, (self._n_past_h, self.state.n_past)
-        np.testing.assert_array_equal(self._start_h,
+        np.testing.assert_array_equal(self._start_h[self.lo:self.hi],
                                       self.state.start.cpu().numpy().astype(np.int64))
-        np.testing.assert_array_equal(self._done_h, self.state.done.cpu().numpy())
+        np.testing.assert_array_equal(self._done_h[self.lo:self.hi],
+                                      self.state.done.cpu().numpy())
 
     def _admit(self, done_np) -> None:
         """Refill until lanes are full, the queue drains, capacity blocks or

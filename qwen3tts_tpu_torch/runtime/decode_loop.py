@@ -19,12 +19,20 @@ per frame:
 replace its ``QWEN3TTS_FUSED_*`` gates. Each is True, False or "auto" (the
 default), resolved once per call as the JAX package's
 ``_resolve_fused_talker`` and ``_resolve_fused_cp`` resolve it
-(``decode_loop.py:85-129``) without their TPU and sharding gates: the talker
-kernel in every weight tier (int8, q4, q4pure and bf16: the kernels take
-each tier's weight modes), the code-predictor kernel when its blocks are
-int8 (every quantized tier; the bf16 tier runs ``predict_codes``). An
-explicit fused_cp=True on bf16 code-predictor blocks raises ValueError. All
-four combinations of the booleans run in every tier.
+(``decode_loop.py:56-129``) without its TPU gate: the talker kernel in
+every weight tier (int8, q4, q4pure and bf16: the kernels take each tier's
+weight modes), the code-predictor kernel when its blocks are int8 (every
+quantized tier; the bf16 tier runs ``predict_codes``), and neither on
+params split over a mesh axis (``parallel/kernel_safety.py``: "auto" turns
+the kernel off with one logged line, an explicit True raises ValueError).
+An explicit fused_cp=True on bf16 code-predictor blocks raises ValueError.
+All four combinations of the booleans run in every tier.
+
+On a mesh (``parallel/``: one process per rank, the same global inputs
+and the same global result on every rank) the params carry their
+placements: a rank's tensor-parallel shard runs the unfused loops on its
+heads (``shardings.local_config``), and the batched loop splits its lanes
+over "dp" (see ``generate_from_tokens_batched``).
 
 The loop is a Python loop; the EOS check reads cb0 back, one host sync per
 frame. It runs in chunks (the JAX package's streaming entry points):
@@ -66,6 +74,7 @@ they are never read). The unfused step ignores the setting.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -82,6 +91,9 @@ from ..ops.kernel_prng import sampling_flags
 from ..ops.kv_quant import quantize_cache
 from ..ops.quant import QuantLinear
 from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
+from ..parallel.collectives import gather_lanes, lane_range
+from ..parallel.kernel_safety import dp_kernel_mesh, params_mesh, partitioned_axes
+from ..parallel.shardings import local_config
 
 
 # lanes of one K6 call; larger batches run it in groups of this many
@@ -99,20 +111,59 @@ class BatchedGenerateResult(NamedTuple):
     n_frames: list          # [B] frames each lane emitted
 
 
-def resolve_fused_talker(fused_talker) -> bool:
+# (kernel, axes) pairs whose fallback was logged (the JAX package's
+# _SHARDED_FALLBACK_LOGGED)
+_FALLBACK_LOGGED: set = set()
+
+
+def _log_once(key, message: str) -> None:
+    if key not in _FALLBACK_LOGGED:
+        _FALLBACK_LOGGED.add(key)
+        print(message, file=sys.stderr)
+
+
+def _check_params_sharding(which: str, params, explicit: bool) -> bool:
+    """True when no leaf of params is split over a mesh axis (counterpart of
+    ``_check_params_sharding``, ``decode_loop.py:56-82``). Otherwise an
+    explicit request raises ValueError, and "auto" logs once per (kernel,
+    axes) and returns False."""
+    axes = partitioned_axes(params)
+    if not axes:
+        return True
+    if explicit:
+        raise ValueError(
+            f"fused_{which}=True but the {which} params are partitioned over mesh axes "
+            f"{sorted(axes)}: the fused kernels are single-device programs. Replicate the "
+            "weights (dp-only mesh; the batched path then keeps the kernels on each rank's "
+            f"lanes) or pass fused_{which}='auto'/False.")
+    _log_once((which, tuple(sorted(axes))),
+              f"qwen3tts: fused {which} kernel off — params partitioned over mesh axes "
+              f"{sorted(axes)}; using the unfused path (parallel/kernel_safety.py)")
+    return False
+
+
+def resolve_fused_talker(fused_talker, talker_params=None) -> bool:
     """True, False or "auto": auto takes the talker kernel (K1 / K5) in
-    every weight tier, as ``_resolve_fused_talker`` does on a TPU."""
-    return True if fused_talker == "auto" else bool(fused_talker)
+    every weight tier, as ``_resolve_fused_talker`` does on a TPU, unless
+    talker_params are split over a mesh axis (where True raises)."""
+    if fused_talker == "auto":
+        return talker_params is None or _check_params_sharding("talker", talker_params, False)
+    if fused_talker and talker_params is not None:
+        _check_params_sharding("talker", talker_params, True)
+    return bool(fused_talker)
 
 
 def resolve_fused_cp(fused_cp, cp_params) -> bool:
     """True, False or "auto": auto takes the code-predictor kernel (K2 / K6)
-    only for int8 blocks, as ``_resolve_fused_cp`` does on a TPU; True on
-    other blocks raises ValueError naming their tier."""
+    only for int8 blocks not split over a mesh axis, as
+    ``_resolve_fused_cp`` does on a TPU; True on other blocks raises
+    ValueError naming their tier, or the axes they are split over."""
     if fused_cp == "auto":
-        return isinstance(cp_params.blocks.wqkv, QuantLinear)
+        return (isinstance(cp_params.blocks.wqkv, QuantLinear)
+                and _check_params_sharding("code-predictor", cp_params, False))
     if fused_cp:
         check_w8a8_blocks(cp_params.blocks)
+        _check_params_sharding("code-predictor", cp_params, True)
     return bool(fused_cp)
 
 
@@ -195,8 +246,8 @@ def generate_init(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,
     key (``prng.prng_key(seed)``, or a JAX key); frame 0's cb0 draws with
     split(key, 3)[1], and the chain goes on from split(key, 3)[0] with the
     fused talker step, from key itself without (``_init_cb0``)."""
-    tcfg = talker_cfg
-    fused_talker = resolve_fused_talker(fused_talker)
+    tcfg = local_config(talker_cfg, talker_params.blocks)
+    fused_talker = resolve_fused_talker(fused_talker, talker_params)
     quant_kv = int8_kv(kv_quant, fused_talker)
     key = prng.key_pair(key)
     key_next, k_cb0, _ = prng.split(key, 3)
@@ -242,8 +293,9 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
     given, is called with the frames emitted so far after each frame (the
     JAX loop's io_callback, ``decode_loop.py:423-425``). The frames draw
     from state.key's chain (module docstring). Returns state."""
-    tcfg, ccfg = talker_cfg, cp_cfg
-    fused_talker = resolve_fused_talker(fused_talker)
+    tcfg = local_config(talker_cfg, talker_params.blocks)
+    ccfg = local_config(cp_cfg, cp_params.blocks)
+    fused_talker = resolve_fused_talker(fused_talker, talker_params)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
     dtype = talker_params.codec_embd.dtype
     greedy, use_top_p = sampling_flags(temperature, top_p)
@@ -396,10 +448,59 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     frame-set's launches, its kernel seeds uploaded once a frame-set (one
     [2, B] int32 tensor). So lane b reproduces generate_from_tokens run
     with keys[b], whatever group of lanes it runs in.
+
+    On a mesh (counterpart of the resolution at ``decode_loop.py:529-559``
+    and of ``_generate_batched_shard_map``, :561-584), every rank calls this
+    with the same global inputs and gets the global result. The kernels
+    resolve on the params' placements (``resolve_fused_*``): a rank's
+    tensor-parallel shard runs the unfused loop. When the mesh's "dp" axis
+    divides B, dp rank r runs lanes [r B/dp, (r+1) B/dp) with their keys
+    and budgets (the fused loop, K5, K6 and the W8A16 prefill, when the
+    weights are replicated: ``kernel_safety.dp_kernel_mesh``), and the codes
+    and frame counts are gathered over "dp" in lane order on the host. On a
+    multi-device mesh whose "dp" does not divide B, every rank runs every
+    lane, and replicated weights run unfused, as the JAX package's do
+    (logged once).
     """
-    tcfg, ccfg = talker_cfg, cp_cfg
-    fused_talker = resolve_fused_talker(fused_talker)
+    fused_talker = resolve_fused_talker(fused_talker, talker_params)
     fused_cp = resolve_fused_cp(fused_cp, cp_params)
+    B = int(tokens.shape[0])
+    mesh = params_mesh(talker_params) or params_mesh(cp_params)
+    if ((fused_cp or fused_talker) and params_mesh(talker_params) is not None
+            and dp_kernel_mesh(talker_params, cp_params, B) is None):
+        _log_once(("batched", B), f"qwen3tts: fused kernels off — weights on a "
+                  f"{mesh.dp}x{mesh.tp} mesh whose dp does not divide the batch of {B}; "
+                  "using the unfused path (parallel/kernel_safety.py)")
+        fused_cp = fused_talker = False
+    kw = dict(talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames,
+              kv_capacity=kv_capacity, temperature=temperature, top_k=top_k, top_p=top_p,
+              repetition_penalty=repetition_penalty, nothink=nothink, fused_talker=fused_talker,
+              fused_cp=fused_cp, allow_eos=allow_eos, kv_quant=kv_quant)
+    keys = prng.key_array(keys).reshape(B, 2)
+    if mesh is None or mesh.dp == 1 or B % mesh.dp:
+        return _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd,
+                                 language_ids, keys, budgets=budgets, **kw)
+    lo, hi = lane_range(mesh, B)
+
+    def mine(x):
+        return None if x is None else torch.as_tensor(x)[lo:hi]
+
+    res = _generate_batched(talker_params, cp_params, mine(tokens), mine(n_tokens),
+                            mine(speaker_embd), mine(language_ids), keys[lo:hi],
+                            budgets=mine(budgets), **kw)
+    frames = gather_lanes(torch.tensor(res.n_frames, dtype=torch.int64), mesh)
+    return BatchedGenerateResult(gather_lanes(res.codes, mesh), frames.tolist())
+
+
+def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, language_ids,
+                      keys, *, talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
+                      temperature: float, top_k: int, top_p: float, repetition_penalty: float,
+                      nothink: bool, budgets, fused_talker: bool, fused_cp: bool,
+                      allow_eos: bool, kv_quant: str) -> BatchedGenerateResult:
+    """The batched loop of ``generate_from_tokens_batched`` on this rank's
+    lanes (keys [B, 2]), with the kernels resolved."""
+    tcfg = local_config(talker_cfg, talker_params.blocks)
+    ccfg = local_config(cp_cfg, cp_params.blocks)
     quant_kv = int8_kv(kv_quant, fused_talker)
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
@@ -411,7 +512,6 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     samp = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
                 use_top_p=use_top_p)
     cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos if allow_eos else -1)
-    keys = prng.key_array(keys).reshape(B, 2)
     init = prng.split(keys, 3)                                        # [B, 3, 2]
     chain = init[:, 0] if fused_talker else keys
     lanes = torch.arange(B, device=dev)

@@ -42,7 +42,9 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.io.gguf", "qwen3tts_tpu_torch.io.gguf_checkpoint",
     "qwen3tts_tpu_torch.io.config_io", "qwen3tts_tpu_torch.io.loader",
     "qwen3tts_tpu_torch.models.speaker_encoder", "qwen3tts_tpu_torch.ops.precision",
-    "qwen3tts_tpu_torch.tools.hf_fixture",
+    "qwen3tts_tpu_torch.tools.hf_fixture", "qwen3tts_tpu_torch.parallel",
+    "qwen3tts_tpu_torch.parallel.mesh", "qwen3tts_tpu_torch.parallel.shardings",
+    "qwen3tts_tpu_torch.parallel.collectives", "qwen3tts_tpu_torch.parallel.kernel_safety",
 ]
 # packages the port never imports: the JAX package and JAX, and ml_dtypes
 # and safetensors, which the machine with the card lacks
@@ -440,6 +442,42 @@ def test_chip_smoke_queues_at_tiny_config(capsys):
     assert lines[2]["compactions"] >= 1 and lines[2]["sessions"] >= 1
     assert lines[2]["first_fill_frames_compared"] > 0
     assert lines[1]["static_frames"] > 0 and lines[1]["continuous_over_static"] > 0
+
+
+def test_chip_smoke_multi_gpu_phase_at_tiny_config(capsys):
+    """The multi_gpu phase at the tiny configuration: two gloo ranks on the
+    CPU run its three checks (dp lanes of the fused loop against a
+    single-process batch of the same lanes, tp = 2 teacher-forced against
+    the unsharded run, a queue on dp = 2) through the plain versions, so
+    every launch count stays 0 and only the launch gate is left out. On the
+    CPU the queue's frames equal the unsharded scheduler's."""
+    from qwen3tts_tpu_torch import tiny_pipeline_config as port_tiny_config
+
+    spec = dict(dp=dict(lanes=4, kw=dict(max_audio_tokens=4, seed=5)),
+                tp=dict(text="Hello from the port.", capacity=1280, frames=3),
+                queue=dict(lanes=2, kv_capacity=64, chunk_frames=2, refill_slots=1,
+                           max_frames=6, budgets=(3, 4, 2, 5), seed=40))
+    check = chip_smoke.check_launches
+    chip_smoke.check_launches = lambda *a, **k: None
+    try:
+        counts = chip_smoke.serve_multi_gpu(port_tiny_config(), "cpu", spec=spec,
+                                            devices=["cpu", "cpu"], backend="gloo")
+    finally:
+        chip_smoke.check_launches = check
+    assert len(counts) == 2 and all(set(c.values()) == {0} for c in counts)
+    lines = [json.loads(l.split(" ", 1)[1]) for l in capsys.readouterr().out.splitlines()
+             if l.startswith("multi_gpu {")]
+    assert [(l["rank"], l["backend"], l["device"]) for l in lines] == [
+        (0, "gloo", "cpu"), (1, "gloo", "cpu")]
+    assert [l["dp"]["lanes"] for l in lines] == [[0, 2], [2, 4]]
+    assert [l["queue"]["lanes"] for l in lines] == [[0, 1], [1, 2]]
+    assert lines[0]["queue"]["unsharded_frames_equal_share"] == 1.0
+    assert lines[0]["tp"]["local_heads"] == port_tiny_config().talker.n_heads // 2
+    # every rank held the GEMM at the shapes its paths gave it (a tp shard's
+    # float32 rows among them) against the plain version
+    for l in lines:
+        assert l["shapes_checked"]["int8_matmul"]["shapes"] > 0
+    assert set(chip_smoke.MULTI_GPU_PATH) <= set(chip_smoke.KERNELS)
 
 
 def test_chip_smoke_kv_int8_serve_at_tiny_config(capsys):

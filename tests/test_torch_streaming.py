@@ -49,6 +49,17 @@ RTOL, ATOL = 5e-3, 5e-4
 S_RTOL, S_ATOL = 1e-3, 2e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the module's tiny products: several test
+    workers share the machine's cores, and a thread pool's barriers then
+    wait on descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _to_np(p):
     return jax.tree_util.tree_map(np.asarray, p)
 
