@@ -9,7 +9,11 @@ Phases (each prints a line; any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version on the card, on
      the same inputs, at the main paths' full 0.6B widths, with the stated
      tolerance, and both timed with CUDA events after a warm-up; beside
-     each time, the least time the card could take for the same work. K1
+     each time, the least time the card could take for the same work. K4
+     (check_sampler) on 64 rows of each width it samples, of sampler_rows'
+     adversarial kinds, greedy, top-k and top-k + top-p with per-row
+     parameters (tokens equal), with its block-wide exchanges a row and its
+     time inside K1, K5, K2 and K6 (sampler_sites). K1
      and K5 run in every weight mode, each on its tier's weights: w8a8
      (int8), bf16 (the default tier), the q4 tier's mixed tuple and w4bf16
      (q4pure); the new modes must agree with their plain versions to 0.0 in
@@ -278,6 +282,11 @@ QUEUE_PATH = ("fused_talker_step_batched", "fused_talker_step_batched[start]",
               "int8_matmul")
 QUEUE_FORBIDDEN = ("fused_talker_step", "fused_predict_codes")
 
+# the rows K4's device code samples inside the fused kernels, by site
+# (k4_rows; K2's and K6's 15 a lane a call run one after another)
+K4_ROWS = ("k4_rows[K1]", "k4_rows[K5]", "k4_rows[K2]", "k4_rows[K6]")
+COUNT_KEYS = tuple(KERNELS) + K4_ROWS
+
 # NVIDIA H100 SXM data sheet, dense: memory rate and peak operations per
 # second by operand type (float32 on the CUDA cores, no TF32; float64 on
 # the tensor cores)
@@ -455,6 +464,18 @@ def read_counts():
     return out
 
 
+def k4_rows():
+    """The rows K4's device code has sampled inside the fused kernels, under
+    K4_ROWS (sample_rows.site_rows; reset_k4_rows sets them to 0)."""
+    return {f"k4_rows[{site}]": n for site, n in wrapper("sample_rows").site_rows.items()}
+
+
+def reset_k4_rows():
+    rows = wrapper("sample_rows").site_rows
+    for site in rows:
+        rows[site] = 0
+
+
 def timed(fn, device, iters=5):
     """Mean milliseconds per call after one warm-up: CUDA events on a card,
     the host clock on the CPU (CPU times are never reported as device
@@ -562,58 +583,248 @@ def make_pipeline(cfg, device, seed=0, quant="int8"):
     return tts
 
 
-def check_sampler(tts, report, iters):
-    """K4 on [1, 3072] (cb0: suppression + penalty) and [1, 2048] rows.
-    Tolerance: tokens equal. Both versions see the same float32 logits; the
-    temperature scale and the top-k counts are exact, so only the top-p
-    mass sums differ in order, and the gate demands equal tokens anyway."""
+# check_sampler's rows: per width, SAMPLER_ROWS rows of SAMPLER_KINDS in
+# turn; top-k values (V - 1 and V filled in per width); per-row parameters,
+# each row r its SAMPLER_TEMPS[r % 3] and SAMPLER_TOP_PS[r % 2]
+SAMPLER_ROWS = 64
+SAMPLER_KINDS = ("normal", "ties at the 50th", "flat", "few levels", "spike", "narrow",
+                 "-1e30 block")
+SAMPLER_TOP_KS = (1, 50, -1, 0)     # -1: V - 1; 0: V (the stage off)
+SAMPLER_TEMPS = (0.05, 0.9, 1.5)
+SAMPLER_TOP_PS = (0.9, 1.0)
+
+
+def sampler_rows(R, V, seed):
+    """[R, V] float32 logits of the adversarial kinds (SAMPLER_KINDS, row r
+    kind r % 7): normal (sd 3); the values ranked 45-60 equal to the 50th
+    (ties at the k-th value); one value everywhere; 5 levels (ties
+    everywhere); one spike of 40 over sd 0.5; sd 1e-3 around 7 (midpoints
+    at float granularity); normal with a block of -1e30 inside the row (the
+    cb0 suppression's value, within the bisection's range)."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    rows = g.normal(size=(R, V)) * 3
+    for r in range(R):
+        kind, x = r % len(SAMPLER_KINDS), rows[r]
+        if kind == 1:
+            order = np.argsort(-x)
+            x[order[45:61]] = x[order[49]]
+        elif kind == 2:
+            x[:] = 0.75
+        elif kind == 3:
+            x[:] = np.round(x / 3) * 0.5
+        elif kind == 4:
+            x[:] = g.normal(size=V) * 0.5
+            x[g.integers(V)] = 40.0
+        elif kind == 5:
+            x[:] = 7.0 + g.normal(size=V) * 1e-3
+        elif kind == 6:
+            lo = g.integers(V // 2)
+            x[lo:lo + V // 4] = -1e30
+    return rows.astype(np.float32)
+
+
+def sampler_sites(tts, device, B=64, C=512, n_past=300):
+    """K4 inside the fused kernels, default sampling (temperature 0.9, top-k
+    50, penalty 1.05) against greedy: K1's head_sample_kernel (int8, one
+    lane at n_past), its device µs a call as its busy share (charged from
+    the end of the kernel before it: under programmatic dependent launch its
+    interval holds the head GEMV's wait) and as its interval; K5's
+    head_sample_kernel at B lanes (device ms a call); K2 (one frame) and K6
+    at B lanes, the persistent kernel's device ms a call, sampled and greedy
+    in turns, the median of three traces of 10 calls (their difference: what a
+    lane's 15 sequential samples cost beyond their argmax). Empty off the
+    card."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import fused_predict_codes
+    from qwen3tts_tpu_torch.ops.fused_code_predictor_batched import fused_predict_codes_batched
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (fused_talker_step,
+                                                          fused_talker_step_batched)
+
+    if device.type != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+
+    tp, tcfg = tts.talker_params, tts.config.talker
+    L, Hkv, D, Vc, H = (tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim, tcfg.codec_vocab_size,
+                        tcfg.hidden_size)
+    g = torch.Generator(device=device).manual_seed(29)
+    modes = {"sampled": dict(temperature=0.9, greedy=False, use_top_p=False),
+             "greedy": dict(temperature=0.0, greedy=True, use_top_p=False)}
+    base = dict(output_norm=tp.output_norm, codec_head=tp.codec_head, top_k=50,
+                repetition_penalty=1.05, suppress_start=Vc - tcfg.n_suppressed_tail,
+                eos_id=tcfg.codec_eos_id)
+    out = {}
+    x = torch.randn((H,), generator=g, device=device)
+    kv = torch.randn((L, 2, Hkv, C, D), generator=g, device=device, dtype=torch.bfloat16)
+    seen = (torch.rand((Vc,), generator=g, device=device) < 0.05).to(torch.int8)
+    for mode, mk in modes.items():
+        run = lambda: fused_talker_step(tp.blocks, tcfg, x, n_past, kv, seen=seen,  # noqa: E731
+                                        seed=17, **base, **mk)
+        run()
+        torch.cuda.synchronize(device)
+        best = []
+        for _ in range(3):   # the trace that caught the most kernels
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize(device)
+            ev = [e for e in device_events(prof) if e["cat"] == "kernel"]
+            best = ev if len(ev) > len(best) else best
+        heads = [e for e in best if kernel_name(e["name"]) == "head_sample_kernel"]
+        out[f"K1 {mode}"] = dict(
+            head_sample_busy_us=busy_shares(best, (("head_sample_kernel",),))[0] * 1e3
+            if heads else None,
+            head_sample_interval_us=heads[0]["dur"] if heads else None)
+    del kv
+    xb = torch.randn((B, H), generator=g, device=device)
+    kvb = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=device, dtype=torch.bfloat16)
+    seenb = (torch.rand((B, Vc), generator=g, device=device) < 0.05).to(torch.int8)
+    seeds = torch.arange(B, dtype=torch.int32, device=device) * 31 + 1
+    for mode, mk in modes.items():
+        run = lambda: fused_talker_step_batched(  # noqa: E731
+            tp.blocks, tcfg, xb, n_past, kvb, seen=seenb, seeds=seeds, **base, **mk)
+        out[f"K5 B={B} {mode}"] = dict(head_sample_device_ms=device_ms_per_call(
+            lambda: [run() for _ in range(5)], 5, ("head_sample_kernel",), device, expect=5))
+    del kvb
+    cp, ccfg = tts.cp_params, tts.config.code_predictor
+    th = torch.randn((B, ccfg.hidden_size), generator=g, device=device).to(tts.dtype)
+    cb0 = tp.codec_embd[torch.arange(B, device=device) * 29 + 5]
+    seeds = torch.arange(B, dtype=torch.int32, device=device) * 104729 - 3000
+    runs = {}
+    for mode, mk in modes.items():
+        mk = dict(mk, top_k=50)
+        runs[("K2", mode)] = (lambda mk=mk: fused_predict_codes(cp, ccfg, th[0], cb0[0], 991,
+                                                               **mk))
+        runs[(f"K6 B={B}", mode)] = (lambda mk=mk: fused_predict_codes_batched(
+            cp, ccfg, th, cb0, seeds, **mk))
+    # sampled and greedy in turns, three times: the difference is a few
+    # percent of a call
+    ms = {key: [] for key in runs}
+    for _ in range(3):
+        for key, run in runs.items():
+            ms[key].append(device_ms_per_call(lambda run=run: [run() for _ in range(10)], 10,
+                                              (CP_KERNEL,), device, expect=10))
+    for name in ("K2", f"K6 B={B}"):
+        for mode in modes:
+            got = sorted(v for v in ms[(name, mode)] if v is not None)
+            out[f"{name} {mode}"] = dict(device_ms=got[len(got) // 2] if got else None,
+                                         device_ms_runs=ms[(name, mode)])
+        s_ms, g_ms = out[f"{name} sampled"]["device_ms"], out[f"{name} greedy"]["device_ms"]
+        out[f"{name} sampled_minus_greedy_ms"] = (None if s_ms is None or g_ms is None
+                                                  else s_ms - g_ms)
+    return out
+
+
+def sampler_gate(tts):
+    """K4 against its plain version on SAMPLER_ROWS rows of each width the
+    sites sample (the codec head's with the cb0 suppression and a
+    repetition penalty over a seen-set; the code predictor's without), of
+    the adversarial kinds of sampler_rows, with per-row seeds: greedy and,
+    for each top-k of SAMPLER_TOP_KS, top-k with per-row temperatures and
+    top-k + top-p with per-row temperatures and top-p (rows grouped by
+    their parameters, a call a group). Returns (tokens that differ,
+    tokens drawn)."""
     import torch
 
     from qwen3tts_tpu_torch.ops.sampling import sample_rows, sample_rows_plain
 
-    dev = tts.device
-    g = torch.Generator(device="cpu").manual_seed(11)
-    worst = 0
-    for V, supp in ((tts.config.talker.codec_vocab_size, True),
-                    (tts.config.code_predictor.vocab_size, False)):
-        logits = (torch.randn((1, V), generator=g) * 3).to(dev)
-        seen = (torch.rand((V,), generator=g) < 0.05).to(dev) if supp else None
-        kw = dict(suppress_start=V - 1024 if supp else None,
-                  eos_id=tts.config.talker.codec_eos_id if supp else -1,
-                  seen=seen, repetition_penalty=1.05)
-        for temp, top_k, top_p in ((0.0, 50, 1.0), (0.9, 50, 1.0), (0.9, 50, 0.9)):
-            greedy, use_top_p = temp <= 0, top_p < 1.0
-            for seed in range(8):
-                seeds = torch.tensor([seed * 7919 - 3], dtype=torch.int32, device=dev)
-                a = sample_rows(logits, seeds, 0, temperature=temp, top_p=top_p,
-                                top_k=top_k, greedy=greedy, use_top_p=use_top_p, **kw)
-                b = sample_rows_plain(logits, seeds, 0, temperature=temp, top_p=top_p,
-                                      top_k=top_k, greedy=greedy, use_top_p=use_top_p, **kw)
-                worst = max(worst, int((a.long().cpu() != b.cpu()).sum()))
+    dev, tcfg = tts.device, tts.config.talker
+    widths = ((tcfg.codec_vocab_size, True), (tts.config.code_predictor.vocab_size, False))
+    worst, draws = 0, 0
+    for V, supp in widths:
+        R = SAMPLER_ROWS
+        logits = torch.from_numpy(sampler_rows(R, V, seed=V)).to(dev)
+        seeds = (torch.arange(R, dtype=torch.int32) * 7919 - 11).to(dev)
+        kw = {}
+        if supp:
+            g = torch.Generator(device="cpu").manual_seed(11)
+            kw = dict(suppress_start=V - tcfg.n_suppressed_tail, eos_id=tcfg.codec_eos_id,
+                      seen=(torch.rand((V,), generator=g) < 0.05).to(dev),
+                      repetition_penalty=1.05)
+        calls = [(torch.arange(R), dict(temperature=0.0, top_p=1.0, top_k=50, greedy=True,
+                                        use_top_p=False))]
+        for top_k in SAMPLER_TOP_KS:
+            k = V - 1 if top_k == -1 else (V if top_k == 0 else top_k)
+            for t_i, temp in enumerate(SAMPLER_TEMPS):
+                rows = torch.arange(t_i, R, len(SAMPLER_TEMPS))
+                calls.append((rows, dict(temperature=temp, top_p=1.0, top_k=k, greedy=False,
+                                         use_top_p=False)))
+                for p_i, top_p in enumerate(SAMPLER_TOP_PS):
+                    sel = rows[rows % len(SAMPLER_TOP_PS) == p_i]
+                    calls.append((sel, dict(temperature=temp, top_p=top_p, top_k=k,
+                                            greedy=False, use_top_p=True)))
+        for rows, mk in calls:
+            rows = rows.to(dev)
+            args = (logits[rows].contiguous(), seeds[rows].contiguous(), 3)
+            a = sample_rows(*args, **kw, **mk)
+            b = sample_rows_plain(*args, **kw, **mk)
+            worst += int((a.long().cpu() != b.long().cpu()).sum())
+            draws += int(rows.numel())
+    return worst, draws
+
+
+def check_sampler(tts, report, iters):
+    """K4 against its plain version (sampler_gate). Tolerance: tokens equal
+    (0 differences). Both versions see the same float32 logits; the scale,
+    the top-k counts and the noise are exact, and only the top-p masses'
+    float sums run in another order. Timed: one [1, V] row and 64 rows at
+    each width (device µs; a row at the code predictor's width runs on its
+    256-thread block), the block-wide exchanges of a row (sample_shape),
+    and K4 inside K1, K5, K2 and K6 (sampler_sites)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.sampling import sample_rows, sample_rows_plain, sample_shape
+
+    dev, tcfg = tts.device, tts.config.talker
+    widths = ((tcfg.codec_vocab_size, True), (tts.config.code_predictor.vocab_size, False))
+    worst, draws = sampler_gate(tts)
     if worst:
-        raise SmokeFailure(f"sample_rows: {worst} token(s) differ from the plain version")
-    V = tts.config.talker.codec_vocab_size
-    logits = torch.randn((1, V), device=dev)
+        raise SmokeFailure(f"sample_rows: {worst} of {draws} tokens differ from the plain "
+                           "version")
+    V = tcfg.codec_vocab_size
+    default = dict(temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False)
+    kw = dict(suppress_start=V - tcfg.n_suppressed_tail, eos_id=tcfg.codec_eos_id)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    logits = torch.randn((1, V), generator=g).to(dev)
     seeds = torch.tensor([5], dtype=torch.int32, device=dev)
-    kw = dict(temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False,
-              suppress_start=V - 1024, eos_id=2150)
     # one row: the logits in, the seed, the token out; about 50 float32
-    # operations per logit (the 30-step top-k bisection, the hash and the
-    # two logs of the Gumbel noise, the argmax)
+    # operations per logit (the top-k bisection's 30 compares, the hash and
+    # the two logs of the Gumbel noise, the argmax)
     bound_ms, bound_by = bound(V * 4 + 8, {"f32": 50 * V})
-    run = lambda: sample_rows(logits, seeds, 0, **kw)  # noqa: E731
+    run = lambda: sample_rows(logits, seeds, 0, **kw, **default)  # noqa: E731
+    rows_us, shapes = {}, {}
+    for W, supp in widths:
+        for R in (1, 64):
+            x = torch.randn((R, W), generator=g).to(dev)
+            sd = torch.arange(R, dtype=torch.int32, device=dev)
+            k = kw if supp else {}
+            ms = device_ms_per_call(
+                lambda: [sample_rows(x, sd, 0, **k, **default) for _ in range(iters)], iters,
+                ("sample_rows_kernel",), dev, expect=iters)
+            rows_us[f"[{R}, {W}]"] = None if ms is None else ms * 1e3
+        if dev.type == "cuda":
+            shapes[W] = dict(zip(("threads", "elements_per_thread", "exchanges_default"),
+                                 sample_shape(W, greedy=False, top_k=50, use_top_p=False)))
+            shapes[W]["exchanges_greedy"] = sample_shape(W, greedy=True, top_k=50,
+                                                         use_top_p=False)[2]
+            shapes[W]["exchanges_top_p"] = sample_shape(W, greedy=False, top_k=50,
+                                                        use_top_p=True, top_p=0.9)[2]
     report["sample_rows"] = dict(
         max_abs_err=float(worst),   # tokens that differ (0 when the gate passed)
         ms=timed(run, dev, iters),
         device_ms=device_ms_per_call(lambda: [run() for _ in range(iters)], iters,
                                      ("sample_rows_kernel",), dev, expect=iters),
-        plain_ms=timed(lambda: sample_rows_plain(logits, seeds, 0, **kw), dev, iters),
+        plain_ms=timed(lambda: sample_rows_plain(logits, seeds, 0, **kw, **default), dev, iters),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=f"one [1, {V}] row, top-k 50",
-        tolerance="tokens equal over 48 draws")
-    print(f"kernel sample_rows: tokens equal; {report['sample_rows']['ms']:.4f} ms (device "
-          f"{report['sample_rows']['device_ms']}; plain {report['sample_rows']['plain_ms']:.4f} "
-          "ms)")
+        shape=f"one [1, {V}] row, top-k 50, temperature 0.9",
+        tolerance=f"tokens equal over {draws} draws", device_us_per_call=rows_us,
+        block=shapes, sites=sampler_sites(tts, dev))
+    print(f"kernel sample_rows: {draws} tokens equal; {report['sample_rows']['ms']:.4f} ms "
+          f"(device {report['sample_rows']['device_ms']}; plain "
+          f"{report['sample_rows']['plain_ms']:.4f} ms); device us a call {rows_us}; "
+          f"block {shapes}; sites {report['sample_rows']['sites']}")
 
 
 def gumbel_ulps(g, u):
@@ -3847,7 +4058,7 @@ def multi_gpu_checks(cfg, dev, devices, spec):
     tts = make_pipeline(cfg, dev)
     tcfg, ccfg = cfg.talker, cfg.code_predictor
     dp_mesh, tp_mesh = make_mesh(world, 1, devices), make_mesh(1, world, devices)
-    main = {k: 0 for k in KERNELS}
+    main = {k: 0 for k in COUNT_KEYS}
     shapes = CallShapes()
 
     def sync():
@@ -3858,6 +4069,7 @@ def multi_gpu_checks(cfg, dev, devices, spec):
         """fn() on a main path: (its result, its wall ms), its launches added
         to the phase's counts."""
         reset_counts()
+        rows = k4_rows()
         t0 = time.perf_counter()
         with shapes:
             r = fn()
@@ -3865,6 +4077,8 @@ def multi_gpu_checks(cfg, dev, devices, spec):
         ms = (time.perf_counter() - t0) * 1e3
         for k, v in read_counts().items():
             main[k] += v
+        for k, v in k4_rows().items():
+            main[k] += v - rows[k]
         return r, ms
 
     def shard(mesh):
@@ -4324,7 +4538,8 @@ def main():
                   f"({r['bound_by']}){extra} [{smi}]")
 
         # each main path with the counts set to 0 just before it and read
-        # just after
+        # just after; K4's rows over the whole serve phase
+        reset_k4_rows()
         int8_forbidden = tier_forbidden(dict(mode="w8a8", forbidden=()))
         stats, single_counts = serve(tts, MAIN_REQUESTS)
         for st in stats:
@@ -4387,6 +4602,8 @@ def main():
         torch.cuda.empty_cache()
         runs += serve_multi_gpu(PipelineConfig(), smi)
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
+        # the serve phase's rows in this process and on the multi-GPU ranks
+        rows = {k: v + sum(r.get(k, 0) for r in runs) for k, v in k4_rows().items()}
 
         sp = QUEUE_SPECS["sampled"]
         for what, pipe, (text, kw), queue in (
@@ -4416,6 +4633,8 @@ def main():
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    report["sample_rows"]["rows_sampled_on_paths"] = {
+        k[len("k4_rows["):-1]: rows[k] for k in K4_ROWS}
     kernels = []
     for name, (_, _, src, replaces) in KERNELS.items():
         r = report[name]

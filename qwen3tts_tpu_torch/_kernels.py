@@ -33,6 +33,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "qtts_sample_rows": [
         P, I, I, P, I, F, F, I, I, I, I, I, P, F, P, P],
+    "qtts_sample_shape": [I, I, I, I, F, P],                # V greedy top_k use_top_p top_p, out[3]
     "qtts_talker_ws_bytes": [I, I, I, I, I, I, I],          # H Hq Hkv D F Vc modes
     "qtts_talker_step": [
         P, I, P, P,                      # x_in, n_past, cos, sin

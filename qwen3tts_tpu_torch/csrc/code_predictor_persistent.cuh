@@ -89,6 +89,8 @@ constexpr int kCpRedBytes = 8 * 32 * 4 * (int)sizeof(double);
 constexpr int kCpXdOff = kCpRedOff + kCpRedBytes;         // the head's float64 activations
 constexpr int kCpXdBytes = kCpMaxLanes * kCpTKh * (int)sizeof(double);
 constexpr int kCpBarriersPerLayer = 8;
+constexpr int kCpSampleEPT = kMaxCodeVocab / kCpThreads;   // the sampler's row in registers
+static_assert(kCpThreads == kCodeThreads, "sampler.cuh's code site is this block");
 
 struct CpParams {
   int B, L, H, Hq, Hkv, D, F, V, CTX, S;
@@ -443,6 +445,7 @@ struct CpShared {
   int redi[32];
   double redd[32];
   int last;
+  SampleSmem<kCpThreads> samp;
 };
 
 // Lane b's row: x = xin (+ projection `proj` when > 0, with weight scales
@@ -752,34 +755,37 @@ __device__ void cp_swiglu(const CpParams& P, int b, int l, float* buf, int8_t* x
 }
 
 // Lane b after pass p >= 1: logits = the head splits summed in order in
-// float64, rounded once; code p-1 sampled at step p; its embedding row
-// embds[p-1][code] added to rest_sum and, unless p == S, made the next
-// pass's input, the row x (null when p == S). smem: 2 V floats.
+// float64, rounded once, held in registers (the sampler's slots in pairs:
+// element pair q = tid + j * kCpThreads); code p-1 sampled at step p; its
+// embedding row embds[p-1][code] added to rest_sum and, unless p == S, made
+// the next pass's input, the row x (null when p == S).
 __device__ __noinline__ void cp_sample(const CpParams& P, int b, int p, float* x,
                                        float* smem, CpShared& sh) {
   const int V = P.V, H = P.H, hs = P.splits[4];
-  float* lg = smem;
-  float* pr = smem + V;
+  float lg[kCpSampleEPT];
   const double2* hp = reinterpret_cast<const double2*>(P.head_part + (size_t)b * V);
   const size_t stride = (size_t)P.B * V / 2;
-  for (int q = threadIdx.x; q < V / 2; q += blockDim.x) {
+#pragma unroll
+  for (int j = 0; j < kCpSampleEPT / 2; ++j) {
+    const int q = threadIdx.x + j * kCpThreads;
     double2 a = make_double2(0.0, 0.0);
-    for (int s = 0; s < hs; s += 8) {
-      double2 v[8];
+    if (q < V / 2) {
+      for (int s = 0; s < hs; s += 8) {
+        double2 v[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = s + j < hs ? __ldcg(hp + (s + j) * stride + q) : make_double2(0.0, 0.0);
+        for (int t = 0; t < 8; ++t)
+          v[t] = s + t < hs ? __ldcg(hp + (s + t) * stride + q) : make_double2(0.0, 0.0);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) { a.x += v[j].x; a.y += v[j].y; }   // splits in order
+        for (int t = 0; t < 8; ++t) { a.x += v[t].x; a.y += v[t].y; }   // splits in order
+      }
     }
-    lg[2 * q] = (float)a.x;
-    lg[2 * q + 1] = (float)a.y;
+    lg[2 * j] = (float)a.x;
+    lg[2 * j + 1] = (float)a.y;
   }
-  __syncthreads();
-  const int tok = sample_row(lg, pr, V, P.temps != nullptr ? P.temps[b] : P.temp,
-                             P.topps != nullptr ? P.topps[b] : P.top_p, P.top_k, P.greedy != 0,
-                             P.use_top_p != 0, P.seeds != nullptr ? P.seeds[b] : P.seed, p,
-                             sh.red, sh.redi);
+  const int tok = sample_row<kCpThreads, kCpSampleEPT, 2>(
+      lg, V, P.temps != nullptr ? P.temps[b] : P.temp, P.topps != nullptr ? P.topps[b] : P.top_p,
+      P.top_k, P.greedy != 0, P.use_top_p != 0, P.seeds != nullptr ? P.seeds[b] : P.seed, p,
+      sh.samp, reinterpret_cast<float2*>(smem));   // the noise queue in the lane phases' memory
   if (threadIdx.x == 0) P.codes[(size_t)b * P.S + p - 1] = tok;
   const __nv_bfloat16* row = P.embds + ((size_t)(p - 1) * V + tok) * H;
   float* rs = P.rest_sum + (size_t)b * H;
@@ -941,20 +947,22 @@ inline int cp_check(int B, int H, int Hq, int Hkv, int D, int F, int V, int CTX,
   if (D % 32 != 0 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv + 2 > kCpThreads / 32)
     return (int)cudaErrorInvalidValue;
   if (H % kCpTK8 != 0 || hd % kCpTK8 != 0 || F % kCpTK8 != 0 || qkvN % kCpTN != 0 ||
-      V % kCpTN != 0)
+      V % kCpTN != 0 || V > kMaxCodeVocab)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 // Dynamic shared memory: the GEMM stages and scratch, or the largest lane
-// phase (attention, SwiGLU, sampling, a row), whichever is larger.
-inline size_t cp_smem_bytes(int H, int Hq, int Hkv, int D, int F, int V, int CTX) {
+// phase (attention, SwiGLU, a row, the sampler's noise queue), whichever is
+// larger.
+inline size_t cp_smem_bytes(int H, int Hq, int Hkv, int D, int F, int CTX) {
   const size_t G = Hq / Hkv, hd = (size_t)Hq * D;
   const size_t HP = cp_max_heads_per_item(Hq / Hkv, Hkv);
   const size_t attn =
       HP * (2 * G * D + 2 * D + 2 * (size_t)CTX * D + G * CTX) + (kCpThreads / 32) * D;
   size_t floats = attn > hd ? attn : hd;
-  const size_t rows[3] = {2 * (size_t)F, 2 * (size_t)V, (size_t)H};
+  const size_t rows[3] = {2 * (size_t)F, (size_t)H,
+                          (size_t)sample_queue_floats<kCpThreads, kCpSampleEPT>()};
   for (size_t r : rows) floats = r > floats ? r : floats;
   const size_t gemm = kCpXdOff + kCpXdBytes;
   return gemm > floats * sizeof(float) ? gemm : floats * sizeof(float);
@@ -992,7 +1000,7 @@ int cp_plan(const CpParams& P, CpPlan* plan) {
   static int cached_dev = -1;
   static CpPlan cached{};
   auto fn = cp_persistent_kernel<T, BPT>;
-  const size_t smem = cp_smem_bytes(P.H, P.Hq, P.Hkv, P.D, P.F, P.V, P.CTX);
+  const size_t smem = cp_smem_bytes(P.H, P.Hq, P.Hkv, P.D, P.F, P.CTX);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

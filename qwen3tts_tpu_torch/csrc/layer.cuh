@@ -141,6 +141,11 @@ constexpr int kGemmTN = 128;        // output columns per codec head GEMM block
 constexpr int kGemmTKf = 32;        // bf16 head rows per shared tile
 constexpr int kGemmThreads = 256;   // threads of a GEMM block
 constexpr int kHeadSplits = 8;      // K splits of the batched head GEMM
+// head_sample_kernel: a block of kHeadThreads samples a codec-head row of
+// at most kMaxCodecVocab logits held in registers (sampler.cuh), kHeadEPT
+// a thread in runs of kHeadP
+constexpr int kHeadEPT = kMaxCodecVocab / kHeadThreads;
+constexpr int kHeadP = kHeadEPT % 4 == 0 ? 4 : kHeadEPT % 2 == 0 ? 2 : 1;
 
 enum WeightMode { kW8A8 = 0, kBF16 = 1, kW4BF16 = 2 };
 
@@ -1390,43 +1395,92 @@ __global__ void swiglu_kernel(ProjOut in, int F, Emit e) {
   emit_row(buf, F, am, e, b, red);
 }
 
-// Lane blockIdx.x of B: logits = sum of the head projection's split
-// partials partial[split, b, V] (fixed order); optionally written to
+// P contiguous floats: one 16-, 8- or 4-byte access.
+template <int P>
+__device__ __forceinline__ void load_floats(const float* p, float (&v)[P]) {
+  if constexpr (P == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+  } else if constexpr (P == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x; v[1] = u.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int P>
+__device__ __forceinline__ void store_floats(float* p, const float (&v)[P]) {
+  if constexpr (P == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (P == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else *p = v[0];
+}
+
+// The codec head rows head_sample_kernel takes (V <= kMaxCodecVocab, in
+// whole runs of kHeadP); cudaErrorInvalidValue otherwise.
+inline int head_check(int V) {
+  return V < 1 || V > kMaxCodecVocab || V % kHeadP != 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
+// Lane blockIdx.x of B (kHeadThreads threads): logits = sum of the head
+// projection's split partials partial[split, b, V] (fixed order, eight
+// splits' loads at a time), held in registers; optionally written to
 // logits_out[b]; optionally sampled (sampler.cuh) into
 // tok_out[b * tok_ld + tok_idx] with seeds[b] (or `seed` when seeds is
 // null), the lane's row of `seen` [B, V], and the lane's temps[b],
 // topps[b] and pens[b] (continuous serving: each request its own; a null
 // array means the scalar, as for seeds).
-__global__ void head_sample_kernel(const float* partial, int splits, int V,
-                                   float* __restrict__ logits_out, int* __restrict__ tok_out,
-                                   int tok_ld, int tok_idx, int suppress_start, int eos_id,
-                                   const int8_t* __restrict__ seen, float penalty, float temp,
-                                   float top_p, int top_k, int greedy, int use_top_p,
-                                   int seed, const int* __restrict__ seeds, int step,
-                                   const float* __restrict__ temps,
-                                   const float* __restrict__ topps,
-                                   const float* __restrict__ pens) {
-  extern __shared__ float smem[];
-  __shared__ float red[32];
-  __shared__ int redi[32];
+__global__ void __launch_bounds__(kHeadThreads) head_sample_kernel(
+    const float* partial, int splits, int V, float* __restrict__ logits_out,
+    int* __restrict__ tok_out, int tok_ld, int tok_idx, int suppress_start, int eos_id,
+    const int8_t* __restrict__ seen, float penalty, float temp, float top_p, int top_k,
+    int greedy, int use_top_p, int seed, const int* __restrict__ seeds, int step,
+    const float* __restrict__ temps, const float* __restrict__ topps,
+    const float* __restrict__ pens) {
+  constexpr int P = kHeadP;
+  __shared__ SampleSmem<kHeadThreads> sm;
+  __shared__ float2 queue[kHeadThreads * kHeadEPT];
   pdl_trigger();
   pdl_wait();
   const int b = blockIdx.x, B = gridDim.x;
-  float* l = smem;
-  float* p = smem + V;
-  for (int i = threadIdx.x; i < V; i += blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < splits; ++s) v += partial[((size_t)s * B + b) * V + i];
-    l[i] = v;
-    if (logits_out != nullptr) logits_out[(size_t)b * V + i] = v;
+  float x[kHeadEPT];
+#pragma unroll
+  for (int g = 0; g < kHeadEPT / P; ++g) {
+    const int i = slot_index<kHeadThreads, P>(g * P);
+    float v[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[j] = 0.f;
+    if (i < V) {
+      const float* src = partial + (size_t)b * V + i;
+      for (int s = 0; s < splits; s += 8) {
+        float u[8][P];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          if (s + t < splits) {
+            load_floats<P>(src + (size_t)(s + t) * B * V, u[t]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < P; ++j) u[t][j] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            if (s + t < splits) v[j] += u[t][j];   // splits in order
+      }
+      if (logits_out != nullptr) store_floats<P>(logits_out + (size_t)b * V + i, v);
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) x[g * P + j] = v[j];
   }
-  __syncthreads();
   if (tok_out == nullptr) return;
-  const int tok = suppress_penalize_sample(
-      l, p, V, suppress_start, eos_id, seen != nullptr ? seen + (size_t)b * V : nullptr,
-      pens != nullptr ? pens[b] : penalty, temps != nullptr ? temps[b] : temp,
-      topps != nullptr ? topps[b] : top_p, top_k, greedy != 0, use_top_p != 0,
-      seeds != nullptr ? seeds[b] : seed, step, red, redi);
+  const SampleArgs a{temps != nullptr ? temps[b] : temp,
+                     topps != nullptr ? topps[b] : top_p,
+                     pens != nullptr ? pens[b] : penalty,
+                     top_k, suppress_start, eos_id, greedy != 0, use_top_p != 0,
+                     (uint32_t)(seeds != nullptr ? seeds[b] : seed), (uint32_t)step,
+                     seen != nullptr ? seen + (size_t)b * V : nullptr};
+  const int tok = suppress_penalize_sample<kHeadThreads, kHeadEPT, P>(x, V, a, sm, queue);
   if (threadIdx.x == 0) tok_out[(size_t)b * tok_ld + tok_idx] = tok;
 }
 
@@ -1899,7 +1953,7 @@ inline int check_dims(const Dims& d, int N_head, int B) {
   if (d.H % 16 != 0 || d.F % 16 != 0 || N_head % (B == 1 ? 8 : 4) != 0)
     return (int)cudaErrorInvalidValue;
   if (B < 1 || B > kMaxLanes) return (int)cudaErrorInvalidValue;
-  return 0;
+  return head_check(N_head);   // head_sample_kernel holds the row in registers
 }
 
 // Check a u4 projection's groups: G even, and gs = K / G logical rows

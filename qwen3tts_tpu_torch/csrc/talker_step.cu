@@ -125,10 +125,7 @@ extern "C" int qtts_talker_step(
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,
                                   (const __nv_bfloat16*)codec_head, H, Vc, st);
-  const size_t smem = 2 * (size_t)Vc * sizeof(float);
-  cudaFuncSetAttribute(head_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  chain_launch(w, false, head_sample_kernel, dim3(1), dim3(kRowThreads), smem, st,
+  chain_launch(w, false, head_sample_kernel, dim3(1), dim3(kHeadThreads), 0, st,
                (const float*)w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0,
                suppress_start, eos_id, (const int8_t*)seen, penalty, temp, top_p, top_k, greedy,
                use_top_p, seed, (const int*)nullptr, 0, (const float*)nullptr,

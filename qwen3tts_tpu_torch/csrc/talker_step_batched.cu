@@ -116,10 +116,7 @@ extern "C" int qtts_talker_step_batched(
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
   const int splits = project_bf16(w, (const float*)hidden_out,
                                   (const __nv_bfloat16*)codec_head, H, Vc, st);
-  const size_t smem = 2 * (size_t)Vc * sizeof(float);
-  cudaFuncSetAttribute(head_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  head_sample_kernel<<<B, kRowThreads, smem, st>>>(
+  head_sample_kernel<<<B, kHeadThreads, 0, st>>>(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, 0,
       (const int*)seeds, 0, (const float*)temps, (const float*)topps, (const float*)pens);

@@ -23,6 +23,7 @@ import torch
 from .. import _kernels
 from .fused_talker_step import _rms, check_w8a8_blocks, gqa_attention, layer_plain, rope_table
 from .kernel_prng import make_sampler
+from .sampling import sample_rows
 
 
 def _rope_tables(cfg, device):
@@ -150,6 +151,7 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
         kv.data_ptr(), ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_predict_codes")
     fused_predict_codes.launches += 1
+    sample_rows.site_rows["K2"] += S
     return codes, rest_sum
 
 

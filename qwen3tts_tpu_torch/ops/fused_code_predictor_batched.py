@@ -25,6 +25,7 @@ import torch
 from .. import _kernels
 from .fused_code_predictor import _xinit, cuda_operands, predict_codes_plain
 from .fused_talker_step import _lane_values, check_w8a8_blocks
+from .sampling import sample_rows
 
 MAX_LANES = 64   # lanes of one call (the Pallas kernel's VMEM budget)
 
@@ -85,6 +86,7 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_predict_codes_batched")
     fused_predict_codes_batched.launches += 1
+    sample_rows.site_rows["K6"] += B * S
     if temps is not None or topps is not None:
         ops = fused_predict_codes_batched.operand_launches
         ops["per_lane"] = ops.get("per_lane", 0) + 1

@@ -85,7 +85,7 @@ from .. import _kernels
 from .kv_quant import is_quantized_kv, quantize_kv
 from .quant import QuantLinear, QuantLinear4, group_rows, unpack4
 from .rope import rope_angles
-from .sampling import sample_rows_plain
+from .sampling import sample_rows, sample_rows_plain
 
 MAX_LANES = 128   # lanes of one batched step (the JAX package's decode_loop.py:49)
 
@@ -595,6 +595,8 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step")
     _count(fused_talker_step, blocks, scales)
+    if tok is not None:
+        sample_rows.site_rows["K1"] += 1
     return StepOut(hidden, logits, tok)
 
 
@@ -717,6 +719,8 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step_batched")
     _count(fused_talker_step_batched, blocks, scales)
+    if tok is not None:
+        sample_rows.site_rows["K5"] += B
     if start32 is not None:
         ops = fused_talker_step_batched.operand_launches
         ops["start"] = ops.get("start", 0) + 1

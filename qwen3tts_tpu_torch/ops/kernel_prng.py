@@ -72,16 +72,47 @@ def gumbel_noise(seed, step: int, shape, device=None) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def topk_threshold(l: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The top-k stage's threshold of rows l [R, V]: a 30-step bisection on
+    the float32 value range from lo = min - 1, hi = max, taking mid = 0.5 *
+    (lo + hi) while at least top_k values are >= mid. Returns lo [R, 1]."""
+    lo = torch.amin(l, dim=-1, keepdim=True) - 1.0
+    hi = torch.amax(l, dim=-1, keepdim=True)
+    for _ in range(_BSEARCH_ITERS):
+        mid = 0.5 * (lo + hi)
+        cnt = torch.sum((l >= mid).to(torch.int32), dim=-1, keepdim=True)
+        take = cnt >= top_k
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    return lo
+
+
+def topp_threshold(probs: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The top-p stage's threshold of probability rows [R, V]: a 20-step
+    bisection from 0 to the largest probability, taking mid while the mass
+    of the probabilities >= mid reaches p (a scalar or [R, 1]). Returns
+    plo [R, 1]."""
+    plo = torch.zeros_like(probs[..., :1])
+    phi = torch.amax(probs, dim=-1, keepdim=True)
+    for _ in range(_TOPP_ITERS):
+        mid = 0.5 * (plo + phi)
+        mass = torch.sum(torch.where(probs >= mid, probs, torch.zeros_like(probs)),
+                         dim=-1, keepdim=True)
+        take = mass >= p
+        plo, phi = torch.where(take, mid, plo), torch.where(take, phi, mid)
+    return plo
+
+
 def make_sampler(top_k: int, vocab: int, *, greedy: bool = False,
                  use_top_p: bool = True):
     """sample(logits_f32 [R, V], temp, top_p, seed, step) -> int64 [R].
 
     Greedy (first-max argmax) when `greedy`; else temperature scale -> top-k
-    threshold by a 30-step bisection on the value range (ties kept) ->
-    nucleus top-p by a 20-step bisection on the probability threshold (only
-    when `use_top_p`; the crossing token and its ties kept) -> argmax of
-    logits plus Gumbel noise. seed is an int or an [R, 1] tensor; temp and
-    top_p are scalars or per-row [R] values (``per_row``)."""
+    threshold by a 30-step bisection on the value range (ties kept,
+    ``topk_threshold``) -> nucleus top-p by a 20-step bisection on the
+    probability threshold (only when `use_top_p`; the crossing token and its
+    ties kept, ``topp_threshold``) -> argmax of logits plus Gumbel noise.
+    seed is an int or an [R, 1] tensor; temp and top_p are scalars or
+    per-row [R] values (``per_row``)."""
 
     def sample(logits, temp, top_p, seed, step):
         if greedy:
@@ -90,28 +121,14 @@ def make_sampler(top_k: int, vocab: int, *, greedy: bool = False,
         t = per_row(temp, dev)
         l = logits * (1.0 / torch.clamp(t, min=1e-6))
         if 0 < top_k < vocab:
-            lo = torch.amin(l, dim=-1, keepdim=True) - 1.0
-            hi = torch.amax(l, dim=-1, keepdim=True)
-            for _ in range(_BSEARCH_ITERS):
-                mid = 0.5 * (lo + hi)
-                cnt = torch.sum((l >= mid).to(torch.int32), dim=-1, keepdim=True)
-                take = cnt >= top_k
-                lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+            lo = topk_threshold(l, top_k)
             l = torch.where(l >= lo, l, torch.full_like(l, NEG_INF))
         if use_top_p:
             p = per_row(top_p, dev)
             m = torch.amax(l, dim=-1, keepdim=True)
             e = torch.exp(l - m)
             probs = e / torch.sum(e, dim=-1, keepdim=True)
-            plo = torch.zeros_like(m)
-            phi = torch.amax(probs, dim=-1, keepdim=True)
-            for _ in range(_TOPP_ITERS):
-                mid = 0.5 * (plo + phi)
-                mass = torch.sum(torch.where(probs >= mid, probs,
-                                             torch.zeros_like(probs)),
-                                 dim=-1, keepdim=True)
-                take = mass >= p
-                plo, phi = torch.where(take, mid, plo), torch.where(take, phi, mid)
+            plo = topp_threshold(probs, p)
             keep = torch.logical_or(p >= 1.0, probs >= plo)
             l = torch.where(keep, l, torch.full_like(l, NEG_INF))
         g = gumbel_noise(seed, step, tuple(l.shape), dev)

@@ -19,9 +19,12 @@ calls.
 Kernel K4 replaces the counter-hash sampler that the Pallas kernels run in
 their bodies (``qwen3tts_tpu/ops/kernel_prng.py:78 gumbel_noise`` and
 ``:91 make_sampler``). On the H100 it is bound by latency, not bytes: a row
-of 3072 logits is 12 KB, and the top-k and top-p bisections are 50 chains of
-block-wide reductions. The design keeps the row in shared memory for the
-whole chain, one thread block per row, so no reduction touches device memory.
+of 3072 logits is 12 KB, and the top-k and top-p bisections are chains of
+decisions. The design (``csrc/sampler.cuh``) holds the row in registers,
+one thread block per row, and decides the bisections' steps in rounds of
+five, one block-wide exchange a round: a default-sampled row takes at
+most 8 exchanges where step-by-step reductions took 33 (``sample_shape``).
+The noise is drawn only for the ids the filters kept.
 """
 
 from __future__ import annotations
@@ -161,3 +164,21 @@ def sample_rows(logits, seeds, step, *, temperature, top_p, top_k, greedy,
 
 
 sample_rows.launches = 0
+# rows K4's device code sampled inside the fused kernels, by site: K1 and K5
+# one row a lane a call (cb0), K2 and K6 the 15 of a lane's frame one after
+# another; the fused wrappers add their rows where they launch
+sample_rows.site_rows = {"K1": 0, "K5": 0, "K2": 0, "K6": 0}
+
+
+def sample_shape(V, *, greedy, top_k, use_top_p, top_p=1.0):
+    """How K4 samples a row of width V on the card: (threads of its block,
+    elements a thread holds, block-wide exchanges of a row with these
+    parameters). Builds the kernels; raises for a row wider than the
+    sampler takes."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    err = _kernels.load_library().qtts_sample_shape(
+        int(V), int(greedy), int(top_k), int(use_top_p), float(top_p), ctypes.addressof(out))
+    _kernels.check(err, "sample_shape")
+    return tuple(out)

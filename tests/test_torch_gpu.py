@@ -12,7 +12,8 @@ K5's projection GEMMs alone (each mode against its plain version): ``-k
 alone (every width, each dilation, a ragged T, launches per res block;
 over a group of 16 lanes, each lane bit for bit the one-lane call):
 ``-k res_block``; the W8A16 GEMM alone (bf16 and float32 x, one launch per
-call): ``-k int8_matmul``.
+call): ``-k int8_matmul``; the sampler alone (the adversarial rows at both
+widths, on each site's block): ``-k sampler``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,22 @@ def test_kernel_matches_plain_on_card(tts, check):
     getattr(chip_smoke, check)(tts, report, iters=1)
     torch.cuda.synchronize()
     assert report
+
+
+def test_sampler_rows_match_plain_on_card(tts):
+    """K4 on the adversarial rows of chip_smoke.sampler_rows at both widths,
+    each on its site's block (the codec head's and the code predictor's),
+    greedy, top-k and top-k + top-p with per-row parameters: 0 tokens
+    differ from the plain version. A default-sampled row takes at most 10
+    block-wide exchanges, and each block holds its row."""
+    from qwen3tts_tpu_torch.ops.sampling import sample_shape
+
+    worst, draws = chip_smoke.sampler_gate(tts)
+    assert draws > 0 and worst == 0, f"{worst} of {draws} tokens differ"
+    for V in (tts.config.talker.codec_vocab_size, tts.config.code_predictor.vocab_size):
+        threads, per_thread, exchanges = sample_shape(V, greedy=False, top_k=50,
+                                                      use_top_p=False)
+        assert threads * per_thread >= V and exchanges <= 10
 
 
 @pytest.mark.parametrize("check, key", [
