@@ -168,7 +168,30 @@ Phases (each prints a line; any failure exits non-zero):
      codebook-0 token is drawn by the PyTorch sampler with the JAX
      package's exact top-k, and K4's device code runs inside K1, K2, K5 and
      K6; the kernel phase still holds it against its plain version; the
-     probe is off every path;
+     probe is off every path. Then serving under load (serve_load,
+     `serve_load` lines), the port's serving tools at reduced size on the
+     int8 pipeline: benchmark_continuous's lognormal mix (64 requests,
+     budgets 24-128) through the continuous scheduler and the
+     length-sorted static batches on 16 lanes; the same requests as a
+     Poisson trace at 0.7 of that continuous run's frames/s through
+     benchmark_arrivals' online continuous and static servers; the
+     streamed queue of benchmark_streaming_load (32 requests on 16 lanes).
+     Every request emits exactly its budget (the streamed queue, which
+     keeps EOS, at most its budget), with one first-codes event and one
+     finish; every latency percentile is finite; the continuous runs
+     launch K5 with `start`, K6 per lane and the GEMM and no K1 or K2, the
+     static runs K5, K6 and the GEMM without `start`, the streamed queue
+     also K3; the arrivals run's codes are reported beside the offline
+     run's as shares equal. Then quality (quality, `quality` lines):
+     check_quant_cosine's prefill-logits cosines of int8, q4 and q4pure
+     against bf16 at full width on the bf16 tier's weights, gated on the
+     JAX tool's bars (0.99, 0.97, 0.90); ab_kv_int8 single stream over 256
+     frames (K1 and K1[kv_int8] with K2) and at 16 lanes (K5 and
+     K5[kv_int8] with K6): equal frame counts, codes in range, the match
+     rate and frame-exact share reported. Then trace (trace_request, a
+     `trace` line): utils/profiling.trace around the greedy 64-token
+     request inside annotate("request"); the one trace file written must
+     name the region and K1's and K2's kernels;
   5. profile: the sampled 256-token request, the 16-lane batch, the
      unfused 64-token request, the bf16 tier's sampled request and the
      128-text sampled queue again,
@@ -4307,6 +4330,261 @@ def serve_multi_gpu(cfg, smi, *, spec=MULTI_GPU, world=MULTI_GPU_WORLD, devices=
     return [o["counts"] for o in outs]
 
 
+# The serving-under-load phase (serve_load): the port's serving tools
+# (qwen3tts_tpu_torch/tools/benchmark_continuous.py, benchmark_arrivals.py,
+# benchmark_streaming_load.py) at reduced size on the int8 pipeline: the
+# lognormal mix of make_requests (rng 17, budgets 24-128) through the
+# continuous scheduler and the length-sorted static batches; the same
+# requests as a Poisson trace at `utilization` of the continuous run's
+# frames/s through both online servers (the continuous run's scheduler
+# shape, so that the capacity it measured applies); the streamed queue on
+# make_texts' mix (rng 17, budgets 24-256). Each run takes the tools' warm
+# pass where the tool has one, except the arrivals, which the offline runs
+# warmed at the same shapes.
+SERVE_LOAD = dict(
+    offline=dict(requests=64, lanes=16, capacity=1024, chunk=8, refill_slots=8, max_frames=128,
+                 text_bucket=32, passes=2),
+    utilization=0.7,
+    stream=dict(requests=32, lanes=16, chunk=8, max_frames=256, history=16, cadence=32,
+                passes=2))
+# the static servers: K5, K6 and the prefill's GEMM, without `start`
+STATIC_PATH = ("fused_talker_step_batched", "fused_predict_codes_batched", "int8_matmul")
+
+
+def _finite_percentiles(stats, what):
+    vals = [v for key in ("t_first_codes_ms", "e2e_ms", "ttfa_ms") if key in stats
+            for v in stats[key].values()]
+    if not vals or not all(v == v and abs(v) != float("inf") for v in vals):
+        raise SmokeFailure(f"{what}: percentiles not finite: {stats}")
+
+
+def _codes_in_range(codes, V, what):
+    for i, c in enumerate(codes):
+        _check_codes(c, V, f"{what} request {i}")
+
+
+def _equal_share(got, want):
+    """(share of requests whose codes equal, share of frames equal)."""
+    reqs = sum(bool((g.shape == w.shape) and (g == w).all()) for g, w in zip(got, want))
+    frames = sum(int((g[:len(w)] == w[:len(g)]).all(axis=1).sum()) for g, w in zip(got, want))
+    return reqs / len(want), frames / sum(len(w) for w in want)
+
+
+def serve_load(tts, smi, spec=SERVE_LOAD):
+    """The serve_load phase (SERVE_LOAD) on tts's weights and decode flags,
+    each run with the launch counts set to 0 just before it and read just
+    after. (1) run_continuous beside run_static on the same requests:
+    every request emits exactly its budget, codes in range, the continuous
+    run launches K5 with `start`, K6 per lane and the GEMM and no K1 or K2,
+    the static run K5, K6 and the GEMM without `start`; (2) the Poisson
+    trace at spec["utilization"] of (1)'s continuous frames/s through
+    run_continuous_arrivals (every budget exactly; one first-codes event
+    and one finish per request; the same launches as (1)'s continuous run;
+    its codes beside (1)'s as shares of requests and frames equal: on the
+    card a request's codes depend on the prefill row count of its refill,
+    ROADMAP queue 3 item 4, so they are counted, not gated) and
+    run_static_arrivals (the static launches); (3) run_streaming_load's
+    streamed queue: one finish and a first audio chunk per request, 0 <
+    frames <= budget (the queue keeps EOS), audio of n_frames x 1920 finite
+    samples, codes in range, K5 with `start`, K6 per lane, K3 and the GEMM.
+    Every latency percentile must be finite. Prints one `serve_load` line
+    per part; returns the counts of every run."""
+    import numpy as np
+
+    from qwen3tts_tpu_torch.tools import benchmark_arrivals as ba
+    from qwen3tts_tpu_torch.tools import benchmark_continuous as bc
+    from qwen3tts_tpu_torch.tools import benchmark_streaming_load as bs
+
+    t_phase = time.perf_counter()
+    tcfg, ccfg = tts.config.talker, tts.config.code_predictor
+    tp, cp, V = tts.talker_params, tts.cp_params, ccfg.vocab_size
+    cont_forbidden = QUEUE_FORBIDDEN + tier_forbidden(dict(mode="w8a8", forbidden=()))
+    static_forbidden = cont_forbidden + ("fused_talker_step_batched[start]",
+                                         "fused_predict_codes_batched[per_lane]")
+    runs = []
+
+    def counted(what, path, forbidden, fn, *a, **kw):
+        reset_counts()
+        out = fn(*a, **kw)
+        counts = read_counts()
+        check_launches(f"serve_load {what}", counts, path, forbidden)
+        runs.append(counts)
+        return out, counts
+
+    sp = dict(spec["offline"])
+    n = sp.pop("requests")
+    shape = dict(lanes=sp["lanes"], max_frames=sp["max_frames"], text_bucket=sp["text_bucket"])
+    rng = np.random.default_rng(17)
+    reqs = bc.make_requests(n, rng, tb=sp["text_bucket"], max_frames=sp["max_frames"],
+                            token_high=min(2000, tcfg.text_vocab_size))
+    mean_budget = float(np.mean([r["budget"] for r in reqs]))
+    (cont, codes), c_cont = counted("continuous", QUEUE_PATH, cont_forbidden, bc.run_continuous,
+                                    tp, cp, tcfg, ccfg, reqs, flags=tts.fused, **sp)
+    _codes_in_range(codes, V, "serve_load continuous")
+    (static, _), c_static = counted("static", STATIC_PATH, static_forbidden, bc.run_static,
+                                    tp, cp, tcfg, ccfg, reqs, passes=sp["passes"],
+                                    flags=tts.fused, **shape)
+    line = dict(what="continuous_vs_static", requests=n, **sp, budget_mean=mean_budget,
+                budget_max=max(r["budget"] for r in reqs), continuous=cont, static=static,
+                speedup=cont["frames_per_s"] / static["frames_per_s"],
+                launches=dict(continuous=c_cont, static=c_static), card=smi)
+    print("serve_load " + json.dumps(line))
+
+    capacity = cont["frames_per_s"]
+    rate = spec["utilization"] * capacity / mean_budget
+    arrivals = ba.arrival_times(rng, rate, n)
+    sched = {k: sp[k] for k in ("capacity", "chunk", "refill_slots")}
+    (c_arr, a_codes), c_counts = counted(
+        "continuous arrivals", QUEUE_PATH, cont_forbidden, ba.run_continuous_arrivals,
+        tp, cp, tcfg, ccfg, reqs, arrivals, flags=tts.fused, **shape, **sched)
+    _finite_percentiles(c_arr, "serve_load continuous arrivals")
+    _codes_in_range(a_codes, V, "serve_load continuous arrivals")
+    (s_arr, _), s_counts = counted(
+        "static arrivals", STATIC_PATH, static_forbidden, ba.run_static_arrivals,
+        tp, cp, tcfg, ccfg, reqs, arrivals, flags=tts.fused, **shape)
+    _finite_percentiles(s_arr, "serve_load static arrivals")
+    req_share, frame_share = _equal_share(a_codes, codes)
+    line = dict(what="arrivals", requests=n, lanes=sp["lanes"], chunk=sp["chunk"],
+                utilization=spec["utilization"], capacity_fps=capacity, rate_req_s=rate,
+                offered_load_fps=rate * mean_budget, budget_mean=mean_budget,
+                trace_span_s=float(arrivals[-1]), continuous=c_arr, static=s_arr,
+                codes_equal_offline=dict(requests=req_share, frames=frame_share),
+                launches=dict(continuous=c_counts, static=s_counts), card=smi)
+    ba.speedups(line)
+    print("serve_load " + json.dumps(line))
+
+    st = dict(spec["stream"])
+    budgets, texts = bs.make_texts(st["requests"], np.random.default_rng(17), st["max_frames"])
+    params = bs.sampling(st["max_frames"])
+
+    def stream():
+        for _ in range(st["passes"]):
+            out = bs.run_streaming_load(tts, texts, budgets, params, lanes=st["lanes"],
+                                        chunk=st["chunk"], stream_history=st["history"],
+                                        cadence=st["cadence"])
+        return out
+
+    (s_stats, results), s_load = counted("streaming", QUEUE_PATH + ("fused_res_block",),
+                                         cont_forbidden, stream)
+    spf = tts.config.vocoder.samples_per_frame
+    for i, r in enumerate(results):
+        if not (len(r.audio) == r.n_frames * spf and bool(np.isfinite(r.audio).all())):
+            raise SmokeFailure(f"serve_load streaming: request {i}'s audio is not n_frames x "
+                               f"{spf} finite samples")
+    _codes_in_range([r.codes for r in results], V, "serve_load streaming")
+    _finite_percentiles(s_stats, "serve_load streaming")
+    print("serve_load " + json.dumps(dict(what="streaming", **s_stats, passes=st["passes"],
+                                          launches=s_load, card=smi)))
+    print(f"serve_load: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return runs
+
+
+# The quality phase: check_quant_cosine's three tiers against bf16 on the
+# bf16 tier's weights (the same seeded draws as the int8 pipeline's before
+# quantization), gated on its bars; ab_kv_int8 single stream and at 16
+# lanes on the int8 pipeline. prompt: None for the JAX tool's 15 ids.
+QUALITY = dict(prompt=None, ab=((256, 0), (256, 16)))
+AB_PATHS = {
+    0: (("fused_talker_step", "fused_talker_step[kv_int8]", "fused_predict_codes"),
+        ("fused_talker_step_batched", "fused_talker_step_batched[kv_int8]")),
+    1: (("fused_talker_step_batched", "fused_talker_step_batched[kv_int8]",
+         "fused_predict_codes_batched"),
+        ("fused_talker_step", "fused_talker_step[kv_int8]", "fused_predict_codes")),
+}
+
+
+def quality(tts, bf16, smi, spec=QUALITY):
+    """The quality phase (QUALITY): (1) check_quant_cosine.quant_cosines on
+    bf16's talker at its widths: each tier's prefill-logits cosine must
+    beat its bar (check_quant_cosine.BARS); (2) ab_kv_int8 on tts's int8
+    weights for each (frames, lanes) of spec["ab"], the launch counts set
+    to 0 just before and read just after: both caches emit every frame of
+    every lane, codes in range; the single stream must launch K1 and
+    K1[kv_int8] (and K2), the batch K5 and K5[kv_int8] (and K6); the match
+    rate and the frame-exact share are reported. Prints one `quality` line
+    per part; returns the counts of the A/B runs."""
+    from qwen3tts_tpu_torch.tools import ab_kv_int8 as ab
+    from qwen3tts_tpu_torch.tools import check_quant_cosine as cq
+
+    t_phase = time.perf_counter()
+    tokens, n = cq.prompt(*(() if spec["prompt"] is None else (spec["prompt"],)))
+    res = cq.quant_cosines(bf16.talker_params, bf16.config.talker, tokens, n)
+    bad = cq.failed_bars(res)
+    print("quality " + json.dumps(dict(what="check_quant_cosine", **res, bars=cq.BARS,
+                                       failed=bad, card=smi)))
+    if bad:
+        raise SmokeFailure(f"quality: {bad} below the bars {cq.BARS}: {res}")
+    tcfg, ccfg = tts.config.talker, tts.config.code_predictor
+    V = ccfg.vocab_size
+    runs = []
+    for frames, lanes in spec["ab"]:
+        reset_counts()
+        st, codes = ab.ab_kv_int8(tts.talker_params, tts.cp_params, tcfg, ccfg, frames=frames,
+                                  batch=lanes, token_high=min(150000, tcfg.text_vocab_size))
+        counts = read_counts()
+        path, forbidden = AB_PATHS[int(lanes > 0)]
+        what = f"ab_kv_int8 {'single stream' if not lanes else f'{lanes} lanes'}"
+        check_launches(f"quality {what}", counts, path, forbidden)
+        runs.append(counts)
+        want = frames * max(lanes, 1)
+        if not st["none"]["frames"] == st["int8"]["frames"] == want:
+            raise SmokeFailure(f"quality {what}: frames {st['none']['frames']} and "
+                               f"{st['int8']['frames']}, not {want}")
+        for kvq, c in codes.items():
+            _check_codes(c.reshape(-1, c.shape[-1]), V, f"quality {what} {kvq}")
+        print("quality " + json.dumps(dict(what=what, **st, launches=counts, card=smi)))
+    print(f"quality: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return runs
+
+
+def trace_request(tts, smi, request=MAIN_REQUESTS[0]):
+    """The trace phase: utils/profiling.trace around one request with an
+    annotate("request") region, the launch counts set to 0 just before and
+    read just after. The request must succeed and launch SINGLE_PATH's
+    kernels; the one trace file written must name the region and, on a
+    card, K1's kernels (TALKER_KERNEL_PREFIXES) and K2's (CP_KERNEL).
+    Prints a `trace` line (the file's bytes and events, the kernels of K1
+    and K2 it names, the wall with the profiler); returns the counts."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from qwen3tts_tpu_torch import SamplingConfig
+    from qwen3tts_tpu_torch.utils.profiling import annotate, trace
+
+    text, kw = request
+    with tempfile.TemporaryDirectory() as log_dir:
+        reset_counts()
+        t0 = time.perf_counter()
+        with trace(log_dir):
+            with annotate("request"):
+                r = tts.synthesize(text, SamplingConfig(**kw))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise SmokeFailure(f"trace: {len(files)} trace files written, not 1")
+        nbytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    if not (r.success and r.n_frames > 0 and bool(np.isfinite(r.audio).all())):
+        raise SmokeFailure(f"trace: the request failed ({r.error_msg or 'checks'})")
+    check_launches("trace request", counts, SINGLE_PATH)
+    regions = [e for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == "request"]
+    kernels = [kernel_name(e["name"]) for e in events if e.get("cat") == "kernel"]
+    k1 = sum(k.startswith(TALKER_KERNEL_PREFIXES) for k in kernels)
+    k2 = sum(k == CP_KERNEL for k in kernels)
+    line = dict(request=kw, n_frames=r.n_frames, wall_ms=wall_ms, trace_bytes=nbytes,
+                events=len(events), regions=len(regions), kernels=len(kernels),
+                k1_kernels=k1, k2_kernels=k2, launches=counts, card=smi)
+    print("trace " + json.dumps(line))
+    if len(regions) != 1 or (tts.device.type == "cuda" and not (k1 and k2)):
+        raise SmokeFailure(f"trace: the region or K1's and K2's kernels are missing: {line}")
+    return counts
+
+
 def profile_request(tts, text, kw, queue=None):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
@@ -4601,6 +4879,9 @@ def main():
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
         torch.cuda.empty_cache()
         runs += serve_multi_gpu(PipelineConfig(), smi)
+        runs += serve_load(tts, smi)
+        runs += quality(tts, tiers[None], smi)
+        runs.append(trace_request(tts, smi))
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
         # the serve phase's rows in this process and on the multi-GPU ranks
         rows = {k: v + sum(r.get(k, 0) for r in runs) for k, v in k4_rows().items()}

@@ -2,7 +2,10 @@
 
 The reference always reports per-stage wall times, RTF, and RSS snapshots;
 this module reproduces that surface. Copied from ``qwen3tts_tpu.runtime``,
-whose package import pulls in jax.
+whose package import pulls in jax. Deeper kernel-level tracing is delegated
+to ``torch.profiler`` (see utils/profiling.py) instead of the reference's
+compile-time QWEN3_TTS_TIMING counters: on the GPU the per-kernel story
+lives in the profiler trace, not printf.
 """
 
 from __future__ import annotations

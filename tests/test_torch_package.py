@@ -45,6 +45,10 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.tools.hf_fixture", "qwen3tts_tpu_torch.parallel",
     "qwen3tts_tpu_torch.parallel.mesh", "qwen3tts_tpu_torch.parallel.shardings",
     "qwen3tts_tpu_torch.parallel.collectives", "qwen3tts_tpu_torch.parallel.kernel_safety",
+    "qwen3tts_tpu_torch.utils.profiling", "qwen3tts_tpu_torch.tools.benchmark_continuous",
+    "qwen3tts_tpu_torch.tools.benchmark_arrivals",
+    "qwen3tts_tpu_torch.tools.benchmark_streaming_load",
+    "qwen3tts_tpu_torch.tools.check_quant_cosine", "qwen3tts_tpu_torch.tools.ab_kv_int8",
 ]
 # packages the port never imports: the JAX package and JAX, and ml_dtypes
 # and safetensors, which the machine with the card lacks
