@@ -5,7 +5,8 @@
 
 Phases (each prints a line; any failure exits non-zero):
   1. device: torch's device name and count, nvidia-smi's name and power limit;
-  2. build: compiles the CUDA kernels (qwen3tts_tpu_torch/csrc) with nvcc;
+  2. build: compiles the CUDA kernels (qwen3tts_tpu_torch/csrc) with nvcc
+     and the GGUF reader's host library (qwen3tts_tpu_torch/native) with g++;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      the same inputs, at the main paths' full 0.6B widths, with the stated
      tolerance, and both timed with CUDA events after a warm-up; beside
@@ -144,7 +145,22 @@ Phases (each prints a line; any failure exits non-zero):
      request (K1[bf16] and K3, no K2 or GEMM), a Q8_0 GGUF directory
      written from it, load_models and the 256-token request, the CLI
      in-process (-r, --quant int8, --max-tokens 64: rc 0, a 24 kHz WAV of
-     K1's launches x 1920 samples) and unload_models. Then multi-GPU
+     K1's launches x 1920 samples) and unload_models. Then, on that
+     checkpoint, the parity tools (parity_fullsize, `parity_fullsize`
+     lines): the port's verify_stage bars and compare_e2e gates against
+     the JAX package's goldens at full width (tests/torch_goldens/
+     fullsize, over the fixture of PROVENANCE.json's seed) in float32 (the
+     unfused step, K3; no K1/K2), the golden codes teacher-forced per
+     codebook (shares gated at TEACHER_FORCED_FLOORS) and vocoded (max abs
+     and RMS error gated at VOCODER_GOLDEN_*), each bar and gate printed as
+     it passes or fails and any failure fatal; and the checkpoint tools
+     (checkpoint_tools, `checkpoint_tools` lines): the converter to q8_0
+     (and q4_k_mixed when time allows) with each file's seconds, the
+     inspector's audit of each, the load split by stage (parse, tokenizer,
+     read + dequantization, host to device, casts, int8 quantization) of
+     the q8_0 files through the native and the Python reader beside the
+     int8 safetensors load, and the 256-token request served from the
+     converted q8_0 files read by NativeGGUF (SINGLE_PATH). Then multi-GPU
      serving (serve_multi_gpu, `multi_gpu` lines): MULTI_GPU_WORLD ranks
      spawned after the kernels were built (NCCL with a card a rank, else
      gloo with every rank on card 0; the backend and each rank's device
@@ -210,6 +226,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3860,6 +3877,195 @@ def serve_checkpoint(cfg, device, smi, root, *, request=CHECKPOINT_REQUEST,
     return runs
 
 
+# The parity phase (parity_fullsize): the JAX package's goldens at the 0.6B
+# widths, committed under GOLDENS_FULLSIZE (its own tools/make_goldens.py,
+# run on the CPU over tools/hf_fixture.py's checkpoint of PROVENANCE.json's
+# seed), held against the port on the card in float32: its verify_stage
+# bars and compare_e2e gates (the JAX tools' bars, not loosened), the
+# golden codes teacher-forced through the talker and code predictor, and
+# the golden codes vocoded. Each bar and gate is printed as it passes or
+# fails; when the phase has printed them all, any that failed (its stage
+# named) fails the smoke.
+GOLDENS_FULLSIZE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                "torch_goldens", "fullsize")
+# the port's vocoder (K3 in every res block) on the golden codes against
+# the JAX package's audio, float32 both: the error measured first on the
+# CPU (tools/verify_stage.py --teacher-forced --device cpu and the same
+# function in tests/test_torch_goldens.py::test_fullsize_parity, the port's
+# plain float32 vocoder against XLA:CPU's: max abs 1.96e-3-2.06e-3, RMS
+# 9.75e-5-9.96e-5 over the 61440 samples as the thread count sums in
+# another order, amplified by the snakes) times 5,
+# room for the card's other summation orders (K3's tiles, cuDNN-free
+# float32 matmuls)
+VOCODER_GOLDEN_MAX_ABS = 1e-2
+VOCODER_GOLDEN_RMS = 5e-4
+# the least share of the 32 frames whose teacher-forced greedy code equals
+# the golden one: cb0 (the talker) and cb1-15 (the code predictor, over the
+# 15 codebooks). Measured on the CPU (test_fullsize_parity, verify_stage.py
+# --teacher-forced --device cpu): 1.0 in every codebook, the port's float32
+# logits ranking the JAX package's top code first in each of the 512 draws
+TEACHER_FORCED_FLOORS = {"cb0": 1.0, "cb1_15": 1.0}
+
+
+def parity_fullsize(cfg, device, smi, root, goldens_dir=GOLDENS_FULLSIZE,
+                    max_abs=VOCODER_GOLDEN_MAX_ABS, rms=VOCODER_GOLDEN_RMS,
+                    tf_floors=TEACHER_FORCED_FLOORS):
+    """The port's verify_stage and compare_e2e on the goldens under
+    goldens_dir (PROVENANCE.json names the fixture's seed), at cfg's widths
+    in float32 on `device`, with the route that ran and the launches of
+    each run (goldens.TOOL_FLAGS: the unfused talker step); then the two
+    teacher-forced checks. Prints parity_fullsize lines; raises
+    SmokeFailure, after printing them all, when a verify_stage bar or
+    compare_e2e fails, a teacher-forced share falls below tf_floors, or
+    the vocoder's error on the golden codes passes max_abs or rms; at
+    once when a run launches a fused talker or code-predictor kernel or no
+    K3. Returns the counts of the runs."""
+    from qwen3tts_tpu_torch.config import RuntimeConfig
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+    from qwen3tts_tpu_torch.tools import compare_e2e, goldens, hf_fixture, verify_stage
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(goldens_dir, "PROVENANCE.json")) as f:
+        prov = json.load(f)
+    g = goldens.Goldens(goldens_dir)
+    t0 = time.perf_counter()
+    model = hf_fixture.fixture_for(cfg, root, prov["fixture"]["seed"])
+    fixture_s = time.perf_counter() - t0
+    tts = Qwen3TTS(dataclasses.replace(cfg, runtime=RuntimeConfig(dtype="float32")), device,
+                   **goldens.TOOL_FLAGS)
+    if not tts.load_models(model):
+        raise SmokeFailure(f"load_models of the parity fixture: {tts.error_msg}")
+    route = goldens.route(tts)
+    on_card = tts.device.type == "cuda"
+
+    def line(what, **kw):
+        print("parity_fullsize " + json.dumps(dict(what=what, **kw, card=smi)))
+
+    def launches(what, counts):
+        wrong = [k for k in FUSED_ONLY if counts[k] > 0]
+        if wrong or (on_card and counts["fused_res_block"] <= 0):
+            raise SmokeFailure(f"parity {what}: launched {wrong}, K3 "
+                               f"{counts['fused_res_block']} times")
+        return {k: v for k, v in counts.items() if v}
+
+    runs = []
+    reset_counts()
+    t0 = time.perf_counter()
+    bars = verify_stage.verify(tts, g)
+    wall = time.perf_counter() - t0
+    runs.append(read_counts())
+    used = launches("verify_stage", runs[-1])
+    for b in bars:
+        line("verify_stage", **b)
+    line("route", route=route, launches=used, verify_wall_s=wall, t_load_ms=tts.t_load_ms,
+         fixture_seed=prov["fixture"]["seed"], fixture_s=fixture_s)
+    reset_counts()
+    t0 = time.perf_counter()
+    e2e = compare_e2e.compare(tts, g)
+    runs.append(read_counts())
+    line("compare_e2e", **e2e, launches=launches("compare_e2e", runs[-1]),
+         wall_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tf = goldens.teacher_forced(tts, g)
+    line("teacher_forced", **tf, wall_s=time.perf_counter() - t0)
+    reset_counts()
+    voc = goldens.vocode_goldens(tts, g)
+    runs.append(read_counts())
+    ok = voc["max_abs_err"] <= max_abs and voc["rms_err"] <= rms and voc["lengths_equal"]
+    line("vocoder_on_golden_codes", **voc, max_abs_tol=max_abs, rms_tol=rms, ok=ok,
+         launches=launches("vocoder", runs[-1]))
+    failed = [b["stage"] for b in bars if not b["ok"]] + ([] if e2e["pass"] else ["compare_e2e"])
+    failed += [f"teacher_forced {k} {tf[k]} < {floor}" for k, floor in tf_floors.items()
+               if not tf[k] >= floor]
+    if not ok:
+        failed.append(f"vocoder on the golden codes: max abs {voc['max_abs_err']:.3g} "
+                      f"(tol {max_abs}), RMS {voc['rms_err']:.3g} (tol {rms}), lengths equal "
+                      f"{voc['lengths_equal']}")
+    n_gates = len(bars) + 2 + len(tf_floors)
+    print(f"parity_fullsize: {n_gates - len(failed)} of {n_gates} gates pass; "
+          f"FAILED: {failed or 'none'}; {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    tts.unload_models()
+    if failed:
+        raise SmokeFailure(f"parity at full width failed: {failed}")
+    return runs
+
+
+# The checkpoint-tools phase (checkpoint_tools): the port's converter and
+# inspector on the fixture serve_checkpoint wrote, then a request served
+# from the converted Q8_0 files through the native reader; and where a
+# GGUF load's time goes, for both readers, beside the safetensors load.
+# The q4_k_mixed conversion (and its audit, 15-25 s on the H100's hosts)
+# runs only while the smoke has run under this many seconds, so a slow host
+# keeps the whole smoke inside its limit.
+CONVERT_Q4_UNTIL_S = 700.0
+
+
+def checkpoint_tools(cfg, device, smi, root, *, request=CHECKPOINT_REQUEST, q4_until=None):
+    """Under root (where serve_checkpoint wrote its checkpoint, seed 0):
+      1. tools/convert_hf_to_gguf.py to q8_0, then, unless time.perf_counter()
+         has passed q4_until, to q4_k_mixed: both kinds, each file's seconds
+         and bytes;
+      2. tools/inspect_checkpoint.py's audit of each output (parameter
+         counts, every loaded leaf's shape against cfg's): must pass;
+      3. the load split (load_split) of the q8_0 directory through the
+         native reader and through the pure-Python GGUFReader, beside the
+         int8 safetensors load;
+      4. load_models of the q8_0 directory in the int8 tier (its readers
+         must be NativeGGUF) and `request`, with SINGLE_PATH's launch
+         counts checked as serve_checkpoint checks them.
+    Prints checkpoint_tools lines; returns the counts of the request."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+    from qwen3tts_tpu_torch.tools import convert_hf_to_gguf, hf_fixture, inspect_checkpoint
+    from qwen3tts_tpu_torch.tools.time_gguf_load import load_readers, load_split, reader_name
+
+    t_phase = time.perf_counter()
+
+    def line(what, **kw):
+        print("checkpoint_tools " + json.dumps(dict(what=what, **kw, card=smi)))
+
+    tts_dir, tok_dir = (os.path.join(root, hf_fixture.TTS_DIR),
+                        os.path.join(root, hf_fixture.TOKENIZER_DIR))
+    dirs = {}
+    for kind in ("q8_0", "q4_k_mixed"):
+        if kind != "q8_0" and q4_until is not None and time.perf_counter() > q4_until:
+            line("convert", type=kind, skipped=f"the smoke passed {CONVERT_Q4_UNTIL_S} s")
+            continue
+        d = dirs[kind] = os.path.join(root, f"tools_{kind}")
+        os.makedirs(d, exist_ok=True)
+        for what, src, stem in (("tts", tts_dir, "qwen3-tts-0.6b"),
+                                ("tokenizer", tok_dir, "qwen3-tts-tokenizer")):
+            out = os.path.join(d, f"{stem}-{kind}.gguf")
+            r = convert_hf_to_gguf.convert(src, out, kind, what)
+            line("convert", type=kind, kind=what, bytes=os.path.getsize(out), **r)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in inspect_checkpoint.iter_tensors(out))
+            errors = inspect_checkpoint.audit(out, what, cfg, device)
+            line("audit", type=kind, kind=what, tensors=n, problems=errors, passed=not errors,
+                 seconds=time.perf_counter() - t0)
+            if errors:
+                raise SmokeFailure(f"inspect_checkpoint --audit {what} of {out}: {errors}")
+
+    rt = dataclasses.replace(cfg.runtime, quant="int8")
+    cfg8 = dataclasses.replace(cfg, runtime=rt)
+    q8 = dirs["q8_0"]
+    for name, open_ckpts in load_readers(q8, tts_dir, tok_dir).items():
+        line("load_split", reader=name, **load_split(open_ckpts, cfg8, device))
+
+    g = Qwen3TTS(cfg8, device=device)
+    if not g.load_models(q8):
+        raise SmokeFailure(f"load_models of the converted q8_0 directory: {g.error_msg}")
+    ckpt = g._open_checkpoint(0, "TTS")
+    if reader_name(ckpt) != "NativeGGUF":
+        raise SmokeFailure(f"the GGUF directory was read by {reader_name(ckpt)}")
+    stats, c = serve(g, [request])
+    check_launches("checkpoint_tools int8 request", c, SINGLE_PATH,
+                   tier_forbidden(dict(mode="w8a8", forbidden=())))
+    line("int8 GGUF request", **stats[0], t_load_ms=g.t_load_ms, reader=reader_name(ckpt))
+    g.unload_models()
+    print(f"checkpoint_tools: {time.perf_counter() - t_phase:.1f} s [{smi}]")
+    return [c]
+
+
 # The multi_gpu phase (serve_multi_gpu): MULTI_GPU_WORLD ranks, one process
 # each, spawned after the parent built the kernels; every rank builds the
 # int8 pipeline from the same seed and runs the three checks of MULTI_GPU
@@ -4764,9 +4970,17 @@ def main():
         return 2
     try:
         from qwen3tts_tpu_torch import PipelineConfig, _kernels
+        from qwen3tts_tpu_torch.io import native
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
+    t_smoke = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(name, since):
+        phase_s[name] = time.perf_counter() - since
+        return time.perf_counter()
+
     try:
         dev = torch.device("cuda", 0)
         kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -4777,7 +4991,10 @@ def main():
         t0 = time.perf_counter()
         _kernels.build()
         _kernels.load_library()
-        print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_kernels.build_seconds:.1f} s)")
+        native.get_lib()    # the GGUF reader's host library, so no load times its g++
+        print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_kernels.build_seconds:.1f} s, "
+              f"g++ {native.build_seconds:.1f} s)")
+        t0 = phase_done("build", t0)
 
         tts = make_pipeline(PipelineConfig(), dev)
         tiers = {None: default_pipeline()}
@@ -4807,6 +5024,7 @@ def main():
         prng_stats = check_prng(dev)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
+        t0 = phase_done("kernels", t0)
         for name, r in report.items():
             extra = "".join(f", {k} {r[k]}" for k in ("grid", "launches_per_call",
                                                        "attention_device_ms",
@@ -4835,6 +5053,7 @@ def main():
             check_launches(f"batch {st['lanes']}", st["launches"], BATCH_PATH, int8_forbidden)
             print("serve_batch " + json.dumps(dict(st, card=smi)))
         runs = [single_counts, batch_counts] + serve_kv_int8(tts, smi)
+        t0 = phase_done("serve, serve_batch, serve_kv_int8", t0)
         tts_u = unfused_pipeline(tts)
         ustats, c = serve(tts_u, UNFUSED_REQUESTS)
         runs.append(c)
@@ -4850,6 +5069,7 @@ def main():
             check_launches(f"unfused batch {st['lanes']}", st["launches"],
                            unfused_path(tts_u, st["request"]), FUSED_ONLY)
             print("serve_unfused_batch " + json.dumps(dict(st, card=smi)))
+        t0 = phase_done("serve_unfused, serve_unfused_batch", t0)
         for q, spec in TIER_SERVE.items():
             label = spec["mode"]
             forbidden = tier_forbidden(spec)
@@ -4872,16 +5092,32 @@ def main():
             check_launches(f"unfused q4 request {st['request']}", st["launches"],
                            unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
+        t0 = phase_done("serve_tier, serve_tier_batch, serve_tier_unfused", t0)
         runs += serve_queues(tts, tts_u, tiers[None], smi)
+        t0 = phase_done("serve_queue", t0)
         runs += serve_stream(tts, tiers[None], smi)
         check_sampled_serves(tts, tiers[None], smi)
+        t0 = phase_done("serve_stream, sampled serves", t0)
         with tempfile.TemporaryDirectory() as root:
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
+            torch.cuda.empty_cache()
+            t0 = phase_done("serve_checkpoint", t0)
+            runs += parity_fullsize(PipelineConfig(), dev, smi, root)
+            torch.cuda.empty_cache()
+            t0 = phase_done("parity_fullsize", t0)
+            runs += checkpoint_tools(PipelineConfig(), dev, smi, root,
+                                     q4_until=t_smoke + CONVERT_Q4_UNTIL_S)
+            print(f"parity_fullsize + checkpoint_tools: "
+                  f"{phase_s['parity_fullsize'] + time.perf_counter() - t0:.1f} s [{smi}]")
+            t0 = phase_done("checkpoint_tools", t0)
         torch.cuda.empty_cache()
         runs += serve_multi_gpu(PipelineConfig(), smi)
+        t0 = phase_done("multi_gpu", t0)
         runs += serve_load(tts, smi)
+        t0 = phase_done("serve_load", t0)
         runs += quality(tts, tiers[None], smi)
         runs.append(trace_request(tts, smi))
+        t0 = phase_done("quality, trace", t0)
         counts = {k: sum(r[k] for r in runs) for k in KERNELS}
         # the serve phase's rows in this process and on the multi-GPU ranks
         rows = {k: v + sum(r.get(k, 0) for r in runs) for k, v in k4_rows().items()}
@@ -4907,6 +5143,9 @@ def main():
                 frames_per_s=frames / gen_ms * 1e3,
                 vocoder_ms=rs[0].timings.t_decode_ms * len(rs), top_device_ms=top,
                 card=smi)))
+        phase_done("profile", t0)
+        print("phase_seconds " + json.dumps(dict(phase_s, total=time.perf_counter() - t_smoke,
+                                                 card=smi)))
     except Exception as e:  # noqa: BLE001 - the smoke reports any failure as exit 1
         import traceback
 

@@ -1,6 +1,7 @@
 """GGUF v3 reader/writer of the port (counterpart of ``qwen3tts_tpu/io/gguf.py``,
-pure Python and numpy; the JAX package's g++-built reader, ``io/native.py``,
-is not ported).
+pure Python and numpy; checkpoints are read through the native reader,
+``io/native.py``, and this reader stays for the writer, the metadata, the
+tests and the timing beside it).
 
 The reference's weight format is GGUF (components #8/#10/#11, SURVEY.md §2):
 its loader streams tensors with fseek/fread (src/gguf_loader.cpp:154-227) and

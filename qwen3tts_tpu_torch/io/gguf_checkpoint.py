@@ -7,7 +7,11 @@ src/qwen3_tts.cpp:118-119) through the same ``.tensor(hf_name)`` and
 ``.shape(hf_name)`` interface as ``SafetensorsDir``, so io/loader.py works
 unchanged on either format. Tensors come back as CPU torch tensors with the
 JAX package's values: F16 widened to float32, Q8_0 and Q4_K dequantized to
-float32. It reads with the pure-Python ``GGUFReader`` only.
+float32. Files are read through the port's native library
+(``io/native.NativeGGUF``), as the JAX package reads them, with no quiet
+fallback: a library that does not build or a file its parser refuses
+raises. ``reader=GGUFReader`` reads the same values in pure Python (the
+tests and the load timing beside the native reader).
 """
 
 from __future__ import annotations
@@ -20,14 +24,15 @@ import numpy as np
 import torch
 
 from . import tensor_names
-from .gguf import GGUFReader
+from .native import NativeGGUF
 
 
 class GGUFCheckpoint:
-    """HF-named tensor access over one or more GGUF files."""
+    """HF-named tensor access over one or more GGUF files, each opened by
+    `reader` (NativeGGUF, or io.gguf.GGUFReader)."""
 
-    def __init__(self, *paths: str):
-        self._readers = [GGUFReader(p) for p in paths]
+    def __init__(self, *paths: str, reader=NativeGGUF):
+        self._readers = [reader(p) for p in paths]
         self._by_ggml = {}
         for r in self._readers:
             for name in r.keys():

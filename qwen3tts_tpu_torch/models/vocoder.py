@@ -18,8 +18,10 @@ valid samples do not depend on the padding. Conv weights are [K, In, Out];
 transposed-conv weights are pre-flipped [K, In, Out] (the JAX layouts).
 The JAX package pads the 96- and 192-channel decoder blocks to 128 lanes
 for its TPU kernel; the port does not. Transposed
-convs trim causally (the JAX package's default ``trim="causal"``; its
-``"symmetric"`` variant of the C++ reference is not ported).
+convs trim causally by default (``trim="causal"``, the Python ground truth
+every serve path uses); ``trim="symmetric"`` is the C++ reference's
+variant, as in the JAX package (``vocoder.py:96-150``): each transposed
+conv also drops K - stride rows at the left.
 """
 
 from __future__ import annotations
@@ -164,15 +166,22 @@ def init_vocoder_params(gen: torch.Generator, cfg, device="cpu") -> VocoderParam
         out_w=w((7, chans[-1], 1), 7 * chans[-1]), out_b=full((1,), 0.0))
 
 
-def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b, *, stride: int) -> torch.Tensor:
+TRIMS = ("causal", "symmetric")
+
+
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b, *, stride: int,
+                     trim: str = "causal") -> torch.Tensor:
     """Transposed 1-D conv on x [..., T, Cin] with pre-flipped w [K, In, Out],
     K = J * stride, as J accumulated matmuls over all stride phases:
     y[q*s + p] = sum_j w[K-1-p-j*s] @ x[q-j]. The raw length T*s + (K-s) is
-    trimmed by K-s from the right (the causal trim: T*s outputs)."""
+    trimmed by K-s: trim="causal" all from the right (T*s outputs);
+    "symmetric" also K-s rows from the left (T*s - (K-s) outputs)."""
     K, cin, cout = w.shape
     s = stride
     if K % s:
         raise ValueError(f"transposed conv kernel {K} is not a multiple of stride {s}")
+    if trim not in TRIMS:
+        raise ValueError(f"trim must be one of {TRIMS}, got {trim!r}")
     J, T = K // s, x.shape[-2]
     w2 = w.flip(0).reshape(J, s, cin, cout).permute(0, 2, 1, 3).reshape(J, cin, s * cout)
     xp = Fn.pad(x, (0, 0, J - 1, 0))
@@ -181,6 +190,8 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b, *, stride: int) -> tor
         acc = acc + torch.matmul(xp[..., J - 1 - j: xp.shape[-2] - j, :].float(),
                                  w2[j].float())
     y = acc.to(x.dtype).reshape(*x.shape[:-2], T * s, cout)
+    if trim == "symmetric":
+        y = y[..., K - s:, :]
     return y if b is None else y + b
 
 
@@ -230,8 +241,9 @@ def _pre_transformer(params: VocoderParams, cfg, x: torch.Tensor, n_valid) -> to
     return x
 
 
-def _convnext_block(x: torch.Tensor, p: ConvNeXtParams, i: int) -> torch.Tensor:
-    x = conv_transpose1d(x, p.convt_w[i], p.convt_b[i], stride=2)
+def _convnext_block(x: torch.Tensor, p: ConvNeXtParams, i: int,
+                    trim: str = "causal") -> torch.Tensor:
+    x = conv_transpose1d(x, p.convt_w[i], p.convt_b[i], stride=2, trim=trim)
     residual = x
     x = depthwise_conv1d_causal(x, p.dw_w[i], p.dw_b[i])
     x = layer_norm(x, p.ln_w[i], p.ln_b[i], 1e-6)
@@ -248,20 +260,22 @@ def _residual_block(x: torch.Tensor, res: ResBlockParams, i: int, dilation: int)
 
 
 def _decoder_block(x: torch.Tensor, blk: DecoderBlockParams, rate: int,
-                   dilations) -> torch.Tensor:
+                   dilations, trim: str = "causal") -> torch.Tensor:
     x = snake(x, blk.snake_alpha, blk.snake_beta)
-    x = conv_transpose1d(x, blk.convt_w, blk.convt_b, stride=rate)
+    x = conv_transpose1d(x, blk.convt_w, blk.convt_b, stride=rate, trim=trim)
     for i, d in enumerate(dilations):
         x = _residual_block(x, blk.res, i, d)
     return x
 
 
 def vocoder_forward(params: VocoderParams, cfg, codes: torch.Tensor,
-                    n_frames=None) -> torch.Tensor:
+                    n_frames=None, *, trim: str = "causal") -> torch.Tensor:
     """Decode codes [T, 16] (int) to a waveform [T * 1920] in [-1, 1]; or a
     group of lanes, codes [B, T, 16] with n_frames [B] (each lane's frame
     count; rows past it are padding), to [B, T * 1920], whose lane b holds
-    lane b's waveform in its first n_frames[b] * 1920 samples."""
+    lane b's waveform in its first n_frames[b] * 1920 samples. With
+    trim="symmetric" each transposed conv drops its K - stride rows at
+    both ends (conv_transpose1d), so a clip is shorter than T * 1920."""
     codes = codes.to(device=params.vq_first_cb.device, dtype=torch.int64)
     first = params.vq_first_cb[codes[..., 0]]
     steps = torch.arange(cfg.n_codebooks - 1, device=codes.device)
@@ -273,19 +287,19 @@ def vocoder_forward(params: VocoderParams, cfg, codes: torch.Tensor,
     x = rms_norm(x, params.pt_norm, cfg.rms_norm_eps)
     x = x @ params.pt_out_w + params.pt_out_b
     for i in range(cfg.n_convnext):
-        x = _convnext_block(x, params.convnext, i)
+        x = _convnext_block(x, params.convnext, i, trim)
     x = conv1d_causal(x, params.dec0_w, params.dec0_b)
     for blk, rate in zip(params.dec_blocks, cfg.upsample_rates):
-        x = _decoder_block(x, blk, rate, cfg.res_dilations)
+        x = _decoder_block(x, blk, rate, cfg.res_dilations, trim)
     x = snake(x, params.final_alpha, params.final_beta)
     x = conv1d_causal(x, params.out_w, params.out_b)
     return torch.tanh(x.float())[..., 0]
 
 
 def vocoder_decode(params: VocoderParams, cfg, codes: torch.Tensor,
-                   n_frames=None) -> torch.Tensor:
+                   n_frames=None, *, trim: str = "causal") -> torch.Tensor:
     """vocoder_forward with TF32 off for the call (``ops/precision.py``): the
     plain float32 stages must run in full float32 on the card, as the XLA
     reference does."""
     with full_float32(), torch.no_grad():
-        return vocoder_forward(params, cfg, codes, n_frames)
+        return vocoder_forward(params, cfg, codes, n_frames, trim=trim)

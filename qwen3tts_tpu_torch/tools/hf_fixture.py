@@ -22,13 +22,13 @@ import math
 import os
 from typing import Dict
 
-import numpy as np
 import torch
 
 from ..config import PipelineConfig, tiny_pipeline_config
-from ..io import gguf, tensor_names
+from ..io import gguf
 from ..io.safetensors_io import SafetensorsDir, write_safetensors
 from ..text.bpe import bytes_to_unicode
+from .convert_hf_to_gguf import gguf_tensors, tensor_type
 
 TTS_DIR = "Qwen3-TTS-12Hz-0.6B-Base"
 TOKENIZER_DIR = "Qwen3-TTS-Tokenizer-12Hz"
@@ -290,16 +290,15 @@ def write_checkpoint_dir(root: str, cfg: PipelineConfig, seed: int = 0):
     return tts_dir, tok_dir
 
 
-def _gguf_type(ggml: str, data: np.ndarray) -> int:
-    """The q8_0 policy of the JAX package's converter
-    (tools/convert_hf_to_gguf.py): vectors F32; every tensor
-    should_quantize_q8 names whose rows are whole 32-blocks Q8_0; the rest
-    F16."""
-    if data.ndim <= 1:
-        return gguf.GGML_F32
-    if tensor_names.should_quantize_q8(ggml) and data.shape[-1] % gguf.Q8_BLOCK == 0:
-        return gguf.GGML_Q8_0
-    return gguf.GGML_F16
+def fixture_for(cfg: PipelineConfig, root: str, seed: int) -> str:
+    """The checkpoint of `seed` at cfg's widths under root, written unless
+    it is there: root itself for seed 0 (where write_checkpoint_dir(root,
+    cfg) puts it), else root/seed<seed>. Returns its directory."""
+    if seed != 0:
+        root = os.path.join(root, f"seed{seed}")
+    if not os.path.exists(os.path.join(root, TTS_DIR, "model.safetensors")):
+        write_checkpoint_dir(root, cfg, seed)
+    return root
 
 
 def write_gguf_dir(src_root: str, dst: str, *, vocab: bool = True):
@@ -307,7 +306,8 @@ def write_gguf_dir(src_root: str, dst: str, *, vocab: bool = True):
     reference's two Q8_0 GGUF files under dst (qwen3-tts-0.6b-q8_0.gguf and
     qwen3-tts-tokenizer-q8_0.gguf): the codebooks with their usage folded
     in, the tokenizer vocabulary in the main file's metadata unless vocab
-    is False. Returns the two paths."""
+    is False; the tensors and types of convert_hf_to_gguf's q8_0, without
+    its model metadata. Returns the two paths."""
     os.makedirs(dst, exist_ok=True)
     paths = []
     for kind, sub in (("tts", TTS_DIR), ("tokenizer", TOKENIZER_DIR)):
@@ -323,16 +323,8 @@ def write_gguf_dir(src_root: str, dst: str, *, vocab: bool = True):
                        [tok for tok, _ in sorted(v.items(), key=lambda kv: kv[1])])
             w.add_meta("tokenizer.ggml.merges", (gguf.T_ARR, gguf.T_STR),
                        [f"{a} {b}" for a, b in MERGES])
-        for name in sorted(st.keys()):
-            ggml = tensor_names.hf_to_ggml(name)
-            if name.endswith("cluster_usage") or ggml is None:
-                continue
-            data = st.tensor(name).float().numpy()
-            usage = name.replace("embedding_sum", "cluster_usage")
-            if usage != name and usage in st:
-                u = np.clip(st.tensor(usage).double().numpy(), 1e-5, None)
-                data = (data.astype(np.float64) / u[:, None]).astype(np.float32)
-            w.add_tensor(ggml, data, ttype=_gguf_type(ggml, data))
+        for ggml, data in gguf_tensors(st):
+            w.add_tensor(ggml, data, ttype=tensor_type(ggml, data, "q8_0"))
         stem = "qwen3-tts-0.6b" if kind == "tts" else "qwen3-tts-tokenizer"
         path = os.path.join(dst, f"{stem}-q8_0.gguf")
         w.write(path)
