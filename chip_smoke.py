@@ -132,6 +132,18 @@ Phases (each prints a line; any failure exits non-zero):
      synthesize_batch (4 lanes on the bf16 tier) lane b's draws equal the
      single stream's from split(prng_key(seed), 16)[b], and the lanes'
      codes beside the single stream's are counted, not gated. Then the
+     AOT export (export_phase, an `export` line; tools/export_aot.py): the
+     int8 tier's prefill, frame and vocoder programs and the bf16 tier's
+     prefill and frame exported with torch.export on the smoke's
+     pipelines, reloaded in a fresh process (export_child) with weights
+     rebuilt from the seed; the int8 sampled 256-frame request and the
+     bf16 greedy 48-frame request must give eager generate_from_tokens'
+     codes bit for bit, through one K1 (w8a8; bf16) and, int8, one K2 a
+     frame, the int8 prefill's W8A16 launches and one K3 call a res block,
+     and the audio within EXPORT_AUDIO_TOL of vocoder_decode; export and
+     reload seconds, bytes a file, the exported frame's ms beside the
+     eager frame's in turns, kernels and copies a frame under the
+     profiler. Then the
      checkpoint path (serve_checkpoint,
      `serve_checkpoint` lines), in a temporary directory: a full-width
      checkpoint written by tools/hf_fixture.py (BF16 main model, float32
@@ -209,8 +221,10 @@ Phases (each prints a line; any failure exits non-zero):
      request inside annotate("request"); the one trace file written must
      name the region and K1's and K2's kernels;
   5. profile: the sampled 256-token request, the 16-lane batch, the
-     unfused 64-token request, the bf16 tier's sampled request and the
-     128-text sampled queue again,
+     unfused greedy request cut to 32 tokens, the bf16 tier's sampled
+     request cut to 64 tokens (PROFILE_*_REQUEST: the two launch-bound
+     paths, whose millions of kernel events the profiler takes longest
+     over) and the 128-text sampled queue again,
      under torch.profiler with device activity only; prints the device's
      busy time (the union of its kernel and copy intervals), its idle
      share, and the kernels with the most device time in each.
@@ -224,6 +238,7 @@ version; main() itself refuses to run without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -4547,6 +4562,330 @@ def serve_multi_gpu(cfg, smi, *, spec=MULTI_GPU, world=MULTI_GPU_WORLD, devices=
 # make_texts' mix (rng 17, budgets 24-256). Each run takes the tools' warm
 # pass where the tool has one, except the arrivals, which the offline runs
 # warmed at the same shapes.
+# the export phase (tools/export_aot.py): the programs of each tier are
+# exported by EXPORT_WORKERS, processes that start with the smoke and trace
+# on the host while the kernels build (tracing and saving cost ~10 ms a
+# graph node on the card's host, and the bf16 tier's frame holds ~15,000),
+# each on a pipeline built from the seed of the smoke's; then reloaded in a
+# fresh process with weights rebuilt from that seed, and must give eager
+# generate_from_tokens' codes for the same request (EOS off, so it runs
+# exactly `frames` frames); the int8 tier also vocodes its codes. The frame
+# is timed exported and eager in turns (EXPORT_TURNS: three runs of each,
+# of `timing_frames` frames)
+EXPORT = dict(
+    text=MAIN_REQUESTS[1][0], seed=3, text_bucket=64,
+    tiers={"int8": dict(quant="int8", frames=256, timing_frames=8,
+                        sampling=dict(temperature=0.9, top_k=50, top_p=1.0,
+                                      repetition_penalty=1.05)),
+           "bf16": dict(quant=None, frames=48, timing_frames=1,
+                        sampling=dict(temperature=0.0, top_k=50, top_p=1.0,
+                                      repetition_penalty=1.05))})
+# (tier, programs) of each export worker; the vocoder program is the int8
+# tier's (float32 in every tier)
+EXPORT_WORKERS = (("int8", ("prefill", "frame", "vocoder")), ("bf16", ("prefill",)),
+                  ("bf16", ("frame",)))
+EXPORT_TURNS = ("eager", "exported", "exported", "eager", "eager", "exported")
+EXPORT_AUDIO_TOL = 1e-5
+EXPORT_TIMEOUT_S = 600
+
+
+def export_tokens(tts, text, bucket):
+    """(token ids [bucket] int64, their count) of one text, as the pipeline
+    encodes it, padded to the export's text bucket."""
+    import numpy as np
+
+    ids = tts.tokenizer.encode_for_tts(text)
+    if len(ids) > bucket:
+        raise SmokeFailure(f"the export request's {len(ids)} tokens exceed the bucket {bucket}")
+    tokens = np.zeros((bucket,), np.int64)
+    tokens[:len(ids)] = ids
+    return tokens, len(ids)
+
+
+def _is_tiny(tts):
+    from qwen3tts_tpu_torch.config import tiny_pipeline_config
+
+    return tts.config.talker == tiny_pipeline_config().talker
+
+
+# the directory of this file: a fresh Python process started there
+# (_python) imports chip_smoke
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _python(code, *args):
+    """argv of a fresh Python process that runs `code` (with HERE as its
+    working directory)."""
+    return [sys.executable, "-c", code, *args]
+
+
+def start_exports(root, device, tiny=False, spec=EXPORT):
+    """Start EXPORT_WORKERS, each a process that runs export_worker into
+    root/<tier>; returns them (export_phase waits for them)."""
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.export_worker(*sys.argv[1:]))"
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(dict(spec, device=str(device), tiny=tiny), f)
+    return [subprocess.Popen(_python(code, root, tier, ",".join(names), str(i)), cwd=HERE,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i, (tier, names) in enumerate(EXPORT_WORKERS)]
+
+
+def export_worker(root, tier, names, index):
+    """One export worker: the tier's pipeline on seed-0 weights
+    (tools/export_aot.build_pipeline), its programs `names` (comma-joined)
+    exported into root/<tier>, and root/worker<index>.json with the
+    seconds and bytes; returns 0."""
+    import torch
+
+    from qwen3tts_tpu_torch.tools import export_aot
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    ts = spec["tiers"][tier]
+    t0 = time.perf_counter()
+    tts = export_aot.build_pipeline(spec["tiny"], torch.device(spec["device"]), ts["quant"])
+    programs, es = export_aot.build_programs(
+        ts["frames"], spec["text_bucket"], spec["tiny"], tts=tts, allow_eos=False,
+        **ts["sampling"])
+    sizes = export_aot.save_programs(os.path.join(root, tier), {
+        n: programs[n] for n in names.split(",")}, es)
+    with open(os.path.join(root, f"worker{index}.json"), "w") as f:
+        json.dump(dict(tier=tier, export_s=time.perf_counter() - t0, bytes=sizes), f)
+    return 0
+
+
+def stop_processes(procs):
+    """Kill any process of `procs` still running and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
+def export_phase(pipes, smi, root, workers, spec=EXPORT):
+    """The export phase (EXPORT): waits for the export workers
+    (start_exports; their programs of each tier, traced with torch.export
+    on seed-0 weights), runs each tier's request eagerly on the smoke's
+    pipelines (pipes: "int8" and "bf16", built from seed 0;
+    generate_from_tokens, and the int8 codes through vocoder_decode); then
+    export_child reloads the files in a fresh Python process, rebuilds the
+    weights from the seed, runs the request through the programs and
+    compares. Gates (every one fatal): codes equal to eager bit for bit;
+    on the card one K1 (w8a8 in int8, bf16 in bf16) and, in int8, one K2
+    a frame, the prefill's W8A16 launches (4 a layer) in int8, and one K3
+    call a res block in the vocoder; the audio within EXPORT_AUDIO_TOL.
+    Prints an `export` line (each worker's export seconds, bytes per file,
+    reload seconds, the exported frame's ms beside the eager frame's,
+    kernels and copies a frame under the profiler, the torch version and
+    the card); returns the child's launch counts (a list of one)."""
+    import torch
+
+    from qwen3tts_tpu_torch.models.vocoder import vocoder_decode
+    from qwen3tts_tpu_torch.ops import prng
+    from qwen3tts_tpu_torch.runtime import decode_loop
+    from qwen3tts_tpu_torch.tools import export_aot
+
+    t0 = time.perf_counter()
+    for i, w in enumerate(workers):
+        try:
+            out, err = w.communicate(timeout=EXPORT_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            stop_processes(workers)
+            raise SmokeFailure(f"export worker {i} ran past {EXPORT_TIMEOUT_S} s") from e
+        if w.returncode != 0:
+            stop_processes(workers)
+            raise SmokeFailure(f"export worker {i} {EXPORT_WORKERS[i]} failed "
+                               f"({w.returncode}):\n{out[-3000:]}\n{err[-3000:]}")
+    waited_s = time.perf_counter() - t0
+    exported = {}
+    for i in range(len(workers)):
+        with open(os.path.join(root, f"worker{i}.json")) as f:
+            r = json.load(f)
+        e = exported.setdefault(r["tier"], dict(export_s={}, bytes={}))
+        e["export_s"].update({n: r["export_s"] for n in r["bytes"]})
+        e["bytes"].update(r["bytes"])
+    request = dict(tiers={}, seed=spec["seed"])
+    for tier, ts in spec["tiers"].items():
+        tts = pipes[tier]
+        tcfg = tts.config.talker
+        out = os.path.join(root, tier)
+        es = export_aot.load_spec(out)
+        tokens, n_tok = export_tokens(tts, spec["text"], spec["text_bucket"])
+        eager = decode_loop.generate_from_tokens(
+            tts.talker_params, tts.cp_params, torch.from_numpy(tokens), n_tok,
+            torch.zeros((tcfg.hidden_size,), device=tts.device), tcfg.english_language_id,
+            prng.prng_key(spec["seed"]), talker_cfg=tcfg, cp_cfg=tts.config.code_predictor,
+            max_frames=es.frames, kv_capacity=es.kv_capacity, allow_eos=False,
+            **ts["sampling"], **tts.fused)
+        ref = dict(tokens=torch.from_numpy(tokens), n_tokens=n_tok, codes=eager.codes.cpu())
+        if os.path.exists(os.path.join(out, "vocoder.pt2")):
+            ref["audio"] = vocoder_decode(tts.vocoder_params, tts.config.vocoder, eager.codes,
+                                          eager.n_frames).cpu()
+        torch.save(ref, os.path.join(out, "eager.pt"))
+        request["tiers"][tier] = dict(dir=out, quant=ts["quant"], tiny=_is_tiny(tts),
+                                      device=str(tts.device), timing_frames=ts["timing_frames"])
+        exported[tier].update(route=dict(fused_talker=es.fused_talker, fused_cp=es.fused_cp),
+                              frames=es.frames)
+    with open(os.path.join(root, "request.json"), "w") as f:
+        json.dump(request, f)
+    t0 = time.perf_counter()
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.export_child(sys.argv[1]))"
+    try:
+        proc = subprocess.run(_python(code, root), capture_output=True, text=True,
+                              timeout=EXPORT_TIMEOUT_S, cwd=HERE)
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"the export phase's fresh process ran past {EXPORT_TIMEOUT_S} s") from e
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"the export phase's fresh process failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    with open(os.path.join(root, "child.json")) as f:
+        child = json.load(f)
+    failures = child.pop("failures")
+    counts = child.pop("counts")
+    line = dict(tiers={t: dict(exported[t], **child[t]) for t in exported},
+                waited_for_workers_s=waited_s, child_process_s=child_s,
+                torch=torch.__version__, card=smi)
+    print("export " + json.dumps(line))
+    if failures:
+        raise SmokeFailure("export: " + "; ".join(failures))
+    return [counts]
+
+
+def frame_device_ops(run, device, tries=3):
+    """Device activity of one run under the profiler, the largest of
+    `tries` traces after a warm-up: kernels, copies and memsets, and the
+    kernels whose names say they copy. None off the card."""
+    if device.type != "cuda":
+        return None
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize(device)
+    best = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(device)
+        ev = device_events(prof)
+        got = dict(kernels=sum(e["cat"] == "kernel" for e in ev),
+                   memcpy=sum(e["cat"] == "gpu_memcpy" for e in ev),
+                   memset=sum(e["cat"] == "gpu_memset" for e in ev),
+                   copy_kernels=sum(e["cat"] == "kernel" and "copy" in e["name"].lower()
+                                    for e in ev))
+        if best is None or got["kernels"] > best["kernels"]:
+            best = got
+    return best
+
+
+def export_child(root):
+    """The export phase's fresh process: for each tier of root's
+    request.json, reload the programs (load_programs, timed), rebuild the
+    seed-0 weights (tools/export_aot.build_pipeline), run the request
+    (run_generate, launches counted) and the int8 tier's vocoder
+    (run_vocoder), compare with the parent's eager results, and time the
+    frame program beside the same frame run eagerly (the FrameProgram
+    module's own forward) in turns. Writes child.json (per tier, the
+    failures, the launch counts of the requests and the vocoder); returns
+    0."""
+    import torch
+
+    from qwen3tts_tpu_torch import _kernels
+    from qwen3tts_tpu_torch.ops import prng
+    from qwen3tts_tpu_torch.tools import export_aot
+
+    with open(os.path.join(root, "request.json")) as f:
+        req = json.load(f)
+    out, failures = {}, []
+    total = {name: 0 for name in KERNELS}
+    for tier, t in req["tiers"].items():
+        device = torch.device(t["device"])
+        if device.type == "cuda":
+            _kernels.load_library()
+        t0 = time.perf_counter()
+        programs = export_aot.load_programs(t["dir"])
+        reload_s = time.perf_counter() - t0
+        tts = export_aot.build_pipeline(t["tiny"], device, t["quant"])
+        tp, cp, tcfg = tts.talker_params, tts.cp_params, tts.config.talker
+        ref = torch.load(os.path.join(t["dir"], "eager.pt"))
+        sp = programs.spec
+        reset_counts()
+        speaker = torch.zeros((tcfg.hidden_size,), device=device)
+        res = export_aot.run_generate(programs, tp, cp, ref["tokens"], ref["n_tokens"], speaker,
+                                      tcfg.english_language_id, prng.prng_key(req["seed"]),
+                                      talker_cfg=tcfg)
+        codes = res.codes.cpu()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        gen = read_counts()
+        r = dict(reload_s=reload_s, n_frames=res.n_frames,
+                 codes_equal=bool(torch.equal(codes, ref["codes"])),
+                 first_difference=_first_difference(codes.numpy(), ref["codes"].numpy()))
+        if not r["codes_equal"] or res.n_frames != sp.frames:
+            failures.append(f"{tier}: {res.n_frames} frames, codes equal to eager: "
+                            f"{r['codes_equal']} (first difference {r['first_difference']})")
+        mode = "w8a8" if tier == "int8" else "bf16"
+        k1 = "fused_talker_step" if mode == "w8a8" else f"fused_talker_step[{mode}]"
+        L = tcfg.n_layers
+        want = {k1: res.n_frames,
+                "fused_predict_codes": res.n_frames if sp.fused_cp else 0,
+                "int8_matmul": 4 * L if tier == "int8" else 0}
+        r["launches"] = {k: gen[k] for k in want}
+        if device.type == "cuda" and (r["launches"] != want or sum(gen.values()) != sum(
+                want.values())):
+            moved = {k: v for k, v in gen.items() if v}
+            failures.append(f"{tier}: launches {moved}, want {want}")
+        for k in total:
+            total[k] += gen[k]
+        if programs.vocoder is not None:
+            reset_counts()
+            audio = export_aot.run_vocoder(programs, tts.vocoder_params, res.codes,
+                                           res.n_frames).cpu()
+            voc = read_counts()
+            vcfg = tts.config.vocoder
+            n_blocks = len(vcfg.upsample_rates) * len(vcfg.res_dilations)
+            r["vocoder_launches"] = voc["fused_res_block"]
+            r["audio_max_abs"] = _max_err(audio, ref["audio"])
+            if not r["audio_max_abs"] <= EXPORT_AUDIO_TOL:
+                failures.append(f"{tier}: audio max abs {r['audio_max_abs']} against "
+                                f"vocoder_decode (gate {EXPORT_AUDIO_TOL})")
+            if device.type == "cuda" and (voc["fused_res_block"] != n_blocks
+                                          or sum(voc.values()) != n_blocks):
+                moved = {k: v for k, v in voc.items() if v}
+                failures.append(f"{tier}: vocoder launches {moved}, want {n_blocks} "
+                                "fused_res_block")
+            for k in total:
+                total[k] += voc[k]
+        # one frame exported and the same FrameProgram run eagerly, on the
+        # state of a fresh prefill
+        eager_frame = export_aot.FrameProgram(tcfg, tts.config.code_predictor, sp)
+        i64 = dict(dtype=torch.int64, device=device)
+        with torch.no_grad():
+            kv, hidden, cb0, trailing = programs.prefill(
+                tp, ref["tokens"].to(device), torch.tensor(ref["n_tokens"], **i64), speaker,
+                torch.tensor(tcfg.english_language_id, **i64), torch.zeros((1, 2), **i64))
+            seen = torch.zeros((tcfg.codec_vocab_size,), dtype=torch.int8, device=device)
+            args = (tp, cp, kv, seen, hidden, cb0.reshape(1), trailing[0],
+                    export_aot.PREFILL_ROWS, 12345, 678, torch.zeros((cp.heads.shape[0] + 1, 2),
+                                                                    **i64))
+            runs = dict(exported=lambda: programs.frame(*args), eager=lambda: eager_frame(*args))
+            ms = {k: [] for k in runs}
+            for k in EXPORT_TURNS:
+                ms[k].append(timed(runs[k], device, iters=t["timing_frames"]))
+            r["frame_ms"] = ms
+            r["frame_ms_mean"] = {k: sum(v) / len(v) for k, v in ms.items()}
+            r["frame_device_ops"] = {k: frame_device_ops(run, device) for k, run in runs.items()}
+        out[tier] = r
+        del tts, programs, kv
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["failures"], out["counts"] = failures, total
+    with open(os.path.join(root, "child.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 SERVE_LOAD = dict(
     offline=dict(requests=64, lanes=16, capacity=1024, chunk=8, refill_slots=8, max_frames=128,
                  text_bucket=32, passes=2),
@@ -4791,6 +5130,14 @@ def trace_request(tts, smi, request=MAIN_REQUESTS[0]):
     return counts
 
 
+# the profile phase's unfused and bf16-tier requests, the serve phase's
+# cut in depth (launch-bound paths: each frame ~3,000 and ~7,000 kernels)
+PROFILE_UNFUSED_REQUEST = (UNFUSED_REQUESTS[0][0], dict(UNFUSED_REQUESTS[0][1],
+                                                        max_audio_tokens=32))
+PROFILE_BF16_REQUEST = (TIER_SERVE[None]["requests"][1][0],
+                        dict(TIER_SERVE[None]["requests"][1][1], max_audio_tokens=64))
+
+
 def profile_request(tts, text, kw, queue=None):
     """One request under torch.profiler, recording device activity only.
     The device was busy for the union of the kernel, copy and memset
@@ -4976,6 +5323,7 @@ def main():
         return 2
     t_smoke = time.perf_counter()
     phase_s = {}
+    stack = contextlib.ExitStack()
 
     def phase_done(name, since):
         phase_s[name] = time.perf_counter() - since
@@ -4988,6 +5336,10 @@ def main():
         print(f"device: {kind} x{count}")
         print(smi)
 
+        # the export workers trace on the host while the kernels build
+        export_root = stack.enter_context(tempfile.TemporaryDirectory())
+        workers = start_exports(export_root, dev)
+        stack.callback(stop_processes, workers)
         t0 = time.perf_counter()
         _kernels.build()
         _kernels.load_library()
@@ -5098,6 +5450,8 @@ def main():
         runs += serve_stream(tts, tiers[None], smi)
         check_sampled_serves(tts, tiers[None], smi)
         t0 = phase_done("serve_stream, sampled serves", t0)
+        runs += export_phase({"int8": tts, "bf16": tiers[None]}, smi, export_root, workers)
+        t0 = phase_done("export", t0)
         with tempfile.TemporaryDirectory() as root:
             runs += serve_checkpoint(PipelineConfig(), dev, smi, root)
             torch.cuda.empty_cache()
@@ -5126,8 +5480,8 @@ def main():
         for what, pipe, (text, kw), queue in (
                 ("request", tts, MAIN_REQUESTS[1], None),
                 ("batch", tts, (batch_texts(BATCH_REQUESTS[0][0]), BATCH_REQUESTS[0][1]), None),
-                ("unfused request", tts_u, UNFUSED_REQUESTS[0], None),
-                ("bf16 request", tiers[None], TIER_SERVE[None]["requests"][1], None),
+                ("unfused request", tts_u, PROFILE_UNFUSED_REQUEST, None),
+                ("bf16 request", tiers[None], PROFILE_BF16_REQUEST, None),
                 ("sampled queue", tts, (batch_texts(sp["texts"]), sp["kw"]),
                  dict(lanes=sp["lanes"]))):
             rs, wall_ms, busy_ms, top = profile_request(pipe, text, kw, queue)
@@ -5152,6 +5506,8 @@ def main():
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stack.close()
 
     report["sample_rows"]["rows_sampled_on_paths"] = {
         k[len("k4_rows["):-1]: rows[k] for k in K4_ROWS}

@@ -64,7 +64,9 @@ def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
     ``predict_codes``, ``qwen3tts_tpu/models/code_predictor.py:68-108``).
 
     talker_hidden (output-normed) and cb0_embd are [H] with one key (a
-    pair), or [B, H] lanes with keys [B, 2] (numpy). A 2-token prefill at
+    pair), or [B, H] lanes with keys [B, 2] (numpy); key may also be the
+    frame's code keys already split, [B, 15, 2] (``code_keys``; numpy, or
+    an int64 tensor as an exported program takes them). A 2-token prefill at
     positions 0, 1 gives code 0 from heads[0]; step s = 1..14 feeds
     embds[s-1][code s-1] at position s+1 and takes code s from heads[s]. The
     cache holds max_ctx = 16 rows, so attention takes the XLA semantics
@@ -84,7 +86,8 @@ def predict_codes(params: CodePredictorParams, cfg, talker_hidden: torch.Tensor,
     S, V = cfg.n_steps, full_columns(params.heads)
     noise = None
     if not greedy:
-        ks = code_keys(prng.key_array(key).reshape(B, 2), S)
+        ks = (key if getattr(key, "ndim", 0) == 3
+              else code_keys(prng.key_array(key).reshape(B, 2), S))
         noise = prng.gumbel(ks.reshape(B * S, 2), V, dev).reshape(B, S, V)
     kv = torch.zeros((B, cfg.n_layers, 2, cfg.n_kv_heads, cfg.max_ctx, cfg.head_dim),
                      dtype=dt, device=dev)

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.attention import attend as attend_xla
 from ..ops.attention import decode_attention_auto
+from ..ops.library import as_int
 from ..ops.norms import rms_norm
 from ..ops.quant import QuantLinear, QuantLinear4, matmul
 from ..ops.rope import apply_rope, rope_for_positions
@@ -150,16 +151,17 @@ def forward_step(blocks: BlockParams, cfg, x: torch.Tensor, n_past: int,
     mid-cache, and the rows below its splice belong to the lane's previous
     occupant (RoPE uses absolute positions, so the spliced request computes
     what a fresh run would). Returns the pre-output-norm hidden of x's
-    shape."""
-    n = int(n_past)
+    shape. n_past is an int, or a SymInt under torch.export."""
+    n = as_int(n_past)
     pos = torch.tensor([n], device=x.device)
     cos, sin = rope_for_positions(pos, cfg.head_dim, cfg.rope_theta)
     kvl = kv if x.dim() == 2 else kv[None]
     h = x.reshape(-1, x.shape[-1])
     for l in range(cfg.n_layers):
         def attend(q, k, v, l=l):
-            kvl[:, l, 0, :, n] = k.to(kv.dtype)
-            kvl[:, l, 1, :, n] = v.to(kv.dtype)
+            # row n of layer l's K and V (select: n may be a SymInt)
+            kvl[:, l, 0].select(-2, n).copy_(k.to(kv.dtype))
+            kvl[:, l, 1].select(-2, n).copy_(v.to(kv.dtype))
             return decode_attention_auto(q, kvl, l, n + 1, start)
 
         h = _layer(blocks, cfg, l, h, cos, sin, attend)

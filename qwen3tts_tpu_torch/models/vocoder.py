@@ -219,7 +219,10 @@ def _pre_transformer(params: VocoderParams, cfg, x: torch.Tensor, n_valid) -> to
     pos = torch.arange(T, device=x.device)
     cos, sin = rope_for_positions(pos, D, cfg.rope_theta)
     mask = (pos[None, :] <= pos[:, None])[None]
-    if n_valid is not None:
+    if isinstance(n_valid, torch.Tensor):
+        # counts on the device (an exported program's operand)
+        mask = mask & (pos < n_valid.to(pos.device).reshape(-1, 1))[:, None, :]
+    elif n_valid is not None:
         # from the host's counts on the device, with no copy to wait for
         keys = torch.stack([pos < n for n in torch.as_tensor(n_valid).reshape(-1).tolist()])
         mask = mask & keys[:, None, :]

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from .decode_attention import decode_attention_kernel
+from .library import as_int
 
 NEG_INF = -1e30
 MIN_KERNEL_CAPACITY = 1024   # the JAX package's MIN_PALLAS_CAPACITY
@@ -66,8 +67,8 @@ def decode_attention(q, k_cache, v_cache, n_valid: int, start=None) -> torch.Ten
     Returns [..., Hq, D] in the cache dtype. (JAX masks the rows past
     n_valid with -1e30, whose probabilities are exactly 0; reading only the
     rows below n_valid is the same. Rows below start are masked with -1e30,
-    as JAX masks them.)"""
-    n = int(n_valid)
+    as JAX masks them.) n_valid may be a SymInt (torch.export)."""
+    n = as_int(n_valid)
     k = k_cache[..., :n, :].transpose(-3, -2)   # [..., n, Hkv, D]
     v = v_cache[..., :n, :].transpose(-3, -2)
     mask = None

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from . import library
+from .library import as_int
 
 
 def _lanes(q, kv):
@@ -64,15 +66,9 @@ def decode_attention_kernel_plain(q, kv, layer: int, n_valid: int) -> torch.Tens
     return out if lanes else out[0]
 
 
-def decode_attention_kernel(q, kv, layer: int, n_valid: int) -> torch.Tensor:
-    """Decode attention of q over layer `layer` of the stacked cache kv
-    (see decode_attention_kernel_plain for the shapes).
-
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    q and cache, D = 128, Hq / Hkv in 1, 2, 4, 8, each lane's cache
-    contiguous) or raise; there is no fallback."""
-    if kv.device.type == "cpu":
-        return decode_attention_kernel_plain(q, kv, layer, n_valid)
+def launch_decode_attention(q, kv, layer: int, n_valid: int) -> torch.Tensor:
+    """One cluster launch of decode attention (the decode_attention op's
+    CUDA kernel), counted on ``decode_attention_kernel``."""
     lib = _kernels.load_library()
     _kernels.require_cuda(q, kv)
     q3, kv6, lanes = _lanes(q, kv)
@@ -99,4 +95,18 @@ def decode_attention_kernel(q, kv, layer: int, n_valid: int) -> torch.Tensor:
     return out if lanes else out[0]
 
 
+def decode_attention_kernel(q, kv, layer: int, n_valid: int) -> torch.Tensor:
+    """Decode attention of q over layer `layer` of the stacked cache kv
+    (see decode_attention_kernel_plain for the shapes), through the op
+    ``qwen3tts::decode_attention`` (``ops/library.py``); n_valid is an int
+    (a SymInt under torch.export).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
+    q and cache, D = 128, Hq / Hkv in 1, 2, 4, 8, each lane's cache
+    contiguous) or raise; there is no fallback."""
+    return torch.ops.qwen3tts.decode_attention.default(q, kv, int(layer), as_int(n_valid))
+
+
 decode_attention_kernel.launches = 0
+library.implement("decode_attention", cpu=decode_attention_kernel_plain,
+                  cuda=launch_decode_attention)

@@ -18,10 +18,15 @@ version of this kernel and of its batched counterpart K6
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _kernels
-from .fused_talker_step import _rms, check_w8a8_blocks, gqa_attention, layer_plain, rope_table
+from . import library
+from .fused_talker_step import (_rms, blocks_of, check_w8a8_blocks, gqa_attention, layer_plain,
+                                rope_table)
+from .library import as_int
 from .kernel_prng import make_sampler
 from .sampling import sample_rows
 
@@ -116,23 +121,58 @@ def cuda_operands(cp_params, cfg):
     return tensors, dims
 
 
-def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
-                        temperature, top_k, top_p=1.0, greedy=False,
-                        use_top_p=True):
-    """Returns (codes [15], rest_sum [H] f32); see the module docstring.
+def predictor_dims(cfg):
+    """The op's dims of a code-predictor config: (n_layers, hidden_size,
+    n_heads, n_kv_heads, head_dim, intermediate_size, vocab_size,
+    n_codebooks)."""
+    return (cfg.n_layers, cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.intermediate_size, cfg.vocab_size, cfg.n_codebooks)
 
-    CPU tensors run the plain version. CUDA tensors make one cooperative
-    launch of the persistent kernel (bf16 heads and embedding tables) or
-    raise, also when the grid cannot be co-resident or the device refuses
-    the cooperative launch; there is no fallback. The kernel's KV scratch
-    [2, L, Hkv, 16, D] f32 is allocated here with torch.empty.
-    """
-    check_w8a8_blocks(cp_params.blocks)
-    if cp_params.embds.device.type == "cpu":
-        return fused_predict_codes_plain(
-            cp_params, cfg, talker_hidden, cb0_embd, seed,
-            temperature=temperature, top_k=top_k, top_p=top_p, greedy=greedy,
-            use_top_p=use_top_p)
+
+@functools.lru_cache(maxsize=16)
+def predictor_config(dims, eps, rope_theta):
+    """A CodePredictorConfig of the op's dims (the fields the kernels read)."""
+    from ..config import CodePredictorConfig
+    L, H, Hq, Hkv, D, F, V, N = dims
+    return CodePredictorConfig(n_layers=L, hidden_size=H, n_heads=Hq, n_kv_heads=Hkv,
+                               head_dim=D, intermediate_size=F, vocab_size=V, n_codebooks=N,
+                               rms_norm_eps=eps, rope_theta=rope_theta)
+
+
+def _predict_args(talker_hidden, cb0_embd, *args):
+    """(cp_params, cfg, keyword arguments) of the code-predictor op's
+    operands."""
+    from ..models.code_predictor import CodePredictorParams
+
+    norms, output_norm, proj = args[:4], args[4], args[5:13]
+    heads, embds, seed, temperature, top_p, top_k, greedy, use_top_p, dims, eps, theta = args[13:]
+    blocks = blocks_of(list(norms) + [t for j in range(4) for t in (*proj[2 * j:2 * j + 2], None)])
+    kw = dict(temperature=temperature, top_p=top_p, top_k=top_k, greedy=greedy,
+              use_top_p=use_top_p)
+    return (CodePredictorParams(blocks, output_norm, embds, heads),
+            predictor_config(tuple(dims), eps, theta), seed, kw)
+
+
+def _predict_codes_cpu(talker_hidden, cb0_embd, *args):
+    """The code-predictor op's CPU kernel: the plain version, its codes in
+    the kernel's int32."""
+    cp_params, cfg, seed, kw = _predict_args(talker_hidden, cb0_embd, *args)
+    codes, rest_sum = fused_predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seed,
+                                                **kw)
+    return codes.to(torch.int32), rest_sum
+
+
+def _predict_codes_cuda(talker_hidden, cb0_embd, *args):
+    """The code-predictor op's CUDA kernel: launch K2."""
+    cp_params, cfg, seed, kw = _predict_args(talker_hidden, cb0_embd, *args)
+    return launch_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, **kw)
+
+
+def launch_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *, temperature, top_k,
+                         top_p, greedy, use_top_p):
+    """One cooperative launch of K2 (the code-predictor op's CUDA kernel),
+    counted on ``fused_predict_codes``. The kernel's KV scratch [2, L, Hkv,
+    16, D] f32 is allocated here with torch.empty."""
     lib = _kernels.load_library()
     _kernels.require_cuda(talker_hidden, cb0_embd)
     tensors, dims = cuda_operands(cp_params, cfg)
@@ -155,7 +195,36 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
     return codes, rest_sum
 
 
+def predict_codes_operands(cp_params, cfg, talker_hidden, cb0_embd, seed, *, temperature,
+                           top_k, top_p=1.0, greedy=False, use_top_p=True):
+    """The operands of the op ``qwen3tts::predict_codes``
+    (``ops/library.py``) for fused_predict_codes' arguments."""
+    b = cp_params.blocks
+    return (talker_hidden, cb0_embd, b.attn_norm, b.q_norm, b.k_norm, b.ffn_norm,
+            cp_params.output_norm, b.wqkv.q, b.wqkv.scale, b.wo.q, b.wo.scale, b.w_gateup.q,
+            b.w_gateup.scale, b.w_down.q, b.w_down.scale, cp_params.heads, cp_params.embds,
+            as_int(seed), float(temperature), float(top_p), int(top_k), bool(greedy),
+            bool(use_top_p), predictor_dims(cfg), float(cfg.rms_norm_eps), float(cfg.rope_theta))
+
+
+def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, **kw):
+    """Returns (codes [15] int32, rest_sum [H] f32); see the module
+    docstring. Runs the op ``qwen3tts::predict_codes`` (``ops/library.py``);
+    seed is an int (a SymInt under torch.export); keywords: temperature,
+    top_k, top_p, greedy, use_top_p (``predict_codes_operands``).
+
+    CPU tensors run the plain version. CUDA tensors make one cooperative
+    launch of the persistent kernel (bf16 heads and embedding tables) or
+    raise, also when the grid cannot be co-resident or the device refuses
+    the cooperative launch; there is no fallback.
+    """
+    check_w8a8_blocks(cp_params.blocks)
+    return torch.ops.qwen3tts.predict_codes.default(
+        *predict_codes_operands(cp_params, cfg, talker_hidden, cb0_embd, seed, **kw))
+
+
 fused_predict_codes.launches = 0
+library.implement("predict_codes", cpu=_predict_codes_cpu, cuda=_predict_codes_cuda)
 
 
 def kernel_grid(cfg, B=None):

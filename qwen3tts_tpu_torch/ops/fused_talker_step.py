@@ -82,8 +82,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import _kernels
+from . import library
 from .kv_quant import is_quantized_kv, quantize_kv
 from .quant import QuantLinear, QuantLinear4, group_rows, unpack4
+from .library import as_int
 from .rope import rope_angles
 from .sampling import sample_rows, sample_rows_plain
 
@@ -533,38 +535,86 @@ def _dims(cfg, C, Vc):
             cfg.intermediate_size, C, Vc, float(cfg.rms_norm_eps))
 
 
-def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
-                      codec_head, seen=None, seed=0, temperature=1.0,
-                      top_p=1.0, repetition_penalty=1.0, top_k=0,
-                      suppress_start=None, eos_id=-1, greedy=False,
-                      use_top_p=True) -> StepOut:
-    """One talker decode step (see the module docstring).
+def block_operands(blocks):
+    """The talker op's operands of a stack of blocks: the four norms, then
+    (weights, scale or None, zero or None) of each projection in (wqkv, wo,
+    w_gateup, w_down) order (a QuantLinear, a QuantLinear4 or a plain
+    tensor)."""
+    ops = [blocks.attn_norm, blocks.q_norm, blocks.k_norm, blocks.ffn_norm]
+    for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
+        if isinstance(w, QuantLinear4):
+            ops += [w.q, w.scale, w.zero]
+        elif isinstance(w, QuantLinear):
+            ops += [w.q, w.scale, None]
+        else:
+            ops += [w, None, None]
+    return ops
 
-    blocks: BlockParams whose projections are QuantLinear ([L, K, N] int8,
-    scale [L, 1, N]), QuantLinear4 ([L, K/2, N] packed, scale and zero [L,
-    G, N]) or plain [L, K, N] tensors, in any mix (``weight_mode``);
-    step_embd [H]; n_past: int; kv [L, 2, Hkv, C, D], or the int8 pair
-    (q [L, 2, Hkv, C, D] int8, scale [L, 2, Hkv, C] float32; module
-    docstring), written in place at n_past; codec_head [H, Vc]. When
-    ``seen`` ([Vc] bool or int8) is given,
-    the result's cb0 is next frame's codebook-0 token sampled with ``seed``.
-    Norm weights and scales already in float32 and ``seen`` in int8 (as the
-    pipeline and the decode loop keep them) are passed to the kernel without
-    a copy.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
-    no fallback.
-    """
+def blocks_of(operands):
+    """The BlockParams of block_operands' list."""
+    attn_norm, q_norm, k_norm, ffn_norm = operands[:4]
+    proj = []
+    for j in range(4):
+        w, scale, zero = operands[4 + 3 * j: 7 + 3 * j]
+        proj.append(w if scale is None else QuantLinear(w, scale) if zero is None
+                    else QuantLinear4(w, scale, zero))
+    from ..models.transformer_core import BlockParams   # (models import ops)
+    return BlockParams(attn_norm, proj[0], proj[1], q_norm, k_norm, ffn_norm, proj[2], proj[3])
+
+
+def talker_dims(cfg):
+    """The op's dims of a talker config: (n_layers, hidden_size, n_heads,
+    n_kv_heads, head_dim, intermediate_size)."""
+    return (cfg.n_layers, cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.intermediate_size)
+
+
+@functools.lru_cache(maxsize=16)
+def talker_config(dims, eps, rope_theta):
+    """A TalkerConfig of the op's dims (the fields the kernels read)."""
+    from ..config import TalkerConfig
+    L, H, Hq, Hkv, D, F = dims
+    return TalkerConfig(n_layers=L, hidden_size=H, n_heads=Hq, n_kv_heads=Hkv, head_dim=D,
+                        intermediate_size=F, rms_norm_eps=eps, rope_theta=rope_theta)
+
+
+def _step_args(x, n_past, *args):
+    """(blocks, cfg, kv, keyword arguments) of the talker op's operands."""
+    (output_norm, codec_head, kv, kv_scale, seen, seed, temperature, top_p,
+     repetition_penalty, top_k, greedy, use_top_p, suppress_start, eos_id, dims, eps,
+     rope_theta) = args[16:]
+    kw = dict(output_norm=output_norm, codec_head=codec_head, seen=seen, seed=seed,
+              temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+              top_k=top_k, greedy=greedy, use_top_p=use_top_p, suppress_start=suppress_start,
+              eos_id=eos_id)
+    return (blocks_of(args[:16]), talker_config(tuple(dims), eps, rope_theta),
+            kv if kv_scale is None else (kv, kv_scale), kw)
+
+
+def _step_result(out: StepOut, x):
+    return (out.hidden, out.logits,
+            out.cb0 if out.cb0 is not None else x.new_empty((0,), dtype=torch.int32))
+
+
+def _talker_step_cpu(x, n_past, *args):
+    """The talker op's CPU kernel: the plain version."""
+    blocks, cfg, kv, kw = _step_args(x, n_past, *args)
+    return _step_result(fused_talker_step_plain(blocks, cfg, x, n_past, kv, **kw), x)
+
+
+def _talker_step_cuda(x, n_past, *args):
+    """The talker op's CUDA kernel: launch K1."""
+    blocks, cfg, kv, kw = _step_args(x, n_past, *args)
+    return _step_result(launch_talker_step(blocks, cfg, x, n_past, kv, **kw), x)
+
+
+def launch_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm, codec_head, seen,
+                       seed, temperature, top_p, repetition_penalty, top_k, suppress_start,
+                       eos_id, greedy, use_top_p) -> StepOut:
+    """One launch of K1 (the talker op's CUDA kernel), counted on
+    ``fused_talker_step``; see that wrapper for the operands."""
     cache = kv[0] if is_quantized_kv(kv) else kv
-    if cache.device.type == "cpu":
-        return fused_talker_step_plain(
-            blocks, cfg, step_embd, n_past, kv, output_norm=output_norm,
-            codec_head=codec_head, seen=seen, seed=seed,
-            temperature=temperature, top_p=top_p,
-            repetition_penalty=repetition_penalty, top_k=top_k,
-            suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
-            use_top_p=use_top_p)
     lib = _kernels.load_library()
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     C, Vc = cache.shape[3], codec_head.shape[-1]
@@ -589,9 +639,8 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
         *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(), float(temperature),
         float(top_p), float(repetition_penalty), int(top_k), int(greedy),
-        int(use_top_p), Vc if suppress_start is None else int(suppress_start),
-        int(eos_id), int(seed), hidden.data_ptr(), logits.data_ptr(),
-        None if tok is None else tok.data_ptr(), ws.data_ptr(),
+        int(use_top_p), int(suppress_start), int(eos_id), int(seed), hidden.data_ptr(),
+        logits.data_ptr(), None if tok is None else tok.data_ptr(), ws.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step")
     _count(fused_talker_step, blocks, scales)
@@ -600,10 +649,52 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm,
     return StepOut(hidden, logits, tok)
 
 
+def talker_step_operands(blocks, cfg, step_embd, n_past, kv, *, output_norm, codec_head,
+                         seen=None, seed=0, temperature=1.0, top_p=1.0,
+                         repetition_penalty=1.0, top_k=0, suppress_start=None, eos_id=-1,
+                         greedy=False, use_top_p=True):
+    """The operands of the op ``qwen3tts::talker_step`` (``ops/library.py``)
+    for fused_talker_step's arguments."""
+    cache, scale = kv if is_quantized_kv(kv) else (kv, None)
+    return (step_embd, as_int(n_past), *block_operands(blocks), output_norm, codec_head, cache,
+            scale, seen, as_int(seed), float(temperature), float(top_p),
+            float(repetition_penalty), int(top_k), bool(greedy), bool(use_top_p),
+            codec_head.shape[-1] if suppress_start is None else int(suppress_start),
+            int(eos_id), talker_dims(cfg), float(cfg.rms_norm_eps), float(cfg.rope_theta))
+
+
+def fused_talker_step(blocks, cfg, step_embd, n_past, kv, **kw) -> StepOut:
+    """One talker decode step (see the module docstring), through the op
+    ``qwen3tts::talker_step`` (``ops/library.py``).
+
+    blocks: BlockParams whose projections are QuantLinear ([L, K, N] int8,
+    scale [L, 1, N]), QuantLinear4 ([L, K/2, N] packed, scale and zero [L,
+    G, N]) or plain [L, K, N] tensors, in any mix (``weight_mode``);
+    step_embd [H]; n_past: int (a SymInt under torch.export); kv [L, 2, Hkv,
+    C, D], or the int8 pair (q [L, 2, Hkv, C, D] int8, scale [L, 2, Hkv, C]
+    float32; module docstring), written in place at n_past. Keywords
+    (``talker_step_operands``): output_norm, codec_head [H, Vc]; when
+    ``seen`` ([Vc] bool or int8) is given, the result's cb0 is next
+    frame's codebook-0 token sampled with ``seed`` (an int or a SymInt),
+    temperature, top_p, repetition_penalty, top_k, greedy and use_top_p,
+    after suppression of [suppress_start, Vc) except eos_id. Norm weights
+    and scales already in float32 and ``seen`` in int8 (as the pipeline and
+    the decode loop keep them) are passed to the kernel without a copy.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
+    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
+    no fallback.
+    """
+    hidden, logits, tok = torch.ops.qwen3tts.talker_step.default(
+        *talker_step_operands(blocks, cfg, step_embd, n_past, kv, **kw))
+    return StepOut(hidden, logits, tok if kw.get("seen") is not None else None)
+
+
 fused_talker_step.launches = 0
 fused_talker_step.mode_launches = {}
 # launches over the int8 KV cache ("kv_int8")
 fused_talker_step.operand_launches = {}
+library.implement("talker_step", cpu=_talker_step_cpu, cuda=_talker_step_cuda)
 
 
 def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from . import library
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
@@ -80,15 +81,14 @@ def res_block_plan(T: int, C: int, dilation: int):
 RB_MAX_LANES = 65535
 
 
-def fused_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2, *, dilation: int):
-    """x [T, C] or a group of lanes [B, T, C] f32; w1 [7, C, C]; w2 [1, C, C];
-    biases and snake params [C]. Lane b's output is the one-lane call's on
-    x[b], bit for bit.
+def _res_block_cpu(x, w1, b1, a1, be1, w2, b2, a2, be2, dilation):
+    """The res-block op's CPU kernel: the plain version."""
+    return res_block_plain(x, w1, b1, a1, be1, w2, b2, a2, be2, dilation=dilation)
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (C a
-    multiple of 8) or raise; there is no fallback."""
-    if x.device.type == "cpu":
-        return res_block_plain(x, w1, b1, a1, be1, w2, b2, a2, be2, dilation=dilation)
+
+def launch_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2, dilation):
+    """K3's launches for one res block (the res-block op's CUDA kernel),
+    counted once on ``fused_res_block``."""
     lib = _kernels.load_library()
     args = [_kernels.aligned16(t.float()) for t in (w1, b1, a1, be1, w2, b2, a2, be2)]
     _kernels.require_cuda(x, *args)
@@ -112,4 +112,17 @@ def fused_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2, *, dilation: int):
     return out
 
 
+def fused_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2, *, dilation: int):
+    """x [T, C] or a group of lanes [B, T, C] f32; w1 [7, C, C]; w2 [1, C, C];
+    biases and snake params [C]. Lane b's output is the one-lane call's on
+    x[b], bit for bit. Runs the op ``qwen3tts::res_block``
+    (``ops/library.py``).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel (C a
+    multiple of 8) or raise; there is no fallback."""
+    return torch.ops.qwen3tts.res_block.default(x, w1, b1, a1, be1, w2, b2, a2, be2,
+                                                int(dilation))
+
+
 fused_res_block.launches = 0
+library.implement("res_block", cpu=_res_block_cpu, cuda=launch_res_block)

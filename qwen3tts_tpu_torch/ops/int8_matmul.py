@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+from . import library
 
 # the tile plan's constants (csrc/int8_matmul.cu)
 MM_TN = 64                       # output columns per block
@@ -55,14 +56,9 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> 
     return (y * scale.float().reshape(1, -1)).to(x.dtype)
 
 
-def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ (q [K, N] int8 * scale [1, N]) -> [M, N] in x's dtype.
-
-    CPU tensors run the plain version. CUDA tensors launch the kernel (x
-    bf16 or float32; K and N multiples of 64; q 16-byte aligned) or raise;
-    there is no fallback."""
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, scale)
+def launch_int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One cluster launch of the GEMM (the int8_matmul op's CUDA kernel),
+    counted on ``int8_matmul``."""
     lib = _kernels.load_library()
     _kernels.require_cuda(x, q, scale)
     (M, K), N = x.shape, q.shape[1]
@@ -84,4 +80,15 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     return y
 
 
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ (q [K, N] int8 * scale [1, N]) -> [M, N] in x's dtype,
+    through the op ``qwen3tts::int8_matmul`` (``ops/library.py``).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel (x
+    bf16 or float32; K and N multiples of 64; q 16-byte aligned) or raise;
+    there is no fallback."""
+    return torch.ops.qwen3tts.int8_matmul.default(x, q, scale)
+
+
 int8_matmul.launches = 0
+library.implement("int8_matmul", cpu=int8_matmul_plain, cuda=launch_int8_matmul)

@@ -314,40 +314,63 @@ def generate_chunk(talker_params, cp_params, prefill, state: LoopState, *, talke
                 state.done = True
                 break
             state.key, cb0_draw, cp_draw = draws
-            cb0_embd = talker_params.codec_embd[cb0[0]]
-            if fused_cp:
-                rest, rest_sum = fused_predict_codes(
-                    cp_params, ccfg, state.last_hidden.to(dtype), cb0_embd, cp_draw, **samp)
-            else:
-                rest = cp_model.predict_codes(cp_params, ccfg, state.last_hidden.to(dtype),
-                                              cb0_embd, cp_draw, **samp)
-                rest_sum = _rest_embd_sum(cp_params, rest)
-            torch.cat([cb0, rest.to(torch.int64)], out=state.codes[frame])
-            state.hidden_out[frame] = state.last_hidden.to(dtype)
-            if progress_cb is not None:
-                progress_cb(frame + 1)
-            state.seen[cb0] = 1
-            trailing_row = prefill.trailing[min(frame, Trb - 1)]
-            step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
-            if fused_talker:
-                out = fused_talker_step(
-                    talker_params.blocks, tcfg, step_embd, state.n_past, state.kv,
-                    output_norm=talker_params.output_norm,
-                    codec_head=talker_params.codec_head, seen=state.seen, seed=cb0_draw,
-                    repetition_penalty=repetition_penalty, **cb0_kw)
-                state.last_hidden, state.cb0_next = out.hidden.to(dtype), out.cb0
-                # the next frame's keys, while the card runs this one
-                draws = frame_draws(state.key, fused_cp, fused_talker)
-            else:
-                state.last_hidden, logits = talker_model.talker_step(
-                    talker_params, tcfg, step_embd, state.n_past, state.kv)
+            if not fused_talker:
                 # the next frame's cb0 draws with its own split's k_cb0
                 draws = frame_draws(state.key, fused_cp, fused_talker)
-                state.cb0_next = sample_cb0(logits[None], [draws[1]], seen=state.seen[None],
-                                            repetition_penalty=repetition_penalty, **cb0_kw)
+                cb0_draw = [draws[1]]
+            state.hidden_out[frame] = state.last_hidden.to(dtype)
+            _, state.last_hidden, state.cb0_next = frame_step(
+                talker_params, cp_params, tcfg, ccfg, state.last_hidden, cb0, state.kv,
+                state.seen, prefill.trailing[min(frame, Trb - 1)], state.n_past, cb0_draw,
+                cp_draw, fused_talker=fused_talker, fused_cp=fused_cp, samp=samp,
+                cb0_kw=cb0_kw, repetition_penalty=repetition_penalty,
+                codes_out=state.codes[frame])
+            if fused_talker:
+                # the next frame's keys, while the card runs this one
+                draws = frame_draws(state.key, fused_cp, fused_talker)
+            if progress_cb is not None:
+                progress_cb(frame + 1)
             state.frame += 1
             state.n_past += 1
     return state
+
+
+def frame_step(talker_params, cp_params, tcfg, ccfg, last_hidden, cb0, kv, seen,
+               trailing_row, n_past, cb0_draw, cp_draw, *, fused_talker: bool, fused_cp: bool,
+               samp: dict, cb0_kw: dict, repetition_penalty, codes_out=None):
+    """One frame of the single-stream loop after its EOS check: the body of
+    ``generate_chunk``, and the exported ``frame`` program
+    (``tools/export_aot.py``). cb0 [1] int64 is the frame's codebook-0
+    token; the code predictor (K2 with seed cp_draw, or ``predict_codes``
+    with the key cp_draw) gives codes 1..15; seen [Vc] int8 takes cb0; the
+    step embedding codec_embd[cb0] + rest_sum + trailing_row runs the
+    talker step at n_past over kv (in place), and the next frame's cb0 is
+    drawn by K1 with seed cb0_draw (fused talker), else by ``sample_cb0``
+    with the keys cb0_draw [1, 2] (the next frame's k_cb0). The seeds and
+    n_past may be SymInts and the keys int64 tensors (torch.export).
+    Returns (codes [16] int64, written into codes_out when given, the
+    talker's output-normed hidden in the weights' dtype, the next cb0)."""
+    dtype = talker_params.codec_embd.dtype
+    cb0_embd = talker_params.codec_embd[cb0][0]
+    if fused_cp:
+        rest, rest_sum = fused_predict_codes(cp_params, ccfg, last_hidden.to(dtype), cb0_embd,
+                                             cp_draw, **samp)
+    else:
+        rest = cp_model.predict_codes(cp_params, ccfg, last_hidden.to(dtype), cb0_embd,
+                                      cp_draw, **samp)
+        rest_sum = _rest_embd_sum(cp_params, rest)
+    codes = torch.cat([cb0, rest.to(torch.int64)], out=codes_out)
+    seen[cb0] = 1
+    step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
+    if fused_talker:
+        out = fused_talker_step(
+            talker_params.blocks, tcfg, step_embd, n_past, kv,
+            output_norm=talker_params.output_norm, codec_head=talker_params.codec_head,
+            seen=seen, seed=cb0_draw, repetition_penalty=repetition_penalty, **cb0_kw)
+        return codes, out.hidden.to(dtype), out.cb0
+    hidden, logits = talker_model.talker_step(talker_params, tcfg, step_embd, n_past, kv)
+    return codes, hidden, sample_cb0(logits[None], cb0_draw, seen=seen[None],
+                                     repetition_penalty=repetition_penalty, **cb0_kw)
 
 
 def generate_start(talker_params, cp_params, tokens, n_tokens: int, speaker_embd,

@@ -14,6 +14,9 @@ Prints one JSON line:
     (MAIN_REQUESTS[1]), after its greedy 64-token request as a warm-up:
     frames and frames/s over the generate time of each of N runs (default
     8), and their mean;
+  - the int8 64-lane sampled batch of the serve phase
+    (BATCH_REQUESTS[1], synthesize_batch): frames/s over the batch's
+    generate time of each of max(1, N // 4) runs, and their mean;
   - the bf16 tier's sampled 128-token request (TIER_SERVE[None]) on
     Qwen3TTS(), after an 8-token warm-up: the same over max(1, N // 4)
     runs;
@@ -92,6 +95,15 @@ def main() -> int:
     warm, (text, req) = smoke.MAIN_REQUESTS[0], smoke.MAIN_REQUESTS[1]
     tts.synthesize(warm[0], SamplingConfig(**warm[1]))
     out["int8"] = _rates(tts, text, req, runs, SamplingConfig)
+    lanes, req = smoke.BATCH_REQUESTS[1]
+    batch = []
+    for _ in range(max(1, runs // 4)):
+        rs = tts.synthesize_batch(smoke.batch_texts(lanes), SamplingConfig(**req))
+        frames = sum(r.n_frames for r in rs)
+        batch.append(dict(frames=frames, frames_per_s=frames / (
+            rs[0].timings.t_generate_ms * lanes) * 1e3))   # results carry the wall / B
+    out["int8_batch"] = dict(request=req, lanes=lanes, runs=batch, mean_frames_per_s=sum(
+        b["frames_per_s"] for b in batch) / len(batch))
     del tts
     torch.cuda.empty_cache()
 

@@ -55,7 +55,8 @@ PORT_MODULES = [
     "qwen3tts_tpu_torch.tools.selfcheck_fullsize",
     "qwen3tts_tpu_torch.tools.convert_hf_to_gguf",
     "qwen3tts_tpu_torch.tools.inspect_checkpoint",
-    "qwen3tts_tpu_torch.tools.time_gguf_load",
+    "qwen3tts_tpu_torch.tools.time_gguf_load", "qwen3tts_tpu_torch.ops.library",
+    "qwen3tts_tpu_torch.tools.export_aot",
 ]
 # packages the port never imports: the JAX package and JAX, and ml_dtypes
 # and safetensors, which the machine with the card lacks
@@ -234,18 +235,42 @@ def _meta(tree):
     return tree
 
 
+def _op_path(base, wrapper):
+    """The wrapper of a kernel with a qwen3tts op (ops/library.py), as the
+    op's CUDA kernel: the op's operands of the wrapper's arguments, run
+    with the dispatcher's CUDA key (a meta tensor itself takes the op's
+    fake implementation, shape inference). Other wrappers as they are."""
+    from qwen3tts_tpu_torch.ops import library
+    from qwen3tts_tpu_torch.ops.fused_code_predictor import predict_codes_operands
+    from qwen3tts_tpu_torch.ops.fused_talker_step import talker_step_operands
+
+    ops = {"fused_talker_step": ("talker_step", talker_step_operands),
+           "fused_predict_codes": ("predict_codes", predict_codes_operands),
+           "int8_matmul": ("int8_matmul", lambda *a: a),
+           "decode_attention": ("decode_attention", lambda *a: a),
+           "fused_res_block": ("res_block", lambda *a, dilation: (*a, dilation))}
+    if base not in ops:
+        return wrapper
+    name, operands = ops[base]
+    cuda = torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA)
+    return lambda *a, **kw: library.op(name).redispatch(cuda, *operands(*a, **kw))
+
+
 @pytest.mark.parametrize("kernel", sorted(chip_smoke.KERNELS))
 def test_device_request_raises_without_the_library(no_library, kernel):
     """A tensor that is not on the CPU goes to the kernel: with the library
     absent the wrapper raises instead of running its plain version (meta
-    tensors stand in for CUDA ones on a machine without a card)."""
+    tensors stand in for CUDA ones on a machine without a card; the five
+    kernels behind a qwen3tts op are reached through the op's CUDA kernel,
+    ``_op_path``)."""
     mode = chip_smoke.kernel_mode(kernel)
     tts = _tiny_pipeline(chip_smoke.MODE_TIERS.get(mode, "int8"))
     tcfg, ccfg = tts.config.talker, tts.config.code_predictor
     tp, cp = _meta(tts.talker_params), _meta(tts.cp_params)
-    fn = chip_smoke.wrapper(kernel)
-    meta = torch.device("meta")
     base = kernel.partition("[")[0]
+    wrapper = chip_smoke.wrapper(kernel)
+    fn = _op_path(base, wrapper)
+    meta = torch.device("meta")
     def cache(*lead):
         shape = (*lead, tcfg.n_layers, 2, tcfg.n_kv_heads, 32, tcfg.head_dim)
         if kernel not in chip_smoke.KV_INT8_ENTRIES:
@@ -289,7 +314,7 @@ def test_device_request_raises_without_the_library(no_library, kernel):
             fn(torch.zeros((1, 3072), device=meta), torch.zeros(1, dtype=torch.int32,
                                                                 device=meta), 0,
                temperature=0.9, top_p=1.0, top_k=50, greedy=False, use_top_p=False)
-    assert fn.launches == 0 and chip_smoke.read_counts()[kernel] == 0
+    assert wrapper.launches == 0 and chip_smoke.read_counts()[kernel] == 0
 
 
 @pytest.mark.parametrize("lanes", [None, 1, 64], ids=["K2", "K6_B1", "K6_B64"])
