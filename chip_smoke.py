@@ -67,7 +67,21 @@ Phases (each prints a line; any failure exits non-zero):
      codec-head GEMV (check_head_gemv: within 1e-3 of its plain version,
      timed per call beside float32 torch.matmul, in K1's entry as
      "codec_head"), and the split rules include K5's GEMM plan and K1's
-     GEMV plan against their mirrors. Then the 4-bit GEMV probe (int8 and
+     GEMV plan against their mirrors. The float32 tier (check_float32_tier,
+     on RuntimeConfig(dtype="float32") pipelines, float32_pipelines): K1
+     and K5 in the "f32" weight mode (quant=None: float32 blocks, cache and
+     codec head) and in w8a8 over a float32 cache and head (quant="int8",
+     the [kv_f32] entries), 0.0 in the hidden and the K/V rows over 2
+     layers; K2 and K6 over float32 heads and embeddings (codes equal) and
+     decode attention over a float32 cache at B = 16, C = 4352, n_valid =
+     4000 (attention_within), reported as "f32" in their entries; the f32
+     projections alone and the float32 codec head's GEMV. K5 over the
+     lane-major cache (check_talker_step_lane, the [lane] entry) at B = 64,
+     C = 512, n_past = 300 and B = 16, C = 4352, n_past = 4000 over a bf16
+     (int8 tier) and a float32 cache: 0.0 against its plain version over 2
+     layers, and hidden, logits and written rows equal to batch-major K5 bit
+     for bit at full depth on the same cache contents, timed beside it.
+     Then the 4-bit GEMV probe (int8 and
      packed-nibble weights, exact) beside K1's projection kernels at the
      probe's shape. Then the JAX package's random streams (check_prng, a
      `prng` line): the host's keys, splits and bits equal PRNG_GOLDENS; the
@@ -103,7 +117,17 @@ Phases (each prints a line; any failure exits non-zero):
      no K2, K6 or GEMM: its code predictor is the eager predict_codes), q4
      (a request and a 16-lane batch: K1/K5 mixed, K2/K6, K3, the GEMM) and
      q4pure (a request and a 16-lane batch: K1/K5 w4bf16, K2/K6, K3, no
-     GEMM), then one unfused q4 request. Then continuous serving
+     GEMM), then one unfused q4 request. Then the float32 tier
+     (serve_f32, `serve_f32` lines: RuntimeConfig(dtype="float32") with
+     the default flags, quant=None and int8: a request, a 16-lane batch and
+     an unfused request at C = 1280 each, with the launches that show K1/K5
+     in "f32" or over a float32 cache, K2/K6 over float32 heads and decode
+     attention over a float32 cache ran) and the lane-major batched loop
+     (serve_lane, `serve_lane` lines: Qwen3TTS(batched_kv_layout="lane")
+     on the int8 and bf16 tiers, 16 and 64 lanes, greedy and sampled, each
+     beside the batch-major run of the same batch: K5-lane launched, no
+     batch-major K5, no row sampled in K5's epilogue, greedy codes equal
+     lane for lane, frames/s of both). Then continuous serving
      (serve_queues, `serve_queue` lines): the JAX bench's mix (48 requests,
      16 lanes, every request at exactly its budget), synthesize_queue on 128
      sampled texts on 64 lanes beside synthesize_batch in two groups of 64,
@@ -165,7 +189,9 @@ Phases (each prints a line; any failure exits non-zero):
      unfused step, K3; no K1/K2), the golden codes teacher-forced per
      codebook (shares gated at TEACHER_FORCED_FLOORS) and vocoded (max abs
      and RMS error gated at VOCODER_GOLDEN_*), each bar and gate printed as
-     it passes or fails and any failure fatal; and the checkpoint tools
+     it passes or fails and any failure fatal; the same verify_stage bars
+     and compare_e2e gates on the default route (parity_default: the
+     default flags, K1 in "f32", predict_codes); and the checkpoint tools
      (checkpoint_tools, `checkpoint_tools` lines): the converter to q8_0
      (and q4_k_mixed when time allows) with each file's seconds, the
      inspector's audit of each, the load split by stage (parse, tokenizer,
@@ -290,8 +316,9 @@ KERNELS = {
         "tools/exp_w4_gemv.py:87"),
 }
 # the non-w8a8 weight modes of K1 and K5, one entry each; the tier that
-# serves each mode (RuntimeConfig.quant)
-MODE_TIERS = {"bf16": None, "mixed": "q4", "w4bf16": "q4pure"}
+# serves each mode (RuntimeConfig.quant; "f32" is quant=None at
+# RuntimeConfig(dtype="float32"))
+MODE_TIERS = {"bf16": None, "mixed": "q4", "w4bf16": "q4pure", "f32": None}
 for _mode in MODE_TIERS:
     for _k in ("fused_talker_step", "fused_talker_step_batched"):
         KERNELS[f"{_k}[{_mode}]"] = KERNELS[_k]
@@ -304,17 +331,30 @@ OPERAND_ENTRIES = {"fused_talker_step_batched[start]": "start",
 # over the (q, scale) cache, which count in no weight mode's entry
 KV_INT8_ENTRIES = ("fused_talker_step[kv_int8]", "fused_talker_step_batched[kv_int8]")
 OPERAND_ENTRIES.update({name: "kv_int8" for name in KV_INT8_ENTRIES})
+# K1's and K5's launches over a float32 cache (the float32 tier, in any
+# weight mode: they count in their mode's entry too), and K5's over a
+# lane-major cache (Qwen3TTS(batched_kv_layout="lane"); in no mode's entry)
+KV_F32_ENTRIES = ("fused_talker_step[kv_f32]", "fused_talker_step_batched[kv_f32]")
+OPERAND_ENTRIES.update({name: "kv_f32" for name in KV_F32_ENTRIES})
+LANE_ENTRY = "fused_talker_step_batched[lane]"
+OPERAND_ENTRIES[LANE_ENTRY] = "lane"
 for _name in OPERAND_ENTRIES:
     KERNELS[_name] = KERNELS[_name.partition("[")[0]]
 # K1's int8-KV operand is the Pallas HBM kernel's (kv_int8 in :564 and :765)
 KERNELS["fused_talker_step[kv_int8]"] = KERNELS["fused_talker_step"][:3] + (
     "qwen3tts_tpu/ops/pallas_talker_step.py:980",)
+# K5 over the lane-major cache replaces the lane-major Pallas kernel
+# (reached through :1604 with kv_layout="lane")
+KERNELS[LANE_ENTRY] = KERNELS["fused_talker_step_batched"][:3] + (
+    "qwen3tts_tpu/ops/pallas_talker_step.py:1246",)
 # TPU kernels a kernel replaces besides the one KERNELS names
-ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201"}
+ALSO_REPLACES = {"decode_attention": "qwen3tts_tpu/ops/pallas_attention.py:201",
+                 LANE_ENTRY: "qwen3tts_tpu/ops/pallas_talker_step.py:1604"}
 ALSO_REPLACES.update({name: "qwen3tts_tpu/ops/pallas_talker_step.py:980" for name in KERNELS
                       if name.partition("[")[0] == "fused_talker_step"
                       and name not in KV_INT8_ENTRIES})
-# K1 and K5 over a bf16 cache, in every weight mode and with `start`
+# K1 and K5 over a compute-dtype cache (bf16, or float32), in every weight
+# mode, with `start` and lane-major
 BF16_KV_TALKER = tuple(name for name in KERNELS
                        if name.partition("[")[0] in ("fused_talker_step",
                                                      "fused_talker_step_batched")
@@ -571,14 +611,23 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _op_type(t):
+    """The peak-rate type of products with t's elements: "f32" for float32,
+    else "bf16"."""
+    import torch
+
+    return "f32" if t.dtype == torch.float32 else "bf16"
+
+
 def _stack(blocks):
     """(bytes, weight counts by operand type) of a decoder stack as the
     kernels read it: the norms (float32) and each projection's leaves (int8
     q and float32 scales; u4 packed q, float32 scales and offsets; or plain
-    bf16). An int8 weight is an int8 product; a u4 or bf16 weight a bf16
-    one (the Pallas kernels' dots in those modes)."""
+    bf16 or float32). An int8 weight is an int8 product; a u4 or bf16 weight
+    a bf16 one, a float32 weight a float32 one (the Pallas kernels' dots in
+    those modes)."""
     ts = [blocks.attn_norm, blocks.q_norm, blocks.k_norm, blocks.ffn_norm]
-    counts = {"int8": 0, "bf16": 0}
+    counts = {"int8": 0, "bf16": 0, "f32": 0}
     for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
         if hasattr(w, "zero"):        # QuantLinear4: K/2 packed rows
             ts += list(w)
@@ -588,43 +637,48 @@ def _stack(blocks):
             counts["int8"] += w.q.numel()
         else:
             ts.append(w)
-            counts["bf16"] += w.numel()
+            counts[_op_type(w)] += w.numel()
     return _nbytes(*ts), counts
 
 
 def talker_step_bound(tp, tcfg, B, n_past, rows=None, kv_int8=False):
     """One talker step for B lanes at n_past: the stack, output norm and
-    codec head once; each lane's KV rows 0..n_past (bf16; kv_int8: int8
-    values and a float32 scale per row and head), or rows[b] of them (the
-    rows [start_b, n_past] a lane attends with K5's start operand), and its
-    input, outputs, seen-set and seed (with per-lane sampling parameters,
-    12 bytes more). Operations: the projections' products by type, the bf16
-    head, the float32 attention (q.k and p.v) over the rows read."""
+    codec head once; each lane's KV rows 0..n_past (in the compute dtype,
+    bf16 or float32; kv_int8: int8 values and a float32 scale per row and
+    head), or rows[b] of them (the rows [start_b, n_past] a lane attends
+    with K5's start operand), and its input, outputs, seen-set and seed
+    (with per-lane sampling parameters, 12 bytes more). Operations: the
+    projections' products by type, the head's (bf16 or float32), the
+    float32 attention (q.k and p.v) over the rows read."""
     H, Vc, L = tcfg.hidden_size, tcfg.codec_vocab_size, tcfg.n_layers
     sb, n = _stack(tp.blocks)
     D = tcfg.head_dim
-    kv_row = L * 2 * tcfg.n_kv_heads * (D + 4 if kv_int8 else 2 * D)
+    esize = tp.codec_embd.element_size()
+    kv_row = L * 2 * tcfg.n_kv_heads * (D + 4 if kv_int8 else esize * D)
     lane = H * 2 + H * 4 + Vc * 4 + Vc + 8 + (0 if rows is None else 12)
     n_rows = B * (n_past + 1) if rows is None else int(sum(rows))
     nbytes = sb + _nbytes(tp.output_norm, tp.codec_head) + n_rows * kv_row + B * lane
     attn = 4 * L * tcfg.n_heads * n_rows * tcfg.head_dim
-    return bound(nbytes, {"int8": 2 * B * n["int8"], "bf16": 2 * B * (n["bf16"] + H * Vc),
-                          "f32": attn})
+    ops = {k: 2 * B * v for k, v in n.items()}
+    ops[_op_type(tp.codec_head)] += 2 * B * H * Vc
+    ops["f32"] += attn
+    return bound(nbytes, ops)
 
 
 def code_predictor_bound(cp, ccfg, B):
     """One frame-set of the code predictor for B lanes: the stack and the 15
     heads once; each lane's inputs, 15 embedding rows and outputs.
-    Operations: 16 passes of int8 products, 15 bf16 heads, the float32
-    attention over positions 0..p."""
+    Operations: 16 passes of int8 products, 15 heads (bf16 or float32), the
+    float32 attention over positions 0..p."""
     H, V, S, L = ccfg.hidden_size, ccfg.vocab_size, ccfg.n_steps, ccfg.n_layers
     sb, n = _stack(cp.blocks)
-    n8 = n["int8"]
-    nbytes = sb + _nbytes(cp.output_norm, cp.heads) + B * (2 * H * 2 + S * H * 2 + S * 4
+    n8, e = n["int8"], cp.embds.element_size()
+    nbytes = sb + _nbytes(cp.output_norm, cp.heads) + B * (2 * H * e + S * H * e + S * 4
                                                            + H * 4 + 4)
     attn = sum(4 * L * ccfg.n_heads * (p + 1) * ccfg.head_dim for p in range(S + 1))
-    return bound(nbytes, {"int8": 2 * (S + 1) * B * n8, "bf16": 2 * S * B * H * V,
-                          "f32": B * attn})
+    ops = {"int8": 2 * (S + 1) * B * n8, "bf16": 0, "f32": B * attn}
+    ops[_op_type(cp.heads)] += 2 * S * B * H * V
+    return bound(nbytes, ops)
 
 
 def make_pipeline(cfg, device, seed=0, quant="int8"):
@@ -1186,13 +1240,14 @@ def check_talker_step(tts, report, iters, key="fused_talker_step",
             bound_ms_n_past_4000=talker_step_bound(tp, tcfg, 1, 4000)[0])
 
 
-def check_code_predictor(tts, report, iters):
+def check_code_predictor(tts, report, iters, key="fused_predict_codes"):
     """K2 at full width, greedy and sampled (temperature 0.9, top-k 50, one
-    seed). Tolerance: the 15 codes equal, and rest_sum within 1e-3 of the
-    plain version's (a sum of 15 bf16 rows in float32). On the card also:
-    one call launches exactly one kernel of the port's library, the
-    persistent kernel (``cp_kernels_per_call``), whose device time and grid
-    are reported."""
+    seed), with tts's heads and embeddings (bf16, or float32 in the float32
+    tier); reported under `key`. Tolerance: the 15 codes equal, and rest_sum
+    within 1e-3 of the plain version's (a sum of 15 embedding rows in
+    float32). On the card also: one call launches exactly one kernel of the
+    port's library, the persistent kernel (``cp_kernels_per_call``), whose
+    device time and grid are reported."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_code_predictor import (
@@ -1202,7 +1257,8 @@ def check_code_predictor(tts, report, iters):
     g = torch.Generator(device="cpu").manual_seed(7)
     th = torch.randn((ccfg.hidden_size,), generator=g).to(device=dev, dtype=tts.dtype)
     cb0 = tts.talker_params.codec_embd[123]
-    grid = cp_grid(ccfg, None, dev)
+    f32 = cp.embds.dtype == torch.float32
+    grid = cp_grid(ccfg, None, dev, f32)
     err = 0.0
     for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
                dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
@@ -1210,19 +1266,19 @@ def check_code_predictor(tts, report, iters):
         cb, sb = fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw)
         same = bool((ca.long().cpu() == cb.cpu()).all())
         e = _max_err(sa, sb)
-        print(f"kernel fused_predict_codes greedy={kw['greedy']}: codes "
+        print(f"kernel {key} greedy={kw['greedy']}: codes "
               f"{'equal' if same else 'DIFFER'} {ca.tolist()} vs {cb.tolist()}; "
               f"rest_sum err {e:.3e}; grid {grid}")
         if not (same and e <= 1e-3):
-            raise SmokeFailure("fused_predict_codes disagrees with its plain version")
+            raise SmokeFailure(f"{key} disagrees with its plain version")
         err = max(err, e)
     run = lambda: fused_predict_codes(cp, ccfg, th, cb0, 991, **kw)  # noqa: E731
     bound_ms, bound_by = code_predictor_bound(cp, ccfg, 1)
-    report["fused_predict_codes"] = dict(
+    report[key] = dict(
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, shape="one frame",
         max_abs_err=err, ms=timed(run, dev, iters),
         device_ms=device_ms_per_call(run, 1, (CP_KERNEL,), dev, expect=1),
-        kernels_per_call=cp_kernels_per_call(run, dev, "fused_predict_codes"), grid=grid,
+        kernels_per_call=cp_kernels_per_call(run, dev, key), grid=grid,
         plain_ms=timed(lambda: fused_predict_codes_plain(cp, ccfg, th, cb0, 991, **kw),
                        dev, iters),
         tolerance="codes equal; rest_sum 1e-3 abs")
@@ -1234,14 +1290,15 @@ def check_code_predictor(tts, report, iters):
 CP_KERNEL = "cp_persistent_kernel"
 
 
-def cp_grid(ccfg, B, device):
-    """The persistent kernel's grid for K2 (B None) or K6 at B lanes
+def cp_grid(ccfg, B, device, f32=False):
+    """The persistent kernel's grid for K2 (B None) or K6 at B lanes, with
+    bf16 or float32 (f32) heads and embeddings
     (fused_code_predictor.kernel_grid); None off the card."""
     if device.type != "cuda":
         return None
     from qwen3tts_tpu_torch.ops.fused_code_predictor import kernel_grid
 
-    return kernel_grid(ccfg, B)
+    return kernel_grid(ccfg, B, f32)
 
 
 def cp_kernels_per_call(fn, device, what, tries=3):
@@ -1384,12 +1441,14 @@ def check_talker_step_batched(tts, report, iters, shapes=((16, 512, (10, 300)),
                    f"cb0 equal; all layers cosine 0.99"))
 
 
-def check_code_predictor_batched(tts, report, iters, B=64):
+def check_code_predictor_batched(tts, report, iters, B=64, key="fused_predict_codes_batched"):
     """K6 at full width for B lanes with B distinct seeds, greedy and
-    sampled (temperature 0.9, top-k 50). Gate: every lane's 15 codes equal
-    the plain version's, rest_sum within 1e-3. Reported, not gated: how
-    many lanes equal K2 run single-stream with the lane's seed (K6 keeps its
-    K/V rows in bf16 as the Pallas kernel does, K2 in float32)."""
+    sampled (temperature 0.9, top-k 50), with tts's heads and embeddings
+    (bf16, or float32 with a float32 K/V scratch); reported under `key`.
+    Gate: every lane's 15 codes equal the plain version's, rest_sum within
+    1e-3. Reported, not gated: how many lanes equal K2 run single-stream
+    with the lane's seed (K6 keeps its K/V rows in the embedding dtype as
+    the Pallas kernel does, K2 in float32)."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_code_predictor import fused_predict_codes
@@ -1401,7 +1460,8 @@ def check_code_predictor_batched(tts, report, iters, B=64):
     th = torch.randn((B, ccfg.hidden_size), generator=g).to(device=dev, dtype=tts.dtype)
     cb0 = tts.talker_params.codec_embd[torch.arange(B, device=dev) * 29 + 5]
     seeds = torch.arange(B, dtype=torch.int32, device=dev) * 104729 - 3000
-    grids = {n: cp_grid(ccfg, n, dev) for n in (B, 20, 16, 5) if n <= B}
+    f32 = cp.embds.dtype == torch.float32
+    grids = {n: cp_grid(ccfg, n, dev, f32) for n in (B, 20, 16, 5) if n <= B}
     err = 0.0
     for kw in (dict(temperature=0.0, top_k=50, greedy=True, use_top_p=False),
                dict(temperature=0.9, top_k=50, greedy=False, use_top_p=False)):
@@ -1411,31 +1471,31 @@ def check_code_predictor_batched(tts, report, iters, B=64):
         single = sum(int(bool((fused_predict_codes(cp, ccfg, th[b], cb0[b], int(seeds[b]),
                                                    **kw)[0] == ca[b]).all())) for b in range(B))
         e = _max_err(sa, sb)
-        print(f"kernel fused_predict_codes_batched B={B} greedy={kw['greedy']}: codes equal "
+        print(f"kernel {key} B={B} greedy={kw['greedy']}: codes equal "
               f"in {lanes_equal}/{B} lanes; rest_sum err {e:.3e}; lanes equal to K2 "
               f"single-stream {single}/{B} (information); grid {grids[B]}")
         if not (lanes_equal == B and e <= 1e-3):
-            raise SmokeFailure("fused_predict_codes_batched disagrees with its plain version")
+            raise SmokeFailure(f"{key} disagrees with its plain version")
         err = max(err, e)
         # fewer lanes reach the other lanes-per-thread instantiations of the
         # batched GEMMs; lanes are independent, so the plain lanes still hold
         for n in (n for n in (5, 20) if n < B):
             cn, sn = fused_predict_codes_batched(cp, ccfg, th[:n], cb0[:n], seeds[:n], **kw)
             en = _max_err(sn, sb[:n])
-            print(f"kernel fused_predict_codes_batched B={n} greedy={kw['greedy']}: codes "
+            print(f"kernel {key} B={n} greedy={kw['greedy']}: codes "
                   f"equal {bool((cn.long() == cb[:n].long()).all())}; rest_sum err {en:.3e}; "
                   f"grid {grids[n]}")
             if not (bool((cn.long() == cb[:n].long()).all()) and en <= 1e-3):
-                raise SmokeFailure(f"fused_predict_codes_batched disagrees at B={n}")
+                raise SmokeFailure(f"{key} disagrees at B={n}")
             err = max(err, en)
     bound_ms, bound_by = code_predictor_bound(cp, ccfg, B)
     run = lambda: fused_predict_codes_batched(cp, ccfg, th, cb0, seeds, **kw)  # noqa: E731
     run16 = lambda: fused_predict_codes_batched(  # noqa: E731
         cp, ccfg, th[:16], cb0[:16], seeds[:16], **kw)
-    report["fused_predict_codes_batched"] = dict(
+    report[key] = dict(
         max_abs_err=err, ms=timed(run, dev, iters),
         device_ms=device_ms_per_call(run, 1, (CP_KERNEL,), dev, expect=1),
-        kernels_per_call=cp_kernels_per_call(run, dev, "fused_predict_codes_batched"),
+        kernels_per_call=cp_kernels_per_call(run, dev, key),
         grid=grids[B],
         plain_ms=timed(lambda: fused_predict_codes_batched_plain(cp, ccfg, th, cb0, seeds,
                                                                  **kw), dev, iters),
@@ -2023,9 +2083,11 @@ def split_rules(device):
         for n in (1, 2, 63, 64, 65, 300, 1000, 4000, 4352, 16000):
             for Hkv, G in ((8, 2), (2, 8)):
                 c_dec = lib.qtts_decode_attention_splits(B, Hkv, n)
-                c_tlk = [lib.qtts_talker_attention_clusters(B, Hkv, G, n, q8) for q8 in (0, 1)]
-                if (c_dec != decode_attention_split(B, Hkv, n)[0]
-                        or c_tlk != [attention_clusters(B, Hkv, G, n, q8) for q8 in (0, 1)]):
+                # bf16, int8 and float32 caches (kv_kind 0, 1, 2)
+                c_tlk = [lib.qtts_talker_attention_clusters(B, Hkv, G, n, k) for k in (0, 1, 2)]
+                mirror = [attention_clusters(B, Hkv, G, n, k == 1, kv_f32=k == 2)
+                          for k in (0, 1, 2)]
+                if c_dec != decode_attention_split(B, Hkv, n)[0] or c_tlk != mirror:
                     raise SmokeFailure(f"a split rule and its mirror differ at B={B} n={n} "
                                        f"Hkv={Hkv}")
                 cases += 3
@@ -2035,13 +2097,13 @@ def split_rules(device):
     import ctypes
 
     from qwen3tts_tpu_torch.ops.fused_talker_step import gemm_plan, gemv_plan
-    from qwen3tts_tpu_torch.ops.w4_gemv_probe import HARNESS_CODES, project_ws_bytes
+    from qwen3tts_tpu_torch.ops.w4_gemv_probe import HARNESS_CODES, HEAD_MODES, project_ws_bytes
 
     out = (ctypes.c_int * 3)()
     for mode, code in HARNESS_CODES.items():
         for K, N in GEMV_PLAN_SHAPES:
             plans = [("K1's GEMV", lib.qtts_gemv_plan, gemv_plan)]
-            if mode != "head":
+            if mode not in HEAD_MODES:
                 plans.append(("K5's GEMM", lib.qtts_gemm_plan, gemm_plan))
             for what, c_plan, mirror in plans:
                 c_plan(code, K, N, ctypes.addressof(out))
@@ -2049,7 +2111,7 @@ def split_rules(device):
                     raise SmokeFailure(f"{what} plan and its mirror differ in {mode} at K={K} "
                                        f"N={N}: {tuple(out)} != {mirror(mode, K, N)}")
                 cases += 1
-            for B in range(1, 129) if mode != "head" else (1,):
+            for B in range(1, 129) if mode not in HEAD_MODES else (1,):
                 if lib.qtts_project_ws_bytes(code, B, K, N) != project_ws_bytes(mode, B, K, N):
                     raise SmokeFailure(f"the projection workspace and its mirror differ in "
                                        f"{mode} at B={B} K={K} N={N}")
@@ -2084,10 +2146,13 @@ def split_rules(device):
 def check_decode_attention(tts, report, iters, L=None,
                            shapes=((1, 1280, (1, 300, 1000)), (16, 1280, (1, 300, 1000)),
                                    (1, 4352, (1, 300, 1000, 4000)),
-                                   (16, 4352, (1, 300, 1000, 4000)))):
+                                   (16, 4352, (1, 300, 1000, 4000))),
+                           key="decode_attention", head=(1, 1280, 300)):
     """The decode-attention kernel against its plain version at the talker's
-    heads and head_dim on a random bf16 cache of L layers (default: all),
-    for each (B, C, n_valid) of `shapes`, at the last layer. Tolerance: each
+    heads and head_dim on a random cache of L layers (default: all) in tts's
+    dtype (bf16, or float32 in the float32 tier), for each (B, C, n_valid)
+    of `shapes`, at the last layer; reported under `key` at the shape
+    `head` (the split rules with the bf16 entry only). Tolerance: each
     element within one bf16 ulp of the plain version, plus 1e-6 for outputs
     near 0 (both sum in float32, in other orders). Timed per call cycling
     over the layers, as the unfused step calls it (ms and device_ms as in
@@ -2115,39 +2180,39 @@ def check_decode_attention(tts, report, iters, L=None,
             b = decode_attention_kernel_plain(q, kv, L - 1, n)
             e = _max_err(a, b)
             ok = attention_within(a, b)
-            print(f"kernel decode_attention B={B} C={C} n_valid={n}: err {e:.3e} "
+            print(f"kernel {key} B={B} C={C} n_valid={n}: err {e:.3e} "
                   f"({'within' if ok else 'OUTSIDE'} one bf16 ulp)")
             if not ok:
-                raise SmokeFailure(f"decode_attention disagrees at B={B}, C={C}, n_valid={n}")
+                raise SmokeFailure(f"{key} disagrees at B={B}, C={C}, n_valid={n}")
             worst = max(worst, e)
             run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
             t = times[f"B={B} C={C} n_valid={n}"] = dict(
                 ms=timed(run, dev, iters) / L,
                 device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
                 launches_per_call=one_launch(run, L, dev, f"B={B} C={C} n_valid={n}"),
-                bound_ms=attention_bound(B, Hq, Hkv, D, n)[0])
+                bound_ms=attention_bound(B, Hq, Hkv, D, n, kv.element_size())[0])
             if (B, C, n) in LIBRARY_ATTENTION_SHAPES:
                 lib = _layer_cycle(_sdpa_layers(q, kv, n), L)
                 t.update(library_ms=timed(lib, dev, iters) / L,
                          library_device_ms=device_ms_per_call(lib, L, ("",), dev))
         del kv
-    B, C, n = 1, 1280, 300
+    B, C, n = head
     kv = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev, dtype=tts.dtype)
     q = torch.randn((B, Hq, D), generator=g, device=dev).to(tts.dtype)
-    bound_ms, bound_by = attention_bound(B, Hq, Hkv, D, n)
+    bound_ms, bound_by = attention_bound(B, Hq, Hkv, D, n, kv.element_size())
     run = _layer_cycle(lambda l: decode_attention_kernel(q, kv, l, n), L)
     library = _layer_cycle(_sdpa_layers(q, kv, n), L)
-    report["decode_attention"] = dict(
+    report[key] = dict(
         max_abs_err=worst, ms=timed(run, dev, iters) / L,
         device_ms=device_ms_per_call(run, L, ("decode_attn_",), dev),
         launches_per_call=one_launch(run, L, dev, f"B={B} C={C} n_valid={n}"),
-        splits=split_rules(dev),
+        splits=split_rules(dev) if key == "decode_attention" else None,
         plain_ms=timed(_layer_cycle(lambda l: decode_attention_kernel_plain(q, kv, l, n), L),
                        dev, iters) / L,
         library_ms=timed(library, dev, iters) / L,
         library_device_ms=device_ms_per_call(library, L, ("",), dev),
-        bound_ms=bound_ms, bound_by=bound_by, times=times,
-        shape=f"B={B} C={C} n_valid={n} (the unfused 600-token request), per layer",
+        bound_ms=bound_ms, bound_by=bound_by, times=times, cache_dtype=str(tts.dtype),
+        shape=f"B={B} C={C} n_valid={n}, per layer",
         tolerance="one bf16 ulp + 1e-6 abs")
 
 
@@ -2238,6 +2303,13 @@ K5_KEYS = {"w8a8": "fused_talker_step_batched", "bf16": "fused_talker_step_batch
            "w4bf16": "fused_talker_step_batched[w4bf16]"}
 
 
+def _proj_key(mode, B):
+    """The report entry of a projection pass: K1's (B = 1) or K5's entry of
+    the mode (K1_KEYS, K5_KEYS; "f32": the float32 tier's)."""
+    keys = K1_KEYS if B == 1 else K5_KEYS
+    return keys.get(mode) or f"{keys['w8a8']}[{mode}]"
+
+
 def talker_projections(tcfg):
     H, hd, F = tcfg.hidden_size, tcfg.n_heads * tcfg.head_dim, tcfg.intermediate_size
     qkv = (tcfg.n_heads + 2 * tcfg.n_kv_heads) * tcfg.head_dim
@@ -2246,9 +2318,10 @@ def talker_projections(tcfg):
 
 def projection_weights(mode, L, K, N, device, seed):
     """L random layers [L, K, N] of one projection in `mode` (seeded): an
-    int8 QuantLinear, a bf16 tensor or a u4 QuantLinear4, and their values
-    as the kernels multiply them, in float64 (int8 values; bf16 values;
-    dequantized u4 rounded to bf16), for the library's product."""
+    int8 QuantLinear, a bf16 or float32 (f32) tensor or a u4 QuantLinear4,
+    and their values as the kernels multiply them, in float64 (int8 values;
+    bf16 or float32 values; dequantized u4 rounded to bf16), for the
+    library's product."""
     import torch
 
     from qwen3tts_tpu_torch.ops.quant import dequantize4, quantize_per_channel, quantize_w4
@@ -2258,8 +2331,8 @@ def projection_weights(mode, L, K, N, device, seed):
     if mode == "w8a8":
         w = quantize_per_channel(wf)
         return w, None
-    if mode == "bf16":
-        w = wf.to(torch.bfloat16)
+    if mode in ("bf16", "f32"):
+        w = wf.to(torch.bfloat16) if mode == "bf16" else wf
         return w, w.double()
     w = quantize_w4(wf)
     return w, dequantize4(w).to(torch.bfloat16).double()
@@ -2274,8 +2347,8 @@ def projection_bound(w, mode, L, B, K, N):
     """(bound_ms, bound_by, f64_floor_ms) of one pass of L layers of x [B, K]
     @ W_l [K, N]. The bound: the weights (every leaf), x and the L float32
     or int32 results [B, N] once each; 2 B K N operations a layer at the
-    peak of the operands' type, int8 or bf16 (as _stack counts K5's
-    products). f64_floor_ms (float modes; None for w8a8) is a floor of the
+    peak of the operands' type, int8, bf16 or float32 (as _stack counts
+    K5's products). f64_floor_ms (float modes; None for w8a8) is a floor of the
     port's design, not of the function: the same bytes, and the operations
     at the float64 tensor cores' peak, where the kernels sum to keep the
     plain versions' bits."""
@@ -2284,7 +2357,8 @@ def projection_bound(w, mode, L, B, K, N):
     ops = 2 * L * B * K * N
     if mode == "w8a8":
         return (*bound(nbytes, {"int8": ops}), None)
-    return (*bound(nbytes, {"bf16": ops}), bound(nbytes, {"f64": ops})[0])
+    kind = "f32" if mode == "f32" else "bf16"
+    return (*bound(nbytes, {kind: ops}), bound(nbytes, {"f64": ops})[0])
 
 
 def _library_ms(lib, device, iters):
@@ -2372,6 +2446,8 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                 if mode == "w8a8":
                     x = torch.randint(-127, 128, (B, K), generator=g, device=device,
                                       dtype=torch.int8)
+                elif mode == "f32":   # any float32, as the row kernels emit it in f32
+                    x = torch.randn((B, K), generator=g, device=device)
                 else:   # bf16 values, as the row kernels emit them
                     x = torch.randn((B, K), generator=g, device=device).to(
                         torch.bfloat16).float()
@@ -2432,34 +2508,34 @@ def check_projections(tcfg, report, device, iters, modes=("w8a8", "bf16", "w4bf1
                   f"{t['ms']:.4f} ms (device {t['device_ms']}, {t['gb_per_s']} GB/s), bound "
                   f"{t['bound_ms']:.4f} ms (float64 floor {t['f64_floor_ms']}), library "
                   f"{t['library_ms']} ms (device {t['library_device_ms']})")
-            key = K1_KEYS[mode] if B == 1 else K5_KEYS[mode]
-            entry = report.setdefault(key, {}).setdefault("projections", dict(
+            entry = report.setdefault(_proj_key(mode, B), {}).setdefault("projections", dict(
                 layers=L, times={},
                 library=("torch._int_mm (int32; it refuses 16 rows or fewer, so at B <= 16 "
                          "x padded with zero rows to 17)" if mode == "w8a8" else
                          "float64 torch.matmul over the multiplied values"),
                 tolerance="exact: int32 equal (w8a8), float32 bits equal (float modes)"))
             entry["times"][f"B={B}"] = t
-        for keys, picked in ((K1_KEYS, [B for B in check_lanes if B == 1]),
-                             (K5_KEYS, [B for B in check_lanes if B > 1])):
+        for picked in ([B for B in check_lanes if B == 1], [B for B in check_lanes if B > 1]):
             if picked:
-                report.setdefault(keys[mode], {}).setdefault("projections", dict(
-                    layers=L, times={}))["checked_lanes"] = picked
+                report.setdefault(_proj_key(mode, picked[0]), {}).setdefault(
+                    "projections", dict(layers=L, times={}))["checked_lanes"] = picked
     print(f"projection phase: {time.perf_counter() - t0:.1f} s")
 
 
-def check_head_gemv(tcfg, report, device, iters, L=None):
+def check_head_gemv(tcfg, report, device, iters, L=None, mode="head",
+                    key="fused_talker_step"):
     """K1's codec-head GEMV alone (project_layers mode "head", B = 1: x [1,
     H] float32 @ bf16 [H, Vc] into float32 split partials, which
-    head_sample_kernel adds in order) on L seeded random heads (default:
-    the talker's layer count, so that each call finds its weights cold, as
-    K1 does): the last one against the plain version (x rounded to bf16 @ W
-    in float32) within 1e-3 (both sum in float32, in other orders); the
-    L-call pass timed by events and the profiler (union of intervals), per
-    call, with its weight GB/s, its bound (weights, x and the float32
-    logits once) and the library call: float32 torch.matmul over the bf16
-    values converted in advance (TF32 off). Reported under K1's w8a8 entry
-    as "codec_head" (the head is bf16 in every mode)."""
+    head_sample_kernel adds in order; mode "head_f32": a float32 head, the
+    float32 tier's) on L seeded random heads (default: the talker's layer
+    count, so that each call finds its weights cold, as K1 does): the last
+    one against the plain version (x rounded to W's dtype @ W in float32)
+    within 1e-3 (both sum in float32, in other orders); the L-call pass
+    timed by events and the profiler (union of intervals), per call, with
+    its weight GB/s, its bound (weights, x and the float32 logits once) and
+    the library call: float32 torch.matmul over the values converted in
+    advance (TF32 off). Reported under `key` as "codec_head" (K1's w8a8
+    entry: the bf16 head of every bf16-compute mode)."""
     import torch
 
     from qwen3tts_tpu_torch.ops import w4_gemv_probe as probe
@@ -2468,41 +2544,44 @@ def check_head_gemv(tcfg, report, device, iters, L=None):
     L = L or tcfg.n_layers
     K, N = tcfg.hidden_size, tcfg.codec_vocab_size
     g = torch.Generator(device=device).manual_seed(37)
-    w = torch.randn((L, K, N), generator=g, device=device).div_(K ** 0.5).to(torch.bfloat16)
+    w = torch.randn((L, K, N), generator=g, device=device).div_(K ** 0.5)
+    w = w if mode == "head_f32" else w.to(torch.bfloat16)
     x = torch.randn((1, K), generator=g, device=device)
-    ws = torch.zeros(probe.project_ws_bytes("head", 1, K, N), dtype=torch.uint8, device=device)
-    a = probe.project_result(probe.project_layers(x, w[L - 1:], "head", ws), "head", 1, K, N)
-    b = probe.project_layer_plain(x, w, "head", L - 1)
+    ws = torch.zeros(probe.project_ws_bytes(mode, 1, K, N), dtype=torch.uint8, device=device)
+    a = probe.project_result(probe.project_layers(x, w[L - 1:], mode, ws), mode, 1, K, N)
+    b = probe.project_layer_plain(x, w, mode, L - 1)
     err = _max_err(a, b)
-    print(f"kernel K1 codec head GEMV K={K} N={N}: max abs err {err:.3e} (tolerance 1e-3)")
+    print(f"kernel K1 codec head GEMV ({mode}) K={K} N={N}: max abs err {err:.3e} "
+          f"(tolerance 1e-3)")
     if not err <= 1e-3:
         raise SmokeFailure(f"K1's codec-head GEMV differs from its plain version by {err}")
-    run = lambda: probe.project_layers(x, w, "head", ws)  # noqa: E731
+    run = lambda: probe.project_layers(x, w, mode, ws)  # noqa: E731
     dms = _pass_device_ms(run, [L], device)
-    wf, xb = w.float(), x.to(torch.bfloat16).float()
+    wf, xb = w.float(), x.to(w.dtype).float()
     lib = _layer_cycle(lambda l: torch.matmul(xb, wf[l]), L)
     lib_ms, lib_device_ms = _library_ms(lib, device, iters)
-    wb = K * N * 2
-    bound_ms, bound_by = bound(wb + K * 4 + N * 4, {"bf16": 2 * K * N})
+    wb = K * N * w.element_size()
+    bound_ms, bound_by = bound(wb + K * 4 + N * 4, {_op_type(w): 2 * K * N})
     t = dict(ms=timed(run, device, iters) / L, device_ms=None if dms is None else dms[0] / L,
              weight_bytes=wb, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
              library_ms=None if lib_ms is None else lib_ms / L,
              library_device_ms=None if lib_device_ms is None else lib_device_ms / L,
-             library="float32 torch.matmul over the bf16 values (TF32 off)",
+             library=f"float32 torch.matmul over the {w.dtype} values (TF32 off)",
              shape=f"K={K} N={N}, per call over {L} heads", tolerance="1e-3 abs")
     t["gb_per_s"] = None if t["device_ms"] is None else wb / (t["device_ms"] * 1e-3) / 1e9
-    print(f"time K1 codec head GEMV: {t['ms']:.4f} ms (device {t['device_ms']}, "
+    print(f"time K1 codec head GEMV ({mode}): {t['ms']:.4f} ms (device {t['device_ms']}, "
           f"{t['gb_per_s']} GB/s), bound {bound_ms:.5f} ms, library {t['library_ms']} ms "
           f"(device {t['library_device_ms']})")
-    report.setdefault("fused_talker_step", {})["codec_head"] = t
+    report.setdefault(key, {})["codec_head"] = t
     del w, wf
 
 
-def attention_bound(B, Hq, Hkv, D, n):
-    """One layer's decode attention: each lane's n K and V rows (bf16), its
-    query and output; 4 float32 operations per query head, row and column
-    (q.k and p.V)."""
-    return bound(B * (2 * n * Hkv * D * 2 + 2 * Hq * D * 2), {"f32": 4 * B * Hq * n * D})
+def attention_bound(B, Hq, Hkv, D, n, esize=2):
+    """One layer's decode attention: each lane's n K and V rows (esize bytes
+    an element: bf16 2, float32 4), its query and output; 4 float32
+    operations per query head, row and column (q.k and p.V)."""
+    return bound(B * (2 * n * Hkv * D * esize + 2 * Hq * D * esize),
+                 {"f32": 4 * B * Hq * n * D})
 
 
 # K3's kernel (csrc/res_block.cu), by its bare name's prefix
@@ -2873,11 +2952,14 @@ def default_pipeline(seed=0):
     return tts
 
 
-def unfused_pipeline(tts):
-    """A Qwen3TTS on tts's weights with both fused kernels off."""
+def unfused_pipeline(tts, kv_margin=None):
+    """A Qwen3TTS on tts's weights with both fused kernels off (and, when
+    given, RuntimeConfig.kv_margin = kv_margin)."""
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 
-    u = Qwen3TTS(tts.config, device=tts.device, fused_talker=False, fused_cp=False)
+    cfg = tts.config if kv_margin is None else dataclasses.replace(
+        tts.config, runtime=dataclasses.replace(tts.config.runtime, kv_margin=kv_margin))
+    u = Qwen3TTS(cfg, device=tts.device, fused_talker=False, fused_cp=False)
     u.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params, tts.tokenizer)
     return u
 
@@ -3934,7 +4016,8 @@ def parity_fullsize(cfg, device, smi, root, goldens_dir=GOLDENS_FULLSIZE,
     compare_e2e fails, a teacher-forced share falls below tf_floors, or
     the vocoder's error on the golden codes passes max_abs or rms; at
     once when a run launches a fused talker or code-predictor kernel or no
-    K3. Returns the counts of the runs."""
+    K3. Returns the counts of the runs (parity_default runs the same bars
+    on the default route)."""
     from qwen3tts_tpu_torch.config import RuntimeConfig
     from qwen3tts_tpu_torch.pipeline import Qwen3TTS
     from qwen3tts_tpu_torch.tools import compare_e2e, goldens, hf_fixture, verify_stage
@@ -4002,6 +4085,69 @@ def parity_fullsize(cfg, device, smi, root, goldens_dir=GOLDENS_FULLSIZE,
     tts.unload_models()
     if failed:
         raise SmokeFailure(f"parity at full width failed: {failed}")
+    return runs
+
+
+def parity_default(cfg, device, smi, root, goldens_dir=GOLDENS_FULLSIZE):
+    """The default route against the same goldens and bars as
+    parity_fullsize: Qwen3TTS at RuntimeConfig(dtype="float32") with the
+    default flags on the parity fixture (K1 in "f32" over a float32 cache
+    and head; predict_codes, since the float32 tier's code-predictor blocks
+    are not int8), verify_stage's bars and compare_e2e's gates. Prints
+    parity_fullsize lines (route_name "default"); raises SmokeFailure,
+    after printing them all, when a bar or gate fails, and at once when a
+    run launches no K1 in "f32" (on the card), no K3, or K2, K5, K6 or K1 in
+    another mode or over another cache. Returns the counts of the runs."""
+    from qwen3tts_tpu_torch.config import RuntimeConfig
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+    from qwen3tts_tpu_torch.tools import compare_e2e, goldens, hf_fixture, verify_stage
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(goldens_dir, "PROVENANCE.json")) as f:
+        prov = json.load(f)
+    g = goldens.Goldens(goldens_dir)
+    model = hf_fixture.fixture_for(cfg, root, prov["fixture"]["seed"])
+    tts = Qwen3TTS(dataclasses.replace(cfg, runtime=RuntimeConfig(dtype="float32")), device)
+    if not tts.load_models(model):
+        raise SmokeFailure(f"load_models of the parity fixture: {tts.error_msg}")
+    route = goldens.route(tts)
+    on_card = tts.device.type == "cuda"
+    own = ("fused_talker_step[f32]", "fused_talker_step[kv_f32]")
+
+    def line(what, **kw):
+        print("parity_fullsize " + json.dumps(dict(what=what, route_name="default", **kw,
+                                                   card=smi)))
+
+    def launches(what, counts):
+        wrong = [k for k in FUSED_ONLY if counts[k] > 0 and k not in own]
+        if wrong or (on_card and (counts[own[0]] <= 0 or counts["fused_res_block"] <= 0)):
+            raise SmokeFailure(f"parity default route {what}: launched {wrong}, K1[f32] "
+                               f"{counts[own[0]]} and K3 {counts['fused_res_block']} times")
+        return {k: v for k, v in counts.items() if v}
+
+    runs = []
+    reset_counts()
+    t0 = time.perf_counter()
+    bars = verify_stage.verify(tts, g)
+    wall = time.perf_counter() - t0
+    runs.append(read_counts())
+    used = launches("verify_stage", runs[-1])
+    for b in bars:
+        line("verify_stage", **b)
+    line("route", route=route, launches=used, verify_wall_s=wall, t_load_ms=tts.t_load_ms)
+    reset_counts()
+    t0 = time.perf_counter()
+    e2e = compare_e2e.compare(tts, g)
+    runs.append(read_counts())
+    line("compare_e2e", **e2e, launches=launches("compare_e2e", runs[-1]),
+         wall_s=time.perf_counter() - t0)
+    failed = [b["stage"] for b in bars if not b["ok"]] + ([] if e2e["pass"] else ["compare_e2e"])
+    print(f"parity_fullsize default route: {len(bars) + 1 - len(failed)} of {len(bars) + 1} "
+          f"gates pass; FAILED: {failed or 'none'}; {time.perf_counter() - t_phase:.1f} s "
+          f"[{smi}]")
+    tts.unload_models()
+    if failed:
+        raise SmokeFailure(f"parity of the default route failed: {failed}")
     return runs
 
 
@@ -5297,6 +5443,318 @@ def device_top(events, n=8):
     return [[name, ms, k] for name, (ms, k) in top]
 
 
+# --- the float32 tier and the lane-major batched step -------------------------
+
+# K5 over the lane-major cache: (B, C, n_past) of check_talker_step_lane,
+# the first the headline
+LANE_SHAPES = ((64, 512, 300), (16, 4352, 4000))
+
+
+def float32_pipelines(cfg, device, seed=0):
+    """The float32 tier (RuntimeConfig(dtype="float32")) on synthetic
+    weights from `seed`, with the default flags: {None: quant=None (K1/K5 in
+    "f32" over a float32 cache and head, predict_codes), "int8": quant
+    "int8" (K1/K5 in w8a8 over a float32 cache and head, K2/K6 over float32
+    heads and embeddings)}."""
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime, dtype="float32"))
+    return {q: make_pipeline(cfg, device, seed, quant=q) for q in (None, "int8")}
+
+
+def check_float32_tier(pipes, report, iters=3, positions=((512, (10, 300)),
+                                                           (4352, (300, 4000))),
+                       shapes=MODE_BATCH_SHAPES, attention=(16, 4352, 4000)):
+    """The kernels on the float32 tier's operands (float32_pipelines): K1
+    and K5 in "f32" (quant=None: float32 blocks, cache and head) and in
+    w8a8 over a float32 cache and head (quant="int8"), each with
+    check_talker_step's and check_talker_step_batched's gates, exact (0.0
+    over 2 layers); K2 and K6 over float32 heads and embeddings (codes
+    equal), and decode attention over a float32 cache at `attention` (B, C,
+    n_valid; attention_within), each reported under its kernel's entry as
+    "f32"."""
+    check_talker_step(pipes[None], report, iters + 2, key="fused_talker_step[f32]",
+                      positions=positions, exact=True)
+    # every lane-tile instantiation of the f32 GEMM and the float32 head's
+    check_talker_step_batched(pipes[None], report, iters, shapes=shapes,
+                              key="fused_talker_step_batched[f32]", exact=True)
+    # the w8a8 projections are those the bf16-cache checks cover: the largest
+    # cache, and 16 and 64 lanes
+    check_talker_step(pipes["int8"], report, iters + 2, key="fused_talker_step[kv_f32]",
+                      positions=positions[-1:], exact=True)
+    check_talker_step_batched(pipes["int8"], report, iters, shapes=shapes[:2],
+                              key="fused_talker_step_batched[kv_f32]", exact=True)
+    for name, check, tier, kw in (
+            ("fused_predict_codes", check_code_predictor, "int8", {}),
+            ("fused_predict_codes_batched", check_code_predictor_batched, "int8", {}),
+            ("decode_attention", check_decode_attention, None,
+             dict(shapes=((attention[0], attention[1], (attention[2],)),),
+                  head=attention))):
+        sub = {}
+        check(pipes[tier], sub, iters, key=f"{name}[f32]", **kw)
+        report.setdefault(name, {})["f32"] = sub[f"{name}[f32]"]
+
+
+LANE_LOGITS_WITHIN = 1e-5
+
+
+def check_talker_step_lane(pipes, report, iters, shapes=LANE_SHAPES, key=LANE_ENTRY):
+    """K5 over the lane-major cache [L, 2, Hkv, C, B, D]
+    (fused_talker_step_batched(kv_layout="lane")) on each pipeline of `pipes`
+    (label -> Qwen3TTS; its compute dtype is the cache's: bf16 or float32),
+    at each (B, C, n_past) of `shapes`, from identical inputs; reported under
+    `key` (the first pipeline's first shape is the headline). Gates: (1) the
+    first 2 layers at full width against the plain version: hidden and the
+    whole cache after the step 0.0, logits within LANE_LOGITS_WITHIN (the
+    head sums in float32 in two orders: at most 2.4e-6 on the card over
+    bf16 and float32 caches, so 1e-5 still fails a wrong head); (2) all layers against batch-major K5 on the
+    same cache contents: hidden, logits and the written rows bit for bit
+    (the two layouts run the same arithmetic). Each shape timed by events
+    and device time (talker_call_stats) beside batch-major K5 at the same
+    shape, with its bound (bytes: the cache rows read are the same in both
+    layouts)."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import (
+        fused_talker_step_batched, fused_talker_step_batched_plain, lane_major_view,
+        to_lane_major)
+
+    times, errs, head, plain_ms = {}, [], None, None
+    for label, tts in pipes.items():
+        tp, tcfg, dev = tts.talker_params, tts.config.talker, tts.device
+        L, Hkv, D = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim
+        heads = dict(output_norm=tp.output_norm, codec_head=tp.codec_head)
+        short_blocks, short_cfg = _truncated(tts, min(2, L))
+        g = torch.Generator(device=dev).manual_seed(41)
+        for B, C, n_past in shapes:
+            x = torch.randn((B, tcfg.hidden_size), generator=g, device=dev).to(tts.dtype)
+            kvb = torch.randn((B, L, 2, Hkv, C, D), generator=g, device=dev,
+                              dtype=tts.dtype) * 0.5
+            kva = to_lane_major(kvb[:, :short_cfg.n_layers])
+            kvp = kva.clone()
+            a = fused_talker_step_batched(short_blocks, short_cfg, x, n_past, kva,
+                                          kv_layout="lane", **heads)
+            b = fused_talker_step_batched_plain(short_blocks, short_cfg, x, n_past, kvp, "lane",
+                                                **heads)
+            eh, el, ekv = _max_err(a.hidden, b.hidden), _max_err(a.logits, b.logits), \
+                _max_err(kva, kvp)
+            del kva, kvp
+            kvl = to_lane_major(kvb)
+            lane = fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kvl, kv_layout="lane",
+                                             **heads)
+            batch = fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kvb, **heads)
+            same = (torch.equal(lane.hidden, batch.hidden) and torch.equal(lane.logits,
+                                                                          batch.logits)
+                    and torch.equal(lane_major_view(kvl)[..., n_past, :], kvb[..., n_past, :]))
+            print(f"kernel {key} {label} B={B} C={C} n_past={n_past}: 2 layers hidden err "
+                  f"{eh:.3e}, logits err {el:.3e}, cache err {ekv:.3e}; all layers "
+                  f"{'equal' if same else 'DIFFERENT'} to batch-major K5 bit for bit")
+            if not (eh == 0.0 and ekv == 0.0 and el <= LANE_LOGITS_WITHIN and same):
+                raise SmokeFailure(f"{key} ({label}) disagrees at B={B}, C={C}, n_past={n_past}")
+            errs.append(max(eh, el))
+            run = lambda: fused_talker_step_batched(  # noqa: E731
+                tp.blocks, tcfg, x, n_past, kvl, kv_layout="lane", **heads)
+            run_b = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kvb,  # noqa: E731
+                                                      **heads)
+            t = dict(ms=timed(run, dev, iters), **talker_call_stats(run, dev),
+                     batch_ms=timed(run_b, dev, iters),
+                     **talker_call_stats(run_b, dev, "_batch"),
+                     bound_ms=talker_step_bound(tp, tcfg, B, n_past)[0],
+                     cache_dtype=str(tts.dtype))
+            times[f"{label} B={B} C={C} n_past={n_past}"] = t
+            print(f"time {key} {label} B={B} C={C} n_past={n_past}: lane {t['ms']:.4f} ms "
+                  f"(device {t['device_ms']}), batch-major {t['batch_ms']:.4f} ms (device "
+                  f"{t['device_ms_batch']}), bound {t['bound_ms']:.4f} ms")
+            if head is None:
+                head = (label, B, C, n_past, t, talker_step_bound(tp, tcfg, B, n_past))
+                plain_ms = timed(lambda: fused_talker_step_batched_plain(
+                    tp.blocks, tcfg, x, n_past, kvl, "lane", **heads), dev, iters)
+            del kvl, kvb
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    label, B, C, n_past, t, (bound_ms, bound_by) = head
+    report[key] = dict(
+        ms=t["ms"], device_ms=t["device_ms"], attention_device_ms=t["attention_device_ms"],
+        launches_per_call=t["launches_per_call"], batch_major_ms=t["batch_ms"],
+        batch_major_device_ms=t["device_ms_batch"], plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
+        shape=f"{label} B={B} C={C} n_past={n_past}", times=times,
+        tolerance=(f"2 layers: hidden and cache 0.0, logits {LANE_LOGITS_WITHIN} against the "
+                   "plain version; all layers: hidden, logits and rows equal to batch-major "
+                   "K5 bit for bit"))
+
+
+# The float32 tier's serve lines (serve_f32), per tier (RuntimeConfig.quant
+# at dtype float32): a single-stream request, a 16-lane batch and an
+# unfused request at C = 1280 (a pipeline of the same weights whose
+# kv_margin gives 16 frames (bucket 64) C = 10 + 64 + 1206 = 1280, so the
+# decode-attention kernel runs over a float32 cache), each with the
+# kernels it must launch. The unfused request is a launch check, not a
+# serving figure: its cache holds a few dozen valid rows of 1280 (520
+# frames at the default margin, as serve_unfused runs in bf16, would add
+# about 170 s for the two tiers), so its frames/s says nothing of decode
+# attention at depth. No run may launch another weight mode of K1/K5,
+# K1/K5 over an int8 or lane-major cache, or (quant=None) K2, K6 or the GEMM.
+F32_UNFUSED_MARGIN = 1206
+F32_SERVE = {
+    None: dict(
+        mode="f32", forbidden=("fused_predict_codes", "fused_predict_codes_batched",
+                               "int8_matmul"),
+        request=("The quick brown fox jumps over the lazy dog.",
+                 dict(max_audio_tokens=32, temperature=0.0, seed=1)),
+        batch=(16, dict(max_audio_tokens=32, temperature=0.0, seed=1)),
+        unfused=("An unfused float32 request.",
+                 dict(max_audio_tokens=16, temperature=0.0, seed=1)),
+        single=("fused_talker_step[f32]", "fused_talker_step[kv_f32]", "fused_res_block"),
+        batched=("fused_talker_step_batched[f32]", "fused_talker_step_batched[kv_f32]",
+                 "fused_res_block"),
+        unfused_path=("decode_attention", "fused_res_block")),
+    "int8": dict(
+        mode="w8a8", forbidden=(),
+        request=("The quick brown fox jumps over the lazy dog.",
+                 dict(max_audio_tokens=64, temperature=0.0, seed=1)),
+        batch=(16, dict(max_audio_tokens=64, temperature=0.0, seed=1)),
+        unfused=("An unfused float32 request.",
+                 dict(max_audio_tokens=16, temperature=0.0, seed=1)),
+        single=("fused_talker_step", "fused_talker_step[kv_f32]", "fused_predict_codes",
+                "fused_res_block", "int8_matmul"),
+        batched=("fused_talker_step_batched", "fused_talker_step_batched[kv_f32]",
+                 "fused_predict_codes_batched", "fused_res_block", "int8_matmul"),
+        unfused_path=("int8_matmul", "decode_attention", "fused_res_block")),
+}
+
+
+def _f32_operands():
+    """The float32-operand launch counts of K2, K6 and decode attention
+    (their wrappers' operand_launches["f32"])."""
+    return {name: wrapper(name).operand_launches.get("f32", 0)
+            for name in ("fused_predict_codes", "fused_predict_codes_batched",
+                         "decode_attention")}
+
+
+def serve_f32(pipes, smi, specs=F32_SERVE, min_frames_per_lane=8):
+    """The float32 tier served with the default flags (float32_pipelines),
+    each run's counts set to 0 just before it and checked just after: the
+    spec's kernels launched, no other weight mode of K1/K5 and no K1/K5
+    over an int8 or lane-major cache, and the spec's forbidden kernels
+    idle; where K2, K6 or decode attention run, every launch over float32
+    operands (their f32 counts equal their launches). Prints serve_f32
+    lines (frames/s, launches); returns the counts of every run."""
+    runs = []
+    for q, spec in specs.items():
+        tts = pipes[q]
+        forbidden = tier_forbidden(spec) + (LANE_ENTRY,)
+        if tts.config.runtime.dtype != "float32":
+            raise SmokeFailure(f"serve_f32's {q} pipeline computes in {tts.config.runtime.dtype}")
+        unf = unfused_pipeline(tts, F32_UNFUSED_MARGIN)
+        for what, run, path, forb in (
+                ("request", lambda: serve(tts, [spec["request"]]), spec["single"], forbidden),
+                ("batch", lambda: serve_batches(tts, [spec["batch"]], min_frames_per_lane),
+                 spec["batched"], forbidden),
+                ("unfused request", lambda: serve(unf, [spec["unfused"]]),
+                 spec["unfused_path"], FUSED_ONLY + tuple(spec["forbidden"]))):
+            for k in ("fused_predict_codes", "fused_predict_codes_batched", "decode_attention"):
+                wrapper(k).operand_launches.clear()
+            stats, counts = run()
+            f32 = _f32_operands()
+            runs.append(counts)
+            for st in stats:
+                check_launches(f"float32 tier {q} {what}", st["launches"], path, forb)
+                if what == "unfused request":
+                    C = unf._frame_budget(_sampling(st["request"]))[1]
+                    if C < 1024:
+                        raise SmokeFailure(f"the float32 unfused request's C = {C} is below "
+                                           f"the decode-attention kernel's 1024 rows")
+                    st = dict(st, kv_capacity=C, launch_check=True)
+                wrong = {k: (n, counts[k]) for k, n in f32.items() if n != counts[k]}
+                if wrong:
+                    raise SmokeFailure(f"float32 tier {q} {what}: launches not over float32 "
+                                       f"operands (f32, all): {wrong}")
+                print("serve_f32 " + json.dumps(dict(st, tier=q, what=what,
+                                                     f32_operand_launches=f32, card=smi)))
+        del unf
+    return runs
+
+
+def _sampling(kw):
+    from qwen3tts_tpu_torch import SamplingConfig
+
+    return SamplingConfig(**kw)
+
+
+# The lane-major batched loop's serve lines (serve_lane): per tier, these
+# batches through synthesize_batch with batched_kv_layout="lane" and then
+# batch-major on the same weights, at the tier's frames
+LANE_BATCHES = ((16, dict(temperature=0.0, seed=1)), (64, dict(temperature=0.0, seed=1)),
+                (16, dict(seed=3)), (64, dict(seed=3)))
+LANE_FRAMES = {"int8": 64, "bf16": 8}
+
+
+def serve_lane(pipes, smi, batches=LANE_BATCHES, frames=LANE_FRAMES):
+    """Qwen3TTS(..., batched_kv_layout="lane") on each pipeline of `pipes`
+    (label -> the batch-major Qwen3TTS whose weights and flags it takes):
+    each batch of `batches` at frames[label] frames, lane-major, then
+    batch-major, each run's counts set to 0 just before it. The lane run
+    must launch K5 over the lane-major cache and no K5 over a batch-major
+    one, and K5's epilogue must sample no row (cb0 comes from sample_cb0);
+    greedy lanes must emit the batch-major run's frames and codes, lane for
+    lane; sampled lanes are compared, not gated (the glue's exact top-k and
+    the in-kernel sampler draw differently, as in the JAX package). Prints
+    serve_lane lines with both runs' frames/s; returns the lane runs'
+    counts."""
+    from qwen3tts_tpu_torch.pipeline import Qwen3TTS
+
+    runs = []
+    for label, tts in pipes.items():
+        lane = Qwen3TTS(tts.config, device=tts.device, batched_kv_layout="lane", **tts.fused)
+        lane.set_params(tts.talker_params, tts.cp_params, tts.vocoder_params, tts.tokenizer)
+        mode = kernel_mode_of(tts)
+        batch_major = "fused_talker_step_batched" + ("" if mode == "w8a8" else f"[{mode}]")
+        for n, kw in batches:
+            kw = dict(kw, max_audio_tokens=frames[label])
+            texts = batch_texts(n)
+            out = {}
+            for layout, pipe in (("lane", lane), ("batch", tts)):
+                reset_counts()
+                rows = k4_rows()["k4_rows[K5]"]
+                t0 = time.perf_counter()
+                rs = pipe.synthesize_batch(texts, _sampling(kw))
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                gen_ms = rs[0].timings.t_generate_ms * n
+                out[layout] = dict(rs=rs, counts=counts, k5_rows=k4_rows()["k4_rows[K5]"] - rows,
+                                   frames=sum(r.n_frames for r in rs), wall_s=wall,
+                                   frames_per_s=sum(r.n_frames for r in rs) / gen_ms * 1e3)
+            lr, br = out["lane"], out["batch"]
+            runs.append(lr["counts"])
+            check_launches(f"lane batch {label} {n} {kw}", lr["counts"], (LANE_ENTRY,),
+                           (batch_major,))
+            check_launches(f"batch-major batch {label} {n} {kw}", br["counts"], (batch_major,),
+                           (LANE_ENTRY,))
+            if lr["k5_rows"]:
+                raise SmokeFailure(f"lane batch {label} {n} {kw}: K5's epilogue sampled "
+                                   f"{lr['k5_rows']} rows")
+            equal = sum(a.n_frames == b.n_frames and bool((a.codes == b.codes).all())
+                        for a, b in zip(lr["rs"], br["rs"]))
+            greedy = kw.get("temperature", 0.9) == 0.0
+            print("serve_lane " + json.dumps(dict(
+                tier=label, lanes=n, request=kw, frames=lr["frames"],
+                frames_per_s=lr["frames_per_s"], batch_major_frames=br["frames"],
+                batch_major_frames_per_s=br["frames_per_s"], lanes_equal=equal,
+                gated=greedy, k5_epilogue_rows=lr["k5_rows"],
+                launches={k: v for k, v in lr["counts"].items() if v}, card=smi)))
+            if greedy and equal != n:
+                raise SmokeFailure(f"lane-major greedy batch {label} {n}: {equal}/{n} lanes "
+                                   f"equal to batch-major")
+        del lane
+    return runs
+
+
+def kernel_mode_of(tts):
+    """The mode label of tts's talker blocks (fused_talker_step.weight_mode)."""
+    from qwen3tts_tpu_torch.ops.fused_talker_step import mode_label, weight_mode
+
+    return mode_label(weight_mode(tts.talker_params.blocks))
+
+
 def nvidia_smi_line():
     try:
         out = subprocess.run(
@@ -5345,12 +5803,14 @@ def main():
         _kernels.load_library()
         native.get_lib()    # the GGUF reader's host library, so no load times its g++
         print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_kernels.build_seconds:.1f} s, "
-              f"g++ {native.build_seconds:.1f} s)")
+              f"g++ {native.build_seconds:.1f} s); nvcc per source, all started together: "
+              + json.dumps({k: round(v, 1) for k, v in _kernels.source_seconds.items()}))
         t0 = phase_done("build", t0)
 
         tts = make_pipeline(PipelineConfig(), dev)
         tiers = {None: default_pipeline()}
         tiers.update({q: make_pipeline(PipelineConfig(), dev, quant=q) for q in ("q4", "q4pure")})
+        f32 = float32_pipelines(PipelineConfig(), dev)
         report = {}
         check_sampler(tts, report, iters=20)
         check_talker_step(tts, report, iters=5)
@@ -5370,8 +5830,13 @@ def main():
                               positions=((512, (10, 300)), (4352, (300, 4000))), exact=True)
             check_talker_step_batched(tiers[q], report, iters=3, shapes=MODE_BATCH_SHAPES,
                                       key=f"fused_talker_step_batched[{mode}]", exact=True)
+        check_float32_tier(f32, report)
+        check_talker_step_lane({"int8": tts, "f32": f32[None]}, report, iters=3)
         check_projections(tts.config.talker, report, dev, iters=3)
+        check_projections(tts.config.talker, report, dev, iters=3, modes=("f32",))
         check_head_gemv(tts.config.talker, report, dev, iters=3)
+        check_head_gemv(tts.config.talker, report, dev, iters=3, mode="head_f32",
+                        key="fused_talker_step[f32]")
         check_w4_gemv_probe(report, dev, iters=10)
         prng_stats = check_prng(dev)
         torch.cuda.synchronize(dev)
@@ -5445,6 +5910,11 @@ def main():
                            unfused_path(tiers["q4"], st["request"]), FUSED_ONLY)
             print("serve_tier_unfused " + json.dumps(dict(st, tier="q4", card=smi)))
         t0 = phase_done("serve_tier, serve_tier_batch, serve_tier_unfused", t0)
+        runs += serve_f32(f32, smi)
+        del f32
+        torch.cuda.empty_cache()
+        runs += serve_lane({"int8": tts, "bf16": tiers[None]}, smi)
+        t0 = phase_done("serve_f32, serve_lane", t0)
         runs += serve_queues(tts, tts_u, tiers[None], smi)
         t0 = phase_done("serve_queue", t0)
         runs += serve_stream(tts, tiers[None], smi)
@@ -5459,6 +5929,9 @@ def main():
             runs += parity_fullsize(PipelineConfig(), dev, smi, root)
             torch.cuda.empty_cache()
             t0 = phase_done("parity_fullsize", t0)
+            runs += parity_default(PipelineConfig(), dev, smi, root)
+            torch.cuda.empty_cache()
+            t0 = phase_done("parity_default", t0)
             runs += checkpoint_tools(PipelineConfig(), dev, smi, root,
                                      q4_until=t_smoke + CONVERT_Q4_UNTIL_S)
             print(f"parity_fullsize + checkpoint_tools: "

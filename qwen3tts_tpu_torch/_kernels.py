@@ -41,6 +41,7 @@ SIGNATURES = {
         P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
         P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
         P, P, I, P, P,                   # output_norm, codec_head, modes, kv, kv_scale
+        I, I,                            # kv_f32, head_f32
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, F, F, F, I, I, I, I, I, I,    # seen temp top_p pen top_k greedy
                                          # use_top_p suppress eos seed
@@ -52,25 +53,26 @@ SIGNATURES = {
         P, P, P, I, P, P, P, I,          # wqkv, wo, w_gateup, w_down:
         P, P, P, I, P, P, P, I,          #   (weights, scale, zero, G) each
         P, P, I, P, P,                   # output_norm, codec_head, modes, kv, kv_scale
+        I, I, I,                         # kv_f32, head_f32, lane_major
         I, I, I, I, I, I, I, I, F,       # L H Hq Hkv D F C Vc eps
         P, P, F, F, F, I, I, I, I, I,    # seen seeds temp top_p pen top_k
                                          # greedy use_top_p suppress eos
         P, I, P, P, P,                   # start, start_min, temps, topps, pens
         P, P, P, P, P],                  # hidden, logits, tok, ws, stream
-    "qtts_project_ws_bytes": [I, I, I, I],                  # mode B K N
+    "qtts_project_ws_bytes": [I, I, I, I],                  # code B K N
     "qtts_project_layers": [
-        I, P, P, P, P, I,                # mode, x, w, scale, zero, G
+        I, P, P, P, P, I,                # code, x, w, scale, zero, G
         I, I, I, I, P, P],               # L B K N, ws, stream
     "qtts_w4_gemv_probe": [P, P, I, I, I, I, P, P],        # x w packed L K N out stream
-    "qtts_cp_ws_bytes": [I, I, I, I, I, I, I],
-    "qtts_cp_batched_ws_bytes": [I, I, I, I, I, I, I, I],
-    "qtts_cp_grid": [I, I, I, I, I, I, I, I, I, P],        # L H Hq Hkv D F V CTX S, out[5]
-    "qtts_cp_batched_grid": [I, I, I, I, I, I, I, I, I, I, P],   # B, then as above
+    "qtts_cp_ws_bytes": [I, I, I, I, I, I, I, I],          # H Hq Hkv D F CTX V emb_f32
+    "qtts_cp_batched_ws_bytes": [I, I, I, I, I, I, I, I, I],   # B, then as above
+    "qtts_cp_grid": [I, I, I, I, I, I, I, I, I, I, P],     # L H Hq Hkv D F V CTX S emb_f32, out[5]
+    "qtts_cp_batched_grid": [I, I, I, I, I, I, I, I, I, I, I, P],   # B, then as above
     "qtts_code_predictor_batched": [
         P, I, P, P,                      # xinit, B, cos, sin
         P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)
         P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
-        P, P,                            # heads, embds
+        P, P, I,                         # heads, embds, emb_f32
         I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
         F, F, I, I, I, P,                # temp top_p top_k greedy use_top_p seeds
         P, P,                            # temps, topps
@@ -79,7 +81,7 @@ SIGNATURES = {
         P, P, P,                         # xinit, cos, sin
         P, P, P, P, P,                   # attn/q/k/ffn/out norms (f32)
         P, P, P, P, P, P, P, P,          # wqkv, wo, w_gateup, w_down (q, s)
-        P, P,                            # heads, embds
+        P, P, I,                         # heads, embds, emb_f32
         I, I, I, I, I, I, I, I, I, F,    # L H Hq Hkv D F V CTX S eps
         F, F, I, I, I, I,                # temp top_p top_k greedy use_top_p seed
         P, P, P, P, P],                  # codes, rest_sum, kv, ws, stream
@@ -94,15 +96,17 @@ SIGNATURES = {
     "qtts_decode_attention_splits": [I, I, I],              # B Hkv n_valid
     "qtts_decode_attention": [
         P, P, LL,                        # q, kv (the layer's K, lane 0), lane stride
-        I, I, I, I, I, I, F,             # B Hq Hkv C D n_valid scale
+        I, I, I, I, I, I, F, I,          # B Hq Hkv C D n_valid scale f32
         P, P],                           # out, stream
-    "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_int8
-    "qtts_gemm_plan": [I, I, I, P],                         # mode K N, out[3]
-    "qtts_gemv_plan": [I, I, I, P],                         # mode K N, out[3]
+    "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_kind
+    "qtts_gemm_plan": [I, I, I, P],                         # code K N, out[3]
+    "qtts_gemv_plan": [I, I, I, P],                         # code K N, out[3]
 }
 
 _LIB = None
 build_seconds = 0.0
+# seconds each source's nvcc took in the last build (they run together)
+source_seconds: dict = {}
 
 
 def _sources():
@@ -121,7 +125,7 @@ def build() -> str:
     """Compile csrc/*.cu into _build/libqtts_<hash>.so (if not there yet);
     return its path. Each source is compiled by its own nvcc process, all
     started together, and the objects are then linked into the library."""
-    global build_seconds
+    global build_seconds, source_seconds
     h = hashlib.sha256()
     for src in _sources():
         h.update(os.path.basename(src).encode())
@@ -140,16 +144,27 @@ def build() -> str:
         obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
         cmd = ([nvcc] + ARCH_FLAGS
                + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", "-o", obj, src])
-        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True)))
+        log = open(obj + ".log", "w+")
+        procs.append((obj, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log))
     errors = []
-    for obj, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed ({proc.returncode}) on {os.path.basename(obj)}:\n{err}")
+    source_seconds = {}
+    running = list(procs)
+    while running:   # each source's seconds from the common start to its end
+        for item in list(running):
+            obj, proc, log = item
+            if proc.poll() is None:
+                continue
+            running.remove(item)
+            source_seconds[os.path.basename(obj)[:-len(".o")]] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                log.seek(0)
+                errors.append(f"nvcc failed ({proc.returncode}) on {os.path.basename(obj)}:\n"
+                              f"{log.read()}")
+            log.close()
+        time.sleep(0.05)
     if not errors:
         link = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
-                              + [obj for obj, _ in procs], capture_output=True, text=True)
+                              + [obj for obj, _, _ in procs], capture_output=True, text=True)
         if link.returncode != 0:
             errors.append(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
     shutil.rmtree(obj_dir, ignore_errors=True)

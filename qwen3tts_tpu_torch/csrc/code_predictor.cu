@@ -17,11 +17,14 @@
 // work that one lane leaves to one block while the others wait above all.
 //
 // The KV scratch is float32, [2, L, Hkv, 16, D], as the Pallas kernel's.
+// The heads and embedding tables are bf16, or float32 (emb_f32: the
+// float32 tier's int8 blocks).
 #include "code_predictor_persistent.cuh"
 
-extern "C" size_t qtts_cp_ws_bytes(int H, int Hq, int Hkv, int D, int F, int CTX, int V) {
+extern "C" size_t qtts_cp_ws_bytes(int H, int Hq, int Hkv, int D, int F, int CTX, int V,
+                                   int emb_f32) {
   (void)CTX;
-  return cp_carve(nullptr, nullptr, 1, H, Hq, Hkv, D, F, V);
+  return cp_carve(nullptr, nullptr, 1, H, Hq, Hkv, D, F, V, emb_f32);
 }
 
 extern "C" int qtts_code_predictor(
@@ -30,15 +33,15 @@ extern "C" int qtts_code_predictor(
     const void* out_norm,
     const void* wqkv_q, const void* wqkv_s, const void* wo_q, const void* wo_s,
     const void* wgu_q, const void* wgu_s, const void* wd_q, const void* wd_s,
-    const void* heads, const void* embds,
+    const void* heads, const void* embds, int emb_f32,
     int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
     float temp, float top_p, int top_k, int greedy, int use_top_p, int seed,
     void* codes_out, void* rest_sum, void* kv, void* ws, void* stream) {
   if (int bad = cp_check(1, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
   const CpParams P = cp_params(xinit, 1, cos_tab, sin_tab, attn_n, q_n, k_n, ffn_n, out_norm,
                                wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s, heads,
-                               embds, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p, top_k,
-                               greedy, use_top_p, seed, nullptr, nullptr, nullptr, codes_out,
+                               embds, emb_f32, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p,
+                               top_k, greedy, use_top_p, seed, nullptr, nullptr, nullptr, codes_out,
                                rest_sum, kv, ws);
   return cp_launch<float, 0>(P, (cudaStream_t)stream);
 }
@@ -46,10 +49,10 @@ extern "C" int qtts_code_predictor(
 // The grid one K2 call launches: out[0..4] = blocks, grid barriers per
 // call, blocks per SM, SMs, dynamic shared bytes per block.
 extern "C" int qtts_cp_grid(int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S,
-                            void* out) {
+                            int emb_f32, void* out) {
   if (int bad = cp_check(1, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
   CpParams P{};
   P.B = 1; P.L = L; P.H = H; P.Hq = Hq; P.Hkv = Hkv; P.D = D; P.F = F; P.V = V;
-  P.CTX = CTX; P.S = S;
+  P.CTX = CTX; P.S = S; P.emb_f32 = emb_f32;
   return CpGrid<float, 0>::go(P, (int*)out);
 }

@@ -10,7 +10,8 @@
 // the per-lane activation scales, the exact int32 dots and the
 // counter-hash noise (a function of seed, step and vocab slot only) make the
 // lanes independent. As in the Pallas kernel, the KV scratch is stored in
-// the embedding dtype (bf16 here, float32 in K2) and neither q nor the
+// the embedding dtype (bf16, or float32 with float32 heads and embeddings:
+// emb_f32, the float32 tier; float32 in K2) and neither q nor the
 // probabilities are rounded, so on bf16 weights a lane can differ from K2 in
 // the last bits of its attention.
 //
@@ -35,10 +36,17 @@
 // loop runs larger batches in groups of 64.
 #include "code_predictor_persistent.cuh"
 
+// K6 over float32 heads, embeddings and K/V scratch: the same kernel with T
+// = float, instantiated in code_predictor_batched_f32.cu (its four lane
+// widths double this file's compile time, and the sources compile in
+// parallel). params points at a CpParams of this header.
+extern "C" int qtts_cp_batched_launch_f32(const void* params, int B, void* stream);
+extern "C" int qtts_cp_batched_grid_f32(const void* params, int B, void* out);
+
 extern "C" size_t qtts_cp_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
-                                           int CTX, int V) {
+                                           int CTX, int V, int emb_f32) {
   (void)CTX;
-  return cp_carve(nullptr, nullptr, B, H, Hq, Hkv, D, F, V);
+  return cp_carve(nullptr, nullptr, B, H, Hq, Hkv, D, F, V, emb_f32);
 }
 
 extern "C" int qtts_code_predictor_batched(
@@ -47,7 +55,7 @@ extern "C" int qtts_code_predictor_batched(
     const void* out_norm,
     const void* wqkv_q, const void* wqkv_s, const void* wo_q, const void* wo_s,
     const void* wgu_q, const void* wgu_s, const void* wd_q, const void* wd_s,
-    const void* heads, const void* embds,
+    const void* heads, const void* embds, int emb_f32,
     int L, int H, int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
     float temp, float top_p, int top_k, int greedy, int use_top_p, const void* seeds,
     const void* temps, const void* topps, void* codes_out, void* rest_sum, void* kv, void* ws,
@@ -55,18 +63,20 @@ extern "C" int qtts_code_predictor_batched(
   if (int bad = cp_check(B, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
   const CpParams P = cp_params(xinit, B, cos_tab, sin_tab, attn_n, q_n, k_n, ffn_n, out_norm,
                                wqkv_q, wqkv_s, wo_q, wo_s, wgu_q, wgu_s, wd_q, wd_s, heads,
-                               embds, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p, top_k,
-                               greedy, use_top_p, 0, seeds, temps, topps, codes_out, rest_sum,
-                               kv, ws);
-  return cp_by_lanes<__nv_bfloat16, CpLaunch>(B, P, (cudaStream_t)stream);
+                               embds, emb_f32, L, H, Hq, Hkv, D, F, V, CTX, S, eps, temp, top_p,
+                               top_k, greedy, use_top_p, 0, seeds, temps, topps, codes_out,
+                               rest_sum, kv, ws);
+  return emb_f32 ? qtts_cp_batched_launch_f32(&P, B, stream)
+                 : cp_by_lanes<__nv_bfloat16, CpLaunch>(B, P, (cudaStream_t)stream);
 }
 
 // The grid one K6 call for B lanes launches (as qtts_cp_grid).
 extern "C" int qtts_cp_batched_grid(int B, int L, int H, int Hq, int Hkv, int D, int F, int V,
-                                    int CTX, int S, void* out) {
+                                    int CTX, int S, int emb_f32, void* out) {
   if (int bad = cp_check(B, H, Hq, Hkv, D, F, V, CTX, S)) return bad;
   CpParams P{};
   P.B = B; P.L = L; P.H = H; P.Hq = Hq; P.Hkv = Hkv; P.D = D; P.F = F; P.V = V;
-  P.CTX = CTX; P.S = S;
-  return cp_by_lanes<__nv_bfloat16, CpGrid>(B, P, (int*)out);
+  P.CTX = CTX; P.S = S; P.emb_f32 = emb_f32;
+  return emb_f32 ? qtts_cp_batched_grid_f32(&P, B, out)
+                 : cp_by_lanes<__nv_bfloat16, CpGrid>(B, P, (int*)out);
 }

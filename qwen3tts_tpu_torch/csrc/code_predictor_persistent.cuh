@@ -1,6 +1,10 @@
 // The code predictor's 16 passes for B lanes as ONE persistent cooperative
 // kernel, shared by K2 (code_predictor.cu, one lane, float32 KV scratch)
-// and K6 (code_predictor_batched.cu, B <= 64 lanes, bf16 KV scratch).
+// and K6 (code_predictor_batched.cu, B <= 64 lanes, KV scratch in the
+// embedding dtype). The heads and the embedding tables are bf16 or float32
+// (emb_f32: the float32 tier's int8 blocks run here too, as the Pallas
+// kernel reads them whatever the compute dtype); the normed hidden the
+// head reads is kept in that dtype.
 //
 // Pass 0 runs each lane's talker hidden through the L layers (conditioning
 // only); pass p = 1..S feeds the lane's cb0 embedding (p = 1) or
@@ -50,10 +54,10 @@
 // so the K splits and the tiling change no bit), a projection is read as
 // acc * (s_act * w_scale) in float32, and every float sum that feeds a
 // rounding (RMSNorm variances, q.k, the softmax sum, p @ V) runs in float64
-// and is rounded once. The bf16 head sums its exact bf16 x bf16 products in
-// float64 per K split; the splits are added in order in float64 and
-// rounded once to the float32 logit, so a logit does not depend on the
-// grid. Attention rounds neither q nor p (the Pallas code predictors). B =
+// and is rounded once. The head sums its exact bf16 x bf16 (or float32 x
+// float32) products in float64 per K split; the splits are added in order
+// in float64 and rounded once to the float32 logit, so a logit does not
+// depend on the grid. Attention rounds neither q nor p (the Pallas code predictors). B =
 // 1 takes a GEMV form of the same tiles (the 8 warps split the tile's K
 // rows; BPT = 0); B > 1 the GEMM form (each
 // thread 4 columns x BPT lanes, __dp4a over the words byte_transpose packs).
@@ -79,7 +83,7 @@ namespace cg = cooperative_groups;
 constexpr int kCpThreads = 256;        // 8 warps: 32 column groups x 8 lane groups
 constexpr int kCpTN = 128;             // output columns per GEMM item
 constexpr int kCpTK8 = 128;            // int8 weight rows per tile (16 KB)
-constexpr int kCpTKh = 64;             // bf16 head rows per tile (16 KB)
+constexpr int kCpTKh = 64;             // bf16 head rows per tile (16 KB; 32 float32 rows)
 constexpr int kCpMaxLanes = 64;        // lanes of one call (the Pallas VMEM budget)
 constexpr int kCpMaxCtx = 32;          // positions a lane's attention stages
 constexpr int kCpWStage = 16384;       // bytes of one weight tile
@@ -101,8 +105,9 @@ struct CpParams {
   const float *attn_n, *q_n, *k_n, *ffn_n, *out_norm;
   const int8_t *wqkv, *wo, *wgu, *wd;        // [L, K, N] int8
   const float *sqkv, *so, *sgu, *sd;         // [L, N] weight scales
-  const __nv_bfloat16* heads;    // [S, H, V]
-  const __nv_bfloat16* embds;    // [S, V, H]
+  const void* heads;             // [S, H, V] bf16, or float32 when emb_f32
+  const void* embds;             // [S, V, H] bf16, or float32 when emb_f32
+  int emb_f32;
   float temp, top_p;
   int top_k, greedy, use_top_p, seed;
   const int* seeds;              // [B] or null (then seed)
@@ -119,13 +124,19 @@ struct CpParams {
   int* part;                     // [splits, B, N] int32 partials of the current projection
   float* o;                      // [B, Hq * D] attention output
   int* done;                     // [B] attention items finished per lane
-  __nv_bfloat16* hn;             // [B, H] output-normed hidden, rounded to bf16
+  void* hn;                      // [B, H] output-normed hidden in the heads' dtype
   double* head_part;             // [head splits, B, V]
   int splits[5];                 // K splits of qkv, o, gate/up, down, head
 };
 
 // Grid barriers of one call (the kernel's phase plan; see the header).
 inline int cp_barriers(int L, int S) { return (S + 1) * L * kCpBarriersPerLayer + 2 * S; }
+
+// Head rows of one 16 KB weight tile: 64 bf16 rows of 128 columns, or 32
+// float32 rows.
+__host__ __device__ __forceinline__ int cp_head_rows(int emb_f32) {
+  return emb_f32 ? kCpTKh / 2 : kCpTKh;
+}
 
 template <typename T> __device__ __forceinline__ float ld_kv(const T* p);
 template <> __device__ __forceinline__ float ld_kv<float>(const float* p) { return __ldcg(p); }
@@ -343,30 +354,57 @@ struct CpGemmI8 {
   }
 };
 
-// part[split, b, n] = sum over the split's rows k of hn[b, k] * W[k, n],
-// bf16 x bf16 products (exact) summed in float64 (W the [H, V] head, hn
-// bf16). The GEMM form widens the tile's activations to float64 once, in
-// shared memory.
-template <int BPT>
+// Four consecutive head weights (16 bytes of float32, 8 of bf16) at p, and
+// one activation, as float64.
+__device__ __forceinline__ void cp_w4(const unsigned char* p, int tx, const __nv_bfloat16*,
+                                      double (&w)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p + tx * 8);
+  const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  w[0] = __low2float(w01);
+  w[1] = __high2float(w01);
+  w[2] = __low2float(w23);
+  w[3] = __high2float(w23);
+}
+__device__ __forceinline__ void cp_w4(const unsigned char* p, int tx, const float*,
+                                      double (&w)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p + tx * 16);
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+__device__ __forceinline__ double cp_x(const __nv_bfloat16* x) { return __bfloat162float(*x); }
+__device__ __forceinline__ double cp_x(const float* x) { return *x; }
+
+// part[split, b, n] = sum over the split's rows k of hn[b, k] * W[k, n], E x
+// E products (exact for bf16 and float32) summed in float64 (W the [H, V]
+// head, hn in E). A tile is 16 KB of weights: TK = 64 bf16 rows or 32
+// float32 rows of 128 columns, and 128 bytes of each lane's hn. The GEMM
+// form widens the tile's activations to float64 once, in shared memory.
+template <int BPT, typename E>
 struct CpGemmHead {
-  const __nv_bfloat16* W;
-  const __nv_bfloat16* hn;
+  static constexpr int RB = kCpTN * (int)sizeof(E);   // bytes of a tile row
+  static constexpr int TK = kCpWStage / RB;            // rows of a tile
+  static constexpr int EC = 16 / (int)sizeof(E);       // elements a 16-byte copy
+  const E* W;
+  const E* hn;
   int H, B, N;
   double* part;
   unsigned char* sm;
   double a[BPT > 0 ? BPT : 1][4];
 
   __device__ void load(int stage, int strip, int t) {
-    const int k0 = t * kCpTKh, n0 = strip * kCpTN;
+    const int k0 = t * TK, n0 = strip * kCpTN;
     unsigned char* ws = sm + stage * kCpWStage;
     unsigned char* xs = sm + 2 * kCpWStage + stage * kCpXStage;
-    for (int c = threadIdx.x; c < kCpTKh * 16; c += kCpThreads) {
-      const int r = c >> 4, q = c & 15;
-      cp_async16(ws + r * 256 + q * 16, W + (size_t)(k0 + r) * N + n0 + q * 8, true, true);
+    for (int c = threadIdx.x; c < TK * (RB / 16); c += kCpThreads) {
+      const int r = c / (RB / 16), q = c % (RB / 16);
+      cp_async16(ws + r * RB + q * 16, W + (size_t)(k0 + r) * N + n0 + q * EC, true, true);
     }
     for (int c = threadIdx.x; c < B * 8; c += kCpThreads) {
       const int b = c >> 3, q = c & 7;
-      cp_async16(xs + b * 128 + q * 16, hn + (size_t)b * H + k0 + q * 8);
+      cp_async16(xs + b * 128 + q * 16, hn + (size_t)b * H + k0 + q * EC);
     }
   }
   __device__ void zero() {
@@ -375,34 +413,31 @@ struct CpGemmHead {
   }
   __device__ void compute(int stage, int t) {
     const unsigned char* ws = sm + stage * kCpWStage;
-    const __nv_bfloat16* xs =
-        reinterpret_cast<const __nv_bfloat16*>(sm + 2 * kCpWStage + stage * kCpXStage);
+    const E* xs = reinterpret_cast<const E*>(sm + 2 * kCpWStage + stage * kCpXStage);
     const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
     if constexpr (BPT == 0) {
-      for (int kk = ty; kk < kCpTKh; kk += 8) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(ws + kk * 256 + tx * 8);
-        const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-        const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-        const double xv = __bfloat162float(xs[kk]);
-        a[0][0] += xv * (double)__low2float(w01);
-        a[0][1] += xv * (double)__high2float(w01);
-        a[0][2] += xv * (double)__low2float(w23);
-        a[0][3] += xv * (double)__high2float(w23);
+      for (int kk = ty; kk < TK; kk += 8) {
+        double w[4];
+        cp_w4(ws + kk * RB, tx, xs, w);
+        const double xv = cp_x(xs + kk);
+        a[0][0] += xv * w[0];
+        a[0][1] += xv * w[1];
+        a[0][2] += xv * w[2];
+        a[0][3] += xv * w[3];
       }
     } else {
-      double* xd = reinterpret_cast<double*>(sm + kCpXdOff);   // [lanes, kCpTKh]
-      for (int i = threadIdx.x; i < B * kCpTKh; i += kCpThreads) xd[i] = __bfloat162float(xs[i]);
+      double* xd = reinterpret_cast<double*>(sm + kCpXdOff);   // [lanes, TK]
+      for (int i = threadIdx.x; i < B * TK; i += kCpThreads)
+        xd[i] = cp_x(xs + (i / TK) * (128 / (int)sizeof(E)) + i % TK);
       __syncthreads();
 #pragma unroll 4
-      for (int kk = 0; kk < kCpTKh; ++kk) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(ws + kk * 256 + tx * 8);
-        const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-        const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-        const double w0 = __low2float(w01), w1 = __high2float(w01);
-        const double w2 = __low2float(w23), w3 = __high2float(w23);
+      for (int kk = 0; kk < TK; ++kk) {
+        double wv[4];
+        cp_w4(ws + kk * RB, tx, xs, wv);
+        const double w0 = wv[0], w1 = wv[1], w2 = wv[2], w3 = wv[3];
 #pragma unroll
         for (int i = 0; i < BPT; ++i) {
-          const double xv = xd[(ty + 8 * i) * kCpTKh + kk];   // rows >= B: never written out
+          const double xv = xd[(ty + 8 * i) * TK + kk];   // rows >= B: never written out
           a[i][0] += xv * w0;
           a[i][1] += xv * w1;
           a[i][2] += xv * w2;
@@ -451,12 +486,12 @@ struct CpShared {
 // Lane b's row: x = xin (+ projection `proj` when > 0, with weight scales
 // ws; proj is also its activation-scale slot),
 // written to xout when given; h = RMSNorm(x) * norm. Either h is quantized
-// into xq_out (scale *s_out), or, with hn_out, written there rounded to
-// bf16. xin is read through L2: other blocks may have written it. buf:
-// shared, H floats.
+// into xq_out (scale *s_out), or, with hn_out, written there in the heads'
+// dtype (rounded to bf16, or float32 as it is when P.emb_f32). xin is read
+// through L2: other blocks may have written it. buf: shared, H floats.
 __device__ void cp_norm_row(const CpParams& P, int b, const float* xin, float* xout, int proj,
                             const float* ws, const float* norm, int8_t* xq_out,
-                            float* s_out, __nv_bfloat16* hn_out, float* buf, CpShared& sh) {
+                            float* s_out, void* hn_out, float* buf, CpShared& sh) {
   const int H = P.H, bd = blockDim.x;
   float xv[8], nv[8];   // H <= 8 * blockDim: element tid + k * blockDim
 #pragma unroll
@@ -492,7 +527,10 @@ __device__ void cp_norm_row(const CpParams& P, int b, const float* xin, float* x
     const float h = xv[k] * rs * nv[k];
     buf[i] = h;
     am = fmaxf(am, fabsf(h));
-    if (hn_out != nullptr) hn_out[i] = __float2bfloat16(h);
+    if (hn_out != nullptr) {
+      if (P.emb_f32) static_cast<float*>(hn_out)[i] = h;
+      else static_cast<__nv_bfloat16*>(hn_out)[i] = __float2bfloat16(h);
+    }
   }
   if (hn_out == nullptr) quantize_buf(buf, H, am, xq_out, s_out, sh.red);
   __syncthreads();   // buf is read again by the lane's next row
@@ -787,11 +825,13 @@ __device__ __noinline__ void cp_sample(const CpParams& P, int b, int p, float* x
       P.top_k, P.greedy != 0, P.use_top_p != 0, P.seeds != nullptr ? P.seeds[b] : P.seed, p,
       sh.samp, reinterpret_cast<float2*>(smem));   // the noise queue in the lane phases' memory
   if (threadIdx.x == 0) P.codes[(size_t)b * P.S + p - 1] = tok;
-  const __nv_bfloat16* row = P.embds + ((size_t)(p - 1) * V + tok) * H;
+  const size_t row = ((size_t)(p - 1) * V + tok) * H;
+  const float* rowf = static_cast<const float*>(P.embds) + row;
+  const __nv_bfloat16* rowb = static_cast<const __nv_bfloat16*>(P.embds) + row;
   float* rs = P.rest_sum + (size_t)b * H;
 #pragma unroll 4
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float v = __bfloat162float(row[i]);
+    const float v = P.emb_f32 ? rowf[i] : __bfloat162float(rowb[i]);
     if (x != nullptr) x[i] = v;
     rs[i] += v;
   }
@@ -814,12 +854,18 @@ __device__ __noinline__ void cp_gemm(const CpParams& P, int proj, const int8_t* 
   cp_tiles(op, N / kCpTN, K / kCpTK8, P.splits[proj]);
 }
 
-// The head's GEMM of pass p (see cp_gemm).
+// The head's GEMM of pass p (see cp_gemm), over bf16 or float32 heads.
+template <int BPT, typename E>
+__device__ __forceinline__ void cp_head_of(const CpParams& P, int p, unsigned char* sm) {
+  CpGemmHead<BPT, E> op{static_cast<const E*>(P.heads) + (size_t)(p - 1) * P.H * P.V,
+                        static_cast<const E*>(P.hn), P.H, P.B, P.V, P.head_part, sm};
+  cp_tiles(op, P.V / kCpTN, P.H / cp_head_rows(P.emb_f32), P.splits[4]);
+}
+
 template <int BPT>
 __device__ __noinline__ void cp_head(const CpParams& P, int p, unsigned char* sm) {
-  CpGemmHead<BPT> op{P.heads + (size_t)(p - 1) * P.H * P.V, P.hn, P.H, P.B, P.V, P.head_part,
-                     sm};
-  cp_tiles(op, P.V / kCpTN, P.H / kCpTKh, P.splits[4]);
+  if (P.emb_f32) cp_head_of<BPT, float>(P, p, sm);
+  else cp_head_of<BPT, __nv_bfloat16>(P, p, sm);
 }
 
 template <typename T, int BPT>
@@ -884,7 +930,7 @@ __global__ void __launch_bounds__(kCpThreads, 1) cp_persistent_kernel(const CpPa
     if (p == 0) continue;
     for (int b = blockIdx.x; b < B; b += gridDim.x)
       cp_norm_row(P, b, X(xi, b), nullptr, 3, P.sd + (size_t)(L - 1) * H, P.out_norm, nullptr,
-                  nullptr, P.hn + (size_t)b * H, fsm, sh);
+                  nullptr, (char*)P.hn + (P.emb_f32 ? 4 : 2) * (size_t)b * H, fsm, sh);
     grid.sync();
     cp_head<BPT>(P, p, smem);
     grid.sync();
@@ -898,9 +944,10 @@ __global__ void __launch_bounds__(kCpThreads, 1) cp_persistent_kernel(const CpPa
 
 // The workspace of one call for B lanes, carved from base (or only counted
 // when base is null): the int32 partials sized for every projection at its
-// most splits (one per weight tile), the head's for up to H / kCpTKh.
+// most splits (one per weight tile), the head's for up to H /
+// cp_head_rows(emb_f32).
 inline size_t cp_carve(CpParams* P, char* base, int B, int H, int Hq, int Hkv, int D, int F,
-                       int V) {
+                       int V, int emb_f32) {
   const int qkvN = (Hq + 2 * Hkv) * D, hd = Hq * D;
   int ldq = H > hd ? H : hd;
   ldq = ldq > F ? ldq : F;
@@ -926,8 +973,8 @@ inline size_t cp_carve(CpParams* P, char* base, int B, int H, int Hq, int Hkv, i
   t.part = (int*)take(sizeof(int) * part_n * B);
   t.o = (float*)take(sizeof(float) * (size_t)B * hd);
   t.done = (int*)take(sizeof(int) * B);
-  t.hn = (__nv_bfloat16*)take(sizeof(__nv_bfloat16) * B * H);
-  t.head_part = (double*)take(sizeof(double) * (size_t)(H / kCpTKh) * B * V);
+  t.hn = take((emb_f32 ? sizeof(float) : sizeof(__nv_bfloat16)) * B * H);
+  t.head_part = (double*)take(sizeof(double) * (size_t)(H / cp_head_rows(emb_f32)) * B * V);
   if (P != nullptr) {
     P->ldq = t.ldq; P->x = t.x; P->xq = t.xq; P->s_act = t.s_act; P->part = t.part;
     P->o = t.o; P->done = t.done; P->hn = t.hn; P->head_part = t.head_part;
@@ -1021,7 +1068,7 @@ int cp_plan(const CpParams& P, CpPlan* plan) {
   const int qkvN = (P.Hq + 2 * P.Hkv) * P.D, hd = P.Hq * P.D;
   const int widest[5] = {(qkvN / kCpTN) * (P.H / kCpTK8), (P.H / kCpTN) * (hd / kCpTK8),
                          (2 * P.F / kCpTN) * (P.H / kCpTK8), (P.H / kCpTN) * (P.F / kCpTK8),
-                         (P.V / kCpTN) * (P.H / kCpTKh)};
+                         (P.V / kCpTN) * (P.H / cp_head_rows(P.emb_f32))};
   int cap = P.B * P.Hkv;
   for (int w : widest) cap = w > cap ? w : cap;
   *plan = cached;
@@ -1042,7 +1089,7 @@ int cp_launch(CpParams P, cudaStream_t st) {
   P.splits[1] = cp_splits(g, P.H / kCpTN, hd / kCpTK8, gemv);
   P.splits[2] = cp_splits(g, 2 * P.F / kCpTN, P.H / kCpTK8, gemv);
   P.splits[3] = cp_splits(g, P.H / kCpTN, P.F / kCpTK8, gemv);
-  P.splits[4] = cp_splits(g, P.V / kCpTN, P.H / kCpTKh, gemv);
+  P.splits[4] = cp_splits(g, P.V / kCpTN, P.H / cp_head_rows(P.emb_f32), gemv);
   void* args[] = {&P};
   const cudaError_t e = cudaLaunchCooperativeKernel((const void*)cp_persistent_kernel<T, BPT>,
                                                     dim3(g), dim3(kCpThreads), args, plan.smem,
@@ -1087,7 +1134,8 @@ inline CpParams cp_params(const void* xinit, int B, const void* cos_tab, const v
                           const void* ffn_n, const void* out_norm, const void* wqkv_q,
                           const void* wqkv_s, const void* wo_q, const void* wo_s,
                           const void* wgu_q, const void* wgu_s, const void* wd_q,
-                          const void* wd_s, const void* heads, const void* embds, int L, int H,
+                          const void* wd_s, const void* heads, const void* embds,
+                          int emb_f32, int L, int H,
                           int Hq, int Hkv, int D, int F, int V, int CTX, int S, float eps,
                           float temp, float top_p, int top_k, int greedy, int use_top_p,
                           int seed, const void* seeds, const void* temps, const void* topps,
@@ -1107,8 +1155,9 @@ inline CpParams cp_params(const void* xinit, int B, const void* cos_tab, const v
   P.wo = (const int8_t*)wo_q; P.so = (const float*)wo_s;
   P.wgu = (const int8_t*)wgu_q; P.sgu = (const float*)wgu_s;
   P.wd = (const int8_t*)wd_q; P.sd = (const float*)wd_s;
-  P.heads = (const __nv_bfloat16*)heads;
-  P.embds = (const __nv_bfloat16*)embds;
+  P.heads = heads;
+  P.embds = embds;
+  P.emb_f32 = emb_f32;
   P.temp = temp; P.top_p = top_p; P.top_k = top_k; P.greedy = greedy;
   P.use_top_p = use_top_p; P.seed = seed;
   P.seeds = (const int*)seeds;
@@ -1117,7 +1166,7 @@ inline CpParams cp_params(const void* xinit, int B, const void* cos_tab, const v
   P.codes = (int*)codes;
   P.rest_sum = (float*)rest_sum;
   P.kv = kv;
-  if (ws != nullptr) cp_carve(&P, (char*)ws, B, H, Hq, Hkv, D, F, V);
+  if (ws != nullptr) cp_carve(&P, (char*)ws, B, H, Hq, Hkv, D, F, V, emb_f32);
   return P;
 }
 

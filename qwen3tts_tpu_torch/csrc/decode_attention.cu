@@ -3,6 +3,10 @@
 // over t < n_valid, with float32 scores, probabilities and p.V sums, and
 // the sum of the probabilities l divided out at the end (by max(l, 1e-30)).
 //
+// The cache and q are bf16 or float32 (T; the float32 tier's unfused step
+// reaches it from C = 1024 on), the output is T; the scores,
+// probabilities and sums are float32 in both.
+//
 // Replaces qwen3tts_tpu/ops/pallas_attention.py:83 decode_attention_pallas
 // and :201 decode_attention_pallas_layered. The two differ on the TPU only in
 // how a layer of the cache reaches the kernel (a slice the caller makes, or
@@ -13,11 +17,14 @@
 //
 // What bounds it on the H100: bytes. Each lane and KV head reads n_valid
 // K rows and n_valid V rows of D = 128 bf16: 2 * n_valid * Hkv * D * 2 bytes
-// per lane and layer, 4.1 MB at n_valid = 1000 (1.2 us at 3.35 TB/s); the
+// per lane and layer (twice that in float32), 4.1 MB at n_valid = 1000 (1.2
+// us at 3.35 TB/s); the
 // arithmetic is 4 G D flops per row, far below the float32 rate. The rows
 // of one (lane, KV head) are contiguous, so the design streams them through
 // a ring of tiles in shared memory: each stage holds 64 K rows and the same
-// 64 V rows, two bulk copies (TMA without a tensor map) that complete on the
+// 64 V rows (32 of each in float32: a stage is 32 KB in both dtypes, so the
+// occupancy and the cluster are the same), two bulk copies (TMA without a
+// tensor map) that complete on the
 // stage's mbarrier, issued by one thread two tiles ahead of the one being
 // consumed (64 KB in flight a block, two blocks an SM). A tile is consumed
 // from shared memory with one block barrier: each warp owns 8 of its 64
@@ -43,10 +50,9 @@ namespace {
 
 constexpr int kD = 128;                     // head_dim the kernel takes
 constexpr int kThreads = 256;
-constexpr int kTile = 64;                   // K and V rows per ring stage
+constexpr int kTile = 64;                   // rows per split unit of the split rule
 constexpr int kStages = 3;
-constexpr int kRowBytes = kD * 2;           // a row in shared memory
-constexpr int kStageBytes = 2 * kTile * kRowBytes;
+constexpr int kStageBytes = 2 * kTile * kD * 2;   // a ring stage: 32 KB
 constexpr int kBlockTarget = 264;           // two blocks on each of 132 SMs
 constexpr int kMaxSplits = 16;              // a non-portable cluster
 
@@ -67,17 +73,48 @@ size_t decode_smem(int G) {
          sizeof(uint64_t) * (kStages + 1);
 }
 
+// Sixteen elements of a row as float32: bf16, the 16-byte chunks part and
+// part + 8 (elements 8 part.. and 8 (part + 8)..); float32, the chunks part,
+// part + 8, + 16, + 24 (elements 4 (part + 8 c)..).
+__device__ __forceinline__ void row16(const __nv_bfloat16* p, int part, float* f) {
+  bf16x8(*reinterpret_cast<const uint4*>(p + 8 * part), f);
+  bf16x8(*reinterpret_cast<const uint4*>(p + 8 * (part + 8)), f + 8);
+}
+__device__ __forceinline__ void row16(const float* p, int part, float* f) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float4 u = *reinterpret_cast<const float4*>(p + 4 * (part + 8 * c));
+    f[4 * c] = u.x;
+    f[4 * c + 1] = u.y;
+    f[4 * c + 2] = u.z;
+    f[4 * c + 3] = u.w;
+  }
+}
+
+// Four consecutive elements (columns 4 lane..) of a row as float32.
+__device__ __forceinline__ float4 col4(const __nv_bfloat16* p, int lane) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p + 4 * lane);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 col4(const float* p, int lane) {
+  return *reinterpret_cast<const float4*>(p + 4 * lane);
+}
+
 // Block (split = cluster rank, KV head blockIdx.y, lane blockIdx.z). kv
 // points at the layer's K half of lane 0 ([2, Hkv, C, D] per lane,
-// lane_stride elements apart); q and out are dense [B, Hq, D]. Warp w owns
-// rows 4w..4w+3 and 4w+32..4w+35 of every tile and keeps its own online
-// softmax state (m, l) and p.V sums over them; the warps' states are
-// combined at the end, then the cluster's.
-template <int G>
+// lane_stride elements apart); q and out are dense [B, Hq, D], all of T
+// (bf16 or float). A ring tile holds kRows rows (64 bf16, 32 float32). Warp
+// w owns rows 4w..4w+3 (and 4w+32..4w+35 in bf16) of every tile and keeps
+// its own online softmax state (m, l) and p.V sums over them; the warps'
+// states are combined at the end, then the cluster's.
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kv,
-                   long long lane_stride, int Hkv, int C, int n_valid, int per, float scale,
-                   __nv_bfloat16* __restrict__ out) {
+decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kv, long long lane_stride,
+                   int Hkv, int C, int n_valid, int per, float scale, T* __restrict__ out) {
+  constexpr int kRowBytes = kD * (int)sizeof(T);
+  constexpr int kRows = kStageBytes / (2 * kRowBytes), J = kRows / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_m = reinterpret_cast<float*>(smem + kStages * kStageBytes);   // [G]
   float* s_l = s_m + G;                                                  // [G]
@@ -89,17 +126,17 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int lo = rank * per, hi = min(n_valid, lo + per), nr = max(hi - lo, 0);
-  const int nt = (nr + kTile - 1) / kTile;
-  const __nv_bfloat16* K = kv + (size_t)b * lane_stride + (size_t)h * C * kD;
-  const __nv_bfloat16* V = K + (size_t)Hkv * C * kD;
+  const int nt = (nr + kRows - 1) / kRows;
+  const T* K = kv + (size_t)b * lane_stride + (size_t)h * C * kD;
+  const T* V = K + (size_t)Hkv * C * kD;
 
   auto load = [&](int i) {   // thread 0: tile i's K rows and V rows into stage i % kStages
-    const int r0 = lo + i * kTile;
-    const unsigned bytes = min(kTile, hi - r0) * kRowBytes;
+    const int r0 = lo + i * kRows;
+    const unsigned bytes = min(kRows, hi - r0) * kRowBytes;
     unsigned char* st = smem + (i % kStages) * kStageBytes;
     mbar_expect(bar + i % kStages, 2 * bytes);
     bulk_load(st, K + (size_t)r0 * kD, bytes, bar + i % kStages);
-    bulk_load(st + kTile * kRowBytes, V + (size_t)r0 * kD, bytes, bar + i % kStages);
+    bulk_load(st + kRows * kRowBytes, V + (size_t)r0 * kD, bytes, bar + i % kStages);
   };
   if (tid == 0) {   // the first tiles are in flight while q is read
     for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
@@ -108,15 +145,12 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
   }
 
   // scores: a quarter-warp per row (lane bits 3-4 pick it), its 8 lanes the
-  // 16-byte column chunks `part` and `part + 8` (bits 0-2)
+  // 16-byte column chunks of row16 (bits 0-2: `part`)
   const int part = lane & 7, quarter = lane >> 3;
   float qr[G][16];
-  const __nv_bfloat16* qh = q + ((size_t)b * Hkv + h) * G * kD;
+  const T* qh = q + ((size_t)b * Hkv + h) * G * kD;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    bf16x8(__ldg(reinterpret_cast<const uint4*>(qh + g * kD + 8 * part)), qr[g]);
-    bf16x8(__ldg(reinterpret_cast<const uint4*>(qh + g * kD + 8 * (part + 8))), qr[g] + 8);
-  }
+  for (int g = 0; g < G; ++g) row16(qh + g * kD, part, qr[g]);
   // the warp's softmax state, and p.V for columns 4 lane.. in each lane
   float m[G], l[G], acc[G][4];
 #pragma unroll
@@ -132,16 +166,14 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
     __syncthreads();   // tile i landed; stage (i - 1) % kStages is free
     if (tid == 0 && i + kStages - 1 < nt) load(i + kStages - 1);
     const unsigned char* Kt = smem + (i % kStages) * kStageBytes;
-    const unsigned char* Vt = Kt + kTile * kRowBytes;
-    const int rows = min(kTile, nr - i * kTile);
-    float s[2][G];   // this lane's rows: 4 warp + quarter (+ 32)
+    const unsigned char* Vt = Kt + kRows * kRowBytes;
+    const int rows = min(kRows, nr - i * kRows);
+    float s[J][G];   // this lane's rows: 4 warp + quarter (+ 32)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int r = warp * 4 + quarter + 32 * j;
-      const unsigned char* rp = Kt + r * kRowBytes;
       float kf[16];
-      bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * part), kf);
-      bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * (part + 8)), kf + 8);
+      row16(reinterpret_cast<const T*>(Kt + r * kRowBytes), part, kf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float d = 0.f;
@@ -153,17 +185,21 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       }
     }
     // online softmax over the warp's 8 rows of the tile
-    float p[2][G];
+    float p[J][G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float mt = fmaxf(s[0][g], s[1][g]);
+      float mt = s[0][g];
+#pragma unroll
+      for (int j = 1; j < J; ++j) mt = fmaxf(mt, s[j][g]);
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
       mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
       const float m_new = fmaxf(m[g], mt), alpha = expf(m[g] - m_new);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < J; ++j)
         p[j][g] = warp * 4 + quarter + 32 * j < rows ? expf(s[j][g] - m_new) : 0.f;
-      float ps = p[0][g] + p[1][g];
+      float ps = p[0][g];
+#pragma unroll
+      for (int j = 1; j < J; ++j) ps += p[j][g];
       ps += __shfl_xor_sync(0xffffffffu, ps, 8);
       ps += __shfl_xor_sync(0xffffffffu, ps, 16);
       l[g] = alpha * l[g] + ps;
@@ -172,21 +208,19 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       for (int c = 0; c < 4; ++c) acc[g][c] *= alpha;
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int qq = 0; qq < 4; ++qq) {
         const int r = warp * 4 + qq + 32 * j;
         if (r >= rows) continue;   // the same for every lane of the warp
-        const uint2 u = *reinterpret_cast<const uint2*>(Vt + r * kRowBytes + lane * 8);
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        const float4 v = col4(reinterpret_cast<const T*>(Vt + r * kRowBytes), lane);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pr = __shfl_sync(0xffffffffu, p[j][g], qq * 8);
-          acc[g][0] = fmaf(pr, v01.x, acc[g][0]);
-          acc[g][1] = fmaf(pr, v01.y, acc[g][1]);
-          acc[g][2] = fmaf(pr, v23.x, acc[g][2]);
-          acc[g][3] = fmaf(pr, v23.y, acc[g][3]);
+          acc[g][0] = fmaf(pr, v.x, acc[g][0]);
+          acc[g][1] = fmaf(pr, v.y, acc[g][1]);
+          acc[g][2] = fmaf(pr, v.z, acc[g][2]);
+          acc[g][3] = fmaf(pr, v.w, acc[g][3]);
         }
       }
   }
@@ -233,19 +267,30 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
         L += cluster.map_shared_rank(s_l, r)[g] * w;
         O += cluster.map_shared_rank(o_blk, r)[i] * w;
       }
-      out[((size_t)b * Hkv + h) * G * kD + i] = __float2bfloat16(O / fmaxf(L, 1e-30f));
+      out[((size_t)b * Hkv + h) * G * kD + i] = from_f<T>(O / fmaxf(L, 1e-30f));
     }
   }
   cluster.sync();    // the other blocks' shared memory stays until rank 0 has read it
 }
 
-template <int G>
-cudaError_t launch(const Split& sp, int B, const __nv_bfloat16* q, const __nv_bfloat16* kv,
-                   long long lane_stride, int Hkv, int C, int n_valid, float scale,
-                   __nv_bfloat16* out, cudaStream_t st) {
-  return launch_cluster(decode_attn_kernel<G>, dim3(sp.splits, Hkv, B), kThreads,
-                        decode_smem(G), st, q, kv, lane_stride, Hkv, C, n_valid, sp.per, scale,
-                        out);
+template <typename T, int G>
+cudaError_t launch(const Split& sp, int B, const void* q, const void* kv, long long lane_stride,
+                   int Hkv, int C, int n_valid, float scale, void* out, cudaStream_t st) {
+  return launch_cluster(decode_attn_kernel<T, G>, dim3(sp.splits, Hkv, B), kThreads,
+                        decode_smem(G), st, (const T*)q, (const T*)kv, lane_stride, Hkv, C,
+                        n_valid, sp.per, scale, (T*)out);
+}
+
+template <typename T>
+cudaError_t launch_g(int G, const Split& sp, int B, const void* q, const void* kv,
+                     long long lane_stride, int Hkv, int C, int n_valid, float scale, void* out,
+                     cudaStream_t st) {
+  switch (G) {
+    case 1: return launch<T, 1>(sp, B, q, kv, lane_stride, Hkv, C, n_valid, scale, out, st);
+    case 2: return launch<T, 2>(sp, B, q, kv, lane_stride, Hkv, C, n_valid, scale, out, st);
+    case 4: return launch<T, 4>(sp, B, q, kv, lane_stride, Hkv, C, n_valid, scale, out, st);
+    default: return launch<T, 8>(sp, B, q, kv, lane_stride, Hkv, C, n_valid, scale, out, st);
+  }
 }
 
 }  // namespace
@@ -255,25 +300,21 @@ extern "C" int qtts_decode_attention_splits(int B, int Hkv, int n_valid) {
   return decode_split(B, Hkv, n_valid).splits;
 }
 
-// q [B, Hq, D] bf16; kv: the layer's K half of lane 0 inside the stacked
-// cache (V follows at Hkv * C * D elements, lanes lane_stride apart),
-// 16-byte aligned; out [B, Hq, D] bf16. D = 128, Hq / Hkv in {1, 2, 4, 8},
-// 1 <= n_valid <= C. One launch; returns its cudaError_t.
+// q [B, Hq, D]; kv: the layer's K half of lane 0 inside the stacked cache
+// (V follows at Hkv * C * D elements, lanes lane_stride apart), 16-byte
+// aligned; out [B, Hq, D]; all bf16, or all float32 when f32. D = 128, Hq /
+// Hkv in {1, 2, 4, 8}, 1 <= n_valid <= C. One launch; returns its
+// cudaError_t.
 extern "C" int qtts_decode_attention(const void* q, const void* kv, long long lane_stride,
                                      int B, int Hq, int Hkv, int C, int D, int n_valid,
-                                     float scale, void* out, void* stream) {
+                                     float scale, int f32, void* out, void* stream) {
   const int G = Hkv > 0 && Hq % Hkv == 0 ? Hq / Hkv : 0;
   if (D != kD || B < 1 || n_valid < 1 || n_valid > C || !(G == 1 || G == 2 || G == 4 || G == 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Split sp = decode_split(B, Hkv, n_valid);
-  const auto* qb = (const __nv_bfloat16*)q;
-  const auto* kvb = (const __nv_bfloat16*)kv;
-  auto* ob = (__nv_bfloat16*)out;
-  switch (G) {
-    case 1: return (int)launch<1>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
-    case 2: return (int)launch<2>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
-    case 4: return (int)launch<4>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
-    default: return (int)launch<8>(sp, B, qb, kvb, lane_stride, Hkv, C, n_valid, scale, ob, st);
-  }
+  return f32 ? (int)launch_g<float>(G, sp, B, q, kv, lane_stride, Hkv, C, n_valid, scale, out,
+                                    st)
+             : (int)launch_g<__nv_bfloat16>(G, sp, B, q, kv, lane_stride, Hkv, C, n_valid,
+                                            scale, out, st);
 }

@@ -30,13 +30,35 @@
 //   w4bf16  split-half nibbles [K/2, N] (byte i: row i low, row i + K/2
 //           high) with float32 scale and zero [G, N] per group of gs = K/G
 //           logical rows. Per half, w = q * s - z (product rounded first)
-//           rounded to bf16, dotted with the bf16 activation.
-// A bf16 x bf16 product is exact in float32 and float64, so the float modes
-// sum their products in float64 into per-split partials [halves, splits,
-// B, N] (no float atomics), and the consumer adds the splits in order and
-// rounds once to float32 per half; the w4bf16 halves are then added in
-// float32, as the Pallas kernel adds its two float32 dots. The plain
-// versions compute the same float64 dots, so both get the same bits.
+//           rounded to bf16, dotted with the bf16 activation;
+//   f32     float32 W [K, N] (the float32 tier: the Pallas "bf16" mode
+//           dots x.astype(wq.dtype), which is float32 then). emit() writes
+//           the float32 activation unrounded.
+// A bf16 x bf16 product, and a float32 x float32 one, is exact in float64,
+// so the float modes sum their products in float64 into per-split partials
+// [halves, splits, B, N] (no float atomics), and the consumer adds the
+// splits in order and rounds once to float32 per half; the w4bf16 halves
+// are then added in float32, as the Pallas kernel adds its two float32
+// dots. The plain versions compute the same float64 dots, so both get the
+// same bits.
+//
+// The KV cache holds bf16 or float32 rows (T), or the int8 pair below; q is
+// rounded to T (a no-op for float32), and so are the probabilities where
+// round_p asks for it. Float32 rows are 512 bytes: the attention ring takes
+// 32 of them a tile, so that a tile is 16 KB in both dtypes and the cluster
+// sizes and the shared memory are the bf16 cache's.
+//
+// Layouts. A lane's cache rows of one KV head are contiguous in the
+// batch-major cache [B, L, 2, Hkv, C, D] (K1: B = 1) and lie row_stride = B
+// * D elements apart in the lane-major one [L, 2, Hkv, C, B, D]
+// (pallas_talker_step.py:1246 _make_kernel_batched_lane, K5 with
+// kv_layout="lane"). Every kernel takes the cache through (head_stride,
+// lane_stride, row_stride), so the two layouts run the same arithmetic in
+// the same order: lane-major K5 equals batch-major K5 bit for bit on the
+// same cache contents. attn_layer_kernel streams a tile of contiguous rows
+// as one bulk copy, and lane-major rows as one bulk copy a row, issued by
+// the 32 lanes of warp 0 (a kernel reading the [rows, B, D] slab of all
+// lanes at once, as the TPU kernel does, is later work).
 //
 // Lanes. Every per-token kernel takes its lane from the grid (blockIdx.x
 // for the row kernels, y or z for the others) and finds lane b's vectors at
@@ -147,12 +169,19 @@ constexpr int kHeadSplits = 8;      // K splits of the batched head GEMM
 constexpr int kHeadEPT = kMaxCodecVocab / kHeadThreads;
 constexpr int kHeadP = kHeadEPT % 4 == 0 ? 4 : kHeadEPT % 2 == 0 ? 2 : 1;
 
-enum WeightMode { kW8A8 = 0, kBF16 = 1, kW4BF16 = 2 };
+enum WeightMode { kW8A8 = 0, kBF16 = 1, kW4BF16 = 2, kF32 = 3 };
+
+// The codes of a GEMV or GEMM plan (gemv_plan, gemm_plan) and of the
+// projection harness (talker_step.cu qtts_project_layers): the weight
+// modes w8a8, bf16, w4bf16 as they are, then the codec head's GEMV over
+// bf16 (kPlanHead) and float32 weights (kPlanHeadF32), and the f32 mode.
+constexpr int kPlanHead = 3, kPlanF32 = 4, kPlanHeadF32 = 5;
+__host__ __device__ constexpr int plan_code(int mode) { return mode == kF32 ? kPlanF32 : mode; }
 
 // One projection's weights (a whole stack, or one layer of it).
 struct Proj {
   int mode;
-  const void* w;    // int8 [K, N] | bf16 [K, N] | packed u4 int8 [K/2, N]
+  const void* w;    // int8 [K, N] | bf16 [K, N] | packed u4 int8 [K/2, N] | f32 [K, N]
   const float* s;   // w8a8: scales [N]; w4bf16: group scales [G, N]
   const float* z;   // w4bf16: group offsets [G, N]
   int G;            // w4bf16: groups
@@ -171,7 +200,8 @@ struct ProjOut {
 struct Emit {
   int8_t* xq;     // w8a8: int8 rows [B, ldq] and their scales s_out [B]
   float* s_out;
-  float* xf;      // bf16 / w4bf16: float32 rows [B, ldq] holding bf16 values
+  float* xf;      // float modes: float32 rows [B, ldq] (bf16 values unless f32)
+  int round;      // xf rounded to bf16 (bf16, w4bf16), or not (f32)
   int ldq;
   int* zero;      // w8a8: the projection's int32 accumulator [B, zero_n], cleared
   int zero_n;
@@ -210,7 +240,7 @@ __device__ void emit_row(const float* buf, int n, float amax_local, const Emit& 
                          float* red) {
   if (e.xf != nullptr) {   // rounded to bf16 here, once (the projections' operand)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      e.xf[(size_t)b * e.ldq + i] = bf16_round(buf[i]);
+      e.xf[(size_t)b * e.ldq + i] = e.round ? bf16_round(buf[i]) : buf[i];
   } else {
     quantize_buf(buf, n, amax_local, e.xq + (size_t)b * e.ldq, e.s_out + b, red);
   }
@@ -220,7 +250,8 @@ __device__ void emit_row(const float* buf, int n, float amax_local, const Emit& 
 
 // Lane blockIdx.x: x += the previous projection (when present); h =
 // x * rsqrt(mean(x^2)+eps) * norm. Then h goes to the next projection
-// (emit), or, when h_out is given, is written there in float32.
+// (emit), or, when h_out is given, is written there in float32 (x itself
+// when norm is null: K5 without its codec head returns the residual).
 __global__ void resid_rms_kernel(float* x, ProjOut in,
                                  const float* __restrict__ norm, int H, float eps, Emit e,
                                  float* __restrict__ h_out) {
@@ -245,7 +276,7 @@ __global__ void resid_rms_kernel(float* x, ProjOut in,
   const float rs = 1.0f / sqrtf(var + eps);
   float am = 0.f;
   for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float h = buf[i] * rs * norm[i];
+    const float h = norm != nullptr ? buf[i] * rs * norm[i] : buf[i];
     buf[i] = h;
     am = fmaxf(am, fabsf(h));
     if (h_out != nullptr) h_out[i] = h;
@@ -293,15 +324,19 @@ __global__ void resid_rms_kernel(float* x, ProjOut in,
 // ops/fused_talker_step.gemv_plan mirrors the tiles;
 // tests/test_torch_gemv_order.py holds the summation order to the plain
 // versions' bits.
+// Float32 weights (f32 mode, the float32 codec head) take the bf16 GEMV's
+// form with 4 columns a thread (32 a block) and no bf16_hi: each weight is
+// widened to float64 by one conversion after the wait; their products with
+// the float32 x are exact in float64 too.
 constexpr int kGemvThreads = 256;
 constexpr int kGemvTX = 8;                        // threads along a row: 8 x 16 bytes
 constexpr int kGemvTY = kGemvThreads / kGemvTX;   // thread rows
-constexpr int kGemvHead = 3;                      // gemv_plan's mode of the codec head
 
-// Rows a thread takes (packed rows for u4), columns of a block.
-__host__ __device__ constexpr int gemv_thread_rows(int mode) { return mode == kW4BF16 ? 2 : 4; }
-__host__ __device__ constexpr int gemv_cols(int mode) {
-  return mode == kBF16 || mode == kGemvHead ? 64 : 128;
+// Rows a thread takes (packed rows for u4), columns of a block, by plan code.
+__host__ __device__ constexpr int gemv_thread_rows(int code) { return code == kW4BF16 ? 2 : 4; }
+__host__ __device__ constexpr int gemv_cols(int code) {
+  return code == kBF16 || code == kPlanHead ? 64
+         : code == kPlanF32 || code == kPlanHeadF32 ? 32 : 128;
 }
 
 // One 16-byte load of weights read once (no L1 allocation); volatile, so
@@ -440,59 +475,70 @@ gemv_i8_kernel(const int8_t* xq, const int8_t* __restrict__ W, int K, int N, int
   if (threadIdx.x < 128 && n < N) atomicAdd(acc + n, gemv_block_sum<int, 16>(red, threadIdx.x));
 }
 
-// bf16 weights W [K, N] (N a multiple of 8) against x float32 (rounded to
-// bf16): this block's 128 rows x 64 columns into partial[blockIdx.y, N].
-// Acc = double: a bf16 projection, exact products summed in float64 (the
-// weights widened to bf16_hi before the wait); Acc = float: the codec head,
+// Float weights W [K, N] of type Wt (bf16, N a multiple of 8; or float32,
+// N a multiple of 4) against x float32 (rounded to bf16 for bf16 weights):
+// this block's 128 rows x 8 * NV columns into partial[blockIdx.y, N], NV =
+// 8 (bf16) or 4 (float32) columns a thread. Acc = double: a projection,
+// exact products summed in float64 (bf16 weights widened to bf16_hi before
+// the wait, float32 ones converted after it); Acc = float: the codec head,
 // summed in float32 (the consumer adds the splits in float32).
-template <typename Acc>
+template <typename Wt, typename Acc>
 __global__ void __launch_bounds__(kGemvThreads)
-gemv_bf16_kernel(const float* x, const __nv_bfloat16* __restrict__ W, int K, int N,
-                 Acc* partial) {
+gemv_float_kernel(const float* x, const Wt* __restrict__ W, int K, int N, Acc* partial) {
   constexpr bool kF64 = std::is_same<Acc, double>::value;
-  __shared__ Acc red[kGemvThreads / 32 * 2 * 32];
+  constexpr bool kBw = std::is_same<Wt, __nv_bfloat16>::value;
+  constexpr int NV = 16 / (int)sizeof(Wt), kCols = kGemvTX * NV;
+  __shared__ Acc red[kGemvThreads / 32 * (NV / 4) * 32];
   pdl_trigger();
   const int tx = threadIdx.x % kGemvTX, ty = threadIdx.x / kGemvTX;
-  const int n0 = blockIdx.x * 64 + 8 * tx, k0 = blockIdx.y * 128 + 4 * ty;
+  const int n0 = blockIdx.x * kCols + NV * tx, k0 = blockIdx.y * 128 + 4 * ty;
   int4 w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     w[i] = n0 < N && k0 + i < K ? ld_weights16(W + (size_t)(k0 + i) * N + n0)
                                 : make_int4(0, 0, 0, 0);
-  uint32_t h[4][8];   // row i, column j: bf16_hi (double) or float32 bits (float)
+  // row i, column j: bf16_hi (bf16, double), or the weight's float32 bits
+  uint32_t h[4][NV];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {   // word c: columns 2c (low half), 2c + 1 (high)
+    for (int c = 0; c < 4; ++c) {   // word c: columns 2c (low half), 2c + 1 (high); float32: c
       const uint32_t u = reinterpret_cast<const uint32_t*>(&w[i])[c];
-      h[i][2 * c] = kF64 ? bf16_hi(u << 16) : u << 16;
-      h[i][2 * c + 1] = kF64 ? bf16_hi(u) : u & 0xffff0000u;
-      pin(h[i][2 * c]);
-      pin(h[i][2 * c + 1]);
+      if constexpr (kBw) {
+        h[i][2 * c] = kF64 ? bf16_hi(u << 16) : u << 16;
+        h[i][2 * c + 1] = kF64 ? bf16_hi(u) : u & 0xffff0000u;
+        pin(h[i][2 * c]);
+        pin(h[i][2 * c + 1]);
+      } else {
+        h[i][c] = u;
+        pin(h[i][c]);
+      }
     }
   pdl_wait();
   Acc xv[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if constexpr (kF64) xv[i] = x_scaled(x, k0 + i, K);
-    else xv[i] = k0 + i < K ? bf16_round(ld_chain(x + k0 + i)) : 0.f;
+    if constexpr (kBw && kF64) xv[i] = x_scaled(x, k0 + i, K);
+    else if constexpr (kBw) xv[i] = k0 + i < K ? bf16_round(ld_chain(x + k0 + i)) : 0.f;
+    else xv[i] = k0 + i < K ? (Acc)ld_chain(x + k0 + i) : (Acc)0;
   }
-  Acc a[8];
+  Acc a[NV];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NV; ++j) {
     Acc v = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {   // a bf16 x bf16 product is exact in float32
-      if constexpr (kF64) v = __fma_rn(xv[i], from_hi(h[i][j]), v);
+      if constexpr (kBw && kF64) v = __fma_rn(xv[i], from_hi(h[i][j]), v);
+      else if constexpr (kF64) v = __fma_rn(xv[i], (double)__uint_as_float(h[i][j]), v);
       else v = __fmaf_rn(xv[i], __uint_as_float(h[i][j]), v);
     }
     a[j] = v;
   }
   gemv_scatter(a, red);
   __syncthreads();
-  const int n = blockIdx.x * 64 + threadIdx.x;
-  if (threadIdx.x < 64 && n < N)
-    partial[(size_t)blockIdx.y * N + n] = gemv_block_sum<Acc, 8>(red, threadIdx.x);
+  const int n = blockIdx.x * kCols + threadIdx.x;
+  if (threadIdx.x < kCols && n < N)
+    partial[(size_t)blockIdx.y * N + n] = gemv_block_sum<Acc, NV>(red, threadIdx.x);
 }
 
 // One u4 weight: (q * s - z) in float32 with the product rounded first (no
@@ -619,7 +665,8 @@ gemv_w4_kernel(const float* x, const int8_t* __restrict__ Q, const float* __rest
 //         Split-K sums combine by int32 atomics into the accumulator that
 //         the row kernels cleared: exact in any order.
 //   float: mma.sync m16n8k8 f64 (DMMA). The pass widens each weight of the
-//         tile to float64 once, in shared memory: bf16, or one half's u4
+//         tile to float64 once, in shared memory: bf16, float32 (f32 mode:
+//         its tile is 8 KB, the activation unrounded), or one half's u4
 //         nibbles dequantized as dequant4 does (a u4 weight's two halves go
 //         to two blocks, blockIdx.z, which read the same packed bytes, one
 //         projection's at most 3 MB, within the 50 MB L2). The activation
@@ -770,17 +817,17 @@ gemm_i8_mma_kernel(const int8_t* __restrict__ xq, int ldq, int B, const int8_t* 
   }
 }
 
-// The codec head for B lanes: x [B, ldx] float32 (rounded to bf16) @ W bf16
-// [K, N]: float32 partial sums of this block's 32-row K tiles into
-// partial[split, b, N] (the consumer sums the splits in float32). Block =
-// one 128-column strip x a run of tiles; each thread accumulates 4 columns x
-// BPT lanes (lanes ty, ty + 8, ...); each weight element is read from
-// device memory by exactly one block.
-template <int BPT>
+// The codec head for B lanes: x [B, ldx] float32 (rounded to bf16 for bf16
+// weights) @ W [K, N] of type Wt (bf16 or float32): float32 partial sums of
+// this block's 32-row K tiles into partial[split, b, N] (the consumer sums
+// the splits in float32). Block = one 128-column strip x a run of tiles;
+// each thread accumulates 4 columns x BPT lanes (lanes ty, ty + 8, ...);
+// each weight element is read from device memory by exactly one block.
+template <int BPT, typename Wt>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
-                 const __nv_bfloat16* __restrict__ W, int K, int N, int tiles_per_split,
-                 float* __restrict__ partial) {
+gemm_head_kernel(const float* __restrict__ x, int ldx, int B, const Wt* __restrict__ W, int K,
+                 int N, int tiles_per_split, float* __restrict__ partial) {
+  constexpr bool kBw = std::is_same<Wt, __nv_bfloat16>::value;
   __shared__ __align__(16) float ws[kGemmTKf][kGemmTN];
   __shared__ float xs[kMaxLanes][kGemmTKf];
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
@@ -798,17 +845,22 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
       const int k = k0 + r;
       float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
       if (k < K && n < N) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(W + (size_t)k * N + n);
-        const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-        const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-        f = make_float4(__low2float(w01), __high2float(w01), __low2float(w23),
-                        __high2float(w23));
+        if constexpr (kBw) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(W + (size_t)k * N + n);
+          const __nv_bfloat162 w01 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+          const __nv_bfloat162 w23 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+          f = make_float4(__low2float(w01), __high2float(w01), __low2float(w23),
+                          __high2float(w23));
+        } else {
+          f = *reinterpret_cast<const float4*>(W + (size_t)k * N + n);
+        }
       }
       *reinterpret_cast<float4*>(&ws[r][4 * tx]) = f;
     }
     for (int i = tid; i < B * kGemmTKf; i += kGemmThreads) {
       const int b = i / kGemmTKf, kk = i % kGemmTKf, k = k0 + kk;
-      xs[b][kk] = k < K ? bf16_round(x[(size_t)b * ldx + k]) : 0.f;
+      const float v = k < K ? x[(size_t)b * ldx + k] : 0.f;
+      xs[b][kk] = kBw ? bf16_round(v) : v;
     }
     __syncthreads();
 #pragma unroll 8
@@ -837,35 +889,37 @@ gemm_bf16_kernel(const float* __restrict__ x, int ldx, int B,
   }
 }
 
-// Bytes of shared memory of a float-mode GEMM block (W4: a u4 weight) for
-// B8 lanes with S ring stages: the stages (the raw weight tile, for u4 its
-// group's scale and offset rows, then the lanes' activation rows), then the
-// two widened float64 tiles.
-__host__ __device__ constexpr int f_wbytes(bool w4) {
-  return w4 ? kFTK * kFTN + 2 * kFTN * 4 : kFTK * kFTN * 2;
+// Bytes of shared memory of a float-mode GEMM block (WM: kBF16, kW4BF16 or
+// kF32) for B8 lanes with S ring stages: the stages (the raw weight tile,
+// for u4 its group's scale and offset rows, then the lanes' activation
+// rows), then the two widened float64 tiles.
+__host__ __device__ constexpr int f_wbytes(int wm) {
+  return wm == kW4BF16 ? kFTK * kFTN + 2 * kFTN * 4 : kFTK * kFTN * (wm == kF32 ? 4 : 2);
 }
-__host__ __device__ constexpr int f_stage_bytes(bool w4, int B8) {
-  return f_wbytes(w4) + B8 * kFXRow * 4;
+__host__ __device__ constexpr int f_stage_bytes(int wm, int B8) {
+  return f_wbytes(wm) + B8 * kFXRow * 4;
 }
-__host__ __device__ constexpr int f_smem_bytes(bool w4, int B8, int S) {
-  return S * f_stage_bytes(w4, B8) + 2 * kFTK * kFWRow * 8;
+__host__ __device__ constexpr int f_smem_bytes(int wm, int B8, int S) {
+  return S * f_stage_bytes(wm, B8) + 2 * kFTK * kFWRow * 8;
 }
 
-// Float64 partials of this block's K tiles of x [B, ldx] (float32 holding
-// bf16 values) @ W into partial[h, split, b, N]. W4 = false: W bf16 [K, N]
-// (Wv), h = 0. W4: a u4 weight Q [K/2, N] (Wv, split-half nibbles) with
+// Float64 partials of this block's K tiles of x [B, ldx] (float32: bf16
+// values, or any float32 in f32) @ W into partial[h, split, b, N]. WM =
+// kBF16 or kF32: W bf16 or float32 [K, N] (Wv), h = 0. WM = kW4BF16: a u4
+// weight Q [K/2, N] (Wv, split-half nibbles) with
 // scale S and offset Z [G, N], gs = K / G a multiple of kFTK; block
 // (x, y, h) sums half h: the packed rows' low (h = 0) or high nibbles
 // against x[:, h K/2 : (h + 1) K/2]. Grid (column strips, K splits of `per`
 // tiles, halves); B <= 32 * WL; ST ring stages.
-template <bool W4, int WL, int ST>
+template <int WM, int WL, int ST>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __restrict__ Wv,
                     const float* __restrict__ S, const float* __restrict__ Z, int K, int N,
                     int gs, int G, int per, double* __restrict__ partial) {
-  constexpr int WB = f_wbytes(W4);
+  constexpr bool W4 = WM == kW4BF16;
+  constexpr int WB = f_wbytes(WM);
   extern __shared__ __align__(16) unsigned char gemm_smem[];
-  const int B8 = (B + 7) & ~7, stage = f_stage_bytes(W4, B8);
+  const int B8 = (B + 7) & ~7, stage = f_stage_bytes(WM, B8);
   double* Wd = reinterpret_cast<double*>(gemm_smem + ST * stage);
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
   const int mw = warp % kFMW, lw = warp / kFMW, h = blockIdx.z;
@@ -890,12 +944,14 @@ gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __r
         cp_async16(sc + (c / (kFTN / 4)) * kFTN + n - n0,
                   n < N ? (c < kFTN / 4 ? S : Z) + grp + n : S, n < N);
       }
-    } else {
-      const __nv_bfloat16* W = (const __nv_bfloat16*)Wv;
-      for (int c = tid; c < kFTK * (kFTN / 8); c += kGemmThreads) {
-        const int r = c / (kFTN / 8), n = n0 + 8 * (c % (kFTN / 8));
+    } else {   // bf16 or float32 rows: EB bytes an element, 16 / EB a copy
+      constexpr int EB = WM == kF32 ? 4 : 2, EC = 16 / EB;
+      const unsigned char* W = (const unsigned char*)Wv;
+      for (int c = tid; c < kFTK * (kFTN / EC); c += kGemmThreads) {
+        const int r = c / (kFTN / EC), n = n0 + EC * (c % (kFTN / EC));
         const bool ok = k0 + r < rows && n < N;
-        cp_async16(ws + 2 * (r * kFTN + n - n0), ok ? W + (size_t)(k0 + r) * N + n : W, ok);
+        cp_async16(ws + EB * (r * kFTN + n - n0), ok ? W + EB * ((size_t)(k0 + r) * N + n) : W,
+                   ok);
       }
     }
     float* xs = reinterpret_cast<float*>(ws + WB);
@@ -914,6 +970,8 @@ gemm_f64_mma_kernel(const float* __restrict__ x, int ldx, int B, const void* __r
         const float* sc = reinterpret_cast<const float*>(ws + kFTK * kFTN);
         const uint32_t q = ws[r * kFTN + n];
         d[r * kFWRow + n] = dequant4(h ? q >> 4 : q & 15u, sc[n], sc[kFTN + n]);
+      } else if constexpr (WM == kF32) {
+        d[r * kFWRow + n] = reinterpret_cast<const float*>(ws)[r * kFTN + n];
       } else {
         d[r * kFWRow + n] =
             __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(ws)[r * kFTN + n]);
@@ -1026,18 +1084,24 @@ __device__ __forceinline__ int lane_start(const int* start, int b, int n_valid) 
 
 constexpr int kAttD = 128;           // head_dim the attention kernel takes
 constexpr int kAttThreads = 256;
-constexpr int kAttTile = 64;         // K or V rows per ring stage
+constexpr int kAttTile = 64;         // K or V rows per ring stage (at most)
 constexpr int kAttStages = 3;
 constexpr int kAttMinRows = 64;      // rows a block of a cluster takes at least
 constexpr int kAttMaxCluster = 16;   // a non-portable cluster
 constexpr size_t kAttMaxSmem = 232448;   // shared memory a block may have
+
+// Rows of one ring tile for cache rows of row_bytes: 64 (int8, bf16) or 32
+// (float32), so that a tile is at most 16 KB.
+__host__ __device__ constexpr int att_tile_rows(int row_bytes) {
+  return row_bytes > 2 * kAttD ? kAttTile / 2 : kAttTile;
+}
 
 // Byte offsets in the attention kernel's shared memory, for G query heads
 // per KV head, slices of at most `cap` rows and cache rows of row_bytes.
 struct AttLayout {
   size_t o_blk, pd, dstat, redd, fstat, redf, bar, scores, total;
   __host__ __device__ AttLayout(int G, int cap, int row_bytes) {
-    size_t ring = (size_t)kAttStages * kAttTile * row_bytes;
+    size_t ring = (size_t)kAttStages * att_tile_rows(row_bytes) * row_bytes;
     const size_t red = (size_t)8 * G * kAttD * sizeof(double);   // reuses the ring
     if (red > ring) ring = red;
     o_blk = ring;                                             // double [G, D]
@@ -1061,28 +1125,41 @@ __device__ __forceinline__ long q8_scale_base(int b, int h, long head_stride,
   return ((long)b * lane_stride + (long)h * head_stride) / D;
 }
 
+// A cache element's value as the attention reads it: q is rounded to the
+// cache's T (bf16; the int8 cache's staging rows are bf16; float32 is not
+// rounded), and so is p where round_p asks for it.
+template <typename T>
+__device__ __forceinline__ float round_to_kv(float v) {
+  return std::is_same<T, float>::value ? v : bf16_round(v);
+}
+
 // One layer's attention for lane b = blockIdx.z and KV head h = blockIdx.y,
 // its G query heads of q [B, Hq * D] float32 into out [B, Hq * D] float32
 // (the header gives the function and its bits). The gridDim.x blocks of a
 // cluster split the lane's rows [t0, n_end) into contiguous slices of at
-// most `cap` rows, rank r the r-th. T = bf16: t0 = max(start_b, floor_row),
-// n_end = n_valid. T = int8: the cached rows [0, n_end = pos) with their
-// scales Ks and Vs, then the current row from cur [B, 2, Hkv, D] (bf16).
-// Each block streams its K rows, then its V rows, through one ring of
-// kAttStages tiles (one bulk copy each, kAttStages - 1 tiles in flight)
-// and keeps its slice's scores in shared memory; the max and the
-// float64 sum of exp(s - m) are exchanged over distributed shared memory
-// (the sum added in rank order), and rank 0 adds the blocks' float64
-// partial o in rank order and rounds it to float32 once.
+// most `cap` rows, rank r the r-th. T = bf16 or float: t0 = max(start_b,
+// floor_row), n_end = n_valid. T = int8: the cached rows [0, n_end = pos)
+// with their scales Ks and Vs, then the current row from cur [B, 2, Hkv, D]
+// (bf16). Row t of (lane b, head h) lies at b * lane_stride + h *
+// head_stride + t * row_stride elements of K or V. Each block streams its K
+// rows, then its V rows, through one ring of kAttStages tiles
+// (att_tile_rows rows each; one bulk copy a tile of contiguous rows
+// (row_stride == D), else one a row, issued by warp 0; kAttStages - 1
+// tiles in flight) and keeps its slice's scores in shared memory; the max
+// and the float64 sum of exp(s - m) are exchanged over distributed shared
+// memory (the sum added in rank order), and rank 0 adds the blocks'
+// float64 partial o in rank order and rounds it to float32 once.
 template <typename T, int G>
 __global__ void __launch_bounds__(kAttThreads)
 attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__ V,
-                  long head_stride, long lane_stride, int n_end, int floor_row, int cap,
-                  float scale, int round_q, int round_p, const int* __restrict__ start,
+                  long head_stride, long lane_stride, long row_stride, int n_end, int floor_row,
+                  int cap, float scale, int round_q, int round_p, const int* __restrict__ start,
                   const float* __restrict__ Ks, const float* __restrict__ Vs,
                   const __nv_bfloat16* cur, float* __restrict__ out) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kRow = kAttD * (int)sizeof(T);
+  constexpr int kTile = att_tile_rows(kRow);   // rows of a ring tile
   extern __shared__ __align__(16) unsigned char att_smem[];
   const AttLayout lay(G, cap, kRow);
   double* o_blk = reinterpret_cast<double*>(att_smem + lay.o_blk);
@@ -1103,28 +1180,39 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
   const int t0 = kQ8 ? 0 : max(lane_start(start, b, n_end), floor_row);
   const int per = (n_end - t0 + S - 1) / S;
   const int lo = t0 + rank * per, hi = min(n_end, lo + per), nr = max(hi - lo, 0);
-  const int nt = (nr + kAttTile - 1) / kAttTile, total = 2 * nt;
+  const int nt = (nr + kTile - 1) / kTile, total = 2 * nt;
   const T* Kb = K + (size_t)b * lane_stride + (size_t)h * head_stride;
   const T* Vb = V + (size_t)b * lane_stride + (size_t)h * head_stride;
   const float* qh = q + (size_t)b * Hq * kAttD + (size_t)h * G * kAttD;
 
-  // tile i < nt: K rows [lo + 64 i, ...); tile nt + j: V rows [lo + 64 j, ...)
-  auto load = [&](int i) {   // thread 0: one bulk copy of the tile's rows
-    const int j = i < nt ? i : i - nt, r0 = lo + j * kAttTile;
-    const unsigned bytes = min(kAttTile, hi - r0) * kRow;
-    mbar_expect(bar + i % kAttStages, bytes);
-    bulk_load(att_smem + (size_t)(i % kAttStages) * kAttTile * kRow,
-              (i < nt ? Kb : Vb) + (size_t)r0 * kAttD, bytes, bar + i % kAttStages);
+  // tile i < nt: K rows [lo + kTile i, ...); tile nt + j: V rows [lo + kTile j, ...)
+  auto load = [&](int i) {   // warp 0: the tile's rows, one bulk copy or one a row
+    const int j = i < nt ? i : i - nt, r0 = lo + j * kTile, n = min(kTile, hi - r0);
+    const T* src = (i < nt ? Kb : Vb) + (size_t)r0 * row_stride;
+    unsigned char* dst = att_smem + (size_t)(i % kAttStages) * kTile * kRow;
+    if (lane == 0) mbar_expect(bar + i % kAttStages, (unsigned)(n * kRow));
+    __syncwarp();
+    if (row_stride == kAttD) {
+      if (lane == 0) bulk_load(dst, src, (unsigned)(n * kRow), bar + i % kAttStages);
+    } else {
+      for (int r = lane; r < n; r += 32)
+        bulk_load(dst + (size_t)r * kRow, src + (size_t)r * row_stride, kRow,
+                  bar + i % kAttStages);
+    }
   };
   auto wait_tile = [&](int i) { mbar_wait(bar + i % kAttStages, (i / kAttStages) & 1); };
-  if (tid == 0) {   // the first tiles are in flight while q is read
-    for (int s = 0; s < kAttStages; ++s) mbar_init(bar + s);
-    mbar_init_fence();
+  if (warp == 0) {   // the first tiles are in flight while q is read
+    if (lane == 0) {
+      for (int s = 0; s < kAttStages; ++s) mbar_init(bar + s);
+      mbar_init_fence();
+    }
+    __syncwarp();
     for (int i = 0; i < kAttStages - 1 && i < total; ++i) load(i);
   }
 
   // scores: lane bits 3-4 pick the row (warp w: rows 4w.. and 4w + 32..),
-  // bits 0-2 the 16-byte chunks `part` (and part + 8 for bf16) of it
+  // bits 0-2 the 16-byte chunks `part` (and part + 8, + 16, + 24 as the
+  // row is longer) of it
   const int part = lane & 7;
   const int srow = warp * 4 + (lane >> 3);
   double qr[G][16];
@@ -1132,9 +1220,11 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 16; ++e) {
-      const int col = kQ8 ? 16 * part + e : (e < 8 ? 8 * part + e : 8 * (part + 8) + e - 8);
+      const int col = kQ8    ? 16 * part + e
+                      : kF32 ? 4 * (part + 8 * (e / 4)) + e % 4
+                             : (e < 8 ? 8 * part + e : 8 * (part + 8) + e - 8);
       const float v = qh[g * kAttD + col];
-      qr[g][e] = kQ8 || round_q ? bf16_round(v) : v;
+      qr[g][e] = kQ8 ? bf16_round(v) : round_q ? round_to_kv<T>(v) : v;
     }
   if (kQ8 && warp < G) {   // the current row's score, (q . k) * scale
     const __nv_bfloat16* kc = cur + ((size_t)b * 2 * Hkv + h) * kAttD;
@@ -1153,42 +1243,47 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
   for (int i = 0; i < nt; ++i) {
     wait_tile(i);
     __syncthreads();   // tile i landed; stage (i - 1) % kAttStages is free
-    if (tid == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
-    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kAttTile * kRow;
-    const int rows = min(kAttTile, nr - i * kAttTile);
+    if (warp == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
+    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kTile * kRow;
+    const int rows = min(kTile, nr - i * kTile);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kTile / 32; ++j) {
       const int r = srow + 32 * j;
       const unsigned char* rp = tile + r * kRow;
       double a[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) a[g] = 0.0;
+      float kf[16];
       if constexpr (kQ8) {
         const uint4 u = *reinterpret_cast<const uint4*>(rp + 16 * part);
         const int8_t* k8 = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const double kv = (double)k8[e];
+        for (int e = 0; e < 16; ++e) kf[e] = (float)k8[e];
+      } else if constexpr (kF32) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) a[g] = fma(qr[g][e], kv, a[g]);
+        for (int c = 0; c < 4; ++c) {
+          const float4 u = *reinterpret_cast<const float4*>(rp + 16 * (part + 8 * c));
+          kf[4 * c] = u.x;
+          kf[4 * c + 1] = u.y;
+          kf[4 * c + 2] = u.z;
+          kf[4 * c + 3] = u.w;
         }
       } else {
-        float kf[16];
         bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * part), kf);
         bf16x8(*reinterpret_cast<const uint4*>(rp + 16 * (part + 8)), kf + 8);
+      }
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const double kv = (double)kf[e];
+      for (int e = 0; e < 16; ++e) {
+        const double kv = (double)kf[e];
 #pragma unroll
-          for (int g = 0; g < G; ++g) a[g] = fma(qr[g][e], kv, a[g]);
-        }
+        for (int g = 0; g < G; ++g) a[g] = fma(qr[g][e], kv, a[g]);
       }
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int o = 1; o < 8; o <<= 1) a[g] += __shfl_xor_sync(0xffffffffu, a[g], o);
       if (part == 0 && r < rows) {
-        const int t = i * kAttTile + r;
+        const int t = i * kTile + r;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float s = __fmul_rn((float)a[g], scale);
@@ -1257,7 +1352,7 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = (float)(exp((double)(sc[g * cap + t] - fstat[G + g])) / dstat[G + g]);
-        sc[g * cap + t] = round_p ? bf16_round(p) : p;
+        sc[g * cap + t] = round_p ? round_to_kv<T>(p) : p;
       }
     }
     __syncthreads();
@@ -1271,20 +1366,26 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[g][c] = 0.0;
   for (int i = nt; i < total; ++i) {
-    const int j = i - nt, rows = min(kAttTile, nr - j * kAttTile);
+    const int j = i - nt, rows = min(kTile, nr - j * kTile);
     wait_tile(i);
-    double* pj = pd + (j & 1) * G * kAttTile;   // the tile's p, as doubles
-    for (int k = tid; k < G * kAttTile; k += kAttThreads) {
-      const int g = k / kAttTile, r = k % kAttTile;
-      if (r < rows) pj[k] = (double)sc[g * cap + j * kAttTile + r];
+    double* pj = pd + (j & 1) * G * kTile;   // the tile's p, as doubles
+    for (int k = tid; k < G * kTile; k += kAttThreads) {
+      const int g = k / kTile, r = k % kTile;
+      if (r < rows) pj[k] = (double)sc[g * cap + j * kTile + r];
     }
     __syncthreads();
-    if (tid == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
-    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kAttTile * kRow;
+    if (warp == 0 && i + kAttStages - 1 < total) load(i + kAttStages - 1);
+    const unsigned char* tile = att_smem + (size_t)(i % kAttStages) * kTile * kRow;
     for (int r = warp; r < rows; r += 8) {
       double v[4];
       if constexpr (kQ8) {
         const char4 u = *reinterpret_cast<const char4*>(tile + r * kRow + lane * 4);
+        v[0] = u.x;
+        v[1] = u.y;
+        v[2] = u.z;
+        v[3] = u.w;
+      } else if constexpr (kF32) {
+        const float4 u = *reinterpret_cast<const float4*>(tile + r * kRow + lane * 16);
         v[0] = u.x;
         v[1] = u.y;
         v[2] = u.z;
@@ -1300,7 +1401,7 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const double p = pj[g * kAttTile + r];
+        const double p = pj[g * kTile + r];
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[g][c] = fma(p, v[c], acc[g][c]);
       }
@@ -1500,7 +1601,7 @@ struct Work {
   int ldq;         // row stride of xq and xf
   float* x;        // [B, H] residual carry
   int8_t* xq;      // [B, ldq] quantized activation (w8a8 projections)
-  float* xf;       // [B, ldq] float32 activation (bf16 / w4bf16 projections)
+  float* xf;       // [B, ldq] float32 activation (the float modes' projections)
   float* s;        // [4, B] activation scales: qkv, o, gate/up, down
   int* acc_qkv;    // [B, (Hq+2Hkv)*D]
   int* acc_o;      // [B, H]
@@ -1517,18 +1618,18 @@ struct Work {
 
 inline size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
 
-// The grid of a GEMV (one lane) x [K] @ W [K, N] in `mode` (WeightMode or
-// kGemvHead): gx column blocks of gemv_cols(mode), ks K splits of `rows`
-// weight rows (packed rows for w4bf16), one block each
-// (ops/fused_talker_step.gemv_plan mirrors it).
+// The grid of a GEMV (one lane) x [K] @ W [K, N] of plan code `code`
+// (plan_code of a WeightMode, kPlanHead or kPlanHeadF32): gx column blocks
+// of gemv_cols(code), ks K splits of `rows` weight rows (packed rows for
+// w4bf16), one block each (ops/fused_talker_step.gemv_plan mirrors it).
 struct GemvPlan {
   int gx, ks, rows;
 };
 
-inline GemvPlan gemv_plan(int mode, int K, int N) {
+inline GemvPlan gemv_plan(int code, int K, int N) {
   GemvPlan p;
-  p.rows = kGemvTY * gemv_thread_rows(mode);
-  const int cols = gemv_cols(mode), krows = mode == kW4BF16 ? K / 2 : K;
+  p.rows = kGemvTY * gemv_thread_rows(code);
+  const int cols = gemv_cols(code), krows = code == kW4BF16 ? K / 2 : K;
   p.gx = (N + cols - 1) / cols;
   p.ks = (krows + p.rows - 1) / p.rows;
   return p;
@@ -1542,9 +1643,10 @@ inline int tile_split(int n_tiles, int max_splits, int* per) {
   return (n_tiles + *per - 1) / *per;
 }
 
-// The tile plan of a batched projection (B >= 2) x [B, K] @ W [K, N] in
-// `mode`: gx column strips of tn columns; the weight rows (packed rows for
-// w4bf16) cut into n_tiles tiles of tk, split into ks runs of `per` tiles
+// The tile plan of a batched projection (B >= 2) x [B, K] @ W [K, N] of
+// plan code `code` (plan_code of its WeightMode): gx column strips of tn
+// columns; the weight rows (packed rows for w4bf16) cut into n_tiles tiles
+// of tk, split into ks runs of `per` tiles
 // (the last one shorter) of at least kGemmMinTiles tiles where there are
 // enough, one block per (strip, run, u4 half): about kI8Blocks (int8) or
 // kFBlocks (float) blocks, or fewer. The same for every B
@@ -1553,23 +1655,25 @@ struct GemmPlan {
   int tn, tk, gx, n_tiles, per, ks;
 };
 
-inline GemmPlan gemm_plan(int mode, int K, int N) {
+inline GemmPlan gemm_plan(int code, int K, int N) {
   GemmPlan p;
-  p.tn = mode == kW8A8 ? kI8TN : kFTN;
-  p.tk = mode == kW8A8 ? kI8TK : kFTK;
-  const int rows = mode == kW4BF16 ? K / 2 : K, halves = mode == kW4BF16 ? 2 : 1;
+  p.tn = code == kW8A8 ? kI8TN : kFTN;
+  p.tk = code == kW8A8 ? kI8TK : kFTK;
+  const int rows = code == kW4BF16 ? K / 2 : K, halves = code == kW4BF16 ? 2 : 1;
   p.gx = (N + p.tn - 1) / p.tn;
   p.n_tiles = (rows + p.tk - 1) / p.tk;
-  const int blocks = mode == kW8A8 ? kI8Blocks : kFBlocks;
+  const int blocks = code == kW8A8 ? kI8Blocks : kFBlocks;
   const int splits = std::min(blocks / (p.gx * halves), p.n_tiles / kGemmMinTiles);
   p.ks = tile_split(p.n_tiles, std::max(1, splits), &p.per);
   return p;
 }
 
-// The K splits of a float-mode projection x [B, K] @ W [K, N]: the GEMV's
-// (B = 1) or the GEMM's; the partials are [halves, splits, B, N].
+// The K splits of a float-mode projection x [B, K] @ W [K, N] (its
+// WeightMode): the GEMV's (B = 1) or the GEMM's; the partials are
+// [halves, splits, B, N].
 inline int float_splits(int B, int mode, int K, int N) {
-  return B == 1 ? gemv_plan(mode, K, N).ks : gemm_plan(mode, K, N).ks;
+  const int code = plan_code(mode);
+  return B == 1 ? gemv_plan(code, K, N).ks : gemm_plan(code, K, N).ks;
 }
 
 inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
@@ -1580,7 +1684,8 @@ inline int proj_mode(int modes, int j) { return (modes >> (2 * j)) & 3; }
 inline size_t carve_work(Work* w, char* base, const Dims& d, int B, int Vh, int modes = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   const int xqn = d.H > hd ? (d.H > d.F ? d.H : d.F) : (hd > d.F ? hd : d.F);
-  const int head_splits = B == 1 ? gemv_plan(kGemvHead, d.H, Vh).ks : kHeadSplits;
+  // the head's splits: the same for bf16 and float32 weights (128 rows a split)
+  const int head_splits = B == 1 ? gemv_plan(kPlanHead, d.H, Vh).ks : kHeadSplits;
   const int shapes[4][2] = {{d.H, qkv}, {hd, d.H}, {d.H, 2 * d.F}, {d.F, d.H}};
   size_t part_n = 0;
   for (int j = 0; j < 4; ++j) {
@@ -1624,9 +1729,14 @@ inline void by_lanes(int B, Args... args) {
 
 template <int BPT>
 struct GemmHead {
-  static void go(dim3 grid, cudaStream_t st, const float* x, int B, const __nv_bfloat16* W,
+  static void go(dim3 grid, cudaStream_t st, const float* x, int B, const void* W, int head_f32,
                  int K, int N, int per, float* partial) {
-    gemm_bf16_kernel<BPT><<<grid, kGemmThreads, 0, st>>>(x, K, B, W, K, N, per, partial);
+    if (head_f32)
+      gemm_head_kernel<BPT, float><<<grid, kGemmThreads, 0, st>>>(x, K, B, (const float*)W, K,
+                                                                  N, per, partial);
+    else
+      gemm_head_kernel<BPT, __nv_bfloat16><<<grid, kGemmThreads, 0, st>>>(
+          x, K, B, (const __nv_bfloat16*)W, K, N, per, partial);
   }
 };
 
@@ -1653,28 +1763,29 @@ inline void gemm_i8(const GemmPlan& p, cudaStream_t st, const int8_t* xq, int ld
   else launch_i8<8>(p, st, xq, ldq, B, W, K, N, acc);
 }
 
-template <bool W4, int WL, int ST>
+template <int WM, int WL, int ST>
 void launch_f64(const GemmPlan& p, cudaStream_t st, const float* x, int ldx, int B,
                 const void* W, const float* S, const float* Z, int K, int N, int gs, int G,
                 double* partial) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_f64_mma_kernel<W4, WL, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      f_smem_bytes(W4, kMaxLanes, ST));
+      gemm_f64_mma_kernel<WM, WL, ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      f_smem_bytes(WM, kMaxLanes, ST));
   (void)attr;
-  gemm_f64_mma_kernel<W4, WL, ST><<<dim3(p.gx, p.ks, W4 ? 2 : 1), kGemmThreads,
-                                    f_smem_bytes(W4, (B + 7) & ~7, ST), st>>>(
+  gemm_f64_mma_kernel<WM, WL, ST><<<dim3(p.gx, p.ks, WM == kW4BF16 ? 2 : 1), kGemmThreads,
+                                    f_smem_bytes(WM, (B + 7) & ~7, ST), st>>>(
       x, ldx, B, W, S, Z, K, N, gs, G, p.per, partial);
 }
 
 // Lanes per warp from B; four ring stages, three for more than 64 lanes
-// (two blocks still fit an SM).
-template <bool W4>
+// (two blocks still fit an SM in bf16 and w4bf16; one in f32, whose tiles
+// are twice as large).
+template <int WM>
 void gemm_f64(const GemmPlan& p, cudaStream_t st, const float* x, int ldx, int B, const void* W,
               const float* S, const float* Z, int K, int N, int gs, int G, double* partial) {
   const int wl = (B + 8 * kFLW - 1) / (8 * kFLW);
-  if (wl <= 1) launch_f64<W4, 1, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
-  else if (wl <= 2) launch_f64<W4, 2, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
-  else launch_f64<W4, 4, 3>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+  if (wl <= 1) launch_f64<WM, 1, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+  else if (wl <= 2) launch_f64<WM, 2, 4>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
+  else launch_f64<WM, 4, 3>(p, st, x, ldx, B, W, S, Z, K, N, gs, G, partial);
 }
 
 // y[b, :] = x[b, :] @ W for the w.B lanes, in p's mode: w8a8 reads w.xq and
@@ -1706,16 +1817,22 @@ inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
     o.splits = float_splits(w.B, p.mode, K, N);
     o.halves = p.mode == kW4BF16 ? 2 : 1;
     if (w.B > 1) {
-      const GemmPlan g = gemm_plan(p.mode, K, N);
+      const GemmPlan g = gemm_plan(plan_code(p.mode), K, N);
       if (p.mode == kBF16)
-        gemm_f64<false>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
+        gemm_f64<kBF16>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
+      else if (p.mode == kF32)
+        gemm_f64<kF32>(g, st, w.xf, w.ldq, w.B, p.w, nullptr, nullptr, K, N, 1, 0, w.part);
       else
-        gemm_f64<true>(g, st, w.xf, w.ldq, w.B, p.w, p.s, p.z, K, N, K / p.G, p.G, w.part);
+        gemm_f64<kW4BF16>(g, st, w.xf, w.ldq, w.B, p.w, p.s, p.z, K, N, K / p.G, p.G, w.part);
     } else {
-      const GemvPlan g = gemv_plan(p.mode, K, N);
+      const GemvPlan g = gemv_plan(plan_code(p.mode), K, N);
       if (p.mode == kBF16)
-        e = launch_ex(gemv_bf16_kernel<double>, dim3(g.gx, g.ks), dim3(kGemvThreads), 0, st, 0,
-                      true, (const float*)w.xf, (const __nv_bfloat16*)p.w, K, N, w.part);
+        e = launch_ex(gemv_float_kernel<__nv_bfloat16, double>, dim3(g.gx, g.ks),
+                      dim3(kGemvThreads), 0, st, 0, true, (const float*)w.xf,
+                      (const __nv_bfloat16*)p.w, K, N, w.part);
+      else if (p.mode == kF32)
+        e = launch_ex(gemv_float_kernel<float, double>, dim3(g.gx, g.ks), dim3(kGemvThreads), 0,
+                      st, 0, true, (const float*)w.xf, (const float*)p.w, K, N, w.part);
       else
         e = launch_ex(gemv_w4_kernel, dim3(g.gx, g.ks), dim3(kGemvThreads), 0, st, 0, true,
                       (const float*)w.xf, (const int8_t*)p.w, p.s, p.z, K / 2, N, K / p.G, p.G,
@@ -1726,16 +1843,20 @@ inline ProjOut project(const Work& w, const Proj& p, int K, int N, int* acc,
   return o;
 }
 
-// The w.B lanes' x [B, K] float32 @ W bf16 [K, N] (the codec head or the
-// code predictor's LM head) into float32 split partials w.head [splits, B,
-// N]; returns the number of splits. One lane: the GEMV, launched as
-// project launches it.
-inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, int K, int N,
-                        cudaStream_t st) {
+// The w.B lanes' x [B, K] float32 @ W [K, N] (the codec head: bf16, or
+// float32 when head_f32) into float32 split partials w.head [splits, B, N];
+// returns the number of splits. One lane: the GEMV, launched as project
+// launches it.
+inline int project_head(const Work& w, const float* x, const void* W, int head_f32, int K,
+                        int N, cudaStream_t st) {
   if (w.B == 1) {
-    const GemvPlan g = gemv_plan(kGemvHead, K, N);
-    const cudaError_t e = launch_ex(gemv_bf16_kernel<float>, dim3(g.gx, g.ks),
-                                    dim3(kGemvThreads), 0, st, 0, true, x, W, K, N, w.head);
+    const GemvPlan g = gemv_plan(head_f32 ? kPlanHeadF32 : kPlanHead, K, N);
+    const cudaError_t e =
+        head_f32 ? launch_ex(gemv_float_kernel<float, float>, dim3(g.gx, g.ks),
+                             dim3(kGemvThreads), 0, st, 0, true, x, (const float*)W, K, N, w.head)
+                 : launch_ex(gemv_float_kernel<__nv_bfloat16, float>, dim3(g.gx, g.ks),
+                             dim3(kGemvThreads), 0, st, 0, true, x, (const __nv_bfloat16*)W, K,
+                             N, w.head);
     if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
     return g.ks;
   }
@@ -1744,7 +1865,7 @@ inline int project_bf16(const Work& w, const float* x, const __nv_bfloat16* W, i
   int max_splits = (kSplitTarget + gx - 1) / gx;
   if (max_splits > kHeadSplits) max_splits = kHeadSplits;
   const int ks = tile_split((K + kGemmTKf - 1) / kGemmTKf, max_splits, &per);
-  by_lanes<GemmHead>(w.B, dim3(gx, ks), st, x, w.B, W, K, N, per, w.head);
+  by_lanes<GemmHead>(w.B, dim3(gx, ks), st, x, w.B, W, head_f32, K, N, per, w.head);
   return ks;
 }
 
@@ -1762,6 +1883,8 @@ inline Proj layer_proj(const Proj& p, int l, int K, int N) {
     o.s = p.s + (size_t)l * N;
   } else if (p.mode == kBF16) {
     o.w = (const __nv_bfloat16*)p.w + (size_t)l * K * N;
+  } else if (p.mode == kF32) {
+    o.w = (const float*)p.w + (size_t)l * K * N;
   } else {
     o.w = (const int8_t*)p.w + (size_t)l * (K / 2) * N;
     o.s = p.s + (size_t)l * p.G * N;
@@ -1777,16 +1900,17 @@ struct LayerView {
   Proj qkv, o, gu, d;
   const float *attn_n, *q_n, *k_n, *ffn_n;
   T* K;  // lane 0, head 0, row 0 of this layer's keys; head h at + h * head_stride
-  T* V;  // lane b at + b * lane_stride
+  T* V;  // lane b at + b * lane_stride, row t at + t * row_stride
   long head_stride;
   long lane_stride;
+  long row_stride;
   float* Ks = nullptr;
   float* Vs = nullptr;
 };
 
 template <typename T>
 LayerView<T> layer_view(const StackWeights& s, const Dims& d, int l, T* K, T* V,
-                        long head_stride, long lane_stride) {
+                        long head_stride, long lane_stride, long row_stride = 0) {
   const int qkv = (d.Hq + 2 * d.Hkv) * d.D, hd = d.Hq * d.D;
   LayerView<T> lv;
   lv.qkv = layer_proj(s.qkv, l, d.H, qkv);
@@ -1801,6 +1925,7 @@ LayerView<T> layer_view(const StackWeights& s, const Dims& d, int l, T* K, T* V,
   lv.V = V;
   lv.head_stride = head_stride;
   lv.lane_stride = lane_stride;
+  lv.row_stride = row_stride > 0 ? row_stride : d.D;
   return lv;
 }
 
@@ -1816,6 +1941,7 @@ inline Emit emit_for(const Work& w, const Proj& p, int j, int* acc, int n) {
     e.zero_n = n;
   } else {
     e.xf = w.xf;
+    e.round = p.mode != kF32;
   }
   return e;
 }
@@ -1842,8 +1968,9 @@ cudaError_t attn_launch(const Dims& d, const LayerView<T>& lv, const Work& w, in
   const int cap = attn_cap(rows, S);
   return launch_cluster_ex(attn_layer_kernel<T, G>, dim3(S, d.Hkv, w.B), kAttThreads,
                            AttLayout(G, cap, row).total, st, w.B == 1, (const float*)w.q,
-                           (const T*)lv.K, (const T*)lv.V, lv.head_stride, lv.lane_stride, n_end,
-                           floor_row, cap, 1.0f / sqrtf((float)d.D), round_q, round_p, start,
+                           (const T*)lv.K, (const T*)lv.V, lv.head_stride, lv.lane_stride,
+                           lv.row_stride, n_end, floor_row, cap, 1.0f / sqrtf((float)d.D),
+                           round_q, round_p, start,
                            (const float*)lv.Ks, (const float*)lv.Vs,
                            (const __nv_bfloat16*)w.stage, w.attn);
 }
@@ -1912,8 +2039,8 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
                  w.stage + (size_t)d.Hkv * d.D, (long)d.D, 2L * d.Hkv * d.D);
   } else {
     chain_launch(w, false, qkv_post_kernel<T>, heads, dim3(d.D), 0, st, oq, lv.q_n, lv.k_n,
-                 cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, lv.K + (size_t)pos * d.D,
-                 lv.V + (size_t)pos * d.D, lv.head_stride, lv.lane_stride);
+                 cosv, sinv, d.Hq, d.Hkv, d.D, d.eps, w.q, lv.K + (size_t)pos * lv.row_stride,
+                 lv.V + (size_t)pos * lv.row_stride, lv.head_stride, lv.lane_stride);
   }
   const int floor_row = q8 ? 0 : std::min(std::max(start_min, 0), pos);
   const cudaError_t e =
@@ -1935,7 +2062,8 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
 }
 
 // After the last layer: x += its down projection `last`; hnorm =
-// RMSNorm(x) * out_norm for each of the w.B lanes.
+// RMSNorm(x) * out_norm for each of the w.B lanes (x itself when out_norm
+// is null).
 inline void final_norm(const Dims& d, const ProjOut& last, const float* out_norm,
                        const Work& w, float* hnorm, cudaStream_t st) {
   chain_launch(w, false, resid_rms_kernel, dim3(w.B), dim3(kRowThreads), sizeof(float) * d.H, st,

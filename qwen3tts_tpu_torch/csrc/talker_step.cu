@@ -2,8 +2,12 @@
 // and the sampling of the next frame's codebook-0 token.
 //
 // Replaces qwen3tts_tpu/ops/pallas_talker_step.py:387 fused_talker_step and
-// :980 fused_talker_step_hbm in their weight modes (w8a8, bf16, w4bf16, and
-// the per-projection tuple of the q4 tier; layer.cuh). On the TPU the two
+// :980 fused_talker_step_hbm in their weight modes (w8a8, bf16, w4bf16, f32
+// (the float32 tier's weights, which the Pallas "bf16" mode dots at their
+// own dtype), and the per-projection tuple of the q4 tier; layer.cuh), over
+// a bf16 or a float32 cache (kv_f32) with a bf16 or a float32 codec head
+// (head_f32): the float32 tier (RuntimeConfig(dtype="float32")) serves on
+// the card with the default flags. On the TPU the two
 // differ only in where the KV cache lives (VMEM blocks vs HBM slabs); here
 // the cache always lives in device memory, so one kernel serves every
 // capacity. With kv_scale given, the cache is the int8-KV tier's (q, scale)
@@ -47,17 +51,17 @@ extern "C" size_t qtts_talker_ws_bytes(int H, int Hq, int Hkv, int D, int F, int
 
 // The attention kernel's cluster size (layer.cuh attn_clusters) for B
 // lanes, Hkv KV heads, G query heads per KV head and at most `rows` rows a
-// lane, over a bf16 (kv_int8 = 0) or an int8 cache; K1 and K5 share it. For
-// the tests of the split rule.
-extern "C" int qtts_talker_attention_clusters(int B, int Hkv, int G, int rows, int kv_int8) {
-  return attn_clusters(B, Hkv, G, rows, kAttD * (kv_int8 ? 1 : 2));
+// lane, over a bf16 (kv_kind = 0), an int8 (1) or a float32 cache (2); K1
+// and K5 share it. For the tests of the split rule.
+extern "C" int qtts_talker_attention_clusters(int B, int Hkv, int G, int rows, int kv_kind) {
+  return attn_clusters(B, Hkv, G, rows, kAttD * (kv_kind == 1 ? 1 : kv_kind == 2 ? 4 : 2));
 }
 
-// The tile plan of K5's GEMM for x [B >= 2, K] @ W [K, N] in `mode`
-// (layer.cuh gemm_plan): out[0..2] = column strips, K splits, tiles per
-// split.
-extern "C" int qtts_gemm_plan(int mode, int K, int N, void* out) {
-  const GemmPlan p = gemm_plan(mode, K, N);
+// The tile plan of K5's GEMM for x [B >= 2, K] @ W [K, N] of plan code
+// `code` (layer.cuh gemm_plan): out[0..2] = column strips, K splits, tiles
+// per split.
+extern "C" int qtts_gemm_plan(int code, int K, int N, void* out) {
+  const GemmPlan p = gemm_plan(code, K, N);
   int* o = (int*)out;
   o[0] = p.gx;
   o[1] = p.ks;
@@ -65,11 +69,11 @@ extern "C" int qtts_gemm_plan(int mode, int K, int N, void* out) {
   return 0;
 }
 
-// The grid of K1's GEMV for x [K] @ W [K, N] in `mode` (WeightMode, or 3:
-// the codec head; layer.cuh gemv_plan): out[0..2] = column blocks, K
-// splits, weight rows per split.
-extern "C" int qtts_gemv_plan(int mode, int K, int N, void* out) {
-  const GemvPlan p = gemv_plan(mode, K, N);
+// The grid of K1's GEMV for x [K] @ W [K, N] of plan code `code` (layer.cuh
+// kPlan*: a weight mode, the codec head, f32; gemv_plan): out[0..2] =
+// column blocks, K splits, weight rows per split.
+extern "C" int qtts_gemv_plan(int code, int K, int N, void* out) {
+  const GemvPlan p = gemv_plan(code, K, N);
   int* o = (int*)out;
   o[0] = p.gx;
   o[1] = p.ks;
@@ -85,8 +89,8 @@ extern "C" int qtts_talker_step(
     const void* w2, const void* s2, const void* z2, int G2,
     const void* w3, const void* s3, const void* z3, int G3,
     const void* out_norm, const void* codec_head, int modes, void* kv, void* kv_scale,
-    int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
-    const void* seen, float temp, float top_p, float penalty, int top_k, int greedy,
+    int kv_f32, int head_f32, int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc,
+    float eps, const void* seen, float temp, float top_p, float penalty, int top_k, int greedy,
     int use_top_p, int suppress_start, int eos_id, int seed,
     void* hidden_out, void* logits_out, void* tok_out, void* ws, void* stream) {
   const Dims d{H, Hq, Hkv, D, F, eps};
@@ -98,6 +102,7 @@ extern "C" int qtts_talker_step(
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, 1)) return bad;
   if (int bad = check_groups(sw, d)) return bad;
+  if (kv_f32 && kv_scale != nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, 1, Vc, modes);
@@ -115,6 +120,11 @@ extern "C" int qtts_talker_step(
       lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
       lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
       last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 1, st);
+    } else if (kv_f32) {
+      float* kvf = (float*)kv;
+      const auto lv = layer_view(sw, d, l, kvf + 2 * l * layer_stride,
+                                 kvf + (2 * l + 1) * layer_stride, head_stride, 0L);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 1, st);
     } else {
       __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
       const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
@@ -123,8 +133,7 @@ extern "C" int qtts_talker_step(
     }
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
-  const int splits = project_bf16(w, (const float*)hidden_out,
-                                  (const __nv_bfloat16*)codec_head, H, Vc, st);
+  const int splits = project_head(w, (const float*)hidden_out, codec_head, head_f32, H, Vc, st);
   chain_launch(w, false, head_sample_kernel, dim3(1), dim3(kHeadThreads), 0, st,
                (const float*)w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0,
                suppress_start, eos_id, (const int8_t*)seen, penalty, temp, top_p, top_k, greedy,
@@ -136,29 +145,34 @@ extern "C" int qtts_talker_step(
 
 // A harness for the projection kernels alone, K1's GEMVs (B = 1) and K5's
 // tensor-core GEMMs (B >= 2): for each of L layers of one stacked [L, K, N]
-// projection in `mode` (WeightMode; w, s, z, G as in qtts_talker_step), y =
-// x @ W_l for B lanes, as run_layer launches it (the GEMVs with
-// programmatic dependent launch, one after the other). x is int8 [B, K]
-// (w8a8) or float32 [B, K] (holding bf16 values, as the row kernels emit
-// them); the results land in the workspace: the int32 accumulator [B, N]
-// (w8a8, added to, never cleared) or the float64 partials [halves, splits,
-// B, N] (overwritten layer by layer): a check runs one layer on a cleared
-// workspace. Mode 3 (kGemvHead, B = 1) runs the codec head's GEMV over
-// bf16 W_l into float32 partials [splits, N]. Off every serving path:
-// chip_smoke.py times K1's GEMVs beside the w4 GEMV probe
+// projection of plan code `code` (w8a8, bf16, w4bf16 as their WeightMode,
+// kPlanF32 for f32; w, s, z, G as in qtts_talker_step), y = x @ W_l for B
+// lanes, as run_layer launches it (the GEMVs with programmatic dependent
+// launch, one after the other). x is int8 [B, K] (w8a8) or float32 [B, K]
+// (holding bf16 values, as the row kernels emit them, except in f32); the
+// results land in the workspace: the int32 accumulator [B, N] (w8a8, added
+// to, never cleared) or the float64 partials [halves, splits, B, N]
+// (overwritten layer by layer): a check runs one layer on a cleared
+// workspace. kPlanHead and kPlanHeadF32 (B = 1) run the codec head's GEMV
+// over bf16 or float32 W_l into float32 partials [splits, N]. Off every
+// serving path: chip_smoke.py times K1's GEMVs beside the w4 GEMV probe
 // (w4_gemv_probe.cu) and both in its projection phase.
-extern "C" size_t qtts_project_ws_bytes(int mode, int B, int K, int N) {
-  if (mode == kGemvHead) return sizeof(float) * (size_t)gemv_plan(kGemvHead, K, N).ks * N;
+inline bool head_code(int code) { return code == kPlanHead || code == kPlanHeadF32; }
+inline int code_mode(int code) { return code == kPlanF32 ? kF32 : code; }
+
+extern "C" size_t qtts_project_ws_bytes(int code, int B, int K, int N) {
+  if (head_code(code)) return sizeof(float) * (size_t)gemv_plan(code, K, N).ks * N;
+  const int mode = code_mode(code);
   return mode == kW8A8 ? sizeof(int) * (size_t)B * N
                        : sizeof(double) * (mode == kW4BF16 ? 2 : 1) *
                              (size_t)float_splits(B, mode, K, N) * B * N;
 }
 
-extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const void* s,
+extern "C" int qtts_project_layers(int code, const void* x, const void* w, const void* s,
                                    const void* z, int G, int L, int B, int K, int N, void* ws,
                                    void* stream) {
-  if (B < 1 || B > kMaxLanes || K % 16 != 0 || N % 16 != 0 || mode < 0 || mode > kGemvHead ||
-      (mode == kGemvHead && B != 1) || (mode == kW4BF16 && !groups_ok(K, G)))
+  if (B < 1 || B > kMaxLanes || K % 16 != 0 || N % 16 != 0 || code < 0 || code > kPlanHeadF32 ||
+      (head_code(code) && B != 1) || (code == kW4BF16 && !groups_ok(K, G)))
     return (int)cudaErrorInvalidValue;
   Work wk{};
   wk.B = B;
@@ -168,12 +182,15 @@ extern "C" int qtts_project_layers(int mode, const void* x, const void* w, const
   wk.part = (double*)ws;
   wk.head = (float*)ws;
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t esize = code == kPlanHeadF32 ? sizeof(float) : sizeof(__nv_bfloat16);
   for (int l = 0; l < L; ++l) {
-    if (mode == kGemvHead)
-      project_bf16(wk, (const float*)x, (const __nv_bfloat16*)w + (size_t)l * K * N, K, N, st);
+    if (head_code(code))
+      project_head(wk, (const float*)x, (const char*)w + esize * l * K * N,
+                   code == kPlanHeadF32, K, N, st);
     else
-      project(wk, layer_proj(Proj{mode, w, (const float*)s, (const float*)z, G}, l, K, N), K,
-              N, (int*)ws, nullptr, st);
+      project(wk, layer_proj(Proj{code_mode(code), w, (const float*)s, (const float*)z, G}, l,
+                             K, N),
+              K, N, (int*)ws, nullptr, st);
   }
   const int last = (int)cudaGetLastError();
   return wk.err != cudaSuccess ? (int)wk.err : last;

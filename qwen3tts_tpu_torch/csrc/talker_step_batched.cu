@@ -4,8 +4,9 @@
 //
 // Replaces qwen3tts_tpu/ops/pallas_talker_step.py:1604
 // fused_talker_step_batched (kernel _make_kernel_batched :1402) in its
-// weight modes (w8a8, bf16, w4bf16 and the q4 tier's per-projection tuple;
-// layer.cuh), batch-major cache [B, L, 2, Hkv, C, D] bf16, with the two
+// weight modes (w8a8, bf16, w4bf16, f32 and the q4 tier's per-projection
+// tuple; layer.cuh), batch-major cache [B, L, 2, Hkv, C, D] bf16 or float32
+// (kv_f32; the codec head bf16 or float32: head_f32), with the two
 // operands only continuous serving uses (runtime/continuous.py): `start`
 // [B] int32, lane b's first valid cache row (:1618; rows below it hold the
 // lane's previous occupant, and lane b attends [start[b], n_past] only),
@@ -19,6 +20,23 @@
 // kv_int8 operand, :1402, :1641): kv int8 [B, L, 2, Hkv, C, D], kv_scale
 // float32 [B, L, 2, Hkv, C] (layer.cuh's header); it takes no `start`,
 // which the JAX package never combines with it.
+//
+// With lane_major, it also replaces the lane-major kernel
+// (pallas_talker_step.py:1246 _make_kernel_batched_lane, reached through
+// :1604 with kv_layout="lane"): the cache is [L, 2, Hkv, C, B, D], bf16 or
+// float32, so a (kv, head)'s rows of all lanes form one [C, B, D] slab and
+// a lane's rows lie B * D elements apart. As there, it takes no int8 pair,
+// no `start` and no sampling (null seen): it returns the hidden state and
+// the logits, and the decode loop draws cb0 from them. Design: the same
+// kernels over the lane-major strides (layer.cuh's header: head_stride = C
+// B D, lane_stride = D, row_stride = B D), so the arithmetic and its order
+// are batch-major K5's and the two agree bit for bit on the same cache
+// contents; only the attention's tiles change, from one bulk copy a tile
+// to one a row. A kernel of its own that reads a slab chunk for all lanes
+// in one copy, as the TPU kernel does, would pay where the per-row copies
+// cost (PERF.md has both layouts' times); this one is first right. A null
+// codec_head (and out_norm) returns the residual x as the hidden state and
+// no logits, the Pallas kernel's with_head=False.
 //
 // What bounds it on the H100: bytes. A frame-set reads the 28 layers'
 // projections (440 MB in int8, 881 MB in bf16, 375 MB in q4, 330 MB in
@@ -71,6 +89,7 @@ extern "C" int qtts_talker_step_batched(
     const void* w2, const void* s2, const void* z2, int G2,
     const void* w3, const void* s3, const void* z3, int G3,
     const void* out_norm, const void* codec_head, int modes, void* kv, void* kv_scale,
+    int kv_f32, int head_f32, int lane_major,
     int L, int H, int Hq, int Hkv, int D, int F, int C, int Vc, float eps,
     const void* seen, const void* seeds, float temp, float top_p, float penalty, int top_k,
     int greedy, int use_top_p, int suppress_start, int eos_id, const void* start,
@@ -85,13 +104,21 @@ extern "C" int qtts_talker_step_batched(
       (const float*)attn_n, (const float*)q_n, (const float*)k_n, (const float*)ffn_n};
   if (int bad = check_dims(d, Vc, B)) return bad;
   if (int bad = check_groups(sw, d)) return bad;
-  if (kv_scale != nullptr && (start != nullptr || start_min != 0))
+  if (kv_scale != nullptr && (start != nullptr || start_min != 0 || kv_f32 || lane_major))
+    return (int)cudaErrorInvalidValue;
+  if (lane_major && (start != nullptr || start_min != 0 || seen != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((codec_head == nullptr) != (out_norm == nullptr) || (codec_head == nullptr && seen != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Work w;
   carve_work(&w, (char*)ws, d, B, Vc, modes);
-  const long head_stride = (long)C * D, layer_stride = (long)Hkv * head_stride;
-  const long lane_stride = (long)L * 2 * layer_stride;
+  // batch-major [B, L, 2, Hkv, C, D]: a lane's rows contiguous; lane-major
+  // [L, 2, Hkv, C, B, D]: a row of all lanes contiguous
+  const long head_stride = (long)C * D * (lane_major ? B : 1);
+  const long layer_stride = (long)Hkv * head_stride;
+  const long lane_stride = lane_major ? (long)D : (long)L * 2 * layer_stride;
+  const long row_stride = lane_major ? (long)B * D : (long)D;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, st);
   ProjOut last{};
   for (int l = 0; l < L; ++l) {
@@ -105,17 +132,28 @@ extern "C" int qtts_talker_step_batched(
       lv.Ks = ks + (size_t)(2 * l) * Hkv * C;
       lv.Vs = ks + (size_t)(2 * l + 1) * Hkv * C;
       last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 0, st);
+    } else if (kv_f32) {
+      float* kvf = (float*)kv;
+      const auto lv = layer_view(sw, d, l, kvf + 2 * l * layer_stride,
+                                 kvf + (2 * l + 1) * layer_stride, head_stride, lane_stride,
+                                 row_stride);
+      last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 0, st, (const int*)start,
+                       start_min);
     } else {
       __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
       const auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
-                                 kvb + (2 * l + 1) * layer_stride, head_stride, lane_stride);
+                                 kvb + (2 * l + 1) * layer_stride, head_stride, lane_stride,
+                                 row_stride);
       last = run_layer(d, lv, last, w, cs, sn, n_past, 1, 0, st, (const int*)start,
                        start_min);
     }
   }
   final_norm(d, last, (const float*)out_norm, w, (float*)hidden_out, st);
-  const int splits = project_bf16(w, (const float*)hidden_out,
-                                  (const __nv_bfloat16*)codec_head, H, Vc, st);
+  if (codec_head == nullptr) {   // the residual x is the hidden state; no logits
+    const int last_err = (int)cudaGetLastError();
+    return w.err != cudaSuccess ? (int)w.err : last_err;
+  }
+  const int splits = project_head(w, (const float*)hidden_out, codec_head, head_f32, H, Vc, st);
   head_sample_kernel<<<B, kHeadThreads, 0, st>>>(
       w.head, splits, Vc, (float*)logits_out, (int*)tok_out, 1, 0, suppress_start, eos_id,
       (const int8_t*)seen, penalty, temp, top_p, top_k, greedy, use_top_p, 0,

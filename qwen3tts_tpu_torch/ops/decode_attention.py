@@ -12,8 +12,9 @@ call under ``vmap`` in the JAX package's batched unfused loop.
 Semantics are the Pallas kernels': float32 scores q.k * D^-0.5 and float32
 probabilities (never rounded to the cache dtype) against float32 V, over
 cache rows [0, n_valid); the sum is divided by max(l, 1e-30) at the end and
-the result cast to q's dtype. ``ops/attention.py`` decides when this kernel
-runs.
+the result cast to q's dtype. The query and cache are bf16, or float32 in
+the float32 tier (``RuntimeConfig(dtype="float32")`` with the unfused
+step). ``ops/attention.py`` decides when this kernel runs.
 """
 
 from __future__ import annotations
@@ -68,15 +69,18 @@ def decode_attention_kernel_plain(q, kv, layer: int, n_valid: int) -> torch.Tens
 
 def launch_decode_attention(q, kv, layer: int, n_valid: int) -> torch.Tensor:
     """One cluster launch of decode attention (the decode_attention op's
-    CUDA kernel), counted on ``decode_attention_kernel``."""
+    CUDA kernel), counted on ``decode_attention_kernel`` (and, over a
+    float32 cache, in its ``operand_launches["f32"]``)."""
     lib = _kernels.load_library()
     _kernels.require_cuda(q, kv)
     q3, kv6, lanes = _lanes(q, kv)
     B, Hq, D = q3.shape
     L, _, Hkv, C, Dk = kv6.shape[1:]
     n = int(n_valid)
-    if q3.dtype != torch.bfloat16 or kv6.dtype != torch.bfloat16:
-        raise ValueError("decode_attention_kernel takes a bf16 query and cache")
+    if q3.dtype != kv6.dtype or kv6.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"decode_attention_kernel takes a bf16 or float32 query and cache "
+                         f"of one dtype, got {q3.dtype} and {kv6.dtype}")
+    f32 = kv6.dtype == torch.float32
     if D != 128 or Dk != D or Hq % Hkv or Hq // Hkv not in (1, 2, 4, 8):
         raise ValueError(f"decode_attention_kernel: q {tuple(q3.shape)}, kv {tuple(kv6.shape)}")
     if not (0 <= layer < L and 1 <= n <= C):
@@ -89,9 +93,12 @@ def launch_decode_attention(q, kv, layer: int, n_valid: int) -> torch.Tensor:
     out = torch.empty((B, Hq, D), dtype=q3.dtype, device=q3.device)
     err = lib.qtts_decode_attention(
         q3.data_ptr(), layer_kv.data_ptr(), kv6.stride(0), B, Hq, Hkv, C, D, n,
-        1.0 / D ** 0.5, out.data_ptr(), _kernels.stream_ptr(q3.device))
+        1.0 / D ** 0.5, int(f32), out.data_ptr(), _kernels.stream_ptr(q3.device))
     _kernels.check(err, "decode_attention_kernel")
     decode_attention_kernel.launches += 1
+    if f32:
+        ops = decode_attention_kernel.operand_launches
+        ops["f32"] = ops.get("f32", 0) + 1
     return out if lanes else out[0]
 
 
@@ -102,11 +109,13 @@ def decode_attention_kernel(q, kv, layer: int, n_valid: int) -> torch.Tensor:
     (a SymInt under torch.export).
 
     CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    q and cache, D = 128, Hq / Hkv in 1, 2, 4, 8, each lane's cache
-    contiguous) or raise; there is no fallback."""
+    or float32 q and cache of one dtype, D = 128, Hq / Hkv in 1, 2, 4, 8,
+    each lane's cache contiguous) or raise; there is no fallback."""
     return torch.ops.qwen3tts.decode_attention.default(q, kv, int(layer), as_int(n_valid))
 
 
 decode_attention_kernel.launches = 0
+# launches over a float32 cache ("f32")
+decode_attention_kernel.operand_launches = {}
 library.implement("decode_attention", cpu=decode_attention_kernel_plain,
                   cuda=launch_decode_attention)

@@ -14,6 +14,12 @@ Returns (codes [15], rest_sum [H] f32) with rest_sum = sum_s
 embds[s][code_s] summed in order of s. ``predict_codes_plain`` is the plain
 version of this kernel and of its batched counterpart K6
 (``fused_code_predictor_batched.py``).
+
+The blocks are int8, as the Pallas kernel reads them; the heads and the
+embedding tables are bf16, or float32 in the float32 tier
+(``RuntimeConfig(dtype="float32", quant="int8")``), where the kernels take
+them as they are (the Pallas kernel's ``astype`` to the embedding dtype is
+then a no-op).
 """
 
 from __future__ import annotations
@@ -99,6 +105,16 @@ def fused_predict_codes_plain(cp_params, cfg, talker_hidden, cb0_embd, seed, *,
     return codes[0], rest_sum[0]
 
 
+def emb_f32(cp_params) -> bool:
+    """Whether the CUDA code predictors take float32 heads and embedding
+    tables (else bf16); both must have one dtype, bf16 or float32."""
+    dts = {cp_params.embds.dtype, cp_params.heads.dtype}
+    if len(dts) != 1 or not dts <= {torch.bfloat16, torch.float32}:
+        raise NotImplementedError(f"the CUDA code predictor takes bf16 or float32 heads and "
+                                  f"embeddings of one dtype, got {sorted(map(str, dts))}")
+    return cp_params.embds.dtype == torch.float32
+
+
 def cuda_operands(cp_params, cfg):
     """The operands both CUDA code predictors (K2, K6) take after the
     activations: (tensors, dims) with tensors = [cos, sin, five norms (f32),
@@ -106,8 +122,7 @@ def cuda_operands(cp_params, cfg):
     and dims = (L, H, Hq, Hkv, D, F, V, CTX, S, eps)."""
     blocks = cp_params.blocks
     _kernels.require_cuda(cp_params.embds, cp_params.heads, blocks.wqkv.q)
-    if cp_params.embds.dtype != torch.bfloat16 or cp_params.heads.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA code predictor takes bf16 heads and embeddings")
+    emb_f32(cp_params)
     f32 = lambda t: t.float().contiguous()   # noqa: E731
     tensors = list(_rope_tables(cfg, cp_params.embds.device))
     tensors += [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm),
@@ -171,8 +186,9 @@ def _predict_codes_cuda(talker_hidden, cb0_embd, *args):
 def launch_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *, temperature, top_k,
                          top_p, greedy, use_top_p):
     """One cooperative launch of K2 (the code-predictor op's CUDA kernel),
-    counted on ``fused_predict_codes``. The kernel's KV scratch [2, L, Hkv,
-    16, D] f32 is allocated here with torch.empty."""
+    counted on ``fused_predict_codes`` (and, with float32 heads and
+    embeddings, in its ``operand_launches["f32"]``). The kernel's KV scratch
+    [2, L, Hkv, 16, D] f32 is allocated here with torch.empty."""
     lib = _kernels.load_library()
     _kernels.require_cuda(talker_hidden, cb0_embd)
     tensors, dims = cuda_operands(cp_params, cfg)
@@ -182,15 +198,19 @@ def launch_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, *, tempe
     codes = torch.empty((S,), dtype=torch.int32, device=dev)
     rest_sum = torch.empty((H,), dtype=torch.float32, device=dev)   # zeroed by the kernel
     kv = torch.empty((2, L, Hkv, CTX, D), dtype=torch.float32, device=dev)
-    ws = torch.empty(lib.qtts_cp_ws_bytes(H, Hq, Hkv, D, F, CTX, V),
+    f32 = int(emb_f32(cp_params))
+    ws = torch.empty(lib.qtts_cp_ws_bytes(H, Hq, Hkv, D, F, CTX, V, f32),
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_code_predictor(
-        xinit.data_ptr(), *[t.data_ptr() for t in tensors], *dims,
+        xinit.data_ptr(), *[t.data_ptr() for t in tensors], f32, *dims,
         float(temperature), float(top_p), int(top_k), int(greedy),
         int(use_top_p), int(seed), codes.data_ptr(), rest_sum.data_ptr(),
         kv.data_ptr(), ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_predict_codes")
     fused_predict_codes.launches += 1
+    if f32:
+        ops = fused_predict_codes.operand_launches
+        ops["f32"] = ops.get("f32", 0) + 1
     sample_rows.site_rows["K2"] += S
     return codes, rest_sum
 
@@ -214,9 +234,9 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, **kw):
     top_k, top_p, greedy, use_top_p (``predict_codes_operands``).
 
     CPU tensors run the plain version. CUDA tensors make one cooperative
-    launch of the persistent kernel (bf16 heads and embedding tables) or
-    raise, also when the grid cannot be co-resident or the device refuses
-    the cooperative launch; there is no fallback.
+    launch of the persistent kernel (bf16 or float32 heads and embedding
+    tables) or raise, also when the grid cannot be co-resident or the device
+    refuses the cooperative launch; there is no fallback.
     """
     check_w8a8_blocks(cp_params.blocks)
     return torch.ops.qwen3tts.predict_codes.default(
@@ -224,15 +244,17 @@ def fused_predict_codes(cp_params, cfg, talker_hidden, cb0_embd, seed, **kw):
 
 
 fused_predict_codes.launches = 0
+# launches with float32 heads and embeddings ("f32")
+fused_predict_codes.operand_launches = {}
 library.implement("predict_codes", cpu=_predict_codes_cpu, cuda=_predict_codes_cuda)
 
 
-def kernel_grid(cfg, B=None):
+def kernel_grid(cfg, B=None, f32=False):
     """The grid of one CUDA call of K2 (B None) or K6 for B lanes at cfg's
-    shapes, on the current device: dict(blocks, barriers (grid barriers per
-    call), blocks_per_sm, sms, smem_bytes (dynamic shared memory per
-    block)). Raises as the launch would when the shapes are refused or the
-    grid cannot be co-resident."""
+    shapes (f32: float32 heads and embeddings), on the current device:
+    dict(blocks, barriers (grid barriers per call), blocks_per_sm, sms,
+    smem_bytes (dynamic shared memory per block)). Raises as the launch
+    would when the shapes are refused or the grid cannot be co-resident."""
     import ctypes
 
     lib = _kernels.load_library()
@@ -240,8 +262,8 @@ def kernel_grid(cfg, B=None):
     dims = (cfg.n_layers, cfg.hidden_size, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.intermediate_size, cfg.vocab_size, cfg.max_ctx, cfg.n_steps)
     if B is None:
-        err = lib.qtts_cp_grid(*dims, ctypes.addressof(out))
+        err = lib.qtts_cp_grid(*dims, int(f32), ctypes.addressof(out))
     else:
-        err = lib.qtts_cp_batched_grid(int(B), *dims, ctypes.addressof(out))
+        err = lib.qtts_cp_batched_grid(int(B), *dims, int(f32), ctypes.addressof(out))
     _kernels.check(err, "code predictor grid")
     return dict(zip(("blocks", "barriers", "blocks_per_sm", "sms", "smem_bytes"), list(out)))

@@ -14,7 +14,7 @@ equals K2 run with seeds[b]. Temperature and top-p are scalars or per-lane
 [B] tensors (the Pallas kernel's per-lane operands, :86-88: continuous
 serving gives each request its own). As in the Pallas kernel, K/V rows are stored in
 the embedding dtype (K2 keeps them in float32); on float32 weights the two
-agree exactly. The Pallas kernel's one-hot embedding gather and lane-major
+agree exactly: the float32 tier's K6 keeps a float32 scratch. The Pallas kernel's one-hot embedding gather and lane-major
 KV scratch are TPU tiling artifacts and are not copied.
 """
 
@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .fused_code_predictor import _xinit, cuda_operands, predict_codes_plain
+from .fused_code_predictor import _xinit, cuda_operands, emb_f32, predict_codes_plain
 from .fused_talker_step import _lane_values, check_w8a8_blocks
 from .sampling import sample_rows
 
@@ -49,10 +49,11 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     Returns (codes [B, 15], rest_sum [B, H] f32).
 
     CPU tensors run the plain version. CUDA tensors make one cooperative
-    launch of the persistent kernel (bf16 heads and embedding tables, B <=
-    64) or raise, also when the grid cannot be co-resident or the device
-    refuses the cooperative launch; there is no fallback. The kernel's KV
-    scratch [2, L, B, Hkv, 16, D] bf16 is allocated here with torch.empty.
+    launch of the persistent kernel (bf16 or float32 heads and embedding
+    tables, B <= 64) or raise, also when the grid cannot be co-resident or
+    the device refuses the cooperative launch; there is no fallback. The
+    kernel's KV scratch [2, L, B, Hkv, 16, D] in the embedding dtype is
+    allocated here with torch.empty.
     """
     check_w8a8_blocks(cp_params.blocks)
     B = talker_hidden.shape[0]
@@ -73,13 +74,14 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     xinit = _xinit(cp_params, talker_hidden, cb0_embd).contiguous()
     codes = torch.empty((B, S), dtype=torch.int32, device=dev)
     rest_sum = torch.empty((B, H), dtype=torch.float32, device=dev)   # zeroed by the kernel
-    kv = torch.empty((2, L, B, Hkv, CTX, D), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(lib.qtts_cp_batched_ws_bytes(B, H, Hq, Hkv, D, F, CTX, V),
+    f32 = int(emb_f32(cp_params))
+    kv = torch.empty((2, L, B, Hkv, CTX, D), dtype=cp_params.embds.dtype, device=dev)
+    ws = torch.empty(lib.qtts_cp_batched_ws_bytes(B, H, Hq, Hkv, D, F, CTX, V, f32),
                      dtype=torch.uint8, device=dev)
     temp, temps = _lane_values(temperature, B, dev)
     topp, topps = _lane_values(top_p, B, dev)
     err = lib.qtts_code_predictor_batched(
-        xinit.data_ptr(), B, *[t.data_ptr() for t in tensors], *dims,
+        xinit.data_ptr(), B, *[t.data_ptr() for t in tensors], f32, *dims,
         temp, topp, int(top_k), int(greedy), int(use_top_p), seeds.data_ptr(),
         None if temps is None else temps.data_ptr(), None if topps is None else topps.data_ptr(),
         codes.data_ptr(), rest_sum.data_ptr(), kv.data_ptr(), ws.data_ptr(),
@@ -87,12 +89,15 @@ def fused_predict_codes_batched(cp_params, cfg, talker_hidden, cb0_embd, seeds, 
     _kernels.check(err, "fused_predict_codes_batched")
     fused_predict_codes_batched.launches += 1
     sample_rows.site_rows["K6"] += B * S
+    ops = fused_predict_codes_batched.operand_launches
     if temps is not None or topps is not None:
-        ops = fused_predict_codes_batched.operand_launches
         ops["per_lane"] = ops.get("per_lane", 0) + 1
+    if f32:
+        ops["f32"] = ops.get("f32", 0) + 1
     return codes, rest_sum
 
 
 fused_predict_codes_batched.launches = 0
-# launches with per-lane sampling parameters (continuous serving)
+# launches with per-lane sampling parameters (continuous serving), and with
+# float32 heads and embeddings ("f32")
 fused_predict_codes_batched.operand_launches = {}

@@ -7,8 +7,9 @@ Pallas kernels ``fused_talker_step`` (:387) and ``fused_talker_step_hbm``
 (:980) in their weight modes. On the TPU the two differ in where the KV
 cache lives; on the H100 it always lives in device memory, so one kernel
 (``csrc/talker_step.cu``) serves every capacity. K5 replaces
-``fused_talker_step_batched`` (:1604) in its batch-major form
-(``csrc/talker_step_batched.cu``). The sources say what bounds them (the
+``fused_talker_step_batched`` (:1604) in its batch-major form and, with
+``kv_layout="lane"``, in its lane-major one (``_make_kernel_batched_lane``,
+:1246; ``csrc/talker_step_batched.cu``). The sources say what bounds them (the
 bytes of 28 layers of weights per frame, read once for all lanes in K5) and
 what the design does about it; K5's projections run on the tensor cores
 (int8 and float64 mma, ``gemm_plan`` mirrors their tile plan), K1's on
@@ -23,22 +24,31 @@ kernels' ``kv_int8`` operand, :564, :765, :1402), in every weight mode.
 The weight mode is set per projection from the leaf type (``weight_mode``,
 the counterpart of ``_weight_mode``, :153): an int8 ``QuantLinear`` runs in
 "w8a8", a u4 ``QuantLinear4`` in "w4bf16", a plain ``[L, K, N]`` tensor in
-"bf16"; the q4 tier's blocks give the tuple ("w8a8", "w8a8", "w4bf16",
-"w4bf16") in (wqkv, wo, w_gateup, w_down) order. Per mode (``_make_mm_values``,
-:71-127):
+"bf16", or "f32" when it is float32 (the float32 tier, ``RuntimeConfig(
+dtype="float32")``: the Pallas "bf16" mode dots ``x.astype(wq.dtype)``,
+which is then float32); the q4 tier's blocks give the tuple ("w8a8",
+"w8a8", "w4bf16", "w4bf16") in (wqkv, wo, w_gateup, w_down) order. Per
+mode (``_make_mm_values``, :71-127):
   - w8a8: the activation is quantized per token (s = max(amax, 1e-8) /
     127, round half to even), the integer dot accumulates in int32 (exact
     and independent of order) and is scaled by act_scale * w_scale;
-  - bf16: the activation is rounded to the weight's dtype and dotted with
-    the weights, accumulating in float32;
+  - bf16 and f32: the activation is rounded to the weight's dtype (a no-op
+    for float32) and dotted with the weights, accumulating in float32;
   - w4bf16: per half of K, the weight is dequantized (q * s - z with its
     group's scale and offset, the product rounded first) and rounded to
     bf16, dotted with the bf16 activation; the two halves' float32 sums
     are added.
 The float sums that feed a rounding run in float64 here and in the kernels
-(layer.cuh), so both get the same bits; a product of two bf16 values is
-exact, so the float64 dot rounded once to float32 does not depend on the
-summation order.
+(layer.cuh), so both get the same bits; a product of two bf16 values, or
+of two float32 values, is exact in float64, so the float64 dot rounded
+once to float32 does not depend on the summation order.
+
+The KV cache is bf16 or float32 (the compute dtype), or the int8 pair
+below; the codec head is bf16 or float32. K5 takes the cache batch-major
+[B, L, 2, Hkv, C, D] (``kv_layout="batch"``) or lane-major [L, 2, Hkv, C,
+B, D] (``"lane"``, bf16 or float32, as the Pallas kernel takes it: no int8
+pair, no ``start``, no in-kernel sampling); the two run the same
+arithmetic, so they agree bit for bit on the same cache contents.
 
 Per layer: RMSNorm -> fused QKV -> q/k RMSNorm -> NEOX RoPE -> K/V row write
 at n_past -> GQA attention over [0, n_past] (float32 probabilities; q cast
@@ -168,25 +178,27 @@ def gqa_attention(q, K, V, p_dtype, valid=None, cur=None):
     return torch.matmul(p.double(), V.double()).float().reshape(*lead, -1)
 
 
-# csrc/layer.cuh's attention grid: ring tiles and stages, rows a block takes
-# at least, the largest cluster, the shared memory a block may have, the
-# blocks that fill the H100 about twice (kSplitTarget)
+# csrc/layer.cuh's attention grid: ring tiles (rows at most) and stages,
+# rows a block takes at least, the largest cluster, the shared memory a
+# block may have, the blocks that fill the H100 about twice (kSplitTarget)
 ATTN_TILE, ATTN_STAGES, ATTN_MIN_ROWS, ATTN_MAX_CLUSTER = 64, 3, 64, 16
 ATTN_MAX_SMEM, ATTN_BLOCK_TARGET = 232448, 264
 
 
 def attention_clusters(B: int, Hkv: int, G: int, rows: int, kv_int8: bool = False,
-                       D: int = 128) -> int:
+                       D: int = 128, kv_f32: bool = False) -> int:
     """The cluster size of K1/K5's attention kernel (attn_clusters in the
     source) for B lanes, Hkv KV heads, G query heads per KV head and at most
-    `rows` rows a lane: about two blocks an SM, each of at least 64 rows, at
-    most 16, more where a block's slice of scores would not fit its shared
-    memory (the AttLayout bytes)."""
-    row = D * (1 if kv_int8 else 2)
+    `rows` rows a lane, over a bf16, int8 or float32 (kv_f32) cache: about
+    two blocks an SM, each of at least 64 rows, at most 16, more where a
+    block's slice of scores would not fit its shared memory (the AttLayout
+    bytes; a ring tile is 64 rows, 32 of float32's)."""
+    row = D * (1 if kv_int8 else 4 if kv_f32 else 2)
+    tile = ATTN_TILE // 2 if row > 2 * D else ATTN_TILE
 
     def smem(s):
         cap = max(1, -(-rows // s))
-        ring = max(ATTN_STAGES * ATTN_TILE * row, 8 * G * D * 8)
+        ring = max(ATTN_STAGES * tile * row, 8 * G * D * 8)
         return (ring + 8 * G * D + 16 * G * ATTN_TILE + 16 * G + 256 + 24 * G + 128
                 + 8 * ATTN_STAGES + 4 * G * cap)
 
@@ -209,9 +221,9 @@ def attention_slices(t0: int, n_end: int, clusters: int):
 # by mode, the blocks a GEMM aims at (kI8Blocks, kFBlocks: one or two per
 # SM of the H100), and the k depth of one mma (m16n8k32 int8, m16n8k8
 # float64)
-GEMM_TILES = {"w8a8": (128, 128), "bf16": (64, 32), "w4bf16": (64, 32)}
-GEMM_BLOCKS = {"w8a8": 132, "bf16": 264, "w4bf16": 264}
-GEMM_DEPTH = {"w8a8": 32, "bf16": 8, "w4bf16": 8}
+GEMM_TILES = {"w8a8": (128, 128), "bf16": (64, 32), "w4bf16": (64, 32), "f32": (64, 32)}
+GEMM_BLOCKS = {"w8a8": 132, "bf16": 264, "w4bf16": 264, "f32": 264}
+GEMM_DEPTH = {"w8a8": 32, "bf16": 8, "w4bf16": 8, "f32": 8}
 GEMM_MIN_TILES = 2   # K tiles a block takes at least, where K allows (kGemmMinTiles)
 
 
@@ -244,12 +256,13 @@ def gemm_split_rows(mode: str, K: int, N: int):
 
 
 # csrc/layer.cuh's GEMVs (one lane, K1): a block's output columns and weight
-# rows (packed rows for w4bf16) by mode, "head" the codec head (bf16
-# weights, float32 partials); a block's 256 threads are 8 along the row
-# (16 bytes each) by 32 along K, each thread GEMV_THREAD_ROWS consecutive
-# rows
-GEMV_TILES = {"w8a8": (128, 128), "bf16": (64, 128), "w4bf16": (128, 64), "head": (64, 128)}
-GEMV_THREAD_ROWS = {"w8a8": 4, "bf16": 4, "w4bf16": 2, "head": 4}
+# rows (packed rows for w4bf16) by mode, "head" and "head_f32" the codec
+# head (bf16 or float32 weights, float32 partials); a block's 256 threads
+# are 8 along the row (16 bytes each) by 32 along K, each thread
+# GEMV_THREAD_ROWS consecutive rows
+GEMV_TILES = {"w8a8": (128, 128), "bf16": (64, 128), "w4bf16": (128, 64), "head": (64, 128),
+              "f32": (32, 128), "head_f32": (32, 128)}
+GEMV_THREAD_ROWS = {"w8a8": 4, "bf16": 4, "w4bf16": 2, "head": 4, "f32": 4, "head_f32": 4}
 GEMV_WARPS, GEMV_WARP_ROWS = 8, 4   # warps of a block; thread rows (of K) in a warp
 
 
@@ -272,8 +285,11 @@ def gemv_split_rows(mode: str, K: int, N: int):
 
 
 def mm_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] f32 rounded to w's dtype @ w [K, N]: the dot in float64,
-    rounded to float32 once (a product of two bf16 values is exact)."""
+    """x [..., K] f32 rounded to w's dtype @ w [K, N] (the JAX formula
+    ``dot(x.astype(wq.dtype), wq, f32)``): the dot in float64, rounded to
+    float32 once (a product of two bf16 values is exact). The f32 mode
+    takes this same path: x is not rounded, and a product of two float32
+    values is exact in float64 too."""
     return torch.matmul(x.to(w.dtype).double(), w.double()).float()
 
 
@@ -296,13 +312,15 @@ def mm_w4bf16(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
             + half(xb[..., Kh:], hi, scale[Gh:], zero[Gh:]))
 
 
-MODE_CODES = {"w8a8": 0, "bf16": 1, "w4bf16": 2}   # csrc/layer.cuh WeightMode
+MODE_CODES = {"w8a8": 0, "bf16": 1, "w4bf16": 2, "f32": 3}   # csrc/layer.cuh WeightMode
 
 
 def _leaf_mode(w) -> str:
     if isinstance(w, QuantLinear4):
         return "w4bf16"
-    return "w8a8" if isinstance(w, QuantLinear) else "bf16"
+    if isinstance(w, QuantLinear):
+        return "w8a8"
+    return "f32" if w.dtype == torch.float32 else "bf16"
 
 
 def weight_mode(blocks):
@@ -359,7 +377,8 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
                       greedy=False, use_top_p=True, start=None, start_min=0) -> StepOut:
     """Plain PyTorch version of K1 and K5 for B lanes: step_embd [B, H], kv
     [B, L, 2, Hkv, C, D] (or the int8 pair of [B, L, 2, Hkv, C, D] and [B,
-    L, 2, Hkv, C]) updated in place at n_past, seen [B, Vc] and seeds [B]
+    L, 2, Hkv, C]; or a lane-major cache's permuted view, whose writes land
+    in its storage) updated in place at n_past, seen [B, Vc] and seeds [B]
     when cb0 is sampled (temperature, top_p, repetition_penalty scalars or
     [B]). q is rounded to the KV dtype (int8 cache: bf16), the softmax
     probabilities to p_dtype (the KV dtype in K1, bf16 with an int8 cache;
@@ -368,7 +387,10 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
     as the kernel clamps it). start_min is K5's promise that no lane's
     start lies below it (the kernel skips the rows under it, so a lane
     below would read scores it never wrote): raises ValueError where a
-    lane's clamped start, or 0 without ``start``, breaks it."""
+    lane's clamped start, or 0 without ``start``, breaks it. codec_head
+    None (and output_norm None): the hidden state is the last layer's
+    residual x, and there are no logits (the Pallas kernel without its
+    head)."""
     n = int(n_past)
     quant = is_quantized_kv(kv)
     cache = kv[0] if quant else kv
@@ -405,6 +427,8 @@ def talker_step_plain(blocks, cfg, step_embd, n_past, kv, *, p_dtype, output_nor
                                  kv[:, l, 1, :, :n + 1].float(), p_dtype, valid)
 
         x = layer_plain(blocks, cfg, l, x, cos, sin, attend)
+    if codec_head is None:
+        return StepOut(x, None, None)
     normed = _rms(x, output_norm, cfg.rms_norm_eps)
     logits = torch.matmul(normed.to(codec_head.dtype).float(), codec_head.float())
     cb0 = None
@@ -453,15 +477,17 @@ def check_w8a8_blocks(blocks):
     pallas_code_predictor.py:361): other tiers raise, naming the mode."""
     for w in (blocks.wqkv, blocks.wo, blocks.w_gateup, blocks.w_down):
         if not isinstance(w, QuantLinear):
-            tier = "bf16 (quant=None)" if _leaf_mode(w) == "bf16" else "u4"
+            tier = {"bf16": "bf16 (quant=None)",
+                    "f32": "bf16 tier's unquantized (quant=None) in float32"}.get(
+                _leaf_mode(w), "u4")
             raise ValueError(f"the fused code predictor takes int8 QuantLinear blocks; "
                              f"these are {tier}: pass fused_cp=False or 'auto'")
 
 
 def _cache_operands(kv, kv_shape):
     """(cache, row scales or None) of K1's and K5's KV operand, checked: a
-    contiguous bf16 cache of kv_shape, or the int8 pair, a contiguous int8
-    q of kv_shape and float32 scale of kv_shape[:-1]."""
+    contiguous bf16 or float32 cache of kv_shape, or the int8 pair, a
+    contiguous int8 q of kv_shape and float32 scale of kv_shape[:-1]."""
     if is_quantized_kv(kv):
         q, scale = kv
         if (q.dtype != torch.int8 or scale.dtype != torch.float32 or not q.is_contiguous()
@@ -471,8 +497,9 @@ def _cache_operands(kv, kv_shape):
                              f"and float32 {tuple(kv_shape[:-1])} pair, got {q.dtype} "
                              f"{tuple(q.shape)} and {scale.dtype} {tuple(scale.shape)}")
         return q, scale
-    if kv.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA talker step takes a bf16 KV cache or the int8 pair")
+    if kv.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError("the CUDA talker step takes a bf16 or float32 KV cache, or "
+                                  f"the int8 pair; got {kv.dtype}")
     if not kv.is_contiguous() or tuple(kv.shape) != tuple(kv_shape):
         raise ValueError(f"kv must be a contiguous {tuple(kv_shape)} cache, "
                          f"got {tuple(kv.shape)}")
@@ -484,11 +511,12 @@ def _cuda_operands(blocks, output_norm, codec_head):
     signatures: the packed per-projection mode codes (2 bits each, wqkv
     first) and, between (cos, sin) and the KV cache, the four norms (f32),
     for each projection (weights, scale or None, zero or None, G), the
-    output norm (f32) and the codec head, contiguous. A "bf16" projection
-    must hold bf16 weights on the card (its plain version follows
-    ``x.astype(wq.dtype)``, so float32 weights run on the CPU only)."""
-    if codec_head.dtype != torch.bfloat16:
-        raise NotImplementedError("the CUDA talker step takes a bf16 codec head")
+    output norm (f32) and the codec head (bf16 or float32; both None for
+    K5 without its head), contiguous. Plain weights are bf16 ("bf16") or
+    float32 ("f32"); another dtype raises NotImplementedError."""
+    if codec_head is not None and codec_head.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the CUDA talker step takes a bf16 or float32 codec head, "
+                                  f"got {codec_head.dtype}")
     f32 = lambda t: t.float().contiguous()   # noqa: E731
     ops = [f32(blocks.attn_norm), f32(blocks.q_norm), f32(blocks.k_norm), f32(blocks.ffn_norm)]
     modes = 0
@@ -504,11 +532,11 @@ def _cuda_operands(blocks, output_norm, codec_head):
                                  f"must split each half of K evenly")
             ops += [w.q.contiguous(), f32(w.scale), f32(w.zero), G]
         else:
-            if w.dtype != torch.bfloat16:
-                raise NotImplementedError(f"the CUDA talker step's bf16 mode takes bf16 "
+            if w.dtype not in (torch.bfloat16, torch.float32):
+                raise NotImplementedError(f"the CUDA talker step takes bf16 or float32 plain "
                                           f"weights, got {w.dtype}")
             ops += [w.contiguous(), None, None, 0]
-    ops += [f32(output_norm), codec_head.contiguous()]
+    ops += [None, None] if codec_head is None else [f32(output_norm), codec_head.contiguous()]
     _kernels.require_cuda(*[o for o in ops if isinstance(o, torch.Tensor)])
     return modes, ops
 
@@ -519,15 +547,27 @@ def _ptrs(ops):
     return [o.data_ptr() if isinstance(o, torch.Tensor) else o for o in ops]
 
 
-def _count(fn, blocks, scales):
-    """One launch of fn's kernel: the wrapper's total, and either its count
-    over the int8 KV cache (``operand_launches["kv_int8"]``, scales given)
-    or its per-mode count over a bf16 cache (``mode_launches``, keyed by
-    ``mode_label``), so that a mode's count holds bf16-KV launches only."""
-    fn.launches += 1
-    counts, key = ((fn.operand_launches, "kv_int8") if scales is not None
-                   else (fn.mode_launches, mode_label(weight_mode(blocks))))
+def _bump(counts, key):
     counts[key] = counts.get(key, 0) + 1
+
+
+def _count(fn, blocks, scales, cache=None, lane=False):
+    """One launch of fn's kernel: the wrapper's total, and either its count
+    over the int8 KV cache (``operand_launches["kv_int8"]``, scales given),
+    K5's over a lane-major cache (``operand_launches["lane"]``), or its
+    per-mode count over a batch-major compute-dtype cache (``mode_launches``,
+    keyed by ``mode_label``), so that a mode's count holds those launches
+    only. Launches over a float32 cache also count in
+    ``operand_launches["kv_f32"]``."""
+    fn.launches += 1
+    if scales is not None:
+        _bump(fn.operand_launches, "kv_int8")
+    elif lane:
+        _bump(fn.operand_launches, "lane")
+    else:
+        _bump(fn.mode_launches, mode_label(weight_mode(blocks)))
+    if cache is not None and cache.dtype == torch.float32:
+        _bump(fn.operand_launches, "kv_f32")
 
 
 def _dims(cfg, C, Vc):
@@ -636,14 +676,15 @@ def launch_talker_step(blocks, cfg, step_embd, n_past, kv, *, output_norm, codec
                                               Vc, modes), dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step(
         x.data_ptr(), n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
-        *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
+        *_ptrs([cache, scales]), int(cache.dtype == torch.float32),
+        int(codec_head.dtype == torch.float32), *_dims(cfg, C, Vc),
         None if seen8 is None else seen8.data_ptr(), float(temperature),
         float(top_p), float(repetition_penalty), int(top_k), int(greedy),
         int(use_top_p), int(suppress_start), int(eos_id), int(seed), hidden.data_ptr(),
         logits.data_ptr(), None if tok is None else tok.data_ptr(), ws.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step")
-    _count(fused_talker_step, blocks, scales)
+    _count(fused_talker_step, blocks, scales, cache)
     if tok is not None:
         sample_rows.site_rows["K1"] += 1
     return StepOut(hidden, logits, tok)
@@ -681,9 +722,9 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, **kw) -> StepOut:
     and scales already in float32 and ``seen`` in int8 (as the pipeline and
     the decode loop keep them) are passed to the kernel without a copy.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
-    no fallback.
+    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16,
+    float32 or int8 KV cache, bf16 or float32 codec head and plain weights)
+    or raise; there is no fallback.
     """
     hidden, logits, tok = torch.ops.qwen3tts.talker_step.default(
         *talker_step_operands(blocks, cfg, step_embd, n_past, kv, **kw))
@@ -692,15 +733,31 @@ def fused_talker_step(blocks, cfg, step_embd, n_past, kv, **kw) -> StepOut:
 
 fused_talker_step.launches = 0
 fused_talker_step.mode_launches = {}
-# launches over the int8 KV cache ("kv_int8")
+# launches over the int8 KV cache ("kv_int8") and over a float32 one ("kv_f32")
 fused_talker_step.operand_launches = {}
 library.implement("talker_step", cpu=_talker_step_cpu, cuda=_talker_step_cuda)
 
 
-def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv,
+def lane_major_view(kv: torch.Tensor) -> torch.Tensor:
+    """The batch-major view [B, L, 2, Hkv, C, D] of a lane-major cache [L, 2,
+    Hkv, C, B, D] (no copy: writes through the view land in its storage)."""
+    return kv.permute(4, 0, 1, 2, 3, 5)
+
+
+def to_lane_major(kv: torch.Tensor) -> torch.Tensor:
+    """A batch-major cache [B, L, 2, Hkv, C, D] copied once into the
+    lane-major layout [L, 2, Hkv, C, B, D] (the JAX package's
+    ``kv.transpose(1, 2, 3, 4, 0, 5)``), contiguous."""
+    return kv.permute(1, 2, 3, 4, 0, 5).contiguous()
+
+
+def fused_talker_step_batched_plain(blocks, cfg, step_embd, n_past, kv, kv_layout="batch",
                                     **kw) -> StepOut:
     """Plain PyTorch version of K5 (same semantics; kv updated in place):
-    talker_step_plain with float32 probabilities."""
+    talker_step_plain with float32 probabilities, on the batch-major view of
+    a lane-major cache."""
+    if kv_layout == "lane":
+        kv = lane_major_view(kv)
     return talker_step_plain(blocks, cfg, step_embd, n_past, kv, p_dtype=torch.float32, **kw)
 
 
@@ -716,24 +773,51 @@ def _lane_values(v, B, dev):
     return float(v), None
 
 
+KV_LAYOUTS = ("batch", "lane")
+
+
+def _check_layout(kv, kv_layout, seen, start, codec_head, output_norm):
+    """The JAX package's asserts on K5's operands (pallas_talker_step.py:1660,
+    :1689, :1704), as ValueError."""
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
+    if (codec_head is None) != (output_norm is None):
+        raise ValueError("codec_head and output_norm come together")
+    if seen is not None and codec_head is None:
+        raise ValueError("cb0 sampling needs codec_head")
+    if kv_layout != "lane":
+        return
+    if is_quantized_kv(kv):
+        raise ValueError("int8 KV requires the batch-major layout (scale-slab DMA alignment)")
+    if seen is not None:
+        raise ValueError("cb0 sampling needs codec_head and the batch-major layout")
+    if start is not None:
+        raise ValueError("per-lane start (continuous batching) needs the batch-major layout")
+
+
 def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm,
                               codec_head, seen=None, seeds=None, temperature=1.0,
                               top_p=1.0, repetition_penalty=1.0, top_k=0,
                               suppress_start=None, eos_id=-1, greedy=False,
-                              use_top_p=True, start=None, start_min=0) -> StepOut:
+                              use_top_p=True, start=None, start_min=0,
+                              kv_layout="batch") -> StepOut:
     """One talker decode step for B lockstep lanes (kernel K5; counterpart
-    of the Pallas ``fused_talker_step_batched``, batch-major, in the blocks'
-    weight mode as in ``fused_talker_step``).
+    of the Pallas ``fused_talker_step_batched``, in the blocks' weight mode
+    as in ``fused_talker_step``).
 
-    step_embd [B, H]; n_past: int, shared by the lanes; kv [B, L, 2, Hkv, C,
-    D], or the int8 pair (q [B, L, 2, Hkv, C, D] int8, scale [B, L, 2, Hkv,
-    C] float32), each lane's row written in place at n_past. Returns StepOut with
-    hidden [B, H] (output-normed, f32), logits [B, Vc] f32 and, when
-    ``seen`` ([B, Vc] bool or int8) is given, cb0 [B]: each lane's next
-    codebook-0 token sampled with seeds[b] (int32 [B]). temperature, top_p
-    and repetition_penalty are scalars or per-lane [B] tensors (continuous
-    serving: each request its own). Unlike K1, the attention keeps its
-    probabilities in float32, as the batched Pallas kernel does. B <= 128.
+    step_embd [B, H]; n_past: int, shared by the lanes; kv (kv_layout
+    "batch") [B, L, 2, Hkv, C, D], or the int8 pair (q [B, L, 2, Hkv, C, D]
+    int8, scale [B, L, 2, Hkv, C] float32), or (kv_layout "lane") [L, 2,
+    Hkv, C, B, D]; bf16 or float32; each lane's row written in place at
+    n_past. Returns StepOut with hidden [B, H] (output-normed, f32), logits
+    [B, Vc] f32 and, when ``seen`` ([B, Vc] bool or int8) is given, cb0 [B]:
+    each lane's next codebook-0 token sampled with seeds[b] (int32 [B]).
+    temperature, top_p and repetition_penalty are scalars or per-lane [B]
+    tensors (continuous serving: each request its own). Unlike K1, the
+    attention keeps its probabilities in float32, as the batched Pallas
+    kernel does. B <= 128. codec_head and output_norm None: hidden is the
+    last layer's residual x and logits None (the Pallas kernel without its
+    head).
 
     start ([B] int32 tensor), continuous serving's per-lane first valid
     cache row: lane b attends rows [start[b], n_past] only. start_min, a
@@ -741,17 +825,21 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     wrapper never reads `start` back), lets the kernel skip the attention
     chunks below it; 0 is always safe. The plain version raises where a
     lane's start lies below start_min. An int8 cache takes no ``start``
-    (ValueError), as the JAX package never passes one with it.
+    (ValueError), as the JAX package never passes one with it. The lane
+    layout takes no int8 pair, no ``seen``/``seeds`` and no ``start``
+    (ValueError, the JAX package's asserts).
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16
-    or int8 KV cache, bf16 codec head and plain weights) or raise; there is
-    no fallback.
+    CPU tensors run the plain version. CUDA tensors launch the kernel (bf16,
+    float32 or int8 KV cache, bf16 or float32 codec head and plain weights)
+    or raise; there is no fallback.
     """
     B = step_embd.shape[0]
     if not 1 <= B <= MAX_LANES:
         raise ValueError(f"fused_talker_step_batched takes 1..{MAX_LANES} lanes, got {B}")
     if seen is not None and seeds is None:
         raise ValueError("sampling cb0 needs per-lane seeds")
+    _check_layout(kv, kv_layout, seen, start, codec_head, output_norm)
+    lane = kv_layout == "lane"
     cache = kv[0] if is_quantized_kv(kv) else kv
     if start is not None and cache is not kv:
         raise ValueError("fused_talker_step_batched takes no per-lane start with the int8 KV "
@@ -759,7 +847,7 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
                          "JAX package")
     if cache.device.type == "cpu":
         return fused_talker_step_batched_plain(
-            blocks, cfg, step_embd, n_past, kv, output_norm=output_norm,
+            blocks, cfg, step_embd, n_past, kv, kv_layout, output_norm=output_norm,
             codec_head=codec_head, seen=seen, seeds=seeds, temperature=temperature,
             top_p=top_p, repetition_penalty=repetition_penalty, top_k=top_k,
             suppress_start=suppress_start, eos_id=eos_id, greedy=greedy,
@@ -768,10 +856,11 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         raise ValueError("start_min > 0 needs the per-lane start operand")
     lib = _kernels.load_library()
     H, L, Hkv, D = cfg.hidden_size, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    C, Vc = cache.shape[4], codec_head.shape[-1]
-    cache, scales = _cache_operands(kv, (B, L, 2, Hkv, C, D))
-    _kernels.require_cuda(*(t for t in (cache, scales) if t is not None), step_embd,
-                          codec_head, blocks.attn_norm)
+    C = cache.shape[3] if lane else cache.shape[4]
+    Vc = cfg.codec_vocab_size if codec_head is None else codec_head.shape[-1]
+    cache, scales = _cache_operands(kv, (L, 2, Hkv, C, B, D) if lane else (B, L, 2, Hkv, C, D))
+    _kernels.require_cuda(*(t for t in (cache, scales, codec_head) if t is not None),
+                          step_embd, blocks.attn_norm)
     modes, ops = _cuda_operands(blocks, output_norm, codec_head)
     n = int(n_past)
     if not 0 <= n < C:
@@ -780,7 +869,8 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
     cos, sin = _rope_row(n, cfg, dev, C)
     x = step_embd.float().contiguous()
     hidden = torch.empty((B, H), dtype=torch.float32, device=dev)
-    logits = torch.empty((B, Vc), dtype=torch.float32, device=dev)
+    logits = None if codec_head is None else torch.empty((B, Vc), dtype=torch.float32,
+                                                         device=dev)
     tok = seen8 = seeds32 = None
     if seen is not None:
         tok = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -801,25 +891,26 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
                      dtype=torch.uint8, device=dev)
     err = lib.qtts_talker_step_batched(
         x.data_ptr(), B, n, cos.data_ptr(), sin.data_ptr(), *_ptrs(ops), modes,
-        *_ptrs([cache, scales]), *_dims(cfg, C, Vc),
-        None if seen8 is None else seen8.data_ptr(),
+        *_ptrs([cache, scales]), int(cache.dtype == torch.float32),
+        int(codec_head is not None and codec_head.dtype == torch.float32), int(lane),
+        *_dims(cfg, C, Vc), None if seen8 is None else seen8.data_ptr(),
         None if seeds32 is None else seeds32.data_ptr(), temp, topp, pen, int(top_k),
         int(greedy), int(use_top_p), Vc if suppress_start is None else int(suppress_start),
         int(eos_id), _ptrs([start32])[0], int(start_min), *_ptrs([temps, topps, pens]),
-        hidden.data_ptr(), logits.data_ptr(), None if tok is None else tok.data_ptr(),
+        hidden.data_ptr(), _ptrs([logits])[0], None if tok is None else tok.data_ptr(),
         ws.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(err, "fused_talker_step_batched")
-    _count(fused_talker_step_batched, blocks, scales)
+    _count(fused_talker_step_batched, blocks, scales, cache, lane)
     if tok is not None:
         sample_rows.site_rows["K5"] += B
     if start32 is not None:
-        ops = fused_talker_step_batched.operand_launches
-        ops["start"] = ops.get("start", 0) + 1
+        _bump(fused_talker_step_batched.operand_launches, "start")
     return StepOut(hidden, logits, tok)
 
 
 fused_talker_step_batched.launches = 0
 fused_talker_step_batched.mode_launches = {}
-# launches with an operand only continuous serving passes ("start"), and
-# over the int8 KV cache ("kv_int8")
+# launches with an operand only continuous serving passes ("start"), over the
+# int8 KV cache ("kv_int8"), over a float32 cache ("kv_f32") and over a
+# lane-major cache ("lane", which counts in no mode)
 fused_talker_step_batched.operand_launches = {}

@@ -8,7 +8,8 @@ whether 4-bit weights halve a weight-streaming GEMV's time on the card.
 
 ``project_layers`` runs the talker's own projection kernels
 (``csrc/layer.cuh``: K1's GEMVs for one lane, K5's tensor-core GEMMs for
-B >= 2; mode "head" the codec head's GEMV) alone, layer after layer, for
+B >= 2; modes "head" and "head_f32" the codec head's GEMV over bf16 or
+float32 weights) alone, layer after layer, for
 their times; ``project_result`` reads one layer's result out of its
 workspace and ``project_layer_plain`` is its plain version.
 """
@@ -21,8 +22,12 @@ from .. import _kernels
 from .fused_talker_step import MODE_CODES, gemm_plan, gemv_plan, project_plain
 
 L, K, N = 28, 1024, 4096   # the probe's shape: a wqkv-like projection over 28 layers
-# project_layers' modes: the weight modes, and the codec head's GEMV
-HARNESS_CODES = dict(MODE_CODES, head=3)
+# project_layers' modes (csrc/layer.cuh plan codes): the weight modes w8a8,
+# bf16 and w4bf16 by their WeightMode, the codec head's GEMV over bf16 (3)
+# and float32 weights (5), and f32 (4)
+HARNESS_CODES = dict({m: c for m, c in MODE_CODES.items() if m != "f32"}, head=3, f32=4,
+                     head_f32=5)
+HEAD_MODES = ("head", "head_f32")
 
 
 def pack_nibbles(w: torch.Tensor) -> torch.Tensor:
@@ -80,14 +85,14 @@ def project_layers(x: torch.Tensor, w, mode: str, ws: torch.Tensor = None) -> to
     weight w (a QuantLinear's q, a QuantLinear4, or a bf16 [L, K, N] tensor)
     on x [B, K] (int8 for "w8a8", float32 otherwise), as run_layer does: a
     GEMV for B = 1 (launched with programmatic dependent launch, as in K1),
-    K5's GEMM for B >= 2; mode "head" is the codec head's GEMV (bf16 [L, K,
-    N], B = 1). A harness of the card only. The results land in the
+    K5's GEMM for B >= 2; modes "head" and "head_f32" are the codec head's
+    GEMV (bf16 or float32 [L, K, N], B = 1). A harness of the card only. The results land in the
     workspace, which is returned and may be passed back in: w8a8 adds every
     layer into its int32 accumulator (never cleared), the float modes
     overwrite their partials layer by layer, so a check runs one layer on a
     zeroed workspace and reads it with project_result. A float x must hold
     bf16 values, as the row kernels emit it (K5's GEMM takes it as it is;
-    the GEMVs round it again)."""
+    the GEMVs round it again), except in f32, whose x is any float32."""
     _kernels.require_cuda(x)
     lib = _kernels.load_library()
     B, Kx = x.shape
@@ -123,7 +128,7 @@ def project_ws_bytes(mode: str, B: int, K: int, N: int) -> int:
     gemv_plan's splits for B = 1 and gemm_plan's for B >= 2."""
     if mode == "w8a8":
         return 4 * B * N
-    if mode == "head":
+    if mode in HEAD_MODES:
         return 4 * _splits(mode, 1, K, N) * N
     return 8 * (2 if mode == "w4bf16" else 1) * _splits(mode, B, K, N) * B * N
 
@@ -138,7 +143,7 @@ def project_result(ws: torch.Tensor, mode: str, B: int, K: int, N: int) -> torch
     if mode == "w8a8":
         return ws[:4 * B * N].view(torch.int32).view(B, N)
     splits = _splits(mode, B, K, N)
-    if mode == "head":
+    if mode in HEAD_MODES:
         part = ws[:4 * splits * N].view(torch.float32).view(splits, 1, N)
         y = torch.zeros((1, N), dtype=torch.float32, device=ws.device)
         for sp in range(splits):
@@ -158,10 +163,10 @@ def project_result(ws: torch.Tensor, mode: str, B: int, K: int, N: int) -> torch
 def project_layer_plain(x: torch.Tensor, w, mode: str, l: int) -> torch.Tensor:
     """Plain version of layer l of project_layers: w8a8 the int32 dot of the
     int8 x with the int8 weights (in float64, exact); a float mode
-    fused_talker_step.project_plain; the head x rounded to bf16 @ W_l in
-    float32, as the plain K1 computes its logits."""
+    fused_talker_step.project_plain; the head x rounded to W's dtype @ W_l
+    in float32, as the plain K1 computes its logits."""
     if mode == "w8a8":
         return torch.matmul(x.double(), w.q[l].double()).to(torch.int32)
-    if mode == "head":
-        return torch.matmul(x.to(torch.bfloat16).float(), w[l].float())
+    if mode in HEAD_MODES:
+        return torch.matmul(x.to(w.dtype).float(), w[l].float())
     return project_plain(x, w, l)

@@ -48,7 +48,11 @@ product of ``ops/quant.py`` and its bf16 ones in ``torch.matmul``.
 ``Qwen3TTS(config, device, fused_talker="auto", fused_cp="auto")`` picks
 the decode step, for both loops (the JAX package's ``QWEN3TTS_FUSED_TALKER``
 and ``QWEN3TTS_FUSED_CP`` gates, as arguments; "auto" is resolved per call
-in ``runtime/decode_loop.py``):
+in ``runtime/decode_loop.py``). Every flag serves in every tier and compute
+dtype: ``RuntimeConfig(dtype="float32")`` runs K1/K5 in their "f32" mode
+over a float32 cache and head (quant=None) or in w8a8 with K2/K6 over
+float32 heads and embeddings (quant="int8"), and decode attention over a
+float32 cache.
   - fused_talker=True (auto: every tier): the talker step is kernel K1
     (single stream) or K5 (batched), in the blocks' weight modes, which
     also samples the next codebook-0 token;
@@ -62,6 +66,12 @@ in ``runtime/decode_loop.py``):
     on the bf16 tier's blocks raises ValueError;
   - fused_cp=False (auto in the bf16 tier): ``code_predictor.predict_codes``,
     ``quant.matmul`` projections and PyTorch attention and sampling.
+``batched_kv_layout`` ("batch", the default, or "lane"; the JAX package's
+``QWEN3TTS_BATCHED_KV_LAYOUT``) is the cache layout of ``synthesize_batch``'s
+fused loop: "lane" keeps it [L, 2, Hkv, C, B, D] and runs K5 over it, with
+cb0 drawn by ``decode_loop.sample_cb0``; the int8 KV cache and the unfused
+step keep batch-major (logged once), and ``synthesize_queue`` is always
+batch-major (it passes ``start``, which needs it).
 On a CUDA device every kernel launches on the card or raises; there is no
 CPU fallback. The CPU runs only when asked for (``device="cpu"``), through
 the kernels' plain versions.
@@ -270,10 +280,15 @@ class Qwen3TTS:
     """End-to-end text -> 24 kHz waveform pipeline on one torch device."""
 
     def __init__(self, config: Optional[PipelineConfig] = None, device="cuda", *,
-                 fused_talker="auto", fused_cp="auto", low_mem: bool = False):
+                 fused_talker="auto", fused_cp="auto", low_mem: bool = False,
+                 batched_kv_layout: str = "batch"):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
         self.fused = dict(fused_talker=fused_talker, fused_cp=fused_cp)
+        if batched_kv_layout not in decode_loop.KV_LAYOUTS:
+            raise ValueError(f"batched_kv_layout must be one of {decode_loop.KV_LAYOUTS}, "
+                             f"got {batched_kv_layout!r}")
+        self.batched_kv_layout = batched_kv_layout
         self.dtype = torch.bfloat16 if self.config.runtime.dtype == "bfloat16" else torch.float32
         self.tokenizer: Optional[TextTokenizer] = None
         self.talker_params = None
@@ -729,7 +744,8 @@ class Qwen3TTS:
                 talker_cfg=tcfg, cp_cfg=self.config.code_predictor, max_frames=max_frames,
                 kv_capacity=kv_capacity, temperature=params.temperature, top_k=params.top_k,
                 top_p=params.top_p, repetition_penalty=params.repetition_penalty,
-                nothink=params.language_id < 0, kv_quant=kv_quant, **self.fused)
+                nothink=params.language_id < 0, kv_quant=kv_quant,
+                kv_layout=self.batched_kv_layout, **self.fused)
             codes += list(out.codes.numpy().astype(np.int32))
             n_frames += out.n_frames
         t_gen = now_ms() - t0

@@ -61,6 +61,11 @@ computes each frame's keys after its launches, while the card runs them.
 
 The batched loop runs B lanes in lockstep (one shared n_past: every lane's
 prefill window has the same length); see ``generate_from_tokens_batched``.
+Its ``kv_layout="lane"`` (the JAX package's
+``QWEN3TTS_BATCHED_KV_LAYOUT=lane``, ``decode_loop.py:726-739``) keeps the
+fused talker step's cache lane-major, [L, 2, Hkv, C, B, D]: K5 then returns
+logits and the loop draws each frame's cb0 with ``sample_cb0``, the key
+chain of the unfused loop (``frame_draws`` with ``kernel_cb0`` False).
 
 ``kv_quant="int8"`` (the int8-KV tier) stores the decode cache as the (q,
 scale) pair of ``ops/kv_quant.py`` when the fused talker step runs, and
@@ -85,8 +90,8 @@ from ..models import talker as talker_model
 from ..ops import prng
 from ..ops.fused_code_predictor import fused_predict_codes
 from ..ops.fused_code_predictor_batched import fused_predict_codes_batched
-from ..ops.fused_talker_step import (check_w8a8_blocks, fused_talker_step,
-                                     fused_talker_step_batched)
+from ..ops.fused_talker_step import (KV_LAYOUTS, check_w8a8_blocks, fused_talker_step,
+                                     fused_talker_step_batched, to_lane_major)
 from ..ops.kernel_prng import sampling_flags
 from ..ops.kv_quant import quantize_cache
 from ..ops.quant import QuantLinear
@@ -176,6 +181,25 @@ def int8_kv(kv_quant: str, fused_talker: bool) -> bool:
     return kv_quant == "int8" and fused_talker
 
 
+def lane_kv_layout(kv_layout: str, fused_talker: bool, quant_kv: bool) -> bool:
+    """Whether the batched loop keeps its cache lane-major (the JAX
+    package's ``lane_kv``, ``decode_loop.py:733-734``): kv_layout "lane" on
+    the fused talker step over a compute-dtype cache. Where "lane" is asked
+    for and the loop keeps batch-major (the int8 KV cache, or the unfused
+    step), it says why once on stderr; another value raises ValueError."""
+    if kv_layout not in KV_LAYOUTS:
+        raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout!r}")
+    if kv_layout != "lane":
+        return False
+    why = ("the int8 KV cache needs the batch-major layout" if quant_kv
+           else None if fused_talker else "the unfused talker step has no lane-major form")
+    if why is not None:
+        _log_once(("kv_layout", why), f"qwen3tts: batched_kv_layout='lane' kept batch-major: "
+                  f"{why}")
+        return False
+    return True
+
+
 def sample_cb0(logits, keys, *, suppress_start: int, eos_id: int, temperature, top_k: int,
                top_p, greedy: bool, use_top_p: bool, seen=None, repetition_penalty=1.0):
     """Codebook-0 tokens from talker logits [R, Vc] as the JAX package's
@@ -194,13 +218,15 @@ def sample_cb0(logits, keys, *, suppress_start: int, eos_id: int, temperature, t
                         greedy=greedy, use_top_p=use_top_p)
 
 
-def frame_draws(key, fused_cp: bool, fused_talker: bool):
+def frame_draws(key, fused_cp: bool, kernel_cb0: bool):
     """One frame's split of the chain key (a pair, or lanes [B, 2]):
     (next key, k_cb0, k_cp), each of k_cb0 and k_cp as the int32 seed
-    ``seed32`` where a kernel takes it (K1/K5 for k_cb0, K2/K6 for k_cp)."""
+    ``seed32`` where a kernel takes it (K1/K5 sampling cb0 for k_cb0, K2/K6
+    for k_cp); k_cb0 stays a key where ``sample_cb0`` draws cb0 (the unfused
+    step, and K5 over a lane-major cache)."""
     s = prng.split(key, 3)
     nxt, k_cb0, k_cp = s if isinstance(s, tuple) else (s[:, 0], s[:, 1], s[:, 2])
-    return (nxt, prng.seed32(k_cb0) if fused_talker else k_cb0,
+    return (nxt, prng.seed32(k_cb0) if kernel_cb0 else k_cb0,
             prng.seed32(k_cp) if fused_cp else k_cp)
 
 
@@ -439,8 +465,8 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
                                  top_k: int, top_p: float = 1.0,
                                  repetition_penalty: float = 1.05, nothink: bool = False,
                                  budgets=None, fused_talker="auto", fused_cp="auto",
-                                 allow_eos: bool = True,
-                                 kv_quant: str = "none") -> BatchedGenerateResult:
+                                 allow_eos: bool = True, kv_quant: str = "none",
+                                 kv_layout: str = "batch") -> BatchedGenerateResult:
     """Prefill + the frame loop for B requests in lockstep (counterpart of
     ``_generate_batched_fused``, fused kernels, every weight tier; with both
     flags off, of the vmapped unfused loop, ``decode_loop.py:651-667``).
@@ -450,7 +476,9 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     n_past); speaker_embd [B, H]; language_ids [B]; budgets, when given,
     caps lane b at budgets[b] frames; allow_eos=False suppresses EOS, and
     kv_quant "int8" stores the int8 pair [B, ...], as in
-    generate_from_tokens. The B prefill windows run as one prefill
+    generate_from_tokens; kv_layout "lane" keeps the fused step's
+    compute-dtype cache lane-major (``lane_kv_layout``; the module
+    docstring). The B prefill windows run as one prefill
     (``build_prefill`` and ``talker_prefill`` on [B, P, H], each projection
     one product of B*P rows, as continuous serving's refill runs them; every
     lane computes what its own prefill would); frame 0's cb0 from
@@ -460,7 +488,9 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     emitting lanes only and their seen-sets updated; step_embd =
     codec_embd[cb0] + rest_sum + trailing[min(frame, Trb-1)]; K5, or
     ``talker_step`` on B lanes and ``sample_cb0``, steps every lane and
-    samples its next cb0. EOS is latched per lane;
+    samples its next cb0 (over a lane-major cache K5 returns logits and
+    ``sample_cb0`` draws cb0 with the lane's k_cb0, as the unfused step's
+    loop does; frame 0 too). EOS is latched per lane;
     finished lanes keep stepping with their emissions masked. The loop ends
     when every lane is done or after max_frames, with one host sync per
     frame-set.
@@ -498,7 +528,7 @@ def generate_from_tokens_batched(talker_params, cp_params, tokens, n_tokens, spe
     kw = dict(talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames,
               kv_capacity=kv_capacity, temperature=temperature, top_k=top_k, top_p=top_p,
               repetition_penalty=repetition_penalty, nothink=nothink, fused_talker=fused_talker,
-              fused_cp=fused_cp, allow_eos=allow_eos, kv_quant=kv_quant)
+              fused_cp=fused_cp, allow_eos=allow_eos, kv_quant=kv_quant, kv_layout=kv_layout)
     keys = prng.key_array(keys).reshape(B, 2)
     if mesh is None or mesh.dp == 1 or B % mesh.dp:
         return _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd,
@@ -519,12 +549,16 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
                       keys, *, talker_cfg, cp_cfg, max_frames: int, kv_capacity: int,
                       temperature: float, top_k: int, top_p: float, repetition_penalty: float,
                       nothink: bool, budgets, fused_talker: bool, fused_cp: bool,
-                      allow_eos: bool, kv_quant: str) -> BatchedGenerateResult:
+                      allow_eos: bool, kv_quant: str, kv_layout: str) -> BatchedGenerateResult:
     """The batched loop of ``generate_from_tokens_batched`` on this rank's
     lanes (keys [B, 2]), with the kernels resolved."""
     tcfg = local_config(talker_cfg, talker_params.blocks)
     ccfg = local_config(cp_cfg, cp_params.blocks)
     quant_kv = int8_kv(kv_quant, fused_talker)
+    lane = lane_kv_layout(kv_layout, fused_talker, quant_kv)
+    # K5 samples cb0 in its epilogue over a batch-major cache only (the JAX
+    # package's kernel_cb0 = ... and not lane_kv, decode_loop.py:747)
+    kernel_cb0 = fused_talker and not lane
     dev = talker_params.codec_embd.device
     dtype = talker_params.codec_embd.dtype
     B = int(tokens.shape[0])
@@ -536,7 +570,7 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
                 use_top_p=use_top_p)
     cb0_kw = dict(samp, suppress_start=suppress_start, eos_id=eos if allow_eos else -1)
     init = prng.split(keys, 3)                                        # [B, 3, 2]
-    chain = init[:, 0] if fused_talker else keys
+    chain = init[:, 0] if kernel_cb0 else keys
     lanes = torch.arange(B, device=dev)
 
     with torch.no_grad():
@@ -554,8 +588,10 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
                                                           prefill.prefill_embd, kv)
         if quant_kv:
             kv = quantize_cache(kv, kv_capacity)
+        elif lane:
+            kv = to_lane_major(kv)
         cb0_next = sample_cb0(logits, init[:, 1], **cb0_kw)
-        draws = frame_draws(chain, fused_cp, fused_talker)
+        draws = frame_draws(chain, fused_cp, kernel_cb0)
         seen = torch.zeros((B, Vc), dtype=torch.int8, device=dev)
         done = torch.zeros((B,), dtype=torch.bool, device=dev)
         frame = torch.zeros((B,), dtype=torch.int64, device=dev)
@@ -571,11 +607,11 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
             if not bool(emit.any()):
                 break
             chain, cb0_draw, cp_draw = draws
-            if fused_cp or fused_talker:
+            if fused_cp or kernel_cb0:
                 # the kernels' seeds of this frame-set: [0] K6, [1] K5
                 seeds = prng.to_device(np.stack([
                     cp_draw if fused_cp else np.zeros(B, np.int32),
-                    cb0_draw if fused_talker else np.zeros(B, np.int32)]), dev)
+                    cb0_draw if kernel_cb0 else np.zeros(B, np.int32)]), dev)
             cb0_embd = talker_params.codec_embd[cb0]                    # [B, H]
             if fused_cp:
                 rest, rest_sum = [], []
@@ -596,7 +632,7 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
             seen[lanes, cb0] |= emit.to(torch.int8)
             trailing_row = trailing[lanes, torch.clamp(frame, max=Trb - 1)]
             step_embd = (cb0_embd.float() + rest_sum + trailing_row.float()).to(dtype)
-            if fused_talker:
+            if kernel_cb0:
                 out = fused_talker_step_batched(
                     talker_params.blocks, tcfg, step_embd, n_past, kv,
                     output_norm=talker_params.output_norm,
@@ -604,11 +640,18 @@ def _generate_batched(talker_params, cp_params, tokens, n_tokens, speaker_embd, 
                     repetition_penalty=repetition_penalty, **cb0_kw)
                 last_hidden, cb0_next = out.hidden.to(dtype), out.cb0
                 # the next frame-set's keys, while the card runs this one
-                draws = frame_draws(chain, fused_cp, fused_talker)
+                draws = frame_draws(chain, fused_cp, kernel_cb0)
             else:
-                last_hidden, logits = talker_model.talker_step(
-                    talker_params, tcfg, step_embd, n_past, kv)
-                draws = frame_draws(chain, fused_cp, fused_talker)
+                if fused_talker:   # K5 over the lane-major cache: logits out
+                    out = fused_talker_step_batched(
+                        talker_params.blocks, tcfg, step_embd, n_past, kv,
+                        output_norm=talker_params.output_norm,
+                        codec_head=talker_params.codec_head, kv_layout="lane")
+                    last_hidden, logits = out.hidden.to(dtype), out.logits
+                else:
+                    last_hidden, logits = talker_model.talker_step(
+                        talker_params, tcfg, step_embd, n_past, kv)
+                draws = frame_draws(chain, fused_cp, kernel_cb0)
                 cb0_next = sample_cb0(logits, draws[1], seen=seen,
                                       repetition_penalty=repetition_penalty, **cb0_kw)
             frame = frame + emit.to(torch.int64)

@@ -7,11 +7,13 @@ write and read), and the two teacher-forced checks of a golden run.
 
 The tools run ``Qwen3TTS`` at ``RuntimeConfig(dtype="float32")`` (or the
 tiny config) on the card unless ``--device cpu``, with ``fused_talker=False``
-(``TOOL_FLAGS``): the JAX tools' unfused step, and float32 weights are not a
-weight mode of the talker kernel. So the card runs ``talker_step`` and
-``predict_codes`` (the code-predictor kernel takes int8 blocks only), with
-K3 in the vocoder and the decode-attention kernel from C = 1024 on; the CPU
-runs the plain versions. ``route`` reports it.
+(``TOOL_FLAGS``): the JAX tools' unfused step. So the card runs
+``talker_step`` and ``predict_codes`` (the code-predictor kernel takes int8
+blocks only), with K3 in the vocoder and the decode-attention kernel from C
+= 1024 on; the CPU runs the plain versions. ``route`` reports it, and the
+route of a pipeline with the default flags: K1 in its "f32" mode over a
+float32 cache and head (``chip_smoke.parity_fullsize`` holds both routes to
+the same bars).
 """
 
 from __future__ import annotations
@@ -115,7 +117,7 @@ def route(tts: Qwen3TTS) -> dict:
     """The route a synthesis of tts takes: dtype, the talker's weights,
     whether the talker and code-predictor kernels run (tts's flags, "auto"
     resolved on its params) and the talker kernel's weight mode when it
-    runs."""
+    runs ("f32" on the float32 tier's weights, ``weight_mode``)."""
     blocks = tts.talker_params.blocks
     fused_talker = decode_loop.resolve_fused_talker(tts.fused["fused_talker"],
                                                     tts.talker_params)

@@ -374,6 +374,11 @@ def test_chip_smoke_phases_at_tiny_config():
             tiers[q], report, iters=1, shapes=((2, 32, (3,)), (3, 32, (5, 20))),
             key=f"fused_talker_step_batched[{spec['mode']}]", exact=True)
     chip_smoke.check_w4_gemv_probe(report, torch.device("cpu"), iters=1, shape=(2, 16, 8))
+    chip_smoke.check_float32_tier(
+        chip_smoke.float32_pipelines(tiny_pipeline_config(), torch.device("cpu")), report,
+        iters=1, positions=((32, (3, 20)), (4352, (300,))), shapes=((2, 32, (3,)), (3, 32, (5,))),
+        attention=(2, 1280, 40))
+    chip_smoke.check_talker_step_lane({"int8": tts}, report, iters=1, shapes=((3, 32, 5),))
     assert set(report) == set(chip_smoke.KERNELS)
     keys = {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err"}
     assert all(keys <= set(r) and r["bound_ms"] > 0 for r in report.values())

@@ -26,8 +26,11 @@ C, B = 32, 3
 # tier -> (weight dtype of the plain blocks, JAX tier for quantize_talker_blocks)
 TIERS = {"bf16": ("bfloat16", None), "bf16_f32_weights": ("float32", None),
          "q4pure": ("float32", "q4pure"), "q4": ("float32", "q4")}
-MODES = {"bf16": "bf16", "bf16_f32_weights": "bf16", "q4pure": "w4bf16",
+MODES = {"bf16": "bf16", "bf16_f32_weights": "f32", "q4pure": "w4bf16",
          "q4": ("w8a8", "w8a8", "w4bf16", "w4bf16")}
+# the JAX package's name of each mode: its "bf16" mode dots at the weights'
+# dtype, so float32 weights run in it too (the port's "f32")
+JAX_MODES = dict(MODES, bf16_f32_weights="bf16")
 # Float32 activations and KV. The versions differ in the order and
 # precision of their sums (the port sums in float64 and rounds once; the
 # batched Pallas kernel's softmax is online), which moves the float32 sums
@@ -59,7 +62,8 @@ def setup(request):
 
 def test_weight_mode_matches_jax(setup):
     name, jparams, port, *_ = setup
-    assert weight_mode(port.blocks) == MODES[name] == jpts._weight_mode(jparams.blocks, "w8a8")
+    assert weight_mode(port.blocks) == MODES[name]
+    assert jpts._weight_mode(jparams.blocks, "w8a8") == JAX_MODES[name]
 
 
 SAMPLING = dict(top_k=50, suppress_start=2048, repetition_penalty=1.05)
