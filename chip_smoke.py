@@ -77,10 +77,13 @@ Phases (each prints a line; any failure exits non-zero):
      4000 (attention_within), reported as "f32" in their entries; the f32
      projections alone and the float32 codec head's GEMV. K5 over the
      lane-major cache (check_talker_step_lane, the [lane] entry) at B = 64,
-     C = 512, n_past = 300 and B = 16, C = 4352, n_past = 4000 over a bf16
-     (int8 tier) and a float32 cache: 0.0 against its plain version over 2
-     layers, and hidden, logits and written rows equal to batch-major K5 bit
-     for bit at full depth on the same cache contents, timed beside it.
+     C = 512, n_past = 300, B = 16, C = 4352, n_past = 4000 and B = 13, C =
+     512, n_past = 300 over a bf16 (int8 tier) and a float32 cache: 0.0
+     against its plain version over 2 layers, and hidden, logits and written
+     rows equal to batch-major K5 bit for bit at full depth on the same cache
+     contents, timed beside it with both attention stages' device ms; a
+     cache off 16-byte alignment must raise (its tensor map cannot be
+     encoded) and launch nothing.
      Then the 4-bit GEMV probe (int8 and
      packed-nibble weights, exact) beside K1's projection kernels at the
      probe's shape. Then the JAX package's random streams (check_prng, a
@@ -2070,8 +2073,9 @@ def split_rules(device):
     their mirrors to cover each weight row once), and the projection
     harness's workspace bytes for every B from 1 to 128 (and the head's);
     K3's plan (every width, ragged T, each dilation) and the W8A16 GEMM's
-    (M = 1..256 at the talker's shapes, bf16 and float32 x). Returns the
-    cases compared; None off the card."""
+    (M = 1..256 at the talker's shapes, bf16 and float32 x); the
+    lane-major cache's tensor map (dims, strides, box) at the lane shapes.
+    Returns the cases compared; None off the card."""
     if device.type != "cuda":
         return None
     from qwen3tts_tpu_torch import _kernels
@@ -2139,6 +2143,20 @@ def split_rules(device):
                     raise SmokeFailure(f"the W8A16 GEMM's plan and its mirror differ at M={M} "
                                        f"K={K} N={N} x_bf16={x_bf16}")
                 cases += 1
+    # the lane-major cache's tensor map (tests/test_torch_talker_step_lane.py
+    # holds its mirror's boxes to the batch-major rows)
+    from qwen3tts_tpu_torch.ops.fused_talker_step import lane_map_shape
+
+    out = (ctypes.c_longlong * 14)()
+    for B, C, rows in ((1, 16, 1), (13, 512, 301), (16, 4352, 4001), (64, 512, 301),
+                       (128, 4352, 4352)):
+        for f32 in (0, 1):
+            lib.qtts_lane_map_shape(28, 8, C, B, 128, rows, f32, ctypes.addressof(out))
+            mirror = lane_map_shape(28, 8, C, B, 128, rows, bool(f32))
+            if tuple(out) != sum(mirror, ()):
+                raise SmokeFailure(f"the lane-major tensor map and its mirror differ at B={B} "
+                                   f"C={C} rows={rows} f32={f32}: {tuple(out)} != {mirror}")
+            cases += 1
     print(f"split rules: {cases} cases equal to their mirrors")
     return cases
 
@@ -5446,8 +5464,9 @@ def device_top(events, n=8):
 # --- the float32 tier and the lane-major batched step -------------------------
 
 # K5 over the lane-major cache: (B, C, n_past) of check_talker_step_lane,
-# the first the headline
-LANE_SHAPES = ((64, 512, 300), (16, 4352, 4000))
+# the first the headline; 13 lanes, an odd batch (synthesize_batch serves
+# any B <= 128)
+LANE_SHAPES = ((64, 512, 300), (16, 4352, 4000), (13, 512, 300))
 
 
 def float32_pipelines(cfg, device, seed=0):
@@ -5508,9 +5527,11 @@ def check_talker_step_lane(pipes, report, iters, shapes=LANE_SHAPES, key=LANE_EN
     bf16 and float32 caches, so 1e-5 still fails a wrong head); (2) all layers against batch-major K5 on the
     same cache contents: hidden, logits and the written rows bit for bit
     (the two layouts run the same arithmetic). Each shape timed by events
-    and device time (talker_call_stats) beside batch-major K5 at the same
-    shape, with its bound (bytes: the cache rows read are the same in both
-    layouts)."""
+    and device time (talker_call_stats: the call's and its attention
+    stage's) beside batch-major K5 at the same shape, with its bound (bytes:
+    the cache rows read are the same in both layouts). Then a cache whose
+    data starts 2 bytes off a 16-byte boundary must raise (its tensor map
+    cannot be encoded) and launch nothing (lane_map_refused)."""
     import torch
 
     from qwen3tts_tpu_torch.ops.fused_talker_step import (
@@ -5561,8 +5582,9 @@ def check_talker_step_lane(pipes, report, iters, shapes=LANE_SHAPES, key=LANE_EN
                      cache_dtype=str(tts.dtype))
             times[f"{label} B={B} C={C} n_past={n_past}"] = t
             print(f"time {key} {label} B={B} C={C} n_past={n_past}: lane {t['ms']:.4f} ms "
-                  f"(device {t['device_ms']}), batch-major {t['batch_ms']:.4f} ms (device "
-                  f"{t['device_ms_batch']}), bound {t['bound_ms']:.4f} ms")
+                  f"(device {t['device_ms']}, attention {t['attention_device_ms']}), "
+                  f"batch-major {t['batch_ms']:.4f} ms (device {t['device_ms_batch']}, "
+                  f"attention {t['attention_device_ms_batch']}), bound {t['bound_ms']:.4f} ms")
             if head is None:
                 head = (label, B, C, n_past, t, talker_step_bound(tp, tcfg, B, n_past))
                 plain_ms = timed(lambda: fused_talker_step_batched_plain(
@@ -5570,16 +5592,49 @@ def check_talker_step_lane(pipes, report, iters, shapes=LANE_SHAPES, key=LANE_EN
             del kvl, kvb
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+    refused = lane_map_refused(next(iter(pipes.values())))
     label, B, C, n_past, t, (bound_ms, bound_by) = head
     report[key] = dict(
         ms=t["ms"], device_ms=t["device_ms"], attention_device_ms=t["attention_device_ms"],
         launches_per_call=t["launches_per_call"], batch_major_ms=t["batch_ms"],
-        batch_major_device_ms=t["device_ms_batch"], plain_ms=plain_ms, bound_ms=bound_ms,
+        batch_major_device_ms=t["device_ms_batch"],
+        attention_device_ms_batch=t["attention_device_ms_batch"], map_refused=refused,
+        plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
         shape=f"{label} B={B} C={C} n_past={n_past}", times=times,
         tolerance=(f"2 layers: hidden and cache 0.0, logits {LANE_LOGITS_WITHIN} against the "
                    "plain version; all layers: hidden, logits and rows equal to batch-major "
                    "K5 bit for bit"))
+
+
+def lane_map_refused(tts, B=2, C=16, n_past=3):
+    """K5 over a lane-major cache whose data starts 2 bytes past a 16-byte
+    boundary (a contiguous view of a larger buffer): its tensor map cannot
+    be encoded, so the call must raise and launch nothing (no fallback to
+    another copy). Returns the error's text, None off the card (the plain
+    version reads any cache); raises SmokeFailure otherwise."""
+    import torch
+
+    from qwen3tts_tpu_torch.ops.fused_talker_step import fused_talker_step_batched
+
+    tp, tcfg, dev = tts.talker_params, tts.config.talker, tts.device
+    if dev.type != "cuda":
+        return None
+    shape = (tcfg.n_layers, 2, tcfg.n_kv_heads, C, B, tcfg.head_dim)
+    buf = torch.zeros(torch.Size(shape).numel() + 1, dtype=tts.dtype, device=dev)
+    kv = buf[1:].view(shape)
+    x = torch.zeros((B, tcfg.hidden_size), dtype=tts.dtype, device=dev)
+    before = fused_talker_step_batched.launches
+    try:
+        fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kv, kv_layout="lane",
+                                  output_norm=tp.output_norm, codec_head=tp.codec_head)
+    except RuntimeError as e:
+        torch.cuda.synchronize(dev)
+        if "tensor map" in str(e) and fused_talker_step_batched.launches == before:
+            print(f"kernel {LANE_ENTRY}: a cache 2 bytes off 16-byte alignment raises: {e}")
+            return str(e)
+        raise SmokeFailure(f"{LANE_ENTRY}: a misaligned cache raised another error: {e}")
+    raise SmokeFailure(f"{LANE_ENTRY}: a misaligned lane-major cache ran")
 
 
 # The float32 tier's serve lines (serve_f32), per tier (RuntimeConfig.quant

@@ -99,6 +99,7 @@ SIGNATURES = {
         I, I, I, I, I, I, F, I,          # B Hq Hkv C D n_valid scale f32
         P, P],                           # out, stream
     "qtts_talker_attention_clusters": [I, I, I, I, I],      # B Hkv G rows kv_kind
+    "qtts_lane_map_shape": [I, I, I, I, I, I, I, P],        # L Hkv C B D rows kv_f32, out[14]
     "qtts_gemm_plan": [I, I, I, P],                         # code K N, out[3]
     "qtts_gemv_plan": [I, I, I, P],                         # code K N, out[3]
 }

@@ -1,4 +1,4 @@
-// Block-wide reductions, bulk and asynchronous copies, programmatic
+// Block-wide reductions, bulk, tensor and asynchronous copies, programmatic
 // dependent launch and the cluster launch shared by the port's kernels.
 //
 // Everything here has internal linkage (anonymous namespace): each .cu file
@@ -6,6 +6,7 @@
 // duplicate symbols.
 #pragma once
 
+#include <cuda.h>   // CUtensorMap (types only: nothing links the driver library)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -80,6 +81,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Hopper's tensor copy (TMA with a tensor map, `map` a __grid_constant__
+// kernel parameter): the map's box at coordinates c0..c4 (innermost first)
+// into shared memory (128-byte aligned), completing on an mbarrier like
+// bulk_load. Elements outside the tensor arrive as zeros and are never
+// read; the phase expects the whole box's bytes.
+__device__ __forceinline__ void tensor_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                               int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3), "r"(c4), "r"(smem_u32(bar))
       : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {

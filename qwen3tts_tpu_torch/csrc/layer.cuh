@@ -52,13 +52,16 @@
 // batch-major cache [B, L, 2, Hkv, C, D] (K1: B = 1) and lie row_stride = B
 // * D elements apart in the lane-major one [L, 2, Hkv, C, B, D]
 // (pallas_talker_step.py:1246 _make_kernel_batched_lane, K5 with
-// kv_layout="lane"). Every kernel takes the cache through (head_stride,
-// lane_stride, row_stride), so the two layouts run the same arithmetic in
-// the same order: lane-major K5 equals batch-major K5 bit for bit on the
-// same cache contents. attn_layer_kernel streams a tile of contiguous rows
-// as one bulk copy, and lane-major rows as one bulk copy a row, issued by
-// the 32 lanes of warp 0 (a kernel reading the [rows, B, D] slab of all
-// lanes at once, as the TPU kernel does, is later work).
+// kv_layout="lane"), where row t of all lanes is one [B, D] run of the
+// [C, B, D] slab. The row kernels take the cache through (head_stride,
+// lane_stride, row_stride). attn_layer_kernel brings each ring tile in
+// with one copy: a batch-major lane's contiguous rows as one bulk copy,
+// a lane-major lane's rows as one tensor copy (attn_layer_kernel<T, G,
+// true>: the box of a CUtensorMap over the whole cache, encoded once a
+// call by talker_step_batched.cu, that the TMA unit gathers row by row).
+// The grid, the clusters and each lane's arithmetic are the same in both,
+// so lane-major K5 equals batch-major K5 bit for bit on the same cache
+// contents.
 //
 // Lanes. Every per-token kernel takes its lane from the grid (blockIdx.x
 // for the row kernels, y or z for the others) and finds lane b's vectors at
@@ -85,10 +88,11 @@
 // bytes a row per lane and layer (7.34 GB per K5 call at B = 16, n_past =
 // 4000: 2.19 ms at 3.35 TB/s), and beside them the conversions of every K
 // and V element to float64 (16 a clock per SM; about 1 ms of that call).
-// attn_layer_kernel therefore streams each (lane, KV head)'s rows, which
-// are contiguous, through a ring of 64-row tiles in shared memory, each one
-// bulk copy (TMA without a tensor map) completing on the stage's mbarrier,
-// issued by one thread all but one stage ahead: K for the scores, then V,
+// attn_layer_kernel therefore streams each (lane, KV head)'s rows through
+// a ring of 64-row tiles in shared memory, each one copy (TMA: a bulk copy
+// of a batch-major lane's contiguous rows, a tensor copy of a lane-major
+// lane's strided ones) completing on the stage's mbarrier, issued by one
+// thread all but one stage ahead: K for the scores, then V,
 // whose first tiles are in flight while the softmax runs. The rows are
 // split over a thread block cluster of up to 16 blocks (about two blocks on
 // each SM for the whole grid, at least 64 rows each); a block keeps its
@@ -1140,27 +1144,32 @@ __device__ __forceinline__ float round_to_kv(float v) {
 // most `cap` rows, rank r the r-th. T = bf16 or float: t0 = max(start_b,
 // floor_row), n_end = n_valid. T = int8: the cached rows [0, n_end = pos)
 // with their scales Ks and Vs, then the current row from cur [B, 2, Hkv, D]
-// (bf16). Row t of (lane b, head h) lies at b * lane_stride + h *
-// head_stride + t * row_stride elements of K or V. Each block streams its K
-// rows, then its V rows, through one ring of kAttStages tiles
-// (att_tile_rows rows each; one bulk copy a tile of contiguous rows
-// (row_stride == D), else one a row, issued by warp 0; kAttStages - 1
-// tiles in flight) and keeps its slice's scores in shared memory; the max
-// and the float64 sum of exp(s - m) are exchanged over distributed shared
-// memory (the sum added in rank order), and rank 0 adds the blocks'
-// float64 partial o in rank order and rounds it to float32 once.
-template <typename T, int G>
+// (bf16). Each block streams its K rows, then its V rows, through one ring
+// of kAttStages tiles (att_tile_rows rows each; kAttStages - 1 tiles in
+// flight), one copy a tile issued by thread 0: batch-major (!Lane), row t
+// of (lane b, head h) lies at b * lane_stride + h * head_stride + t * D
+// elements of K or V and a tile's rows are one bulk copy; lane-major
+// (Lane, bf16 or float), a tile is one tensor copy of kv_map's box {D, 1,
+// tile} at (0, b, first row, h, plane for K or plane + 1 for V), whose
+// rows past n_end arrive as zeros (lane_map in talker_step_batched.cu). A
+// block keeps its slice's scores in shared memory; the max and the float64
+// sum of exp(s - m) are exchanged over distributed shared memory (the sum
+// added in rank order), and rank 0 adds the blocks' float64 partial o in
+// rank order and rounds it to float32 once.
+template <typename T, int G, bool Lane>
 __global__ void __launch_bounds__(kAttThreads)
 attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__ V,
-                  long head_stride, long lane_stride, long row_stride, int n_end, int floor_row,
-                  int cap, float scale, int round_q, int round_p, const int* __restrict__ start,
+                  long head_stride, long lane_stride, int n_end, int floor_row, int cap,
+                  float scale, int round_q, int round_p, const int* __restrict__ start,
                   const float* __restrict__ Ks, const float* __restrict__ Vs,
-                  const __nv_bfloat16* cur, float* __restrict__ out) {
+                  const __nv_bfloat16* cur, float* __restrict__ out,
+                  __grid_constant__ const CUtensorMap kv_map, int plane) {
   constexpr bool kQ8 = std::is_same<T, int8_t>::value;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kRow = kAttD * (int)sizeof(T);
   constexpr int kTile = att_tile_rows(kRow);   // rows of a ring tile
-  extern __shared__ __align__(16) unsigned char att_smem[];
+  static_assert(!(Lane && kQ8), "the lane-major cache holds bf16 or float32 rows");
+  extern __shared__ __align__(128) unsigned char att_smem[];   // a tensor copy's destination
   const AttLayout lay(G, cap, kRow);
   double* o_blk = reinterpret_cast<double*>(att_smem + lay.o_blk);
   double* pd = reinterpret_cast<double*>(att_smem + lay.pd);
@@ -1186,18 +1195,17 @@ attn_layer_kernel(const float* q, const T* __restrict__ K, const T* __restrict__
   const float* qh = q + (size_t)b * Hq * kAttD + (size_t)h * G * kAttD;
 
   // tile i < nt: K rows [lo + kTile i, ...); tile nt + j: V rows [lo + kTile j, ...)
-  auto load = [&](int i) {   // warp 0: the tile's rows, one bulk copy or one a row
+  auto load = [&](int i) {   // warp 0: the tile's rows, one copy issued by lane 0
     const int j = i < nt ? i : i - nt, r0 = lo + j * kTile, n = min(kTile, hi - r0);
-    const T* src = (i < nt ? Kb : Vb) + (size_t)r0 * row_stride;
+    const T* src = (i < nt ? Kb : Vb) + (size_t)r0 * kAttD;
     unsigned char* dst = att_smem + (size_t)(i % kAttStages) * kTile * kRow;
-    if (lane == 0) mbar_expect(bar + i % kAttStages, (unsigned)(n * kRow));
-    __syncwarp();
-    if (row_stride == kAttD) {
-      if (lane == 0) bulk_load(dst, src, (unsigned)(n * kRow), bar + i % kAttStages);
+    if (lane != 0) return;
+    if constexpr (Lane) {   // the whole box arrives, rows past n_end as zeros
+      mbar_expect(bar + i % kAttStages, (unsigned)(kTile * kRow));
+      tensor_load_5d(dst, &kv_map, 0, b, r0, h, plane + (i >= nt), bar + i % kAttStages);
     } else {
-      for (int r = lane; r < n; r += 32)
-        bulk_load(dst + (size_t)r * kRow, src + (size_t)r * row_stride, kRow,
-                  bar + i % kAttStages);
+      mbar_expect(bar + i % kAttStages, (unsigned)(n * kRow));
+      bulk_load(dst, src, (unsigned)(n * kRow), bar + i % kAttStages);
     }
   };
   auto wait_tile = [&](int i) { mbar_wait(bar + i % kAttStages, (i / kAttStages) & 1); };
@@ -1906,6 +1914,10 @@ struct LayerView {
   long row_stride;
   float* Ks = nullptr;
   float* Vs = nullptr;
+  // the lane-major cache's tensor map (talker_step_batched.cu) and this
+  // layer's K plane in it (V: plane + 1); null for a batch-major cache
+  const CUtensorMap* kv_map = nullptr;
+  int plane = 0;
 };
 
 template <typename T>
@@ -1959,34 +1971,41 @@ inline int attn_clusters(int B, int Hkv, int G, int rows, int row_bytes) {
   return s;
 }
 
-template <typename T, int G>
+template <typename T, int G, bool Lane>
 cudaError_t attn_launch(const Dims& d, const LayerView<T>& lv, const Work& w, int n_end,
                         int floor_row, int round_q, int round_p, const int* start,
                         cudaStream_t st) {
   constexpr int row = kAttD * (int)sizeof(T);
+  static const CUtensorMap no_map{};
   const int rows = n_end - floor_row, S = attn_clusters(w.B, d.Hkv, G, rows, row);
   const int cap = attn_cap(rows, S);
-  return launch_cluster_ex(attn_layer_kernel<T, G>, dim3(S, d.Hkv, w.B), kAttThreads,
+  return launch_cluster_ex(attn_layer_kernel<T, G, Lane>, dim3(S, d.Hkv, w.B), kAttThreads,
                            AttLayout(G, cap, row).total, st, w.B == 1, (const float*)w.q,
                            (const T*)lv.K, (const T*)lv.V, lv.head_stride, lv.lane_stride,
-                           lv.row_stride, n_end, floor_row, cap, 1.0f / sqrtf((float)d.D),
+                           n_end, floor_row, cap, 1.0f / sqrtf((float)d.D),
                            round_q, round_p, start,
                            (const float*)lv.Ks, (const float*)lv.Vs,
-                           (const __nv_bfloat16*)w.stage, w.attn);
+                           (const __nv_bfloat16*)w.stage, w.attn, Lane ? *lv.kv_map : no_map,
+                           lv.plane);
 }
 
 // One attention launch for the w.B lanes into w.attn: rows [floor_row,
 // n_end) of each lane's cache (the kernel takes the lane's start above
 // floor_row); int8: the cached rows [0, n_end) and the staged current row.
-template <typename T>
+// Lane: lv is a layer of the lane-major cache (its kv_map set).
+template <typename T, bool Lane>
 cudaError_t attention(const Dims& d, const LayerView<T>& lv, const Work& w, int n_end,
                       int floor_row, int round_q, int round_p, const int* start,
                       cudaStream_t st) {
   switch (d.Hq / d.Hkv) {
-    case 1: return attn_launch<T, 1>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
-    case 2: return attn_launch<T, 2>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
-    case 4: return attn_launch<T, 4>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
-    default: return attn_launch<T, 8>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    case 1:
+      return attn_launch<T, 1, Lane>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    case 2:
+      return attn_launch<T, 2, Lane>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    case 4:
+      return attn_launch<T, 4, Lane>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
+    default:
+      return attn_launch<T, 8, Lane>(d, lv, w, n_end, floor_row, round_q, round_p, start, st);
   }
 }
 
@@ -2010,7 +2029,8 @@ void chain_launch(const Work& w, bool first, void (*kernel)(Exp...), dim3 grid, 
 // down projection; a refused launch is kept in w.err. round_q / round_p:
 // see the header. T = int8_t runs the int8 KV cache's attention (the
 // header; q rounded to bf16 whatever round_q, round_p rounds p * v_scale;
-// no start operand).
+// no start operand). Lane = true: lv is a layer of the lane-major cache
+// (its kv_map set; no start operand).
 //
 // One lane (K1): every kernel but the first of the chain is launched with
 // programmatic dependent launch, and every kernel of layer.cuh that it
@@ -2019,7 +2039,7 @@ void chain_launch(const Work& w, bool first, void (*kernel)(Exp...), dim3 grid, 
 // resident and stream their weights while the row kernel before them runs,
 // and a row kernel is resident when the GEMV before it ends. K5 (B lanes)
 // launches the same kernels plainly, where both calls are no-ops.
-template <typename T>
+template <typename T, bool Lane = false>
 ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, const Work& w,
                   const float* cosv, const float* sinv, int pos, int round_q, int round_p,
                   cudaStream_t st, const int* start = nullptr, int start_min = 0) {
@@ -2044,7 +2064,7 @@ ProjOut run_layer(const Dims& d, const LayerView<T>& lv, const ProjOut& prev, co
   }
   const int floor_row = q8 ? 0 : std::min(std::max(start_min, 0), pos);
   const cudaError_t e =
-      attention(d, lv, w, q8 ? pos : pos + 1, floor_row, round_q, round_p, start, st);
+      attention<T, Lane>(d, lv, w, q8 ? pos : pos + 1, floor_row, round_q, round_p, start, st);
   if (e != cudaSuccess && w.err == cudaSuccess) w.err = e;
   if constexpr (q8)
     chain_launch(w, false, kv_row_quant_kernel, dim3(2 * d.Hkv, B), dim3(d.D), 0, st,

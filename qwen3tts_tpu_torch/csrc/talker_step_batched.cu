@@ -27,14 +27,19 @@
 // float32, so a (kv, head)'s rows of all lanes form one [C, B, D] slab and
 // a lane's rows lie B * D elements apart. As there, it takes no int8 pair,
 // no `start` and no sampling (null seen): it returns the hidden state and
-// the logits, and the decode loop draws cb0 from them. Design: the same
+// the logits, and the decode loop draws cb0 from them. Design: the row
 // kernels over the lane-major strides (layer.cuh's header: head_stride = C
-// B D, lane_stride = D, row_stride = B D), so the arithmetic and its order
-// are batch-major K5's and the two agree bit for bit on the same cache
-// contents; only the attention's tiles change, from one bulk copy a tile
-// to one a row. A kernel of its own that reads a slab chunk for all lanes
-// in one copy, as the TPU kernel does, would pay where the per-row copies
-// cost (PERF.md has both layouts' times); this one is first right. A null
+// B D, lane_stride = D, row_stride = B D), and the attention of
+// batch-major K5 (its grid, clusters and arithmetic, so the two layouts
+// agree bit for bit on the same cache contents) whose ring tiles arrive as
+// one tensor copy each: a CUtensorMap (lane_map, encoded once a call
+// through the runtime's driver entry point, no -lcuda) describes the cache
+// as {D, B, rows, Hkv, 2 L} with rows the valid rows, and a tile is its box
+// {D, 1, tile rows} at (lane, first row, head, layer's K or V), which the
+// TMA unit gathers row by row. A block of two adjacent lanes, whose tile
+// rows are 512-byte runs, measured no faster on the H100 (PERF.md, PR 22).
+// A map the driver refuses (a cache off 16-byte alignment) returns
+// kLaneMapFailed before any launch: there is no other copy path. A null
 // codec_head (and out_norm) returns the residual x as the hidden state and
 // no logits, the Pallas kernel's with_head=False.
 //
@@ -74,6 +79,79 @@
 // (kFTK, the float GEMM's packed-row tile, so that each tile lies in one
 // group: layer.cuh's groups_ok; the talker's groups are 32 rows).
 #include "layer.cuh"
+
+namespace {
+
+// cuTensorMapEncodeTiled, reached through the runtime; null where the
+// driver does not give it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// The lane-major cache [L, 2, Hkv, C, B, D] of esz-byte elements as the
+// attention's tensor map sees it: dims {D, B, rows, Hkv, 2 L} (innermost
+// first; rows = the valid rows, so that no tile reads past them), the byte
+// strides of dims 1-4, and the box {D, 1, att_tile_rows, 1, 1}: one ring
+// tile of one lane (ops/fused_talker_step.lane_map_shape mirrors it).
+struct LaneMapShape {
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t box[5];
+};
+
+LaneMapShape lane_map_shape(int L, int Hkv, int C, int B, int D, int rows, int esz) {
+  const cuuint64_t row = (cuuint64_t)D * esz;
+  return LaneMapShape{
+      {(cuuint64_t)D, (cuuint64_t)B, (cuuint64_t)rows, (cuuint64_t)Hkv, 2 * (cuuint64_t)L},
+      {row, B * row, (cuuint64_t)C * B * row, (cuuint64_t)Hkv * C * B * row},
+      {(cuuint32_t)D, 1, (cuuint32_t)att_tile_rows((int)row), 1, 1}};
+}
+
+// Encode that map over kv into *map (no fill: elements past the dims arrive
+// as zeros); false where the driver refuses it.
+bool lane_map(CUtensorMap* map, void* kv, bool f32, const LaneMapShape& m) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+                kv, m.dims, m.strides, m.box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// qtts_talker_step_batched's return when the lane-major cache's tensor map
+// cannot be encoded (nothing was launched)
+constexpr int kLaneMapFailed = -1;
+
+// The lane-major cache's tensor-map geometry (lane_map_shape) for a bf16 or
+// (kv_f32) float32 cache: out[0..13] int64 = dims[5], strides[4], box[5].
+extern "C" int qtts_lane_map_shape(int L, int Hkv, int C, int B, int D, int rows, int kv_f32,
+                                   void* out) {
+  const LaneMapShape m = lane_map_shape(L, Hkv, C, B, D, rows, kv_f32 ? 4 : 2);
+  long long* o = (long long*)out;
+  for (int i = 0; i < 5; ++i) o[i] = (long long)m.dims[i];
+  for (int i = 0; i < 4; ++i) o[5 + i] = (long long)m.strides[i];
+  for (int i = 0; i < 5; ++i) o[9 + i] = (long long)m.box[i];
+  return 0;
+}
 
 extern "C" size_t qtts_talker_batched_ws_bytes(int B, int H, int Hq, int Hkv, int D, int F,
                                                int Vc, int modes) {
@@ -119,12 +197,31 @@ extern "C" int qtts_talker_step_batched(
   const long layer_stride = (long)Hkv * head_stride;
   const long lane_stride = lane_major ? (long)D : (long)L * 2 * layer_stride;
   const long row_stride = lane_major ? (long)B * D : (long)D;
+  CUtensorMap kv_map;   // every layer's attention reads the rows [0, n_past]
+  if (lane_major &&
+      !lane_map(&kv_map, kv, kv_f32, lane_map_shape(L, Hkv, C, B, D, n_past + 1, kv_f32 ? 4 : 2)))
+    return kLaneMapFailed;
   cudaMemcpyAsync(w.x, x_in, sizeof(float) * B * H, cudaMemcpyDeviceToDevice, st);
   ProjOut last{};
   for (int l = 0; l < L; ++l) {
     const float* cs = (const float*)cosv;
     const float* sn = (const float*)sinv;
-    if (kv_scale != nullptr) {
+    if (lane_major && kv_f32) {
+      float* kvf = (float*)kv;
+      auto lv = layer_view(sw, d, l, kvf + 2 * l * layer_stride, kvf + (2 * l + 1) * layer_stride,
+                           head_stride, lane_stride, row_stride);
+      lv.kv_map = &kv_map;
+      lv.plane = 2 * l;
+      last = run_layer<float, true>(d, lv, last, w, cs, sn, n_past, 1, 0, st);
+    } else if (lane_major) {
+      __nv_bfloat16* kvb = (__nv_bfloat16*)kv;
+      auto lv = layer_view(sw, d, l, kvb + 2 * l * layer_stride,
+                           kvb + (2 * l + 1) * layer_stride, head_stride, lane_stride,
+                           row_stride);
+      lv.kv_map = &kv_map;
+      lv.plane = 2 * l;
+      last = run_layer<__nv_bfloat16, true>(d, lv, last, w, cs, sn, n_past, 1, 0, st);
+    } else if (kv_scale != nullptr) {
       int8_t* kvq = (int8_t*)kv;
       float* ks = (float*)kv_scale;
       auto lv = layer_view(sw, d, l, kvq + 2 * l * layer_stride, kvq + (2 * l + 1) * layer_stride,

@@ -208,6 +208,21 @@ def attention_clusters(B: int, Hkv: int, G: int, rows: int, kv_int8: bool = Fals
     return s
 
 
+def lane_map_shape(L: int, Hkv: int, C: int, B: int, D: int, rows: int, kv_f32: bool = False):
+    """The tensor map through which K5's attention reads the lane-major
+    cache [L, 2, Hkv, C, B, D] (lane_map_shape in
+    csrc/talker_step_batched.cu): (dims, byte strides of dims 1-4, box),
+    innermost first. The cache is {D, B, rows, Hkv, 2 L} with rows the
+    valid rows (n_past + 1), so that elements past them arrive as zeros and
+    are never read; a ring tile is the box {D, 1, tile rows, 1, 1} at
+    (0, lane, first row, head, 2 l for K or 2 l + 1 for V): one lane's
+    rows, B * D elements apart."""
+    row = D * (4 if kv_f32 else 2)
+    tile = ATTN_TILE // 2 if row > 2 * D else ATTN_TILE
+    return ((D, B, rows, Hkv, 2 * L), (row, B * row, C * B * row, Hkv * C * B * row),
+            (D, 1, tile, 1, 1))
+
+
 def attention_slices(t0: int, n_end: int, clusters: int):
     """The rows [lo, hi) of each block of a cluster, in rank order, over a
     lane's rows [t0, n_end): contiguous slices of ceil((n_end - t0) /
@@ -774,6 +789,10 @@ def _lane_values(v, B, dev):
 
 
 KV_LAYOUTS = ("batch", "lane")
+# K5's return when the lane-major cache's tensor map cannot be encoded
+# (kLaneMapFailed in csrc/talker_step_batched.cu: a cache off 16-byte
+# alignment, or a driver without cuTensorMapEncodeTiled)
+LANE_MAP_FAILED = -1
 
 
 def _check_layout(kv, kv_layout, seen, start, codec_head, output_norm):
@@ -899,6 +918,9 @@ def fused_talker_step_batched(blocks, cfg, step_embd, n_past, kv, *, output_norm
         int(eos_id), _ptrs([start32])[0], int(start_min), *_ptrs([temps, topps, pens]),
         hidden.data_ptr(), _ptrs([logits])[0], None if tok is None else tok.data_ptr(),
         ws.data_ptr(), _kernels.stream_ptr(dev))
+    if err == LANE_MAP_FAILED:
+        raise RuntimeError("fused_talker_step_batched: the driver refused the lane-major "
+                           "cache's tensor map (cuTensorMapEncodeTiled); nothing was launched")
     _kernels.check(err, "fused_talker_step_batched")
     _count(fused_talker_step_batched, blocks, scales, cache, lane)
     if tok is not None:

@@ -17,8 +17,11 @@ Prints one JSON line:
     ms of every kernel the calls launch and the kernels per call;
   - K1 (w8a8, C = 4352, n_past 300 and 4000), K5 (w8a8: B = 64, C = 512,
     n_past = 300; B = 16, C = 4352, n_past = 4000; B = 64, C = 1024,
-    n_past = 600 with per-lane starts spread over [0, 600]) and K1/K5 over
-    the int8 (q, scale) cache at the long shapes: CUDA-event ms per call;
+    n_past = 600 with per-lane starts spread over [0, 600]), K1/K5 over
+    the int8 (q, scale) cache at the long shapes and K5 over the lane-major
+    bf16 cache (kv_layout="lane", no sampling: B = 64, C = 512, n_past =
+    300; B = 16, C = 4352, n_past = 4000; B = 13, C = 512, n_past = 300):
+    CUDA-event ms per call;
     from one call under the profiler, the device ms of all its kernels, of
     its attention-stage kernels (bare names starting with ``attn_`` or
     ``kv_row_``, and ``merge_kernel`` in checkouts before the attention
@@ -131,6 +134,15 @@ def main() -> int:
         run = lambda: fused_talker_step_batched(tp.blocks, tcfg, x, n_past, kv,  # noqa: E731
                                                 **kw)
         out[name] = dict(ms=smoke.timed(run, dev, 5), **kernels_of(run, 1))
+        del kv
+    for B, C, n_past in ((64, 512, 300), (16, 4352, 4000), (13, 512, 300)):
+        x = torch.randn((B, H), generator=g, device=dev)
+        kv = torch.randn((L, 2, Hkv, C, B, D), generator=g, device=dev, dtype=torch.bfloat16)
+        run = lambda: fused_talker_step_batched(  # noqa: E731
+            tp.blocks, tcfg, x, n_past, kv, kv_layout="lane", output_norm=tp.output_norm,
+            codec_head=tp.codec_head)
+        out[f"K5[lane] B={B} C={C} n_past={n_past}"] = dict(ms=smoke.timed(run, dev, 5),
+                                                           **kernels_of(run, 1))
         del kv
     torch.cuda.empty_cache()
     for n_texts, req in smoke.BATCH_REQUESTS:

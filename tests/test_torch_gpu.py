@@ -6,7 +6,8 @@ card: ``python -m pytest -m gpu tests/test_torch_gpu.py -q``; the code
 predictor's alone (K2, K6, K6 per lane: codes equal to the plain version,
 one persistent launch per call): ``-k code_predictor``; the attention kernels
 alone (decode attention in one launch per call, K1/K5's attention stage in
-one launch per layer, the split rules): ``-k attention``; K1's GEMVs and
+one launch per layer, K5's over the lane-major cache, the split rules):
+``-k attention``; K1's GEMVs and
 K5's projection GEMMs alone (each mode against its plain version): ``-k
 "projections or head_gemv"``; K3
 alone (every width, each dilation, a ragged T, launches per res block;
@@ -170,6 +171,24 @@ def test_talker_attention_on_card(tts, check, key):
     stats = r if "launches_per_call" in r else next(iter(r["times"].values()))
     assert stats["launches_per_call"] == per_layer * L + 3
     assert stats["attention_device_ms"] is not None and stats["attention_device_ms"] > 0
+
+
+@pytest.mark.parametrize("shape", [(2, 4352, 4000), (1, 512, 0), (5, 512, 62)],
+                         ids=["16_block_clusters", "one_lane_one_row", "rows_below_a_tile"])
+def test_lane_major_attention_on_card(tts, shape):
+    """K5 over the lane-major cache beyond the smoke's shapes: clusters of
+    16 blocks (2 lanes at 4001 rows), one lane (its chain under programmatic
+    dependent launch) with one row, and 63 rows (one tile whose last row
+    lies past n_past and arrives as zeros): chip_smoke's lane gates (2 layers
+    0.0 against the plain version, all layers bit for bit batch-major K5),
+    ten kernels a layer, and a cache off 16-byte alignment raises before
+    any launch."""
+    report = {}
+    chip_smoke.check_talker_step_lane({"int8": tts}, report, iters=1, shapes=(shape,))
+    torch.cuda.synchronize()
+    r = report[chip_smoke.LANE_ENTRY]
+    assert r["launches_per_call"] == 10 * tts.config.talker.n_layers + 3
+    assert "tensor map" in r["map_refused"]
 
 
 def test_res_block_launches_on_card(tts):

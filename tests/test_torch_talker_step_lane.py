@@ -29,7 +29,8 @@ from qwen3tts_tpu_torch.config import SamplingConfig
 from qwen3tts_tpu_torch.io.from_jax import params_from_jax
 from qwen3tts_tpu_torch.ops import prng
 from qwen3tts_tpu_torch.ops.fused_talker_step import (fused_talker_step_batched,
-                                                      lane_major_view, to_lane_major)
+                                                      lane_major_view, lane_map_shape,
+                                                      to_lane_major)
 from qwen3tts_tpu_torch.ops.kv_quant import quantize_cache
 from qwen3tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3tts_tpu_torch.runtime import decode_loop as pdl
@@ -126,6 +127,46 @@ def test_lane_step_refuses_what_jax_asserts(step):
                                   start=torch.zeros((B,), dtype=torch.int32), **heads)
     with pytest.raises(ValueError, match="kv_layout must be one of"):
         fused_talker_step_batched(port.blocks, TCFG, xt, 3, kvl, kv_layout="heads", **heads)
+
+
+def _box(kv, shape, c):
+    """What a tensor copy of the map `shape` (lane_map_shape: dims, byte
+    strides, box {D, 1, tile, 1, 1}) at coordinates c, innermost first,
+    brings from the lane-major cache kv, as the TMA unit reads it: [tile,
+    D], rows past the map's dims zeros and never read."""
+    (D, _, rows, _, _), strides, (_, _, tile, _, _) = shape
+    flat, step = kv.reshape(-1), [s // kv.element_size() for s in strides]
+    out = torch.zeros((tile, D), dtype=kv.dtype)
+    for r in range(min(tile, rows - c[2])):
+        at = c[1] * step[0] + (c[2] + r) * step[1] + c[3] * step[2] + c[4] * step[3]
+        out[r] = flat[at:at + D]
+    return out
+
+
+@pytest.mark.parametrize("kv_f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("lanes, rows", [(1, 1), (3, 67), (13, 40)])
+def test_lane_map_box_is_a_lanes_rows(lanes, rows, kv_f32):
+    """The tensor map through which K5's attention reads the lane-major
+    cache (lane_map_shape, the mirror of csrc/talker_step_batched.cu's,
+    which chip_smoke's split_rules holds to it on the card): the box at
+    (0, b, r0, h, 2 l + kv) is lane b's rows [r0, r0 + tile) of (layer l,
+    K or V, head h), the rows of the batch-major view, for every tile of
+    every lane, head and plane; rows from n_past + 1 on arrive as zeros
+    (the cache holds NaN there, which no box reads)."""
+    L, Hkv, C, D = 2, 2, 70, 128
+    dtype = torch.float32 if kv_f32 else torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+    kv = torch.randn((L, 2, Hkv, C, lanes, D), generator=g).to(dtype)
+    kv[:, :, :, rows:] = float("nan")
+    shape, tile = lane_map_shape(L, Hkv, C, lanes, D, rows, kv_f32), 32 if kv_f32 else 64
+    assert shape[0] == (D, lanes, rows, Hkv, 2 * L) and shape[2] == (D, 1, tile, 1, 1)
+    view = lane_major_view(kv)
+    for l, half, h, b in np.ndindex(L, 2, Hkv, lanes):
+        for r0 in range(0, rows, tile):
+            box = _box(kv, shape, (0, b, r0, h, 2 * l + half))
+            n = min(tile, rows - r0)
+            assert torch.equal(box[:n], view[b, l, half, h, r0:r0 + n])
+            assert not box[n:].any()
 
 
 @pytest.fixture(scope="module")
